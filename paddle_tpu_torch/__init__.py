@@ -1,0 +1,14 @@
+"""paddle_tpu_torch: the PyTorch / CUDA (H100) port of paddle_tpu.
+
+The JAX package ``paddle_tpu`` is the reference; this package mirrors its
+module layout and never imports it (nor ``jax``).  Hot paths that the
+reference wrote as Pallas TPU kernels are hand-written CUDA kernels here
+(``csrc/``), built on first use; each sits beside its plain PyTorch
+version, which runs for CPU tensors.  Entry points run on the card unless
+the caller passes ``device="cpu"``.
+"""
+from . import generation, models, quantization, serving  # noqa: F401
+from .weights import load_paddle_state  # noqa: F401
+
+__all__ = ["generation", "models", "quantization", "serving",
+           "load_paddle_state"]

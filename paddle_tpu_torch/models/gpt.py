@@ -1,0 +1,288 @@
+"""GPT-2 model family (port of paddle_tpu/models/gpt.py, serving path).
+
+Pre-LN decoder blocks with fused QKV and a tied LM head; parameter names
+match the reference's state keys.  Three decode protocols:
+
+- ``forward(ids, cache=...)``: growing (k, v) cache, the reference's
+  eager path;
+- ``gen_fixed_cache`` / ``forward_fixed``: preallocated (B, T, H, D)
+  buffers written at ``pos`` (an int, or a (B,) tensor of per-row
+  positions — the serving engine's fixed pool and ``generate`` use it).
+  Buffers are updated in place (the reference returns new arrays);
+- ``forward_paged``: one decode token per slot against the paged block
+  pool — each layer writes its new K/V rows through ``writes`` (an
+  ``ops.paged_attention.RowWrites``) and attends with the paged
+  attention kernel straight on the pool, never gathering a view.
+
+Constructors take ``device`` (default ``"cuda"``; raises without a card)
+and ``seed`` for the weight draw.  The ``labels`` / fused cross-entropy
+path waits for the training slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.device import DEFAULT_DEVICE, resolve_device
+from ..nn import functional as F
+from ..nn.layer.common import Dropout, Embedding, Linear
+from ..nn.layer.container import LayerList
+from ..nn.layer.norm import LayerNorm
+from ..nn.layer_base import Layer
+from ..ops.paged_attention import paged_attention
+
+__all__ = ["GPTConfig", "gpt2_small_config", "gpt2_medium_config",
+           "gpt2_large_config", "GPTBlock", "GPTModel", "GPTForPretraining"]
+
+
+class GPTConfig:
+    def __init__(self, vocab_size=50304, hidden_size=768, num_hidden_layers=12,
+                 num_attention_heads=12, intermediate_size=None,
+                 hidden_act="gelu", hidden_dropout_prob=0.1,
+                 attention_probs_dropout_prob=0.1,
+                 max_position_embeddings=1024, initializer_range=0.02):
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.num_hidden_layers = num_hidden_layers
+        self.num_attention_heads = num_attention_heads
+        self.intermediate_size = intermediate_size or 4 * hidden_size
+        self.hidden_act = hidden_act
+        self.hidden_dropout_prob = hidden_dropout_prob
+        self.attention_probs_dropout_prob = attention_probs_dropout_prob
+        self.max_position_embeddings = max_position_embeddings
+        self.initializer_range = initializer_range
+
+
+def gpt2_small_config(**kw):
+    return GPTConfig(**kw)
+
+
+def gpt2_medium_config(**kw):
+    base = dict(hidden_size=1024, num_hidden_layers=24, num_attention_heads=16)
+    base.update(kw)
+    return GPTConfig(**base)
+
+
+def gpt2_large_config(**kw):
+    base = dict(hidden_size=1280, num_hidden_layers=36, num_attention_heads=20)
+    base.update(kw)
+    return GPTConfig(**base)
+
+
+def _positions(pos, b: int, s: int, device):
+    """(b, s) absolute positions pos + [0, s) from an int or a (b,) tensor."""
+    base = torch.as_tensor(pos, device=device, dtype=torch.long)
+    return base.reshape(-1, 1).expand(b, 1) + torch.arange(s, device=device)
+
+
+class GPTBlock(Layer):
+    """Pre-LN transformer decoder block with fused QKV."""
+
+    def __init__(self, cfg: GPTConfig, device=None, generator=None):
+        super().__init__()
+        std = cfg.initializer_range
+        h = cfg.hidden_size
+        self.num_heads = cfg.num_attention_heads
+        self.head_dim = h // cfg.num_attention_heads
+        self.hidden_size = h
+        self.ln1 = LayerNorm(h, epsilon=1e-5, device=device)
+        self.qkv = Linear(h, 3 * h, std=std, device=device,
+                          generator=generator)
+        self.proj = Linear(h, h, std=std, device=device, generator=generator)
+        self.ln2 = LayerNorm(h, epsilon=1e-5, device=device)
+        self.ffn_in = Linear(h, cfg.intermediate_size, std=std, device=device,
+                             generator=generator)
+        self.ffn_out = Linear(cfg.intermediate_size, h, std=std,
+                              device=device, generator=generator)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
+        self.attn_dropout = cfg.attention_probs_dropout_prob
+        self.act = cfg.hidden_act
+
+    def _split_qkv(self, x):
+        b, s = x.shape[0], x.shape[1]
+        qkv = self.qkv(x).reshape(b, s, 3, self.num_heads, self.head_dim)
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+    def _mlp(self, x):
+        return self.ffn_out(getattr(F, self.act)(self.ffn_in(self.ln2(x))))
+
+    def attend(self, x, cache=None):
+        b, s = x.shape[0], x.shape[1]
+        q, k, v = self._split_qkv(x)
+        new_cache = None
+        if cache is not None:
+            pk, pv = cache
+            if pk.shape[1]:
+                k = torch.cat([pk, k], dim=1)
+                v = torch.cat([pv, v], dim=1)
+            new_cache = (k, v)
+        ctx = F.scaled_dot_product_attention(
+            q, k, v, is_causal=(s > 1), dropout_p=self.attn_dropout,
+            training=self.training)
+        return self.proj(ctx.reshape(b, s, self.hidden_size)), new_cache
+
+    def forward(self, x, cache=None):
+        a, new_cache = self.attend(self.ln1(x), cache)
+        x = x + self.dropout(a)
+        x = x + self.dropout(self._mlp(x))
+        return x if cache is None else (x, new_cache)
+
+    def attend_fixed(self, x, kbuf, vbuf, pos):
+        """Decode attention against a fixed-size (B, T, H, D) buffer,
+        writing this chunk's k/v at [pos, pos+s) (per row when pos is a
+        (B,) tensor).  Like the reference's dynamic_update_slice, a write
+        start past T - s clamps; the mask uses the unclamped position."""
+        b, s = x.shape[0], x.shape[1]
+        q, k, v = self._split_qkv(x)
+        t = kbuf.shape[1]
+        q_idx = _positions(pos, b, s, x.device)              # (b, s)
+        start = q_idx[:, :1].clamp(0, t - s)
+        rows = start + torch.arange(s, device=x.device)
+        bidx = torch.arange(b, device=x.device)[:, None]
+        kbuf[bidx, rows] = k.to(kbuf.dtype)
+        vbuf[bidx, rows] = v.to(vbuf.dtype)
+        key_idx = torch.arange(t, device=x.device)
+        mask = torch.where(key_idx[None, None, :] <= q_idx[:, :, None],
+                           0.0, -1e30).to(q.dtype)[:, None]  # (b, 1, s, t)
+        ctx = F.scaled_dot_product_attention(
+            q, kbuf.to(q.dtype), vbuf.to(q.dtype), attn_mask=mask,
+            dropout_p=0.0, training=False)
+        return self.proj(ctx.reshape(b, s, self.hidden_size)), kbuf, vbuf
+
+    def forward_fixed(self, x, kbuf, vbuf, pos):
+        a, kbuf, vbuf = self.attend_fixed(self.ln1(x), kbuf, vbuf, pos)
+        x = x + a
+        return x + self._mlp(x), kbuf, vbuf
+
+    def forward_paged(self, x, kpool, vpool, tables, pos, writes):
+        """One token per slot: x (S, 1, hidden).  The new K/V rows go
+        through ``writes`` into the pools (scrub, then scatter; inactive
+        slots are dropped), then the paged kernel attends on the pools."""
+        q, k, v = self._split_qkv(self.ln1(x))
+        writes.apply(kpool, k[:, 0])
+        writes.apply(vpool, v[:, 0])
+        ctx = paged_attention(q[:, 0].contiguous(), kpool, vpool, tables, pos)
+        x = x + self.proj(ctx.reshape(x.shape[0], 1, self.hidden_size))
+        return x + self._mlp(x)
+
+
+class GPTModel(Layer):
+    def __init__(self, cfg: GPTConfig = None, device=DEFAULT_DEVICE,
+                 seed: int = 0, **kw):
+        super().__init__()
+        self.config = cfg or GPTConfig(**kw)
+        cfg = self.config
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+        std = cfg.initializer_range
+        self.word_embeddings = Embedding(cfg.vocab_size, cfg.hidden_size,
+                                         std=std, device=dev, generator=gen)
+        self.position_embeddings = Embedding(cfg.max_position_embeddings,
+                                             cfg.hidden_size, std=std,
+                                             device=dev, generator=gen)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
+        self.blocks = LayerList([GPTBlock(cfg, device=dev, generator=gen)
+                                 for _ in range(cfg.num_hidden_layers)])
+        self.ln_f = LayerNorm(cfg.hidden_size, epsilon=1e-5, device=dev)
+
+    def _embed_at(self, input_ids, position_ids):
+        # out-of-range positions clamp, as the reference's gather does
+        # (only decode-chunk tail iterations past max_len reach them)
+        position_ids = position_ids.clamp(
+            0, self.config.max_position_embeddings - 1)
+        return (self.word_embeddings(input_ids)
+                + self.position_embeddings(position_ids))
+
+    def embed(self, input_ids, position_ids=None, past_len=0):
+        if position_ids is None:
+            position_ids = _positions(past_len, input_ids.shape[0],
+                                      input_ids.shape[-1], input_ids.device)
+        return self.dropout(self._embed_at(input_ids, position_ids))
+
+    def forward(self, input_ids, position_ids=None, cache=None):
+        past_len = 0 if cache is None else cache[0][0].shape[1]
+        h = self.embed(input_ids, position_ids, past_len)
+        new_caches = []
+        for i, blk in enumerate(self.blocks):
+            if cache is not None:
+                h, c = blk(h, cache[i])
+                new_caches.append(c)
+            else:
+                h = blk(h)
+        h = self.ln_f(h)
+        return h if cache is None else (h, new_caches)
+
+    def gen_cache(self, batch_size=1):
+        cfg = self.config
+        hd = cfg.hidden_size // cfg.num_attention_heads
+        shape = (batch_size, 0, cfg.num_attention_heads, hd)
+        return [(torch.zeros(shape, device=self.device),
+                 torch.zeros(shape, device=self.device))
+                for _ in range(cfg.num_hidden_layers)]
+
+    def gen_fixed_cache(self, batch_size, max_length, dtype=None):
+        """Preallocated (k, v) buffers per layer, each
+        (B, max_length, H, D)."""
+        cfg = self.config
+        hd = cfg.hidden_size // cfg.num_attention_heads
+        shape = (batch_size, max_length, cfg.num_attention_heads, hd)
+        dt = dtype or torch.float32
+        return [(torch.zeros(shape, dtype=dt, device=self.device),
+                 torch.zeros(shape, dtype=dt, device=self.device))
+                for _ in range(cfg.num_hidden_layers)]
+
+    def forward_fixed(self, input_ids, caches, pos):
+        """Fixed-cache forward: caches [(kbuf, vbuf)], pos the write offset
+        (int or per-row (B,) tensor).  Returns (h, caches)."""
+        b, s = input_ids.shape
+        h = self._embed_at(input_ids, _positions(pos, b, s, input_ids.device))
+        new_caches = []
+        for blk, (kbuf, vbuf) in zip(self.blocks, caches):
+            h, kbuf, vbuf = blk.forward_fixed(h, kbuf, vbuf, pos)
+            new_caches.append((kbuf, vbuf))
+        return self.ln_f(h), new_caches
+
+    def forward_paged(self, input_ids, pools, tables, pos, writes):
+        """Paged decode: input_ids (S, 1), pools [(kpool, vpool)] of
+        (num_blocks, block_size, H, D), tables (S, nb) int32, pos (S,)
+        int32 device positions, writes the step's RowWrites."""
+        h = self._embed_at(input_ids, pos.to(torch.long)[:, None])
+        for blk, (kp, vp) in zip(self.blocks, pools):
+            h = blk.forward_paged(h, kp, vp, tables, pos, writes)
+        return self.ln_f(h)
+
+
+class GPTForPretraining(Layer):
+    """Causal-LM head with tied embedding weights (logits path)."""
+
+    def __init__(self, cfg: GPTConfig = None, device=DEFAULT_DEVICE,
+                 seed: int = 0, **kw):
+        super().__init__()
+        self.gpt = GPTModel(cfg, device=device, seed=seed, **kw)
+
+    def _logits(self, h):
+        return h @ self.gpt.word_embeddings.weight.t()
+
+    def forward(self, input_ids, position_ids=None, cache=None):
+        out = self.gpt(input_ids, position_ids, cache)
+        h = out[0] if isinstance(out, tuple) else out
+        logits = self._logits(h)
+        return logits if cache is None else (logits, out[1])
+
+    # --- decode protocols (generation.generate, serving.ServingEngine) ---
+    def gen_fixed_cache(self, batch_size, max_length, dtype=None):
+        return self.gpt.gen_fixed_cache(batch_size, max_length, dtype)
+
+    def forward_fixed(self, input_ids, caches, pos):
+        h, caches = self.gpt.forward_fixed(input_ids, caches, pos)
+        return self._logits(h), caches
+
+    def forward_paged(self, input_ids, pools, tables, pos, writes):
+        return self._logits(self.gpt.forward_paged(input_ids, pools, tables,
+                                                   pos, writes))
+
+    def generate(self, input_ids, **kwargs):
+        """Greedy / sampling decoding — see paddle_tpu_torch.generation."""
+        from ..generation import generate
+        kwargs.setdefault("device", self.device)
+        return generate(self, input_ids, **kwargs)

@@ -1,0 +1,162 @@
+"""paddle_tpu_torch GPT, weights loading and generation against the JAX
+package on the CPU.  The same tiny GPT (2 layers, hidden 64, 4 heads,
+vocab 128) runs in both, its weights carried across by name with
+``load_paddle_state``; float and int8 weight-only alike.  Logits agree to
+atol 1e-4 (matmuls sum in another order); greedy tokens are equal."""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+import paddle_tpu as paddle
+from paddle_tpu.generation import process_logits_dynamic as jprocess
+
+from paddle_tpu_torch.core.errors import InvalidArgumentError, UnavailableError
+from paddle_tpu_torch.generation import generate, process_logits_dynamic
+from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+from paddle_tpu_torch import load_paddle_state
+
+from torch_parity import TINY, jax_solo, jax_state, tiny_pair, torch_solo
+
+LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["f32", "int8"])
+def pair(request):
+    return tiny_pair(seed=1, quantize=request.param)
+
+
+def test_forward_logits_match(pair):
+    jm, tm = pair
+    ids = np.random.RandomState(0).randint(0, 128, (2, 11))
+    want = np.asarray(jm(paddle.to_tensor(ids.astype(np.int32))).numpy())
+    with torch.inference_mode():
+        got = tm(torch.from_numpy(ids)).numpy()
+    np.testing.assert_allclose(got, want, **LOGIT_TOL)
+
+
+def test_forward_fixed_logits_and_cache_match(pair):
+    """Prefill into a fixed cache, then one decode token at pos 7."""
+    jm, tm = pair
+    rng = np.random.RandomState(1)
+    ids = rng.randint(0, 128, (2, 7))
+    nxt = rng.randint(0, 128, (2, 1))
+    jc = jm.gen_fixed_cache(2, 12)
+    jl, jc = jm.forward_fixed(paddle.to_tensor(ids.astype(np.int32)), jc, 0)
+    jl2, jc = jm.forward_fixed(paddle.to_tensor(nxt.astype(np.int32)), jc, 7)
+    with torch.inference_mode():
+        tc = tm.gen_fixed_cache(2, 12)
+        tl, tc = tm.forward_fixed(torch.from_numpy(ids), tc, 0)
+        tl2, tc = tm.forward_fixed(torch.from_numpy(nxt), tc, 7)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl.numpy()),
+                               **LOGIT_TOL)
+    np.testing.assert_allclose(tl2.numpy(), np.asarray(jl2.numpy()),
+                               **LOGIT_TOL)
+    for (jk, jv), (tk, tv) in zip(jc, tc):
+        np.testing.assert_allclose(tk.numpy(), np.asarray(jk), **LOGIT_TOL)
+        np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **LOGIT_TOL)
+
+
+def test_forward_fixed_per_row_positions_match_rowwise(pair):
+    """The serving engine's decode gives each row its own write position:
+    one batched call equals per-row calls at those positions."""
+    _, tm = pair
+    rng = np.random.RandomState(2)
+    with torch.inference_mode():
+        caches = tm.gen_fixed_cache(3, 16)
+        for kb, vb in caches:
+            kb.copy_(torch.from_numpy(rng.randn(*kb.shape).astype("f4")))
+            vb.copy_(torch.from_numpy(rng.randn(*vb.shape).astype("f4")))
+        tok = torch.from_numpy(rng.randint(0, 128, (3, 1)))
+        pos = torch.tensor([3, 9, 15])
+        rows = []
+        for i in range(3):
+            c = [(kb[i:i + 1].clone(), vb[i:i + 1].clone())
+                 for kb, vb in caches]
+            rows.append(tm.forward_fixed(tok[i:i + 1], c, int(pos[i]))[0])
+        batched, _ = tm.forward_fixed(tok, caches, pos)
+    np.testing.assert_allclose(batched.numpy(), torch.cat(rows).numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_greedy_generate_matches_reference(pair):
+    jm, tm = pair
+    rng = np.random.RandomState(3)
+    for n in (3, 9):
+        prompt = rng.randint(0, 128, (n,))
+        assert torch_solo(tm, prompt, 12) == jax_solo(jm, prompt, 12)
+
+
+def test_generate_batch_eos_pad_and_scores(pair):
+    jm, tm = pair
+    ids = np.random.RandomState(4).randint(0, 128, (2, 5))
+    jo, js = jm.generate(paddle.to_tensor(ids.astype(np.int32)),
+                         max_new_tokens=8)
+    eos = int(np.asarray(jo.numpy())[0, 2])  # row 0 stops at step 2
+    jo, js = jm.generate(paddle.to_tensor(ids.astype(np.int32)),
+                         max_new_tokens=8, eos_token_id=eos, pad_token_id=3)
+    to, ts = generate(tm, ids, max_new_tokens=8, eos_token_id=eos,
+                      pad_token_id=3, device="cpu")
+    assert to.dtype == torch.int32
+    np.testing.assert_array_equal(to.numpy(), np.asarray(jo.numpy()))
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js.numpy()),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_sampling_generate_is_seeded():
+    _, tm = tiny_pair(seed=2)
+    prompt = np.arange(1, 6)[None]
+    kw = dict(max_new_tokens=10, decode_strategy="sampling", top_k=8,
+              top_p=0.9, temperature=0.7, device="cpu")
+    a, _ = generate(tm, prompt, seed=5, **kw)
+    b, _ = generate(tm, prompt, seed=5, **kw)
+    assert a.tolist() == b.tolist()
+    assert all(0 <= t < 128 for t in a[0].tolist())
+    with pytest.raises(Exception, match="beam_search"):
+        generate(tm, prompt, max_new_tokens=2, decode_strategy="beam_search",
+                 device="cpu")
+
+
+def test_process_logits_dynamic_matches_reference():
+    rng = np.random.RandomState(5)
+    logits = (3 * rng.randn(6, 50)).astype(np.float32)
+    temp = np.array([1.0, 0.7, 1.3, 1.0, 0.9, 1.0], np.float32)
+    top_k = np.array([0, 5, 0, 1, 12, 50], np.int32)
+    top_p = np.array([1.0, 1.0, 0.8, 0.5, 0.95, 0.3], np.float32)
+    greedy = np.array([False, False, False, False, False, True])
+    want = np.asarray(jprocess(jnp.asarray(logits), jnp.asarray(temp),
+                               jnp.asarray(top_k), jnp.asarray(top_p),
+                               jnp.asarray(greedy)))
+    got = process_logits_dynamic(
+        torch.from_numpy(logits), torch.from_numpy(temp),
+        torch.from_numpy(top_k), torch.from_numpy(top_p),
+        torch.from_numpy(greedy))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    # the same entries survive the filters
+    np.testing.assert_array_equal(got.numpy() > -1e8, want > -1e8)
+
+
+def test_load_paddle_state_rejects_mismatches():
+    jm, _ = tiny_pair(seed=1)
+    state = jax_state(jm)
+    tm = GPTForPretraining(GPTConfig(**TINY), device="cpu")
+    bad = dict(state)
+    bad.pop("gpt.ln_f.bias")
+    with pytest.raises(InvalidArgumentError, match="missing"):
+        load_paddle_state(tm, bad)
+    with pytest.raises(InvalidArgumentError, match="unexpected"):
+        load_paddle_state(tm, {**state, "gpt.extra": np.zeros(1)})
+    bad = dict(state)
+    bad["gpt.blocks.0.qkv.weight"] = bad["gpt.blocks.0.qkv.weight"][:, :8]
+    with pytest.raises(InvalidArgumentError, match="shape"):
+        load_paddle_state(tm, bad)
+
+
+def test_entry_points_default_to_cuda_and_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    with pytest.raises(UnavailableError):
+        GPTForPretraining(GPTConfig(**TINY))
+    _, tm = tiny_pair(seed=1)
+    with pytest.raises(UnavailableError):
+        generate(tm, np.arange(3)[None], max_new_tokens=2)
