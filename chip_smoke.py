@@ -28,6 +28,24 @@ Phases (any failure exits non-zero before the result line):
                 printed.
   6. fixed    — a 4-layer full-width f32 engine on the fixed pool: greedy
                 streams must equal solo generate().
+  7. flash    — the flash kernels K1 (forward) and K2 (backward) against
+                their plain versions on the card at the training shape
+                (B 4, S 1024, H 16, D 64, causal, dropout 0.1, fixed seed)
+                in bf16 and f32, and at small shapes with a bias, segment
+                ids and Sk != Sq (every gradient, dbias included); then
+                timed like K3/K4 over 24 layers' tensors, beside the bound
+                and torch's scaled_dot_product_attention as the yardstick.
+  8. train    — GPT-2 medium (24 x 1024, 16 heads, vocab 50304), B 4,
+                S 1024, O1 bf16, AdamW(1e-4), dropout 0.1, random weights
+                and one random batch from --seed, through jit.TrainStep:
+                8 steps on the batch, each loss printed, steady step time
+                and tokens/s; the loss must be finite and fall, and K1/K2
+                must launch 24 times per step each (counters zeroed just
+                before the steps).  One more step is profiled.
+  9. traincheck — one step's loss and every parameter's gradient of a
+                2-layer full-width f32 GPT (dropout 0, B 1, S 1024) on the
+                kernel path against the same step by the plain versions on
+                the CPU, same weights and batch.
 Before the last line it prints one JSON line with every kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
 """
@@ -44,13 +62,24 @@ import numpy as np
 
 TOL = 1e-4          # |kernel - plain| <= TOL + TOL * |plain|
 LOGIT_TOL = 2e-3    # kernel-path vs plain-path decode logits, max abs
+# flash kernels vs their plain versions, (atol, rtol): f32 outputs sum in
+# another order; f32 gradients sum over up to 1024 rows; bf16 values are
+# rounded to bf16 by both, one bf16 unit (2**-8 relative) apart at most
+FLASH_TOL = {"float32": ((1e-4, 1e-4), (2e-4, 1e-3)),
+             "bfloat16": ((1e-2, 1e-2), (1e-2, 1e-2))}
+# kernel-path vs CPU plain-path training step (f32, TF32 off): the loss
+# within 1e-4 relative, each gradient within GRAD_TOL of its tensor's
+# largest |gradient| (cuBLAS and the CPU sum in other orders)
+GRAD_TOL = 1e-3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
 LAYERS = 24
 SLOTS = 8
 BLOCK = 16
 MAX_LEN = 1024
 PROMPT_LENS = (32, 64, 100, 160, 220, 280, 340, 400)   # serve phase
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 8               # train phase
 
 
 def fail(msg: str):
@@ -105,14 +134,14 @@ def graph_ms(torch, fn, replays: int = 20) -> float:
     return a.elapsed_time(b) / replays
 
 
-def bound_ms(nbytes: float, ops: float):
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def max_err(torch, got, want):
-    err = (got - want).abs()
-    ok = bool((err <= TOL + TOL * want.abs()).all())
+def max_err(torch, got, want, atol=TOL, rtol=TOL):
+    err = (got.float() - want.float()).abs()
+    ok = bool((err <= atol + rtol * want.float().abs()).all())
     return float(err.max()), ok
 
 
@@ -240,21 +269,22 @@ def paged_phase(torch, rng, dev):
             "bound_by": by, "library_ms": lib, "call_ms": eager}
 
 
-def decode_profile(torch, eng, steps: int, card: str):
-    """Where a steady decode step's time goes: host wall per step (no
-    profiler), then device busy time per step and the top kernels from
-    torch.profiler over as many further steps."""
+def device_profile(torch, step, steps: int, what: str, card: str):
+    """Where a steady step's time goes: host wall per step (no profiler),
+    then device busy time per step and the top kernels from torch.profiler
+    over as many further steps.  Prints them; returns (wall ms, busy ms or
+    None)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
-        eng.step()
+        step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / steps * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            eng.step()
+            step()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
     rows = []
@@ -267,13 +297,18 @@ def decode_profile(torch, eng, steps: int, card: str):
         rows.append((us / 1e3 / steps, e.key))
     rows.sort(reverse=True)
     busy = sum(ms for ms, _ in rows)
-    print(f"profile [{card}]: decode step (8 slots x {eng.decode_chunk} "
-          f"tokens, {eng.model.gpt.config.num_hidden_layers} layers): "
-          f"wall {step_ms:.3f} ms, device busy "
+    print(f"profile [{card}]: {what}: wall {step_ms:.3f} ms, device busy "
           + (f"{busy:.3f} ms, idle {1 - busy / step_ms:.1%}" if rows
              else "not measured (no device events)"))
     for ms, name in rows[:8]:
         print(f"profile:   {ms:8.3f} ms/step  {name[:90]}")
+    return step_ms, (busy if rows else None)
+
+
+def decode_profile(torch, eng, steps: int, card: str):
+    device_profile(torch, eng.step, steps,
+                   f"decode step (8 slots x {eng.decode_chunk} tokens, "
+                   f"{eng.model.gpt.config.num_hidden_layers} layers)", card)
 
 
 def serve_phase(torch, args, dev, card):
@@ -392,6 +427,257 @@ def fixed_phase(torch, args, dev):
     print(f"fixed: {len(prompts)} greedy streams equal solo generate()")
 
 
+def _flash_inputs(torch, rng, dev, b, sq, sk, h, d, dtype, bias=False,
+                  seg=False):
+    """q/k/v as views of one fused (B, S, 3, H, D) tensor, as GPT passes
+    them; do, an optional bias and two-segment ids."""
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            dev).to(dtype)
+    qkv = t(b, sq, 3, h, d)
+    q = qkv[:, :, 0]
+    if sk == sq:
+        k, v = qkv[:, :, 1], qkv[:, :, 2]
+    else:
+        k, v = t(b, sk, h, d), t(b, sk, h, d)
+    bi = qs = ks = None
+    if bias:
+        bi = torch.from_numpy(rng.randn(b, sk).astype(np.float32)).to(dev)
+    if seg:
+        qs = torch.zeros(b, sq, dtype=torch.int32, device=dev)
+        ks = torch.zeros(b, sk, dtype=torch.int32, device=dev)
+        qs[:, sq // 2:] = 1
+        ks[:, sk // 3:] = 1
+    return q, k, v, t(b, sq, h, d), bi, qs, ks
+
+
+def flash_check(torch, fa, args, label):
+    """K1 and K2 against their plain versions on the same inputs; returns
+    the largest error and prints one line."""
+    q, k, v, do, bi, qs, ks, seed, causal, p = args
+    o, lse = fa.flash_fwd(q, k, v, bi, qs, ks, seed, causal, p)
+    grads = fa.flash_bwd(q, k, v, bi, qs, ks, seed, o, lse, do, causal, p)
+    po, plse = fa._plain_fwd(q, k, v, bi, qs, ks, seed, causal, p)
+    pgrads = fa._plain_bwd(q, k, v, bi, qs, ks, seed, o, lse, do, causal, p)
+    torch.cuda.synchronize()
+    (oa, orl), (ga, grl) = FLASH_TOL[str(q.dtype).replace("torch.", "")]
+    errs = {"o": max_err(torch, o, po, oa, orl),
+            "lse": max_err(torch, lse, plse)}
+    for name, g, pg in zip(("dq", "dk", "dv", "dbias"), grads, pgrads):
+        if pg is not None:
+            errs[name] = max_err(torch, g, pg, ga, grl)
+    bad = [n for n, (_, ok) in errs.items() if not ok]
+    print(f"check flash {label}: " + ", ".join(
+        f"{n} {e:.2e}" for n, (e, _) in errs.items())
+        + (f" OUT OF TOLERANCE: {bad}" if bad else ""))
+    if bad:
+        fail(f"flash attention disagrees with its plain version ({label}: "
+             f"{bad})")
+    return max(e for e, _ in errs.values())
+
+
+def flash_phase(torch, rng, dev):
+    """K1/K2 checked at the training shape in bf16 and f32 and at small
+    variant shapes; timed at the training shape in bf16 per layer over 24
+    layers' tensors."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    b, s, h, d, p = TRAIN_B, TRAIN_S, 16, 64, 0.1
+    seed = torch.tensor([20260417], dtype=torch.int32, device=dev)
+    err_f, err_b = 0.0, 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        ins = _flash_inputs(torch, rng, dev, b, s, s, h, d, dtype)
+        e = flash_check(torch, fa, (*ins[:4], None, None, None, seed, True,
+                                    p), f"{str(dtype)[6:]} B={b} S={s} "
+                                        f"H={h} D={d} causal p={p}")
+        err_f = max(err_f, e)
+        torch.cuda.empty_cache()
+    for name, (bb, sq, sk, hh, dd, dt, causal, bias, seg, pp) in {
+            "bias": (2, 256, 256, 2, 64, torch.float32, False, True, False,
+                     0.0),
+            "segments": (2, 256, 256, 2, 128, torch.float32, False, False,
+                         True, 0.0),
+            "sk!=sq": (2, 128, 384, 2, 64, torch.bfloat16, True, False,
+                       False, 0.1),
+            "bias+dropout d256": (1, 256, 256, 2, 256, torch.float32, True,
+                                  True, False, 0.2)}.items():
+        q, k, v, do, bi, qs, ks = _flash_inputs(
+            torch, rng, dev, bb, sq, sk, hh, dd, dt, bias, seg)
+        err_b = max(err_b, flash_check(
+            torch, fa, (q, k, v, do, bi, qs, ks, seed, causal, pp),
+            f"{name} {str(dt)[6:]} B={bb} Sq={sq} Sk={sk} H={hh} D={dd}"))
+
+    # timing: 24 layers' distinct bf16 tensors (the step's working set)
+    layers = [_flash_inputs(torch, rng, dev, b, s, s, h, d,
+                            torch.bfloat16)[:4] for _ in range(LAYERS)]
+    saved = [fa.flash_fwd(q, k, v, None, None, None, seed, True, p)
+             for q, k, v, _ in layers]
+
+    def fwd(f):
+        def run():
+            for q, k, v, _ in layers:
+                f(q, k, v, None, None, None, seed, True, p)
+        return run
+
+    def bwd(f):
+        def run():
+            for (q, k, v, do), (o, lse) in zip(layers, saved):
+                f(q, k, v, None, None, None, seed, o, lse, do, True, p)
+        return run
+    times = {"fwd": (graph_ms(torch, fwd(fa.flash_fwd)) / LAYERS,
+                     call_ms(torch, fwd(fa.flash_fwd), 5) / LAYERS,
+                     graph_ms(torch, fwd(fa._plain_fwd), 3) / LAYERS),
+             "bwd": (graph_ms(torch, bwd(fa.flash_bwd)) / LAYERS,
+                     call_ms(torch, bwd(fa.flash_bwd), 5) / LAYERS,
+                     graph_ms(torch, bwd(fa._plain_bwd), 3) / LAYERS)}
+    torch.cuda.empty_cache()
+    # library yardstick: torch's SDPA, causal, dropout 0.1, on the same
+    # inputs in its (B, H, S, D) view; backward = (fwd + grad) - fwd
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_in = [tuple(t.transpose(1, 2).detach().requires_grad_()
+                    for t in (q, k, v)) + (do.transpose(1, 2),)
+              for q, k, v, do in layers]
+
+    def lib_fwd():
+        for q, k, v, _ in lib_in:
+            sdpa(q, k, v, is_causal=True, dropout_p=p)
+
+    def lib_fwd_bwd():
+        for q, k, v, do in lib_in:
+            out = sdpa(q, k, v, is_causal=True, dropout_p=p)
+            torch.autograd.grad(out, (q, k, v), do)
+    lib_f = graph_ms(torch, lib_fwd) / LAYERS
+    lib_b = graph_ms(torch, lib_fwd_bwd) / LAYERS - lib_f
+    # bound per layer, from this run's shapes: each input read once, each
+    # output written once; tensor-core operations over the visible
+    # (causal) score pairs, 2 * D per pair and product
+    elem = b * s * h * d * 2                       # one bf16 (B, S, H, D)
+    pairs = b * h * s * (s + 1) // 2
+    rows = b * h * s * 4                           # one f32 (B, H, S)
+    bound = {"fwd": bound_ms(3 * elem + elem + rows + 4, 2 * 2 * d * pairs,
+                             BF16_OPS_PER_S),
+             # q, k, v, o, do and lse in; dq, dk, dv out; 5 products
+             "bwd": bound_ms(5 * elem + rows + 4 + 3 * elem,
+                             5 * 2 * d * pairs, BF16_OPS_PER_S)}
+    out = []
+    for key, lib, err, line in (("fwd", lib_f, err_f, 257),
+                                ("bwd", lib_b, max(err_f, err_b), 417)):
+        ms, eager, plain = times[key]
+        bms, by = bound[key]
+        print(f"time flash_attention_{key} (bf16, per layer): {ms:.4f} ms "
+              f"(call {eager:.4f}), plain {plain:.4f}, SDPA {lib:.4f}, "
+              f"bound {bms:.4f} ({by})")
+        out.append({"name": f"flash_attention_{key}", "route": "cuda",
+                    "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+                    "replaces": f"paddle_tpu/ops/flash_attention.py:{line}",
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                    "bound_ms": bms, "bound_by": by, "library_ms": lib,
+                    "call_ms": eager})
+    del layers, saved, lib_in
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_batch(cfg, seed: int, b: int, s: int):
+    rng = np.random.RandomState(seed)
+    return (rng.randint(0, cfg.vocab_size, (b, s)),
+            rng.randint(0, cfg.vocab_size, (b, s)))
+
+
+def train_phase(torch, args, dev, card):
+    """GPT-2 medium, O1 bf16, AdamW: the training leg of the main path."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (GPTForPretraining,
+                                         GPTPretrainingCriterion,
+                                         gpt2_medium_config)
+    from paddle_tpu_torch.ops import flash_attention as fa
+    pt.seed(args.seed)
+    cfg = gpt2_medium_config()
+    model = GPTForPretraining(cfg, device=dev, seed=args.seed)
+    crit = GPTPretrainingCriterion()
+    opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                             parameters=model.parameters())
+    step = TrainStep(model, lambda logits, y: crit(logits, y), opt,
+                     amp_level="O1", amp_dtype="bfloat16")
+    ids, lab = (torch.from_numpy(a).to(dev)
+                for a in _train_batch(cfg, args.seed, TRAIN_B, TRAIN_S))
+    torch.cuda.synchronize()
+    fa.flash_fwd.launches = 0
+    fa.flash_bwd.launches = 0
+    losses, t_steps = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step(ids, lab))
+        torch.cuda.synchronize()
+        t_steps.append(time.perf_counter() - t0)
+    launches = {"flash_attention_fwd": fa.flash_fwd.launches,
+                "flash_attention_bwd": fa.flash_bwd.launches}
+    vals = [float(x) for x in losses]
+    print("train: losses " + ", ".join(f"{x:.4f}" for x in vals))
+    want = cfg.num_hidden_layers * TRAIN_STEPS
+    if not all(np.isfinite(vals)):
+        fail(f"non-finite training loss: {vals}")
+    if not vals[-1] < vals[0]:
+        fail(f"training loss did not fall: {vals[0]} -> {vals[-1]}")
+    if any(n != want for n in launches.values()):
+        fail(f"flash launches {launches}, expected {want} each "
+             f"({cfg.num_hidden_layers} layers x {TRAIN_STEPS} steps)")
+    steady = float(np.median(t_steps[2:])) * 1e3
+    print(f"train [{card}]: GPT-2 medium B={TRAIN_B} S={TRAIN_S} O1 bf16: "
+          f"first step {t_steps[0] * 1e3:.1f} ms, steady step {steady:.1f} "
+          f"ms (median of steps 3-{TRAIN_STEPS}), "
+          f"{TRAIN_B * TRAIN_S / steady * 1e3:.0f} tokens/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB; "
+          f"launches {launches}")
+    device_profile(torch, lambda: step(ids, lab), 1,
+                   f"train step (GPT-2 medium, B {TRAIN_B} x S {TRAIN_S}, "
+                   "O1 bf16)", card)
+    del step, model, opt
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_check_phase(torch, args, dev):
+    """One f32 step of a 2-layer full-width GPT (dropout 0, B 1, S 1024):
+    loss and every parameter gradient on the kernel path against the plain
+    versions on the CPU, same weights and batch."""
+    from paddle_tpu_torch.jit import forward_loss
+    from paddle_tpu_torch.models import (GPTForPretraining,
+                                         GPTPretrainingCriterion,
+                                         gpt2_medium_config)
+    from paddle_tpu_torch.ops import flash_attention as fa
+    cfg = gpt2_medium_config(num_hidden_layers=2, hidden_dropout_prob=0.0,
+                             attention_probs_dropout_prob=0.0)
+    crit = GPTPretrainingCriterion()
+    batch = _train_batch(cfg, args.seed + 2, 1, TRAIN_S)
+    gpu = GPTForPretraining(cfg, device=dev, seed=args.seed + 2)
+    cpu = copy.deepcopy(gpu).cpu()
+    out = []
+    for model, d in ((gpu, dev), (cpu, torch.device("cpu"))):
+        n0 = fa.flash_fwd.launches
+        ids, lab = (torch.from_numpy(a).to(d) for a in batch)
+        loss = forward_loss(model, lambda lg, y: crit(lg, y), (ids, lab))
+        names = [n for n, _ in model.named_parameters()]
+        grads = torch.autograd.grad(loss, [p for _, p in
+                                           model.named_parameters()])
+        out.append((float(loss.detach()),
+                    {n: g.cpu() for n, g in zip(names, grads)},
+                    fa.flash_fwd.launches - n0))
+    (lg, gg, ng), (lc, gc, _) = out
+    if ng != cfg.num_hidden_layers:
+        fail(f"the kernel path launched K1 {ng} times, not once per layer")
+    worst = max(((gg[n] - gc[n]).abs().max() / gc[n].abs().max()
+                 .clamp_min(1e-30)).item() for n in gc)
+    print(f"traincheck: 2-layer f32 step, kernel path vs CPU plain path: "
+          f"loss {lg:.6f} vs {lc:.6f}; largest gradient difference "
+          f"{worst:.2e} of its tensor's max (tolerance {GRAD_TOL}) over "
+          f"{len(gc)} parameters")
+    if not abs(lg - lc) <= 1e-4 * abs(lc) or not worst <= GRAD_TOL:
+        fail("the kernel-path training step disagrees with the plain path")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -428,6 +714,10 @@ def main():
     launches = serve_phase(torch, args, dev, card)
     torch.cuda.empty_cache()
     fixed_phase(torch, args, dev)
+    torch.cuda.empty_cache()
+    kernels += flash_phase(torch, rng, dev)
+    launches.update(train_phase(torch, args, dev, card))
+    train_check_phase(torch, args, dev)
     if any(m.startswith("paddle_tpu.") or m in ("jax", "paddle_tpu")
            for m in sys.modules):
         fail("the JAX package was imported")

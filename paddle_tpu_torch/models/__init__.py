@@ -1,3 +1,4 @@
 from .gpt import (GPTBlock, GPTConfig, GPTForPretraining,  # noqa: F401
-                  GPTModel, gpt2_large_config, gpt2_medium_config,
+                  GPTModel, GPTPretrainingCriterion,
+                  gpt2_large_config, gpt2_medium_config,
                   gpt2_small_config)

@@ -14,24 +14,35 @@ match the reference's state keys.  Three decode protocols:
   ``ops.paged_attention.RowWrites``) and attends with the paged
   attention kernel straight on the pool, never gathering a view.
 
+Training: in training mode ``attend`` reaches the flash kernels K1/K2
+through ``F.scaled_dot_product_attention`` whenever the reference would
+(causal, no mask, head_dim 64/128/256, seq % 128 == 0), with q/k/v passed
+as strided views of the fused-QKV output (no copy).  ``forward(ids,
+labels=...)`` returns per-token losses through the fused tied-head
+cross-entropy; ``GPTPretrainingCriterion`` is the logits + cross-entropy
+loss the benchmark's training step uses.
+
 Constructors take ``device`` (default ``"cuda"``; raises without a card)
-and ``seed`` for the weight draw.  The ``labels`` / fused cross-entropy
-path waits for the training slice.
+and ``seed`` for the weight draw.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core.device import DEFAULT_DEVICE, resolve_device
+from ..core.errors import InvalidArgumentError
 from ..nn import functional as F
 from ..nn.layer.common import Dropout, Embedding, Linear
 from ..nn.layer.container import LayerList
 from ..nn.layer.norm import LayerNorm
 from ..nn.layer_base import Layer
+from ..ops.fused_ce import fused_linear_cross_entropy
 from ..ops.paged_attention import paged_attention
+from ..tensor.linalg import matmul
 
 __all__ = ["GPTConfig", "gpt2_small_config", "gpt2_medium_config",
-           "gpt2_large_config", "GPTBlock", "GPTModel", "GPTForPretraining"]
+           "gpt2_large_config", "GPTBlock", "GPTModel", "GPTForPretraining",
+           "GPTPretrainingCriterion"]
 
 
 class GPTConfig:
@@ -253,7 +264,7 @@ class GPTModel(Layer):
 
 
 class GPTForPretraining(Layer):
-    """Causal-LM head with tied embedding weights (logits path)."""
+    """Causal-LM head with tied embedding weights."""
 
     def __init__(self, cfg: GPTConfig = None, device=DEFAULT_DEVICE,
                  seed: int = 0, **kw):
@@ -261,11 +272,22 @@ class GPTForPretraining(Layer):
         self.gpt = GPTModel(cfg, device=device, seed=seed, **kw)
 
     def _logits(self, h):
-        return h @ self.gpt.word_embeddings.weight.t()
+        return matmul(h, self.gpt.word_embeddings.weight, transpose_y=True)
 
-    def forward(self, input_ids, position_ids=None, cache=None):
+    def forward(self, input_ids, position_ids=None, cache=None, labels=None):
+        """With ``labels``, per-token losses through the fused tied-head
+        cross-entropy (the (B, S, V) logits are never kept for the
+        backward); without, the logits."""
         out = self.gpt(input_ids, position_ids, cache)
         h = out[0] if isinstance(out, tuple) else out
+        if labels is not None:
+            if cache is not None:
+                raise InvalidArgumentError(
+                    "[gpt] labels with cache is unsupported: the fused CE "
+                    "is a training path; compute losses from the returned "
+                    "logits when decoding")
+            return fused_linear_cross_entropy(
+                h, self.gpt.word_embeddings.weight, labels)
         logits = self._logits(h)
         return logits if cache is None else (logits, out[1])
 
@@ -286,3 +308,16 @@ class GPTForPretraining(Layer):
         from ..generation import generate
         kwargs.setdefault("device", self.device)
         return generate(self, input_ids, **kwargs)
+
+
+class GPTPretrainingCriterion(Layer):
+    """Mean token cross-entropy of (B, S, V) logits against (B, S) labels,
+    or the ``loss_mask``-weighted mean."""
+
+    def forward(self, logits, labels, loss_mask=None):
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               labels.reshape(-1), reduction="none")
+        if loss_mask is not None:
+            m = loss_mask.reshape(-1).to(loss.dtype)
+            return (loss * m).sum() / m.sum()
+        return loss.mean()

@@ -3,7 +3,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["gelu"]
+from ...amp import amp_cast
+
+__all__ = ["gelu", "softmax"]
 
 
 def gelu(x, approximate: bool = False):
@@ -11,3 +13,9 @@ def gelu(x, approximate: bool = False):
     ``jax.nn.gelu(x, approximate=False)``."""
     return torch.nn.functional.gelu(
         x, approximate="tanh" if approximate else "none")
+
+
+def softmax(x, axis: int = -1):
+    """Softmax along ``axis``; AMP black-listed (f32 under O1)."""
+    (x,) = amp_cast("softmax", x)
+    return torch.softmax(x, dim=axis)

@@ -4,7 +4,9 @@
 computes ``x @ weight + bias``, so reference weights load without a
 transpose.  Parameters are created on ``device`` and filled by
 ``reset_parameters`` (normal with ``std``, zero bias); models that want a
-seeded draw pass a ``torch.Generator``.
+seeded draw pass a ``torch.Generator``.  ``Linear`` goes through
+``F.linear``, so AMP casts it.  ``Dropout`` draws its mask from an explicit
+generator (``core.rng``), never from torch's global one.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .. import functional as F
 from ..layer_base import Layer
 
 __all__ = ["Linear", "Embedding", "Dropout"]
@@ -39,8 +42,7 @@ class Linear(Layer):
             self.bias.zero_()
 
     def forward(self, x):
-        y = x @ self.weight
-        return y if self.bias is None else y + self.bias
+        return F.linear(x, self.weight, self.bias)
 
     def extra_repr(self):
         return (f"in_features={self.in_features}, "
@@ -62,11 +64,13 @@ class Embedding(Layer):
 
 
 class Dropout(Layer):
+    """Upscale-in-train dropout.  The mask comes from the current
+    generator of ``core.rng`` (the training step's, inside
+    ``TrainStep``)."""
+
     def __init__(self, p: float = 0.5):
         super().__init__()
         self.p = float(p)
 
     def forward(self, x):
-        if not self.training or self.p == 0.0:
-            return x
-        return nn.functional.dropout(x, self.p, training=True)
+        return F.dropout(x, self.p, training=self.training)

@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .. import functional as F
 from ..layer_base import Layer
 
 __all__ = ["LayerNorm"]
@@ -22,5 +23,5 @@ class LayerNorm(Layer):
 
     def forward(self, x):
         # population variance, as the reference's layer_norm
-        return nn.functional.layer_norm(x, (self.normalized_shape,),
-                                        self.weight, self.bias, self.epsilon)
+        return F.layer_norm(x, self.normalized_shape, self.weight,
+                            self.bias, self.epsilon)

@@ -7,6 +7,11 @@ their ``paddle_tpu.jit.state_arrays`` names, the same keys
 int8-quantized models load alike.  The key sets must match exactly and
 every shape must agree; an int8 buffer only takes int8 data and a float
 tensor only float data.
+
+``load_paddle_opt_state(step, opt_state)`` carries the reference's
+``TrainStep`` optimizer state (``{name: {"moment1": ..., "moment2": ...}}``
+as its ``init_opt_state`` builds it) into a port ``jit.TrainStep``, so a
+resumed comparison starts from equal moments.
 """
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ import torch
 
 from .core.errors import InvalidArgumentError
 
-__all__ = ["load_paddle_state"]
+__all__ = ["load_paddle_state", "load_paddle_opt_state"]
 
 
 def load_paddle_state(model: torch.nn.Module, state: Mapping[str, np.ndarray]):
@@ -45,3 +50,37 @@ def load_paddle_state(model: torch.nn.Module, state: Mapping[str, np.ndarray]):
                     f"holds {dst.dtype}")
             dst.copy_(torch.from_numpy(np.array(src)))
     return model
+
+
+def load_paddle_opt_state(train_step, opt_state: Mapping[str, Mapping],
+                          step_count=None):
+    """Set ``train_step``'s optimizer state from the reference's
+    (``name -> {slot: array}``, one entry per trainable state name), as
+    f32 tensors on each parameter's device; with ``step_count``, also the
+    optimizer's step counter (Adam's bias corrections read it).  Returns
+    the train step."""
+    state = train_step.model.state_dict(keep_vars=True)
+    want = set(train_step._trainable)
+    missing = sorted(want - set(opt_state))
+    extra = sorted(set(opt_state) - want)
+    if missing or extra:
+        raise InvalidArgumentError(
+            f"load_paddle_opt_state: key mismatch — missing {missing[:4]}, "
+            f"unexpected {extra[:4]}")
+    out = {}
+    for name in train_step._trainable:
+        p = state[name]
+        slots = {}
+        for slot, arr in opt_state[name].items():
+            src = np.asarray(arr)
+            if tuple(src.shape) != tuple(p.shape):
+                raise InvalidArgumentError(
+                    f"load_paddle_opt_state: {name}.{slot} has shape "
+                    f"{tuple(src.shape)}, the parameter {tuple(p.shape)}")
+            slots[slot] = torch.from_numpy(np.array(src, np.float32)).to(
+                p.device)
+        out[name] = slots
+    train_step._opt_state = out
+    if step_count is not None:
+        train_step.optimizer._step_count = int(step_count)
+    return train_step

@@ -165,3 +165,133 @@ def test_paged_attention_offset_views(cuda):
                                **TOL)
     with pytest.raises(ValueError, match="aligned"):
         pa.paged_attention(q, at(kpool, 1), vpool, tables, pos)
+
+
+# ---------------------------------------------------------------------------
+# K1 / K2: flash attention forward and backward
+# ---------------------------------------------------------------------------
+# f32: the kernels sum in another order than the plain version's einsums;
+# outputs and the logsumexp within 1e-4 + 1e-4 * |plain|, gradients (sums
+# over up to 1024 rows) within 2e-4 + 1e-3 * |plain|.  bf16: both round the
+# same f32 values to bf16, so they may differ by one bf16 unit (2**-8
+# relative): 1e-2 + 1e-2 * |plain|.
+FLASH_TOL = {torch.float32: (dict(rtol=1e-4, atol=1e-4),
+                             dict(rtol=1e-3, atol=2e-4)),
+             torch.bfloat16: (dict(rtol=1e-2, atol=1e-2),
+                              dict(rtol=1e-2, atol=1e-2))}
+
+
+def _flash_case(cuda, b, sq, sk, h, d, dtype, bias=False, seg=False,
+                seed=0):
+    rng = np.random.RandomState(seed + sq + d)
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            cuda).to(dtype)
+    q, k, v, do = t(b, sq, h, d), t(b, sk, h, d), t(b, sk, h, d), \
+        t(b, sq, h, d)
+    bi = (torch.from_numpy(rng.randn(b, sk).astype(np.float32)).to(cuda)
+          if bias else None)
+    qs = ks = None
+    if seg:   # two packed segments per row, both sides starting at id 0
+        qs = torch.zeros(b, sq, dtype=torch.int32, device=cuda)
+        ks = torch.zeros(b, sk, dtype=torch.int32, device=cuda)
+        qs[:, sq // 2:] = 1
+        ks[:, sk // 3:] = 1
+    return q, k, v, do, bi, qs, ks
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d,dtype,causal,bias,seg,p", [
+    (4, 1024, 1024, 16, 64, torch.bfloat16, True, False, False, 0.1),
+    (4, 1024, 1024, 16, 64, torch.float32, True, False, False, 0.1),
+    (2, 256, 256, 2, 64, torch.float32, False, False, False, 0.0),
+    (1, 384, 384, 2, 64, torch.float32, True, False, False, 0.0),
+    (2, 128, 256, 2, 64, torch.float32, True, False, False, 0.0),
+    (2, 256, 256, 2, 128, torch.float32, False, True, False, 0.0),
+    (2, 256, 256, 2, 64, torch.float32, False, False, True, 0.0),
+    (2, 256, 384, 3, 256, torch.float32, True, True, False, 0.2),
+    (2, 256, 256, 2, 128, torch.bfloat16, True, True, False, 0.1),
+    (1, 256, 256, 2, 256, torch.bfloat16, False, False, True, 0.1),
+])
+def test_flash_kernels_match_plain(cuda, b, sq, sk, h, d, dtype, causal,
+                                   bias, seg, p):
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, k, v, do, bi, qs, ks = _flash_case(cuda, b, sq, sk, h, d, dtype,
+                                          bias, seg)
+    seed = torch.tensor([-123457], dtype=torch.int32, device=cuda)
+    args = (q, k, v, bi, qs, ks, seed, causal, p)
+    f0, b0 = fa.flash_fwd.launches, fa.flash_bwd.launches
+    o, lse = fa.flash_fwd(*args)
+    grads = fa.flash_bwd(q, k, v, bi, qs, ks, seed, o, lse, do, causal, p)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd.launches) == (f0 + 1, b0 + 1)
+    po, plse = fa._plain_fwd(*args)
+    pgrads = fa._plain_bwd(q, k, v, bi, qs, ks, seed, o, lse, do, causal, p)
+    tol_o, tol_g = FLASH_TOL[dtype]
+    torch.testing.assert_close(o.float(), po.float(), **tol_o)
+    torch.testing.assert_close(lse, plse, rtol=1e-4, atol=1e-4)
+    for g, pg in zip(grads, pgrads):
+        if pg is None:
+            assert g is None
+            continue
+        assert g.dtype == pg.dtype and g.shape == pg.shape
+        torch.testing.assert_close(g.float(), pg.float(), **tol_g)
+
+
+def test_flash_autograd_on_fused_qkv_views(cuda):
+    """q/k/v as strided slices of one fused-QKV tensor, as GPT passes
+    them: the kernels read them in place, and the gradient reaching the
+    fused tensor equals the plain path's."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    rng = np.random.RandomState(7)
+    qkv = torch.from_numpy(rng.randn(2, 256, 3, 4, 64).astype(np.float32))
+    do = torch.from_numpy(rng.randn(2, 256, 4, 64).astype(np.float32))
+    seed = torch.tensor([99], dtype=torch.int32)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        x = qkv.to(dev).requires_grad_()
+        o = fa.flash_attention_bshd(x[:, :, 0], x[:, :, 1], x[:, :, 2],
+                                    causal=True, dropout_p=0.1,
+                                    dropout_seed=seed.to(dev))
+        o.backward(do.to(dev))
+        outs.append((o.detach().cpu(), x.grad.cpu()))
+    torch.testing.assert_close(outs[0][0], outs[1][0], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(outs[0][1], outs[1][1], rtol=1e-3, atol=2e-4)
+
+
+def test_flash_rejects_what_the_kernels_do_not_take(cuda):
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q = torch.zeros(1, 128, 2, 64, device=cuda)
+    seed = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):      # fp16 is not a kernel type
+        fa.flash_fwd(q.half(), q.half(), q.half(), None, None, None, seed,
+                     False, 0.0)
+    with pytest.raises(ValueError):     # head_dim 32
+        z = torch.zeros(1, 128, 2, 32, device=cuda)
+        fa.flash_fwd(z, z, z, None, None, None, seed, False, 0.0)
+    with pytest.raises(ValueError):     # a CPU k beside a CUDA q
+        fa.flash_fwd(q, q.cpu(), q, None, None, None, seed, False, 0.0)
+    with pytest.raises(ValueError):     # bias of the wrong shape
+        fa.flash_fwd(q, q, q, torch.zeros(1, 64, device=cuda), None, None,
+                     seed, False, 0.0)
+    with pytest.raises(ValueError):     # non-unit stride along head_dim
+        wide = torch.zeros(1, 128, 2, 128, device=cuda)[..., ::2]
+        fa.flash_fwd(wide, wide, wide, None, None, None, seed, False, 0.0)
+    # the gate refuses what the reference refuses: None, no launch
+    n = fa.flash_fwd.launches
+    assert fa.flash_attention_bshd(q[:, :100], q[:, :100], q[:, :100]) is None
+    assert fa.flash_attention_bshd(q, q, q, dropout_p=0.1) is None
+    assert fa.flash_fwd.launches == n
+
+
+def test_flash_backward_rejects_mismatched_saved_tensors(cuda):
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q = torch.zeros(1, 128, 2, 64, device=cuda)
+    seed = torch.zeros(1, dtype=torch.int32, device=cuda)
+    o, lse = fa.flash_fwd(q, q, q, None, None, None, seed, True, 0.0)
+    with pytest.raises(ValueError):     # do of another shape
+        fa.flash_bwd(q, q, q, None, None, None, seed, o, lse, q[:, :64],
+                     True, 0.0)
+    with pytest.raises(ValueError):     # lse of another shape
+        fa.flash_bwd(q, q, q, None, None, None, seed, o, lse[:, :1], q,
+                     True, 0.0)
