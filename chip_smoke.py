@@ -46,6 +46,38 @@ Phases (any failure exits non-zero before the result line):
                 2-layer full-width f32 GPT (dropout 0, B 1, S 1024) on the
                 kernel path against the same step by the plain versions on
                 the CPU, same weights and batch.
+ 10. bn       — the fused BatchNorm kernels K5-K9 against their plain
+                versions on the card: at the ResNet-50 b256 main path's
+                shapes (the stem, 3,211,264 x 64; layer1's bn3 with its
+                residual, 802,816 x 256; layer4, 12,544 x 2048) and at
+                small odd shapes (C 24 and 40, M no multiple of any
+                block), f32 and bf16, every activation, no / plain / dual
+                residual; then the three autograd Functions (outputs,
+                statistics, dx / dgamma / dbeta / dres) against autograd
+                of the plain references.  Kernels: f32 within 1e-5 of each
+                tensor's largest |value|, bf16 within one bf16 unit
+                (1e-2 + 1e-2 * |plain|).  Functions: f32 within 1e-4 of
+                each tensor's largest |value|, bf16 within 2e-2 of it
+                plus 2e-2 * |plain|, at most one element in a million off
+                (an activation mask flipped by statistics summed in
+                another order).  Then each kernel timed (CUDA graph
+                replay) at layer1's bn3 and at the stem, beside its bound,
+                its plain version and PyTorch's own BatchNorm kernels.
+ 11. resnet   — ResNet-50 (BASELINE config #2): resnet50() under
+                jit.layout_policy("NHWC"), TrainStep O2 bf16, cross-entropy
+                on the logits, Momentum(0.1, 0.9), one random batch of
+                256 x 3 x 224 x 224 from --seed, 8 steps: each loss
+                printed (all finite), the steady step's wall, images/s,
+                device busy and idle share, the top device entries with
+                the cuDNN convolutions and K5-K9 summed apart, K5-K9
+                launches per step (asserted against the counts derived
+                from the model's blocks), layout copies per step, peak
+                memory.
+ 12. resnetcheck — one f32 step of ResNet-18 (10 classes, 4 x 3 x 64 x 64)
+                on the kernel path against the same step by the plain
+                versions on the CPU, same weights and batch: the loss,
+                every gradient and every running statistic within 1e-3 of
+                its tensor's largest |value|.
 Before the last line it prints one JSON line with every kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
 """
@@ -80,6 +112,15 @@ BLOCK = 16
 MAX_LEN = 1024
 PROMPT_LENS = (32, 64, 100, 160, 220, 280, 340, 400)   # serve phase
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 8               # train phase
+RESNET_B, RESNET_HW, RESNET_STEPS = 256, 224, 8           # resnet phase
+# the fused-BN kernels' main-path shapes at batch 256, as (N, H, W, C)
+BN_STEM = (RESNET_B, 112, 112, 64)       # M = 3,211,264
+BN_LAYER1 = (RESNET_B, 56, 56, 256)      # layer1's bn3, M = 802,816
+BN_LAYER4 = (RESNET_B, 7, 7, 2048)       # M = 12,544
+BN_KERNELS = ("bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_dx",
+              "bn_pool_apply")
+BN_LINES = {"bn_stats": 119, "bn_apply": 132, "bn_bwd_reduce": 153,
+            "bn_bwd_dx": 183, "bn_pool_apply": 611}
 
 
 def fail(msg: str):
@@ -269,11 +310,14 @@ def paged_phase(torch, rng, dev):
             "bound_by": by, "library_ms": lib, "call_ms": eager}
 
 
-def device_profile(torch, step, steps: int, what: str, card: str):
+def device_profile(torch, step, steps: int, what: str, card: str,
+                   groups=None, top: int = 8):
     """Where a steady step's time goes: host wall per step (no profiler),
     then device busy time per step and the top kernels from torch.profiler
-    over as many further steps.  Prints them; returns (wall ms, busy ms or
-    None)."""
+    over as many further steps; with ``groups`` ({label: substrings}), the
+    device time per step of the kernels whose names hold one of a group's
+    substrings (first group that matches).  Prints them; returns (wall ms,
+    busy ms or None, {label: ms})."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -297,12 +341,24 @@ def device_profile(torch, step, steps: int, what: str, card: str):
         rows.append((us / 1e3 / steps, e.key))
     rows.sort(reverse=True)
     busy = sum(ms for ms, _ in rows)
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == cuda) / steps
     print(f"profile [{card}]: {what}: wall {step_ms:.3f} ms, device busy "
-          + (f"{busy:.3f} ms, idle {1 - busy / step_ms:.1%}" if rows
+          + (f"{busy:.3f} ms, idle {1 - busy / step_ms:.1%}, "
+             f"{kernels:.0f} kernels per step" if rows
              else "not measured (no device events)"))
-    for ms, name in rows[:8]:
+    for ms, name in rows[:top]:
         print(f"profile:   {ms:8.3f} ms/step  {name[:90]}")
-    return step_ms, (busy if rows else None)
+    sums = {}
+    for ms, name in rows:
+        label = next((g for g, keys in (groups or {}).items()
+                      if any(k in name for k in keys)), "other")
+        sums[label] = sums.get(label, 0.0) + ms
+    if groups:
+        print("profile: by group: " + ", ".join(
+            f"{g} {ms:.3f} ms ({ms / busy:.1%})"
+            for g, ms in sorted(sums.items(), key=lambda kv: -kv[1])))
+    return step_ms, (busy if rows else None), sums
 
 
 def decode_profile(torch, eng, steps: int, card: str):
@@ -678,6 +734,542 @@ def train_check_phase(torch, args, dev):
     torch.cuda.empty_cache()
 
 
+def bn_err(torch, got, want):
+    """(max abs err, ok) of a fused-BN kernel against its plain version:
+    f32 within 1e-5 of the tensor's largest |value| (the column sums add
+    in another order; the elementwise kernels round like the plain
+    version); bf16 within one bf16 unit, 1e-2 + 1e-2 * |plain|."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    if want.dtype == torch.bfloat16:
+        ok = bool((err <= 1e-2 + 1e-2 * w.abs()).all())
+    else:
+        ok = float(err.max()) <= 1e-5 * max(float(w.abs().max()), 1e-30)
+    return float(err.max()), ok
+
+
+def _bn_rows(torch, gen, dev, m, c, dtype, shift=0.5):
+    return (torch.randn(m, c, generator=gen, device=dev) * 1.5
+            + shift).to(dtype)
+
+
+def _bn_coef(torch, gen, dev, c):
+    """An (8, C) coef: a, b, mean, invstd and the dx rows A, B, Cc."""
+    rows = [torch.rand(c, generator=gen, device=dev) + 0.5,
+            torch.randn(c, generator=gen, device=dev),
+            0.3 * torch.randn(c, generator=gen, device=dev),
+            torch.rand(c, generator=gen, device=dev) + 0.5]
+    rows += [torch.randn(c, generator=gen, device=dev) for _ in range(3)]
+    rows.append(torch.zeros(c, device=dev))
+    return torch.stack(rows).contiguous()
+
+
+def bn_kernel_check(torch, fbn, gen, dev, m, c, dtype, act, res, errs):
+    """K5-K8 at one (M, C, dtype, act, residual form) against their plain
+    versions; the largest error per kernel goes into errs."""
+    x = _bn_rows(torch, gen, dev, m, c, dtype)
+    g = _bn_rows(torch, gen, dev, m, c, dtype, shift=0.0)
+    r = None if res == "none" else _bn_rows(torch, gen, dev, m, c, dtype)
+    coef = _bn_coef(torch, gen, dev, c)
+    coefr = _bn_coef(torch, gen, dev, c) if res == "dual" else None
+    pairs = {"bn_stats": (fbn.bn_stats(x), fbn._plain_stats(x)),
+             "bn_apply": ((fbn.bn_apply(x, coef, r, act, coefr),),
+                          (fbn._plain_apply(x, coef, r, act, coefr),)),
+             "bn_bwd_reduce": (fbn.bn_bwd_reduce(g, x, coef, r, act, coefr),
+                               fbn._plain_bwd_reduce(g, x, coef, r, act,
+                                                     coefr)),
+             "bn_bwd_dx": (fbn.bn_bwd_dx(g, x, coef, r, act, coefr),
+                           fbn._plain_bwd_dx(g, x, coef, r, act, coefr))}
+    torch.cuda.synchronize()
+    bad = []
+    for name, (got, want) in pairs.items():
+        for a, b in zip(got, want):
+            if b is None:
+                continue
+            e, ok = bn_err(torch, a, b)
+            errs[name] = max(errs.get(name, 0.0), e)
+            if not ok:
+                bad.append(f"{name} {e:.3e}")
+    if bad:
+        fail(f"fused-BN kernels disagree with their plain versions at M={m} "
+             f"C={c} {dtype} act={act} residual={res}: {bad}")
+
+
+def bn_pool_check(torch, fbn, gen, dev, shape, dtype, act, pool, errs):
+    n, h, w, c = shape
+    x = _bn_rows(torch, gen, dev, n * h * w, c, dtype).view(n, h, w, c)
+    coef = _bn_coef(torch, gen, dev, c)
+    got = fbn.bn_pool_apply(x, coef, act, *pool)
+    want = fbn._plain_pool_apply(x, coef, act, *pool)
+    torch.cuda.synchronize()
+    e, ok = bn_err(torch, got, want)
+    errs["bn_pool_apply"] = max(errs.get("bn_pool_apply", 0.0), e)
+    if not ok or got.shape != want.shape:
+        fail(f"bn_pool_apply disagrees with its plain version at {shape} "
+             f"{dtype} act={act} pool={pool}: {e:.3e}")
+
+
+def bn_function_check(torch, fbn, gen, dev, form, shape, dtype):
+    """One autograd Function (both directions on the kernels) against
+    autograd of its plain reference: outputs, f32 statistics and the
+    gradients of x, gamma, beta (and the residual's), for a logical NCHW
+    input in channels-last memory.  Returns the largest error."""
+    n, h, w, c = shape
+
+    def act_t():
+        return (torch.randn(n, c, h, w, generator=gen, device=dev) + 0.3).to(
+            dtype).contiguous(memory_format=torch.channels_last)
+
+    def scale():
+        return torch.rand(c, generator=gen, device=dev) + 0.5
+
+    def shift():
+        return torch.randn(c, generator=gen, device=dev)
+    x, r = act_t(), act_t()
+    gamma, beta, gr, br = scale(), shift(), scale(), shift()
+    pool = ("max", 3, 2, 1)
+    eps = 1e-5
+    if form == "single":
+        ins = [x, gamma, beta, r]
+        kern = lambda x, g, b, r: fbn.bn_act_train(x, g, b, eps, "relu", r,
+                                                   False)
+        plain = lambda x, g, b, r: fbn.bn_act_reference(x, g, b, eps, "relu",
+                                                        r, 1)
+    elif form == "dual":
+        ins = [x, gamma, beta, r, gr, br]
+        kern = lambda *a: fbn.bn2_act_train(*a, eps, "relu", False)
+        plain = lambda *a: fbn.bn2_act_reference(*a, eps, "relu", 1)
+    else:
+        ins = [x, gamma, beta]
+        kern = lambda x, g, b: fbn.bn_act_pool_train(x, g, b, eps, "relu",
+                                                     pool, False)
+        plain = lambda x, g, b: fbn.bn_act_pool_reference(x, g, b, eps,
+                                                          "relu", pool, 1)
+    with torch.no_grad():
+        shapes = [t.shape for t in plain(*ins)]
+    cts = [(torch.randn(shapes[0], generator=gen, device=dev)).to(
+        dtype).contiguous(memory_format=torch.channels_last)]
+    cts += [0.1 * torch.randn(s, generator=gen, device=dev)
+            for s in shapes[1:]]
+
+    def run(fn):
+        leaves = [t.detach().clone().requires_grad_() for t in ins]
+        outs = fn(*leaves)
+        grads = torch.autograd.grad(outs, leaves, cts)
+        return [o.detach() for o in outs] + list(grads)
+    got, want = run(kern), run(plain)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        err = (a - b).abs()
+        scale = float(b.abs().max())
+        bad = (err > 2e-2 * scale + 2e-2 * b.abs()) if dtype == \
+            torch.bfloat16 else (err > 1e-4 * scale)
+        worst = max(worst, float(err.max()))
+        if int(bad.sum()) > a.numel() // 1_000_000:
+            fail(f"{form} fused-BN Function disagrees with autograd of its "
+                 f"plain reference at {shape} {dtype}: {int(bad.sum())} "
+                 f"elements off, max err {float(err.max()):.3e} of "
+                 f"{scale:.3e}")
+    print(f"check bn Function {form} {str(dtype)[6:]} NHWC={shape}: max "
+          f"abs err {worst:.3e} over outputs and gradients")
+    return worst
+
+
+def bn_bytes_ops(name, m, c, elem, res, mo=None, window=9):
+    """(bytes, f32 operations) of one kernel call: each input read once,
+    each output written once; the operations this call's arithmetic
+    does per element."""
+    n = m * c
+    coef = 8 * c * 4
+    rows = 1 if res == "none" else 2
+    if name == "bn_stats":
+        return n * elem + 2 * c * 4, 3 * n
+    if name == "bn_apply":
+        return (rows + 1) * n * elem + coef * (2 if res == "dual" else 1), \
+            (4 + 2 * (rows - 1)) * n
+    if name == "bn_bwd_reduce":
+        return (rows + 1) * n * elem + coef + 3 * c * 4, 10 * n
+    if name == "bn_bwd_dx":   # g, x (, r) in; dx (, dres) out
+        return (rows + 2 + (res != "none")) * n * elem + coef, 10 * n
+    # bn_pool_apply: x in, the pooled output out
+    return n * elem + mo * c * elem + coef, 4 * window * mo * c
+
+
+def library_ms(torch, fn, what):
+    """graph_ms of a PyTorch yardstick call, or None (printed) where this
+    build of PyTorch refuses the call: a yardstick is measured, never
+    relied on."""
+    try:
+        return graph_ms(torch, fn)
+    except RuntimeError as e:
+        print(f"time: yardstick {what} not measured: {str(e)[:160]}")
+        torch.cuda.synchronize()
+        return None
+
+
+def bn_time(torch, fbn, gen, dev, shape, res):
+    """Per kernel at one main-path site (bf16, relu): graph ms, eager call
+    ms, plain ms, PyTorch's own BatchNorm kernel for the same function
+    (the SyncBatchNorm building blocks; None where there is none), bound
+    ms and what bounds it.  Also prints the pair yardsticks
+    (batch_norm + relu_, native_batch_norm_backward) and var_mean."""
+    n, h, w, c = shape
+    m = n * h * w
+    dt = torch.bfloat16
+    x = _bn_rows(torch, gen, dev, m, c, dt)
+    g = _bn_rows(torch, gen, dev, m, c, dt, shift=0.0)
+    r = _bn_rows(torch, gen, dev, m, c, dt) if res != "none" else None
+    coef = _bn_coef(torch, gen, dev, c)
+    x4, g4 = (t.view(n, h, w, c).permute(0, 3, 1, 2) for t in (x, g))
+    r4 = r.view(n, h, w, c).permute(0, 3, 1, 2) if r is not None else None
+    wgt, bia = coef[0].to(dt), coef[1].to(dt)
+    eps = 1e-5
+    # inputs of PyTorch's own BatchNorm kernels (the SyncBatchNorm
+    # building blocks), each the same function as one of K5-K8 without
+    # the activation and the residual
+    mean, invstd = torch.batch_norm_stats(x4, eps)
+    sums = torch.batch_norm_backward_reduce(g4, x4, mean, invstd, wgt,
+                                            True, False, False)
+    count = torch.full((1,), m, dtype=torch.int32, device=dev)
+    calls = {
+        "bn_stats": (lambda: fbn.bn_stats(x), lambda: fbn._plain_stats(x),
+                     lambda: torch.batch_norm_stats(x4, eps)),
+        "bn_apply": (lambda: fbn.bn_apply(x, coef, r, "relu"),
+                     lambda: fbn._plain_apply(x, coef, r, "relu"),
+                     lambda: torch.batch_norm_elemt(x4, wgt, bia, mean,
+                                                    invstd, eps)),
+        "bn_bwd_reduce": (
+            lambda: fbn.bn_bwd_reduce(g, x, coef, r, "relu"),
+            lambda: fbn._plain_bwd_reduce(g, x, coef, r, "relu"),
+            lambda: torch.batch_norm_backward_reduce(
+                g4, x4, mean, invstd, wgt, True, True, True)),
+        "bn_bwd_dx": (
+            lambda: fbn.bn_bwd_dx(g, x, coef, r, "relu"),
+            lambda: fbn._plain_bwd_dx(g, x, coef, r, "relu"),
+            lambda: torch.batch_norm_backward_elemt(
+                g4, x4, mean, invstd, wgt, sums[0], sums[1], count))}
+    out = {}
+    for name, (kern, plain, lib) in calls.items():
+        b, by = bound_ms(*bn_bytes_ops(name, m, c, 2, res))
+        out[name] = dict(ms=graph_ms(torch, kern),
+                         call_ms=call_ms(torch, kern, 10),
+                         plain_ms=graph_ms(torch, plain, 5),
+                         library_ms=library_ms(torch, lib, name), bound_ms=b,
+                         bound_by=by)
+    if res == "none":    # the stem: the pooled epilogue
+        x4n = x.view(n, h, w, c)
+        pool = ("max", (3, 3), (2, 2), (1, 1))
+        ho, wo = (h + 2 - 3) // 2 + 1, (w + 2 - 3) // 2 + 1
+        b, by = bound_ms(*bn_bytes_ops("bn_pool_apply", m, c, 2, res,
+                                       mo=n * ho * wo))
+        kern = lambda: fbn.bn_pool_apply(x4n, coef, "relu", *pool)
+        out["bn_pool_apply"] = dict(
+            ms=graph_ms(torch, kern), call_ms=call_ms(torch, kern, 10),
+            plain_ms=graph_ms(torch, lambda: fbn._plain_pool_apply(
+                x4n, coef, "relu", *pool), 5),
+            library_ms=None, bound_ms=b, bound_by=by)
+
+    def fwd_pair():
+        y = torch.nn.functional.batch_norm(x4, None, None, wgt, bia, True,
+                                           0.1, eps)
+        if r4 is not None:
+            y.add_(r4)
+        return y.relu_()
+    save = torch.native_batch_norm(x4, wgt, bia, None, None, True, 0.1, eps)
+    bwd_pair = lambda: torch.ops.aten.native_batch_norm_backward(
+        g4, x4, wgt, None, None, save[1], save[2], True, eps,
+        [True, True, True])
+    pair = [library_ms(torch, f, w) for f, w in (
+        (fwd_pair, "batch_norm"), (bwd_pair, "native_batch_norm_backward"),
+        (lambda: torch.var_mean(x, 0, correction=0), "var_mean"))]
+    pair = [float("nan") if p is None else p for p in pair]
+    print(f"time bn at NHWC={shape} bf16 relu residual={res}: " + "; ".join(
+        f"{k} {v['ms']:.4f} ms (call {v['call_ms']:.4f}, plain "
+        f"{v['plain_ms']:.4f}, torch "
+        + (f"{v['library_ms']:.4f}" if v['library_ms'] is not None else "-")
+        + f", bound {v['bound_ms']:.4f} {v['bound_by']})"
+        for k, v in out.items()))
+    print(f"time bn pair yardsticks at NHWC={shape}: batch_norm(training)"
+          f"{' + add_' if r4 is not None else ''} + relu_ {pair[0]:.4f} ms "
+          f"(K5+K6 {out['bn_stats']['ms'] + out['bn_apply']['ms']:.4f}); "
+          f"native_batch_norm_backward {pair[1]:.4f} ms (K7+K8 "
+          f"{out['bn_bwd_reduce']['ms'] + out['bn_bwd_dx']['ms']:.4f}); "
+          f"var_mean {pair[2]:.4f} ms (K5 {out['bn_stats']['ms']:.4f})")
+    del x, g, r, x4, g4, r4, save
+    torch.cuda.empty_cache()
+    return out
+
+
+def bn_phase(torch, args, dev):
+    """K5-K9 checked at the main path's shapes and at small odd ones, the
+    Functions against autograd of the plain references, then timed."""
+    from paddle_tpu_torch.ops import fused_bn_act as fbn
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 3)
+    errs = {}
+    f32, bf16 = torch.float32, torch.bfloat16
+    acts = (None, "relu", "relu6")
+    forms = ("none", "plain", "dual")
+    main_cases = [
+        (BN_STEM, "relu", "none"), (BN_LAYER1, "relu", "plain"),
+        (BN_LAYER4, "relu", "dual"), (BN_LAYER4, "relu", "none")]
+    for (n, h, w, c), act, res in main_cases:
+        for dtype in (bf16, f32):
+            bn_kernel_check(torch, fbn, gen, dev, n * h * w, c, dtype, act,
+                            res, errs)
+            torch.cuda.empty_cache()
+    small = [(1037, 24), (515, 40), (333, 7)]
+    for m, c in small:
+        for dtype in (bf16, f32):
+            for act in acts:
+                for res in forms:
+                    bn_kernel_check(torch, fbn, gen, dev, m, c, dtype, act,
+                                    res, errs)
+    pools = [("max", (3, 3), (2, 2), (1, 1)), ("avg", (3, 3), (2, 2), (1, 1)),
+             ("max", (2, 3), (2, 1), (0, 1))]
+    for dtype in (bf16, f32):
+        bn_pool_check(torch, fbn, gen, dev, BN_STEM, dtype, "relu", pools[0],
+                      errs)
+        torch.cuda.empty_cache()
+        for shape in ((3, 9, 11, 24), (2, 12, 12, 40), (1, 7, 5, 3)):
+            for act in acts:
+                for pool in pools:
+                    bn_pool_check(torch, fbn, gen, dev, shape, dtype, act,
+                                  pool, errs)
+    print("check bn kernels vs plain (main-path shapes and small odd ones, "
+          "f32 and bf16, every activation and residual form): max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    fn_err = 0.0
+    for form, shape in (("single", BN_LAYER1), ("dual", BN_LAYER4),
+                        ("pool", BN_STEM)):
+        fn_err = max(fn_err, bn_function_check(torch, fbn, gen, dev, form,
+                                               shape, bf16))
+        torch.cuda.empty_cache()
+        fn_err = max(fn_err, bn_function_check(
+            torch, fbn, gen, dev, form, (3, 7, 9, 24), f32))
+    times = {"layer1": bn_time(torch, fbn, gen, dev, BN_LAYER1, "plain"),
+             "stem": bn_time(torch, fbn, gen, dev, BN_STEM, "none")}
+    rows = []
+    for name in BN_KERNELS:
+        t = times["stem" if name == "bn_pool_apply" else "layer1"][name]
+        rows.append({"name": name, "route": "cuda",
+                     "source": "paddle_tpu_torch/csrc/fused_bn_act.cu",
+                     "replaces": f"paddle_tpu/ops/fused_bn_act.py:"
+                                 f"{BN_LINES[name]}",
+                     "max_abs_err": errs[name], **t})
+    return rows
+
+
+def bn_sites(model):
+    """(single, dual, pooled) fused-BN call sites of one ResNet forward,
+    read from the model's blocks the way ``vision.models.resnet`` routes
+    them: bn1 (and bn2 of a bottleneck) are single sites; the last BN of a
+    block is dual when its downsample splits into (conv, BatchNorm), else
+    single; the stem is pooled when its max pool is fusable."""
+    from paddle_tpu_torch.ops.fused_bn_act import fusable_pool_spec
+    from paddle_tpu_torch.vision.models.resnet import (BottleneckBlock,
+                                                       _split_downsample)
+    pooled = int(fusable_pool_spec(model.maxpool, model.data_format)
+                 is not None)
+    single, dual = 1 - pooled, 0
+    for layer in (model.layer1, model.layer2, model.layer3, model.layer4):
+        for blk in layer:
+            single += 2 if isinstance(blk, BottleneckBlock) else 1
+            if _split_downsample(blk.downsample) is not None:
+                dual += 1
+            else:
+                single += 1
+    return single, dual, pooled
+
+
+def bn_launches_per_step(model):
+    """Expected K5-K9 launches of one training step (forward + backward):
+    K5 once per single site, twice per dual and once at the pooled stem;
+    K6, K7 and K8 once per single or dual site; K9 once per pooled site
+    (its backward is plain tensor code)."""
+    single, dual, pooled = bn_sites(model)
+    return {"bn_stats": single + 2 * dual + pooled,
+            "bn_apply": single + dual, "bn_bwd_reduce": single + dual,
+            "bn_bwd_dx": single + dual, "bn_pool_apply": pooled}
+
+
+def bn_step_bounds(model, batch: int, hw: int):
+    """Per-step bound (ms, bytes at 3.35 TB/s) of each of K5-K9 over this
+    ResNet's BatchNorm sites for a batch of batch x hw x hw, the site
+    shapes read from the blocks' convolution strides and BatchNorm
+    widths: each input read once, each output written once (bf16)."""
+    from paddle_tpu_torch.ops.fused_bn_act import _pool_out
+    from paddle_tpu_torch.vision.models.resnet import (BottleneckBlock,
+                                                       _split_downsample)
+
+    def stride(conv):
+        st = conv.stride
+        return st[0] if isinstance(st, (tuple, list)) else int(st)
+    total = dict.fromkeys(BN_KERNELS, 0.0)
+
+    def site(m, c, res):
+        for name in ("bn_stats",) + (("bn_stats",) if res == "dual" else ()):
+            total[name] += bn_bytes_ops(name, m, c, 2, res)[0]
+        for name in ("bn_apply", "bn_bwd_reduce", "bn_bwd_dx"):
+            total[name] += bn_bytes_ops(name, m, c, 2, res)[0]
+    h = hw // stride(model.conv1)
+    c0 = model.bn1.num_features
+    ho, _ = _pool_out(h, h, (3, 3), (2, 2), (1, 1))
+    total["bn_stats"] += bn_bytes_ops("bn_stats", batch * h * h, c0, 2,
+                                      "none")[0]
+    total["bn_pool_apply"] += bn_bytes_ops(
+        "bn_pool_apply", batch * h * h, c0, 2, "none", mo=batch * ho * ho)[0]
+    h = ho
+    for layer in (model.layer1, model.layer2, model.layer3, model.layer4):
+        for blk in layer:
+            last = blk.bn3 if isinstance(blk, BottleneckBlock) else blk.bn2
+            res = ("dual" if _split_downsample(blk.downsample) is not None
+                   else "plain")
+            if isinstance(blk, BottleneckBlock):
+                site(batch * h * h, blk.bn1.num_features, "none")
+                h //= stride(blk.conv2)
+                site(batch * h * h, blk.bn2.num_features, "none")
+            else:
+                h //= stride(blk.conv1)
+                site(batch * h * h, blk.bn1.num_features, "none")
+            site(batch * h * h, last.num_features, res)
+    return {k: v / HBM_BYTES_PER_S * 1e3 for k, v in total.items()}
+
+
+def resnet_phase(torch, args, dev, card):
+    """ResNet-50, BASELINE config #2: the conv-net leg of the main path."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit import TrainStep, layout_policy
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import fused_bn_act as fbn
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+    pt.seed(args.seed)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with layout_policy("NHWC"):
+        model = resnet50(device=dev, seed=args.seed)
+        per_step = bn_launches_per_step(model)
+        want = {"bn_stats": 53, "bn_apply": 48, "bn_bwd_reduce": 48,
+                "bn_bwd_dx": 48, "bn_pool_apply": 1}
+        if per_step != want:
+            fail(f"ResNet-50's fused-BN sites give {per_step} launches per "
+                 f"step, not {want}")
+        opt = Momentum(learning_rate=0.1, momentum=0.9,
+                       parameters=model.parameters())
+        step = TrainStep(model, lambda lg, y: F.cross_entropy(lg, y), opt,
+                         amp_level="O2", amp_dtype="bfloat16")
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        x = torch.randn(RESNET_B, 3, RESNET_HW, RESNET_HW, generator=gen,
+                        device=dev)
+        y = torch.randint(0, 1000, (RESNET_B,), generator=gen, device=dev)
+        entries = (fbn.bn_act_train, fbn.bn2_act_train,
+                   fbn.bn_act_pool_train)
+        torch.cuda.synchronize()
+        for name in BN_KERNELS:
+            getattr(fbn, name).launches = 0
+        for e in entries:
+            e.relayouts = 0
+        losses, t_steps = [], []
+        for _ in range(RESNET_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step(x, y))
+            torch.cuda.synchronize()
+            t_steps.append(time.perf_counter() - t0)
+        launches = {n: getattr(fbn, n).launches for n in BN_KERNELS}
+        relayouts = sum(e.relayouts for e in entries)
+        vals = [float(v) for v in losses]
+        print("resnet: losses " + ", ".join(f"{v:.4f}" for v in vals))
+        if not all(np.isfinite(vals)):
+            fail(f"non-finite ResNet-50 training loss: {vals}")
+        expect = {k: v * RESNET_STEPS for k, v in per_step.items()}
+        if launches != expect:
+            fail(f"K5-K9 launches {launches}, expected {expect} "
+                 f"({per_step} per step x {RESNET_STEPS} steps)")
+        steady = float(np.median(t_steps[2:])) * 1e3
+        print(f"resnet [{card}]: ResNet-50 b{RESNET_B} {RESNET_HW}x"
+              f"{RESNET_HW} O2 bf16 NHWC, Momentum(0.1, 0.9): first step "
+              f"{t_steps[0] * 1e3:.1f} ms, steady step {steady:.1f} ms "
+              f"(median of steps 3-{RESNET_STEPS}), "
+              f"{RESNET_B / steady * 1e3:.1f} images/s; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB; "
+              f"K5-K9 launches per step {per_step}; layout copies per step "
+              f"{relayouts / RESNET_STEPS:g}")
+        groups = {f"{n} (K{5 + i})": (f"{n}_kernel",)
+                  for i, n in enumerate(BN_KERNELS)}
+        groups["bn_sum_partials (K5, K7)"] = ("bn_sum_partials",)
+        groups["convolutions (cuDNN)"] = (
+            "conv", "xmma", "cudnn", "cutlass", "implicit_gemm", "dgrad",
+            "wgrad", "fprop", "nhwc", "nchw")
+        _, busy, sums = device_profile(
+            torch, lambda: step(x, y), 1, f"train step (ResNet-50, "
+            f"b{RESNET_B} x {RESNET_HW}^2, O2 bf16, NHWC)", card,
+            groups=groups, top=14)
+        bounds = bn_step_bounds(model, RESNET_B, RESNET_HW)
+        fused = sum(v for k, v in sums.items() if k.startswith("bn_"))
+        print(f"resnet: K5-K9 per step {fused:.3f} ms of {busy or 0:.3f} ms "
+              f"device time; per kernel, device ms vs bound ms over this "
+              "step's sites: " + ", ".join(
+                  f"{n} {sums.get(f'{n} (K{5 + i})', 0.0):.3f} vs "
+                  f"{bounds[n]:.3f}" for i, n in enumerate(BN_KERNELS))
+              + f" (K5-K8 bound {sum(bounds.values()) - bounds['bn_pool_apply']:.3f})")
+    del step, model, opt, x
+    torch.cuda.empty_cache()
+    return launches
+
+
+def resnet_check_phase(torch, args, dev):
+    """One f32 ResNet-18 step (10 classes, 4 x 3 x 64 x 64) on the kernel
+    path (NHWC policy) against the plain path on the CPU, same weights and
+    batch: loss, gradients and running statistics."""
+    from paddle_tpu_torch.jit import forward_loss, layout_policy
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import fused_bn_act as fbn
+    from paddle_tpu_torch.vision.models import resnet18
+    rng = np.random.RandomState(args.seed + 4)
+    batch = (rng.randn(4, 3, 64, 64).astype(np.float32),
+             rng.randint(0, 10, (4,)))
+    gpu = resnet18(num_classes=10, device=dev, seed=args.seed + 4)
+    cpu = copy.deepcopy(gpu).cpu()
+    out = []
+    for model, d, policy in ((gpu, dev, "NHWC"),
+                             (cpu, torch.device("cpu"), None)):
+        n0 = {k: getattr(fbn, k).launches for k in BN_KERNELS}
+        x, y = (torch.from_numpy(a).to(d) for a in batch)
+        with layout_policy(policy):
+            loss = forward_loss(model, lambda lg, yy: F.cross_entropy(lg, yy),
+                                (x, y))
+            names = [n for n, _ in model.named_parameters()]
+            grads = torch.autograd.grad(loss, [p for _, p in
+                                               model.named_parameters()])
+        stats = {k: v.detach().cpu() for k, v in model.state_dict().items()
+                 if k.endswith(("_mean", "_variance"))}
+        out.append((float(loss.detach()),
+                    {n: g.cpu() for n, g in zip(names, grads)}, stats,
+                    {k: getattr(fbn, k).launches - n0[k]
+                     for k in BN_KERNELS}))
+    (lg, gg, sg, ng), (lc, gc, sc, nc) = out
+    if ng != bn_launches_per_step(gpu) or any(nc.values()):
+        fail(f"ResNet-18 check: kernel launches {ng} on the card, {nc} on "
+             f"the CPU; expected {bn_launches_per_step(gpu)} and none")
+
+    def worst(a, b):
+        return max(((a[k] - b[k]).abs().max() / b[k].abs().max()
+                    .clamp_min(1e-30)).item() for k in b)
+    wg, ws = worst(gg, gc), worst(sg, sc)
+    print(f"resnetcheck: ResNet-18 f32 step, kernel path vs CPU plain path: "
+          f"loss {lg:.6f} vs {lc:.6f}; largest gradient difference {wg:.2e} "
+          f"and running-statistic difference {ws:.2e} of their tensor's "
+          f"max (tolerance {GRAD_TOL}) over {len(gc)} parameters and "
+          f"{len(sc)} statistics; launches {ng}")
+    if not abs(lg - lc) <= GRAD_TOL * abs(lc) or not wg <= GRAD_TOL or \
+            not ws <= GRAD_TOL:
+        fail("the kernel-path ResNet step disagrees with the plain path")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -718,6 +1310,10 @@ def main():
     kernels += flash_phase(torch, rng, dev)
     launches.update(train_phase(torch, args, dev, card))
     train_check_phase(torch, args, dev)
+    torch.cuda.empty_cache()
+    kernels += bn_phase(torch, args, dev)
+    launches.update(resnet_phase(torch, args, dev, card))
+    resnet_check_phase(torch, args, dev)
     if any(m.startswith("paddle_tpu.") or m in ("jax", "paddle_tpu")
            for m in sys.modules):
         fail("the JAX package was imported")

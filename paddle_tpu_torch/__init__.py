@@ -7,11 +7,11 @@ reference wrote as Pallas TPU kernels are hand-written CUDA kernels here
 version, which runs for CPU tensors.  Entry points run on the card unless
 the caller passes ``device="cpu"``.
 """
-from . import (amp, generation, jit, models, optimizer,  # noqa: F401
-               quantization, serving)
+from . import (amp, generation, jit, models, nn, optimizer,  # noqa: F401
+               quantization, serving, vision)
 from .core.rng import seed  # noqa: F401
 from .weights import load_paddle_opt_state, load_paddle_state  # noqa: F401
 
-__all__ = ["amp", "generation", "jit", "models", "optimizer",
-           "quantization", "serving", "seed", "load_paddle_state",
+__all__ = ["amp", "generation", "jit", "models", "nn", "optimizer",
+           "quantization", "serving", "vision", "seed", "load_paddle_state",
            "load_paddle_opt_state"]

@@ -5,8 +5,11 @@ O1 a white-listed op casts its float inputs to the low type and a
 black-listed one to f32; under O2 every op that is not black-listed casts
 to the low type.  The port has no dispatcher, so its own entry points ask
 ``amp_cast(name, *tensors)``: ``linear`` (bias included, so its output
-stays bf16), ``matmul``, ``scaled_dot_product_attention``, ``layer_norm``,
-``softmax`` and ``cross_entropy``.  ``torch.autocast`` is not used: its
+stays bf16), ``matmul``, ``scaled_dot_product_attention``, ``conv2d``,
+``layer_norm``, ``batch_norm``, ``softmax`` and ``cross_entropy`` by their
+lists; ``fused_bn_act`` / ``fused_dual_bn_act`` (x, gamma, beta and the
+residual), the pools and ``relu`` / ``relu6`` are on neither list, so they
+cast under O2 only.  ``torch.autocast`` is not used: its
 lists differ, and it would let the bias add promote a Linear back to f32.
 The cast is a differentiable ``.to``, so each gradient comes back in its
 input's own type, as the reference's cast inside the vjp does.  Under O2

@@ -8,6 +8,15 @@ written back in place.  Nothing in the step reads a device value on the
 host: the loss is returned as a device tensor, and with ``guard=True`` the
 finiteness verdict selects the old or the new state on the device.
 
+Running statistics (BatchNorm's ``_mean`` / ``_variance``) are updated
+as the reference's compiled step updates them: the forward logs each
+update through ``core.buffer_updates.capture()``, the updates compound
+from one micro-batch to the next under ``accum_steps``, and the step
+writes them after the optimizer update, beside the parameters; under
+``guard=True`` a step that is not finite keeps the old buffers too.
+``layout_policy`` is re-exported here as in the reference
+(``jit.layout_policy("NHWC")``).
+
 As in the reference, ``TrainStep`` applies no ``grad_clip`` (its compiled
 step never clips; only the eager ``Optimizer.step`` does).
 
@@ -25,11 +34,14 @@ import numpy as np
 import torch
 
 from .. import amp as amp_mod
+from ..core import buffer_updates as _bufup
 from ..core import rng
+from ..core.layout import layout_policy  # noqa: F401  (jit.layout_policy)
 from ..core.errors import UnimplementedError
 from ..optimizer.functional import apply_updates, decay_flags
 
-__all__ = ["state_arrays", "forward_loss", "guard_select", "TrainStep"]
+__all__ = ["state_arrays", "forward_loss", "guard_select", "TrainStep",
+           "layout_policy"]
 
 _LATER = "comes with a later slice of the port"
 
@@ -127,7 +139,15 @@ class TrainStep:
                 for k in self._trainable}
 
     def _grads(self, params, batch, gen):
-        """(loss, {name: grad}) over ``accum_steps`` micro-batches."""
+        """(loss, {name: grad}, {buffer name: new value}) over
+        ``accum_steps`` micro-batches; buffer updates are logged, not
+        applied, and compound from one micro-batch to the next."""
+        with _bufup.capture() as log:
+            loss, grads = self._micro_grads(params, batch, gen)
+        return loss, grads, _bufup.resolve(
+            log, self.model.state_dict(keep_vars=True))
+
+    def _micro_grads(self, params, batch, gen):
         args = [params[k] for k in self._trainable]
 
         def one(micro):
@@ -167,7 +187,7 @@ class TrainStep:
                 {k: p.detach() for k, p in params.items()})
         dev = next(iter(params.values())).device
         gen = rng.step_generator(dev)   # fresh per step: masks differ
-        loss, grads = self._grads(params, batch, gen)
+        loss, grads, bufs = self._grads(params, batch, gen)
         opt = self.optimizer
         opt._step_count += 1
         lr = float(np.float32(opt.get_lr()))
@@ -176,12 +196,15 @@ class TrainStep:
             new_params, new_opt = apply_updates(
                 opt, cur, grads, self._opt_state, lr, opt._step_count,
                 self._decay)
+            # running statistics ride the same step, after the update
+            cur.update({k: state[k].detach() for k in bufs})
+            new_params.update(bufs)
             if self._guard:
                 new_params, new_opt, gnorm, ok = guard_select(
                     cur, self._opt_state, new_params, new_opt, loss, grads)
                 self.last_guard = (gnorm, ok)
-            torch._foreach_copy_(list(params.values()),
-                                 [new_params[k] for k in params])
+            torch._foreach_copy_([state[k] for k in new_params],
+                                 list(new_params.values()))
             self._opt_state = new_opt
         return loss
 

@@ -1,4 +1,5 @@
 from . import functional  # noqa: F401
-from .layer import (Dropout, Embedding, LayerList, LayerNorm,  # noqa: F401
-                    Linear)
+from .layer import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D,  # noqa: F401
+                    Dropout, Embedding, LayerList, LayerNorm, Linear,
+                    MaxPool2D, ReLU, Sequential)
 from .layer_base import Layer  # noqa: F401

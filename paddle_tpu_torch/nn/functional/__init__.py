@@ -1,12 +1,20 @@
-"""Functional ops on the GPT serving and training paths."""
+"""Functional ops on the GPT serving and training paths and the ResNet
+training path."""
 from __future__ import annotations
 
 from ...tensor.linalg import matmul  # noqa: F401
-from .activation import gelu, softmax  # noqa: F401
+from .activation import gelu, relu, relu6, softmax  # noqa: F401
 from .attention import scaled_dot_product_attention  # noqa: F401
 from .common import dropout, linear  # noqa: F401
+from .conv import conv2d  # noqa: F401
 from .loss import cross_entropy  # noqa: F401
-from .norm import layer_norm  # noqa: F401
+from .norm import (batch_norm, bn_act_composite, fused_bn_act,  # noqa: F401
+                   fused_dual_bn_act, layer_norm)
+from .pooling import (adaptive_avg_pool2d, avg_pool2d,  # noqa: F401
+                      max_pool2d)
 
-__all__ = ["cross_entropy", "dropout", "gelu", "layer_norm", "linear",
-           "matmul", "scaled_dot_product_attention", "softmax"]
+__all__ = ["adaptive_avg_pool2d", "avg_pool2d", "batch_norm",
+           "bn_act_composite", "conv2d", "cross_entropy", "dropout",
+           "fused_bn_act", "fused_dual_bn_act", "gelu", "layer_norm",
+           "linear", "matmul", "max_pool2d", "relu", "relu6",
+           "scaled_dot_product_attention", "softmax"]

@@ -5,7 +5,7 @@ import torch
 
 from ...amp import amp_cast
 
-__all__ = ["gelu", "softmax"]
+__all__ = ["gelu", "relu", "relu6", "softmax"]
 
 
 def gelu(x, approximate: bool = False):
@@ -19,3 +19,13 @@ def softmax(x, axis: int = -1):
     """Softmax along ``axis``; AMP black-listed (f32 under O1)."""
     (x,) = amp_cast("softmax", x)
     return torch.softmax(x, dim=axis)
+
+
+def relu(x):
+    (x,) = amp_cast("relu", x)
+    return torch.relu(x)
+
+
+def relu6(x):
+    (x,) = amp_cast("relu6", x)
+    return torch.clamp(x, 0.0, 6.0)

@@ -28,7 +28,7 @@ __all__ = ["SOURCES", "build_all", "load", "function", "check"]
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("flash_attention", "int8_matmul", "paged_attention")
+SOURCES = ("flash_attention", "fused_bn_act", "int8_matmul", "paged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,3 +1,3 @@
-from .optimizer import Adam, AdamW, Optimizer  # noqa: F401
+from .optimizer import Adam, AdamW, Momentum, Optimizer  # noqa: F401
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["Optimizer", "Momentum", "Adam", "AdamW"]

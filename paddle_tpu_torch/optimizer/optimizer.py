@@ -12,8 +12,9 @@ it to every parameter with a gradient (after the optimizer's
 update (learning rate, bias corrections, decay coefficients) is done in
 float32 on the host, as the reference does it in f32 on the device, so the
 two frameworks compute the same update from the same gradient.  Moments are
-f32 whatever the parameter type.  Learning-rate schedulers come with a
-later slice of the port.
+f32 whatever the parameter type (Adam); Momentum's velocity is in the
+parameter's type, as the reference's.  Learning-rate schedulers come with
+a later slice of the port.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import torch
 
 from ..core.errors import UnimplementedError
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["Optimizer", "Momentum", "Adam", "AdamW"]
 
 
 def _f32(x) -> float:
@@ -106,6 +107,31 @@ class Optimizer:
     def clear_grad(self):
         for p in self._parameter_list or []:
             p.grad = None
+
+
+class Momentum(Optimizer):
+    """Momentum SGD, with Nesterov's form as an option (reference:
+    operators/optimizers/momentum_op): v = momentum * v + g;
+    p -= lr * v, or p -= lr * (g + momentum * v) with nesterov."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def init_state(self, p):
+        return {"velocity": torch.zeros_like(p)}
+
+    def update_many(self, ps, gs, states, lr, step):
+        fe = torch
+        gs = [g.to(p.dtype) for g, p in zip(gs, ps)]
+        v = fe._foreach_mul([s["velocity"] for s in states], self._momentum)
+        fe._foreach_add_(v, gs)
+        upd = (fe._foreach_add(gs, fe._foreach_mul(v, self._momentum))
+               if self._nesterov else v)
+        new = fe._foreach_sub(ps, fe._foreach_mul(upd, lr))
+        return new, [{"velocity": t} for t in v]
 
 
 class Adam(Optimizer):

@@ -1,1 +1,2 @@
 from .linalg import matmul  # noqa: F401
+from .manipulation import flatten  # noqa: F401

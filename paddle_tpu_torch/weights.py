@@ -10,8 +10,9 @@ tensor only float data.
 
 ``load_paddle_opt_state(step, opt_state)`` carries the reference's
 ``TrainStep`` optimizer state (``{name: {"moment1": ..., "moment2": ...}}``
-as its ``init_opt_state`` builds it) into a port ``jit.TrainStep``, so a
-resumed comparison starts from equal moments.
+for Adam, ``{name: {"velocity": ...}}`` for Momentum, as its
+``init_opt_state`` builds it) into a port ``jit.TrainStep``, so a resumed
+comparison starts from equal slots.
 """
 from __future__ import annotations
 
@@ -55,10 +56,11 @@ def load_paddle_state(model: torch.nn.Module, state: Mapping[str, np.ndarray]):
 def load_paddle_opt_state(train_step, opt_state: Mapping[str, Mapping],
                           step_count=None):
     """Set ``train_step``'s optimizer state from the reference's
-    (``name -> {slot: array}``, one entry per trainable state name), as
-    f32 tensors on each parameter's device; with ``step_count``, also the
-    optimizer's step counter (Adam's bias corrections read it).  Returns
-    the train step."""
+    (``name -> {slot: array}``, one entry per trainable state name), each
+    slot in the type and on the device the port's optimizer keeps it
+    (``init_state``: f32 moments, Momentum's velocity in the parameter's
+    type); with ``step_count``, also the optimizer's step counter (Adam's
+    bias corrections read it).  Returns the train step."""
     state = train_step.model.state_dict(keep_vars=True)
     want = set(train_step._trainable)
     missing = sorted(want - set(opt_state))
@@ -70,6 +72,12 @@ def load_paddle_opt_state(train_step, opt_state: Mapping[str, Mapping],
     out = {}
     for name in train_step._trainable:
         p = state[name]
+        like = train_step.optimizer.init_state(p.detach())
+        if set(like) != set(opt_state[name]):
+            raise InvalidArgumentError(
+                f"load_paddle_opt_state: {name} has slots "
+                f"{sorted(opt_state[name])}, the optimizer keeps "
+                f"{sorted(like)}")
         slots = {}
         for slot, arr in opt_state[name].items():
             src = np.asarray(arr)
@@ -78,7 +86,7 @@ def load_paddle_opt_state(train_step, opt_state: Mapping[str, Mapping],
                     f"load_paddle_opt_state: {name}.{slot} has shape "
                     f"{tuple(src.shape)}, the parameter {tuple(p.shape)}")
             slots[slot] = torch.from_numpy(np.array(src, np.float32)).to(
-                p.device)
+                p.device, like[slot].dtype)
         out[name] = slots
     train_step._opt_state = out
     if step_count is not None:

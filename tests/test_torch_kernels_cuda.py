@@ -9,12 +9,14 @@ PyTorch and the CUDA toolkit:
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest -q
 
 Tolerances: f32 kernels against f32 plain versions that sum in another
-order; |kernel - plain| <= 1e-4 + 1e-4 * |plain|.
+order; |kernel - plain| <= 1e-4 + 1e-4 * |plain|.  The fused BatchNorm
+kernels (K5-K9) as stated beside their tests.
 """
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.ops import fused_bn_act as fbn
 from paddle_tpu_torch.ops import int8_matmul, paged_attention as pa
 from paddle_tpu_torch.quantization import quantize_weight_int8
 
@@ -295,3 +297,232 @@ def test_flash_backward_rejects_mismatched_saved_tensors(cuda):
     with pytest.raises(ValueError):     # lse of another shape
         fa.flash_bwd(q, q, q, None, None, None, seed, o, lse[:, :1], q,
                      True, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# K5-K9: fused training BatchNorm
+# ---------------------------------------------------------------------------
+# The elementwise kernels round x*a + b like the plain version (no fused
+# multiply-add), so their outputs and activation masks match it; the column
+# sums (K5, K7) add over up to 3.2 M rows in another order.  f32: within
+# 1e-5 of each tensor's largest |value|; bf16 outputs: within one bf16 unit,
+# 1e-2 + 1e-2 * |plain|.
+
+def _assert_bn(got, want):
+    if want.dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                                   atol=1e-2)
+    else:
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max()) or 1.0
+        assert err <= 1e-5 * scale, (err, scale)
+
+
+def _bn_rows(cuda, m, c, dtype, seed, shift=0.5):
+    rng = np.random.RandomState(seed)
+    t = rng.randn(m, c).astype(np.float32) * 1.5 + shift
+    return torch.from_numpy(t).to(cuda).to(dtype)
+
+
+def _bn_coef(cuda, c, seed, backward=False):
+    rng = np.random.RandomState(seed)
+    rows = [rng.rand(c) + 0.5, rng.randn(c), 0.3 * rng.randn(c),
+            rng.rand(c) + 0.5]
+    rows += [rng.randn(c) for _ in range(3)] if backward else \
+        [np.zeros(c)] * 3
+    rows.append(np.zeros(c))
+    return torch.from_numpy(np.stack(rows).astype(np.float32)).to(cuda)
+
+
+BN_SHAPES = [(1037, 24), (515, 40), (333, 7), (3001, 64), (12544, 2048)]
+
+
+@pytest.mark.parametrize("m,c", BN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_stats_kernel_matches_plain(cuda, m, c, dtype):
+    x = _bn_rows(cuda, m, c, dtype, m + c)
+    n = fbn.bn_stats.launches
+    got = fbn.bn_stats(x)
+    torch.cuda.synchronize()
+    assert fbn.bn_stats.launches == n + 1
+    for g, w in zip(got, fbn._plain_stats(x)):
+        _assert_bn(g, w)
+
+
+def test_bn_column_sums_are_bit_equal_run_to_run(cuda):
+    """K5 and K7 add their per-chunk partials in a fixed order (no
+    atomics): two calls give bit-equal sums."""
+    m, c = 3 * 64 * 112 * 112, 64           # three stem images
+    x = _bn_rows(cuda, m, c, torch.bfloat16, 13)
+    g = _bn_rows(cuda, m, c, torch.bfloat16, 14, shift=0.0)
+    coef = _bn_coef(cuda, c, 15, backward=True)
+    for a, b in zip(fbn.bn_stats(x) + fbn.bn_bwd_reduce(g, x, coef),
+                    fbn.bn_stats(x) + fbn.bn_bwd_reduce(g, x, coef)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("m,c", BN_SHAPES[:4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", [None, "relu", "relu6"])
+@pytest.mark.parametrize("res", ["none", "plain", "dual"])
+def test_bn_elementwise_kernels_match_plain(cuda, m, c, dtype, act, res):
+    """K6, K7 and K8 on the same inputs as their plain versions."""
+    x = _bn_rows(cuda, m, c, dtype, 1)
+    g = _bn_rows(cuda, m, c, dtype, 2, shift=0.0)
+    r = None if res == "none" else _bn_rows(cuda, m, c, dtype, 3)
+    coef = _bn_coef(cuda, c, 4, backward=True)
+    coefr = _bn_coef(cuda, c, 5, backward=True) if res == "dual" else None
+    counts = [f.launches for f in (fbn.bn_apply, fbn.bn_bwd_reduce,
+                                   fbn.bn_bwd_dx)]
+    y = fbn.bn_apply(x, coef, r, act, coefr)
+    sums = fbn.bn_bwd_reduce(g, x, coef, r, act, coefr)
+    dx, dres = fbn.bn_bwd_dx(g, x, coef, r, act, coefr)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (fbn.bn_apply, fbn.bn_bwd_reduce,
+                                 fbn.bn_bwd_dx)] == [n + 1 for n in counts]
+    _assert_bn(y, fbn._plain_apply(x, coef, r, act, coefr))
+    want = fbn._plain_bwd_reduce(g, x, coef, r, act, coefr)
+    assert len(sums) == len(want) == (3 if res == "dual" else 2)
+    for s, w in zip(sums, want):
+        _assert_bn(s, w)
+    pdx, pdres = fbn._plain_bwd_dx(g, x, coef, r, act, coefr)
+    _assert_bn(dx, pdx)
+    assert (dres is None) == (pdres is None)
+    if dres is not None:
+        _assert_bn(dres, pdres)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_kernels_at_a_main_path_shape(cuda, dtype):
+    """layer1's bn3 with its residual: M = 64 * 56 * 56 rows (batch 64),
+    C = 256, relu."""
+    m, c = 64 * 56 * 56, 256
+    x = _bn_rows(cuda, m, c, dtype, 6)
+    g = _bn_rows(cuda, m, c, dtype, 7, shift=0.0)
+    r = _bn_rows(cuda, m, c, dtype, 8)
+    coef = _bn_coef(cuda, c, 9, backward=True)
+    for got, want in zip(fbn.bn_stats(x), fbn._plain_stats(x)):
+        _assert_bn(got, want)
+    _assert_bn(fbn.bn_apply(x, coef, r, "relu"),
+               fbn._plain_apply(x, coef, r, "relu"))
+    for got, want in zip(fbn.bn_bwd_reduce(g, x, coef, r, "relu"),
+                         fbn._plain_bwd_reduce(g, x, coef, r, "relu")):
+        _assert_bn(got, want)
+    for got, want in zip(fbn.bn_bwd_dx(g, x, coef, r, "relu"),
+                         fbn._plain_bwd_dx(g, x, coef, r, "relu")):
+        _assert_bn(got, want)
+
+
+@pytest.mark.parametrize("shape", [(2, 9, 11, 24), (3, 8, 8, 40),
+                                   (1, 7, 5, 3), (4, 112, 112, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", [None, "relu", "relu6"])
+@pytest.mark.parametrize("pool", [("max", (3, 3), (2, 2), (1, 1)),
+                                  ("avg", (3, 3), (2, 2), (1, 1)),
+                                  ("max", (2, 3), (2, 1), (0, 1))])
+def test_bn_pool_kernel_matches_plain(cuda, shape, dtype, act, pool):
+    """K9; max is exact, avg sums its window in another order."""
+    n, h, w, c = shape
+    x = _bn_rows(cuda, n * h * w, c, dtype, 10).view(n, h, w, c)
+    coef = _bn_coef(cuda, c, 11)
+    kind, k, s, p = pool
+    before = fbn.bn_pool_apply.launches
+    got = fbn.bn_pool_apply(x, coef, act, kind, k, s, p)
+    torch.cuda.synchronize()
+    assert fbn.bn_pool_apply.launches == before + 1
+    want = fbn._plain_pool_apply(x, coef, act, kind, k, s, p)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    _assert_bn(got, want)
+
+
+def _grads_of(fn, ins, cts):
+    ins = [t.detach().clone().requires_grad_() for t in ins]
+    outs = fn(*ins)
+    grads = torch.autograd.grad(outs, ins, cts)
+    return [o.detach() for o in outs], list(grads)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((3, 24, 7, 9), torch.float32), ((2, 40, 5, 11), torch.bfloat16),
+    ((64, 256, 56, 56), torch.bfloat16)])
+@pytest.mark.parametrize("act", [None, "relu"])
+@pytest.mark.parametrize("form", ["single", "residual", "dual", "pool"])
+def test_bn_functions_match_plain_autograd(cuda, shape, dtype, act, form):
+    """bn_act_train / bn2_act_train / bn_act_pool_train (their kernels in
+    both directions) against autograd of the plain references: outputs,
+    f32 statistics and the gradients of x, gamma, beta and the residual,
+    for a logical NCHW input in channels_last memory.  The statistics enter
+    every output, so the tolerances are those of the statistics: f32
+    within 1e-4 of each tensor's largest |value|; bf16 2e-2 of it plus
+    2e-2 * |plain|."""
+    if form == "pool" and shape[1] > 64:
+        pytest.skip("the pooled stem is the only pooled site")
+    rng = np.random.RandomState(12)
+    n, c, h, w = shape
+
+    def act_t(*s):
+        t = torch.from_numpy(rng.randn(*s).astype(np.float32) + 0.3)
+        return t.to(cuda).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+    x, r = act_t(n, c, h, w), act_t(n, c, h, w)
+    gamma = torch.from_numpy(rng.rand(c).astype(np.float32) + 0.5).to(cuda)
+    beta = torch.from_numpy(rng.randn(c).astype(np.float32)).to(cuda)
+    gr = torch.from_numpy(rng.rand(c).astype(np.float32) + 0.5).to(cuda)
+    br = torch.from_numpy(rng.randn(c).astype(np.float32)).to(cuda)
+    cm = torch.from_numpy(rng.randn(c).astype(np.float32)).to(cuda)
+    pool = ("max", 3, 2, 1)
+    if form == "single":
+        ins = [x, gamma, beta]
+        k = lambda x, g, b: fbn.bn_act_train(x, g, b, 1e-5, act, None, False)
+        p = lambda x, g, b: fbn.bn_act_reference(x, g, b, 1e-5, act, None, 1)
+    elif form == "residual":
+        ins = [x, gamma, beta, r]
+        k = lambda x, g, b, r: fbn.bn_act_train(x, g, b, 1e-5, act, r, False)
+        p = lambda x, g, b, r: fbn.bn_act_reference(x, g, b, 1e-5, act, r, 1)
+    elif form == "dual":
+        ins = [x, gamma, beta, r, gr, br]
+        k = lambda *a: fbn.bn2_act_train(*a, 1e-5, act, False)
+        p = lambda *a: fbn.bn2_act_reference(*a, 1e-5, act, 1)
+    else:
+        ins = [x, gamma, beta]
+        k = lambda x, g, b: fbn.bn_act_pool_train(x, g, b, 1e-5, act, pool,
+                                                  False)
+        p = lambda x, g, b: fbn.bn_act_pool_reference(x, g, b, 1e-5, act,
+                                                      pool, 1)
+    with torch.no_grad():
+        y0 = p(*ins)
+    cts = [act_t(*y0[0].shape)] + [cm * 0.1 for _ in y0[1:]]
+    relayouts = fbn.bn_act_train.relayouts + fbn.bn2_act_train.relayouts
+    kout, kgrads = _grads_of(k, ins, cts)
+    pout, pgrads = _grads_of(p, ins, cts)
+    torch.cuda.synchronize()
+    assert fbn.bn_act_train.relayouts + fbn.bn2_act_train.relayouts == \
+        relayouts
+    for got, want in zip(kout + kgrads, pout + pgrads):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        got, want = got.float(), want.float()
+        scale = float(want.abs().max())
+        if dtype == torch.bfloat16:
+            bad = (got - want).abs() > 2e-2 * scale + 2e-2 * want.abs()
+        else:
+            bad = (got - want).abs() > 1e-4 * scale
+        # the two paths sum the batch statistics in other orders, so where
+        # the pre-activation lies within a rounding of 0 the activation's
+        # mask may differ: at most one element in a million may differ so
+        assert int(bad.sum()) <= max(0, got.numel() // 1_000_000), (
+            int(bad.sum()), float((got - want).abs().max()), scale)
+
+
+def test_bn_kernels_reject_what_they_do_not_take(cuda):
+    x = torch.zeros(16, 8, device=cuda)
+    coef = torch.zeros(8, 8, device=cuda)
+    with pytest.raises(TypeError):
+        fbn.bn_stats(x.half())
+    with pytest.raises(ValueError):
+        fbn.bn_stats(x.t())                              # not (M, C) rows
+    with pytest.raises(ValueError):
+        fbn.bn_apply(x, coef[:4])                        # coef not (8, C)
+    with pytest.raises(ValueError):
+        fbn.bn_apply(x, coef, x.cpu())                   # residual on CPU
+    with pytest.raises(ValueError):
+        fbn.bn_bwd_dx(x[:8], x, coef)                    # g of another shape
