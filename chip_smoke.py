@@ -28,13 +28,19 @@ Phases (any failure exits non-zero before the result line):
                 printed.
   6. fixed    — a 4-layer full-width f32 engine on the fixed pool: greedy
                 streams must equal solo generate().
-  7. flash    — the flash kernels K1 (forward) and K2 (backward) against
-                their plain versions on the card at the training shape
-                (B 4, S 1024, H 16, D 64, causal, dropout 0.1, fixed seed)
-                in bf16 and f32, and at small shapes with a bias, segment
-                ids and Sk != Sq (every gradient, dbias included); then
-                timed like K3/K4 over 24 layers' tensors, beside the bound
-                and torch's scaled_dot_product_attention as the yardstick.
+  7. flash    — the tensor-core instructions (HMMA / HGMMA lines of
+                cuobjdump -sass) of every kernel in the built flash
+                library, failing if a bf16 (tensor-core route) kernel has
+                none; the flash kernels K1 (forward) and K2 (backward)
+                against their plain versions on the card at the training
+                shape (B 4, S 1024, H 16, D 64, causal, dropout 0.1, fixed
+                seed) in bf16 and f32, and at small shapes with a bias,
+                segment ids, Sk != Sq, D 128 and D 256, in both types
+                (every gradient, dbias included); two bf16 K2 calls at the
+                training shape must give bit-equal gradients, and the peak
+                memory of one call is printed; then timed like K3/K4 over
+                24 layers' tensors, beside the bound and torch's
+                scaled_dot_product_attention as the yardstick.
   8. train    — GPT-2 medium (24 x 1024, 16 heads, vocab 50304), B 4,
                 S 1024, O1 bf16, AdamW(1e-4), dropout 0.1, random weights
                 and one random batch from --seed, through jit.TrainStep:
@@ -532,11 +538,83 @@ def flash_check(torch, fa, args, label):
     return max(e for e, _ in errs.values())
 
 
+FLASH_TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
+                    "flash_bwd_dkdv_tc_kernel")
+
+
+def _cuobjdump() -> str:
+    """cuobjdump from PATH, the toolkit, or Triton's bundled copy."""
+    import shutil
+    from pathlib import Path
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    cands = [Path("/usr/local/cuda/bin/cuobjdump")]
+    try:
+        import triton
+        cands.append(Path(triton.__file__).parent / "backends" / "nvidia" /
+                     "bin" / "cuobjdump")
+    except ImportError:
+        pass
+    for c in cands:
+        if c.exists():
+            return str(c)
+    fail("cuobjdump not found (toolkit or triton/backends/nvidia/bin)")
+
+
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled symbol,
+    e.g. flash_fwd_tc_kernel<64,64,1>: the last length-prefixed name of
+    the (nested) symbol, then its integer and type arguments."""
+    import re
+    i = 2 if mangled.startswith("_Z") else 0
+    i += mangled[i:i + 1] == "N"
+    name = mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    rest = mangled[i:]
+    if not rest.startswith("I"):
+        return name
+    dtype = {"If": ["f32"], "I13__nv_bfloat16": ["bf16"]}
+    head = next((v for k, v in dtype.items() if rest.startswith(k)), [])
+    args = head + re.findall(r"L[ib](\d+)E", rest)
+    return f"{name}<{','.join(args)}>"
+
+
+def flash_sass_check():
+    """Tensor-core instructions (HMMA / HGMMA lines of the SASS) in every
+    kernel of the built flash library; fails unless each of the bf16
+    route's kernels (3 kinds x 3 head_dims) has some."""
+    from paddle_tpu_torch.ops import _build
+    lib = _build._target("flash_attention")
+    sass = subprocess.run([_cuobjdump(), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = _kernel_name(line.split("Function :")[1].strip())
+            counts[name] = 0
+        elif name and ("HMMA" in line or "HGMMA" in line):
+            counts[name] += 1
+    for n in sorted(counts):
+        print(f"sass {n}: {counts[n]} HMMA/HGMMA")
+    tc = {n: c for n, c in counts.items() if n.split("<")[0] in
+          FLASH_TC_KERNELS}
+    if len(tc) != 3 * len(FLASH_TC_KERNELS) or not all(tc.values()):
+        fail(f"a bf16 flash kernel has no tensor-core instruction: {tc}")
+    return tc
+
+
 def flash_phase(torch, rng, dev):
     """K1/K2 checked at the training shape in bf16 and f32 and at small
     variant shapes; timed at the training shape in bf16 per layer over 24
     layers' tensors."""
     from paddle_tpu_torch.ops import flash_attention as fa
+    flash_sass_check()
     b, s, h, d, p = TRAIN_B, TRAIN_S, 16, 64, 0.1
     seed = torch.tensor([20260417], dtype=torch.int32, device=dev)
     err_f, err_b = 0.0, 0.0
@@ -547,15 +625,19 @@ def flash_phase(torch, rng, dev):
                                         f"H={h} D={d} causal p={p}")
         err_f = max(err_f, e)
         torch.cuda.empty_cache()
-    for name, (bb, sq, sk, hh, dd, dt, causal, bias, seg, pp) in {
-            "bias": (2, 256, 256, 2, 64, torch.float32, False, True, False,
-                     0.0),
-            "segments": (2, 256, 256, 2, 128, torch.float32, False, False,
-                         True, 0.0),
-            "sk!=sq": (2, 128, 384, 2, 64, torch.bfloat16, True, False,
-                       False, 0.1),
-            "bias+dropout d256": (1, 256, 256, 2, 256, torch.float32, True,
-                                  True, False, 0.2)}.items():
+    for name, bb, sq, sk, hh, dd, dt, causal, bias, seg, pp in (
+            ("bias", 2, 256, 256, 2, 64, torch.float32, False, True, False,
+             0.0),
+            ("segments", 2, 256, 256, 2, 128, torch.float32, False, False,
+             True, 0.0),
+            ("sk!=sq", 2, 128, 384, 2, 64, torch.bfloat16, True, False,
+             False, 0.1),
+            ("bias+dropout d256", 1, 256, 256, 2, 256, torch.float32, True,
+             True, False, 0.2),
+            ("segments d128", 2, 256, 256, 2, 128, torch.bfloat16, False,
+             False, True, 0.0),
+            ("bias+dropout d256", 1, 256, 256, 2, 256, torch.bfloat16, True,
+             True, False, 0.2)):
         q, k, v, do, bi, qs, ks = _flash_inputs(
             torch, rng, dev, bb, sq, sk, hh, dd, dt, bias, seg)
         err_b = max(err_b, flash_check(
@@ -567,6 +649,29 @@ def flash_phase(torch, rng, dev):
                             torch.bfloat16)[:4] for _ in range(LAYERS)]
     saved = [fa.flash_fwd(q, k, v, None, None, None, seed, True, p)
              for q, k, v, _ in layers]
+    # K2 repeats bit for bit, and one call allocates no dQ partials
+    q, k, v, do = layers[0]
+    o, lse = saved[0]
+    first = fa.flash_bwd(q, k, v, None, None, None, seed, o, lse, do, True,
+                         p)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    second = fa.flash_bwd(q, k, v, None, None, None, seed, o, lse, do, True,
+                          p)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    same = all(torch.equal(x, y) for x, y in zip(first[:3], second[:3]))
+    partials = (s // 64) * b * h * s * d * 4
+    print(f"check flash K2 repeat (bf16 B={b} S={s} H={h} D={d} causal "
+          f"p={p}): dq, dk, dv {'bit-equal' if same else 'DIFFER'}; peak "
+          f"memory of one call {peak / 2 ** 20:.1f} MiB (the f32 dQ "
+          f"partials alone would be {partials / 2 ** 20:.1f} MiB)")
+    if not same:
+        fail("two flash backward calls on the same inputs differ")
+    if peak >= partials:
+        fail(f"a bf16 flash backward call took {peak} bytes")
+    del first, second
 
     def fwd(f):
         def run():
@@ -670,6 +775,8 @@ def train_phase(torch, args, dev, card):
                 "flash_attention_bwd": fa.flash_bwd.launches}
     vals = [float(x) for x in losses]
     print("train: losses " + ", ".join(f"{x:.4f}" for x in vals))
+    print("train: losses in full (f32 values, to compare runs bit for bit) "
+          + ", ".join(repr(x) for x in vals))
     want = cfg.num_hidden_layers * TRAIN_STEPS
     if not all(np.isfinite(vals)):
         fail(f"non-finite training loss: {vals}")
@@ -1297,9 +1404,12 @@ def main():
     print(f"build: {time.perf_counter() - t0:.2f}s "
           f"({len(rep['logs'])} compiled now)")
     for name, log in rep["logs"].items():
+        kern = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"build {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                kern = " " + _kernel_name(line.split("'")[1])
+            elif "registers" in line or "spill" in line:
+                print(f"build {name}{kern}: {line.strip()}")
     rng = np.random.RandomState(args.seed)
     kernels = [paged_phase(torch, rng, dev), int8_phase(torch, rng, dev)]
     torch.cuda.empty_cache()

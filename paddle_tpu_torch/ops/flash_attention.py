@@ -25,9 +25,12 @@ in the source.
   ``custom_vjp``): its forward runs K1 and saves O and the logsumexp, its
   backward runs K2.
 
-``flash_fwd.launches`` / ``flash_bwd.launches`` count kernel launches (the
-plain versions never count); one K2 launch runs its three kernels (delta,
-the merged backward, the dQ partial sum).
+``flash_fwd.launches`` / ``flash_bwd.launches`` count wrapper calls that
+launch kernels (the plain versions never count).  The kernel is picked by
+dtype: bf16 runs the tensor-core kernels, and one K2 call runs three of
+them (delta, dQ, dK/dV; deterministic, no scratch beyond delta); f32 runs
+the CUDA-core kernels, and one K2 call runs delta, the merged backward
+and the sum of its f32 dQ partials.
 
 Rows that see no key at all (causal with Sq > Sk, or no matching segment)
 are not defined by the reference: its output there depends on its block
@@ -263,6 +266,16 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _rows16(t):
+    """t itself when every (batch, seq, head) row starts on 16 bytes, as the
+    bf16 kernels' 16-byte copies need (the fused-QKV views do); else a
+    contiguous copy."""
+    if t.data_ptr() % 16 == 0 and all(
+            s % 8 == 0 for s in t.stride()[:3]):
+        return t
+    return torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
+
+
 def _strides(t):
     return list(t.stride()[:3])
 
@@ -283,12 +296,15 @@ _BWD_ARGTYPES = ([_I] + [_P] * 16 + [_I] * 5 + [_L] * 12
 
 def _fwd_kernel(q, k, v, bias, qseg, kseg, seed, causal, dropout_p):
     fn = _build.function("flash_attention", "pdt_flash_fwd", _FWD_ARGTYPES)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        q, k, v = _rows16(q), _rows16(k), _rows16(v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+    err = fn(int(bf16), q.data_ptr(), k.data_ptr(),
              v.data_ptr(), _ptr(bias), _ptr(qseg), _ptr(kseg),
              seed.data_ptr(), o.data_ptr(), lse.data_ptr(), b, sq, sk, h, d,
              *_strides(q), *_strides(k), *_strides(v),
@@ -301,24 +317,29 @@ def _fwd_kernel(q, k, v, bias, qseg, kseg, seed, causal, dropout_p):
 def _bwd_kernel(q, k, v, bias, qseg, kseg, seed, o, lse, do, causal,
                 dropout_p):
     fn = _build.function("flash_attention", "pdt_flash_bwd", _BWD_ARGTYPES)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        q, k, v, do = _rows16(q), _rows16(k), _rows16(v), _rows16(do)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     dev = q.device
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=dev)
     dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=dev)
-    tile = _build.function("flash_attention", "pdt_flash_tile", [_I])(d)
-    dq_part = torch.empty((sk // tile, b, h, sq, d), dtype=torch.float32,
-                          device=dev)
+    dq_part = None   # the f32 route's per-k-tile dQ partials
+    if not bf16:
+        tile = _build.function("flash_attention", "pdt_flash_tile", [_I])(d)
+        dq_part = torch.empty((sk // tile, b, h, sq, d), dtype=torch.float32,
+                              device=dev)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     dbias_part = (torch.empty((b, h, sk), dtype=torch.float32, device=dev)
                   if bias is not None else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+    err = fn(int(bf16), q.data_ptr(), k.data_ptr(),
              v.data_ptr(), _ptr(bias), _ptr(qseg), _ptr(kseg),
              seed.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dbias_part),
-             dq_part.data_ptr(), delta.data_ptr(), b, sq, sk, h, d,
+             _ptr(dq_part), delta.data_ptr(), b, sq, sk, h, d,
              *_strides(q), *_strides(k), *_strides(v), *_strides(do),
              *_scalars(q, causal, dropout_p), stream)
     flash_bwd.launches += 1

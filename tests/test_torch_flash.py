@@ -200,3 +200,20 @@ def test_attention_dropout_seed_repeats_with_the_generator():
     a = [trng.next_seed() for _ in range(3)]
     trng.seed(9)
     assert a == [trng.next_seed() for _ in range(3)]
+
+
+@pytest.mark.parametrize("offset,in_place", [(0, True), (8, True),
+                                             (4, False), (1, False)])
+def test_bf16_rows_are_read_in_place_or_copied(offset, in_place):
+    """The bf16 kernels copy 16-byte row chunks: a view whose (batch, seq,
+    head) rows start on 16 bytes (the fused-QKV slices) is passed as it
+    is, any other is copied to a contiguous tensor with the same values.
+    `offset` is the view's first element in its storage."""
+    flat = torch.arange(offset + 2 * 128 * 3 * 2 * 64).to(torch.bfloat16)
+    fused = flat[offset:].view(2, 128, 3, 2, 64)
+    view = fused[:, :, 1]
+    got = tfa._rows16(view)
+    assert (got.data_ptr() == view.data_ptr()) == in_place
+    assert torch.equal(got, view)
+    if not in_place:
+        assert got.is_contiguous() and got.data_ptr() % 16 == 0

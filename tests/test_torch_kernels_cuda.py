@@ -214,6 +214,16 @@ def _flash_case(cuda, b, sq, sk, h, d, dtype, bias=False, seg=False,
     (2, 256, 384, 3, 256, torch.float32, True, True, False, 0.2),
     (2, 256, 256, 2, 128, torch.bfloat16, True, True, False, 0.1),
     (1, 256, 256, 2, 256, torch.bfloat16, False, False, True, 0.1),
+    # bf16 runs the tensor-core kernels: every head_dim, both causal
+    # settings, bias, segment ids, dropout and Sq != Sk
+    (2, 256, 256, 2, 64, torch.bfloat16, False, True, False, 0.0),
+    (2, 256, 256, 2, 64, torch.bfloat16, False, False, True, 0.15),
+    (1, 128, 384, 2, 64, torch.bfloat16, True, False, False, 0.1),
+    (2, 256, 256, 2, 128, torch.bfloat16, True, False, False, 0.0),
+    (1, 128, 384, 2, 128, torch.bfloat16, True, True, False, 0.2),
+    (2, 256, 256, 2, 128, torch.bfloat16, False, False, True, 0.1),
+    (1, 256, 256, 2, 256, torch.bfloat16, True, False, False, 0.0),
+    (1, 128, 384, 2, 256, torch.bfloat16, True, True, False, 0.2),
 ])
 def test_flash_kernels_match_plain(cuda, b, sq, sk, h, d, dtype, causal,
                                    bias, seg, p):
@@ -238,6 +248,62 @@ def test_flash_kernels_match_plain(cuda, b, sq, sk, h, d, dtype, causal,
             continue
         assert g.dtype == pg.dtype and g.shape == pg.shape
         torch.testing.assert_close(g.float(), pg.float(), **tol_g)
+
+
+def test_flash_bf16_backward_repeats_bit_for_bit(cuda):
+    """K2 sums dQ, dK, dV and dbias in fixed orders with no atomics: two
+    calls on the same inputs give bit-equal gradients."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, k, v, do, bi, _, _ = _flash_case(cuda, 2, 512, 512, 4, 64,
+                                        torch.bfloat16, bias=True, seed=4)
+    seed = torch.tensor([77], dtype=torch.int32, device=cuda)
+    o, lse = fa.flash_fwd(q, k, v, bi, None, None, seed, True, 0.1)
+    first = fa.flash_bwd(q, k, v, bi, None, None, seed, o, lse, do, True,
+                         0.1)
+    second = fa.flash_bwd(q, k, v, bi, None, None, seed, o, lse, do, True,
+                          0.1)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_bf16_backward_allocates_no_dq_partials(cuda):
+    """A bf16 K2 call allocates its outputs, delta and the dbias rows, and
+    no f32 dQ partial buffer (Sk / 64 slices of the f32 dQ)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    b, s, h, d = 2, 1024, 4, 64
+    q, k, v, do, bi, _, _ = _flash_case(cuda, b, s, s, h, d, torch.bfloat16,
+                                        bias=True, seed=5)
+    seed = torch.tensor([3], dtype=torch.int32, device=cuda)
+    o, lse = fa.flash_fwd(q, k, v, bi, None, None, seed, True, 0.0)
+    fa.flash_bwd(q, k, v, bi, None, None, seed, o, lse, do, True, 0.0)
+    torch.cuda.synchronize()     # the library is built and loaded
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads = fa.flash_bwd(q, k, v, bi, None, None, seed, o, lse, do, True,
+                         0.0)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    partials = (s // 64) * b * h * s * d * 4
+    outputs = 3 * q.numel() * 2 + b * h * s * 4 + 2 * b * h * s * 4
+    assert extra <= outputs + (1 << 20) < partials, (extra, outputs)
+    del grads
+
+
+def test_flash_bf16_unaligned_views_are_copied(cuda):
+    """A bf16 view whose rows do not start on 16 bytes is copied before the
+    16-byte tile copies; the result equals the aligned input's."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, k, v, do, _, _, _ = _flash_case(cuda, 1, 128, 128, 2, 64,
+                                       torch.bfloat16, seed=6)
+    flat = torch.zeros(q.numel() + 4, dtype=q.dtype, device=cuda)
+    shifted = flat[4:].view(q.shape)   # starts 8 bytes into its storage
+    shifted.copy_(q)
+    seed = torch.zeros(1, dtype=torch.int32, device=cuda)
+    want, _ = fa.flash_fwd(q, k, v, None, None, None, seed, True, 0.0)
+    got, _ = fa.flash_fwd(shifted, k, v, None, None, None, seed, True, 0.0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_flash_autograd_on_fused_qkv_views(cuda):
