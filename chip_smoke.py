@@ -8,15 +8,19 @@ Phases (any failure exits non-zero before the result line):
   2. build    — builds every kernel from paddle_tpu_torch/csrc with nvcc.
   3. check    — each kernel against its plain PyTorch version on the card
                 at the main path's shapes (int8_matmul at the decode M and
-                at every prefill bucket the serve phase's prompts fill);
-                |kernel - plain| must stay within 1e-4 + 1e-4 * |plain|
-                (f32 sums in another order).
+                at every prefill bucket the serve phase's prompts fill;
+                paged_attention also at max_len 4096 with slots at pos
+                4095 and 0); |kernel - plain| must stay within 1e-4 +
+                1e-4 * |plain| (f32 sums in another order), and two calls
+                must give bit-equal results.
   4. time     — device times (a CUDA graph replayed, CUDA events) of each
                 kernel, its plain version and a PyTorch library call on the
                 same inputs, over a sweep of 24 layers' distinct tensors (the
                 weights / KV do not fit the 50 MB L2, as in a real decode
                 step), beside the bound; "call_ms" is the kernel called
-                eagerly, host launch cost included.
+                eagerly, host launch cost included.  paged_attention is
+                also timed at the serve phase's own positions, and
+                int8_matmul at the largest prefill bucket.
   5. serve    — GPT-2 medium (24 x 1024, vocab 50304), random weights from
                 --seed, int8 weight-only, paged KV (block 16, 8 slots,
                 max_len 1024): 8 requests (prompts 32..400, 64 new tokens,
@@ -202,14 +206,12 @@ def prefill_buckets():
 
 def int8_phase(torch, rng, dev):
     """K4 checked at every M of the main path (8 decode slots and each
-    prefill bucket) over one GPT-2-medium layer's four Linears; timed at
-    decode M per layer, swept over 24 layers' weights."""
-    from paddle_tpu_torch.ops import int8_matmul as im
+    prefill bucket) over one GPT-2-medium layer's four Linears, two calls
+    bit-equal at each; timed per layer at decode M and at the largest
+    prefill bucket, swept over 24 layers' weights."""
+    from paddle_tpu_torch.ops import _build, int8_matmul as im
     from paddle_tpu_torch.quantization import quantize_weight_int8
     shapes = [(1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024)]
-    m = SLOTS
-    xs = {k: torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(dev)
-          for k in (1024, 4096)}
     layers = []
     for _ in range(LAYERS):
         ws = []
@@ -217,81 +219,143 @@ def int8_phase(torch, rng, dev):
             w = torch.randn(k, n, device=dev) * 0.02
             ws.append(quantize_weight_int8(w))
         layers.append(ws)
+    ms_at = [SLOTS] + prefill_buckets()
+    xs_at = {mc: {k: torch.from_numpy(rng.randn(mc, k).astype(np.float32))
+                  .to(dev) for k in (1024, 4096)} for mc in ms_at}
     err, ok = 0.0, True
-    for mc in [m] + prefill_buckets():
+    for mc in ms_at:
         for (k, n), (wi, s) in zip(shapes, layers[0]):
-            x = xs[k] if mc == m else torch.from_numpy(
-                rng.randn(mc, k).astype(np.float32)).to(dev)
+            x = xs_at[mc][k]
             got = im.dequant_matmul(x, wi, s)
+            again = im.dequant_matmul(x, wi, s)
             want = im._plain(x, wi, s)
             torch.cuda.synchronize()
             e, o = max_err(torch, got, want)
-            err, ok = max(err, e), ok and o
-            print(f"check int8_matmul M={mc} K={k} N={n}: "
-                  f"max_abs_err={e:.3e}{'' if o else ' OUT OF TOLERANCE'}")
+            rep = torch.equal(got, again)
+            err, ok = max(err, e), ok and o and rep
+            print(f"check int8_matmul M={mc} K={k} N={n} "
+                  f"{im._plan(mc, k, n, _build.sm_count(dev.index))}: "
+                  f"max_abs_err={e:.3e}"
+                  f"{'' if o else ' OUT OF TOLERANCE'}"
+                  f"{'' if rep else ' NOT BIT-REPEATABLE'}")
     if not ok:
-        fail(f"int8_matmul disagrees with its plain version ({err:.3e})")
+        fail(f"int8_matmul disagrees with its plain version or does not "
+             f"repeat ({err:.3e})")
 
-    def sweep(f):
+    def sweep(f, xs):
         def run():
             for ws in layers:
                 for (k, n), (wi, s) in zip(shapes, ws):
                     f(xs[k], wi, s)
         return run
-    ms = graph_ms(torch, sweep(im.dequant_matmul)) / LAYERS
-    eager = call_ms(torch, sweep(im.dequant_matmul), 10) / LAYERS
-    plain = graph_ms(torch, sweep(im._plain)) / LAYERS
-    lib = graph_ms(torch, sweep(
-        lambda x, wi, s: torch.matmul(x, wi.float() * s))) / LAYERS
-    nbytes = sum(m * k * 4 + k * n + 4 * n + m * n * 4 for k, n in shapes)
-    ops = sum(2 * m * k * n for k, n in shapes)
-    b, by = bound_ms(nbytes, ops)
+
+    def bound(m):
+        nbytes = sum(m * k * 4 + k * n + 4 * n + m * n * 4 for k, n in shapes)
+        return bound_ms(nbytes, sum(2 * m * k * n for k, n in shapes))
+    lib_f = lambda x, wi, s: torch.matmul(x, wi.float() * s)
+    out = {}
+    for mc in (SLOTS, ms_at[-1]):
+        xs = xs_at[mc]
+        out[mc] = dict(ms=graph_ms(torch, sweep(im.dequant_matmul, xs)) / LAYERS,
+                       plain=graph_ms(torch, sweep(im._plain, xs)) / LAYERS,
+                       lib=graph_ms(torch, sweep(lib_f, xs)) / LAYERS,
+                       bound=bound(mc))
+        print(f"time int8_matmul M={mc}: {out[mc]['ms']:.4f} ms per layer "
+              f"(plain {out[mc]['plain']:.4f}, matmul(x, w.float()*s) "
+              f"{out[mc]['lib']:.4f}, bound {out[mc]['bound'][0]:.4f} "
+              f"{out[mc]['bound'][1]})")
+    d = out[SLOTS]
+    eager = call_ms(torch, sweep(im.dequant_matmul, xs_at[SLOTS]), 10) / LAYERS
     return {"name": "int8_matmul", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/int8_matmul.cu",
             "replaces": "paddle_tpu/ops/int8_matmul.py:49",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b,
-            "bound_by": by, "library_ms": lib, "call_ms": eager}
+            "max_abs_err": err, "ms": d["ms"], "plain_ms": d["plain"],
+            "bound_ms": d["bound"][0], "bound_by": d["bound"][1],
+            "library_ms": d["lib"], "call_ms": eager}
+
+
+def _paged_case(torch, rng, dev, pos_np, nb, h=16, d=64, block=BLOCK,
+                layers=1):
+    """q, per-layer (kpool, vpool), tables, pos for len(pos_np) slots:
+    each slot owns nb table entries, the live ones from a random
+    permutation of the pool, the tail holding the allocator's sentinel."""
+    s = len(pos_np)
+    num_blocks = s * nb
+    tables_np = np.full((s, nb), num_blocks, np.int32)
+    perm = rng.permutation(num_blocks)
+    for i, p in enumerate(pos_np):
+        live = min(-(-(int(p) + 1) // block), nb)
+        tables_np[i, :live] = perm[i * nb:i * nb + live]
+    q = torch.from_numpy(rng.randn(s, h, d).astype(np.float32)).to(dev)
+    pools = [(torch.randn(num_blocks, block, h, d, device=dev),
+              torch.randn(num_blocks, block, h, d, device=dev))
+             for _ in range(layers)]
+    return (q, pools, torch.from_numpy(tables_np).to(dev),
+            torch.from_numpy(np.asarray(pos_np, np.int32)).to(dev))
 
 
 def paged_phase(torch, rng, dev):
     """K3 at decode shapes: 8 slots, ragged pos 17..1000, block 16, the
-    engine's default pool (8 * 64 blocks), sentinel tail entries; times
-    per layer, swept over 24 layers' pools."""
+    engine's default pool (8 * 64 blocks), sentinel tail entries; and a
+    long context (max_len 4096, a slot at pos 4095 and one at pos 0); two
+    calls bit-equal at each.  Times per layer, swept over 24 layers' pools,
+    at these positions and at the serve phase's own (each prompt plus 32
+    of its 64 new tokens)."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import paged_attention as pa
     h, d = 16, 64
     nb = MAX_LEN // BLOCK
-    num_blocks = SLOTS * nb
+    sms = _build.sm_count(dev.index)
     pos_np = np.array([17, 150, 300, 511, 512, 700, 901, 1000], np.int32)
-    tables_np = np.full((SLOTS, nb), num_blocks, np.int32)
-    perm = rng.permutation(num_blocks)
-    for i, p in enumerate(pos_np):
-        live = -(-(int(p) + 1) // BLOCK)
-        tables_np[i, :live] = perm[i * nb:i * nb + live]
-    tables = torch.from_numpy(tables_np).to(dev)
-    pos = torch.from_numpy(pos_np).to(dev)
-    q = torch.from_numpy(rng.randn(SLOTS, h, d).astype(np.float32)).to(dev)
-    pools = [(torch.randn(num_blocks, BLOCK, h, d, device=dev),
-              torch.randn(num_blocks, BLOCK, h, d, device=dev))
-             for _ in range(LAYERS)]
-    kp, vp = pools[0]
-    got = pa.paged_attention(q, kp, vp, tables, pos)
-    want = pa._plain(q, kp, vp, tables, pos)
-    torch.cuda.synchronize()
-    err, ok = max_err(torch, got, want)
-    print(f"check paged_attention S={SLOTS} H={h} D={d} block={BLOCK} "
-          f"pos={pos_np.tolist()}: max_abs_err={err:.3e}")
+    long_np = np.array([4095, 0, 2047, 3000, 17, 1023, 4000, 64], np.int32)
+    q, pools, tables, pos = _paged_case(torch, rng, dev, pos_np, nb,
+                                        layers=LAYERS)
+    lq, lpools, ltables, lpos = _paged_case(torch, rng, dev, long_np,
+                                            4096 // BLOCK)
+    err, ok = 0.0, True
+    for label, args in (("main", (q, *pools[0], tables, pos)),
+                        ("max_len 4096", (lq, *lpools[0], ltables, lpos))):
+        got = pa.paged_attention(*args)
+        again = pa.paged_attention(*args)
+        want = pa._plain(*args)
+        torch.cuda.synchronize()
+        e, o = max_err(torch, got, want)
+        rep = torch.equal(got, again)
+        err, ok = max(err, e), ok and o and rep
+        print(f"check paged_attention {label} S={args[0].shape[0]} H={h} "
+              f"D={d} block={BLOCK} "
+              f"{pa._plan(8, h, d, args[3].shape[1], sms)} "
+              f"pos={args[4].tolist()}: max_abs_err={e:.3e}"
+              f"{'' if o else ' OUT OF TOLERANCE'}"
+              f"{'' if rep else ' NOT BIT-REPEATABLE'}")
+    del lq, lpools, ltables, lpos
     if not ok:
-        fail(f"paged_attention disagrees with its plain version ({err:.3e})")
-    def kern():
-        for k, v in pools:
-            pa.paged_attention(q, k, v, tables, pos)
+        fail(f"paged_attention disagrees with its plain version or does "
+             f"not repeat ({err:.3e})")
+    plan = pa._plan(SLOTS, h, d, nb, sms)
+    fits = ctypes.c_int(0)
+    _build.check(_build.function(
+        "paged_attention", "pdt_paged_attention_max_clusters",
+        [ctypes.c_int] * 4 + [ctypes.c_void_p])(
+            h, d, plan.hpb, plan.splits, ctypes.byref(fits)),
+        "paged_attention max clusters")
+    print(f"paged_attention plan {plan}: grid {plan.grid(SLOTS, h)}, "
+          f"{fits.value} clusters of {plan.splits} resident at once")
 
-    def plain_fn():
-        for k, v in pools:
-            pa._plain(q, k, v, tables, pos)
-    ms = graph_ms(torch, kern) / LAYERS
-    eager = call_ms(torch, kern, 10) / LAYERS
-    plain = graph_ms(torch, plain_fn, 5) / LAYERS
+    def kern(p):
+        return lambda: [pa.paged_attention(q, k, v, tables, p)
+                        for k, v in pools]
+
+    def bound(p_np):
+        rows = int(np.minimum(p_np + 1, nb * BLOCK).sum())
+        nbytes = (rows * h * d * 4 * 2 + 2 * q.numel() * 4
+                  + tables.numel() * 4 + p_np.size * 4)
+        return bound_ms(nbytes, 4.0 * rows * h * d)
+    ms = graph_ms(torch, kern(pos)) / LAYERS
+    eager = call_ms(torch, kern(pos), 10) / LAYERS
+    plain = graph_ms(torch, lambda: [pa._plain(q, k, v, tables, pos)
+                                     for k, v in pools], 5) / LAYERS
     # library yardstick: SDPA on views gathered beforehand (the gather
     # itself is not timed), masked to each slot's rows <= pos
     views = [tuple(pa.gather_block_rows(t, tables).permute(0, 2, 1, 3)
@@ -305,10 +369,15 @@ def paged_phase(torch, rng, dev):
         for k, v in views:
             sdpa(q4, k, v, attn_mask=mask)
     lib = graph_ms(torch, lib_fn) / LAYERS
-    rows = int(np.minimum(pos_np + 1, nb * BLOCK).sum())
-    nbytes = (rows * h * d * 4 * 2 + 2 * q.numel() * 4
-              + tables.numel() * 4 + pos.numel() * 4)
-    b, by = bound_ms(nbytes, 4.0 * rows * h * d)
+    del views
+    b, by = bound(pos_np)
+    serve_np = np.array([n - 1 + 32 for n in PROMPT_LENS], np.int32)
+    serve_pos = torch.from_numpy(serve_np).to(dev)
+    serve_ms = graph_ms(torch, kern(serve_pos)) / LAYERS
+    sb, _ = bound(serve_np)
+    print(f"time paged_attention pos={pos_np.tolist()}: {ms:.4f} ms per "
+          f"layer (bound {b:.4f}); serve pos={serve_np.tolist()}: "
+          f"{serve_ms:.4f} ms per layer (bound {sb:.4f})")
     return {"name": "paged_attention", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/paged_attention.cu",
             "replaces": "paddle_tpu/ops/paged_attention.py:109",

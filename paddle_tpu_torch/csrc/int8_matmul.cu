@@ -1,153 +1,331 @@
-// Int8 weight-only dequant-matmul for Hopper (sm_90a): y = x @ (w_int8 * scale).
+// Int8 weight-only dequant-matmul for Hopper (sm_90a): y = x @ (w_int8 * scale),
+// split-K reduced inside a thread-block cluster.
 //
 // Replaces the Pallas kernel paddle_tpu/ops/int8_matmul.py::_kernel
 // (driven by _pallas_matmul).  x (M, K) f32, w (K, N) int8 row-major,
 // scale (1, N) f32 per output channel; y (M, N) f32.
 //
 // Bound: at decode M is the number of slots (<= 16), so the work is
-// weight bytes: K*N int8 (+ 4*N scale) over 3.35 TB/s.  The design keeps
-// the weight in int8 all the way from device memory into registers:
-//   - a block owns a 128-column tile, an 8-row tile of x and one chunk of
-//     K (split-K, so that even N = 1024 gives the card a few hundred
-//     blocks); 128 threads = 8 column groups x 16 row groups;
-//   - each thread reads 16 consecutive int8 weights of one k-row with one
-//     16-byte load (eight threads cover a 128-byte row segment), converts
-//     them to f32 and multiplies by its 16 scales in registers, then
-//     accumulates x[m, k] * w for the 8 rows of the tile in f32;
-//   - the 16 row groups are summed with warp shuffles and one pass
-//     through shared memory, and each split writes an f32 partial;
-//   - a second small kernel sums the partials over splits into y.
-// Launches go on the caller's stream; the C entry returns cudaGetLastError().
+// weight bytes: K*N int8 (+ 4*N scale) over 3.35 TB/s, a few microseconds
+// for one Linear, so launch, ramp and latency weigh as much as the stream.
+// The design keeps the weight in int8 from device memory into registers
+// and keeps everything else out of device memory:
+//   - the grid is (splits, N / TN, M / MT) in clusters of (splits, 1, 1):
+//     the blocks of a cluster share an MT x TN output tile and split K
+//     into k_rows rows each.  128 threads = TN / 4 column threads (one
+//     32-bit word, 4 int8 columns, each) x RG k-row groups;
+//   - a thread walks its k-rows in chunks of 32 words (16 at MT 16, 8 at
+//     MT 32) held in registers; the first two chunks are loaded at once and
+//     each later one while the chunk before it is used.  At decode the plan
+//     (TN 32, k_rows 512) gives every thread one full chunk: the whole
+//     weight is in flight at once, in the fewest blocks;
+//   - the launch allows programmatic dependent launch: a block is placed
+//     and sets up while the kernel before it ends, then waits for it
+//     (griddepcontrol.wait) before it reads anything, since that kernel
+//     may have written x, w or scale, and before it writes y;
+//   - x is staged once per block (up to 1024 k-rows at MT 8) in shared
+//     memory as [m][k], each of its rows by one bulk copy (the TMA's
+//     one-dimensional form, on an mbarrier) where it is 16-byte aligned,
+//     else by 4-byte cp.async; the copies are issued after the wait for
+//     the kernel before;
+//   - dequantization is a byte permute and one subtraction: __byte_perm
+//     puts the int8 with its sign bit flipped into the low byte of the
+//     float 2^23 (0x4B000000), and subtracting 2^23 + 128 leaves the int8
+//     value exactly.  The scale is applied once per output column after
+//     the sum, y = (sum x * w_q) * s, not sum x * (w_q * s);
+//   - the k-row groups are summed through shared memory in a fixed order
+//     into the block's partial tile; after cluster.sync() the ranks add
+//     the cluster's partials through distributed shared memory in rank
+//     order (each rank writes a strided share of the tile) and a second
+//     cluster.sync() keeps every rank's shared memory alive until then.
+//     One kernel per call, no partial buffer, no atomics: bit-repeatable.
+// Launches go on the caller's stream; the C entry returns the CUDA error.
 
+#include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kColsPerThread = 16;                      // one int4 of int8
-constexpr int kColGroups = 8;                           // threads per k-row
-constexpr int kTileN = kColGroups * kColsPerThread;     // 128 columns
-constexpr int kRowGroups = kThreads / kColGroups;       // 16 k-rows per pass
-constexpr int kTileM = 8;
-constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCluster = 8;
 
-// signed byte i (0..3) of a 32-bit word, as float
-__device__ __forceinline__ float sbyte(int v, int i) {
-  return static_cast<float>((v << (24 - 8 * i)) >> 24);
+template <int MT> struct XTile {
+  // most k-rows of x staged at once: 32 KB
+  static constexpr int kRows = MT == 8 ? 1024 : MT == 16 ? 512 : 256;
+  // weight words a thread holds per chunk (twice, for the next chunk)
+  static constexpr int kWords = MT == 8 ? 32 : MT == 16 ? 16 : 8;
+};
+
+// floats of shared memory: x rows (stride xrows rounded up to 4), which
+// the k-row groups' partial sums reuse, the partial tile, the x barrier
+__host__ __device__ constexpr int smem_floats(int MT, int TN, int xrows) {
+  return (MT * ((xrows + 3) / 4 * 4) > 512 * MT ? MT * ((xrows + 3) / 4 * 4)
+                                                : 512 * MT) +
+         MT * TN + 4;
 }
 
+// A bulk asynchronous copy (the TMA's one-dimensional form) completing on
+// an mbarrier in shared memory.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               "fence.mbarrier_init.release.cluster;\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ float dequant(unsigned u, int byte) {
+  return __int_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | byte)) -
+         8388736.f;
+}
+
+// Programmatic dependent launch: nothing the kernel before this one wrote
+// is visible until the wait.
+__device__ __forceinline__ void wait_prior_grids() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+__device__ __forceinline__ void release_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+template <int MT, int TN>
 __global__ void __launch_bounds__(kThreads)
-dequant_matmul_partial(const float* __restrict__ x,
+dequant_matmul_cluster(const float* __restrict__ x,
                        const int8_t* __restrict__ w,
                        const float* __restrict__ scale,
-                       float* __restrict__ part,
-                       int M, int K, int N, int k_chunk) {
-  const int n0 = blockIdx.x * kTileN;
-  const int m0 = blockIdx.y * kTileM;
-  const int split = blockIdx.z;
-  const int k_begin = split * k_chunk;
-  const int k_end = min(K, k_begin + k_chunk);
+                       float* __restrict__ y, int M, int K, int N,
+                       int k_rows, int xrows) {
+  constexpr int CT = TN / 4;          // column threads
+  constexpr int RG = kThreads / CT;   // k-row groups
+  constexpr int RPT = XTile<MT>::kWords;  // k-rows per thread and chunk
+  constexpr int kChunk = RG * RPT;
+  const int XR = (xrows + 3) / 4 * 4;
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);  // [MT][XR]
+  float* red = xs;                              // [RG][MT][TN], after xs
+  float* part = xs + smem_floats(MT, TN, xrows) - MT * TN - 4;  // [MT][TN]
+  auto* xbar = reinterpret_cast<unsigned long long*>(part + MT * TN);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const int n0 = blockIdx.y * TN;
+  const int m0 = blockIdx.z * MT;
   const int tid = threadIdx.x;
-  const int cg = tid % kColGroups;
-  const int rg = tid / kColGroups;
-  const int col = n0 + cg * kColsPerThread;
-  // N % 16 == 0 (checked by the wrapper): a column group is all in or out
-  const bool col_ok = col < N;
+  const int ct = tid % CT;
+  const int rg = tid / CT;
+  const int col = n0 + 4 * ct;
+  const bool col_ok = col < N;  // N % 16 == 0: a word is all in or out
+  const int k_begin = rank * k_rows;
+  const int k_end = min(K, k_begin + k_rows);
+  const int nch = (max(0, k_end - k_begin) + kChunk - 1) / kChunk;
+  // x rows go by bulk copy where they are 16-byte aligned, else 4 bytes
+  // at a time
+  const bool bulk = reinterpret_cast<uintptr_t>(x) % 16 == 0 && K % 4 == 0 &&
+                    k_rows % 4 == 0;
+  unsigned xphase = 0;
+  if (tid == 0) mbar_init(xbar);
+  __syncthreads();
 
-  float acc[kTileM][kColsPerThread];
+  float acc[MT][4];
 #pragma unroll
-  for (int m = 0; m < kTileM; ++m)
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) acc[m][j] = 0.f;
+    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
 
-  if (col_ok) {
-    float s[kColsPerThread];
+  int wq[RPT], wn[RPT];
+  auto fetch = [&](int c, int (&wv)[RPT]) {
 #pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) s[j] = __ldg(scale + col + j);
-    for (int k = k_begin + rg; k < k_end; k += kRowGroups) {
-      const int4 packed =
-          __ldg(reinterpret_cast<const int4*>(w + (size_t)k * N + col));
-      const int words[4] = {packed.x, packed.y, packed.z, packed.w};
-      float wf[kColsPerThread];
+    for (int i = 0; i < RPT; ++i) {
+      const int k = k_begin + c * kChunk + rg + i * RG;
+      wv[i] = (col_ok && k < k_end)
+                  ? __ldg(reinterpret_cast<const int*>(w + (size_t)k * N + col))
+                  : 0;  // int8 zeros
+    }
+  };
+  release_dependents();
+  wait_prior_grids();  // x, w and scale may come from the kernel before
+  if (nch > 0) fetch(0, wq);
+  if (nch > 1) fetch(1, wn);
+
+  int xb = k_begin;  // first k-row staged in xs
+  for (int c = 0; c < nch; ++c) {
+    const int kc = k_begin + c * kChunk;
+    if (kc - xb >= xrows || c == 0) {
+      xb = kc;
+      const int xn = min(xrows, k_end - xb);
+      __syncthreads();  // the previous rows are no longer read
+      const int mrows = min(MT, M - m0);
+      if (bulk) {
+        if (tid == 0) {
+          mbar_expect(xbar, mrows * xn * 4);
+          for (int m = 0; m < mrows; ++m)
+            bulk_copy(xs + m * XR, x + (size_t)(m0 + m) * K + xb, xn * 4,
+                      xbar);
+        }
+        mbar_wait(xbar, xphase);
+        xphase ^= 1;
+      } else {
+        for (int m = 0; m < mrows; ++m)
+          for (int kk = tid; kk < xn; kk += kThreads)
+            __pipeline_memcpy_async(xs + m * XR + kk,
+                                    x + (size_t)(m0 + m) * K + xb + kk, 4);
+        __pipeline_commit();
+        __pipeline_wait_prior(0);
+      }
+      __syncthreads();
+    }
 #pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j)
-        wf[j] = sbyte(words[j / 4], j % 4) * s[j];
+    for (int i = 0; i < RPT; ++i) {
+      if (kc + rg + i * RG >= k_end) continue;  // past this rank's rows
+      const int kk = kc - xb + rg + i * RG;
+      const unsigned u = static_cast<unsigned>(wq[i]) ^ 0x80808080u;
+      const float w0 = dequant(u, 0), w1 = dequant(u, 1);
+      const float w2 = dequant(u, 2), w3 = dequant(u, 3);
 #pragma unroll
-      for (int m = 0; m < kTileM; ++m) {
-        if (m0 + m < M) {
-          const float xv = __ldg(x + (size_t)(m0 + m) * K + k);
+      for (int mm = 0; mm < MT / 4; ++mm) {
+        const float* xr = xs + 4 * mm * XR + kk;  // rows m >= M: not stored
+        const float xm[4] = {xr[0], xr[XR], xr[2 * XR], xr[3 * XR]};
 #pragma unroll
-          for (int j = 0; j < kColsPerThread; ++j)
-            acc[m][j] = fmaf(xv, wf[j], acc[m][j]);
+        for (int a = 0; a < 4; ++a) {
+          float* r = acc[4 * mm + a];
+          r[0] = fmaf(xm[a], w0, r[0]);
+          r[1] = fmaf(xm[a], w1, r[1]);
+          r[2] = fmaf(xm[a], w2, r[2]);
+          r[3] = fmaf(xm[a], w3, r[3]);
         }
       }
     }
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) wq[i] = wn[i];
+    if (c + 2 < nch) fetch(c + 2, wn);
   }
 
-  // lanes of one warp hold 4 row groups (lane bits 3 and 4): fold them
+  // the k-row groups, summed in rg order into the block's partial tile
+  __syncthreads();  // red overwrites xs
+  float* rr = red + (size_t)rg * MT * TN + 4 * ct;
 #pragma unroll
-  for (int m = 0; m < kTileM; ++m)
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) {
-      float v = acc[m][j];
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      acc[m][j] = v;
-    }
-
-  __shared__ float red[kWarps][kTileM][kTileN];
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  if (lane < kColGroups) {
-#pragma unroll
-    for (int m = 0; m < kTileM; ++m)
-#pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j)
-        red[warp][m][lane * kColsPerThread + j] = acc[m][j];
-  }
+  for (int m = 0; m < MT; ++m)
+    *reinterpret_cast<float4*>(rr + m * TN) =
+        make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
   __syncthreads();
-
-  // thread tid owns column n0 + tid of the tile
-  const int n = n0 + tid;
-  if (n < N) {
-    for (int m = 0; m < kTileM && m0 + m < M; ++m) {
-      float v = 0.f;
-#pragma unroll
-      for (int wi = 0; wi < kWarps; ++wi) v += red[wi][m][tid];
-      part[((size_t)split * M + m0 + m) * N + n] = v;
-    }
+  for (int o = tid; o < MT * TN; o += kThreads) {
+    float v = 0.f;
+#pragma unroll 8
+    for (int g = 0; g < RG; ++g) v += red[g * MT * TN + o];
+    part[o] = v;
   }
+  cluster.sync();
+
+  for (int o = rank + ranks * tid; o < MT * TN; o += ranks * kThreads) {
+    float pr[kMaxCluster];
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)  // all in flight at once
+      if (r < ranks) pr[r] = cluster.map_shared_rank(part, r)[o];
+    float v = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < ranks) v += pr[r];
+    const int m = o / TN;
+    const int n = n0 + (o - m * TN);
+    if (m0 + m < M && n < N) y[(size_t)(m0 + m) * N + n] = v * __ldg(scale + n);
+  }
+  cluster.sync();  // no rank leaves while another reads its shared memory
 }
 
-__global__ void dequant_matmul_reduce(const float* __restrict__ part,
-                                      float* __restrict__ y,
-                                      long long mn, int splits) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float v = 0.f;
-  for (int s = 0; s < splits; ++s) v += part[(size_t)s * mn + i];
-  y[i] = v;
+using Kernel = void (*)(const float*, const int8_t*, const float*, float*, int,
+                        int, int, int, int);
+
+// the kernel of an (MT, TN) plan with its dynamic shared memory cap raised
+// once to the most it may use; nullptr for a plan it was not built for
+template <int MT, int TN> Kernel pick() {
+  static cudaError_t err = cudaFuncSetAttribute(
+      dequant_matmul_cluster<MT, TN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)(sizeof(float) * smem_floats(MT, TN, XTile<MT>::kRows)));
+  return err == cudaSuccess ? dequant_matmul_cluster<MT, TN> : nullptr;
+}
+
+// the (MT, TN) tiles a plan may pick: 32 columns at decode (MT 8, 16),
+// 16 to 64 at prefill (MT 32)
+Kernel kernel_for(int mt, int tn) {
+  if (mt == 8 && tn == 32) return pick<8, 32>();
+  if (mt == 16 && tn == 32) return pick<16, 32>();
+  if (mt == 32 && tn == 16) return pick<32, 16>();
+  if (mt == 32 && tn == 32) return pick<32, 32>();
+  if (mt == 32 && tn == 64) return pick<32, 64>();
+  return nullptr;
+}
+
+int x_rows(int mt, int k_rows) {
+  const int cap = mt == 8 ? XTile<8>::kRows
+                          : mt == 16 ? XTile<16>::kRows : XTile<32>::kRows;
+  return k_rows < cap ? k_rows : cap;
+}
+
+cudaLaunchConfig_t config(int M, int N, int mt, int tn, int splits,
+                          int xrows, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, (N + tn - 1) / tn, (M + mt - 1) / mt);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = sizeof(float) * smem_floats(mt, tn, xrows);
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  return cfg;
 }
 
 }  // namespace
 
+// Plan: (mt, tn) one of kernel_for's tiles, `splits` blocks per cluster
+// (<= 8) of k_rows rows of K each.
 extern "C" int pdt_int8_matmul_f32(const void* x, const void* w,
-                                   const void* scale, void* y, void* part,
-                                   int M, int K, int N, int k_chunk,
-                                   int splits, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM, splits);
-  dequant_matmul_partial<<<grid, kThreads, 0, st>>>(
-      static_cast<const float*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(scale), static_cast<float*>(part), M, K, N,
-      k_chunk);
-  cudaError_t err = cudaGetLastError();
+                                   const void* scale, void* y, int M, int K,
+                                   int N, int mt, int tn, int splits,
+                                   int k_rows, void* stream) {
+  Kernel kern = kernel_for(mt, tn);
+  if (kern == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int xrows = x_rows(mt, k_rows);
+  cudaLaunchAttribute attr[2];
+  cudaLaunchConfig_t cfg = config(M, N, mt, tn, splits, xrows, attr);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kern, static_cast<const float*>(x), static_cast<const int8_t*>(w),
+      static_cast<const float*>(scale), static_cast<float*>(y), M, K, N,
+      k_rows, xrows);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long mn = (long long)M * N;
-  const int threads = 256;
-  dequant_matmul_reduce<<<(unsigned)((mn + threads - 1) / threads), threads,
-                          0, st>>>(static_cast<const float*>(part),
-                                   static_cast<float*>(y), mn, splits);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,5 @@
-// Paged decode attention for Hopper (sm_90a).
+// Paged decode attention for Hopper (sm_90a), split-KV reduced inside a
+// thread-block cluster.
 //
 // Replaces the Pallas kernel paddle_tpu/ops/paged_attention.py::_kernel
 // (driven by _pallas_paged_attention).  One decode query per slot against
@@ -8,166 +9,354 @@
 //   write position (rows > pos are masked); out (S, H, D) f32.
 //
 // Bound: bytes of live K/V, sum over slots of (pos + 1) * H * D * 2 * 4 B,
-// over 3.35 TB/s; the arithmetic is ~1 FMA per byte.  The TPU kernel
-// walks the table in a sequential grid carrying (m, l, acc) in scratch;
-// here blocks run in parallel, so:
-//   - one thread block per (slot, head); a loop inside it walks the
-//     slot's table, and only the blocks that hold rows <= pos are read;
-//   - its 4 warps take every 4th table block, so a slot's sequence is
-//     read by 4 warps at once (the head dimension of a slot, H * D = 1024
-//     floats at GPT-2 medium, is split across thread blocks);
-//   - the block loads its own table entries and clamps each id into
-//     [0, num_blocks - 1], the same contract as the gather's mode="clip";
-//   - a warp stages its (block_size, D) K and V tiles for one head in
-//     shared memory with 16-byte loads, then runs the online softmax row
-//     by row with the running max, denominator and accumulator in f32
-//     registers (lane holds D / 32 output dims);
-//   - the 4 warps' partial (m, l, acc) are merged through shared memory;
-//     a warp that saw no rows has m = -inf and weighs 0, the guard the
-//     TPU kernel applies to all-masked blocks.
-// Launches go on the caller's stream; the C entry returns cudaGetLastError().
+// over 3.35 TB/s; the arithmetic is ~1 FMA per byte.  The TPU kernel walks
+// the table in a sequential grid carrying (m, l, acc) in scratch.  Here the
+// table is cut into splits that run in parallel (flash-decoding):
+//   - the grid is (splits, H / hpb, S) in clusters of (splits, 1, 1): a
+//     block owns one split of one slot's live rows for hpb adjacent heads,
+//     whose rows are hpb*D contiguous floats of the pool.  The split count
+//     comes from the table's width (reading pos on the host would sync);
+//     the rows of a split, ceil(live / splits) of them, come from pos on
+//     the device, so a short slot's rows are spread over all its blocks;
+//   - the block stages tiles of tile_rows rows (8 KB of K and of V) with
+//     16-byte cp.async into a ring of two, so the next tile is in flight
+//     while one is scored (a ring of three, or of four 4 KB tiles, lost on
+//     the card: fewer clusters fit at once).  It loads its own table entries and
+//     clamps each id into [0, num_blocks - 1] (the gather's mode="clip");
+//   - scores: a group of G lanes per (row, head), G the power of two that
+//     scores the whole tile in one pass (4 at D 64), float4 reads of q and
+//     K rotated by the row so that the groups of one shared-memory phase
+//     hit disjoint banks, a log2(G)-step shuffle sum; the scores go through
+//     shared memory;
+//   - softmax and P.V: a thread owns 4 output columns of one head and every
+//     RP-th row of the tile; it takes the tile's max once, rescales its
+//     (l, acc) once per tile, and accumulates p * V from shared memory.
+//     Scores carry log2(e) / sqrt(D), and x - m is taken before exp2;
+//   - the block's row groups are summed in a fixed order into its partial
+//     (m, l, acc) in its own shared memory; after cluster.sync() rank 0
+//     reads every rank's partial through distributed shared memory in rank
+//     order and writes out = sum(acc * w) / max(sum(l * w), 1e-30) with
+//     w = exp2(m - max m) (0 for an empty split, m = -inf); a second
+//     cluster.sync() keeps every rank's shared memory alive until then.
+//     One kernel, no global scratch, no atomics: bit-repeatable.
+// Launches go on the caller's stream; the C entry returns the CUDA error.
 
+#include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kMaxDPerLane = 8;  // D <= 256
+constexpr int kThreads = 128;
+constexpr int kMaxCluster = 8;
+constexpr int kStages = 2;     // K / V ring depth
+constexpr int kTile = 2048;    // floats of one K (or V) tile: 8 KB
+constexpr int kMaxW = 512;     // hpb * D: a P.V thread owns <= 1 float4
 
-__global__ void __launch_bounds__(kWarps * 32)
-paged_attention_kernel(const float* __restrict__ q,
-                       const float* __restrict__ kpool,
-                       const float* __restrict__ vpool,
-                       const int* __restrict__ tables,
-                       const int* __restrict__ pos,
-                       float* __restrict__ out,
-                       int H, int D, int num_blocks, int block_size,
-                       int max_blocks, float scale) {
+// floats of shared memory: the ring of K and V tiles, the tile's scores,
+// q, per-thread (acc, l, m), the partial (acc, m, l)
+__host__ __device__ constexpr int smem_floats(int W, int hpb) {
+  return 2 * kStages * kTile + kTile / 32 + W + 6 * kThreads + W + 2 * hpb;
+}
+
+__global__ void __launch_bounds__(kThreads)
+paged_attention_split(const float* __restrict__ q,
+                      const float* __restrict__ kpool,
+                      const float* __restrict__ vpool,
+                      const int* __restrict__ tables,
+                      const int* __restrict__ pos,
+                      float* __restrict__ out, int H, int D, int num_blocks,
+                      int block_size, int max_blocks, int hpb, int tile_rows,
+                      float scale_log2) {
+  constexpr int kLoads = kTile / 4 / kThreads;  // float4 per thread per tile
+  constexpr int kOwn = kTile / 256;  // most rows a P.V thread owns per tile
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int slot = blockIdx.x;
-  const int h = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int dpl = D / 32;
-  const int tile = block_size * D;
-  float* kt = smem + (size_t)warp * 2 * tile;
-  float* vt = kt + tile;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const int h0 = blockIdx.y * hpb;
+  const int slot = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int W = hpb * D;  // floats of one row of the block's heads
+  const int W4 = W / 4;
+  float* ks = smem;
+  float* vs = ks + kStages * kTile;
+  float* ss = vs + kStages * kTile;  // scores, head-major
+  float* qs = ss + kTile / 32;
+  float4* red = reinterpret_cast<float4*>(qs + W);
+  float* lred = reinterpret_cast<float*>(red + kThreads);
+  float* mred = lred + kThreads;
+  float* pacc = mred + kThreads;  // the partial read by rank 0: acc, m, l
+  float* pm = pacc + W;
+  float* pl = pm + hpb;
 
-  const float* qrow = q + ((size_t)slot * H + h) * D;
-  float qv[kMaxDPerLane];
-#pragma unroll
-  for (int i = 0; i < kMaxDPerLane; ++i)
-    qv[i] = (i < dpl) ? qrow[lane + 32 * i] : 0.f;
+  // q rides with the first tile's copies: 16 bytes at a time where it is
+  // 16-byte aligned (D % 32 == 0: then so is every head's row), else 4
+  const float* qrow = q + ((size_t)slot * H + h0) * D;
+  if (reinterpret_cast<uintptr_t>(q) % 16 == 0) {
+    if (tid < W4) __pipeline_memcpy_async(qs + 4 * tid, qrow + 4 * tid, 16);
+  } else {
+    for (int i = tid; i < W; i += kThreads)
+      __pipeline_memcpy_async(qs + i, qrow + i, 4);
+  }
 
-  const int rows = min(pos[slot] + 1, max_blocks * block_size);
-  const int nblk = (rows + block_size - 1) / block_size;
+  // the slot's live rows, cut evenly over the cluster's ranks
+  const int live = max(0, min(pos[slot] + 1, max_blocks * block_size));
+  const int per = (live + ranks - 1) / ranks;
+  const int r_begin = rank * per;
+  const int nrows = max(0, min(r_begin + per, live) - r_begin);
+  const int ntiles = (nrows + tile_rows - 1) / tile_rows;
   const int* table = tables + (size_t)slot * max_blocks;
-  const int row_f4 = D / 4;
-  const int tile_f4 = block_size * row_f4;
-  const float4* k4 = reinterpret_cast<const float4*>(kpool);
-  const float4* v4 = reinterpret_cast<const float4*>(vpool);
-  float4* kt4 = reinterpret_cast<float4*>(kt);
-  float4* vt4 = reinterpret_cast<float4*>(vt);
+
+  auto load_tile = [&](int t) {
+    const int row0 = r_begin + t * tile_rows;
+    const int n4 = min(tile_rows, nrows - t * tile_rows) * W4;
+    float* kd = ks + (t % kStages) * kTile;
+    float* vd = vs + (t % kStages) * kTile;
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int e = tid + i * kThreads;
+      if (e < n4) {
+        const int r = e / W4;
+        const int row = row0 + r;
+        const int tb = row / block_size;
+        const int id = min(max(__ldg(table + tb), 0), num_blocks - 1);
+        const size_t off =
+            (((size_t)id * block_size + (row - tb * block_size)) * H + h0) *
+                D +
+            (size_t)(e - r * W4) * 4;
+        __pipeline_memcpy_async(kd + 4 * e, kpool + off, 16);
+        __pipeline_memcpy_async(vd + 4 * e, vpool + off, 16);
+      }
+    }
+  };
+
+  // P.V ownership: 4 columns (c4) of head hh, rows rp, rp + RP, ...; each
+  // thread keeps its own running max over its rows
+  const int RP = kThreads / W4;
+  const int c4 = tid % W4;
+  const int rp = tid / W4;
+  const bool pv = rp < RP;
+  const int hh = (4 * c4) / D;
+  // scores: G lanes per (head, row), the power of two that scores the
+  // whole tile in one pass where it can; a lane takes nch float4 of the
+  // row, starting at a chunk rotated by the row so that the groups of one
+  // shared-memory phase hit disjoint banks
+  const int nsc = tile_rows * hpb;
+  int G = 1;
+  while (4 * G * nsc <= 2 * kThreads && (D / 4) % (2 * G) == 0 && G < 16)
+    G *= 2;
+  const int nch = D / 4 / G;
+  const int gl = tid % G;
 
   float m = -INFINITY, l = 0.f;
-  float acc[kMaxDPerLane];
-#pragma unroll
-  for (int i = 0; i < kMaxDPerLane; ++i) acc[i] = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  for (int b = warp; b < nblk; b += kWarps) {
-    const int id = min(max(table[b], 0), num_blocks - 1);
-    for (int e = lane; e < tile_f4; e += 32) {
-      const int r = e / row_f4;
-      const int c = e - r * row_f4;
-      const size_t off =
-          (((size_t)id * block_size + r) * H + h) * row_f4 + c;
-      kt4[e] = __ldg(k4 + off);
-      vt4[e] = __ldg(v4 + off);
-    }
-    __syncwarp();
-    const int r_end = min(block_size, rows - b * block_size);
-    for (int r = 0; r < r_end; ++r) {
-      const float* krow = kt + r * D;
-      float part = 0.f;
 #pragma unroll
-      for (int i = 0; i < kMaxDPerLane; ++i)
-        if (i < dpl) part = fmaf(qv[i], krow[lane + 32 * i], part);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, o);
-      const float s = part * scale;
-      const float m_new = fmaxf(m, s);
-      const float alpha = expf(m - m_new);  // 0 while m is still -inf
-      const float p = expf(s - m_new);
-      l = l * alpha + p;
-      const float* vrow = vt + r * D;
-#pragma unroll
-      for (int i = 0; i < kMaxDPerLane; ++i)
-        if (i < dpl) acc[i] = fmaf(p, vrow[lane + 32 * i], acc[i] * alpha);
-      m = m_new;
-    }
-    __syncwarp();
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < ntiles) load_tile(s);
+    __pipeline_commit();
   }
+  for (int t = 0; t < ntiles; ++t) {
+    __pipeline_wait_prior(kStages - 2);
+    __syncthreads();  // tile t landed for all; tile t - 1 fully consumed
+    if (t + kStages - 1 < ntiles) load_tile(t + kStages - 1);
+    __pipeline_commit();
+    const float* kt = ks + (t % kStages) * kTile;
+    const float4* vt4 =
+        reinterpret_cast<const float4*>(vs + (t % kStages) * kTile);
+    const int nv = min(tile_rows, nrows - t * tile_rows);
 
-  // merge the warps' partial softmax states
-  float* cm = smem + (size_t)kWarps * 2 * tile;
-  float* cl = cm + kWarps;
-  float* cacc = cl + kWarps;
-  if (lane == 0) {
-    cm[warp] = m;
-    cl[warp] = l;
-  }
+    // scores of (head sh, row sr), head-major: ss[sh * tile_rows + sr]
+    for (int sc0 = 0; sc0 < nsc; sc0 += kThreads / G) {
+      const int sc = sc0 + tid / G;
+      const int sh = sc / tile_rows;
+      const int sr = sc - sh * tile_rows;
+      float d0 = 0.f, d1 = 0.f;
+      if (sc < nsc && sr < nv) {
+        const float4* k4 =
+            reinterpret_cast<const float4*>(kt + (sr * hpb + sh) * D);
+        const float4* q4 = reinterpret_cast<const float4*>(qs + sh * D);
+        int j = sr % nch;
+#pragma unroll 4
+        for (int i = 0; i < nch; ++i) {
+          const float4 a = k4[gl + G * j];
+          const float4 b = q4[gl + G * j];
+          float& d = (i & 1) ? d1 : d0;
+          d = fmaf(a.x, b.x, d);
+          d = fmaf(a.y, b.y, d);
+          d = fmaf(a.z, b.z, d);
+          d = fmaf(a.w, b.w, d);
+          j = j + 1 == nch ? 0 : j + 1;
+        }
+      }
+      float dot = d0 + d1;
+      for (int o = G / 2; o > 0; o >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      if (gl == 0 && sc < nsc)
+        ss[sc] = sr < nv ? dot * scale_log2 : -INFINITY;
+    }
+    __syncthreads();
+
+    if (pv) {
+      const float* sh = ss + hh * tile_rows;
+      float sv[kOwn];
+      float mt = -INFINITY;
 #pragma unroll
-  for (int i = 0; i < kMaxDPerLane; ++i)
-    if (i < dpl) cacc[warp * D + lane + 32 * i] = acc[i];
+      for (int j = 0; j < kOwn; ++j) {
+        const int r = rp + RP * j;
+        sv[j] = r < nv ? sh[r] : -INFINITY;
+        mt = fmaxf(mt, sv[j]);
+      }
+      if (mt != -INFINITY) {  // the thread has a live row in this tile
+        const float mn = fmaxf(m, mt);
+        const float alpha = exp2f(m - mn);  // 0 while m is still -inf
+        l *= alpha;
+        acc.x *= alpha;
+        acc.y *= alpha;
+        acc.z *= alpha;
+        acc.w *= alpha;
+#pragma unroll
+        for (int j = 0; j < kOwn; ++j) {
+          const int r = rp + RP * j;
+          if (r < nv) {
+            const float p = exp2f(sv[j] - mn);
+            const float4 v = vt4[r * W4 + c4];
+            l += p;
+            acc.x = fmaf(p, v.x, acc.x);
+            acc.y = fmaf(p, v.y, acc.y);
+            acc.z = fmaf(p, v.z, acc.z);
+            acc.w = fmaf(p, v.w, acc.w);
+          }
+        }
+        m = mn;
+      }
+    }
+  }
+  __pipeline_wait_prior(0);
+
+  // the block's row groups, merged in rp order into its partial; a group
+  // that saw no row has m = -inf and weighs 0
+  red[tid] = acc;
+  lred[tid] = l;
+  mred[tid] = m;
   __syncthreads();
-  if (warp != 0) return;
-  float mx = -INFINITY;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, cm[w]);
-  float denom = 0.f;
-  float o[kMaxDPerLane];
-#pragma unroll
-  for (int i = 0; i < kMaxDPerLane; ++i) o[i] = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    const float wt = (cm[w] == -INFINITY) ? 0.f : expf(cm[w] - mx);
-    denom += cl[w] * wt;
-#pragma unroll
-    for (int i = 0; i < kMaxDPerLane; ++i)
-      if (i < dpl) o[i] += cacc[w * D + lane + 32 * i] * wt;
+  if (tid < W4) {
+    float mx = -INFINITY;
+    for (int p = 0; p < RP; ++p) mx = fmaxf(mx, mred[p * W4 + tid]);
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    float ls = 0.f;
+    for (int p = 0; p < RP; ++p) {
+      const float mp = mred[p * W4 + tid];
+      const float w = mp == -INFINITY ? 0.f : exp2f(mp - mx);
+      const float4 b = red[p * W4 + tid];
+      a.x = fmaf(b.x, w, a.x);
+      a.y = fmaf(b.y, w, a.y);
+      a.z = fmaf(b.z, w, a.z);
+      a.w = fmaf(b.w, w, a.w);
+      ls = fmaf(lred[p * W4 + tid], w, ls);
+    }
+    reinterpret_cast<float4*>(pacc)[tid] = a;
+    if ((4 * tid) % D == 0) {
+      pm[hh] = mx;
+      pl[hh] = ls;
+    }
   }
-  denom = fmaxf(denom, 1e-30f);
-  float* orow = out + ((size_t)slot * H + h) * D;
+  cluster.sync();
+
+  if (rank == 0) {
+    float* orow = out + ((size_t)slot * H + h0) * D;
+    for (int o = tid; o < W; o += kThreads) {
+      const int oh = o / D;
+      float mr[kMaxCluster], lr[kMaxCluster], ar[kMaxCluster];
 #pragma unroll
-  for (int i = 0; i < kMaxDPerLane; ++i)
-    if (i < dpl) orow[lane + 32 * i] = o[i] / denom;
+      for (int r = 0; r < kMaxCluster; ++r) {  // all in flight at once
+        if (r < ranks) {
+          mr[r] = cluster.map_shared_rank(pm, r)[oh];
+          lr[r] = cluster.map_shared_rank(pl, r)[oh];
+          ar[r] = cluster.map_shared_rank(pacc, r)[o];
+        }
+      }
+      float mx = -INFINITY;
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r)
+        if (r < ranks) mx = fmaxf(mx, mr[r]);
+      float num = 0.f, den = 0.f;
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r) {
+        if (r < ranks) {
+          const float w = mr[r] == -INFINITY ? 0.f : exp2f(mr[r] - mx);
+          den = fmaf(lr[r], w, den);
+          num = fmaf(ar[r], w, num);
+        }
+      }
+      orow[o] = num / fmaxf(den, 1e-30f);
+    }
+  }
+  cluster.sync();  // no rank leaves while rank 0 reads its shared memory
+}
+
+// the dynamic shared memory cap, raised once to what any plan may use
+cudaError_t allow_smem() {
+  static cudaError_t err = cudaFuncSetAttribute(
+      paged_attention_split, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)(sizeof(float) * smem_floats(kMaxW, 8)));
+  return err;
+}
+
+cudaLaunchConfig_t config(int S, int H, int D, int hpb, int splits,
+                          cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, H / hpb, S);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = sizeof(float) * smem_floats(hpb * D, hpb);
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 }  // namespace
 
+// Plan: hpb heads per block (divides H, hpb * D <= 512); `splits` blocks
+// per cluster (<= 8); tiles of 2048 / (hpb * D) rows.
 extern "C" int pdt_paged_attention_f32(const void* q, const void* kpool,
                                        const void* vpool, const void* tables,
                                        const void* pos, void* out, int S,
                                        int H, int D, int num_blocks,
                                        int block_size, int max_blocks,
-                                       float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) *
-      ((size_t)kWarps * 2 * block_size * D + 2 * kWarps + (size_t)kWarps * D);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  dim3 grid(S, H);
-  paged_attention_kernel<<<grid, kWarps * 32, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(kpool),
-      static_cast<const float*>(vpool), static_cast<const int*>(tables),
-      static_cast<const int*>(pos), static_cast<float*>(out), H, D,
-      num_blocks, block_size, max_blocks, scale);
+                                       int hpb, int splits, float scale,
+                                       void* stream) {
+  cudaError_t err = allow_smem();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = config(S, H, D, hpb, splits, attr);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  err = cudaLaunchKernelEx(
+      &cfg, paged_attention_split, static_cast<const float*>(q),
+      static_cast<const float*>(kpool), static_cast<const float*>(vpool),
+      static_cast<const int*>(tables), static_cast<const int*>(pos),
+      static_cast<float*>(out), H, D, num_blocks, block_size, max_blocks, hpb,
+      kTile / (hpb * D), scale * 1.4426950408889634f);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Clusters of this plan's shape that can be resident at once (0: none).
+extern "C" int pdt_paged_attention_max_clusters(int H, int D, int hpb,
+                                                int splits, int* out) {
+  cudaError_t err = allow_smem();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = config(1, H, D, hpb, splits, attr);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(out, paged_attention_split, &cfg));
 }

@@ -14,6 +14,7 @@ CPU has no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -23,7 +24,8 @@ import time
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["SOURCES", "build_all", "load", "function", "check"]
+__all__ = ["SOURCES", "MAX_CLUSTER", "build_all", "load", "function",
+           "check", "sm_count"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -31,6 +33,8 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("flash_attention", "fused_bn_act", "int8_matmul", "paged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+MAX_CLUSTER = 8  # the portable thread-block cluster size
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -121,3 +125,12 @@ def check(err: int, what: str):
     """Raise if a kernel's C entry returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA card `index` (132 on an H100 SXM,
+    114 on a PCIe one): the cluster kernels' launch plans size their grids
+    by it."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -8,20 +8,24 @@ step 4x against f32, while the activation stays f32.
 - **Kernel** (``csrc/int8_matmul.cu``, CUDA C++ for sm_90a): replaces the
   Pallas kernel ``paddle_tpu/ops/int8_matmul.py::_kernel``.  Its bound is
   the weight bytes, ``K*N + 4*N`` over 3.35 TB/s (one GPT-2-medium layer,
-  12.6 MB: ~3.8 us).  Split-K over 128-column tiles so a decode-sized M
-  still fills the card, 16-byte int8 loads dequantized in registers
-  against the scale slice, f32 accumulation; design notes in the source.
+  12.6 MB: ~3.8 us).  One kernel per call: the blocks of a thread-block
+  cluster share an output tile and split K, and add their partial sums
+  through distributed shared memory in a fixed order (no partial buffer in
+  device memory, no atomics, bit-repeatable); int8 words dequantized by a
+  byte permute, the scale applied once per column after the sum; design
+  notes in the source.  ``_plan`` picks the tile and the split from the
+  shapes alone.
 - **Plain version** (``_plain``): ``x @ (w_int8.to(x.dtype) * scale)``,
   the reference's fallback.  The wrapper takes it only for CPU tensors.
 
 ``dequant_matmul.launches`` counts kernel launches (the plain version never
-counts).  One launch is one call of the C entry, which runs two
-``__global__`` kernels on the stream: ``dequant_matmul_partial`` and the
-split-K sum ``dequant_matmul_reduce``.
+counts).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -30,39 +34,64 @@ from . import _build
 __all__ = ["dequant_matmul"]
 
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+THREADS = 128         # threads of a block (the kernel's)
+WORDS = {8: 32, 16: 16, 32: 8}  # weight words a thread holds per chunk
 
 
 def _plain(x2, w_int8, scale_row):
     return x2 @ (w_int8.to(x2.dtype) * scale_row.to(x2.dtype))
 
 
-def _split_k(m: int, k: int, n: int) -> int:
-    """Rows of K per block: the largest multiple of 32 that divides K
-    into chunks and still gives the card >= 264 blocks (two per SM), or
-    32 when even that cannot."""
-    tiles = -(-n // 128) * -(-m // 8)
-    units = -(-k // 32)
-    best = units
-    for c in range(units, 0, -1):
-        if units % c == 0:
-            best = c
-            if tiles * (units // c) >= 264:
+class Plan(NamedTuple):
+    """Launch plan: output tiles of ``mt`` x ``tn``; each cluster of
+    ``splits`` blocks shares a tile and rank r sums K rows
+    [r * k_rows, min((r + 1) * k_rows, K))."""
+    mt: int
+    tn: int
+    splits: int
+    k_rows: int
+
+    def grid(self, m: int, n: int):
+        return (self.splits, -(-n // self.tn), -(-m // self.mt))
+
+
+@functools.lru_cache(maxsize=None)  # shapes repeat every call
+def _plan(m: int, k: int, n: int, sms: int) -> Plan:
+    """Decode (M <= 16): 32-column tiles, K split (<= 8 ways) so that one
+    chunk of register words per thread covers its rank: the whole weight
+    is in flight at once, in the fewest blocks (more, smaller blocks lost
+    on the card).  Prefill: the widest tile up to 64 columns, then the
+    fewest splits, that give the card's ``sms`` multiprocessors >= 2
+    blocks each."""
+    mt = 8 if m <= 8 else 16 if m <= 16 else 32
+    if mt < 32:
+        tn = 32
+        rows = THREADS // (tn // 4) * WORDS[mt]
+        splits = max(1, min(_build.MAX_CLUSTER, -(-k // rows)))
+    else:
+        tiles_m = -(-m // mt)
+        most = max(1, min(_build.MAX_CLUSTER, k // 128))
+        tn, splits = 16, most
+        for cand in (64, 32, 16):
+            fit = [s for s in (1, 2, 4, 8)
+                   if s <= most and -(-n // cand) * tiles_m * s >= 2 * sms]
+            if fit:
+                tn, splits = cand, fit[0]
                 break
-    return 32 * best
+    k_rows = (-(-k // splits) + 3) // 4 * 4  # x rows in 16-byte copies
+    return Plan(mt, tn, -(-k // k_rows), k_rows)
 
 
 def _kernel(x2, w_int8, scale_row):
     fn = _build.function("int8_matmul", "pdt_int8_matmul_f32", _ARGTYPES)
     m, k = x2.shape
     n = w_int8.shape[1]
-    k_chunk = _split_k(m, k, n)
-    splits = -(-k // k_chunk)
+    p = _plan(m, k, n, _build.sm_count(x2.device.index))
     y = torch.empty((m, n), dtype=torch.float32, device=x2.device)
-    part = torch.empty((splits, m, n), dtype=torch.float32, device=x2.device)
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     err = fn(x2.data_ptr(), w_int8.data_ptr(), scale_row.data_ptr(),
-             y.data_ptr(), part.data_ptr(), m, k, n, k_chunk, splits, stream)
+             y.data_ptr(), m, k, n, p.mt, p.tn, p.splits, p.k_rows, stream)
     dequant_matmul.launches += 1
     _build.check(err, "int8_matmul")
     return y
@@ -86,6 +115,9 @@ def _check_cuda(x2, w_int8, scale_row):
     if w_int8.data_ptr() % 16:
         raise ValueError("dequant_matmul kernel reads the weight in 16-byte "
                          "loads: its data must start 16-byte aligned")
+    if x2.shape[0] > 65535 * 32 or w_int8.shape[1] > 65535 * 16:
+        raise ValueError("dequant_matmul kernel: M or N is past its grid "
+                         f"({x2.shape[0]}, {w_int8.shape[1]})")
 
 
 def dequant_matmul(x, w_int8, scale):

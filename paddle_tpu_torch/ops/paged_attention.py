@@ -24,9 +24,15 @@ layer, and each slot owns a table of block ids; the allocator's
   (S,).  It reads only the blocks that hold rows <= pos and never
   materializes the contiguous view; its bound is the live K/V bytes,
   ``sum(pos + 1) * H * D * 2 * 4`` over 3.35 TB/s (8 slots at pos ~512 of
-  GPT-2 medium: 33.5 MB, ~10 us per layer).  Design notes in the source.
-  The plain version (``_plain``) is the reference's ``_fallback``: gather
-  the view, masked softmax; the wrapper takes it only for CPU tensors.
+  GPT-2 medium: 33.5 MB, ~10 us per layer).  Split-KV: the blocks of a
+  thread-block cluster each take a split of one slot's table for a few
+  heads, and rank 0 merges their softmax states through distributed
+  shared memory in rank order (one kernel, no scratch in device memory,
+  bit-repeatable).  ``_plan`` cuts the table from its width alone, so
+  the wrapper never reads ``pos`` on the host.  Design notes in the
+  source.  The plain version (``_plain``) is the reference's
+  ``_fallback``: gather the view, masked softmax; the wrapper takes it
+  only for CPU tensors.
 
 ``paged_attention.launches`` counts kernel launches (the plain version never
 counts).
@@ -34,7 +40,9 @@ counts).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -186,27 +194,54 @@ def _check_cuda(q, kpool, vpool, tables, pos):
     if d % 32 or d > 256:
         raise ValueError(f"paged_attention kernel needs head_dim % 32 == 0 "
                          f"and <= 256, got {d}")
-    smem = 4 * (8 * kpool.shape[1] * d + 8 + 4 * d)
-    if smem > 232448:
-        raise ValueError(f"paged_attention kernel: block_size "
-                         f"{kpool.shape[1]} x head_dim {d} needs {smem} B "
-                         "of shared memory, more than a block may use")
+    if s > 65535:
+        raise ValueError(f"paged_attention kernel: {s} slots is past its "
+                         "grid (65535)")
 
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_void_p]
+_MAX_ROW = 512     # most floats of one block's row: hpb * head_dim
+_TILE = 2048       # floats of one staged K (or V) tile (the kernel's)
+
+
+class Plan(NamedTuple):
+    """Launch plan: ``hpb`` heads per block; each slot's live rows are cut
+    evenly over ``splits`` blocks (one thread-block cluster; rank r takes
+    rows [r * per, (r + 1) * per) with per = ceil(live / splits), from
+    pos on the device); K and V are staged in tiles of ``tile_rows``
+    rows."""
+    hpb: int
+    splits: int
+    tile_rows: int
+
+    def grid(self, s: int, h: int):
+        return (self.splits, h // self.hpb, s)
+
+
+@functools.lru_cache(maxsize=None)  # shapes repeat every call
+def _plan(s: int, h: int, d: int, max_blocks: int, sms: int) -> Plan:
+    """Up to 8 splits, one per table block (the table's width, not pos: no
+    host sync), then the most heads per block that still give the card's
+    ``sms`` multiprocessors >= 2 blocks each (one head when nothing
+    does)."""
+    splits = min(_build.MAX_CLUSTER, max_blocks)
+    fits = [c for c in (8, 4, 2, 1) if h % c == 0 and c * d <= _MAX_ROW]
+    hpb = next((c for c in fits if s * (h // c) * splits >= 2 * sms), 1)
+    return Plan(hpb, splits, _TILE // (hpb * d))
 
 
 def _kernel(q, kpool, vpool, tables, pos):
     fn = _build.function("paged_attention", "pdt_paged_attention_f32",
                          _ARGTYPES)
     s, h, d = q.shape
+    p = _plan(s, h, d, tables.shape[1], _build.sm_count(q.device.index))
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
              tables.data_ptr(), pos.data_ptr(), out.data_ptr(), s, h, d,
-             kpool.shape[0], kpool.shape[1], tables.shape[1],
-             1.0 / math.sqrt(d), stream)
+             kpool.shape[0], kpool.shape[1], tables.shape[1], p.hpb,
+             p.splits, 1.0 / math.sqrt(d), stream)
     paged_attention.launches += 1
     _build.check(err, "paged_attention")
     return out
@@ -222,8 +257,8 @@ def paged_attention(q, kpool, vpool, tables, pos):
     it does not take); CPU tensors take the plain version."""
     if q.device.type == "cuda":
         _check_cuda(q, kpool, vpool, tables, pos)
-        if q.shape[0] == 0:
-            return torch.empty_like(q)
+        if q.shape[0] == 0 or tables.shape[1] == 0:  # no rows to attend
+            return torch.zeros_like(q)
         return _kernel(q, kpool, vpool, tables, pos)
     return _plain(q, kpool, vpool, tables, pos)
 

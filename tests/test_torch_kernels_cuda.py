@@ -50,6 +50,41 @@ def test_int8_matmul_kernel_matches_plain(cuda, m, k, n):
     torch.testing.assert_close(got, want, **TOL)
 
 
+@pytest.mark.parametrize("k", [1024, 4096])
+@pytest.mark.parametrize("n", [16, 1024, 3072])
+@pytest.mark.parametrize("m", [1, 8, 16, 33, 512])
+def test_int8_matmul_plans_match_plain_and_repeat(cuda, m, n, k):
+    """Every tile and split the plan picks (decode M 1-16, prefill 33 and
+    512) against the plain version; two calls bit-equal (the cluster sums
+    its ranks in a fixed order)."""
+    rng = np.random.RandomState(m + n + k)
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(cuda)
+    wi, s = quantize_weight_int8(
+        torch.from_numpy((0.02 * rng.randn(k, n)).astype(np.float32)).to(cuda))
+    got = int8_matmul.dequant_matmul(x, wi, s)
+    again = int8_matmul.dequant_matmul(x, wi, s)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, int8_matmul._plain(x, wi, s), **TOL)
+    assert torch.equal(got, again)
+
+
+def test_int8_matmul_allocates_only_its_output_at_decode(cuda):
+    """One decode-M call allocates its (M, N) output and nothing else: no
+    split-K partial buffer (the allocator rounds to 512 bytes)."""
+    rng = np.random.RandomState(11)
+    x = torch.from_numpy(rng.randn(8, 4096).astype(np.float32)).to(cuda)
+    wi, s = quantize_weight_int8(torch.from_numpy(
+        (0.02 * rng.randn(4096, 3072)).astype(np.float32)).to(cuda))
+    int8_matmul.dequant_matmul(x, wi, s)  # build and load first
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    y = int8_matmul.dequant_matmul(x, wi, s)
+    torch.cuda.synchronize()
+    out = -(-y.numel() * 4 // 512) * 512
+    assert torch.cuda.max_memory_allocated() - before <= out
+
+
 def test_int8_matmul_per_tensor_scale_and_batch_dims(cuda):
     rng = np.random.RandomState(3)
     x = torch.from_numpy(rng.randn(2, 3, 64).astype(np.float32)).to(cuda)
@@ -106,6 +141,37 @@ def test_paged_attention_kernel_matches_plain(cuda, s, bs, h, d, pos):
     torch.testing.assert_close(got, want, **TOL)
 
 
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("bs", [8, 16, 32, 64])
+def test_paged_attention_block_sizes_and_head_dims(cuda, bs, d):
+    """Block sizes 8-64 and head dims 32-256, ragged positions with
+    sentinel tails (one slot sees a single row); two calls bit-equal."""
+    pos = [0, 37, 200, 511]
+    rng = np.random.RandomState(bs + d)
+    nb = 512 // bs
+    args = [a.to(cuda) for a in _paged_case(rng, 4, nb * 4, bs, 4, d, nb,
+                                            pos)]
+    got = pa.paged_attention(*args)
+    again = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, pa._plain(*args), **TOL)
+    assert torch.equal(got, again)
+
+
+def test_paged_attention_long_context(cuda):
+    """max_len 4096 (a 256-entry table of 16-row blocks): a slot at pos
+    4095, one at pos 0, the rest ragged; two calls bit-equal."""
+    pos = [4095, 0, 2047, 3000, 17, 1023, 4000, 64]
+    rng = np.random.RandomState(4096)
+    args = [a.to(cuda) for a in _paged_case(rng, 8, 8 * 256, 16, 16, 64,
+                                            256, pos)]
+    got = pa.paged_attention(*args)
+    again = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, pa._plain(*args), **TOL)
+    assert torch.equal(got, again)
+
+
 def test_paged_attention_clamps_out_of_range_ids(cuda):
     rng = np.random.RandomState(0)
     q, kpool, vpool, tables, pos = _paged_case(rng, 2, 6, 4, 2, 32, 4,
@@ -149,9 +215,23 @@ def test_int8_matmul_offset_views(cuda):
         int8_matmul.dequant_matmul(x, misaligned, s)
 
 
+def test_int8_matmul_unaligned_x(cuda):
+    """x that starts 4 bytes into its storage cannot go by 16-byte bulk
+    copies: the kernel stages it 4 bytes at a time and agrees all the
+    same."""
+    rng = np.random.RandomState(8)
+    flat = torch.from_numpy(rng.randn(1 + 8 * 1024).astype(np.float32)).to(cuda)
+    x = flat[1:].view(8, 1024)
+    wi, s = quantize_weight_int8(torch.from_numpy(
+        (0.02 * rng.randn(1024, 1024)).astype(np.float32)).to(cuda))
+    torch.testing.assert_close(int8_matmul.dequant_matmul(x, wi, s),
+                               int8_matmul._plain(x, wi, s), **TOL)
+
+
 def test_paged_attention_offset_views(cuda):
     """Pools that start 16 bytes into their storage are taken; pools that
-    start 4 bytes in are refused (16-byte K/V loads)."""
+    start 4 bytes in are refused (16-byte K/V loads); a q that starts 4
+    bytes in is taken (staged 4 bytes at a time)."""
     rng = np.random.RandomState(6)
     q, kpool, vpool, tables, pos = [
         a.to(cuda) for a in _paged_case(rng, 2, 6, 4, 2, 32, 3, [9, 3])]
@@ -167,6 +247,12 @@ def test_paged_attention_offset_views(cuda):
                                **TOL)
     with pytest.raises(ValueError, match="aligned"):
         pa.paged_attention(q, at(kpool, 1), vpool, tables, pos)
+    flat = torch.zeros(1 + q.numel(), device=cuda)
+    q_off = flat[1:].view(q.shape)
+    q_off.copy_(q)
+    torch.testing.assert_close(
+        pa.paged_attention(q_off, kpool, vpool, tables, pos),
+        pa._plain(q, kpool, vpool, tables, pos), **TOL)
 
 
 # ---------------------------------------------------------------------------

@@ -100,14 +100,45 @@ def test_dequant_matmul_batch_dims_and_per_tensor_scale():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-def test_split_k_plan_fills_the_card():
-    # decode shapes get >= 264 blocks, or the finest split (32 rows) when
-    # even that gives fewer; large M keeps K whole
-    for m, k, n in [(8, 1024, 1024), (8, 4096, 1024), (8, 1024, 4096)]:
-        kc = tim._split_k(m, k, n)
-        assert k % kc == 0
-        assert (-(-n // 128) * -(-m // 8) * (k // kc) >= 264) or kc == 32
-    assert tim._split_k(4096, 1024, 4096) == 1024
+# GPT-2 medium's four Linears per layer, (K, N)
+GPT2_MEDIUM_LINEARS = [(1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024)]
+H100_SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 33, 512])
+@pytest.mark.parametrize("k,n", GPT2_MEDIUM_LINEARS + [(32, 128), (96, 144),
+                                                      (300, 48)])
+def test_int8_plan_covers_k_once_in_one_cluster(m, k, n):
+    """Every K row is summed by exactly one cluster rank; a cluster has at
+    most 8 blocks and its size divides the grid; the tile is one the
+    kernel is built for."""
+    p = tim._plan(m, k, n, H100_SMS)
+    assert 1 <= p.splits <= 8
+    grid = p.grid(m, n)
+    assert grid[0] % p.splits == 0
+    rows = [r for rank in range(p.splits)
+            for r in range(rank * p.k_rows, min((rank + 1) * p.k_rows, k))]
+    assert sorted(rows) == list(range(k)) and len(set(rows)) == k
+    assert all(rank * p.k_rows < k for rank in range(p.splits)), "empty rank"
+    assert (p.mt, p.tn) in {(8, 32), (16, 32), (32, 16), (32, 32), (32, 64)}
+    assert grid[1] * p.tn >= n and grid[2] * p.mt >= m
+
+
+@pytest.mark.parametrize("k,n", GPT2_MEDIUM_LINEARS)
+def test_int8_plan_puts_the_decode_weight_in_flight_at_once(k, n):
+    """At GPT-2 medium's decode M (8 slots) every thread's k-rows fit its
+    one chunk of register words, so the whole weight is loaded in one
+    round; at the largest prefill bucket the grid gives the card >= 2
+    blocks per SM."""
+    p = tim._plan(8, k, n, H100_SMS)
+    groups = tim.THREADS // (p.tn // 4)
+    assert p.k_rows <= groups * tim.WORDS[p.mt]
+    blocks = p.grid(8, n)
+    words = blocks[0] * blocks[1] * blocks[2] * tim.THREADS * tim.WORDS[p.mt]
+    assert 4 * words >= k * n
+    pre = tim._plan(512, k, n, H100_SMS)
+    g = pre.grid(512, n)
+    assert g[0] * g[1] * g[2] >= 2 * H100_SMS
 
 
 # ---------------------------------------------------------------------------
@@ -141,6 +172,34 @@ def test_paged_attention_plain_matches_reference(interpret):
                                 (q, kp, vp, tables, pos)))
     assert tpa.paged_attention.launches == before, "CPU must not count"
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("live", [0, 1, 7, 8, 9, 17, 463, 1000, 1024])
+@pytest.mark.parametrize("max_blocks", [1, 3, 8, 64, 256])
+def test_paged_plan_covers_live_rows_once(live, max_blocks):
+    """Every live row of a slot is taken by exactly one cluster rank; a
+    cluster has at most 8 blocks and its size divides the grid."""
+    p = tpa._plan(8, 16, 64, max_blocks, H100_SMS)
+    assert 1 <= p.splits <= 8
+    assert p.grid(8, 16)[0] % p.splits == 0
+    per = -(-live // p.splits)  # the kernel's rule, from pos on the device
+    rows = [r for rank in range(p.splits)
+            for r in range(min(rank * per, live), min((rank + 1) * per, live))]
+    assert rows == list(range(live))
+
+
+@pytest.mark.parametrize("h,d", [(16, 64), (2, 32), (4, 128), (1, 256),
+                                 (2, 96)])
+def test_paged_plan_fills_the_card_at_decode(h, d):
+    """GPT-2 medium's decode (8 slots, 16 heads of 64, a 64-entry table)
+    gives the card >= 2 blocks per SM; every plan's heads divide H and a
+    block's row fits the kernel's 512 floats and 2048-float tiles."""
+    p = tpa._plan(8, h, d, 64, H100_SMS)
+    assert h % p.hpb == 0 and p.hpb * d <= 512
+    assert p.tile_rows >= 1 and p.tile_rows * p.hpb * d <= 2048
+    if (h, d) == (16, 64):
+        s, hg, sl = p.grid(8, h)
+        assert s * hg * sl >= 2 * H100_SMS
 
 
 def test_gather_block_rows_clips_like_reference():
