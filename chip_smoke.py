@@ -10,9 +10,11 @@ Phases (any failure exits non-zero before the result line):
                 at the main path's shapes (int8_matmul at the decode M and
                 at every prefill bucket the serve phase's prompts fill;
                 paged_attention also at max_len 4096 with slots at pos
-                4095 and 0); |kernel - plain| must stay within 1e-4 +
-                1e-4 * |plain| (f32 sums in another order), and two calls
-                must give bit-equal results.
+                4095 and 0), in f32 and with bf16 operands (K3: every pair
+                of q and pool dtypes); |kernel - plain| must stay within
+                1e-4 + 1e-4 * |plain| in f32 (sums in another order) and
+                1e-3 + 8e-3 * |plain| with bf16 (one bf16 unit), and two
+                calls must give bit-equal results.
   4. time     — device times (a CUDA graph replayed, CUDA events) of each
                 kernel, its plain version and a PyTorch library call on the
                 same inputs, over a sweep of 24 layers' distinct tensors (the
@@ -20,7 +22,8 @@ Phases (any failure exits non-zero before the result line):
                 step), beside the bound; "call_ms" is the kernel called
                 eagerly, host launch cost included.  paged_attention is
                 also timed at the serve phase's own positions, and
-                int8_matmul at the largest prefill bucket.
+                int8_matmul at the largest prefill bucket; both in f32 and
+                in bf16 (rows "paged_attention_bf16", "int8_matmul_bf16").
   5. serve    — GPT-2 medium (24 x 1024, vocab 50304), random weights from
                 --seed, int8 weight-only, paged KV (block 16, 8 slots,
                 max_len 1024): 8 requests (prompts 32..400, 64 new tokens,
@@ -29,7 +32,12 @@ Phases (any failure exits non-zero before the result line):
                 decode step's logits on the kernel path are held against the
                 same step run by the plain versions (on the CPU) on the same
                 KV state, and greedy agreement with solo generate() is
-                printed.
+                printed.  Then the same for the model decorated to bf16
+                (amp.decorate O2, then int8) on bf16 pools
+                (ServingEngine(dtype=torch.bfloat16)): K3/K4 launch on bf16
+                operands, and the logits stay within 5% of their largest
+                |value| of the CPU plain path.  Each run prints tokens/s,
+                TTFT, the decode step's wall, device time and idle share.
   6. fixed    — a 4-layer full-width f32 engine on the fixed pool: greedy
                 streams must equal solo generate().
   7. flash    — the tensor-core instructions (HMMA / HGMMA lines of
@@ -70,9 +78,16 @@ Phases (any failure exits non-zero before the result line):
                 each tensor's largest |value|, bf16 within 2e-2 of it
                 plus 2e-2 * |plain|, at most one element in a million off
                 (an activation mask flipped by statistics summed in
-                another order).  Then each kernel timed (CUDA graph
-                replay) at layer1's bn3 and at the stem, beside its bound,
-                its plain version and PyTorch's own BatchNorm kernels.
+                another order).  K9 (bn_pool_apply) takes its ring route
+                where the row slots fit (the bf16 stem must; rings of up
+                to 28 slots are checked) and its window route elsewhere
+                and for a bf16 average; both are checked, max bit-equal
+                to the plain version, a bf16 average within one bf16
+                unit (2**-7 of the larger value, plus 1e-5 of the largest
+                |value|), two calls bit-equal.  Then each kernel timed
+                (CUDA graph replay) at layer1's bn3 and at the stem, beside
+                its bound, its plain version and PyTorch's own BatchNorm
+                kernels; K9's ring route in turns with its window route.
  11. resnet   — ResNet-50 (BASELINE config #2): resnet50() under
                 jit.layout_policy("NHWC"), TrainStep O2 bf16, cross-entropy
                 on the logits, Momentum(0.1, 0.9), one random batch of
@@ -81,8 +96,10 @@ Phases (any failure exits non-zero before the result line):
                 device busy and idle share, the top device entries with
                 the cuDNN convolutions and K5-K9 summed apart, K5-K9
                 launches per step (asserted against the counts derived
-                from the model's blocks), layout copies per step, peak
-                memory.
+                from the model's blocks; K9 on its ring route), layout
+                copies per step, peak memory.  Then K7 and K8 timed at each
+                of the step's 48 BN backward sites' shapes beside each
+                site's bound.
  12. resnetcheck — one f32 step of ResNet-18 (10 classes, 4 x 3 x 64 x 64)
                 on the kernel path against the same step by the plain
                 versions on the CPU, same weights and batch: the loss,
@@ -103,7 +120,16 @@ import time
 import numpy as np
 
 TOL = 1e-4          # |kernel - plain| <= TOL + TOL * |plain|
+# K3 / K4 on bf16 operands, (atol, rtol): kernel and plain version both
+# compute in f32 and round once to bf16, so f32 values that differ in
+# their last bits may round to neighbouring bf16 values: one bf16 unit
+# (8e-3 > 2**-7, a unit's largest relative size)
+BF16_TOL = (1e-3, 8e-3)
 LOGIT_TOL = 2e-3    # kernel-path vs plain-path decode logits, max abs
+# the same in bf16, as a share of the logits' largest |value|: the card
+# and the CPU round the bf16 activations of 24 layers at other places
+# (cuBLAS and the CPU's matmul, layer norm), a few bf16 units each
+BF16_LOGIT_TOL = 5e-2
 # flash kernels vs their plain versions, (atol, rtol): f32 outputs sum in
 # another order; f32 gradients sum over up to 1024 rows; bf16 values are
 # rounded to bf16 by both, one bf16 unit (2**-8 relative) apart at most
@@ -206,9 +232,10 @@ def prefill_buckets():
 
 def int8_phase(torch, rng, dev):
     """K4 checked at every M of the main path (8 decode slots and each
-    prefill bucket) over one GPT-2-medium layer's four Linears, two calls
-    bit-equal at each; timed per layer at decode M and at the largest
-    prefill bucket, swept over 24 layers' weights."""
+    prefill bucket) over one GPT-2-medium layer's four Linears, with f32
+    and bf16 x, two calls bit-equal at each; timed per layer in both types
+    at decode M and at the largest prefill bucket, swept over 24 layers'
+    weights.  Returns the f32 and the bf16 row of the kernel table."""
     from paddle_tpu_torch.ops import _build, int8_matmul as im
     from paddle_tpu_torch.quantization import quantize_weight_int8
     shapes = [(1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024)]
@@ -222,26 +249,42 @@ def int8_phase(torch, rng, dev):
     ms_at = [SLOTS] + prefill_buckets()
     xs_at = {mc: {k: torch.from_numpy(rng.randn(mc, k).astype(np.float32))
                   .to(dev) for k in (1024, 4096)} for mc in ms_at}
-    err, ok = 0.0, True
-    for mc in ms_at:
-        for (k, n), (wi, s) in zip(shapes, layers[0]):
-            x = xs_at[mc][k]
-            got = im.dequant_matmul(x, wi, s)
-            again = im.dequant_matmul(x, wi, s)
-            want = im._plain(x, wi, s)
-            torch.cuda.synchronize()
-            e, o = max_err(torch, got, want)
-            rep = torch.equal(got, again)
-            err, ok = max(err, e), ok and o and rep
-            print(f"check int8_matmul M={mc} K={k} N={n} "
-                  f"{im._plan(mc, k, n, _build.sm_count(dev.index))}: "
-                  f"max_abs_err={e:.3e}"
-                  f"{'' if o else ' OUT OF TOLERANCE'}"
-                  f"{'' if rep else ' NOT BIT-REPEATABLE'}")
-    if not ok:
-        fail(f"int8_matmul disagrees with its plain version or does not "
-             f"repeat ({err:.3e})")
+    sms = _build.sm_count(dev.index)
+    rows = []
+    for dt, (atol, rtol) in ((torch.float32, (TOL, TOL)),
+                             (torch.bfloat16, BF16_TOL)):
+        name = "int8_matmul" + ("" if dt == torch.float32 else "_bf16")
+        xs_dt = {mc: {k: x.to(dt) for k, x in xs.items()}
+                 for mc, xs in xs_at.items()}
+        err, ok = 0.0, True
+        for mc in ms_at:
+            for (k, n), (wi, s) in zip(shapes, layers[0]):
+                x = xs_dt[mc][k]
+                got = im.dequant_matmul(x, wi, s)
+                again = im.dequant_matmul(x, wi, s)
+                want = im._plain(x, wi, s)
+                torch.cuda.synchronize()
+                e, o = max_err(torch, got, want, atol, rtol)
+                rep = torch.equal(got, again)
+                o = o and got.dtype == dt
+                err, ok = max(err, e), ok and o and rep
+                print(f"check {name} M={mc} K={k} N={n} "
+                      f"{im._plan(mc, k, n, sms, x.element_size())}: "
+                      f"max_abs_err={e:.3e}"
+                      f"{'' if o else ' OUT OF TOLERANCE'}"
+                      f"{'' if rep else ' NOT BIT-REPEATABLE'}")
+        if not ok:
+            fail(f"{name} disagrees with its plain version or does not "
+                 f"repeat ({err:.3e})")
+        rows.append(_int8_time(torch, im, layers, shapes, xs_dt,
+                               [SLOTS, ms_at[-1]], name, err))
+    return rows
 
+
+def _int8_time(torch, im, layers, shapes, xs_at, ms, name, err):
+    """K4's row of the kernel table: ms per layer (graph replay over 24
+    layers' weights), plain and library times and the bound at decode M
+    (and printed at the largest prefill M)."""
     def sweep(f, xs):
         def run():
             for ws in layers:
@@ -249,24 +292,26 @@ def int8_phase(torch, rng, dev):
                     f(xs[k], wi, s)
         return run
 
-    def bound(m):
-        nbytes = sum(m * k * 4 + k * n + 4 * n + m * n * 4 for k, n in shapes)
+    def bound(m, elem):
+        nbytes = sum(m * k * elem + k * n + 4 * n + m * n * elem
+                     for k, n in shapes)
         return bound_ms(nbytes, sum(2 * m * k * n for k, n in shapes))
-    lib_f = lambda x, wi, s: torch.matmul(x, wi.float() * s)
+    lib_f = lambda x, wi, s: torch.matmul(x, wi.to(x.dtype) * s.to(x.dtype))
     out = {}
-    for mc in (SLOTS, ms_at[-1]):
+    for mc in ms:
         xs = xs_at[mc]
+        elem = xs[1024].element_size()
         out[mc] = dict(ms=graph_ms(torch, sweep(im.dequant_matmul, xs)) / LAYERS,
                        plain=graph_ms(torch, sweep(im._plain, xs)) / LAYERS,
                        lib=graph_ms(torch, sweep(lib_f, xs)) / LAYERS,
-                       bound=bound(mc))
-        print(f"time int8_matmul M={mc}: {out[mc]['ms']:.4f} ms per layer "
-              f"(plain {out[mc]['plain']:.4f}, matmul(x, w.float()*s) "
+                       bound=bound(mc, elem))
+        print(f"time {name} M={mc}: {out[mc]['ms']:.4f} ms per layer "
+              f"(plain {out[mc]['plain']:.4f}, matmul(x, w.to(x.dtype)*s) "
               f"{out[mc]['lib']:.4f}, bound {out[mc]['bound'][0]:.4f} "
               f"{out[mc]['bound'][1]})")
-    d = out[SLOTS]
-    eager = call_ms(torch, sweep(im.dequant_matmul, xs_at[SLOTS]), 10) / LAYERS
-    return {"name": "int8_matmul", "route": "cuda",
+    d = out[ms[0]]
+    eager = call_ms(torch, sweep(im.dequant_matmul, xs_at[ms[0]]), 10) / LAYERS
+    return {"name": name, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/int8_matmul.cu",
             "replaces": "paddle_tpu/ops/int8_matmul.py:49",
             "max_abs_err": err, "ms": d["ms"], "plain_ms": d["plain"],
@@ -297,50 +342,82 @@ def _paged_case(torch, rng, dev, pos_np, nb, h=16, d=64, block=BLOCK,
 def paged_phase(torch, rng, dev):
     """K3 at decode shapes: 8 slots, ragged pos 17..1000, block 16, the
     engine's default pool (8 * 64 blocks), sentinel tail entries; and a
-    long context (max_len 4096, a slot at pos 4095 and one at pos 0); two
-    calls bit-equal at each.  Times per layer, swept over 24 layers' pools,
-    at these positions and at the serve phase's own (each prompt plus 32
-    of its 64 new tokens)."""
-    import ctypes
+    long context (max_len 4096, a slot at pos 4095 and one at pos 0); f32,
+    bf16 and the two mixed dtype pairs (q and the pools); two calls
+    bit-equal at each.  Times per layer in f32 and bf16, swept over 24
+    layers' pools, at these positions and at the serve phase's own (each
+    prompt plus 32 of its 64 new tokens).  Returns the f32 and the bf16
+    row of the kernel table."""
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import paged_attention as pa
     h, d = 16, 64
     nb = MAX_LEN // BLOCK
     sms = _build.sm_count(dev.index)
+    f32, bf16 = torch.float32, torch.bfloat16
     pos_np = np.array([17, 150, 300, 511, 512, 700, 901, 1000], np.int32)
     long_np = np.array([4095, 0, 2047, 3000, 17, 1023, 4000, 64], np.int32)
     q, pools, tables, pos = _paged_case(torch, rng, dev, pos_np, nb,
                                         layers=LAYERS)
     lq, lpools, ltables, lpos = _paged_case(torch, rng, dev, long_np,
                                             4096 // BLOCK)
-    err, ok = 0.0, True
+    errs = {f32: 0.0, bf16: 0.0}
+    ok = True
     for label, args in (("main", (q, *pools[0], tables, pos)),
                         ("max_len 4096", (lq, *lpools[0], ltables, lpos))):
-        got = pa.paged_attention(*args)
-        again = pa.paged_attention(*args)
-        want = pa._plain(*args)
-        torch.cuda.synchronize()
-        e, o = max_err(torch, got, want)
-        rep = torch.equal(got, again)
-        err, ok = max(err, e), ok and o and rep
-        print(f"check paged_attention {label} S={args[0].shape[0]} H={h} "
-              f"D={d} block={BLOCK} "
-              f"{pa._plan(8, h, d, args[3].shape[1], sms)} "
-              f"pos={args[4].tolist()}: max_abs_err={e:.3e}"
-              f"{'' if o else ' OUT OF TOLERANCE'}"
-              f"{'' if rep else ' NOT BIT-REPEATABLE'}")
+        for qd, kvd in ((f32, f32), (bf16, bf16), (f32, bf16), (bf16, f32)):
+            a = (args[0].to(qd), args[1].to(kvd), args[2].to(kvd),
+                 *args[3:])
+            got = pa.paged_attention(*a)
+            again = pa.paged_attention(*a)
+            want = pa._plain(*a)
+            torch.cuda.synchronize()
+            atol, rtol = (TOL, TOL) if qd == kvd == f32 else BF16_TOL
+            e, o = max_err(torch, got, want, atol, rtol)
+            o = o and got.dtype == qd
+            rep = torch.equal(got, again)
+            key = f32 if qd == kvd == f32 else bf16
+            errs[key], ok = max(errs[key], e), ok and o and rep
+            print(f"check paged_attention {label} q {str(qd)[6:]} pools "
+                  f"{str(kvd)[6:]} S={a[0].shape[0]} H={h} D={d} "
+                  f"block={BLOCK} "
+                  f"{pa._plan(8, h, d, a[3].shape[1], sms, kvd.itemsize)} "
+                  f"pos={a[4].tolist()}: max_abs_err={e:.3e}"
+                  f"{'' if o else ' OUT OF TOLERANCE'}"
+                  f"{'' if rep else ' NOT BIT-REPEATABLE'}")
     del lq, lpools, ltables, lpos
     if not ok:
         fail(f"paged_attention disagrees with its plain version or does "
-             f"not repeat ({err:.3e})")
-    plan = pa._plan(SLOTS, h, d, nb, sms)
+             f"not repeat ({errs})")
+    rows = []
+    for dt in (f32, bf16):
+        dq = q.to(dt)
+        dpools = pools if dt == f32 else [(k.to(dt), v.to(dt))
+                                          for k, v in pools]
+        rows.append(_paged_time(torch, pa, sms, dq, dpools, tables, pos,
+                                pos_np, nb, errs[dt]))
+        del dpools
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _paged_time(torch, pa, sms, q, pools, tables, pos, pos_np, nb, err):
+    """K3's row of the kernel table in q's and the pools' dtype (one
+    dtype): ms per layer over 24 layers' pools, plain and SDPA times, the
+    bound (the pools' element size sets the live K/V bytes)."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    h, d = q.shape[1], q.shape[2]
+    elem = pools[0][0].element_size()
+    name = "paged_attention" + ("" if elem == 4 else "_bf16")
+    dev = q.device
+    plan = pa._plan(SLOTS, h, d, nb, sms, elem)
     fits = ctypes.c_int(0)
     _build.check(_build.function(
         "paged_attention", "pdt_paged_attention_max_clusters",
-        [ctypes.c_int] * 4 + [ctypes.c_void_p])(
-            h, d, plan.hpb, plan.splits, ctypes.byref(fits)),
+        [ctypes.c_int] * 5 + [ctypes.c_void_p])(
+            h, d, plan.hpb, plan.splits, int(elem == 2), ctypes.byref(fits)),
         "paged_attention max clusters")
-    print(f"paged_attention plan {plan}: grid {plan.grid(SLOTS, h)}, "
+    print(f"{name} plan {plan}: grid {plan.grid(SLOTS, h)}, "
           f"{fits.value} clusters of {plan.splits} resident at once")
 
     def kern(p):
@@ -349,7 +426,7 @@ def paged_phase(torch, rng, dev):
 
     def bound(p_np):
         rows = int(np.minimum(p_np + 1, nb * BLOCK).sum())
-        nbytes = (rows * h * d * 4 * 2 + 2 * q.numel() * 4
+        nbytes = (rows * h * d * elem * 2 + 2 * q.numel() * q.element_size()
                   + tables.numel() * 4 + p_np.size * 4)
         return bound_ms(nbytes, 4.0 * rows * h * d)
     ms = graph_ms(torch, kern(pos)) / LAYERS
@@ -375,10 +452,11 @@ def paged_phase(torch, rng, dev):
     serve_pos = torch.from_numpy(serve_np).to(dev)
     serve_ms = graph_ms(torch, kern(serve_pos)) / LAYERS
     sb, _ = bound(serve_np)
-    print(f"time paged_attention pos={pos_np.tolist()}: {ms:.4f} ms per "
-          f"layer (bound {b:.4f}); serve pos={serve_np.tolist()}: "
-          f"{serve_ms:.4f} ms per layer (bound {sb:.4f})")
-    return {"name": "paged_attention", "route": "cuda",
+    print(f"time {name} pos={pos_np.tolist()}: {ms:.4f} ms per layer "
+          f"(plain {plain:.4f}, SDPA pre-gathered {lib:.4f}, bound {b:.4f}); "
+          f"serve pos={serve_np.tolist()}: {serve_ms:.4f} ms per layer "
+          f"(bound {sb:.4f})")
+    return {"name": name, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/paged_attention.cu",
             "replaces": "paddle_tpu/ops/paged_attention.py:109",
             "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b,
@@ -436,14 +514,19 @@ def device_profile(torch, step, steps: int, what: str, card: str,
     return step_ms, (busy if rows else None), sums
 
 
-def decode_profile(torch, eng, steps: int, card: str):
-    device_profile(torch, eng.step, steps,
-                   f"decode step (8 slots x {eng.decode_chunk} tokens, "
-                   f"{eng.model.gpt.config.num_hidden_layers} layers)", card)
+def decode_profile(torch, eng, steps: int, card: str, tag: str = "serve"):
+    return device_profile(torch, eng.step, steps,
+                          f"{tag} decode step (8 slots x {eng.decode_chunk} "
+                          f"tokens, {eng.model.gpt.config.num_hidden_layers} "
+                          "layers)", card)
 
 
-def serve_phase(torch, args, dev, card):
-    """GPT-2 medium, int8 weights, paged KV: the main path."""
+def serve_phase(torch, args, dev, card, dtype=None):
+    """GPT-2 medium, int8 weights, paged KV: the main path; with dtype
+    bf16 the model is decorated to bf16 (amp O2) before quantization and
+    the engine's pools are bf16.  Returns the launches of K3 and K4 in
+    this run, keyed by their kernel-table names."""
+    from paddle_tpu_torch import amp
     from paddle_tpu_torch.generation import generate
     from paddle_tpu_torch.models import GPTForPretraining, gpt2_medium_config
     from paddle_tpu_torch.ops import int8_matmul as im
@@ -452,14 +535,23 @@ def serve_phase(torch, args, dev, card):
     from paddle_tpu_torch.serving import ServingEngine
     from paddle_tpu_torch.serving.engine import paged_decode_logits
 
+    bf16 = dtype == torch.bfloat16
+    tag = "serve bf16" if bf16 else "serve"
     cfg = gpt2_medium_config(hidden_dropout_prob=0.0,
                              attention_probs_dropout_prob=0.0)
     model = GPTForPretraining(cfg, device=dev, seed=args.seed).eval()
+    if bf16:
+        amp.decorate(models=model, level="O2", dtype="bfloat16")
     quantize_for_serving(model)
     eng = ServingEngine(model, max_slots=SLOTS, max_len=MAX_LEN,
-                        kv="paged", block_size=BLOCK, device=dev)
+                        kv="paged", block_size=BLOCK, dtype=dtype,
+                        device=dev)
+    pool_dt = eng._pools[0][0].dtype
+    if pool_dt != (dtype or torch.float32):
+        fail(f"{tag}: the engine built {pool_dt} pools")
     warm = eng.warmup()
-    print(f"serve: warmup {warm['seconds']:.2f}s")
+    print(f"{tag}: warmup {warm['seconds']:.2f}s; pools {pool_dt}, "
+          f"weights {next(model.parameters()).dtype} + int8")
     rng = np.random.RandomState(args.seed)
     prompts = [rng.randint(0, cfg.vocab_size, (n,)) for n in PROMPT_LENS]
     sampled = {3: dict(temperature=0.8, top_k=40, top_p=0.9, seed=11),
@@ -475,19 +567,20 @@ def serve_phase(torch, args, dev, card):
     eng.run_until_drained(timeout=600)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"int8_matmul": im.dequant_matmul.launches,
-                "paged_attention": pa.paged_attention.launches}
+    suffix = "_bf16" if bf16 else ""
+    launches = {"int8_matmul" + suffix: im.dequant_matmul.launches,
+                "paged_attention" + suffix: pa.paged_attention.launches}
     outs = [r.tokens(timeout=5) for r in resps]
     if any(len(o) != 64 for o in outs):
-        fail("a request did not produce 64 tokens")
+        fail(f"{tag}: a request did not produce 64 tokens")
     if any(not (0 <= t < cfg.vocab_size) for o in outs for t in o):
-        fail("token out of the vocabulary")
+        fail(f"{tag}: token out of the vocabulary")
     for name, n in launches.items():
         if n <= 0:
             fail(f"kernel {name} was not launched on the main path")
     ttfts = sorted(r.ttft for r in resps)
     total = sum(len(o) for o in outs)
-    print(f"serve [{card}]: 8 requests, {total} tokens in {wall:.3f}s: "
+    print(f"{tag} [{card}]: 8 requests, {total} tokens in {wall:.3f}s: "
           f"{total / wall:.1f} tokens/s; TTFT p50 "
           f"{ttfts[len(ttfts) // 2] * 1e3:.1f} ms, max "
           f"{ttfts[-1] * 1e3:.1f} ms; launches {launches}")
@@ -513,15 +606,16 @@ def serve_phase(torch, args, dev, card):
             torch.from_numpy(state["tables_np"]), state["active"],
             state["pos"], state["tokens"].cpu(), *geo)
     del cpu_model, cpu_pools, pools
-    decode_profile(torch, eng, 3, card)
+    wall_ms, busy_ms, _ = decode_profile(torch, eng, 3, card, tag)
     eng.run_until_drained(timeout=300)
     [r.tokens(timeout=5) for r in check]
     err = float((kern - plain).abs().max())
-    print(f"serve: decode-step logits kernel path vs plain path: max abs "
-          f"err {err:.3e} (tolerance {LOGIT_TOL}), |logits| max "
-          f"{float(plain.abs().max()):.3f}")
-    if not err <= LOGIT_TOL:
-        fail(f"decode logits disagree: {err:.3e}")
+    top = float(plain.abs().max())
+    tol = BF16_LOGIT_TOL * top if bf16 else LOGIT_TOL
+    print(f"{tag}: decode-step logits kernel path vs plain path: max abs "
+          f"err {err:.3e} (tolerance {tol:.3e}), |logits| max {top:.3f}")
+    if not err <= tol:
+        fail(f"{tag}: decode logits disagree: {err:.3e}")
     agree = []
     for i, p in enumerate(prompts):
         if i in sampled:
@@ -529,9 +623,17 @@ def serve_phase(torch, args, dev, card):
         solo, _ = generate(model, p, max_new_tokens=64, device=dev)
         solo = solo[0].tolist()
         agree.append(sum(a == s for a, s in zip(outs[i], solo)))
-    print(f"serve: greedy tokens equal to solo generate(): {agree} of 64 "
+    print(f"{tag}: greedy tokens equal to solo generate(): {agree} of 64 "
           "per request")
+    print(f"{tag} summary [{card}]: {total / wall:.1f} tokens/s, TTFT p50 "
+          f"{ttfts[len(ttfts) // 2] * 1e3:.1f} ms, decode step wall "
+          f"{wall_ms:.3f} ms, device "
+          + (f"{busy_ms:.3f} ms, idle {1 - busy_ms / wall_ms:.1%}"
+             if busy_ms else "not measured")
+          + f", logits err {err:.3e}")
     eng.close()
+    del eng, model
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -971,18 +1073,40 @@ def bn_kernel_check(torch, fbn, gen, dev, m, c, dtype, act, res, errs):
              f"C={c} {dtype} act={act} residual={res}: {bad}")
 
 
-def bn_pool_check(torch, fbn, gen, dev, shape, dtype, act, pool, errs):
+def bn_pool_check(torch, fbn, gen, dev, shape, dtype, act, pool, errs,
+                  route=None):
+    """K9 against its plain version: max bit-equal, avg within bn_err's
+    bound and, in bf16, within one bf16 unit of the larger value (2**-7
+    of it) plus 1e-5 of the largest |value| (both sum in f32 and round
+    once); two calls bit-equal.  By the wrapper's own route choice, or
+    ``route`` "window" to hold the window route at a shape the ring takes.
+    Returns the route taken."""
     n, h, w, c = shape
     x = _bn_rows(torch, gen, dev, n * h * w, c, dtype).view(n, h, w, c)
     coef = _bn_coef(torch, gen, dev, c)
-    got = fbn.bn_pool_apply(x, coef, act, *pool)
+    before = dict(fbn.bn_pool_apply.routes)
+    call = fbn._pool_window if route == "window" else fbn.bn_pool_apply
+    got = call(x, coef, act, *pool)
+    again = call(x, coef, act, *pool)
     want = fbn._plain_pool_apply(x, coef, act, *pool)
     torch.cuda.synchronize()
+    taken = next(r for r, v in fbn.bn_pool_apply.routes.items()
+                 if v != before[r])
     e, ok = bn_err(torch, got, want)
-    errs["bn_pool_apply"] = max(errs.get("bn_pool_apply", 0.0), e)
-    if not ok or got.shape != want.shape:
-        fail(f"bn_pool_apply disagrees with its plain version at {shape} "
-             f"{dtype} act={act} pool={pool}: {e:.3e}")
+    if pool[0] == "avg" and dtype == torch.bfloat16:
+        g, w = got.float(), want.float()
+        ok = ok and bool(((g - w).abs() <= 2.0 ** -7 * torch.maximum(
+            g.abs(), w.abs()) + 1e-5 * float(w.abs().max())).all())
+    exact = pool[0] != "max" or torch.equal(got, want)
+    rep = torch.equal(got, again)
+    key = "bn_pool_apply" if taken == "ring" else "bn_pool_apply (window)"
+    errs[key] = max(errs.get(key, 0.0), e)
+    if not (ok and exact and rep) or got.shape != want.shape:
+        fail(f"bn_pool_apply ({taken} route) disagrees with its plain "
+             f"version at {shape} {dtype} act={act} pool={pool}: {e:.3e}"
+             f"{'' if exact else ', max not bit-equal'}"
+             f"{'' if rep else ', not bit-repeatable'}")
+    return taken
 
 
 def bn_function_check(torch, fbn, gen, dev, form, shape, dtype):
@@ -1135,17 +1259,28 @@ def bn_time(torch, fbn, gen, dev, shape, res):
                          library_ms=library_ms(torch, lib, name), bound_ms=b,
                          bound_by=by)
     if res == "none":    # the stem: the pooled epilogue
+        from paddle_tpu_torch.ops import _build
+        sms = _build.sm_count(dev.index), _build.smem_limits(dev.index)
         x4n = x.view(n, h, w, c)
         pool = ("max", (3, 3), (2, 2), (1, 1))
         ho, wo = (h + 2 - 3) // 2 + 1, (w + 2 - 3) // 2 + 1
         b, by = bound_ms(*bn_bytes_ops("bn_pool_apply", m, c, 2, res,
                                        mo=n * ho * wo))
         kern = lambda: fbn.bn_pool_apply(x4n, coef, "relu", *pool)
+        old = lambda: fbn._pool_window(x4n, coef, "relu", *pool)
+        # the ring route (kern) and the window route it replaced (old),
+        # in turns
+        times = [graph_ms(torch, f) for f in (kern, old, old, kern)]
         out["bn_pool_apply"] = dict(
-            ms=graph_ms(torch, kern), call_ms=call_ms(torch, kern, 10),
+            ms=times[0], call_ms=call_ms(torch, kern, 10),
             plain_ms=graph_ms(torch, lambda: fbn._plain_pool_apply(
                 x4n, coef, "relu", *pool), 5),
             library_ms=None, bound_ms=b, bound_by=by)
+        print(f"time bn_pool_apply at the stem {shape} bf16 relu max 3x3/2: "
+              f"ring route {times[0]:.4f} / {times[3]:.4f} ms, window route "
+              f"(the kernel it replaced) {times[1]:.4f} / {times[2]:.4f} ms, "
+              f"bound {b:.4f} ms ({by}); plan " + str(fbn._pool_plan(
+                  n, h, w, c, 2, "max", (3, 3), (2, 2), (1, 1), *sms)))
 
     def fwd_pair():
         y = torch.nn.functional.batch_norm(x4, None, None, wgt, bia, True,
@@ -1204,15 +1339,33 @@ def bn_phase(torch, args, dev):
                                     res, errs)
     pools = [("max", (3, 3), (2, 2), (1, 1)), ("avg", (3, 3), (2, 2), (1, 1)),
              ("max", (2, 3), (2, 1), (0, 1))]
+    routes = {}
     for dtype in (bf16, f32):
-        bn_pool_check(torch, fbn, gen, dev, BN_STEM, dtype, "relu", pools[0],
-                      errs)
-        torch.cuda.empty_cache()
-        for shape in ((3, 9, 11, 24), (2, 12, 12, 40), (1, 7, 5, 3)):
+        for route in (None, "window"):   # the stem: the ring, and the old
+            routes[("stem", str(dtype), route)] = bn_pool_check(
+                torch, fbn, gen, dev, BN_STEM, dtype, "relu", pools[0], errs,
+                route)
+            torch.cuda.empty_cache()
+        for shape in ((3, 9, 11, 24), (2, 12, 12, 40), (1, 7, 5, 3),
+                      (2, 6, 480 // dtype.itemsize * 2, 64)):
             for act in acts:
                 for pool in pools:
-                    bn_pool_check(torch, fbn, gen, dev, shape, dtype, act,
-                                  pool, errs)
+                    routes[(shape, str(dtype), act, pool)] = bn_pool_check(
+                        torch, fbn, gen, dev, shape, dtype, act, pool, errs)
+        # rings of 18 and 28 slots: a barrier per slot past the first 16
+        for shape, pool in (
+                ((2, 10, 10, 32), ("max", (9, 9), (1, 1), (0, 0))),
+                ((2, 14, 14, 64), ("avg", (14, 14), (1, 1), (0, 0)))):
+            routes[(shape, str(dtype), "relu", pool)] = bn_pool_check(
+                torch, fbn, gen, dev, shape, dtype, "relu", pool, errs)
+    taken = {r: sum(v == r for v in routes.values()) for r in
+             ("ring", "window")}
+    print(f"check bn_pool_apply routes: {taken} of {len(routes)} checks; "
+          "the stem by the wrapper's choice: "
+          + ", ".join(f"{k[1][6:]} {v}" for k, v in routes.items()
+                      if k[0] == "stem" and k[2] is None))
+    if routes[("stem", str(bf16), None)] != "ring":
+        fail("the bf16 stem did not take K9's ring route")
     print("check bn kernels vs plain (main-path shapes and small odd ones, "
           "f32 and bf16, every activation and residual form): max abs err "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
@@ -1270,11 +1423,12 @@ def bn_launches_per_step(model):
             "bn_bwd_dx": single + dual, "bn_pool_apply": pooled}
 
 
-def bn_step_bounds(model, batch: int, hw: int):
-    """Per-step bound (ms, bytes at 3.35 TB/s) of each of K5-K9 over this
-    ResNet's BatchNorm sites for a batch of batch x hw x hw, the site
-    shapes read from the blocks' convolution strides and BatchNorm
-    widths: each input read once, each output written once (bf16)."""
+def bn_site_list(model, batch: int, hw: int):
+    """Every fused-BN site of one ResNet step as (label, M, C, form):
+    the pooled stem ("pool"), then each block's BatchNorms in order, the
+    last one "plain" (a residual) or "dual" (a BatchNorm on the
+    downsample too), the others "none".  Shapes from the blocks'
+    convolution strides and BatchNorm widths."""
     from paddle_tpu_torch.ops.fused_bn_act import _pool_out
     from paddle_tpu_torch.vision.models.resnet import (BottleneckBlock,
                                                        _split_downsample)
@@ -1282,35 +1436,96 @@ def bn_step_bounds(model, batch: int, hw: int):
     def stride(conv):
         st = conv.stride
         return st[0] if isinstance(st, (tuple, list)) else int(st)
-    total = dict.fromkeys(BN_KERNELS, 0.0)
-
-    def site(m, c, res):
-        for name in ("bn_stats",) + (("bn_stats",) if res == "dual" else ()):
-            total[name] += bn_bytes_ops(name, m, c, 2, res)[0]
-        for name in ("bn_apply", "bn_bwd_reduce", "bn_bwd_dx"):
-            total[name] += bn_bytes_ops(name, m, c, 2, res)[0]
     h = hw // stride(model.conv1)
-    c0 = model.bn1.num_features
-    ho, _ = _pool_out(h, h, (3, 3), (2, 2), (1, 1))
-    total["bn_stats"] += bn_bytes_ops("bn_stats", batch * h * h, c0, 2,
-                                      "none")[0]
-    total["bn_pool_apply"] += bn_bytes_ops(
-        "bn_pool_apply", batch * h * h, c0, 2, "none", mo=batch * ho * ho)[0]
-    h = ho
-    for layer in (model.layer1, model.layer2, model.layer3, model.layer4):
-        for blk in layer:
+    sites = [("stem", batch * h * h, model.bn1.num_features, "pool")]
+    h, _ = _pool_out(h, h, (3, 3), (2, 2), (1, 1))
+    for li, layer in enumerate((model.layer1, model.layer2, model.layer3,
+                                model.layer4)):
+        for bi, blk in enumerate(layer):
+            tag = f"layer{li + 1}.{bi}"
             last = blk.bn3 if isinstance(blk, BottleneckBlock) else blk.bn2
             res = ("dual" if _split_downsample(blk.downsample) is not None
                    else "plain")
             if isinstance(blk, BottleneckBlock):
-                site(batch * h * h, blk.bn1.num_features, "none")
+                sites.append((f"{tag}.bn1", batch * h * h,
+                              blk.bn1.num_features, "none"))
                 h //= stride(blk.conv2)
-                site(batch * h * h, blk.bn2.num_features, "none")
+                sites.append((f"{tag}.bn2", batch * h * h,
+                              blk.bn2.num_features, "none"))
             else:
                 h //= stride(blk.conv1)
-                site(batch * h * h, blk.bn1.num_features, "none")
-            site(batch * h * h, last.num_features, res)
+                sites.append((f"{tag}.bn1", batch * h * h,
+                              blk.bn1.num_features, "none"))
+            sites.append((f"{tag}.{'bn3' if isinstance(blk, BottleneckBlock) else 'bn2'}",
+                          batch * h * h, last.num_features, res))
+    return sites
+
+
+def bn_step_bounds(model, batch: int, hw: int):
+    """Per-step bound (ms, bytes at 3.35 TB/s) of each of K5-K9 over this
+    ResNet's BatchNorm sites for a batch of batch x hw x hw: each input
+    read once, each output written once (bf16)."""
+    from paddle_tpu_torch.ops.fused_bn_act import _pool_out
+    total = dict.fromkeys(BN_KERNELS, 0.0)
+    for _, m, c, form in bn_site_list(model, batch, hw):
+        if form == "pool":
+            h = int(round((m // batch) ** 0.5))
+            ho, _ = _pool_out(h, h, (3, 3), (2, 2), (1, 1))
+            total["bn_stats"] += bn_bytes_ops("bn_stats", m, c, 2, "none")[0]
+            total["bn_pool_apply"] += bn_bytes_ops(
+                "bn_pool_apply", m, c, 2, "none", mo=batch * ho * ho)[0]
+            continue
+        for name in ("bn_stats",) * (2 if form == "dual" else 1) + (
+                "bn_apply", "bn_bwd_reduce", "bn_bwd_dx"):
+            total[name] += bn_bytes_ops(name, m, c, 2, form)[0]
     return {k: v / HBM_BYTES_PER_S * 1e3 for k, v in total.items()}
+
+
+def bn_backward_sites(torch, fbn, dev, model, card):
+    """K7 and K8 timed (CUDA graph replay, bf16, relu) at each of the
+    step's BN backward sites' shapes, beside each one's bound: where
+    their per-step time over bound comes from.  Sites of one shape are
+    timed once.  Prints a table; returns the per-step sums."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    sites = [t for t in bn_site_list(model, RESNET_B, RESNET_HW)
+             if t[3] != "pool"]
+    timed = {}
+    for _, m, c, form in sites:
+        if (m, c, form) in timed:
+            continue
+        x = _bn_rows(torch, gen, dev, m, c, torch.bfloat16)
+        g = _bn_rows(torch, gen, dev, m, c, torch.bfloat16, shift=0.0)
+        r = None if form == "none" else _bn_rows(torch, gen, dev, m, c,
+                                                 torch.bfloat16)
+        coef = _bn_coef(torch, gen, dev, c)
+        coefr = _bn_coef(torch, gen, dev, c) if form == "dual" else None
+        timed[(m, c, form)] = {
+            "bn_bwd_reduce": graph_ms(torch, lambda: fbn.bn_bwd_reduce(
+                g, x, coef, r, "relu", coefr)),
+            "bn_bwd_dx": graph_ms(torch, lambda: fbn.bn_bwd_dx(
+                g, x, coef, r, "relu", coefr))}
+        del x, g, r
+    torch.cuda.empty_cache()
+    print(f"bn backward sites [{card}]: site, M, C, residual; K7 ms "
+          "(bound), K8 ms (bound), share of bound")
+    sums = {"bn_bwd_reduce": [0.0, 0.0], "bn_bwd_dx": [0.0, 0.0]}
+    for label, m, c, form in sites:
+        cells = []
+        for name in ("bn_bwd_reduce", "bn_bwd_dx"):
+            t = timed[(m, c, form)][name]
+            b, _ = bound_ms(*bn_bytes_ops(name, m, c, 2, form))
+            sums[name][0] += t
+            sums[name][1] += b
+            cells.append(f"{t:.4f} ({b:.4f}) {b / t:.0%}")
+        print(f"bn site {label:<14} M={m:>9} C={c:>4} {form:<5}  "
+              + "  ".join(cells))
+    print("bn backward sites: per step K7 {:.3f} ms (bound {:.3f}, {:.0%}), "
+          "K8 {:.3f} ms (bound {:.3f}, {:.0%}) over {} sites".format(
+              *sums["bn_bwd_reduce"],
+              sums["bn_bwd_reduce"][1] / sums["bn_bwd_reduce"][0],
+              *sums["bn_bwd_dx"], sums["bn_bwd_dx"][1] / sums["bn_bwd_dx"][0],
+              len(sites)))
+    return sums
 
 
 def resnet_phase(torch, args, dev, card):
@@ -1345,6 +1560,7 @@ def resnet_phase(torch, args, dev, card):
         torch.cuda.synchronize()
         for name in BN_KERNELS:
             getattr(fbn, name).launches = 0
+        fbn.bn_pool_apply.routes.update(ring=0, window=0)
         for e in entries:
             e.relayouts = 0
         losses, t_steps = [], []
@@ -1354,6 +1570,7 @@ def resnet_phase(torch, args, dev, card):
             torch.cuda.synchronize()
             t_steps.append(time.perf_counter() - t0)
         launches = {n: getattr(fbn, n).launches for n in BN_KERNELS}
+        routes = dict(fbn.bn_pool_apply.routes)
         relayouts = sum(e.relayouts for e in entries)
         vals = [float(v) for v in losses]
         print("resnet: losses " + ", ".join(f"{v:.4f}" for v in vals))
@@ -1363,6 +1580,8 @@ def resnet_phase(torch, args, dev, card):
         if launches != expect:
             fail(f"K5-K9 launches {launches}, expected {expect} "
                  f"({per_step} per step x {RESNET_STEPS} steps)")
+        if routes != {"ring": expect["bn_pool_apply"], "window": 0}:
+            fail(f"K9 took routes {routes} on the main path, not the ring")
         steady = float(np.median(t_steps[2:])) * 1e3
         print(f"resnet [{card}]: ResNet-50 b{RESNET_B} {RESNET_HW}x"
               f"{RESNET_HW} O2 bf16 NHWC, Momentum(0.1, 0.9): first step "
@@ -1374,6 +1593,7 @@ def resnet_phase(torch, args, dev, card):
               f"{relayouts / RESNET_STEPS:g}")
         groups = {f"{n} (K{5 + i})": (f"{n}_kernel",)
                   for i, n in enumerate(BN_KERNELS)}
+        groups["bn_pool_apply (K9)"] += ("bn_pool_ring_kernel",)
         groups["bn_sum_partials (K5, K7)"] = ("bn_sum_partials",)
         groups["convolutions (cuDNN)"] = (
             "conv", "xmma", "cudnn", "cutlass", "implicit_gemm", "dgrad",
@@ -1390,6 +1610,7 @@ def resnet_phase(torch, args, dev, card):
                   f"{n} {sums.get(f'{n} (K{5 + i})', 0.0):.3f} vs "
                   f"{bounds[n]:.3f}" for i, n in enumerate(BN_KERNELS))
               + f" (K5-K8 bound {sum(bounds.values()) - bounds['bn_pool_apply']:.3f})")
+        bn_backward_sites(torch, fbn, dev, model, card)
     del step, model, opt, x
     torch.cuda.empty_cache()
     return launches
@@ -1480,9 +1701,10 @@ def main():
             elif "registers" in line or "spill" in line:
                 print(f"build {name}{kern}: {line.strip()}")
     rng = np.random.RandomState(args.seed)
-    kernels = [paged_phase(torch, rng, dev), int8_phase(torch, rng, dev)]
+    kernels = paged_phase(torch, rng, dev) + int8_phase(torch, rng, dev)
     torch.cuda.empty_cache()
     launches = serve_phase(torch, args, dev, card)
+    launches.update(serve_phase(torch, args, dev, card, torch.bfloat16))
     torch.cuda.empty_cache()
     fixed_phase(torch, args, dev)
     torch.cuda.empty_cache()

@@ -5,7 +5,8 @@
 //   K6 bn_apply_kernel       <- _apply_kernel       (act(x*a + b [+ r | + r*ar + br]))
 //   K7 bn_bwd_reduce_kernel  <- _bwd_reduce_kernel  (sum gz, sum gz*xhat [, sum gz*rhat])
 //   K8 bn_bwd_dx_kernel      <- _bwd_dx_kernel      (dx = A*gz + B + Cc*x, dres)
-//   K9 bn_pool_apply_kernel  <- _pool_apply_kernel  (pool(act(x*a + b)), per output)
+//   K9 bn_pool_ring_kernel   <- _pool_apply_kernel  (pool(act(x*a + b)), a row ring;
+//      bn_pool_apply_kernel                          per output, for rows too large)
 //
 // Data is the channels-last (M, C) = (N*H*W, C) view of an activation,
 // row-major, f32 or bf16; per-channel vectors come in the reference's
@@ -31,12 +32,25 @@
 //     card about a thousand blocks;
 //   - K7/K8 recompute the pre-activation z and its mask from x (and r)
 //     instead of reading a saved tensor, as the reference does;
-//   - K9 does not hold an image in shared memory (a stem image is 1.6 MB):
-//     one thread per output (n, ho, wo, channel group) reads its window
-//     of x, applies the affine and the activation on the fly, and the
-//     L1/L2 caches serve the overlap of neighbouring windows.  Padding is
-//     applied after the activation (-inf for max, left out of the count
-//     for avg), as the reference's _pool_windows does.
+//   - K9 reads each input byte from device memory once (a band's one
+//     halo row aside): a block streams the input rows of a band of output
+//     rows of an image (one NHWC row is W*C contiguous elements,
+//     14,336 bytes at the ResNet stem) through a ring of row slots in
+//     shared memory by 1-D bulk copies on mbarriers, several rows ahead,
+//     turns each row into act(x*a + b) once, in place, and pools every
+//     output row from the slots: a thread owns a 16-byte channel group of
+//     an output column, the 3x3 window unrolled.  (The window route, a
+//     thread per output reading its window from device memory, fetches
+//     each element 2.25 times at the stem, recomputes the affine each time
+//     and issues its nine loads one after another.)  Borders come from
+//     index tests, never from the copies: padding is applied after the
+//     activation (-inf for max, left out of the count for avg, which sums
+//     the window row by row like the plain version), as the reference's
+//     _pool_windows does.  The slots hold act(x*a + b) rounded to x's
+//     type: the max of rounded values is the rounded max (bit-equal to the
+//     plain version).  An average would sum those rounded values, so a
+//     bf16 average takes the window route, which sums in f32 and rounds
+//     once, as the reference does; so do rows the ring cannot hold.
 // Ragged edges (any M, any C) are masked in the kernels; 16-byte loads are
 // used when C is a multiple of the vector width and every pointer is
 // 16-byte aligned (the wrapper checks), scalar loads otherwise.
@@ -441,6 +455,310 @@ bn_pool_apply_kernel(const T* __restrict__ x, const float* __restrict__ coef,
               valid);
 }
 
+// ---------------------------------------------------------- K9, ring route
+// One block owns a band of `band` output rows of one image at a time (a
+// persistent grid walks the (image, band) items).  The band's input rows,
+// each W*C contiguous elements of the NHWC input, stream through a ring of
+// `ring` row slots in shared memory: thread 0 issues one 1-D bulk copy per
+// row (cp.async.bulk on the slot's mbarrier), up to `ring` rows ahead of
+// the rows the block still reads, across item boundaries.  Each row is
+// turned into act(x*a + b) once, in place, when the first output row that
+// needs it comes up, and every output row is pooled from the slots.  The
+// ring must hold kh + max(kh, sh) rows (the wrapper checks): then every row
+// the block waits for was issued at the previous output row's barrier, and
+// the rows it writes never share a slot with the rows being pooled.  Rows
+// whose address or size is not a multiple of 16 bytes are read by the
+// threads themselves (element loads), with the same ring and loop.
+constexpr int kPoolThreads = 256;  // threads of a ring block, two per SM
+// the ring's mbarriers (8 bytes each), before the rows: a multiple of 128
+// bytes
+__host__ __device__ constexpr int ring_bar_bytes(int ring) {
+  return (8 * ring + 127) / 128 * 128;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// generic-proxy accesses to shared memory ordered before later bulk
+// copies into it
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// n = Vec<T>::n values of shared memory as f32, one 16-byte load when
+// `vec`, else `valid` scalar loads
+template <typename T>
+__device__ __forceinline__ void load_smem(const T* p, float* out, bool vec,
+                                          int valid) {
+  constexpr int V = Vec<T>::n;
+  if (vec) {
+    alignas(16) T e[V];
+    *reinterpret_cast<int4*>(e) = *reinterpret_cast<const int4*>(p);
+#pragma unroll
+    for (int j = 0; j < V; ++j) out[j] = to_f(e[j]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) out[j] = j < valid ? to_f(p[j]) : 0.f;
+  }
+}
+
+// 8 bf16 maxima at once (four bf16x2 max instructions), NaN passing as
+// in the f32 comparison
+__device__ __forceinline__ void max8(uint4& acc, const uint4& v) {
+  __nv_bfloat162* a = reinterpret_cast<__nv_bfloat162*>(&acc);
+  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) a[j] = __hmax2_nan(a[j], b[j]);
+}
+
+// K = 3: a 3x3 window, unrolled; K = 0: kh x kw from the arguments
+template <typename T, int A, int KIND, int K>
+__global__ void __launch_bounds__(kPoolThreads, 2)
+bn_pool_ring_kernel(const T* __restrict__ x, const float* __restrict__ coef,
+                    T* __restrict__ y, int N, int H, int W, int C, int Ho,
+                    int Wo, int kh, int kw, int sh, int sw, int ph, int pw,
+                    int ring, int slot_elems, int band, bool tma, bool vec) {
+  constexpr int V = Vec<T>::n;
+  constexpr int KK = K != 0 ? K : 1;  // the unrolled window's side
+  // bf16 max over 16-byte groups: packed maxima on the slots' values
+  constexpr bool kPacked =
+      KIND == kPoolMax && std::is_same<T, __nv_bfloat16>::value;
+  if (K != 0) {
+    kh = K;
+    kw = K;
+  }
+  extern __shared__ __align__(128) unsigned char pool_smem[];
+  auto* full = reinterpret_cast<unsigned long long*>(pool_smem);
+  T* slots = reinterpret_cast<T*>(pool_smem + ring_bar_bytes(ring));
+  float* ca = reinterpret_cast<float*>(slots + (size_t)ring * slot_elems);
+  float* cb = ca + C;
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int row_elems = W * C;
+  const unsigned row_bytes = (unsigned)row_elems * (unsigned)sizeof(T);
+
+  for (int c = tid; c < C; c += nthr) {
+    ca[c] = __ldg(coef + c);
+    cb[c] = __ldg(coef + C + c);
+  }
+  if (tma && tid == 0) {
+    for (int r = 0; r < ring; ++r) mbar_init(full + r);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  // where every 16-byte group a thread transforms has the same channels
+  // (the block's stride is a multiple of C), their coefficients stay in
+  // registers
+  const bool fixed_c = tma && vec && (nthr * V) % C == 0;
+  float ra[V], rb[V];
+  if (fixed_c) {
+    const int c0 = (tid * V) % C;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      ra[j] = ca[c0 + j];
+      rb[j] = cb[c0 + j];
+    }
+  }
+
+  const int bands = (Ho + band - 1) / band;
+  const int items = N * bands;
+  // the input rows [lo, hi) of item `it`, image n, output rows [ho0, ho1)
+  auto item_rows = [&](int it, int& n, int& ho0, int& ho1, int& lo,
+                       int& hi) {
+    n = it / bands;
+    ho0 = (it - n * bands) * band;
+    ho1 = min(Ho, ho0 + band);
+    lo = max(0, ho0 * sh - ph);
+    hi = min(H, (ho1 - 1) * sh - ph + kh);
+  };
+
+  // producer (thread 0): rows in this block's order, seq 0, 1, ... (a
+  // block's rows number fewer than 2^31); seq g lives in slot g % ring
+  int p_item = blockIdx.x, p_n = 0, p_row = 0, p_hi = 0;
+  int issued = 0, p_slot = 0;
+  if (tma && tid == 0 && p_item < items) {
+    int a, b;
+    item_rows(p_item, p_n, a, b, p_row, p_hi);
+  }
+  auto produce = [&](int limit) {
+    while (issued < limit && p_item < items) {
+      mbar_expect(full + p_slot, row_bytes);
+      bulk_copy(slots + (size_t)p_slot * slot_elems,
+                x + ((size_t)p_n * H + p_row) * row_elems, row_bytes,
+                full + p_slot);
+      ++issued;
+      p_slot = p_slot + 1 == ring ? 0 : p_slot + 1;
+      if (++p_row == p_hi) {
+        p_item += gridDim.x;
+        if (p_item < items) {
+          int a, b;
+          item_rows(p_item, p_n, a, b, p_row, p_hi);
+        }
+      }
+    }
+  };
+  if (tma && tid == 0) produce(ring);
+
+  // act(x*a + b) of one row, in its slot: 16-byte groups with the
+  // coefficients in registers, else element by element (from global
+  // memory where the row did not come by bulk copy)
+  auto transform = [&](T* slot, const T* src) {
+    if (fixed_c) {
+#pragma unroll 4
+      for (int e = tid * V; e < row_elems; e += nthr * V) {
+        float v[V];
+        load_smem(slot + e, v, true, V);
+#pragma unroll
+        for (int j = 0; j < V; ++j) v[j] = act_f<A>(affine(v[j], ra[j], rb[j]));
+        store_group(slot + e, v, true, V);
+      }
+    } else {
+      for (int e = tid; e < row_elems; e += nthr) {
+        const int c = e % C;
+        const float v = to_f(tma ? slot[e] : src[e]);
+        slot[e] = from_f<T>(act_f<A>(affine(v, ca[c], cb[c])));
+      }
+    }
+  };
+
+  const int G = (C + V - 1) / V;
+  // the pooling's (column, channel group) walk: idx = wo * G + g, stepping
+  // by the block's threads
+  const int g0 = tid % G, wo0 = tid / G, gstep = nthr % G, wstep = nthr / G;
+  int seq0 = 0;   // seq of the current item's first row
+  int slot0 = 0;  // its slot, seq0 % ring
+  int rslot = 0;            // the slot of the next row to transform
+  unsigned rphase = 0;      // and the parity of its barrier's phase
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    int n, ho0, ho1, lo, hi;
+    item_rows(it, n, ho0, ho1, lo, hi);
+    int ready = lo;  // the next row of the image to transform
+    for (int ho = ho0; ho < ho1; ++ho) {
+      const int r0 = ho * sh - ph;
+      const int rlo = max(r0, 0), rhi = min(r0 + kh, H);
+      for (; ready < rhi; ++ready) {
+        if (tma) mbar_wait(full + rslot, rphase);
+        transform(slots + (size_t)rslot * slot_elems,
+                  x + ((size_t)n * H + ready) * row_elems);
+        if (++rslot == ring) {
+          rslot = 0;
+          rphase ^= 1;
+        }
+      }
+      fence_proxy_async();
+      // rows up to rhi are transformed; nothing reads rows below rlo again
+      __syncthreads();
+      if (tma && tid == 0) produce(seq0 + (rlo - lo) + ring);
+
+      // the slot of image row r: (slot0 + r - lo) % ring
+      auto slot_of = [&](int r) {
+        const int s = slot0 + (r - lo) % ring;
+        return slots + (size_t)(s >= ring ? s - ring : s) * slot_elems;
+      };
+      const T* rows[KK];
+      if (K != 0) {
+#pragma unroll
+        for (int i = 0; i < KK; ++i) rows[i] = slot_of(rlo + i);
+      }
+      // f(pixel) for every in-bounds pixel of the window at columns
+      // [w0, w0 + kw), row by row
+      auto for_taps = [&](int w0, int wlo, int whi, auto&& f) {
+        if (K != 0) {
+#pragma unroll
+          for (int i = 0; i < KK; ++i) {
+            if (rlo + i >= rhi) break;
+#pragma unroll
+            for (int j = 0; j < KK; ++j)
+              if (w0 + j >= wlo && w0 + j < whi) f(rows[i] + (w0 + j) * C);
+          }
+        } else {
+          for (int r = rlo; r < rhi; ++r) {
+            const T* row = slot_of(r);
+            for (int w = wlo; w < whi; ++w) f(row + w * C);
+          }
+        }
+      };
+      T* yrow = y + ((size_t)n * Ho + ho) * Wo * C;
+      int wn = wo0, gi = g0;
+      for (int idx = tid; idx < Wo * G; idx += nthr) {
+        const int wo = wn, c0 = gi * V;
+        wn += wstep;
+        gi += gstep;
+        if (gi >= G) {
+          gi -= G;
+          ++wn;
+        }
+        const int w0 = wo * sw - pw;
+        const int wlo = max(w0, 0), whi = min(w0 + kw, W);
+        if (kPacked && vec) {
+          uint4 m = make_uint4(0xFF80FF80u, 0xFF80FF80u, 0xFF80FF80u,
+                               0xFF80FF80u);  // -inf
+          for_taps(w0, wlo, whi, [&](const T* px) {
+            max8(m, *reinterpret_cast<const uint4*>(px + c0));
+          });
+          *reinterpret_cast<uint4*>(yrow + (size_t)wo * C + c0) = m;
+          continue;
+        }
+        const int valid = min(V, C - c0);
+        float acc[V];
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          acc[j] = KIND == kPoolMax ? -__int_as_float(0x7f800000) : 0.f;
+        for_taps(w0, wlo, whi, [&](const T* px) {
+          float v[V];
+          load_smem(px + c0, v, vec, valid);
+#pragma unroll
+          for (int q = 0; q < V; ++q) {
+            if (KIND == kPoolMax)
+              acc[q] = (acc[q] != acc[q] || acc[q] > v[q]) ? acc[q] : v[q];
+            else
+              acc[q] += v[q];
+          }
+        });
+        if (KIND == kPoolAvg) {
+          const float cnt = (float)((rhi - rlo) * (whi - wlo));
+#pragma unroll
+          for (int q = 0; q < V; ++q) acc[q] /= cnt;
+        }
+        store_group(yrow + (size_t)wo * C + c0, acc, vec, valid);
+      }
+    }
+    seq0 += hi - lo;
+    slot0 = (slot0 + (hi - lo)) % ring;
+  }
+}
+
 // ------------------------------------------------------------ dispatch
 template <int I>
 using IC = std::integral_constant<int, I>;
@@ -577,7 +895,8 @@ extern "C" int pdt_bn_bwd_dx(const void* g, const void* x, const void* coef,
   return static_cast<int>(cudaGetLastError());
 }
 
-// one thread per output (n, ho, wo, channel group)
+// the window route: one thread per output (n, ho, wo, channel group), for
+// rows the ring cannot hold
 extern "C" int pdt_bn_pool_apply(const void* x, const void* coef, void* y,
                                  int dtype, int act, int kind, int N, int H,
                                  int W, int C, int Ho, int Wo, int kh, int kw,
@@ -603,5 +922,55 @@ extern "C" int pdt_bn_pool_apply(const void* x, const void* coef, void* y,
         launch(IC<kPoolMax>{});
     });
   });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the ring kernel with its dynamic shared memory cap raised once to the
+// most a block may take
+// grid persistent blocks of kPoolThreads threads over the (image, band)
+// items; `ring` slots of slot_elems elements (a row, rounded up to
+// 128 bytes); tma: rows by bulk
+// copy (x 16-byte aligned, W*C*sizeof(T) % 16 == 0); vec: 16-byte groups
+// (C % (16 / sizeof(T)) == 0, y 16-byte aligned)
+extern "C" int pdt_bn_pool_ring(const void* x, const void* coef, void* y,
+                                int dtype, int act, int kind, int N, int H,
+                                int W, int C, int Ho, int Wo, int kh, int kw,
+                                int sh, int sw, int ph, int pw, int ring,
+                                int slot_elems, int band, int grid,
+                                int tma, int vec, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
+  by_dtype(dtype, [&](auto tp) {
+    using T = std::remove_pointer_t<decltype(tp)>;
+    const size_t smem = ring_bar_bytes(ring) +
+                        (size_t)ring * slot_elems * sizeof(T) +
+                        2 * sizeof(float) * C;
+    by_act(act, [&](auto a) {
+      auto launch = [&](auto k, auto w) {
+        constexpr int A = decltype(a)::value;
+        constexpr int KIND = decltype(k)::value;
+        constexpr int K = decltype(w)::value;
+        // the plan sized the ring from the card's shared memory
+        err = cudaFuncSetAttribute(bn_pool_ring_kernel<T, A, KIND, K>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+        if (err != cudaSuccess) return;
+        bn_pool_ring_kernel<T, A, KIND, K>
+            <<<grid, kPoolThreads, smem, st>>>(
+            static_cast<const T*>(x), static_cast<const float*>(coef),
+            static_cast<T*>(y), N, H, W, C, Ho, Wo, kh, kw, sh, sw, ph, pw,
+            ring, slot_elems, band, tma != 0, vec != 0);
+      };
+      const bool k3 = kh == 3 && kw == 3;
+      if (kind == kPoolAvg) {
+        if (k3) launch(IC<kPoolAvg>{}, IC<3>{});
+        else launch(IC<kPoolAvg>{}, IC<0>{});
+      } else {
+        if (k3) launch(IC<kPoolMax>{}, IC<3>{});
+        else launch(IC<kPoolMax>{}, IC<0>{});
+      }
+    });
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,8 +2,10 @@
 // split-K reduced inside a thread-block cluster.
 //
 // Replaces the Pallas kernel paddle_tpu/ops/int8_matmul.py::_kernel
-// (driven by _pallas_matmul).  x (M, K) f32, w (K, N) int8 row-major,
-// scale (1, N) f32 per output channel; y (M, N) f32.
+// (driven by _pallas_matmul).  x (M, K) f32 or bf16, w (K, N) int8
+// row-major, scale (1, N) f32 per output channel; y (M, N) in x's type.
+// As in the TPU kernel the products and sums are f32: a bf16 x is
+// converted at its point of use, and only y is rounded to bf16.
 //
 // Bound: at decode M is the number of slots (<= 16), so the work is
 // weight bytes: K*N int8 (+ 4*N scale) over 3.35 TB/s, a few microseconds
@@ -24,10 +26,12 @@
 //     (griddepcontrol.wait) before it reads anything, since that kernel
 //     may have written x, w or scale, and before it writes y;
 //   - x is staged once per block (up to 1024 k-rows at MT 8) in shared
-//     memory as [m][k], each of its rows by one bulk copy (the TMA's
-//     one-dimensional form, on an mbarrier) where it is 16-byte aligned,
-//     else by 4-byte cp.async; the copies are issued after the wait for
-//     the kernel before;
+//     memory as [m][k] in its own type, each of its rows by one bulk copy
+//     (the TMA's one-dimensional form, on an mbarrier) where the row's
+//     address and byte count are multiples of 16 (K and k_rows multiples
+//     of 4 f32 or 8 bf16 elements), else by 4-byte cp.async (f32) or
+//     2-byte loads (bf16); the copies are issued after the wait for the
+//     kernel before;
 //   - dequantization is a byte permute and one subtraction: __byte_perm
 //     puts the int8 with its sign bit flipped into the low byte of the
 //     float 2^23 (0x4B000000), and subtracting 2^23 + 128 leaves the int8
@@ -42,6 +46,7 @@
 // Launches go on the caller's stream; the C entry returns the CUDA error.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,12 +65,46 @@ template <int MT> struct XTile {
   static constexpr int kWords = MT == 8 ? 32 : MT == 16 ? 16 : 8;
 };
 
-// floats of shared memory: x rows (stride xrows rounded up to 4), which
-// the k-row groups' partial sums reuse, the partial tile, the x barrier
+// elements of x in one 16-byte copy
+template <typename T>
+__host__ __device__ constexpr int x_vec() {
+  return 16 / static_cast<int>(sizeof(T));
+}
+
+// the stride of a staged x row: xrows rounded up to whole 16-byte chunks
+template <typename T>
+__host__ __device__ constexpr int x_stride(int xrows) {
+  return (xrows + x_vec<T>() - 1) / x_vec<T>() * x_vec<T>();
+}
+
+// floats of shared memory: x rows, which the k-row groups' partial sums
+// reuse, the partial tile, the x barrier
+template <typename T>
 __host__ __device__ constexpr int smem_floats(int MT, int TN, int xrows) {
-  return (MT * ((xrows + 3) / 4 * 4) > 512 * MT ? MT * ((xrows + 3) / 4 * 4)
-                                                : 512 * MT) +
+  return (MT * x_stride<T>(xrows) * static_cast<int>(sizeof(T)) / 4 >
+                  512 * MT
+              ? MT * x_stride<T>(xrows) * static_cast<int>(sizeof(T)) / 4
+              : 512 * MT) +
          MT * TN + 4;
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// x rows that cannot go by bulk copy: 4-byte cp.async for f32, plain
+// 2-byte loads for bf16 (its rows may start 2 bytes into a word)
+__device__ __forceinline__ void stage_narrow(float* dst, const float* src) {
+  __pipeline_memcpy_async(dst, src, 4);
+}
+__device__ __forceinline__ void stage_narrow(__nv_bfloat16* dst,
+                                             const __nv_bfloat16* src) {
+  *dst = *src;
 }
 
 // A bulk asynchronous copy (the TMA's one-dimensional form) completing on
@@ -117,22 +156,24 @@ __device__ __forceinline__ void release_dependents() {
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 }
 
-template <int MT, int TN>
+template <typename T, int MT, int TN>
 __global__ void __launch_bounds__(kThreads)
-dequant_matmul_cluster(const float* __restrict__ x,
+dequant_matmul_cluster(const T* __restrict__ x,
                        const int8_t* __restrict__ w,
                        const float* __restrict__ scale,
-                       float* __restrict__ y, int M, int K, int N,
+                       T* __restrict__ y, int M, int K, int N,
                        int k_rows, int xrows) {
   constexpr int CT = TN / 4;          // column threads
   constexpr int RG = kThreads / CT;   // k-row groups
   constexpr int RPT = XTile<MT>::kWords;  // k-rows per thread and chunk
   constexpr int kChunk = RG * RPT;
-  const int XR = (xrows + 3) / 4 * 4;
+  constexpr int XV = x_vec<T>();
+  const int XR = x_stride<T>(xrows);
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // [MT][XR]
-  float* red = xs;                              // [RG][MT][TN], after xs
-  float* part = xs + smem_floats(MT, TN, xrows) - MT * TN - 4;  // [MT][TN]
+  T* xs = reinterpret_cast<T*>(smem4);                 // [MT][XR]
+  float* red = reinterpret_cast<float*>(smem4);        // [RG][MT][TN], after xs
+  float* part =
+      red + smem_floats<T>(MT, TN, xrows) - MT * TN - 4;  // [MT][TN]
   auto* xbar = reinterpret_cast<unsigned long long*>(part + MT * TN);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -147,10 +188,10 @@ dequant_matmul_cluster(const float* __restrict__ x,
   const int k_begin = rank * k_rows;
   const int k_end = min(K, k_begin + k_rows);
   const int nch = (max(0, k_end - k_begin) + kChunk - 1) / kChunk;
-  // x rows go by bulk copy where they are 16-byte aligned, else 4 bytes
-  // at a time
-  const bool bulk = reinterpret_cast<uintptr_t>(x) % 16 == 0 && K % 4 == 0 &&
-                    k_rows % 4 == 0;
+  // x rows go by bulk copy where their addresses and sizes are whole
+  // 16-byte chunks, else element by element
+  const bool bulk = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                    K % XV == 0 && k_rows % XV == 0;
   unsigned xphase = 0;
   if (tid == 0) mbar_init(xbar);
   __syncthreads();
@@ -186,18 +227,18 @@ dequant_matmul_cluster(const float* __restrict__ x,
       const int mrows = min(MT, M - m0);
       if (bulk) {
         if (tid == 0) {
-          mbar_expect(xbar, mrows * xn * 4);
+          mbar_expect(xbar, mrows * xn * (int)sizeof(T));
           for (int m = 0; m < mrows; ++m)
-            bulk_copy(xs + m * XR, x + (size_t)(m0 + m) * K + xb, xn * 4,
-                      xbar);
+            bulk_copy(xs + m * XR, x + (size_t)(m0 + m) * K + xb,
+                      xn * (int)sizeof(T), xbar);
         }
         mbar_wait(xbar, xphase);
         xphase ^= 1;
       } else {
         for (int m = 0; m < mrows; ++m)
           for (int kk = tid; kk < xn; kk += kThreads)
-            __pipeline_memcpy_async(xs + m * XR + kk,
-                                    x + (size_t)(m0 + m) * K + xb + kk, 4);
+            stage_narrow(xs + m * XR + kk,
+                         x + (size_t)(m0 + m) * K + xb + kk);
         __pipeline_commit();
         __pipeline_wait_prior(0);
       }
@@ -212,8 +253,9 @@ dequant_matmul_cluster(const float* __restrict__ x,
       const float w2 = dequant(u, 2), w3 = dequant(u, 3);
 #pragma unroll
       for (int mm = 0; mm < MT / 4; ++mm) {
-        const float* xr = xs + 4 * mm * XR + kk;  // rows m >= M: not stored
-        const float xm[4] = {xr[0], xr[XR], xr[2 * XR], xr[3 * XR]};
+        const T* xr = xs + 4 * mm * XR + kk;  // rows m >= M: not stored
+        const float xm[4] = {to_f(xr[0]), to_f(xr[XR]), to_f(xr[2 * XR]),
+                             to_f(xr[3 * XR])};
 #pragma unroll
         for (int a = 0; a < 4; ++a) {
           float* r = acc[4 * mm + a];
@@ -256,32 +298,35 @@ dequant_matmul_cluster(const float* __restrict__ x,
       if (r < ranks) v += pr[r];
     const int m = o / TN;
     const int n = n0 + (o - m * TN);
-    if (m0 + m < M && n < N) y[(size_t)(m0 + m) * N + n] = v * __ldg(scale + n);
+    if (m0 + m < M && n < N)
+      store_as(y + (size_t)(m0 + m) * N + n, v * __ldg(scale + n));
   }
   cluster.sync();  // no rank leaves while another reads its shared memory
 }
 
-using Kernel = void (*)(const float*, const int8_t*, const float*, float*, int,
-                        int, int, int, int);
+template <typename T>
+using Kernel = void (*)(const T*, const int8_t*, const float*, T*, int, int,
+                        int, int, int);
 
 // the kernel of an (MT, TN) plan with its dynamic shared memory cap raised
 // once to the most it may use; nullptr for a plan it was not built for
-template <int MT, int TN> Kernel pick() {
+template <typename T, int MT, int TN> Kernel<T> pick() {
   static cudaError_t err = cudaFuncSetAttribute(
-      dequant_matmul_cluster<MT, TN>,
+      dequant_matmul_cluster<T, MT, TN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)(sizeof(float) * smem_floats(MT, TN, XTile<MT>::kRows)));
-  return err == cudaSuccess ? dequant_matmul_cluster<MT, TN> : nullptr;
+      (int)(sizeof(float) * smem_floats<T>(MT, TN, XTile<MT>::kRows)));
+  return err == cudaSuccess ? dequant_matmul_cluster<T, MT, TN> : nullptr;
 }
 
 // the (MT, TN) tiles a plan may pick: 32 columns at decode (MT 8, 16),
 // 16 to 64 at prefill (MT 32)
-Kernel kernel_for(int mt, int tn) {
-  if (mt == 8 && tn == 32) return pick<8, 32>();
-  if (mt == 16 && tn == 32) return pick<16, 32>();
-  if (mt == 32 && tn == 16) return pick<32, 16>();
-  if (mt == 32 && tn == 32) return pick<32, 32>();
-  if (mt == 32 && tn == 64) return pick<32, 64>();
+template <typename T>
+Kernel<T> kernel_for(int mt, int tn) {
+  if (mt == 8 && tn == 32) return pick<T, 8, 32>();
+  if (mt == 16 && tn == 32) return pick<T, 16, 32>();
+  if (mt == 32 && tn == 16) return pick<T, 32, 16>();
+  if (mt == 32 && tn == 32) return pick<T, 32, 32>();
+  if (mt == 32 && tn == 64) return pick<T, 32, 64>();
   return nullptr;
 }
 
@@ -291,12 +336,13 @@ int x_rows(int mt, int k_rows) {
   return k_rows < cap ? k_rows : cap;
 }
 
+template <typename T>
 cudaLaunchConfig_t config(int M, int N, int mt, int tn, int splits,
                           int xrows, cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits, (N + tn - 1) / tn, (M + mt - 1) / mt);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = sizeof(float) * smem_floats(mt, tn, xrows);
+  cfg.dynamicSmemBytes = sizeof(float) * smem_floats<T>(mt, tn, xrows);
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = splits;
   attr[0].val.clusterDim.y = 1;
@@ -308,24 +354,33 @@ cudaLaunchConfig_t config(int M, int N, int mt, int tn, int splits,
   return cfg;
 }
 
-}  // namespace
-
-// Plan: (mt, tn) one of kernel_for's tiles, `splits` blocks per cluster
-// (<= 8) of k_rows rows of K each.
-extern "C" int pdt_int8_matmul_f32(const void* x, const void* w,
-                                   const void* scale, void* y, int M, int K,
-                                   int N, int mt, int tn, int splits,
-                                   int k_rows, void* stream) {
-  Kernel kern = kernel_for(mt, tn);
+template <typename T>
+int launch(const void* x, const void* w, const void* scale, void* y, int M,
+           int K, int N, int mt, int tn, int splits, int k_rows,
+           void* stream) {
+  Kernel<T> kern = kernel_for<T>(mt, tn);
   if (kern == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int xrows = x_rows(mt, k_rows);
   cudaLaunchAttribute attr[2];
-  cudaLaunchConfig_t cfg = config(M, N, mt, tn, splits, xrows, attr);
+  cudaLaunchConfig_t cfg = config<T>(M, N, mt, tn, splits, xrows, attr);
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kern, static_cast<const float*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(scale), static_cast<float*>(y), M, K, N,
-      k_rows, xrows);
+      &cfg, kern, static_cast<const T*>(x), static_cast<const int8_t*>(w),
+      static_cast<const float*>(scale), static_cast<T*>(y), M, K, N, k_rows,
+      xrows);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plan: (mt, tn) one of kernel_for's tiles, `splits` blocks per cluster
+// (<= 8) of k_rows rows of K each.  dtype: x's and y's type, 0 float32,
+// 1 bfloat16.
+extern "C" int pdt_int8_matmul(const void* x, const void* w,
+                               const void* scale, void* y, int dtype, int M,
+                               int K, int N, int mt, int tn, int splits,
+                               int k_rows, void* stream) {
+  auto* f = dtype == 1 ? launch<__nv_bfloat16> : launch<float>;
+  return f(x, w, scale, y, M, K, N, mt, tn, splits, k_rows, stream);
 }

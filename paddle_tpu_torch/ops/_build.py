@@ -25,7 +25,7 @@ from pathlib import Path
 from typing import Dict
 
 __all__ = ["SOURCES", "MAX_CLUSTER", "build_all", "load", "function",
-           "check", "sm_count"]
+           "check", "sm_count", "smem_limits"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -134,3 +134,14 @@ def sm_count(index: int) -> int:
     by it."""
     import torch
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def smem_limits(index: int) -> tuple:
+    """(per SM, most one block may opt into) shared memory bytes of CUDA
+    card `index` (233,472 and 232,448 on an H100): K9's ring plan sizes
+    its row slots by them."""
+    import torch
+    props = torch.cuda.get_device_properties(index)
+    return (props.shared_memory_per_multiprocessor,
+            props.shared_memory_per_block_optin)

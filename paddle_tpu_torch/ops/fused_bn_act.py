@@ -19,14 +19,21 @@ recomputed from the saved input instead of being stored.
   ``bn_apply``  (K6)        ``_apply_kernel``
   ``bn_bwd_reduce`` (K7)    ``_bwd_reduce_kernel`` (partials as K5)
   ``bn_bwd_dx`` (K8)        ``_bwd_dx_kernel``
-  ``bn_pool_apply`` (K9)    ``_pool_apply_kernel``: one thread per pooled
-                            output, the window read from device memory
+  ``bn_pool_apply`` (K9)    ``_pool_apply_kernel``: the ring route
+                            streams each image's input rows once
+                            through a ring of row slots in shared
+                            memory (bulk copies on mbarriers), applies
+                            the affine and activation once per element
+                            and pools from the slots; rows too large
+                            for the ring take the window route, one
+                            thread per pooled output
   ========================  =========================================
 
   Each wrapper launches its kernel for CUDA tensors (or raises on what the
   kernel does not take) and takes its plain PyTorch version (``_plain_*``)
   only for CPU tensors.  ``<wrapper>.launches`` counts kernel launches;
-  ``<wrapper>.calls`` counts every call, plain versions included.  Unlike
+  ``<wrapper>.calls`` counts every call, plain versions included;
+  ``bn_pool_apply.routes`` counts K9's launches by route.  Unlike
   the TPU kernels, these take any M and C: the kernels mask the ragged
   edge, so the reference's VMEM gates (``_block_m``'s divisor rule, the
   block-size caps) have no counterpart.
@@ -50,6 +57,8 @@ recomputed from the saved input instead of being stored.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -193,6 +202,10 @@ _APPLY_ARGS = [_P] * 5 + [_I] * 3 + _GRID + [_I, _P]
 _REDUCE_ARGS = [_P] * 7 + [_I] * 3 + _GRID + [_I, _P]
 _DX_ARGS = [_P] * 7 + [_I] * 3 + _GRID + [_I, _P]
 _POOL_ARGS = [_P] * 3 + [_I] * 16 + [_P]
+_RING_ARGS = [_P] * 3 + [_I] * 21 + [_P]
+POOL_PER_SM = 2           # resident ring blocks per SM (kPoolThreads 256)
+_RESERVED = 1024          # shared memory per block taken by the runtime
+RING_DEPTH = 6            # row slots, where they fit
 
 
 def _tiling(m: int, c: int, v: int):
@@ -356,13 +369,59 @@ def _pool_out(h: int, w: int, k, s, p):
             (w + 2 * p[1] - k[1]) // s[1] + 1)
 
 
-def bn_pool_apply(x4, coef, act, kind, k, s, p):
-    """K9: per-image pool(act(x4*a + b)) of x4 (N, H, W, C), max or
-    exclusive avg, padding applied after the activation; (N, Ho, Wo, C)
-    in x4's dtype."""
-    bn_pool_apply.calls += 1
-    if x4.device.type != "cuda":
-        return _plain_pool_apply(x4, coef, act, kind, k, s, p)
+class PoolPlan(NamedTuple):
+    """K9's launch: ``route`` "ring" (``ring`` row slots of
+    ``slot_elems`` elements each, ``band`` output rows per work item,
+    ``grid`` persistent blocks, POOL_PER_SM of them resident per SM) or
+    "window"."""
+    route: str
+    ring: int = 0
+    slot_elems: int = 0
+    band: int = 0
+    grid: int = 0
+
+
+def _ring_smem(ring: int, slot_bytes: int, c: int) -> int:
+    """Dynamic shared memory of a ring block: the mbarriers (8 bytes a
+    slot, in whole 128 bytes: ring_bar_bytes), the slots, the
+    coefficients."""
+    return -(-8 * ring // 128) * 128 + ring * slot_bytes + 8 * c
+
+
+@functools.lru_cache(maxsize=None)  # shapes repeat every step
+def _pool_plan(n: int, h: int, w: int, c: int, elem: int, kind: str, k, s,
+               p, sms: int, smem) -> PoolPlan:
+    """The ring needs kh + max(kh, sh) row slots (see the kernel); it
+    takes max(RING_DEPTH, that) where they fit POOL_PER_SM blocks into an
+    SM's shared memory (``smem``: per SM, most per block), else as many as
+    fit, else the window route.  A bf16 average takes the window route:
+    the slots hold act(x*a + b) rounded to bf16, and the average must sum
+    the unrounded values (the max of rounded values is the rounded max).
+    A block takes whole images where there are as many images as resident
+    blocks, else bands of rows that give every block work.  (At the stem,
+    two blocks of 256 threads with 6 slots and whole images beat blocks of
+    128 or 512 threads, one block per SM, deeper rings and bands of 28, 14
+    or 8 rows in an A/B on the card.)"""
+    if kind == "avg" and elem == 2:
+        return PoolPlan("window")
+    ho, _ = _pool_out(h, w, k, s, p)
+    slot_bytes = -(-w * c * elem // 128) * 128
+    budget = min(smem[0] // POOL_PER_SM - _RESERVED, smem[1])
+    least = k[0] + max(k[0], s[0])
+    depth = max(RING_DEPTH, least)
+    while depth >= least and _ring_smem(depth, slot_bytes, c) > budget:
+        depth -= 1
+    if depth < least:
+        return PoolPlan("window")
+    blocks = POOL_PER_SM * sms
+    band = -(-ho // min(ho, max(1, blocks // n)))
+    items = n * -(-ho // band)
+    return PoolPlan("ring", depth, slot_bytes // elem, band,
+                    min(items, blocks))
+
+
+def _pool_args(x4, coef, act, kind, k, s, p):
+    """Checks; (y, arguments the two routes share, vec, dtype code)."""
     if x4.dim() != 4:
         raise ValueError("bn_pool_apply kernel takes (N, H, W, C)")
     n, h, w, c = x4.shape
@@ -373,18 +432,62 @@ def bn_pool_apply(x4, coef, act, kind, k, s, p):
         raise ValueError(f"bn_pool_apply: empty output for {h}x{w} and "
                          f"pool {k} {s} {p}")
     y = torch.empty((n, ho, wo, c), dtype=x4.dtype, device=x4.device)
+    shape = (n, h, w, c, ho, wo, k[0], k[1], s[0], s[1], p[0], p[1])
+    return y, (_ACT_CODE[act], 0 if kind == "max" else 1) + shape, vec, dt
+
+
+def _pool_window(x4, coef, act, kind, k, s, p):
+    """K9's window route: one thread per pooled output."""
+    y, args, vec, dt = _pool_args(x4, coef, act, kind, k, s, p)
     fn = _build.function("fused_bn_act", "pdt_bn_pool_apply", _POOL_ARGS)
-    err = fn(x4.data_ptr(), coef.data_ptr(), y.data_ptr(), dt,
-             _ACT_CODE[act], 0 if kind == "max" else 1, n, h, w, c, ho, wo,
-             k[0], k[1], s[0], s[1], p[0], p[1], int(vec), _stream(x4))
+    err = fn(x4.data_ptr(), coef.data_ptr(), y.data_ptr(), dt, *args,
+             int(vec), _stream(x4))
     bn_pool_apply.launches += 1
+    bn_pool_apply.routes["window"] += 1
     _build.check(err, "bn_pool_apply")
     return y
+
+
+def _pool_ring(x4, coef, act, kind, k, s, p, plan: PoolPlan):
+    """K9's ring route under ``plan``."""
+    y, args, vec, dt = _pool_args(x4, coef, act, kind, k, s, p)
+    row_bytes = x4.shape[2] * x4.shape[3] * x4.element_size()
+    tma = x4.data_ptr() % 16 == 0 and row_bytes % 16 == 0
+    fn = _build.function("fused_bn_act", "pdt_bn_pool_ring", _RING_ARGS)
+    err = fn(x4.data_ptr(), coef.data_ptr(), y.data_ptr(), dt, *args,
+             plan.ring, plan.slot_elems, plan.band, plan.grid, int(tma),
+             int(vec), _stream(x4))
+    bn_pool_apply.launches += 1
+    bn_pool_apply.routes["ring"] += 1
+    _build.check(err, "bn_pool_apply")
+    return y
+
+
+def bn_pool_apply(x4, coef, act, kind, k, s, p):
+    """K9: per-image pool(act(x4*a + b)) of x4 (N, H, W, C), max or
+    exclusive avg, padding applied after the activation; (N, Ho, Wo, C)
+    in x4's dtype.  On the card the ring route, or the window route for
+    rows the ring cannot hold and for a bf16 average
+    (``bn_pool_apply.routes`` counts both)."""
+    bn_pool_apply.calls += 1
+    if x4.device.type != "cuda":
+        return _plain_pool_apply(x4, coef, act, kind, k, s, p)
+    if x4.dim() != 4:
+        raise ValueError("bn_pool_apply kernel takes (N, H, W, C)")
+    n, h, w, c = x4.shape
+    dev = x4.device.index
+    plan = _pool_plan(n, h, w, c, x4.element_size(), kind, tuple(k),
+                      tuple(s), tuple(p), _build.sm_count(dev),
+                      _build.smem_limits(dev))
+    if plan.route == "window":
+        return _pool_window(x4, coef, act, kind, k, s, p)
+    return _pool_ring(x4, coef, act, kind, k, s, p, plan)
 
 
 for _w in (bn_stats, bn_apply, bn_bwd_reduce, bn_bwd_dx, bn_pool_apply):
     _w.launches = 0   # kernel launches; the plain versions never count
     _w.calls = 0      # every call, plain versions included
+bn_pool_apply.routes = {"ring": 0, "window": 0}   # K9 launches by route
 
 
 # ---------------------------------------------------------------------------

@@ -21,18 +21,20 @@ layer, and each slot owns a table of block ids; the allocator's
   sm_90a): replaces the Pallas kernel
   ``paddle_tpu/ops/paged_attention.py::_kernel``.  Batched over slots:
   q (S, H, D) against the pools through tables (S, nb) with positions
-  (S,).  It reads only the blocks that hold rows <= pos and never
-  materializes the contiguous view; its bound is the live K/V bytes,
-  ``sum(pos + 1) * H * D * 2 * 4`` over 3.35 TB/s (8 slots at pos ~512 of
-  GPT-2 medium: 33.5 MB, ~10 us per layer).  Split-KV: the blocks of a
+  (S,).  q and the pool pair are each f32 or bf16; like the TPU kernel it
+  computes in f32 and writes q's dtype.  It reads only the blocks that
+  hold rows <= pos and never materializes the contiguous view; its bound
+  is the live K/V bytes, ``sum(pos + 1) * H * D * 2 * E`` (E the pool's
+  element size) over 3.35 TB/s (8 slots at pos ~512 of GPT-2 medium in
+  f32: 33.5 MB, ~10 us per layer; half that in bf16).  Split-KV: the blocks of a
   thread-block cluster each take a split of one slot's table for a few
   heads, and rank 0 merges their softmax states through distributed
   shared memory in rank order (one kernel, no scratch in device memory,
   bit-repeatable).  ``_plan`` cuts the table from its width alone, so
   the wrapper never reads ``pos`` on the host.  Design notes in the
   source.  The plain version (``_plain``) is the reference's
-  ``_fallback``: gather the view, masked softmax; the wrapper takes it
-  only for CPU tensors.
+  ``_fallback``: gather the view, masked softmax in f32, q's dtype out;
+  the wrapper takes it only for CPU tensors.
 
 ``paged_attention.launches`` counts kernel launches (the plain version never
 counts).
@@ -166,12 +168,15 @@ def _check_cuda(q, kpool, vpool, tables, pos):
             raise ValueError(f"paged_attention: {name} is on {t.device}, "
                              f"q on {dev}")
     for name, t in (("q", q), ("kpool", kpool), ("vpool", vpool)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"paged_attention kernel takes float32 {name}, "
-                            f"got {t.dtype}")
+        if t.dtype not in _DTYPE_CODE:
+            raise TypeError(f"paged_attention kernel takes float32 or "
+                            f"bfloat16 {name}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"paged_attention kernel needs a contiguous "
                              f"{name}")
+    if kpool.dtype != vpool.dtype:
+        raise TypeError(f"paged_attention: kpool is {kpool.dtype}, vpool "
+                        f"{vpool.dtype}")
     for name, t in (("kpool", kpool), ("vpool", vpool)):
         if t.data_ptr() % 16:
             raise ValueError(f"paged_attention kernel reads {name} in "
@@ -199,18 +204,19 @@ def _check_cuda(q, kpool, vpool, tables, pos):
                          "grid (65535)")
 
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [
     ctypes.c_float, ctypes.c_void_p]
-_MAX_ROW = 512     # most floats of one block's row: hpb * head_dim
-_TILE = 2048       # floats of one staged K (or V) tile (the kernel's)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_ROW = 512     # most elements of one block's row: hpb * head_dim
+_TILE_BYTES = 8192  # one staged K (or V) tile (the kernel's)
 
 
 class Plan(NamedTuple):
     """Launch plan: ``hpb`` heads per block; each slot's live rows are cut
     evenly over ``splits`` blocks (one thread-block cluster; rank r takes
     rows [r * per, (r + 1) * per) with per = ceil(live / splits), from
-    pos on the device); K and V are staged in tiles of ``tile_rows``
-    rows."""
+    pos on the device); K and V are staged in 8 KB tiles of ``tile_rows``
+    rows (twice as many in bf16 as in f32)."""
     hpb: int
     splits: int
     tile_rows: int
@@ -220,26 +226,29 @@ class Plan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)  # shapes repeat every call
-def _plan(s: int, h: int, d: int, max_blocks: int, sms: int) -> Plan:
+def _plan(s: int, h: int, d: int, max_blocks: int, sms: int,
+          kv_bytes: int = 4) -> Plan:
     """Up to 8 splits, one per table block (the table's width, not pos: no
     host sync), then the most heads per block that still give the card's
     ``sms`` multiprocessors >= 2 blocks each (one head when nothing
-    does)."""
+    does).  ``kv_bytes``: the pools' element size."""
     splits = min(_build.MAX_CLUSTER, max_blocks)
     fits = [c for c in (8, 4, 2, 1) if h % c == 0 and c * d <= _MAX_ROW]
     hpb = next((c for c in fits if s * (h // c) * splits >= 2 * sms), 1)
-    return Plan(hpb, splits, _TILE // (hpb * d))
+    return Plan(hpb, splits, _TILE_BYTES // (kv_bytes * hpb * d))
 
 
 def _kernel(q, kpool, vpool, tables, pos):
-    fn = _build.function("paged_attention", "pdt_paged_attention_f32",
+    fn = _build.function("paged_attention", "pdt_paged_attention",
                          _ARGTYPES)
     s, h, d = q.shape
-    p = _plan(s, h, d, tables.shape[1], _build.sm_count(q.device.index))
+    p = _plan(s, h, d, tables.shape[1], _build.sm_count(q.device.index),
+              kpool.element_size())
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
-             tables.data_ptr(), pos.data_ptr(), out.data_ptr(), s, h, d,
+             tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
+             _DTYPE_CODE[q.dtype], _DTYPE_CODE[kpool.dtype], s, h, d,
              kpool.shape[0], kpool.shape[1], tables.shape[1], p.hpb,
              p.splits, 1.0 / math.sqrt(d), stream)
     paged_attention.launches += 1
@@ -253,7 +262,8 @@ def paged_attention(q, kpool, vpool, tables, pos):
     ``tables`` (S, nb) int32 block ids, with ``pos`` (S,) int32 each
     slot's write position (rows > pos are masked; the row at pos must
     already be written).  Out-of-range table entries clamp into the pool.
-    Returns (S, H, D).  CUDA tensors launch the kernel (or raise on what
+    q and the pools are each float32 or bfloat16 (the kernel's types);
+    the math is f32.  Returns (S, H, D) in q's dtype.  CUDA tensors launch the kernel (or raise on what
     it does not take); CPU tensors take the plain version."""
     if q.device.type == "cuda":
         _check_cuda(q, kpool, vpool, tables, pos)

@@ -123,11 +123,14 @@ class ServingEngine:
     """Continuous-batching engine over a model implementing the
     ``gen_fixed_cache`` / ``forward_fixed`` protocol (and, for
     ``kv="paged"``, ``forward_paged``; see models/gpt.py).  Runs on
-    ``device`` (default the card; the model must already live there)."""
+    ``device`` (default the card; the model must already live there).
+    ``dtype`` is the KV pools' and prefill scratch caches' dtype (None:
+    the model's ``gen_fixed_cache`` default, f32), as in the reference;
+    a bf16 model comes from ``amp.decorate(models=model, level="O2")``."""
 
     def __init__(self, model, max_slots: int = 8, max_len: int = 256,
                  prefill_buckets=None, max_queue_depth: int = 64,
-                 pad_token_id: int = 0, decode_chunk: int = 4,
+                 pad_token_id: int = 0, dtype=None, decode_chunk: int = 4,
                  kv: str = "fixed", block_size: int = 16,
                  num_blocks: Optional[int] = None, device=DEFAULT_DEVICE):
         self.device = resolve_device(device)
@@ -139,6 +142,7 @@ class ServingEngine:
         self.max_slots = int(max_slots)
         self.max_len = int(max_len)
         self.pad_token_id = int(pad_token_id)
+        self._dtype = dtype
         self.buckets = tuple(sorted(set(
             int(b) for b in (prefill_buckets or _default_buckets(max_len)))))
         if self.buckets[-1] > self.max_len:
@@ -166,14 +170,14 @@ class ServingEngine:
                     -(-self._pool_len // self.block_size))
             self.kv_pool = PagedKVPool(int(num_blocks), self.block_size,
                                        self._pool_len)
-            self._pools = self.kv_pool.build_pools(model)
+            self._pools = self.kv_pool.build_pools(model, dtype)
             self._paged_cache = None  # (allocator version, np tables, dev)
             self._oom_failed = 0
         else:
             self.kv_pool = None
             # one gen_fixed_cache(max_slots, max_len) for the engine's life
             self._pools = model.gen_fixed_cache(self.max_slots,
-                                                self._pool_len)
+                                                self._pool_len, dtype)
         self._warm = False
         self._slots: Dict[int, _SlotRun] = {}
         self._batch = None
@@ -335,7 +339,7 @@ class ServingEngine:
         plen = req.prompt.shape[0]
         ids = np.full((1, bucket), self.pad_token_id, np.int64)
         ids[0, :plen] = req.prompt
-        scratch = self.model.gen_fixed_cache(1, bucket)
+        scratch = self.model.gen_fixed_cache(1, bucket, self._dtype)
         logits, kv = self.model.forward_fixed(
             torch.from_numpy(ids).to(self.device), scratch, 0)
         if self.kv == "paged":

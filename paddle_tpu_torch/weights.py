@@ -6,7 +6,8 @@ their ``paddle_tpu.jit.state_arrays`` names, the same keys
 (``gpt.blocks.0.qkv.weight``, ``...w_int8``, ``...w_scale``).  Float and
 int8-quantized models load alike.  The key sets must match exactly and
 every shape must agree; an int8 buffer only takes int8 data and a float
-tensor only float data.
+tensor only float data.  bfloat16 arrays (the reference's O2-decorated
+models hold them as ml_dtypes' ``bfloat16``) load bit for bit.
 
 ``load_paddle_opt_state(step, opt_state)`` carries the reference's
 ``TrainStep`` optimizer state (``{name: {"moment1": ..., "moment2": ...}}``
@@ -49,8 +50,17 @@ def load_paddle_state(model: torch.nn.Module, state: Mapping[str, np.ndarray]):
                 raise InvalidArgumentError(
                     f"load_paddle_state: {name} is {src.dtype}, the model "
                     f"holds {dst.dtype}")
-            dst.copy_(torch.from_numpy(np.array(src)))
+            dst.copy_(_tensor(src))
     return model
+
+
+def _tensor(src: np.ndarray) -> torch.Tensor:
+    """A CPU tensor of ``src``'s values; numpy has no bfloat16 of its own,
+    so an ml_dtypes ``bfloat16`` array goes across as its 16-bit words."""
+    if src.dtype.name == "bfloat16":
+        bits = np.array(src).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(np.array(src))
 
 
 def load_paddle_opt_state(train_step, opt_state: Mapping[str, Mapping],

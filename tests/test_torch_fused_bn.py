@@ -320,3 +320,118 @@ def test_fused_bn_act_rejects_what_the_reference_rejects():
     with pytest.raises(ValueError):
         TK.bn_act_pool_train(x.permute(0, 2, 3, 1), torch.ones(4),
                              torch.zeros(4), pool=("median", 3, 2, 1))
+
+
+# ---------------------------------------------------------------------------
+# K9's launch plan (CPU: the plan is host arithmetic; the kernel runs on
+# the card, tests/test_torch_kernels_cuda.py)
+# ---------------------------------------------------------------------------
+
+H100_SMS = 132
+H100_SMEM = (233472, 232448)   # shared memory per SM, most per block
+
+
+def test_pool_plan_at_the_resnet_stem():
+    """bf16 stem rows (14,336 bytes): two blocks per SM, each a ring of
+    RING_DEPTH rows within half the SM's shared memory, whole images per
+    block: 256 images on 264 resident blocks."""
+    p = TK._pool_plan(256, 112, 112, 64, 2, "max", (3, 3), (2, 2), (1, 1),
+                      H100_SMS, H100_SMEM)
+    assert p.route == "ring" and TK.POOL_PER_SM == 2
+    assert p.ring == TK.RING_DEPTH and p.band == 56 and p.grid == 256
+    assert p.slot_elems == 112 * 64
+    smem = TK._ring_smem(p.ring, p.slot_elems * 2, 64)
+    assert TK.POOL_PER_SM * (smem + TK._RESERVED) <= H100_SMEM[0]
+
+
+@pytest.mark.parametrize("shape,elem,kind,k,s,p", [
+    ((256, 112, 112, 64), 4, "max", (3, 3), (2, 2), (1, 1)),
+    ((3, 9, 11, 24), 2, "max", (3, 3), (2, 2), (1, 1)),
+    ((1, 7, 5, 3), 4, "max", (2, 3), (2, 1), (0, 1)),
+    ((2, 12, 12, 40), 4, "avg", (3, 3), (1, 1), (1, 1)),
+    ((2, 6, 240, 64), 4, "max", (3, 3), (2, 2), (1, 1)),
+    ((2, 6, 480, 64), 2, "max", (2, 3), (2, 1), (0, 1)),
+    ((1, 9, 3000, 8), 4, "max", (3, 3), (2, 2), (1, 1)),
+    ((300, 56, 56, 64), 2, "max", (3, 3), (2, 2), (1, 1)),
+    ((2, 14, 14, 64), 4, "avg", (14, 14), (1, 1), (0, 0)),
+    ((2, 10, 10, 32), 2, "max", (9, 9), (1, 1), (0, 0)),
+    ((1, 40, 40, 16), 4, "max", (17, 17), (3, 3), (2, 2)),
+])
+def test_pool_plan_holds_the_ring_or_takes_the_window_route(shape, elem,
+                                                            kind, k, s, p):
+    """The ring holds kh + max(kh, sh) rows and one mbarrier per row slot,
+    within one block's (and, POOL_PER_SM times, the SM's) shared memory,
+    or the plan takes the window route; the work items cover every output
+    row of every image once, in whole images where the images fill the
+    resident blocks."""
+    n, h, w, c = shape
+    plan = TK._pool_plan(n, h, w, c, elem, kind, k, s, p, H100_SMS,
+                         H100_SMEM)
+    slot = -(-w * c * elem // 128) * 128
+    least = k[0] + max(k[0], s[0])
+    budget = min(H100_SMEM[0] // 2 - TK._RESERVED, H100_SMEM[1])
+    if TK._ring_smem(least, slot, c) > budget:
+        assert plan.route == "window"
+        return
+    assert plan.route == "ring" and plan.ring >= least
+    assert plan.ring == max(least, TK.RING_DEPTH) or TK._ring_smem(
+        plan.ring + 1, slot, c) > budget
+    assert plan.slot_elems * elem == slot
+    smem = TK._ring_smem(plan.ring, slot, c)
+    assert smem <= H100_SMEM[1]
+    assert TK.POOL_PER_SM * (smem + TK._RESERVED) <= H100_SMEM[0]
+    ho, _ = TK._pool_out(h, w, k, s, p)
+    bands = -(-ho // plan.band)
+    rows = sorted((img, b * plan.band + r) for img in range(n)
+                  for b in range(bands)
+                  for r in range(min(plan.band, ho - b * plan.band)))
+    assert rows == [(img, r) for img in range(n) for r in range(ho)]
+    blocks = TK.POOL_PER_SM * H100_SMS
+    assert plan.grid == min(n * bands, blocks)
+    assert plan.band == ho if n >= blocks else n * bands >= min(
+        blocks, n * ho) // 2
+
+
+def test_pool_plan_deep_rings_get_a_barrier_per_slot():
+    """A 14x14 global average pool needs 28 row slots, more than 128
+    bytes of barriers hold (16): the barrier area grows with the ring."""
+    plan = TK._pool_plan(2, 14, 14, 64, 4, "avg", (14, 14), (1, 1), (0, 0),
+                         H100_SMS, H100_SMEM)
+    assert plan.route == "ring" and plan.ring == 28
+    assert TK._ring_smem(28, 14 * 64 * 4, 64) == 256 + 28 * 14 * 64 * 4 + 512
+
+
+@pytest.mark.parametrize("elem,route", [(2, "window"), (4, "ring")])
+def test_pool_plan_sends_a_bf16_average_to_the_window_route(elem, route):
+    """The ring's slots hold act(x*a + b) in x's dtype: a bf16 average
+    would sum rounded values, so it takes the window route (f32 sums,
+    one rounding, as the reference); a bf16 max stays on the ring."""
+    args = (256, 56, 56, 64, elem)
+    assert TK._pool_plan(*args, "avg", (3, 3), (2, 2), (1, 1), H100_SMS,
+                         H100_SMEM).route == route
+    assert TK._pool_plan(256, 112, 112, 64, 2, "max", (3, 3), (2, 2),
+                         (1, 1), H100_SMS, H100_SMEM).route == "ring"
+
+
+def test_pool_plan_follows_the_cards_shared_memory():
+    """A card with less shared memory per SM gets a shallower ring, or
+    the window route, never more than it holds."""
+    small = (101376, 101376)   # 99 KB per SM
+    plan = TK._pool_plan(256, 112, 112, 64, 2, "max", (3, 3), (2, 2),
+                         (1, 1), H100_SMS, small)
+    assert plan.route == "window"   # half an SM holds 3 stem rows, not 6
+    plan = TK._pool_plan(256, 56, 56, 64, 2, "max", (3, 3), (2, 2),
+                         (1, 1), H100_SMS, small)
+    assert plan.route == "ring" and plan.ring == TK.RING_DEPTH
+    assert 2 * (TK._ring_smem(plan.ring, 56 * 64 * 2, 64)
+                + TK._RESERVED) <= small[0]
+
+
+def test_pool_routes_count_only_card_launches():
+    x = torch.randn(2, 7, 9, 8)
+    coef = torch.stack([torch.rand(8) + 0.5, torch.randn(8)]
+                       + [torch.zeros(8)] * 6)
+    before = dict(TK.bn_pool_apply.routes)
+    y = TK.bn_pool_apply(x, coef, "relu", "max", (3, 3), (2, 2), (1, 1))
+    assert y.shape == (2, 4, 5, 8)
+    assert TK.bn_pool_apply.routes == before

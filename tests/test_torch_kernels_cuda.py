@@ -9,8 +9,12 @@ PyTorch and the CUDA toolkit:
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest -q
 
 Tolerances: f32 kernels against f32 plain versions that sum in another
-order; |kernel - plain| <= 1e-4 + 1e-4 * |plain|.  The fused BatchNorm
-kernels (K5-K9) as stated beside their tests.
+order; |kernel - plain| <= 1e-4 + 1e-4 * |plain|.  K3 and K4 on bf16
+operands compute in f32 like their plain versions and round once to bf16,
+so the two may round f32 values that differ in their last bits to
+neighbouring bf16 values: 1e-3 + 8e-3 * |plain| (8e-3 > 2**-7, one bf16
+unit at its largest relative size).  The
+fused BatchNorm kernels (K5-K9) as stated beside their tests.
 """
 import numpy as np
 import pytest
@@ -23,6 +27,7 @@ from paddle_tpu_torch.quantization import quantize_weight_int8
 pytestmark = pytest.mark.cuda
 
 TOL = dict(rtol=1e-4, atol=1e-4)
+BF16_TOL = dict(rtol=8e-3, atol=1e-3)
 
 
 @pytest.fixture
@@ -103,7 +108,7 @@ def test_int8_matmul_rejects_what_the_kernel_does_not_take(cuda):
         int8_matmul.dequant_matmul(x, wi, torch.ones(1, 24, device=cuda))
     with pytest.raises(TypeError):
         int8_matmul.dequant_matmul(
-            x.to(torch.bfloat16),
+            x.to(torch.float16),
             torch.zeros(32, 32, dtype=torch.int8, device=cuda),
             torch.ones(1, 32, device=cuda))
 
@@ -253,6 +258,149 @@ def test_paged_attention_offset_views(cuda):
     torch.testing.assert_close(
         pa.paged_attention(q_off, kpool, vpool, tables, pos),
         pa._plain(q, kpool, vpool, tables, pos), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# K3 / K4 on bf16 operands
+# ---------------------------------------------------------------------------
+
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _assert_bf16(got, want):
+    assert got.dtype == want.dtype
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
+@pytest.mark.parametrize("q_dt,kv_dt", [("bf16", "bf16"), ("f32", "bf16"),
+                                        ("bf16", "f32")])
+@pytest.mark.parametrize("s,bs,h,d,pos", [
+    (8, 16, 16, 64, [17, 100, 511, 512, 700, 1000, 0, 15]),
+    (3, 4, 2, 32, [0, 5, 9]),
+    (2, 8, 4, 128, [63, 30]),
+    (1, 16, 1, 256, [200]),
+    (2, 8, 3, 96, [90, 7]),
+    (2, 16, 1, 160, [300, 40]),
+])
+def test_paged_attention_bf16_matches_plain_and_repeats(cuda, q_dt, kv_dt,
+                                                        s, bs, h, d, pos):
+    """Every dtype pair with a bf16 side (q and the pools independently;
+    the output in q's dtype), head dims 32-256 (96 and 160: rows per tile
+    that do not split evenly over the P.V threads); two calls bit-equal."""
+    rng = np.random.RandomState(len(pos) + d + 1)
+    nb = -(-(max(pos) + 1) // bs) + 2
+    q, kp, vp, tables, p = [a.to(cuda) for a in
+                            _paged_case(rng, s, nb * s, bs, h, d, nb, pos)]
+    q = q.to(DTYPES[q_dt])
+    kp, vp = kp.to(DTYPES[kv_dt]), vp.to(DTYPES[kv_dt])
+    before = pa.paged_attention.launches
+    got = pa.paged_attention(q, kp, vp, tables, p)
+    again = pa.paged_attention(q, kp, vp, tables, p)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 2
+    _assert_bf16(got, pa._plain(q, kp, vp, tables, p))
+    assert torch.equal(got, again)
+
+
+def test_paged_attention_bf16_long_context(cuda):
+    pos = [4095, 0, 2047, 3000, 17, 1023, 4000, 64]
+    rng = np.random.RandomState(4097)
+    q, kp, vp, tables, p = [
+        a.to(cuda) for a in _paged_case(rng, 8, 8 * 256, 16, 16, 64, 256,
+                                        pos)]
+    q, kp, vp = (t.to(torch.bfloat16) for t in (q, kp, vp))
+    got = pa.paged_attention(q, kp, vp, tables, p)
+    torch.cuda.synchronize()
+    _assert_bf16(got, pa._plain(q, kp, vp, tables, p))
+
+
+@pytest.mark.parametrize("q_dt", ["f32", "bf16"])
+def test_paged_attention_bf16_offset_views(cuda, q_dt):
+    """bf16 pools that start 16 bytes into their storage are taken, 2
+    bytes in are refused; a q that starts 2 or 4 bytes in (bf16) or 4
+    bytes in (f32) is taken (staged element by element) and agrees."""
+    rng = np.random.RandomState(16)
+    q, kp, vp, tables, p = [
+        a.to(cuda) for a in _paged_case(rng, 2, 6, 4, 2, 32, 3, [9, 3])]
+    q = q.to(DTYPES[q_dt])
+    kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    want = pa._plain(q, kp, vp, tables, p)
+
+    def at(src, offset):
+        flat = torch.zeros(offset + src.numel(), dtype=src.dtype,
+                           device=cuda)
+        view = flat[offset:].view(src.shape)
+        view.copy_(src)
+        return view
+    _assert_bf16(pa.paged_attention(q, at(kp, 8), at(vp, 8), tables, p),
+                 want)
+    with pytest.raises(ValueError, match="aligned"):
+        pa.paged_attention(q, at(kp, 1), vp, tables, p)
+    for off in ((1, 2) if q_dt == "bf16" else (1,)):
+        _assert_bf16(pa.paged_attention(at(q, off), kp, vp, tables, p),
+                     want)
+
+
+def test_paged_attention_rejects_mixed_pools(cuda):
+    q = torch.zeros(2, 2, 32, device=cuda)
+    pool = torch.zeros(4, 4, 2, 32, device=cuda)
+    tables = torch.zeros(2, 3, dtype=torch.int32, device=cuda)
+    pos = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        pa.paged_attention(q, pool, pool.to(torch.bfloat16), tables, pos)
+    with pytest.raises(TypeError):
+        pa.paged_attention(q.half(), pool, pool, tables, pos)
+
+
+@pytest.mark.parametrize("k", [1024, 4096])
+@pytest.mark.parametrize("n", [16, 1024, 3072])
+@pytest.mark.parametrize("m", [1, 8, 16, 33, 512])
+def test_int8_matmul_bf16_plans_match_plain_and_repeat(cuda, m, n, k):
+    """bf16 x at every tile and split the plan picks: y in bf16, within 2
+    bf16 units of the plain version; two calls bit-equal."""
+    rng = np.random.RandomState(m + n + k + 1)
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(cuda).to(
+        torch.bfloat16)
+    wi, s = quantize_weight_int8(
+        torch.from_numpy((0.02 * rng.randn(k, n)).astype(np.float32)).to(cuda))
+    before = int8_matmul.dequant_matmul.launches
+    got = int8_matmul.dequant_matmul(x, wi, s)
+    again = int8_matmul.dequant_matmul(x, wi, s)
+    torch.cuda.synchronize()
+    assert int8_matmul.dequant_matmul.launches == before + 2
+    _assert_bf16(got, int8_matmul._plain(x, wi, s))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("offset,k", [(1, 1024), (4, 1024), (0, 36),
+                                      (0, 1028)])
+def test_int8_matmul_bf16_unaligned_x(cuda, offset, k):
+    """bf16 x rows that are no whole 16-byte chunks cannot go by bulk
+    copy: x starting 2 or 8 bytes into its storage, or K not a multiple
+    of 8 (K 36, 1028: whole chunks in f32, not in bf16).  The kernel
+    stages them element by element and agrees all the same."""
+    rng = np.random.RandomState(offset + k)
+    flat = torch.from_numpy(rng.randn(offset + 8 * k).astype(np.float32)).to(
+        cuda).to(torch.bfloat16)
+    x = flat[offset:].view(8, k)
+    wi, s = quantize_weight_int8(torch.from_numpy(
+        (0.02 * rng.randn(k, 1024)).astype(np.float32)).to(cuda))
+    got = int8_matmul.dequant_matmul(x, wi, s)
+    torch.cuda.synchronize()
+    _assert_bf16(got, int8_matmul._plain(x, wi, s))
+
+
+def test_int8_matmul_bf16_batch_dims_and_per_tensor_scale(cuda):
+    rng = np.random.RandomState(12)
+    x = torch.from_numpy(rng.randn(2, 3, 64).astype(np.float32)).to(cuda).to(
+        torch.bfloat16)
+    wi, s = quantize_weight_int8(torch.from_numpy(
+        rng.randn(64, 128).astype(np.float32)).to(cuda), per_channel=False)
+    got = int8_matmul.dequant_matmul(x, wi, s)
+    assert got.shape == (2, 3, 128) and got.dtype == torch.bfloat16
+    _assert_bf16(got, int8_matmul._plain(x.reshape(6, 64), wi,
+                                         s.reshape(1, 1).expand(1, 128))
+                 .reshape(2, 3, 128))
 
 
 # ---------------------------------------------------------------------------
@@ -573,7 +721,8 @@ def test_bn_kernels_at_a_main_path_shape(cuda, dtype):
                                   ("avg", (3, 3), (2, 2), (1, 1)),
                                   ("max", (2, 3), (2, 1), (0, 1))])
 def test_bn_pool_kernel_matches_plain(cuda, shape, dtype, act, pool):
-    """K9; max is exact, avg sums its window in another order."""
+    """K9 (the ring route at these shapes); max is exact, avg sums its
+    window like the plain version, from values rounded to x's dtype."""
     n, h, w, c = shape
     x = _bn_rows(cuda, n * h * w, c, dtype, 10).view(n, h, w, c)
     coef = _bn_coef(cuda, c, 11)
@@ -585,6 +734,101 @@ def test_bn_pool_kernel_matches_plain(cuda, shape, dtype, act, pool):
     want = fbn._plain_pool_apply(x, coef, act, kind, k, s, p)
     assert got.shape == want.shape and got.dtype == want.dtype
     _assert_bn(got, want)
+
+
+POOLS = [("max", (3, 3), (2, 2), (1, 1)), ("avg", (3, 3), (2, 2), (1, 1)),
+         ("max", (2, 3), (2, 1), (0, 1))]
+
+
+def _assert_pool_avg(got, want):
+    """A K9 average against its plain version: f32 as _assert_bn; bf16
+    (both sum in f32 and round once) within one bf16 unit of the larger
+    value, 2**-7 of it, plus 1e-5 of the largest |value| for f32 sums
+    taken in another order."""
+    if want.dtype != torch.bfloat16:
+        _assert_bn(got, want)
+        return
+    g, w = got.float(), want.float()
+    bound = 2.0 ** -7 * torch.maximum(g.abs(), w.abs()) + 1e-5 * float(
+        w.abs().max())
+    assert bool(((g - w).abs() <= bound).all()), float((g - w).abs().max())
+
+
+@pytest.mark.parametrize("shape,dtype,route", [
+    ((4, 112, 112, 64), torch.bfloat16, "ring"),   # stem rows, bulk copies
+    ((2, 9, 11, 24), torch.float32, "ring"),
+    ((1, 7, 5, 3), torch.float32, "ring"),  # 60-byte rows: element path
+    ((1, 7, 5, 3), torch.bfloat16, "ring"),  # 30-byte rows
+    ((2, 6, 240, 64), torch.float32, "window"),  # 61,440-byte rows: the
+    ((2, 6, 480, 64), torch.bfloat16, "window"),  # ring holds < 4 of them
+])
+@pytest.mark.parametrize("pool", POOLS)
+def test_bn_pool_routes_match_plain_and_repeat(cuda, shape, dtype, route,
+                                               pool):
+    """K9 takes the ring route where the row slots fit, else the window
+    route (counted per route), and a bf16 average the window route; max
+    is bit-equal to the plain version (max of rounded values is the
+    rounded max), avg within _assert_pool_avg's bound; two calls
+    bit-equal."""
+    n, h, w, c = shape
+    x = _bn_rows(cuda, n * h * w, c, dtype, 20).view(n, h, w, c)
+    coef = _bn_coef(cuda, c, 21)
+    kind, k, s, p = pool
+    if kind == "avg" and dtype == torch.bfloat16:
+        route = "window"
+    before = dict(fbn.bn_pool_apply.routes)
+    got = fbn.bn_pool_apply(x, coef, "relu", kind, k, s, p)
+    again = fbn.bn_pool_apply(x, coef, "relu", kind, k, s, p)
+    torch.cuda.synchronize()
+    assert fbn.bn_pool_apply.routes[route] == before[route] + 2
+    want = fbn._plain_pool_apply(x, coef, "relu", kind, k, s, p)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if kind == "max":
+        assert torch.equal(got, want)
+    else:
+        _assert_pool_avg(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("shape,dtype,pool", [
+    ((2, 14, 14, 64), torch.float32, ("avg", (14, 14), (1, 1), (0, 0))),
+    ((2, 10, 10, 32), torch.bfloat16, ("max", (9, 9), (1, 1), (0, 0))),
+    ((1, 40, 40, 16), torch.float32, ("max", (17, 17), (3, 3), (2, 2))),
+])
+def test_bn_pool_deep_rings_match_plain(cuda, shape, dtype, pool):
+    """Windows of 9 to 17 rows take rings of 18 to 34 slots, more than 128
+    bytes of mbarriers hold: each slot keeps its own barrier."""
+    n, h, w, c = shape
+    x = _bn_rows(cuda, n * h * w, c, dtype, 24).view(n, h, w, c)
+    coef = _bn_coef(cuda, c, 25)
+    before = fbn.bn_pool_apply.routes["ring"]
+    got = fbn.bn_pool_apply(x, coef, "relu", *pool)
+    again = fbn.bn_pool_apply(x, coef, "relu", *pool)
+    torch.cuda.synchronize()
+    assert fbn.bn_pool_apply.routes["ring"] == before + 2
+    want = fbn._plain_pool_apply(x, coef, "relu", *pool)
+    assert got.shape == want.shape
+    if pool[0] == "max":
+        assert torch.equal(got, want)
+    else:
+        _assert_pool_avg(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_pool_unaligned_input_takes_the_element_path(cuda, dtype):
+    """An input that starts 4 bytes into its storage cannot go by bulk
+    copies: the ring route reads its rows element by element."""
+    n, h, w, c = 2, 10, 12, 16
+    flat = _bn_rows(cuda, n * h * w * c + 2, 1, dtype, 22).view(-1)
+    x = flat[4 // flat.element_size():][:n * h * w * c].view(n, h, w, c)
+    coef = _bn_coef(cuda, c, 23)
+    before = fbn.bn_pool_apply.routes["ring"]
+    got = fbn.bn_pool_apply(x, coef, "relu6", *POOLS[0])
+    torch.cuda.synchronize()
+    assert fbn.bn_pool_apply.routes["ring"] == before + 1
+    assert torch.equal(got, fbn._plain_pool_apply(x, coef, "relu6",
+                                                  *POOLS[0]))
 
 
 def _grads_of(fn, ins, cts):
