@@ -26,20 +26,31 @@ Phases (any failure exits non-zero before the result line):
                 in bf16 (rows "paged_attention_bf16", "int8_matmul_bf16").
   5. serve    — GPT-2 medium (24 x 1024, vocab 50304), random weights from
                 --seed, int8 weight-only, paged KV (block 16, 8 slots,
-                max_len 1024): 8 requests (prompts 32..400, 64 new tokens,
-                6 greedy + 2 sampled).  Kernel launch counters are zeroed
-                just before and read just after; both must be > 0.  Then one
-                decode step's logits on the kernel path are held against the
-                same step run by the plain versions (on the CPU) on the same
-                KV state, and greedy agreement with solo generate() is
-                printed.  Then the same for the model decorated to bf16
-                (amp.decorate O2, then int8) on bf16 pools
-                (ServingEngine(dtype=torch.bfloat16)): K3/K4 launch on bf16
-                operands, and the logits stay within 5% of their largest
-                |value| of the CPU plain path.  Each run prints tokens/s,
-                TTFT, the decode step's wall, device time and idle share.
-  6. fixed    — a 4-layer full-width f32 engine on the fixed pool: greedy
-                streams must equal solo generate().
+                max_len 1024): warmup must capture every program as a
+                CUDA graph (one prefill per bucket, the decode chunk
+                all-greedy and mixed: len(buckets) + 2).  8 requests
+                (prompts 32..400, 64 new tokens, 6 greedy + 2 sampled)
+                through the captured engine; kernel launch counters are
+                zeroed just before and read just after (the engine adds
+                each graph's K3 / K4 launches at every replay); both must be
+                > 0.  The same requests then run through the same program
+                functions uncaptured: greedy streams must be equal, and no
+                program may be captured after warmup.  Then one decode
+                step's logits on the kernel path are held against the same
+                step run by the plain versions (on the CPU) on the same KV
+                state, the decode step is profiled captured and uncaptured
+                (wall, device busy, idle share, kernels per step; the
+                graph's replay span by CUDA events), and greedy agreement
+                with solo generate() is printed.  Then the same for the
+                model decorated to bf16 (amp.decorate O2, then int8) on
+                bf16 pools (ServingEngine(dtype=torch.bfloat16)): K3/K4
+                launch on bf16 operands, and the logits stay within 5% of
+                their largest |value| of the CPU plain path.  Each run
+                prints tokens/s, TTFT p50 and max, warmup seconds and the
+                capture count, captured and uncaptured.
+  6. fixed    — 4-layer full-width engines on the fixed pool, captured, f32
+                and bf16: greedy streams must equal the uncaptured path's,
+                and in f32 solo generate()'s.
   7. flash    — the tensor-core instructions (HMMA / HGMMA lines of
                 cuobjdump -sass) of every kernel in the built flash
                 library, failing if a bf16 (tensor-core route) kernel has
@@ -470,7 +481,7 @@ def device_profile(torch, step, steps: int, what: str, card: str,
     over as many further steps; with ``groups`` ({label: substrings}), the
     device time per step of the kernels whose names hold one of a group's
     substrings (first group that matches).  Prints them; returns (wall ms,
-    busy ms or None, {label: ms})."""
+    busy ms or None, {label: ms}, kernels per step)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -511,29 +522,132 @@ def device_profile(torch, step, steps: int, what: str, card: str,
         print("profile: by group: " + ", ".join(
             f"{g} {ms:.3f} ms ({ms / busy:.1%})"
             for g, ms in sorted(sums.items(), key=lambda kv: -kv[1])))
-    return step_ms, (busy if rows else None), sums
+    return step_ms, (busy if rows else None), sums, kernels
 
 
 def decode_profile(torch, eng, steps: int, card: str, tag: str = "serve"):
+    mode = "uncaptured" if eng._run_uncaptured else "captured"
     return device_profile(torch, eng.step, steps,
-                          f"{tag} decode step (8 slots x {eng.decode_chunk} "
-                          f"tokens, {eng.model.gpt.config.num_hidden_layers} "
-                          "layers)", card)
+                          f"{tag} {mode} decode step (8 slots x "
+                          f"{eng.decode_chunk} tokens, "
+                          f"{eng.model.gpt.config.num_hidden_layers} layers)",
+                          card)
+
+
+def sampler_ms(torch, dev, seed: int, vocab: int):
+    """Device ms of the keyed sampler for one token of 8 slots, all
+    sampling (top-k 40, top-p 0.9, temperature 0.8), and of the
+    all-greedy step on the same logits (CUDA graph replay)."""
+    from paddle_tpu_torch.generation.keyed import greedy_step, sample_step
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    last = torch.randn(SLOTS, vocab, generator=gen, device=dev) * 3.0
+    keys = torch.randint(0, 2 ** 32, (SLOTS, 2), generator=gen, device=dev)
+    pos = torch.arange(100, 100 + SLOTS, dtype=torch.int32, device=dev)
+    knobs = (torch.full((SLOTS,), 0.8, device=dev),
+             torch.full((SLOTS,), 40, dtype=torch.int64, device=dev),
+             torch.full((SLOTS,), 0.9, device=dev),
+             torch.zeros(SLOTS, dtype=torch.bool, device=dev))
+    with torch.inference_mode():
+        mixed = graph_ms(torch, lambda: sample_step(last, keys, pos, *knobs))
+        greedy = graph_ms(torch, lambda: greedy_step(last))
+    return mixed, greedy
+
+
+def replay_span_ms(torch, eng, steps: int) -> float:
+    """Device ms per decode step of the captured engine by CUDA events
+    around each replay of a decode graph: the graph's span on the card,
+    the gaps between its kernels included (no profiler)."""
+    spans = []
+    progs = [eng._programs[n] for n in ("decode", "decode_greedy")]
+    saved = [p.graph.replay for p in progs]
+
+    def timed(replay):
+        def run():
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            replay()
+            b.record()
+            spans.append((a, b))
+        return run
+
+    for p, replay in zip(progs, saved):
+        p.graph.replay = timed(replay)
+    try:
+        for _ in range(steps):
+            eng.step()
+    finally:
+        for p, replay in zip(progs, saved):
+            p.graph.replay = replay
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in spans) / len(spans)
+
+
+def decode_logits_check(torch, eng, model, dev):
+    """One decode step's logits on the engine's current paged state, by
+    the kernel path on the card and by the plain versions on the CPU (the
+    host-planned writes of ``paged_decode_logits``, on copies of the
+    pools).  Returns (max abs difference, the plain logits' largest
+    |value|)."""
+    from paddle_tpu_torch.serving.engine import paged_decode_logits
+    eng._ensure_decode_blocks()      # back the next row, as a step would
+    tables_np = eng._host_tables()
+    active = np.zeros(SLOTS, bool)
+    pos = np.zeros(SLOTS, np.int64)
+    tokens = torch.zeros(SLOTS, dtype=torch.long)
+    for slot, run in eng._slots.items():
+        active[slot], pos[slot], tokens[slot] = True, run.pos, run.last_token
+    geo = (eng.kv_pool.num_blocks, BLOCK, MAX_LEN)
+    with torch.inference_mode():
+        pools = [(k.clone(), v.clone()) for k, v in eng._pools]
+        kern = paged_decode_logits(
+            model, pools, tables_np, torch.from_numpy(tables_np).to(dev),
+            active, pos, tokens.to(dev), *geo).cpu()
+        del pools
+        cpu_model = copy.deepcopy(model).cpu()
+        cpu_pools = [(k.cpu(), v.cpu()) for k, v in eng._pools]
+        plain = paged_decode_logits(
+            cpu_model, cpu_pools, tables_np, torch.from_numpy(tables_np),
+            active, pos, tokens, *geo)
+    return float((kern - plain).abs().max()), float(plain.abs().max())
+
+
+def serve_run(torch, eng, prompts, sampled, new_tokens, launch_names):
+    """The requests through the engine (counters zeroed just before and
+    read just after).  Returns the streams, wall seconds, TTFTs and the
+    kernels' launches by name."""
+    from paddle_tpu_torch.ops import int8_matmul as im
+    from paddle_tpu_torch.ops import paged_attention as pa
+    torch.cuda.synchronize()
+    im.dequant_matmul.launches = 0
+    pa.paged_attention.launches = 0
+    t0 = time.perf_counter()
+    resps = [eng.submit(p, max_new_tokens=new_tokens,
+                        **({"decode_strategy": "sampling", **sampled[i]}
+                           if i in sampled else {}))
+             for i, p in enumerate(prompts)]
+    eng.run_until_drained(timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(zip(launch_names, (im.dequant_matmul.launches,
+                                       pa.paged_attention.launches)))
+    return ([r.tokens(timeout=5) for r in resps], wall,
+            sorted(r.ttft for r in resps), launches)
 
 
 def serve_phase(torch, args, dev, card, dtype=None):
     """GPT-2 medium, int8 weights, paged KV: the main path; with dtype
     bf16 the model is decorated to bf16 (amp O2) before quantization and
-    the engine's pools are bf16.  Returns the launches of K3 and K4 in
-    this run, keyed by their kernel-table names."""
+    the engine's pools are bf16.  The engine's programs run as CUDA graphs
+    (captured by warmup); the same requests then run again through the
+    same program functions uncaptured, for an A/B.  Returns the launches
+    of K3 and K4 in the captured run, keyed by their kernel-table names."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.generation import generate
     from paddle_tpu_torch.models import GPTForPretraining, gpt2_medium_config
-    from paddle_tpu_torch.ops import int8_matmul as im
-    from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.quantization import quantize_for_serving
     from paddle_tpu_torch.serving import ServingEngine
-    from paddle_tpu_torch.serving.engine import paged_decode_logits
 
     bf16 = dtype == torch.bfloat16
     tag = "serve bf16" if bf16 else "serve"
@@ -550,114 +664,168 @@ def serve_phase(torch, args, dev, card, dtype=None):
     if pool_dt != (dtype or torch.float32):
         fail(f"{tag}: the engine built {pool_dt} pools")
     warm = eng.warmup()
-    print(f"{tag}: warmup {warm['seconds']:.2f}s; pools {pool_dt}, "
-          f"weights {next(model.parameters()).dtype} + int8")
+    counts = warm["compile_counts"]
+    if not warm["captured"] or counts["total"] != counts["bound"]:
+        fail(f"{tag}: warmup captured {counts} (want the bound, "
+             f"{counts['bound']} CUDA graphs)")
+    print(f"{tag}: warmup {warm['seconds']:.2f}s, {counts['total']} CUDA "
+          f"graphs captured (bound {counts['bound']}: prefill buckets "
+          f"{sorted(counts['prefill'])}, decode x{counts['decode']}); pools "
+          f"{pool_dt}, weights {next(model.parameters()).dtype} + int8")
     rng = np.random.RandomState(args.seed)
     prompts = [rng.randint(0, cfg.vocab_size, (n,)) for n in PROMPT_LENS]
     sampled = {3: dict(temperature=0.8, top_k=40, top_p=0.9, seed=11),
                6: dict(temperature=1.2, top_k=0, top_p=0.8, seed=12)}
-    torch.cuda.synchronize()
-    im.dequant_matmul.launches = 0
-    pa.paged_attention.launches = 0
-    t0 = time.perf_counter()
-    resps = [eng.submit(p, max_new_tokens=64,
-                        **({"decode_strategy": "sampling", **sampled[i]}
-                           if i in sampled else {}))
-             for i, p in enumerate(prompts)]
-    eng.run_until_drained(timeout=600)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     suffix = "_bf16" if bf16 else ""
-    launches = {"int8_matmul" + suffix: im.dequant_matmul.launches,
-                "paged_attention" + suffix: pa.paged_attention.launches}
-    outs = [r.tokens(timeout=5) for r in resps]
-    if any(len(o) != 64 for o in outs):
-        fail(f"{tag}: a request did not produce 64 tokens")
-    if any(not (0 <= t < cfg.vocab_size) for o in outs for t in o):
-        fail(f"{tag}: token out of the vocabulary")
-    for name, n in launches.items():
+    names = ("int8_matmul" + suffix, "paged_attention" + suffix)
+    runs = {}
+    for mode in ("captured", "uncaptured"):
+        eng._run_uncaptured = mode == "uncaptured"
+        outs, wall, ttfts, launches = serve_run(torch, eng, prompts,
+                                                sampled, 64, names)
+        if any(len(o) != 64 for o in outs):
+            fail(f"{tag} {mode}: a request did not produce 64 tokens")
+        if any(not (0 <= t < cfg.vocab_size) for o in outs for t in o):
+            fail(f"{tag} {mode}: token out of the vocabulary")
+        total = sum(len(o) for o in outs)
+        runs[mode] = dict(outs=outs, tps=total / wall, ttfts=ttfts)
+        print(f"{tag} {mode} [{card}]: 8 requests, {total} tokens in "
+              f"{wall:.3f}s: {total / wall:.1f} tokens/s; TTFT p50 "
+              f"{ttfts[len(ttfts) // 2] * 1e3:.1f} ms, max "
+              f"{ttfts[-1] * 1e3:.1f} ms; launches {launches}")
+        if mode == "captured":
+            main_launches = launches
+    eng._run_uncaptured = False
+    for name, n in main_launches.items():
         if n <= 0:
             fail(f"kernel {name} was not launched on the main path")
-    ttfts = sorted(r.ttft for r in resps)
-    total = sum(len(o) for o in outs)
-    print(f"{tag} [{card}]: 8 requests, {total} tokens in {wall:.3f}s: "
-          f"{total / wall:.1f} tokens/s; TTFT p50 "
-          f"{ttfts[len(ttfts) // 2] * 1e3:.1f} ms, max "
-          f"{ttfts[-1] * 1e3:.1f} ms; launches {launches}")
+    cap, unc = runs["captured"]["outs"], runs["uncaptured"]["outs"]
+    for i in range(len(prompts)):
+        if i not in sampled and cap[i] != unc[i]:
+            fail(f"{tag}: captured greedy stream {i} differs from the "
+                 "uncaptured one")
+    print(f"{tag}: greedy streams captured == uncaptured; sampled streams "
+          f"equal: {[cap[i] == unc[i] for i in sorted(sampled)]}")
+    if eng.post_warmup_compiles() != 0:
+        fail(f"{tag}: {eng.post_warmup_compiles()} programs captured after "
+             "warmup")
 
-    # one decode step, kernel path vs plain path on the same KV state
-    check = [eng.submit(p, max_new_tokens=40) for p in prompts]
-    eng.step()                       # admits all eight + one decode chunk
-    eng._ensure_decode_blocks()      # back the next row, as a step would
-    b = eng._batch
-    tables_np, tables_dev = eng._paged_tables()
-    state = dict(tables_np=tables_np.copy(), active=b["active"].copy(),
-                 pos=b["pos"].copy(), tokens=b["tokens"].clone())
-    pools = [(k.clone(), v.clone()) for k, v in eng._pools]
-    geo = (eng.kv_pool.num_blocks, BLOCK, MAX_LEN)
-    with torch.inference_mode():
-        kern = paged_decode_logits(
-            model, pools, state["tables_np"], tables_dev, state["active"],
-            state["pos"], state["tokens"], *geo).cpu()
-        cpu_model = copy.deepcopy(model).cpu()
-        cpu_pools = [(k.cpu(), v.cpu()) for k, v in eng._pools]
-        plain = paged_decode_logits(
-            cpu_model, cpu_pools, state["tables_np"],
-            torch.from_numpy(state["tables_np"]), state["active"],
-            state["pos"], state["tokens"].cpu(), *geo)
-    del cpu_model, cpu_pools, pools
-    wall_ms, busy_ms, _ = decode_profile(torch, eng, 3, card, tag)
-    eng.run_until_drained(timeout=300)
-    [r.tokens(timeout=5) for r in check]
-    err = float((kern - plain).abs().max())
-    top = float(plain.abs().max())
+    # the decode step, all-greedy and mixed (the main run's two sampled
+    # requests), profiled captured and uncaptured; on the greedy state
+    # first one step's logits, kernel path vs plain path
+    prof, spans = {}, {}
+    for kind in ("greedy", "mixed"):
+        knobs = sampled if kind == "mixed" else {}
+        check = [eng.submit(p, max_new_tokens=96,
+                            **({"decode_strategy": "sampling", **knobs[i]}
+                               if i in knobs else {}))
+                 for i, p in enumerate(prompts)]
+        eng.step()                   # admits all eight + one decode chunk
+        if kind == "greedy":
+            err, top = decode_logits_check(torch, eng, model, dev)
+        for mode in ("captured", "uncaptured"):
+            eng._run_uncaptured = mode == "uncaptured"
+            prof[kind, mode] = decode_profile(torch, eng, 3, card,
+                                              f"{tag} {kind}")
+        eng._run_uncaptured = False
+        spans[kind] = replay_span_ms(torch, eng, 3)
+        print(f"{tag} {kind} captured [{card}]: decode graph replay span "
+              f"{spans[kind]:.3f} ms per step (CUDA events)")
+        eng.run_until_drained(timeout=300)
+        [r.tokens(timeout=5) for r in check]
+    if eng.post_warmup_compiles() != 0:
+        fail(f"{tag}: programs captured after warmup")
     tol = BF16_LOGIT_TOL * top if bf16 else LOGIT_TOL
     print(f"{tag}: decode-step logits kernel path vs plain path: max abs "
           f"err {err:.3e} (tolerance {tol:.3e}), |logits| max {top:.3f}")
     if not err <= tol:
         fail(f"{tag}: decode logits disagree: {err:.3e}")
+    if not bf16:
+        mixed_ms, greedy_ms = sampler_ms(torch, dev, args.seed,
+                                         cfg.vocab_size)
+        print(f"{tag} [{card}]: keyed sampler, one token of 8 slots x "
+              f"{cfg.vocab_size}: {mixed_ms:.4f} ms (all-greedy step "
+              f"{greedy_ms:.4f} ms), {eng.decode_chunk} tokens per decode "
+              f"step: {eng.decode_chunk * (mixed_ms - greedy_ms):.3f} ms "
+              "more per mixed step (CUDA graph replay)")
     agree = []
     for i, p in enumerate(prompts):
         if i in sampled:
             continue
         solo, _ = generate(model, p, max_new_tokens=64, device=dev)
         solo = solo[0].tolist()
-        agree.append(sum(a == s for a, s in zip(outs[i], solo)))
+        agree.append(sum(a == s for a, s in zip(cap[i], solo)))
     print(f"{tag}: greedy tokens equal to solo generate(): {agree} of 64 "
           "per request")
-    print(f"{tag} summary [{card}]: {total / wall:.1f} tokens/s, TTFT p50 "
-          f"{ttfts[len(ttfts) // 2] * 1e3:.1f} ms, decode step wall "
-          f"{wall_ms:.3f} ms, device "
-          + (f"{busy_ms:.3f} ms, idle {1 - busy_ms / wall_ms:.1%}"
-             if busy_ms else "not measured")
-          + f", logits err {err:.3e}")
+    for mode in ("captured", "uncaptured"):
+        r = runs[mode]
+        ttfts = r["ttfts"]
+        steps = []
+        for kind in ("greedy", "mixed"):
+            wall_ms, busy_ms, _, kernels = prof[kind, mode]
+            steps.append(
+                f"{kind} step wall {wall_ms:.3f} ms, device "
+                + (f"{busy_ms:.3f} ms, idle {1 - busy_ms / wall_ms:.1%}, "
+                   f"{kernels:.0f} kernels" if busy_ms else "not measured")
+                + (f", replay span {spans[kind]:.3f} ms"
+                   if mode == "captured" else ""))
+        print(f"{tag} {mode} summary [{card}]: {r['tps']:.1f} tokens/s, "
+              f"TTFT p50 {ttfts[len(ttfts) // 2] * 1e3:.1f} ms, max "
+              f"{ttfts[-1] * 1e3:.1f} ms; " + "; ".join(steps)
+              + f"; warmup {warm['seconds']:.2f}s, captures "
+              f"{counts['total']}, logits err {err:.3e}")
     eng.close()
     del eng, model
     torch.cuda.empty_cache()
-    return launches
+    return main_launches
 
 
 def fixed_phase(torch, args, dev):
-    """4-layer full-width f32 engine on the fixed pool vs solo generate."""
+    """4-layer full-width engines on the fixed pool, captured: the f32
+    engine's greedy streams equal solo generate(); the bf16 one's equal
+    its uncaptured path's (solo generate() runs other shapes, whose bf16
+    rounding may split a near tie)."""
+    from paddle_tpu_torch import amp
     from paddle_tpu_torch.generation import generate
     from paddle_tpu_torch.models import GPTForPretraining, gpt2_medium_config
     from paddle_tpu_torch.serving import ServingEngine
     cfg = gpt2_medium_config(num_hidden_layers=4, hidden_dropout_prob=0.0,
                              attention_probs_dropout_prob=0.0)
-    model = GPTForPretraining(cfg, device=dev, seed=args.seed + 1).eval()
-    eng = ServingEngine(model, max_slots=SLOTS, max_len=256, kv="fixed",
-                        device=dev)
     rng = np.random.RandomState(args.seed + 1)
     prompts = [rng.randint(0, cfg.vocab_size, (n,))
                for n in (5, 17, 40, 64, 90, 120)]
-    resps = [eng.submit(p, max_new_tokens=32) for p in prompts]
-    eng.run_until_drained(timeout=300)
-    for p, r in zip(prompts, resps):
-        solo, _ = generate(model, p, max_new_tokens=32, device=dev)
-        if r.tokens(timeout=5) != solo[0].tolist():
-            fail("fixed-pool greedy stream differs from solo generate()")
-    eng.close()
-    print(f"fixed: {len(prompts)} greedy streams equal solo generate()")
+    for dtype in (None, torch.bfloat16):
+        model = GPTForPretraining(cfg, device=dev, seed=args.seed + 1).eval()
+        if dtype is not None:
+            amp.decorate(models=model, level="O2", dtype="bfloat16")
+        streams = []
+        for uncaptured in (False, True):
+            eng = ServingEngine(model, max_slots=SLOTS, max_len=256,
+                                kv="fixed", dtype=dtype, device=dev)
+            eng._run_uncaptured = uncaptured
+            resps = [eng.submit(p, max_new_tokens=32) for p in prompts]
+            eng.run_until_drained(timeout=300)
+            counts = eng.compile_counts()
+            if counts["total"] != counts["bound"] \
+                    or eng.post_warmup_compiles() != 0:
+                fail(f"fixed: captures {counts}, "
+                     f"{eng.post_warmup_compiles()} after warmup")
+            streams.append([r.tokens(timeout=5) for r in resps])
+            eng.close()
+        if streams[0] != streams[1]:
+            fail("fixed-pool captured streams differ from the uncaptured")
+        if dtype is None:
+            for p, got in zip(prompts, streams[0]):
+                solo, _ = generate(model, p, max_new_tokens=32, device=dev)
+                if got != solo[0].tolist():
+                    fail("fixed-pool greedy stream differs from solo "
+                         "generate()")
+        print(f"fixed {'bf16' if dtype else 'f32'}: {len(prompts)} greedy "
+              f"streams captured == uncaptured"
+              + ("" if dtype else " == solo generate()")
+              + f"; {counts['total']} CUDA graphs")
+        del model
+        torch.cuda.empty_cache()
 
 
 def _flash_inputs(torch, rng, dev, b, sq, sk, h, d, dtype, bias=False,
@@ -1598,7 +1766,7 @@ def resnet_phase(torch, args, dev, card):
         groups["convolutions (cuDNN)"] = (
             "conv", "xmma", "cudnn", "cutlass", "implicit_gemm", "dgrad",
             "wgrad", "fprop", "nhwc", "nchw")
-        _, busy, sums = device_profile(
+        _, busy, sums, _ = device_profile(
             torch, lambda: step(x, y), 1, f"train step (ResNet-50, "
             f"b{RESNET_B} x {RESNET_HW}^2, O2 bf16, NHWC)", card,
             groups=groups, top=14)

@@ -7,10 +7,12 @@ a preallocated cache, then one ``forward_fixed`` per token.  Model
 protocol: ``model.gen_fixed_cache(batch, max_len)`` and
 ``model.forward_fixed(ids, caches, pos) -> (logits, caches)``.
 
-Random draws come from a ``torch.Generator`` seeded by ``seed``; JAX's
-threefry stream cannot be reproduced, so sampled tokens differ from the
-reference's while greedy tokens agree.  Beam search waits for a later
-slice.
+``generate``'s random draws come from a ``torch.Generator`` seeded by
+``seed`` (its own contract: sampled tokens differ from the reference's
+``generate`` while greedy tokens agree).  The serving engine samples
+statelessly instead, with the reference engine's keyed threefry draws
+reproduced in ``generation.keyed``, so its sampled tokens equal the
+reference engine's.  Beam search waits for a later slice.
 """
 from __future__ import annotations
 

@@ -11,8 +11,9 @@ match the reference's state keys.  Three decode protocols:
   Buffers are updated in place (the reference returns new arrays);
 - ``forward_paged``: one decode token per slot against the paged block
   pool — each layer writes its new K/V rows through ``writes`` (an
-  ``ops.paged_attention.RowWrites``) and attends with the paged
-  attention kernel straight on the pool, never gathering a view.
+  ``ops.paged_attention.RowWrites`` planned on the host, or the serving
+  engine's ``SlotRowWrites`` planned on the device) and attends with the
+  paged attention kernel straight on the pool, never gathering a view.
 
 Training: in training mode ``attend`` reaches the flash kernels K1/K2
 through ``F.scaled_dot_product_attention`` whenever the reference would
@@ -80,9 +81,14 @@ def gpt2_large_config(**kw):
 
 
 def _positions(pos, b: int, s: int, device):
-    """(b, s) absolute positions pos + [0, s) from an int or a (b,) tensor."""
-    base = torch.as_tensor(pos, device=device, dtype=torch.long)
-    return base.reshape(-1, 1).expand(b, 1) + torch.arange(s, device=device)
+    """(b, s) absolute positions pos + [0, s) from an int or a (b,) tensor
+    (an int never becomes a device tensor by a host copy: the serving
+    engine's programs run as captured CUDA graphs)."""
+    steps = torch.arange(s, device=device)
+    if not isinstance(pos, torch.Tensor):
+        return (steps + int(pos)).expand(b, s)
+    return (pos.to(device=device, dtype=torch.long).reshape(-1, 1)
+            .expand(b, 1) + steps)
 
 
 class GPTBlock(Layer):
@@ -256,7 +262,7 @@ class GPTModel(Layer):
     def forward_paged(self, input_ids, pools, tables, pos, writes):
         """Paged decode: input_ids (S, 1), pools [(kpool, vpool)] of
         (num_blocks, block_size, H, D), tables (S, nb) int32, pos (S,)
-        int32 device positions, writes the step's RowWrites."""
+        int32 device positions, writes the step's row writes."""
         h = self._embed_at(input_ids, pos.to(torch.long)[:, None])
         for blk, (kp, vp) in zip(self.blocks, pools):
             h = blk.forward_paged(h, kp, vp, tables, pos, writes)

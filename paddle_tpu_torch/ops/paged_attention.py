@@ -17,6 +17,16 @@ layer, and each slot owns a table of block ids; the allocator's
   plans one decode step's
   scrub + scatter once and applies it to every layer's pools.  Writes
   update the pool in place (the reference returns a new array).
+- **Static-shape writes** (the serving engine's programs, which run as
+  captured CUDA graphs): ``SlotRowWrites`` (one decode token per slot,
+  the reference's ``_paged_row_writer``) and ``write_slot_blocks`` (the
+  paged prefill's whole-block overwrite) take device tables, positions
+  and the active mask, never read them on the host, and keep every
+  index tensor's shape fixed.  Their pools carry trash blocks past
+  ``num_blocks`` that the allocator never hands out: a dropped write
+  goes to a trash block of its own (write ``i`` to ``num_blocks + i``),
+  so no ``index_put_`` ever holds a duplicate index and the real blocks
+  do not depend on write order.
 - **``paged_attention``** (kernel ``csrc/paged_attention.cu``, CUDA C++ for
   sm_90a): replaces the Pallas kernel
   ``paddle_tpu/ops/paged_attention.py::_kernel``.  Batched over slots:
@@ -52,7 +62,8 @@ import torch
 from . import _build
 
 __all__ = ["gather_block_rows", "scatter_block_rows", "scrub_blocks",
-           "write_blocks", "RowWrites", "paged_attention"]
+           "write_blocks", "RowWrites", "SlotRowWrites", "write_slot_blocks",
+           "paged_attention"]
 
 
 # ---------------------------------------------------------------------------
@@ -140,6 +151,53 @@ def write_blocks(pool, block_ids, blocks):
     if len(keep):
         idx = torch.from_numpy(np.stack([ids[keep], keep])).to(pool.device)
         pool[idx[0]] = blocks[idx[1]].to(pool.dtype)
+    return pool
+
+
+def _or_trash(ids, ok, num_blocks: int):
+    """Each id where ``ok``, else trash block ``num_blocks + i`` for entry i."""
+    trash = num_blocks + torch.arange(ids.shape[0], device=ids.device)
+    return torch.where(ok, ids, trash)
+
+
+class SlotRowWrites:
+    """One decode token's K/V row per slot, written through the block
+    tables with static shapes (the reference's ``_paged_row_writer`` for
+    one row): slot s's row goes to (tables[s, pos // block_size],
+    pos % block_size), and the block it enters at offset 0 is zeroed
+    first.  Inactive slots, rows at or past ``pool_len`` and table
+    entries outside [0, num_blocks) go to trash block ``num_blocks + s``
+    instead (its scrub too), so the pools need ``len(pos)`` trash blocks.
+    ``tables`` (S, nb) int32, ``pos`` (S,) and ``active`` (S,) bool are
+    device tensors; nothing is read on the host.  Planned once per token,
+    applied to every layer's pools."""
+
+    def __init__(self, tables, pos, active, num_blocks: int,
+                 block_size: int, pool_len: int):
+        pos = pos.to(torch.long)
+        bidx = (pos // block_size).clamp(0, tables.shape[1] - 1)
+        blk = torch.gather(tables, 1, bidx[:, None])[:, 0].to(torch.long)
+        ok = active & (pos < pool_len) & (blk >= 0) & (blk < num_blocks)
+        self.off = pos % block_size
+        self.blk = _or_trash(blk, ok, num_blocks)
+        self.enter = _or_trash(blk, ok & (self.off == 0), num_blocks)
+
+    def apply(self, pool, rows):
+        """Scrub entered blocks, then write ``rows`` (S, ...), in place.
+        (``index_fill_``: a Python 0 through a tensor index would be a
+        host-to-card copy, which a CUDA graph capture refuses.)"""
+        pool.index_fill_(0, self.enter, 0)
+        pool[self.blk, self.off] = rows.to(pool.dtype)
+        return pool
+
+
+def write_slot_blocks(pool, table, blocks, num_blocks: int):
+    """pool[table[i]] = blocks[i] in place, ``table`` a device tensor of
+    block ids; an id outside [0, num_blocks) writes trash block
+    ``num_blocks + i`` instead (the pool needs ``len(table)`` of them)."""
+    ids = table.to(torch.long)
+    ok = (ids >= 0) & (ids < num_blocks)
+    pool[_or_trash(ids, ok, num_blocks)] = blocks.to(pool.dtype)
     return pool
 
 

@@ -1,24 +1,43 @@
 """ServingEngine: continuous batching over a slot-based KV-cache pool
 (port of paddle_tpu/serving/engine.py, fixed and paged pools).
 
-- **Bucketed prefill**: the prompt, right-padded to its bucket, runs
-  through ``model.forward_fixed`` against a bucket-sized scratch cache;
-  the KV then lands in the slot's pool region — the fixed pool's slot row
-  is overwritten over its FULL [0, max_len) range, the paged slot's
-  blocks END TO END (prompt KV + zeros to the block boundary), so no
-  stale KV of a previous tenant survives.  The first token is sampled
-  from the prompt's last-position logits.
-- **Decode step**: every slot advances ``decode_chunk`` tokens per step,
-  each with its own write position; sampling knobs are per-slot tensors
-  (``generation.process_logits_dynamic``) and an all-greedy batch skips
-  the sampling pipeline.  Requests join and leave between steps.
+- **The program family**: like the reference, which compiles one program
+  per prefill bucket and one for the decode chunk, the engine runs a
+  fixed set of static-shape programs over static input buffers.
+  ``warmup()`` makes them all and, on the card, captures each as a CUDA
+  graph (all in one memory pool: they never run at once); ``step()``
+  fills the buffers on the host when the batch or the allocator's tables
+  changed, replays, and pulls the outputs once.  On the CPU the same
+  program functions run directly.  The decode chunk is captured twice,
+  all-greedy (no sampling pipeline) and mixed, where the reference
+  branches inside one program: ``compile_counts()``'s bound is
+  ``len(buckets) + 2``, and ``post_warmup_compiles()`` stays 0 under any
+  traffic.
+- **Bucketed prefill** (one program per bucket): the prompt, right-padded
+  to its bucket, runs through ``model.forward_fixed`` against a
+  bucket-sized scratch cache; the KV then lands in the slot's pool region
+  — the fixed pool's slot row is overwritten over its FULL [0, max_len)
+  range, the paged slot's blocks END TO END (prompt KV + zeros to the
+  block boundary), so no stale KV of a previous tenant survives.  The
+  first token is sampled from the prompt's last-position logits.
+- **Decode chunk**: every slot advances ``decode_chunk`` tokens per
+  step, each with its own write position, on the device; the last tokens
+  and positions stay in the program's buffers as the next step's inputs.
+  Sampling knobs are per-slot tensors
+  (``generation.process_logits_dynamic``).
+- **Keyed sampling** (``generation.keyed``): a sampled token is drawn
+  under the request's key folded in at its position, as the reference
+  draws it, so it depends only on the seed, the position and the logits
+  — not on the slot, the chunk or the rest of the batch — and equals the
+  reference engine's token for the same seed.
 - **Paged decode** (``kv="paged"``): per layer the new token's K/V rows
-  are written through the block tables — blocks a slot enters at offset
-  0 are scrubbed first, inactive slots and unbacked rows go to the
-  sentinel and are dropped — then the paged-attention kernel attends on
-  the block pool directly (``GPTBlock.forward_paged``).  Nothing is
-  gathered on the card; on the CPU the kernel's plain version is the
-  reference's gather + masked softmax.
+  are written through the block tables (``SlotRowWrites``) — blocks a
+  slot enters at offset 0 are scrubbed first, inactive slots and
+  unbacked rows drop into trash blocks past the allocator's — then the
+  paged-attention kernel attends on the block pool directly
+  (``GPTBlock.forward_paged``).  Nothing is gathered on the card; on the
+  CPU the kernel's plain version is the reference's gather + masked
+  softmax.
 
 Greedy streams equal a solo ``generation.generate`` run of the same
 prompt (the same float ops up to summation order).  The reference's
@@ -28,6 +47,7 @@ step cannot be backed by the pool fails with ``KVPoolExhaustedError``.
 """
 from __future__ import annotations
 
+import functools
 import threading
 import time
 from typing import Dict, List, Optional
@@ -37,15 +57,22 @@ import torch
 
 from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..core.errors import FatalError, InvalidArgumentError, UnavailableError
-from ..generation import gumbel, process_logits_dynamic
+from ..generation.keyed import (first_token_at, greedy_step, request_key,
+                               sample_step)
 from ..ops import _build
-from ..ops.paged_attention import RowWrites, write_blocks
+from ..ops.int8_matmul import dequant_matmul
+from ..ops.paged_attention import (RowWrites, SlotRowWrites, paged_attention,
+                                   write_slot_blocks)
 from ..utils.monitor import stat_add
 from .kv_pool import KVPoolExhaustedError, PagedKVPool
 from .request import Request, RequestCancelled, Response
 from .scheduler import DeadlineExceededError, RequestScheduler
 
 __all__ = ["ServingEngine", "NonFiniteLogitsError", "KVPoolExhaustedError"]
+
+# host array dtype for each static buffer dtype (``ServingEngine._fill``)
+_HOST_DTYPE = {torch.int64: np.int64, torch.int32: np.int32,
+               torch.float32: np.float32, torch.bool: np.bool_}
 
 
 class NonFiniteLogitsError(FatalError):
@@ -64,33 +91,69 @@ def _default_buckets(max_len: int):
     return tuple(buckets)
 
 
-def _sample(last, gens, temp, top_k, top_p, greedy, all_greedy: bool):
-    """One sampling decision per row of (S, V) f32 logits: greedy rows
-    argmax their raw logits, the others draw from their own generator
-    (``gens[i]``, None for greedy rows) after temperature/top-k/top-p.
-    Returns (tokens (S,), logp (S,))."""
-    proc = last if all_greedy else process_logits_dynamic(
-        last, temp, top_k, top_p, greedy)
-    tok = torch.argmax(proc, dim=-1)
-    if not all_greedy:
-        rows = [i for i, g in enumerate(gens) if g is not None]
-        noise = torch.stack([gumbel(proc.shape[-1], gens[i], proc.device)
-                             for i in rows])
-        tok[rows] = torch.argmax(proc[rows] + noise, dim=-1)
-    logp = torch.gather(torch.log_softmax(proc, dim=-1), -1,
-                        tok[:, None])[:, 0]
-    return tok, logp
+# the kernel wrappers the programs launch: their ``launches`` counters
+# count host calls, so a captured graph's launches are added at each replay
+_COUNTED = (paged_attention, dequant_matmul)
+
+
+class _Program:
+    """One static-shape program of the engine: ``fn(**inputs)`` over its
+    static input buffers (which the host fills before a run), returning a
+    tuple of tensors.  On the card ``capture`` records it as a CUDA graph
+    and ``run`` replays it; otherwise ``run`` calls ``fn``."""
+
+    def __init__(self, fn, inputs: Dict[str, torch.Tensor]):
+        self.fn = fn
+        self.inputs = inputs
+        self.ready = False   # made (on the card: captured)
+        self.graph = None
+        self.outputs = None
+        self.launches = ()   # (kernel wrapper, its launches per replay)
+
+    def capture(self, pool):
+        """Run ``fn`` once on a side stream, so that first-use set-up
+        (cuBLAS handles, kernel attributes) happens outside the capture,
+        then capture it into a CUDA graph in the memory pool ``pool``.
+        The launches the wrappers count while capturing were recorded,
+        not run: they are taken back and added at every replay.  A
+        capture that fails raises."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self.fn(**self.inputs)
+        torch.cuda.current_stream().wait_stream(side)
+        base = [w.launches for w in _COUNTED]
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=pool):
+                outputs = self.fn(**self.inputs)
+            self.launches = tuple((w, w.launches - b)
+                                  for w, b in zip(_COUNTED, base))
+        finally:
+            for w, b in zip(_COUNTED, base):
+                w.launches = b
+        self.graph, self.outputs = graph, outputs
+
+    def run(self, captured: bool = True):
+        if self.graph is None or not captured:
+            return self.fn(**self.inputs)
+        self.graph.replay()
+        for w, n in self.launches:
+            w.launches += n
+        return self.outputs
 
 
 def paged_decode_logits(model, pools, tables_np, tables_dev, active, pos,
                         tokens, num_blocks: int, block_size: int,
                         pool_len: int):
-    """One paged decode token for every slot: write each active slot's
-    new K/V row at ``pos`` through its table (scrubbing entered blocks,
-    dropping inactive slots and rows the table does not back), then attend
-    on the pools.  ``tables_np`` (S, nb) and ``active`` (S,) are host
-    arrays, ``pos`` (S,) host positions; ``tables_dev``/``tokens`` device
-    tensors.  Returns (S, V) f32 last-position logits."""
+    """One paged decode token for every slot, its writes planned on the
+    host (``RowWrites``; the engine's programs plan them on the device):
+    write each active slot's new K/V row at ``pos`` through its table
+    (scrubbing entered blocks, dropping inactive slots and rows the table
+    does not back), then attend on the pools.  ``tables_np`` (S, nb) and
+    ``active`` (S,) are host arrays, ``pos`` (S,) host positions;
+    ``tables_dev``/``tokens`` device tensors.  Returns (S, V) f32
+    last-position logits."""
     pos = np.asarray(pos, np.int64)
     bidx = np.clip(pos // block_size, 0, tables_np.shape[1] - 1)
     blk = tables_np[np.arange(len(pos)), bidx]
@@ -106,17 +169,17 @@ def paged_decode_logits(model, pools, tables_np, tables_dev, active, pos,
 class _SlotRun:
     """Host-side per-slot decode state."""
     __slots__ = ("req", "resp", "pos", "produced", "last_token",
-                 "last_token_at", "gen")
+                 "last_token_at", "key")
 
     def __init__(self, req: Request, resp: Response, pos: int,
-                 first_token: int, gen):
+                 first_token: int, key: np.ndarray):
         self.req = req
         self.resp = resp
         self.pos = pos              # kv length so far (write offset)
         self.produced = 1           # first token came from prefill
         self.last_token = first_token
         self.last_token_at = time.monotonic()
-        self.gen = gen              # sampling generator (None: greedy)
+        self.key = key              # sampling key words (uint32 pair)
 
 
 class ServingEngine:
@@ -170,17 +233,32 @@ class ServingEngine:
                     -(-self._pool_len // self.block_size))
             self.kv_pool = PagedKVPool(int(num_blocks), self.block_size,
                                        self._pool_len)
-            self._pools = self.kv_pool.build_pools(model, dtype)
-            self._paged_cache = None  # (allocator version, np tables, dev)
+            # trash blocks past the allocator's, where static-shape writes
+            # drop: one per slot (decode) and per prompt block (prefill)
+            trash = max(self.max_slots,
+                        self.kv_pool.blocks_for(self.buckets[-1]))
+            self._pool_store = self.kv_pool.build_pools(model, dtype, trash)
+            nb = self.kv_pool.num_blocks
+            self._pools = [(k[:nb], v[:nb]) for k, v in self._pool_store]
+            self._tables_ver = None   # allocator version in the buffer
             self._oom_failed = 0
         else:
             self.kv_pool = None
             # one gen_fixed_cache(max_slots, max_len) for the engine's life
             self._pools = model.gen_fixed_cache(self.max_slots,
                                                 self._pool_len, dtype)
+            self._pool_store = self._pools
         self._warm = False
+        self._programs: Dict[object, _Program] = {}
+        self._compiles = {"decode": 0,
+                          "prefill": {b: 0 for b in self.buckets}}
+        self._warm_mark: Optional[int] = None
+        self._graph_pool = None
+        # A/B only (chip_smoke.py and the card tests): on the card, run the
+        # same program functions without their CUDA graphs
+        self._run_uncaptured = False
         self._slots: Dict[int, _SlotRun] = {}
-        self._batch = None
+        self._all_greedy = True
         self._batch_dirty = True
         self._rid = 0
         self._submit_lock = threading.Lock()
@@ -211,8 +289,9 @@ class ServingEngine:
         """Enqueue one request; returns its streaming Response.  Raises
         InvalidArgumentError for a prompt/budget the engine can never
         serve, QueueFullError at max_queue_depth (backpressure).  A
-        sampled request draws from its own generator seeded by ``seed``
-        (default: the request id)."""
+        sampled request draws under a key made from ``seed`` (default: the
+        request id), folded in at each token's position: its tokens
+        depend only on the seed, the positions and the logits."""
         if self._closed:
             raise UnavailableError("serving engine is closed")
         if self._dead is not None:
@@ -266,7 +345,10 @@ class ServingEngine:
         """One engine iteration: sweep deadlines/cancels, admit waiting
         requests into free slots (one bucketed prefill each), then advance
         every occupied slot one decode chunk.  Returns whether any work
-        was done."""
+        was done.  An engine not yet warmed up warms up first (on the
+        card: captures its programs)."""
+        if not self._warm:
+            self.warmup()
         did = False
         self._sweep()
         self.scheduler.sweep_pending()
@@ -326,39 +408,29 @@ class ServingEngine:
                 return b
         raise InvalidArgumentError(f"no bucket fits prompt length {plen}")
 
-    def _generator(self, req: Request):
-        if req.greedy:
-            return None
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(req.seed))
-        return gen
+    @staticmethod
+    def _fill(buffers: Dict[str, torch.Tensor], **host):
+        """Copy host values into a program's static input buffers."""
+        for name, value in host.items():
+            buffers[name].copy_(torch.from_numpy(
+                np.asarray(value, dtype=_HOST_DTYPE[buffers[name].dtype])
+                .reshape(buffers[name].shape)))
 
-    def _prefill(self, req: Request, slot: int, bucket: int):
-        """Run the bucketed prompt and write its KV into the slot's pool
-        region; returns the (1, bucket, V) logits."""
+    def _prefill(self, req: Request, slot: int, bucket: int, key):
+        """The bucket's prefill program for ``req`` into ``slot``: writes
+        the prompt's KV into the slot's pool region and samples the first
+        token.  Returns (token, logp, finite) on the host."""
         plen = req.prompt.shape[0]
         ids = np.full((1, bucket), self.pad_token_id, np.int64)
         ids[0, :plen] = req.prompt
-        scratch = self.model.gen_fixed_cache(1, bucket, self._dtype)
-        logits, kv = self.model.forward_fixed(
-            torch.from_numpy(ids).to(self.device), scratch, 0)
-        if self.kv == "paged":
-            bs = self.block_size
-            nb_b = -(-bucket // bs)
-            table = self.kv_pool.table_array(slot)[:nb_b]
-            for (kp, vp), (kc, vc) in zip(self._pools, kv):
-                for pool, chunk in ((kp, kc), (vp, vc)):
-                    rows = torch.zeros((nb_b * bs,) + tuple(chunk.shape[2:]),
-                                       dtype=pool.dtype, device=pool.device)
-                    rows[:bucket] = chunk[0]
-                    write_blocks(pool, table,
-                                 rows.reshape((nb_b, bs) + rows.shape[1:]))
-        else:
-            for (kp, vp), (kc, vc) in zip(self._pools, kv):
-                for pool, chunk in ((kp, kc), (vp, vc)):
-                    pool[slot].zero_()
-                    pool[slot, :bucket] = chunk[0]
-        return logits
+        target = (self.kv_pool.table_array(slot) if self.kv == "paged"
+                  else slot)
+        prog = self._programs[bucket]
+        self._fill(prog.inputs, ids=ids, target=target, prompt_len=plen,
+                   key=key, temp=req.temperature, top_k=req.top_k,
+                   top_p=req.top_p, greedy=req.greedy)
+        tok, logp, finite = (t.cpu() for t in self._run(prog))
+        return int(tok[0]), float(logp[0]), bool(finite[0])
 
     def _admit(self, req: Request, resp: Response, slot: int):
         plen = req.prompt.shape[0]
@@ -373,24 +445,16 @@ class ServingEngine:
                 f"{self.kv_pool.capacity()})"))
             self.scheduler.release(slot)
             return
-        logits = self._prefill(req, slot, bucket)
+        key = request_key(req.seed)
+        tok, logp, finite = self._prefill(req, slot, bucket, key)
         stat_add("STAT_serving_prefills")
-        last = logits[0, plen - 1].to(torch.float32)[None]
-        gen = self._generator(req)
-        dev = self.device
-        tok, logp = _sample(
-            last, [gen], torch.tensor([req.temperature], device=dev),
-            torch.tensor([req.top_k], device=dev),
-            torch.tensor([req.top_p], device=dev),
-            torch.tensor([req.greedy], device=dev), req.greedy)
-        if not bool(torch.isfinite(last).all()):
+        if not finite:
             self._fail_slot(slot, resp, "prefill")
             return
-        tok = int(tok[0])
-        run = _SlotRun(req, resp, pos=plen, first_token=tok, gen=gen)
+        run = _SlotRun(req, resp, pos=plen, first_token=tok, key=key)
         self._slots[slot] = run
         self._batch_dirty = True
-        self._emit(run, tok, float(logp[0]))
+        self._emit(run, tok, logp)
         stat_add("STAT_serving_tokens")
         self._maybe_finish(slot, run, tok)
 
@@ -449,63 +513,176 @@ class ServingEngine:
             f"{self.kv_pool.capacity()} blocks)"))
         self._release(slot)
 
-    def _paged_tables(self):
-        """(tables np, tables device) for every slot — sentinel rows for
-        unoccupied slots — cached against the allocator's version."""
+    def _host_tables(self) -> np.ndarray:
+        """(S, nb) int32 block tables of every slot — sentinel rows for
+        unoccupied slots."""
+        tables = np.tile(self.kv_pool.sentinel_table(), (self.max_slots, 1))
+        for slot in self._slots:
+            tables[slot] = self.kv_pool.table_array(slot)
+        return tables
+
+    def _sync_tables(self, force: bool):
+        """Copy the block tables into the decode programs' buffer when the
+        allocator's version (or the batch) changed since the last copy."""
         ver = self.kv_pool.version
-        if self._paged_cache is None or self._paged_cache[0] != ver:
-            tables = np.tile(self.kv_pool.sentinel_table(),
-                             (self.max_slots, 1))
-            for slot in self._slots:
-                tables[slot] = self.kv_pool.table_array(slot)
-            self._paged_cache = (ver, tables,
-                                 torch.from_numpy(tables).to(self.device))
-        return self._paged_cache[1], self._paged_cache[2]
+        if force or self._tables_ver != ver:
+            self._fill(self._programs["decode"].inputs,
+                       tables=self._host_tables())
+            self._tables_ver = ver
 
     # ------------------------------------------------------------------
     # decode
     # ------------------------------------------------------------------
     def _rebuild_batch(self):
+        """Copy every slot's state into the decode programs' buffers
+        (after a join or a leave; otherwise the last step's tokens and
+        positions stay on the device as this step's inputs)."""
         s = self.max_slots
-        tokens = np.zeros((s,), np.int64)
-        pos = np.zeros((s,), np.int64)
-        temp = np.ones((s,), np.float32)
-        top_k = np.zeros((s,), np.int64)
-        top_p = np.ones((s,), np.float32)
-        greedy = np.ones((s,), bool)
+        host = {"tokens": np.zeros((s,), np.int64),
+                "pos": np.zeros((s,), np.int32),
+                "keys": np.zeros((s, 2), np.int64),
+                "temp": np.ones((s,), np.float32),
+                "top_k": np.zeros((s,), np.int64),
+                "top_p": np.ones((s,), np.float32),
+                "greedy": np.ones((s,), bool)}
         active = np.zeros((s,), bool)
-        gens = [None] * s
         for slot, run in self._slots.items():
-            tokens[slot] = run.last_token
-            pos[slot] = run.pos
-            temp[slot] = run.req.temperature
-            top_k[slot] = run.req.top_k
-            top_p[slot] = run.req.top_p
-            greedy[slot] = run.req.greedy
+            host["tokens"][slot] = run.last_token
+            host["pos"][slot] = run.pos
+            host["keys"][slot] = run.key
+            host["temp"][slot] = run.req.temperature
+            host["top_k"][slot] = run.req.top_k
+            host["top_p"][slot] = run.req.top_p
+            host["greedy"][slot] = run.req.greedy
             active[slot] = True
-            gens[slot] = run.gen
-        dev = self.device
-        self._batch = {
-            "tokens": torch.from_numpy(tokens).to(dev), "pos": pos,
-            "active": active, "gens": gens,
-            "all_greedy": bool(greedy.all()),
-            "params": tuple(torch.from_numpy(a).to(dev)
-                            for a in (temp, top_k, top_p, greedy))}
+        if self.kv == "paged":
+            host["active"] = active
+        self._fill(self._programs["decode"].inputs, **host)
+        self._all_greedy = bool(host["greedy"].all())
         self._batch_dirty = False
 
-    def _forward_decode(self, tokens, pos):
-        """(S, V) f32 logits of one decode token per slot at host
+    # ------------------------------------------------------------------
+    # the programs (static shapes, no host reads: captured on the card)
+    # ------------------------------------------------------------------
+    def _decode_logits(self, tokens, pos, tables, active):
+        """(S, V) f32 logits of one decode token per slot at device
         positions ``pos``; writes the new KV rows."""
         if self.kv == "paged":
-            tables_np, tables_dev = self._paged_tables()
-            return paged_decode_logits(
-                self.model, self._pools, tables_np, tables_dev,
-                self._batch["active"], pos, tokens, self.kv_pool.num_blocks,
-                self.block_size, self._pool_len)
-        pos_dev = torch.from_numpy(pos).to(self.device)
-        logits, self._pools = self.model.forward_fixed(
-            tokens[:, None], self._pools, pos_dev)
+            writes = SlotRowWrites(tables, pos, active,
+                                   self.kv_pool.num_blocks, self.block_size,
+                                   self._pool_len)
+            logits = self.model.forward_paged(tokens[:, None],
+                                              self._pool_store, tables, pos,
+                                              writes)
+        else:
+            logits, _ = self.model.forward_fixed(tokens[:, None],
+                                                 self._pool_store, pos)
         return logits[:, -1].to(torch.float32)
+
+    def _decode_program(self, tokens, pos, keys, temp, top_k, top_p, greedy,
+                        tables=None, active=None, *, sample: bool = True):
+        """The decode chunk (reference ``:1279-1316``): ``decode_chunk``
+        tokens for every slot, each sampled (``sample``; else the
+        all-greedy step) and fed back.  Returns (toks, logps, finites),
+        each (chunk, S), and the buffers ``tokens`` / ``pos``, updated in
+        place to the last token and the next position."""
+        tok, p = tokens, pos
+        toks, logps, finites = [], [], []
+        for _ in range(self.decode_chunk):
+            last = self._decode_logits(tok, p, tables, active)
+            finites.append(torch.isfinite(last).all(dim=-1))
+            if sample:
+                tok, logp = sample_step(last, keys, p, temp, top_k, top_p,
+                                        greedy)
+            else:
+                tok, logp = greedy_step(last)
+            toks.append(tok)
+            logps.append(logp)
+            p = p + 1
+        tokens.copy_(tok)
+        pos.copy_(p)
+        return (torch.stack(toks), torch.stack(logps), torch.stack(finites),
+                tokens, pos)
+
+    def _write_prompt(self, pool, rows, target, bucket: int):
+        """A prefill's (bucket, ...) KV ``rows`` into the slot's region of
+        ``pool``: the slot row over its full length (fixed; ``target``
+        the (1,) slot), or the bucket's blocks end to end (paged;
+        ``target`` the slot's table)."""
+        if self.kv == "paged":
+            bs = self.block_size
+            nb_b = -(-bucket // bs)
+            blocks = torch.zeros((nb_b * bs,) + tuple(rows.shape[1:]),
+                                 dtype=pool.dtype, device=pool.device)
+            blocks[:bucket] = rows
+            write_slot_blocks(pool, target[:nb_b],
+                              blocks.reshape((nb_b, bs) + blocks.shape[1:]),
+                              self.kv_pool.num_blocks)
+        else:
+            row = torch.zeros((1,) + tuple(pool.shape[1:]), dtype=pool.dtype,
+                              device=pool.device)
+            row[0, :bucket] = rows
+            pool.index_copy_(0, target, row)
+
+    def _prefill_program(self, bucket: int, ids, prompt_len, target, key,
+                         temp, top_k, top_p, greedy):
+        """One bucket's prefill (reference ``:1137-1146``): the padded
+        prompt through a bucket-sized scratch cache, its KV into the
+        slot's region, the first token sampled at ``prompt_len - 1``.
+        Returns (token, logp, finite), each (1,)."""
+        scratch = self.model.gen_fixed_cache(1, bucket, self._dtype)
+        logits, kv = self.model.forward_fixed(ids, scratch, 0)
+        for (kp, vp), (kc, vc) in zip(self._pool_store, kv):
+            self._write_prompt(kp, kc[0], target, bucket)
+            self._write_prompt(vp, vc[0], target, bucket)
+        last = prompt_len - 1
+        return first_token_at(logits, last, last, key, temp, top_k, top_p,
+                              greedy)
+
+    def _make_programs(self) -> Dict[object, _Program]:
+        """Every program with its static input buffers: one prefill per
+        bucket (keyed by the bucket) and the decode chunk, mixed
+        ("decode") and all-greedy ("decode_greedy"), sharing one set of
+        buffers.  The buffers start as a warm-up input: sentinel tables
+        and inactive slots (paged writes drop), slot 0 (fixed)."""
+        dev, s = self.device, self.max_slots
+
+        def full(shape, value, dtype):
+            return torch.full(shape, value, dtype=dtype, device=dev)
+
+        dec = {"tokens": full((s,), 0, torch.int64),
+               "pos": full((s,), 0, torch.int32),
+               "keys": full((s, 2), 0, torch.int64),
+               "temp": full((s,), 1.0, torch.float32),
+               "top_k": full((s,), 0, torch.int64),
+               "top_p": full((s,), 1.0, torch.float32),
+               "greedy": full((s,), True, torch.bool)}
+        pre = {"prompt_len": full((1,), 1, torch.int64),
+               "key": full((1, 2), 0, torch.int64),
+               "temp": full((1,), 1.0, torch.float32),
+               "top_k": full((1,), 0, torch.int64),
+               "top_p": full((1,), 1.0, torch.float32),
+               "greedy": full((1,), True, torch.bool)}
+        if self.kv == "paged":
+            nb = self.kv_pool.max_blocks_per_slot
+            sentinel = self.kv_pool.num_blocks
+            dec["tables"] = full((s, nb), sentinel, torch.int32)
+            dec["active"] = full((s,), False, torch.bool)
+            pre["target"] = full((nb,), sentinel, torch.int32)
+        else:
+            pre["target"] = full((1,), 0, torch.int64)
+        programs = {
+            "decode": _Program(self._decode_program, dec),
+            "decode_greedy": _Program(
+                functools.partial(self._decode_program, sample=False), dec)}
+        for b in self.buckets:
+            programs[b] = _Program(
+                functools.partial(self._prefill_program, b),
+                dict(pre, ids=full((1, b), self.pad_token_id, torch.int64)))
+        return programs
+
+    def _run(self, prog: _Program):
+        return prog.run(captured=not self._run_uncaptured)
 
     def _decode_step(self):
         if self.kv == "paged":
@@ -514,24 +691,15 @@ class ServingEngine:
             self._ensure_decode_blocks()
             if not self._slots:
                 return
-        if self._batch_dirty:
+        rebuilt = self._batch_dirty
+        if rebuilt:
             self._rebuild_batch()
-        b = self._batch
-        temp, top_k, top_p, greedy = b["params"]
-        tokens = b["tokens"]
-        toks, logps, finites = [], [], []
-        for j in range(self.decode_chunk):
-            last = self._forward_decode(tokens, b["pos"] + j)
-            finites.append(torch.isfinite(last).all(dim=-1))
-            tokens, logp = _sample(last, b["gens"], temp, top_k, top_p,
-                                   greedy, b["all_greedy"])
-            toks.append(tokens)
-            logps.append(logp)
-        b["tokens"] = tokens
-        b["pos"] = b["pos"] + self.decode_chunk
+        if self.kv == "paged":
+            self._sync_tables(rebuilt)
+        prog = self._programs["decode_greedy" if self._all_greedy
+                              else "decode"]
         # one device->host pull for the whole (chunk, slots) burst
-        toks, logps, finites = (torch.stack(x).cpu().numpy()
-                                for x in (toks, logps, finites))
+        toks, logps, finites = (t.cpu().numpy() for t in self._run(prog)[:3])
         stat_add("STAT_serving_decode_steps")
         emitted = 0
         for slot in list(self._slots):
@@ -672,42 +840,66 @@ class ServingEngine:
         return self._warm
 
     def warmup(self) -> Dict:
-        """Build the kernels (on the card) and run one prefill per bucket
-        plus one decode token, so no request pays a first-use cost.  Paged
-        writes go through sentinel tables and are dropped; the fixed pool
-        takes junk in slot rows that the next prefill overwrites.  Safe
-        any time no request is in flight."""
+        """Make every program the engine will ever run — one prefill per
+        bucket and the decode chunk, all-greedy and mixed — and, on the
+        card, build the kernels and capture each program as a CUDA graph,
+        all in one memory pool (``step()`` then only replays them).  Each
+        capture runs its program once first: paged writes drop into the
+        trash blocks, the fixed pool takes junk in slot rows that the
+        next prefill overwrites.  A capture that fails raises, and the
+        engine stays cold.  After it returns, ``post_warmup_compiles()``
+        stays 0 under any traffic.  Safe any time no request is in
+        flight; a second call captures nothing new."""
         t0 = time.perf_counter()
         report = {}
-        if self.device.type == "cuda":
+        cuda = self.device.type == "cuda"
+        if cuda:
             report["kernel_build"] = _build.build_all()["seconds"]
-        probe = Request(-1, [self.pad_token_id], 1)
         with torch.inference_mode():
-            for bucket in self.buckets:
-                if self.kv == "fixed":
-                    self._prefill(probe, 0, bucket)
-                else:  # an unallocated slot: its table is all sentinel
-                    self._prefill(probe, self.max_slots, bucket)
-            tokens = torch.zeros(self.max_slots, dtype=torch.long,
-                                 device=self.device)
-            pos = np.zeros(self.max_slots, np.int64)
-            if self.kv == "paged":
-                tables = np.tile(self.kv_pool.sentinel_table(),
-                                 (self.max_slots, 1))
-                paged_decode_logits(
-                    self.model, self._pools, tables,
-                    torch.from_numpy(tables).to(self.device),
-                    np.zeros(self.max_slots, bool), pos, tokens,
-                    self.kv_pool.num_blocks, self.block_size, self._pool_len)
-            else:
-                self.model.forward_fixed(tokens[:, None], self._pools,
-                                         torch.from_numpy(pos).to(
-                                             self.device))
-        if self.device.type == "cuda":
+            if not self._programs:
+                self._programs = self._make_programs()
+            for name, prog in self._programs.items():
+                if prog.ready:
+                    continue
+                if cuda:
+                    if self._graph_pool is None:
+                        self._graph_pool = torch.cuda.graph_pool_handle()
+                    prog.capture(self._graph_pool)
+                prog.ready = True
+                if isinstance(name, int):
+                    self._compiles["prefill"][name] += 1
+                else:
+                    self._compiles["decode"] += 1
+                stat_add("STAT_serving_compiles")
+        if cuda:
             torch.cuda.synchronize(self.device)
+        # the warm-up runs moved the decode buffers: refill before a step
+        self._batch_dirty = True
         self._warm = True
+        self._warm_mark = self.compile_counts()["total"]
         report["seconds"] = time.perf_counter() - t0
+        report["captured"] = cuda
+        report["compile_counts"] = self.compile_counts()
         return report
+
+    def compile_counts(self) -> Dict:
+        """Programs made, under the reference's keys: on the card each
+        count is one CUDA graph capture, on the CPU one program built.
+        The bound is ``len(buckets) + 2``: the decode chunk is captured
+        twice, all-greedy and mixed, where the reference branches inside
+        one program."""
+        total = (self._compiles["decode"]
+                 + sum(self._compiles["prefill"].values()))
+        return {"decode": self._compiles["decode"],
+                "prefill": dict(self._compiles["prefill"]),
+                "total": total, "bound": len(self.buckets) + 2}
+
+    def post_warmup_compiles(self) -> int:
+        """Programs made since warmup() finished: 0 under any traffic;
+        -1 if warmup never ran."""
+        if self._warm_mark is None:
+            return -1
+        return self.compile_counts()["total"] - self._warm_mark
 
     # ------------------------------------------------------------------
     # observability

@@ -153,15 +153,17 @@ class PagedKVPool:
                 "max_blocks_per_slot": self.max_blocks_per_slot}
 
     # -- device pool construction -------------------------------------------
-    def build_pools(self, model, dtype=None):
+    def build_pools(self, model, dtype=None, trash: int = 0):
         """The device-resident block pool: for each model KV leaf of shape
         (B, T, *rest) from ``model.gen_fixed_cache(1, 1, dtype)``, one zero
-        pool of shape (num_blocks, block_size, *rest) on the leaf's
-        device."""
+        pool of shape (num_blocks + trash, block_size, *rest) on the
+        leaf's device.  The ``trash`` blocks past num_blocks are never
+        handed out: static-shape writes drop into them
+        (``ops.paged_attention.SlotRowWrites``)."""
         pools = []
         for k, v in model.gen_fixed_cache(1, 1, dtype):
             pools.append(tuple(
-                torch.zeros((self.num_blocks, self.block_size)
+                torch.zeros((self.num_blocks + int(trash), self.block_size)
                             + tuple(t.shape[2:]), dtype=t.dtype,
                             device=t.device)
                 for t in (k, v)))

@@ -922,3 +922,143 @@ def test_bn_kernels_reject_what_they_do_not_take(cuda):
         fbn.bn_apply(x, coef, x.cpu())                   # residual on CPU
     with pytest.raises(ValueError):
         fbn.bn_bwd_dx(x[:8], x, coef)                    # g of another shape
+
+
+# ---------------------------------------------------------------------------
+# the serving engine's captured programs (CUDA graphs)
+# ---------------------------------------------------------------------------
+# decode logits (here the log-probs of the picked tokens) of a replayed
+# graph against the same program run uncaptured: f32 within 2e-3 (the
+# chip smoke test's LOGIT_TOL), bf16 within 5% of their largest |value|
+LOGIT_TOL = 2e-3
+BF16_LOGIT_TOL = 5e-2
+ENGINE = dict(max_slots=4, max_len=128, prefill_buckets=(16, 64),
+              decode_chunk=4, block_size=16)
+
+
+def _serving_model(cuda, dtype):
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.quantization import quantize_for_serving
+    cfg = GPTConfig(vocab_size=1024, hidden_size=256, num_hidden_layers=2,
+                    num_attention_heads=4, max_position_embeddings=256,
+                    hidden_dropout_prob=0.0,
+                    attention_probs_dropout_prob=0.0, initializer_range=0.2)
+    model = GPTForPretraining(cfg, device=cuda, seed=3).eval()
+    if dtype == torch.bfloat16:
+        amp.decorate(models=model, level="O2", dtype="bfloat16")
+    return quantize_for_serving(model)
+
+
+def _traffic(eng, n=6):
+    rng = np.random.RandomState(4)
+    return [eng.submit(rng.randint(0, 1024, (int(rng.randint(3, 60)),)),
+                       max_new_tokens=int(rng.randint(8, 40)),
+                       **({"decode_strategy": "sampling", "seed": i,
+                           "temperature": 0.9, "top_k": 50, "top_p": 0.95}
+                          if i % 2 else {}))
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("program", ["decode", "decode_greedy"])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_engine_replayed_decode_matches_uncaptured(cuda, dt, program):
+    """One decode chunk on the same state: the graph's replay and the same
+    program run uncaptured give the same tokens bit for bit, log-probs
+    and the written KV within the logit tolerance."""
+    from paddle_tpu_torch.serving import ServingEngine
+    dtype = DTYPES[dt]
+    eng = ServingEngine(_serving_model(cuda, dtype), kv="paged", dtype=dtype,
+                        device=cuda, **ENGINE)
+    eng.warmup()
+    _traffic(eng, 4)
+    eng.step()                       # admits four, one decode chunk
+    with torch.inference_mode():
+        eng._ensure_decode_blocks()
+        eng._rebuild_batch()
+        eng._sync_tables(True)
+        prog = eng._programs[program]
+        state = [t.clone() for t in prog.inputs.values()]
+        pools = [t.clone() for kv in eng._pool_store for t in kv]
+        out = [t.clone() for t in prog.run(captured=True)[:3]]
+        got_pools = [t.clone() for kv in eng._pool_store for t in kv]
+        for buf, saved in zip(prog.inputs.values(), state):
+            buf.copy_(saved)
+        for t, saved in zip((t for kv in eng._pool_store for t in kv),
+                            pools):
+            t.copy_(saved)
+        want = prog.run(captured=False)[:3]
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], want[0])
+    assert torch.equal(out[2], want[2]) and bool(want[2].all())
+    tol = LOGIT_TOL if dtype == torch.float32 else \
+        BF16_LOGIT_TOL * float(want[1].abs().max())
+    assert float((out[1] - want[1]).abs().max()) <= tol
+    for a, b in zip(got_pools, (t for kv in eng._pool_store for t in kv)):
+        assert float((a.float() - b.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("kv", ["fixed", "paged"])
+def test_engine_captured_streams_equal_uncaptured_and_nothing_recaptured(
+        cuda, kv):
+    """Greedy and sampled traffic with churn and a mid-decode OOM failure:
+    the captured engine's streams equal the uncaptured path's, and no
+    program is captured after warmup."""
+    from paddle_tpu_torch.serving import KVPoolExhaustedError, ServingEngine
+    model = _serving_model(cuda, torch.float32)
+    extra = dict(num_blocks=12) if kv == "paged" else {}
+    streams = []
+    for uncaptured in (False, True):
+        eng = ServingEngine(model, kv=kv, device=cuda, **ENGINE, **extra)
+        eng._run_uncaptured = uncaptured
+        report = eng.warmup()
+        assert report["captured"]
+        assert report["compile_counts"]["total"] == len(
+            ENGINE["prefill_buckets"]) + 2
+        resps = _traffic(eng, 8)
+        eng.run_until_drained(timeout=300)
+        got = []
+        for r in resps:
+            try:
+                got.append(r.tokens(timeout=5))
+            except KVPoolExhaustedError:
+                got.append("oom")
+        streams.append(got)
+        assert eng.post_warmup_compiles() == 0
+        if kv == "paged":
+            assert "oom" in got, "sanity: the small pool must run out"
+    assert streams[0] == streams[1]
+
+
+def test_engine_replays_count_kernel_launches(cuda):
+    """K3 / K4 launches counted through replays: each graph's per-replay
+    counts (decode: one K3 and four K4 per layer and token; prefill: four
+    K4 per layer) times its replays."""
+    from paddle_tpu_torch.serving import ServingEngine
+    eng = ServingEngine(_serving_model(cuda, torch.float32), kv="paged",
+                        device=cuda, **ENGINE)
+    eng.warmup()
+    layers, chunk = 2, ENGINE["decode_chunk"]
+    replays = {}
+    for name, prog in eng._programs.items():
+        per = dict((w.__name__, n) for w, n in prog.launches)
+        decode = isinstance(name, str)
+        assert per == {"paged_attention": layers * chunk if decode else 0,
+                       "dequant_matmul": 4 * layers * (chunk if decode
+                                                       else 1)}
+        replay = prog.graph.replay
+
+        def counted(replay=replay, name=name):
+            replays[name] = replays.get(name, 0) + 1
+            replay()
+        prog.graph.replay = counted
+    pa.paged_attention.launches = int8_matmul.dequant_matmul.launches = 0
+    _traffic(eng)
+    eng.run_until_drained(timeout=300)
+    eng.submit([1, 2, 3], max_new_tokens=9)        # an all-greedy batch
+    eng.run_until_drained(timeout=60)
+    assert replays.get("decode") and replays.get("decode_greedy")
+    for wrapper in (pa.paged_attention, int8_matmul.dequant_matmul):
+        want = sum(n * dict((w, k) for w, k in eng._programs[name].launches)
+                   [wrapper] for name, n in replays.items())
+        assert wrapper.launches == want > 0
