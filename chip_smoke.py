@@ -66,11 +66,22 @@ Phases (any failure exits non-zero before the result line):
                 scaled_dot_product_attention as the yardstick.
   8. train    — GPT-2 medium (24 x 1024, 16 heads, vocab 50304), B 4,
                 S 1024, O1 bf16, AdamW(1e-4), dropout 0.1, random weights
-                and one random batch from --seed, through jit.TrainStep:
-                8 steps on the batch, each loss printed, steady step time
-                and tokens/s; the loss must be finite and fall, and K1/K2
-                must launch 24 times per step each (counters zeroed just
-                before the steps).  One more step is profiled.
+                and one random batch from --seed, through jit.TrainStep's
+                captured step: warmup() captures the step's CUDA graph
+                (timed; no capture may follow), 8 steps replay it, each
+                loss printed, steady step time and tokens/s; the loss must
+                be finite and fall, and K1/K2 must launch 24 times per
+                step each through the replays (counters zeroed just before
+                the steps).  A steady step is profiled (wall, device busy,
+                idle share, kernels), and one uncaptured step gives the
+                peak memory.  Then the same 8 steps uncaptured (the same
+                program functions without the graph, from the same seed):
+                losses must be bit-equal to the captured run's.  Then 3
+                captured steps under recompute_policy("stages") with
+                "dots_saveable" and with "nothing_saveable": losses within
+                1e-5 relative of the plain run's (bit-equality expected;
+                both printed), K1 48 and K2 24 launches per step, peak
+                memory below the plain run's, device time printed.
   9. traincheck — one step's loss and every parameter's gradient of a
                 2-layer full-width f32 GPT (dropout 0, B 1, S 1024) on the
                 kernel path against the same step by the plain versions on
@@ -102,15 +113,22 @@ Phases (any failure exits non-zero before the result line):
  11. resnet   — ResNet-50 (BASELINE config #2): resnet50() under
                 jit.layout_policy("NHWC"), TrainStep O2 bf16, cross-entropy
                 on the logits, Momentum(0.1, 0.9), one random batch of
-                256 x 3 x 224 x 224 from --seed, 8 steps: each loss
-                printed (all finite), the steady step's wall, images/s,
-                device busy and idle share, the top device entries with
-                the cuDNN convolutions and K5-K9 summed apart, K5-K9
-                launches per step (asserted against the counts derived
-                from the model's blocks; K9 on its ring route), layout
-                copies per step, peak memory.  Then K7 and K8 timed at each
-                of the step's 48 BN backward sites' shapes beside each
-                site's bound.
+                256 x 3 x 224 x 224 from --seed, 8 steps through the
+                captured step (as the train phase: warmup captures, no
+                capture follows): each loss printed (all finite), the
+                steady step's wall, images/s, device busy and idle share,
+                the top device entries with the cuDNN convolutions and
+                K5-K9 summed apart, K5-K9 launches per step through the
+                replays (asserted against the counts derived from the
+                model's blocks; K9 on its ring route), layout copies per
+                step, peak memory.  Then the same 8 steps uncaptured
+                (losses bit-equal; its profile puts the stem's plain
+                backward recompute, _BnPool.backward, on a line of its
+                own), and 3 captured steps under recompute_policy("stages")
+                (losses within 1e-5 relative, K5 / K6 launched again at
+                every block site: 105 / 96 per step, peak memory below the
+                plain run's).  Then K7 and K8 timed at each of the step's
+                48 BN backward sites' shapes beside each site's bound.
  12. resnetcheck — one f32 step of ResNet-18 (10 classes, 4 x 3 x 64 x 64)
                 on the kernel path against the same step by the plain
                 versions on the CPU, same weights and batch: the loss,
@@ -159,6 +177,7 @@ BLOCK = 16
 MAX_LEN = 1024
 PROMPT_LENS = (32, 64, 100, 160, 220, 280, 340, 400)   # serve phase
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 8               # train phase
+RECOMPUTE_STEPS = 3        # the train / resnet phases' recompute legs
 RESNET_B, RESNET_HW, RESNET_STEPS = 256, 224, 8           # resnet phase
 # the fused-BN kernels' main-path shapes at batch 256, as (N, H, W, C)
 BN_STEM = (RESNET_B, 112, 112, 64)       # M = 3,211,264
@@ -475,13 +494,17 @@ def _paged_time(torch, pa, sms, q, pools, tables, pos, pos_np, nb, err):
 
 
 def device_profile(torch, step, steps: int, what: str, card: str,
-                   groups=None, top: int = 8):
+                   groups=None, top: int = 8, ranges=None):
     """Where a steady step's time goes: host wall per step (no profiler),
     then device busy time per step and the top kernels from torch.profiler
     over as many further steps; with ``groups`` ({label: substrings}), the
     device time per step of the kernels whose names hold one of a group's
-    substrings (first group that matches).  Prints them; returns (wall ms,
-    busy ms or None, {label: ms}, kernels per step)."""
+    substrings (first group that matches); with ``ranges`` ({label:
+    record_function name}), the kernels launched inside each named range
+    are taken out of their groups into a group of their own (an eager step
+    only: a graph replay launches its kernels from no range).  Prints
+    them; returns (wall ms, busy ms or None, {label: ms}, kernels per
+    step)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -495,9 +518,15 @@ def device_profile(torch, step, steps: int, what: str, card: str,
             step()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
+
+    def kernel(e):
+        # a record_function range also shows as a device row spanning its
+        # kernels: not a kernel of its own
+        return (e.device_type == cuda and e.key not in (ranges or {}).values()
+                and not getattr(e, "is_user_annotation", False))
     rows = []
     for e in prof.key_averages():
-        if e.device_type != cuda:
+        if not kernel(e):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -505,24 +534,39 @@ def device_profile(torch, step, steps: int, what: str, card: str,
         rows.append((us / 1e3 / steps, e.key))
     rows.sort(reverse=True)
     busy = sum(ms for ms, _ in rows)
-    kernels = sum(e.count for e in prof.key_averages()
-                  if e.device_type == cuda) / steps
+    kernels = sum(e.count for e in prof.key_averages() if kernel(e)) / steps
     print(f"profile [{card}]: {what}: wall {step_ms:.3f} ms, device busy "
           + (f"{busy:.3f} ms, idle {1 - busy / step_ms:.1%}, "
              f"{kernels:.0f} kernels per step" if rows
              else "not measured (no device events)"))
     for ms, name in rows[:top]:
         print(f"profile:   {ms:8.3f} ms/step  {name[:90]}")
+
+    def group(name):
+        return next((g for g, keys in (groups or {}).items()
+                     if any(k in name for k in keys)), "other")
     sums = {}
     for ms, name in rows:
-        label = next((g for g, keys in (groups or {}).items()
-                      if any(k in name for k in keys)), "other")
-        sums[label] = sums.get(label, 0.0) + ms
+        sums[group(name)] = sums.get(group(name), 0.0) + ms
+    for label, range_name in (ranges or {}).items():
+        inside = [k for e in prof.events() if e.name == range_name
+                  for k in _kernels_under(e)]
+        for name, us in inside:
+            sums[group(name)] -= us / 1e3 / steps
+        sums[label] = sum(us for _, us in inside) / 1e3 / steps
     if groups:
         print("profile: by group: " + ", ".join(
             f"{g} {ms:.3f} ms ({ms / busy:.1%})"
             for g, ms in sorted(sums.items(), key=lambda kv: -kv[1])))
     return step_ms, (busy if rows else None), sums, kernels
+
+
+def _kernels_under(event):
+    """(name, us) of every kernel launched inside a profiler CPU event."""
+    out = [(k.name, k.duration) for k in event.kernels]
+    for child in event.cpu_children:
+        out += _kernels_under(child)
+    return out
 
 
 def decode_profile(torch, eng, steps: int, card: str, tag: str = "serve"):
@@ -1083,60 +1127,162 @@ def _train_batch(cfg, seed: int, b: int, s: int):
             rng.randint(0, cfg.vocab_size, (b, s)))
 
 
+def train_leg(torch, make, batch, steps: int, counters, card: str,
+              what: str, policy=None, uncaptured: bool = False, **prof):
+    """One training run from a fresh model and TrainStep (``make()``, the
+    same seed each time) under the recompute ``policy`` ((spec, policy) or
+    None): ``warmup()`` (on the card the step's capture) timed, then
+    ``steps`` steps on ``batch``, each timed to its end, with the launch
+    counters zeroed just before the steps and read just after
+    (``counters``: a callable that zeroes them and returns a reader); a
+    steady step profiled (``device_profile``, keyword arguments ``prof``);
+    the peak memory of one uncaptured step (the same program function
+    without its graph; peak stats reset just before).  ``uncaptured``
+    runs every step so (the A/B: programs, no graphs).  The model and the
+    step are freed before it returns its numbers."""
+    import gc
+    from paddle_tpu_torch.jit import recompute_policy
+    with recompute_policy(*policy) if policy else recompute_policy(None):
+        model, step = make()
+        step._run_uncaptured = uncaptured
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm = step.warmup(*batch)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        made = step.compile_counts()["total"]
+        read = counters()
+        losses, t_steps = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(step(*batch))
+            torch.cuda.synchronize()
+            t_steps.append(time.perf_counter() - t0)
+        out = dict(losses=[float(x) for x in losses], launches=read(),
+                   warm=warm, warm_s=warm_s,
+                   recaptured=step.compile_counts()["total"] - made,
+                   first_ms=t_steps[0] * 1e3,
+                   steady_ms=float(np.median(t_steps[2:] or t_steps)) * 1e3)
+        out["profile"] = device_profile(torch, lambda: step(*batch), 2,
+                                        what, card, **prof)
+        step._run_uncaptured = True
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(*batch)
+        torch.cuda.synchronize()
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model, step
+    gc.collect()          # a step and its programs' bound methods: a cycle
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leg_line(tag: str, card: str, leg: dict, items: int, unit: str):
+    wall, busy, _, kernels = leg["profile"]
+    return (f"{tag} [{card}]: warmup {leg['warm_s']:.2f} s "
+            f"(compiled {leg['warm']['compiled']}), first step "
+            f"{leg['first_ms']:.1f} ms, steady step {leg['steady_ms']:.2f} ms "
+            f"({items / leg['steady_ms'] * 1e3:.0f} {unit}/s); profiled: "
+            f"wall {wall:.3f} ms, device "
+            + (f"{busy:.3f} ms, idle {1 - busy / wall:.1%}"
+               if busy else "not measured")
+            + f", {kernels:.0f} kernels per step; peak memory of an "
+            f"uncaptured step {leg['peak_gib']:.2f} GiB; captures after "
+            f"warmup {leg['recaptured']}; launches {leg['launches']}")
+
+
+def _check_recompute_losses(tag: str, got, want):
+    """A recompute leg's losses against the plain leg's first steps: within
+    1e-5 relative (bit-equality is the expectation); both printed."""
+    want = want[:len(got)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    print(f"{tag}: losses {', '.join(repr(x) for x in got)} vs without "
+          f"recompute {', '.join(repr(x) for x in want)}: "
+          + ("bit-equal" if got == want else f"largest relative {rel:.2e}"))
+    if not rel <= 1e-5:
+        fail(f"{tag}: losses {got} differ from the plain run's {want}")
+
+
 def train_phase(torch, args, dev, card):
-    """GPT-2 medium, O1 bf16, AdamW: the training leg of the main path."""
+    """GPT-2 medium, O1 bf16, AdamW(1e-4), dropout 0.1: the training leg of
+    the main path, through the step's CUDA graph; then the same steps
+    uncaptured (the A/B: losses bit-equal) and under
+    recompute_policy("stages") with each policy (RECOMPUTE_STEPS steps:
+    losses within 1e-5 relative of the plain run's, K1 twice per layer,
+    peak memory below the plain run's)."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import (GPTForPretraining,
                                          GPTPretrainingCriterion,
                                          gpt2_medium_config)
     from paddle_tpu_torch.ops import flash_attention as fa
-    pt.seed(args.seed)
     cfg = gpt2_medium_config()
-    model = GPTForPretraining(cfg, device=dev, seed=args.seed)
     crit = GPTPretrainingCriterion()
-    opt = pt.optimizer.AdamW(learning_rate=1e-4,
-                             parameters=model.parameters())
-    step = TrainStep(model, lambda logits, y: crit(logits, y), opt,
-                     amp_level="O1", amp_dtype="bfloat16")
-    ids, lab = (torch.from_numpy(a).to(dev)
-                for a in _train_batch(cfg, args.seed, TRAIN_B, TRAIN_S))
-    torch.cuda.synchronize()
-    fa.flash_fwd.launches = 0
-    fa.flash_bwd.launches = 0
-    losses, t_steps = [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        losses.append(step(ids, lab))
-        torch.cuda.synchronize()
-        t_steps.append(time.perf_counter() - t0)
-    launches = {"flash_attention_fwd": fa.flash_fwd.launches,
-                "flash_attention_bwd": fa.flash_bwd.launches}
-    vals = [float(x) for x in losses]
+    layers = cfg.num_hidden_layers
+
+    def make():
+        pt.seed(args.seed)
+        model = GPTForPretraining(cfg, device=dev, seed=args.seed)
+        opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=model.parameters())
+        return model, TrainStep(model, lambda logits, y: crit(logits, y),
+                                opt, amp_level="O1", amp_dtype="bfloat16")
+
+    def counters():
+        fa.flash_fwd.launches = fa.flash_bwd.launches = 0
+        return lambda: {"flash_attention_fwd": fa.flash_fwd.launches,
+                        "flash_attention_bwd": fa.flash_bwd.launches}
+    batch = tuple(torch.from_numpy(a).to(dev)
+                  for a in _train_batch(cfg, args.seed, TRAIN_B, TRAIN_S))
+    what = f"train step (GPT-2 medium, B {TRAIN_B} x S {TRAIN_S}, O1 bf16"
+    tokens = TRAIN_B * TRAIN_S
+    cap = train_leg(torch, make, batch, TRAIN_STEPS, counters, card,
+                    what + ", captured)")
+    vals = cap["losses"]
     print("train: losses " + ", ".join(f"{x:.4f}" for x in vals))
     print("train: losses in full (f32 values, to compare runs bit for bit) "
           + ", ".join(repr(x) for x in vals))
-    want = cfg.num_hidden_layers * TRAIN_STEPS
     if not all(np.isfinite(vals)):
         fail(f"non-finite training loss: {vals}")
     if not vals[-1] < vals[0]:
         fail(f"training loss did not fall: {vals[0]} -> {vals[-1]}")
-    if any(n != want for n in launches.values()):
-        fail(f"flash launches {launches}, expected {want} each "
-             f"({cfg.num_hidden_layers} layers x {TRAIN_STEPS} steps)")
-    steady = float(np.median(t_steps[2:])) * 1e3
-    print(f"train [{card}]: GPT-2 medium B={TRAIN_B} S={TRAIN_S} O1 bf16: "
-          f"first step {t_steps[0] * 1e3:.1f} ms, steady step {steady:.1f} "
-          f"ms (median of steps 3-{TRAIN_STEPS}), "
-          f"{TRAIN_B * TRAIN_S / steady * 1e3:.0f} tokens/s; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB; "
-          f"launches {launches}")
-    device_profile(torch, lambda: step(ids, lab), 1,
-                   f"train step (GPT-2 medium, B {TRAIN_B} x S {TRAIN_S}, "
-                   "O1 bf16)", card)
-    del step, model, opt
-    torch.cuda.empty_cache()
-    return launches
+    want = layers * TRAIN_STEPS
+    if any(n != want for n in cap["launches"].values()):
+        fail(f"flash launches {cap['launches']}, expected {want} each "
+             f"({layers} layers x {TRAIN_STEPS} steps, through replays)")
+    if not cap["warm"]["compiled"] or cap["recaptured"]:
+        fail(f"train: warmup {cap['warm']}, {cap['recaptured']} captures "
+             "after it (expected one capture, by warmup)")
+    print(_leg_line("train captured", card, cap, tokens, "tokens"))
+    unc = train_leg(torch, make, batch, TRAIN_STEPS, counters, card,
+                    what + ", uncaptured)", uncaptured=True)
+    print(_leg_line("train uncaptured", card, unc, tokens, "tokens"))
+    if unc["losses"] != vals:
+        fail(f"train: captured losses {vals} differ from the uncaptured "
+             f"step's {unc['losses']}")
+    print("train: captured and uncaptured losses bit-equal over "
+          f"{TRAIN_STEPS} steps")
+    for pol in ("dots_saveable", "nothing_saveable"):
+        tag = f"train stages/{pol}"
+        leg = train_leg(torch, make, batch, RECOMPUTE_STEPS, counters, card,
+                        what + f", captured, recompute stages/{pol})",
+                        policy=("stages", pol))
+        print(_leg_line(tag, card, leg, tokens, "tokens"))
+        _check_recompute_losses(tag, leg["losses"], vals)
+        stated = {"flash_attention_fwd": 2 * layers * RECOMPUTE_STEPS,
+                  "flash_attention_bwd": layers * RECOMPUTE_STEPS}
+        if leg["launches"] != stated:
+            fail(f"{tag}: flash launches {leg['launches']}, stated {stated}"
+                 " (each block's region reruns K1 in the backward)")
+        if not leg["peak_gib"] < cap["peak_gib"]:
+            fail(f"{tag}: peak memory {leg['peak_gib']:.2f} GiB is not "
+                 f"below the plain step's {cap['peak_gib']:.2f} GiB")
+        print(f"{tag} [{card}]: device time {leg['profile'][1] or 0:.3f} "
+              f"ms vs {cap['profile'][1] or 0:.3f} ms without recompute; "
+              f"peak memory "
+              f"{leg['peak_gib']:.2f} vs {cap['peak_gib']:.2f} GiB "
+              f"({leg['peak_gib'] / cap['peak_gib']:.1%})")
+    return cap["launches"]
 
 
 def train_check_phase(torch, args, dev):
@@ -1580,15 +1726,22 @@ def bn_sites(model):
     return single, dual, pooled
 
 
-def bn_launches_per_step(model):
+def bn_launches_per_step(model, recompute: bool = False):
     """Expected K5-K9 launches of one training step (forward + backward):
     K5 once per single site, twice per dual and once at the pooled stem;
     K6, K7 and K8 once per single or dual site; K9 once per pooled site
-    (its backward is plain tensor code)."""
+    (its backward is plain tensor code).  With ``recompute`` (every block a
+    region), each block's forward runs again in the backward: K5 and K6
+    once more at every block site (the stem is in no block)."""
     single, dual, pooled = bn_sites(model)
-    return {"bn_stats": single + 2 * dual + pooled,
-            "bn_apply": single + dual, "bn_bwd_reduce": single + dual,
-            "bn_bwd_dx": single + dual, "bn_pool_apply": pooled}
+    out = {"bn_stats": single + 2 * dual + pooled,
+           "bn_apply": single + dual, "bn_bwd_reduce": single + dual,
+           "bn_bwd_dx": single + dual, "bn_pool_apply": pooled}
+    if recompute:
+        blocks = single - (1 - pooled)
+        out["bn_stats"] += blocks + 2 * dual
+        out["bn_apply"] += blocks + dual
+    return out
 
 
 def bn_site_list(model, batch: int, hw: int):
@@ -1697,79 +1850,89 @@ def bn_backward_sites(torch, fbn, dev, model, card):
 
 
 def resnet_phase(torch, args, dev, card):
-    """ResNet-50, BASELINE config #2: the conv-net leg of the main path."""
+    """ResNet-50, BASELINE config #2: the conv-net leg of the main path,
+    through the step's CUDA graph; then the same steps uncaptured (the A/B:
+    losses bit-equal; the profile with the stem's plain backward recompute
+    on a line of its own) and under recompute_policy("stages")
+    (RECOMPUTE_STEPS steps: losses within 1e-5 relative, K5 / K6 again at
+    every block site, peak memory below the plain run's)."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.jit import TrainStep, layout_policy
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.ops import fused_bn_act as fbn
     from paddle_tpu_torch.optimizer import Momentum
     from paddle_tpu_torch.vision.models import resnet50
-    pt.seed(args.seed)
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    with layout_policy("NHWC"):
+    entries = (fbn.bn_act_train, fbn.bn2_act_train, fbn.bn_act_pool_train)
+
+    def make():
+        pt.seed(args.seed)
         model = resnet50(device=dev, seed=args.seed)
+        opt = Momentum(learning_rate=0.1, momentum=0.9,
+                       parameters=model.parameters())
+        return model, TrainStep(model, lambda lg, y: F.cross_entropy(lg, y),
+                                opt, amp_level="O2", amp_dtype="bfloat16")
+
+    def counters():
+        for name in BN_KERNELS:
+            getattr(fbn, name).launches = 0
+        fbn.bn_pool_apply.routes.update(ring=0, window=0)
+        for e in entries:
+            e.relayouts = 0
+        return lambda: dict(
+            {n: getattr(fbn, n).launches for n in BN_KERNELS},
+            routes=dict(fbn.bn_pool_apply.routes),
+            relayouts=sum(e.relayouts for e in entries))
+    groups = {f"{n} (K{5 + i})": (f"{n}_kernel",)
+              for i, n in enumerate(BN_KERNELS)}
+    groups["bn_pool_apply (K9)"] += ("bn_pool_ring_kernel",)
+    groups["bn_sum_partials (K5, K7)"] = ("bn_sum_partials",)
+    groups["pooling (PyTorch)"] = ("max_pool", "avg_pool", "adaptive_avg")
+    groups["convolutions (cuDNN)"] = (
+        "conv", "xmma", "cudnn", "cutlass", "implicit_gemm", "dgrad",
+        "wgrad", "fprop", "nhwc", "nchw")
+    stem = "stem backward recompute (_BnPool.backward, plain)"
+    what = (f"train step (ResNet-50, b{RESNET_B} x {RESNET_HW}^2, O2 bf16, "
+            "NHWC")
+    with layout_policy("NHWC"):
+        model = resnet50(device=dev, seed=args.seed)   # sites and bounds
         per_step = bn_launches_per_step(model)
         want = {"bn_stats": 53, "bn_apply": 48, "bn_bwd_reduce": 48,
                 "bn_bwd_dx": 48, "bn_pool_apply": 1}
         if per_step != want:
             fail(f"ResNet-50's fused-BN sites give {per_step} launches per "
                  f"step, not {want}")
-        opt = Momentum(learning_rate=0.1, momentum=0.9,
-                       parameters=model.parameters())
-        step = TrainStep(model, lambda lg, y: F.cross_entropy(lg, y), opt,
-                         amp_level="O2", amp_dtype="bfloat16")
+        per_step_rc = bn_launches_per_step(model, recompute=True)
         gen = torch.Generator(device=dev).manual_seed(args.seed)
         x = torch.randn(RESNET_B, 3, RESNET_HW, RESNET_HW, generator=gen,
                         device=dev)
         y = torch.randint(0, 1000, (RESNET_B,), generator=gen, device=dev)
-        entries = (fbn.bn_act_train, fbn.bn2_act_train,
-                   fbn.bn_act_pool_train)
-        torch.cuda.synchronize()
-        for name in BN_KERNELS:
-            getattr(fbn, name).launches = 0
-        fbn.bn_pool_apply.routes.update(ring=0, window=0)
-        for e in entries:
-            e.relayouts = 0
-        losses, t_steps = [], []
-        for _ in range(RESNET_STEPS):
-            t0 = time.perf_counter()
-            losses.append(step(x, y))
-            torch.cuda.synchronize()
-            t_steps.append(time.perf_counter() - t0)
-        launches = {n: getattr(fbn, n).launches for n in BN_KERNELS}
-        routes = dict(fbn.bn_pool_apply.routes)
-        relayouts = sum(e.relayouts for e in entries)
-        vals = [float(v) for v in losses]
+        cap = train_leg(torch, make, (x, y), RESNET_STEPS, counters, card,
+                        what + ", captured)", groups=groups, top=14)
+        vals = cap["losses"]
+        launches = {n: cap["launches"][n] for n in BN_KERNELS}
         print("resnet: losses " + ", ".join(f"{v:.4f}" for v in vals))
+        print("resnet: losses in full " + ", ".join(repr(v) for v in vals))
         if not all(np.isfinite(vals)):
             fail(f"non-finite ResNet-50 training loss: {vals}")
         expect = {k: v * RESNET_STEPS for k, v in per_step.items()}
         if launches != expect:
             fail(f"K5-K9 launches {launches}, expected {expect} "
-                 f"({per_step} per step x {RESNET_STEPS} steps)")
-        if routes != {"ring": expect["bn_pool_apply"], "window": 0}:
-            fail(f"K9 took routes {routes} on the main path, not the ring")
-        steady = float(np.median(t_steps[2:])) * 1e3
+                 f"({per_step} per step x {RESNET_STEPS} steps, through "
+                 "replays)")
+        if cap["launches"]["routes"] != {"ring": expect["bn_pool_apply"],
+                                         "window": 0}:
+            fail(f"K9 took routes {cap['launches']['routes']} on the main "
+                 "path, not the ring")
+        if not cap["warm"]["compiled"] or cap["recaptured"]:
+            fail(f"resnet: warmup {cap['warm']}, {cap['recaptured']} "
+                 "captures after it (expected one capture, by warmup)")
         print(f"resnet [{card}]: ResNet-50 b{RESNET_B} {RESNET_HW}x"
-              f"{RESNET_HW} O2 bf16 NHWC, Momentum(0.1, 0.9): first step "
-              f"{t_steps[0] * 1e3:.1f} ms, steady step {steady:.1f} ms "
-              f"(median of steps 3-{RESNET_STEPS}), "
-              f"{RESNET_B / steady * 1e3:.1f} images/s; peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB; "
+              f"{RESNET_HW} O2 bf16 NHWC, Momentum(0.1, 0.9), captured: "
               f"K5-K9 launches per step {per_step}; layout copies per step "
-              f"{relayouts / RESNET_STEPS:g}")
-        groups = {f"{n} (K{5 + i})": (f"{n}_kernel",)
-                  for i, n in enumerate(BN_KERNELS)}
-        groups["bn_pool_apply (K9)"] += ("bn_pool_ring_kernel",)
-        groups["bn_sum_partials (K5, K7)"] = ("bn_sum_partials",)
-        groups["convolutions (cuDNN)"] = (
-            "conv", "xmma", "cudnn", "cutlass", "implicit_gemm", "dgrad",
-            "wgrad", "fprop", "nhwc", "nchw")
-        _, busy, sums, _ = device_profile(
-            torch, lambda: step(x, y), 1, f"train step (ResNet-50, "
-            f"b{RESNET_B} x {RESNET_HW}^2, O2 bf16, NHWC)", card,
-            groups=groups, top=14)
+              f"{cap['launches']['relayouts'] / RESNET_STEPS:g}")
+        print(_leg_line("resnet captured", card, cap, RESNET_B, "images"))
+        busy, sums = cap["profile"][1], cap["profile"][2]
         bounds = bn_step_bounds(model, RESNET_B, RESNET_HW)
         fused = sum(v for k, v in sums.items() if k.startswith("bn_"))
         print(f"resnet: K5-K9 per step {fused:.3f} ms of {busy or 0:.3f} ms "
@@ -1778,8 +1941,40 @@ def resnet_phase(torch, args, dev, card):
                   f"{n} {sums.get(f'{n} (K{5 + i})', 0.0):.3f} vs "
                   f"{bounds[n]:.3f}" for i, n in enumerate(BN_KERNELS))
               + f" (K5-K8 bound {sum(bounds.values()) - bounds['bn_pool_apply']:.3f})")
+        unc = train_leg(torch, make, (x, y), RESNET_STEPS, counters, card,
+                        what + ", uncaptured)", uncaptured=True,
+                        groups=groups, top=14,
+                        ranges={stem: "bn_pool_backward"})
+        print(_leg_line("resnet uncaptured", card, unc, RESNET_B, "images"))
+        if unc["losses"] != vals:
+            fail(f"resnet: captured losses {vals} differ from the "
+                 f"uncaptured step's {unc['losses']}")
+        print(f"resnet: captured and uncaptured losses bit-equal over "
+              f"{RESNET_STEPS} steps; the stem's plain backward recompute "
+              f"{unc['profile'][2].get(stem, 0.0):.3f} ms per step "
+              "(uncaptured profile)")
+        tag = "resnet stages/dots_saveable"
+        leg = train_leg(torch, make, (x, y), RECOMPUTE_STEPS, counters, card,
+                        what + ", captured, recompute stages)",
+                        policy=("stages", "dots_saveable"), groups=groups,
+                        top=14)
+        print(_leg_line(tag, card, leg, RESNET_B, "images"))
+        _check_recompute_losses(tag, leg["losses"], vals)
+        stated = {k: v * RECOMPUTE_STEPS for k, v in per_step_rc.items()}
+        got = {n: leg["launches"][n] for n in BN_KERNELS}
+        if got != stated:
+            fail(f"{tag}: K5-K9 launches {got}, stated {stated} "
+                 f"({per_step_rc} per step: K5 / K6 again at every block "
+                 "site)")
+        if not leg["peak_gib"] < cap["peak_gib"]:
+            fail(f"{tag}: peak memory {leg['peak_gib']:.2f} GiB is not "
+                 f"below the plain step's {cap['peak_gib']:.2f} GiB")
+        print(f"{tag} [{card}]: device time {leg['profile'][1] or 0:.3f} "
+              f"ms vs {busy or 0:.3f} ms without recompute; peak memory "
+              f"{leg['peak_gib']:.2f} vs {cap['peak_gib']:.2f} GiB "
+              f"({leg['peak_gib'] / cap['peak_gib']:.1%})")
         bn_backward_sites(torch, fbn, dev, model, card)
-    del step, model, opt, x
+    del model, x
     torch.cuda.empty_cache()
     return launches
 

@@ -19,6 +19,8 @@ slice of the port.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 __all__ = ["WHITE_LIST", "BLACK_LIST", "auto_cast", "amp_cast",
@@ -50,6 +52,29 @@ class _AmpState:
 
 
 _state = _AmpState()
+
+
+def _snapshot():
+    """The active policy, for ``_restored``."""
+    return (_state.enabled, _state.dtype, _state.level, _state.white,
+            _state.black)
+
+
+def _set(snap):
+    (_state.enabled, _state.dtype, _state.level, _state.white,
+     _state.black) = snap
+
+
+@contextlib.contextmanager
+def _restored(snap):
+    """Run the block under the policy ``snap`` (a recompute region's
+    recomputation runs under its first forward's policy)."""
+    prev = _snapshot()
+    _set(snap)
+    try:
+        yield
+    finally:
+        _set(prev)
 
 
 def _low_dtype(dtype) -> torch.dtype:
@@ -88,18 +113,12 @@ class auto_cast:
         self.black = frozenset(BLACK_LIST)
 
     def __enter__(self):
-        self._prev = (_state.enabled, _state.dtype, _state.level,
-                      _state.white, _state.black)
-        _state.enabled = self.enable
-        _state.dtype = self.dtype
-        _state.level = self.level
-        _state.white = self.white
-        _state.black = self.black
+        self._prev = _snapshot()
+        _set((self.enable, self.dtype, self.level, self.white, self.black))
         return self
 
     def __exit__(self, *exc):
-        (_state.enabled, _state.dtype, _state.level,
-         _state.white, _state.black) = self._prev
+        _set(self._prev)
         return False
 
 

@@ -9,7 +9,9 @@ old value for a step that is not finite, as the reference folds its
 captured updates into the new state before ``guard_select``.  Within one
 scope ``current(buffer)`` is the buffer's latest logged value, so that a
 step of several micro-batches compounds the updates from one micro-batch
-to the next.
+to the next.  Inside ``dropped()`` updates are dropped: a recompute
+region's recomputation (``core.recompute``) runs the region's forward a
+second time, and its first forward's updates are already in the log.
 """
 from __future__ import annotations
 
@@ -18,9 +20,11 @@ from typing import List, Optional, Tuple
 
 import torch
 
-__all__ = ["capture", "capturing", "apply", "current", "resolve"]
+__all__ = ["capture", "capturing", "dropped", "apply", "current",
+           "resolve"]
 
 _ACTIVE: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None
+_DROPPING = 0
 
 
 @contextlib.contextmanager
@@ -34,6 +38,17 @@ def capture():
         yield _ACTIVE
     finally:
         _ACTIVE = prev
+
+
+@contextlib.contextmanager
+def dropped():
+    """Drop every update made inside the block."""
+    global _DROPPING
+    _DROPPING += 1
+    try:
+        yield
+    finally:
+        _DROPPING -= 1
 
 
 def capturing() -> bool:
@@ -51,7 +66,10 @@ def current(buffer):
 
 
 def apply(buffer, value) -> None:
-    """Update a buffer: logged under capture, else copied in place."""
+    """Update a buffer: dropped inside ``dropped()``, logged under
+    capture, else copied in place."""
+    if _DROPPING:
+        return
     value = value.detach()
     if _ACTIVE is not None:
         _ACTIVE.append((buffer, value))

@@ -1,47 +1,77 @@
 """Training step (counterpart of paddle_tpu/jit/__init__.py's TrainStep).
 
-The reference compiles forward, backward and the optimizer update into
-one XLA program per step.  The port runs the same step eagerly: forward
-under the step's explicit generator and AMP policy, ``torch.autograd.grad``
-for the trainable parameters, then ``optimizer.functional.apply_updates``,
-written back in place.  Nothing in the step reads a device value on the
-host: the loss is returned as a device tensor, and with ``guard=True`` the
-finiteness verdict selects the old or the new state on the device.
+The reference compiles forward, backward, the optimizer update, the buffer
+updates and the guard into one XLA program per batch signature (``jax.jit``
+with donated state).  The port's ``TrainStep`` is the same program family:
+one static-shape step program per batch signature (shapes and dtypes;
+``core.programs.Program``) over static batch buffers and two 0-dim device
+scalars, the learning rate and the step number, written before each run.
+The program writes the parameters, the optimizer state, the running
+statistics and the guard's verdict in place, into tensors that live as
+long as the step.  On the card a program is captured as a CUDA graph by
+``warmup()`` or by the first call of a cold signature, and each call
+replays it; ``run_steps`` is K replays.  On the CPU the same program
+function runs directly.  Nothing in a program reads a device value on the
+host.
 
-Running statistics (BatchNorm's ``_mean`` / ``_variance``) are updated
-as the reference's compiled step updates them: the forward logs each
-update through ``core.buffer_updates.capture()``, the updates compound
-from one micro-batch to the next under ``accum_steps``, and the step
-writes them after the optimizer update, beside the parameters; under
-``guard=True`` a step that is not finite keeps the old buffers too.
-``layout_policy`` is re-exported here as in the reference
-(``jit.layout_policy("NHWC")``).
+Inside a program: the training-mode forward under the step's generator
+and AMP policy, ``torch.autograd.grad`` for the trainable parameters, then
+``optimizer.functional.update_in_place`` (the update written in place a
+chunk of parameters at a time, so that its temporaries do not set the
+step's peak memory).  Running statistics (BatchNorm's
+``_mean`` / ``_variance``) are updated as the reference's compiled step
+updates them: the forward logs each update through
+``core.buffer_updates.capture()``, the updates compound from one
+micro-batch to the next under ``accum_steps``, and the step writes them
+after the optimizer update, beside the parameters; under ``guard=True`` a
+step whose loss or gradient norm is not finite keeps the old parameters,
+moments and buffers, selected on the device.
 
-As in the reference, ``TrainStep`` applies no ``grad_clip`` (its compiled
-step never clips; only the eager ``Optimizer.step`` does).
+- **RNG.** One generator per step object (``core.rng.step_generator``,
+  seeded from the port's stream at the first step) feeds every dropout
+  mask and attention-dropout seed.  A captured graph registers it, so each
+  replay advances it as an eager step would: captured and uncaptured steps
+  from the same seed draw the same masks.
+- **Warm-up.** A capture first runs the program once (first-use set-up),
+  which is a real step; the step puts the parameters, optimizer state,
+  running statistics and generator back afterwards, so ``warmup()``, as
+  the reference's, moves nothing.
+- **Results.** Each call returns the loss as a device tensor of its own,
+  and ``last_outputs`` / ``last_guard`` likewise (a graph overwrites its
+  outputs at the next replay).
+- **Recompute.** ``remat=True`` runs the whole loss as one checkpoint
+  region (``core.recompute.checkpoint``), as the reference's ``loss_of``;
+  ``recompute_policy(spec, policy)`` wraps the layers it matches.  A
+  captured graph keeps the regions it was captured with.
+
+``layout_policy`` and ``recompute_policy`` are re-exported here as in the
+reference.  As in the reference, ``TrainStep`` applies no ``grad_clip``
+(its compiled step never clips; only the eager ``Optimizer.step`` does).
 
 Not in this slice of the port, and refused with ``UnimplementedError``:
-``mesh`` / ``batch_sharding``, ``remat``, ``with_outputs``, ``run_steps``,
-checkpoints, and sparse or row-sharded gradients (the port's ``Embedding``
-has no sparse mode).
+``mesh`` / ``batch_sharding``, checkpoints, and sparse or row-sharded
+gradients (the port's ``Embedding`` has no sparse mode).
 """
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Callable, Dict, Optional
 
-import numpy as np
 import torch
 
 from .. import amp as amp_mod
 from ..core import buffer_updates as _bufup
+from ..core import recompute as _recompute
 from ..core import rng
-from ..core.layout import layout_policy  # noqa: F401  (jit.layout_policy)
 from ..core.errors import UnimplementedError
-from ..optimizer.functional import apply_updates, decay_flags
+from ..core.layout import layout_policy  # noqa: F401  (jit.layout_policy)
+from ..core.programs import Program
+from ..core.recompute import recompute_policy  # noqa: F401
+from ..optimizer.functional import decay_flags, update_in_place
 
 __all__ = ["state_arrays", "forward_loss", "guard_select", "TrainStep",
-           "layout_policy"]
+           "layout_policy", "recompute_policy"]
 
 _LATER = "comes with a later slice of the port"
 
@@ -66,10 +96,11 @@ def _training(model, training: bool = True):
 
 
 def forward_loss(model, loss_fn, batch, generator=None, amp_level=None,
-                 amp_dtype="bfloat16"):
+                 amp_dtype="bfloat16", return_outputs=False):
     """Training-mode forward and loss: ``loss_fn(*outputs, batch[-1])`` of
     ``model(*batch[:-1])``, with dropout drawing from ``generator`` and,
-    with ``amp_level``, under ``amp.auto_cast``."""
+    with ``amp_level``, under ``amp.auto_cast``.  With
+    ``return_outputs``, (loss, the model's outputs as a tuple)."""
     gen_ctx = (rng.generator_scope(generator) if generator is not None
                else contextlib.nullcontext())
     amp_ctx = (amp_mod.auto_cast(level=amp_level, dtype=amp_dtype)
@@ -77,7 +108,17 @@ def forward_loss(model, loss_fn, batch, generator=None, amp_level=None,
     with _training(model), gen_ctx, amp_ctx:
         out = model(*batch[:-1])
         outs = out if isinstance(out, tuple) else (out,)
-        return loss_fn(*outs, batch[-1])
+        loss = loss_fn(*outs, batch[-1])
+    return (loss, outs) if return_outputs else loss
+
+
+def _verdict(loss, grads):
+    """(global gradient norm, whether it and the loss are finite), on the
+    device."""
+    leaves = [g.float() for g in grads.values()]
+    gnorm = (torch.sqrt(sum(torch.sum(g * g) for g in leaves)) if leaves
+             else torch.zeros((), device=loss.device))
+    return gnorm, torch.isfinite(loss) & torch.isfinite(gnorm)
 
 
 def guard_select(params, opt_state, new_params, new_opt, loss, grads):
@@ -85,10 +126,7 @@ def guard_select(params, opt_state, new_params, new_opt, loss, grads):
     global gradient norm, and the old state selected where the step is
     bad, all on the device (no host sync).  Returns (params, opt_state,
     grad_norm, ok)."""
-    leaves = [g.float() for g in grads.values()]
-    gnorm = (torch.sqrt(sum(torch.sum(g * g) for g in leaves)) if leaves
-             else torch.zeros((), device=loss.device))
-    ok = torch.isfinite(loss) & torch.isfinite(gnorm)
+    gnorm, ok = _verdict(loss, grads)
 
     def sel(new, old):
         return {k: ({s: torch.where(ok, v[s], old[k][s]) for s in v}
@@ -97,24 +135,31 @@ def guard_select(params, opt_state, new_params, new_opt, loss, grads):
     return sel(new_params, params), sel(new_opt, opt_state), gnorm, ok
 
 
+def _signature(batch):
+    return tuple((tuple(b.shape), str(b.dtype).replace("torch.", ""))
+                 for b in batch)
+
+
 class TrainStep:
     """One training step: ``step(*batch) -> loss`` (a device scalar).
 
     ``loss_fn(*model_outputs, label)`` with ``label = batch[-1]`` and the
     model fed ``batch[:-1]``.  ``amp_level`` "O1"/"O2" runs the forward
-    under ``amp.auto_cast``.  ``guard=True`` leaves parameters and
-    optimizer moments unchanged for a step whose loss or gradient norm is
-    not finite, and keeps (grad_norm, ok) on ``last_guard``.
-    ``accum_steps=k`` splits the batch into k micro-batches along axis 0
-    and averages their f32 gradients before one update."""
+    under ``amp.auto_cast``.  ``guard=True`` leaves parameters, optimizer
+    moments and running statistics unchanged for a step whose loss or
+    gradient norm is not finite, and keeps (grad_norm, ok) on
+    ``last_guard``.  ``accum_steps=k`` splits the batch into k
+    micro-batches along axis 0 and averages their f32 gradients before one
+    update.  ``with_outputs=True`` keeps the forward's outputs on
+    ``last_outputs``.  ``remat=True`` recomputes the forward in the
+    backward."""
 
     def __init__(self, model, loss_fn: Callable, optimizer,
                  amp_level: Optional[str] = None, amp_dtype="bfloat16",
                  mesh=None, batch_sharding=None, remat: bool = False,
                  with_outputs: bool = False, guard: bool = False,
                  accum_steps: int = 1):
-        for name, val in (("mesh", mesh), ("batch_sharding", batch_sharding),
-                          ("remat", remat), ("with_outputs", with_outputs)):
+        for name, val in (("mesh", mesh), ("batch_sharding", batch_sharding)):
             if val:
                 raise UnimplementedError(f"TrainStep({name}=...) {_LATER}")
         self.model = model
@@ -125,6 +170,14 @@ class TrainStep:
         self.accum_steps = int(accum_steps)
         if self.accum_steps < 1:
             raise ValueError("TrainStep: accum_steps must be >= 1")
+        if self.accum_steps > 1 and with_outputs:
+            raise ValueError(
+                "TrainStep: with_outputs does not compose with "
+                "accum_steps>1 (per-micro-batch forward outputs would "
+                "have to be stacked across the micro-batches; run the "
+                "forward separately if metrics need it)")
+        self._with_outputs = bool(with_outputs)
+        self._remat = bool(remat)
         state = model.state_dict(keep_vars=True)
         self._trainable = [k for k, v in state.items()
                            if isinstance(v, torch.nn.Parameter)
@@ -133,31 +186,65 @@ class TrainStep:
         self._opt_state = None
         self._guard = bool(guard)
         self.last_guard = None
+        self.last_outputs = None
+        self._programs: Dict[tuple, Program] = {}  # batch signature ->
+        self._made: Dict[tuple, int] = {}   # signature -> programs made
+        self._gen = None       # the step generator (from the first step)
+        self._lr = self._step_no = None     # the programs' scalar inputs
+        self._gnorm = self._ok = None       # the guard's verdict
+        self._pool = None      # the graphs' memory pool
+        self._run_uncaptured = False   # private A/B: programs, no graphs
 
     def init_opt_state(self, state):
         return {k: self.optimizer.init_state(state[k])
                 for k in self._trainable}
 
-    def _grads(self, params, batch, gen):
-        """(loss, {name: grad}, {buffer name: new value}) over
+    # -- the step program ---------------------------------------------------
+    def _setup(self):
+        """Tensors every program of this step reads or writes, made at the
+        first step: the optimizer state (unless loaded), the generator,
+        the scalar inputs and the guard's verdict."""
+        state = self.model.state_dict(keep_vars=True)
+        dev = next(iter(state.values())).device
+        if self._opt_state is None:
+            self._opt_state = self.init_opt_state(
+                {k: state[k].detach() for k in self._trainable})
+        self._gen = rng.step_generator(dev)
+        self._lr = torch.zeros((), dtype=torch.float32, device=dev)
+        self._step_no = torch.zeros((), dtype=torch.int32, device=dev)
+        self._gnorm = torch.zeros((), dtype=torch.float32, device=dev)
+        self._ok = torch.ones((), dtype=torch.bool, device=dev)
+
+    def _grads(self, params, batch):
+        """(loss, {name: grad}, {buffer name: new value}, outputs) over
         ``accum_steps`` micro-batches; buffer updates are logged, not
         applied, and compound from one micro-batch to the next."""
         with _bufup.capture() as log:
-            loss, grads = self._micro_grads(params, batch, gen)
+            loss, grads, outs = self._micro_grads(params, batch)
         return loss, grads, _bufup.resolve(
-            log, self.model.state_dict(keep_vars=True))
+            log, self.model.state_dict(keep_vars=True)), outs
 
-    def _micro_grads(self, params, batch, gen):
+    def _micro_grads(self, params, batch):
         args = [params[k] for k in self._trainable]
 
+        def loss_of(*micro):
+            return forward_loss(self.model, self.loss_fn, micro, self._gen,
+                                self.amp_level, self.amp_dtype,
+                                return_outputs=True)
+        if self._remat:
+            loss_of = _recompute.checkpoint(loss_of)
+
         def one(micro):
-            loss = forward_loss(self.model, self.loss_fn, micro, gen,
-                                self.amp_level, self.amp_dtype)
-            return loss, torch.autograd.grad(loss, args, allow_unused=True)
+            with rng.generator_scope(self._gen), _recompute.step_forward():
+                loss, outs = loss_of(*micro)
+            grads = torch.autograd.grad(loss, args, allow_unused=True)
+            return loss, grads, outs
 
         k = self.accum_steps
         if k == 1:
-            loss, gs = one(batch)
+            loss, gs, outs = one(batch)
+            outs = (tuple(o.detach() for o in outs) if self._with_outputs
+                    else ())
         else:
             for b in batch:
                 if b.shape[0] % k:
@@ -168,48 +255,162 @@ class TrainStep:
                                device=a.device) for a in args]
             losses = []
             for micro in zip(*[b.chunk(k) for b in batch]):
-                loss_i, gs = one(micro)
+                loss_i, gs, _ = one(micro)
                 losses.append(loss_i.detach())
                 for a, g in zip(acc, gs):
                     if g is not None:
                         a += g.float()
             loss = torch.stack(losses).mean()
             gs = [(a / k).to(p.dtype) for a, p in zip(acc, args)]
+            outs = ()
         grads = {n: (g if g is not None else torch.zeros_like(p))
                  for n, g, p in zip(self._trainable, gs, args)}
-        return loss.detach(), grads
+        return loss.detach(), grads, outs
 
-    def __call__(self, *batch):
+    def _step_program(self, lr, step_no, **batch):
+        """One training step over the static inputs: every state tensor
+        written in place; returns (loss, *forward outputs)."""
         state = self.model.state_dict(keep_vars=True)
         params = {k: state[k] for k in self._trainable}
-        if self._opt_state is None:
-            self._opt_state = self.init_opt_state(
-                {k: p.detach() for k, p in params.items()})
-        dev = next(iter(params.values())).device
-        gen = rng.step_generator(dev)   # fresh per step: masks differ
-        loss, grads, bufs = self._grads(params, batch, gen)
-        opt = self.optimizer
-        opt._step_count += 1
-        lr = float(np.float32(opt.get_lr()))
+        loss, grads, bufs, outs = self._grads(params, tuple(batch.values()))
         with torch.no_grad():
-            cur = {k: p.detach() for k, p in params.items()}
-            new_params, new_opt = apply_updates(
-                opt, cur, grads, self._opt_state, lr, opt._step_count,
-                self._decay)
-            # running statistics ride the same step, after the update
-            cur.update({k: state[k].detach() for k in bufs})
-            new_params.update(bufs)
+            ok = None
             if self._guard:
-                new_params, new_opt, gnorm, ok = guard_select(
-                    cur, self._opt_state, new_params, new_opt, loss, grads)
-                self.last_guard = (gnorm, ok)
-            torch._foreach_copy_([state[k] for k in new_params],
-                                 list(new_params.values()))
-            self._opt_state = new_opt
-        return loss
+                gnorm, ok = _verdict(loss, grads)
+                self._gnorm.copy_(gnorm)
+                self._ok.copy_(ok)
+            update_in_place(self.optimizer,
+                            {k: p.detach() for k, p in params.items()},
+                            grads, self._opt_state, lr, step_no, self._decay,
+                            ok)
+            # running statistics ride the same step, after the update
+            if bufs:
+                old = [state[k].detach() for k in bufs]
+                new = list(bufs.values())
+                if ok is not None:
+                    new = [torch.where(ok, n, o) for n, o in zip(new, old)]
+                torch._foreach_copy_(old, new)
+        return (loss, *outs)
+
+    # -- programs: made, warmed, run -----------------------------------------
+    def _state_tensors(self):
+        """Every tensor a step program writes."""
+        ts = [t.detach()
+              for t in self.model.state_dict(keep_vars=True).values()]
+        ts += [t for slots in self._opt_state.values()
+               for t in slots.values()]
+        return ts + [self._gnorm, self._ok]
+
+    @contextlib.contextmanager
+    def _state_kept(self):
+        """Put back, after the block, everything a step moves: the state
+        tensors and the generator."""
+        ts = self._state_tensors()
+        with torch.no_grad():
+            saved = [t.clone() for t in ts]
+        gen = self._gen.get_state()
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                torch._foreach_copy_(ts, saved)
+            self._gen.set_state(gen)
+
+    def _staged(self, batch, lr, step_no):
+        """The program of this batch's signature (new ones are not made
+        yet), its inputs filled for a step ``step_no`` at ``lr``."""
+        sig = _signature(batch)
+        prog = self._programs.get(sig)
+        if prog is None:
+            if self._gen is None:
+                self._setup()
+            dev = self._lr.device
+            inputs = {f"b{i}": torch.empty(b.shape, dtype=b.dtype, device=dev)
+                      for i, b in enumerate(batch)}
+            inputs.update(lr=self._lr, step_no=self._step_no)
+            prog = self._programs[sig] = Program(self._step_program, inputs,
+                                                 self._gen)
+        for i, b in enumerate(batch):
+            prog.inputs[f"b{i}"].copy_(b)
+        self._lr.fill_(lr)
+        self._step_no.fill_(step_no)
+        return sig, prog
+
+    def _make(self, sig, prog, warm: bool):
+        """Make ``prog`` ready.  On the card it is captured (its warm run,
+        a real step, undone); elsewhere (or for the uncaptured A/B) it is
+        run once with ``warm``, undone too, and else only marked made."""
+        if self._lr.device.type == "cuda" and not self._run_uncaptured:
+            with self._state_kept():
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                prog.capture(self._pool)
+        elif warm:
+            with self._state_kept():
+                prog.run(captured=False)
+        prog.ready = True
+        self._made[sig] = self._made.get(sig, 0) + 1
+
+    def _run(self, batch, lr):
+        """One step on ``batch``: the program's outputs, which a replay
+        overwrites."""
+        opt = self.optimizer
+        sig, prog = self._staged(batch, lr, opt._step_count + 1)
+        if not prog.ready:
+            self._make(sig, prog, warm=False)
+        opt._step_count += 1
+        return prog.run(captured=not self._run_uncaptured)
+
+    def __call__(self, *batch):
+        out = self._run(batch, self.optimizer.get_lr())
+        if self._guard:
+            self.last_guard = (self._gnorm.clone(), self._ok.clone())
+        if self._with_outputs:
+            self.last_outputs = tuple(o.clone() for o in out[1:])
+        return out[0].clone()
 
     def run_steps(self, *stacked_batch):
-        raise UnimplementedError(f"TrainStep.run_steps {_LATER}")
+        """K steps, one per slice along the leading axis of each stacked
+        batch (ids (K, batch, seq), ...), at the learning rate of the call
+        (as the reference's): K runs of the single step's program.
+        Returns the (K,) losses."""
+        if self._guard:
+            raise NotImplementedError(
+                "TrainStep(guard=True) does not support run_steps: the "
+                "multi-step scan has no per-step skip/rollback point (a "
+                "silent bypass would apply NaN updates the guard promised "
+                "to block) — use per-call steps under the guard")
+        if self.accum_steps > 1:
+            raise NotImplementedError(
+                "TrainStep(accum_steps>1) does not support run_steps: the "
+                "accumulation window already scans in-program — stack "
+                "whole windows as per-call batches instead")
+        lr = self.optimizer.get_lr()
+        return torch.stack([
+            self._run(tuple(b[i] for b in stacked_batch), lr)[0].clone()
+            for i in range(stacked_batch[0].shape[0])])
+
+    def warmup(self, *batch) -> dict:
+        """Make the step program of this sample batch's signature WITHOUT
+        applying an update: parameters, optimizer state, running
+        statistics and the generator are untouched (on the card the
+        program is captured; on the CPU it is run once and undone).
+        Returns {'seconds', 'compiled'}; compiled=False means the
+        signature was already made."""
+        t0 = time.perf_counter()
+        sig, prog = self._staged(batch, self.optimizer.get_lr(),
+                                 self.optimizer._step_count + 1)
+        compiled = not prog.ready
+        if compiled:
+            self._make(sig, prog, warm=True)
+        return {"seconds": time.perf_counter() - t0, "compiled": compiled}
+
+    def compile_counts(self) -> dict:
+        """Step programs made per batch signature, as the serving
+        engine's ``compile_counts()``: on the card each count is one CUDA
+        graph capture, on the CPU one program made.  A signature is made
+        once."""
+        return {"step": dict(self._made), "total": sum(self._made.values())}
 
     def save_checkpoint(self, *args, **kwargs):
         raise UnimplementedError(f"TrainStep checkpoints {_LATER}")

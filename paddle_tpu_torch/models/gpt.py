@@ -96,6 +96,7 @@ class GPTBlock(Layer):
 
     def __init__(self, cfg: GPTConfig, device=None, generator=None):
         super().__init__()
+        self._remat_stage = True  # jit.recompute_policy("stages") boundary
         std = cfg.initializer_range
         h = cfg.hidden_size
         self.num_heads = cfg.num_attention_heads

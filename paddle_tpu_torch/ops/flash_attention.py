@@ -137,8 +137,8 @@ def keep_mask(seed, batch: int, heads: int, sq: int, sk: int,
     ``_keep_mask`` hash (uint32 arithmetic done in int64 with masking):
     absolute (row, col), the int32 ``seed`` (tensor (1,) or int; taken as
     its two's-complement uint32) and bh = b * heads + head."""
-    if not isinstance(seed, torch.Tensor):
-        seed = torch.tensor([int(seed)], dtype=torch.int32, device=device)
+    if not isinstance(seed, torch.Tensor):   # a fill, not a host copy
+        seed = torch.full((1,), int(seed), dtype=torch.int32, device=device)
     dev = seed.device
     s = seed.reshape(()).to(torch.int64) & _M32
     rows = torch.arange(sq, device=dev, dtype=torch.int64)[:, None]

@@ -714,7 +714,9 @@ class _BnPool(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, gmean, gvar):
         eps, act, pool, ch = ctx.cfg
-        with torch.enable_grad():
+        # a profiler range: the step's profile reports this recompute apart
+        with torch.profiler.record_function("bn_pool_backward"), \
+                torch.enable_grad():
             ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
             outs = bn_act_pool_reference(*ins, eps, act, pool, ch)
             grads = torch.autograd.grad(outs, ins, (gy, gmean, gvar),

@@ -5,15 +5,23 @@ One rule (coupled L2, the optimizer's ``update_many``, decoupled AdamW
 decay, gated by ``apply_decay_param_fun``) used by the eager
 ``Optimizer.step`` and by ``jit.TrainStep``.  Parameters are grouped by
 whether they decay, and each group is updated by multi-tensor launches.
+The learning rate and the step number are 0-dim tensors on the
+parameters' device (numbers are turned into such tensors), so that a step
+captured as a CUDA graph reads the values written before each replay
+instead of freezing its first step's.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-import numpy as np
 import torch
 
-__all__ = ["decay_flags", "apply_updates"]
+__all__ = ["decay_flags", "apply_updates", "update_in_place"]
+
+# elements per chunk of ``update_in_place``: its temporaries (a few f32
+# copies of a chunk) stay far below a large model's state, and each chunk
+# costs one more round of multi-tensor launches
+_CHUNK = 1 << 26
 
 
 def decay_flags(optimizer, names) -> Dict[str, bool]:
@@ -21,8 +29,15 @@ def decay_flags(optimizer, names) -> Dict[str, bool]:
     return {n: optimizer._decay_applies(n) for n in names}
 
 
-def _update_group(optimizer, ps, gs, states, lr: float, step: int,
-                  decay: bool):
+def _device_scalar(x, dtype, device) -> torch.Tensor:
+    """x as a 0-dim tensor of ``dtype`` on ``device`` (a fill, not a host
+    copy)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.full((), x, dtype=dtype, device=device)
+
+
+def _update_group(optimizer, ps, gs, states, lr, step, decay: bool):
     """(new_params, new_states) of one group of parameters that share the
     decay flag; no in-place writes."""
     wd = optimizer._wd
@@ -31,7 +46,7 @@ def _update_group(optimizer, ps, gs, states, lr: float, step: int,
         gs = torch._foreach_add(gs, torch._foreach_mul(ps, wd))
     new_p, new_s = optimizer.update_many(ps, gs, states, lr, step)
     if dwd and decay:
-        coef = float(np.float32(lr) * np.float32(dwd))
+        coef = lr * dwd                      # f32, as the reference's
         p32 = [p.float() for p in ps]
         new_p = [n.to(p.dtype) for n, p in zip(torch._foreach_sub(
             [n.float() for n in new_p], torch._foreach_mul(p32, coef)), ps)]
@@ -39,10 +54,16 @@ def _update_group(optimizer, ps, gs, states, lr: float, step: int,
 
 
 def apply_updates(optimizer, params: dict, grads: dict, opt_state: dict,
-                  lr: float, step_no: int, decay: Dict[str, bool]):
+                  lr, step_no, decay: Dict[str, bool]):
     """Returns (new_params, new_opt_state) for the keys in ``grads``;
-    parameters without gradients pass through unchanged.  ``lr`` is
-    f32-exact; decay applies to floating-point parameters only."""
+    parameters without gradients pass through unchanged.  ``lr`` (f32) and
+    ``step_no`` (the 1-based step, int32) are 0-dim tensors on the
+    parameters' device, or numbers; decay applies to floating-point
+    parameters only."""
+    if grads:
+        dev = params[next(iter(grads))].device
+        lr = _device_scalar(lr, torch.float32, dev)
+        step_no = _device_scalar(step_no, torch.int32, dev)
     groups: Dict[bool, list] = {}
     for k in grads:
         dec = decay.get(k, True) and params[k].is_floating_point()
@@ -56,3 +77,34 @@ def apply_updates(optimizer, params: dict, grads: dict, opt_state: dict,
         new_params.update(zip(keys, new_p))
         new_opt.update(zip(keys, new_s))
     return new_params, new_opt
+
+
+def update_in_place(optimizer, params: dict, grads: dict, opt_state: dict,
+                    lr, step_no, decay: Dict[str, bool], ok=None):
+    """``apply_updates`` written into ``params``' and ``opt_state``'s
+    tensors in place, one chunk of at most ``_CHUNK`` elements of
+    parameters at a time (a larger parameter is a chunk of its own), so
+    that the update's temporaries stay a few copies of one chunk, where
+    the whole update would hold several copies of the entire state at
+    once.  With ``ok`` (a 0-dim bool tensor), every value keeps its old
+    value where ``ok`` is False (the step guard).  Element for element the
+    same arithmetic as ``apply_updates``."""
+    chunks, size = [[]], 0
+    for k in grads:
+        if chunks[-1] and size + grads[k].numel() > _CHUNK:
+            chunks.append([])
+            size = 0
+        chunks[-1].append(k)
+        size += grads[k].numel()
+    for names in filter(None, chunks):
+        new_p, new_s = apply_updates(
+            optimizer, {n: params[n] for n in names},
+            {n: grads[n] for n in names}, {n: opt_state[n] for n in names},
+            lr, step_no, decay)
+        dst = [params[n] for n in names] + [
+            opt_state[n][slot] for n in names for slot in new_s[n]]
+        src = [new_p[n] for n in names] + [
+            t for n in names for t in new_s[n].values()]
+        if ok is not None:
+            src = [torch.where(ok, new, old) for new, old in zip(src, dst)]
+        torch._foreach_copy_(dst, src)

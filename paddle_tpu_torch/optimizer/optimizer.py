@@ -9,9 +9,11 @@ parameters, not one launch per parameter.  The eager ``step()`` applies
 it to every parameter with a gradient (after the optimizer's
 ``grad_clip``), and ``jit.TrainStep`` applies the same core through
 ``optimizer.functional.apply_updates``.  The scalar arithmetic of the
-update (learning rate, bias corrections, decay coefficients) is done in
-float32 on the host, as the reference does it in f32 on the device, so the
-two frameworks compute the same update from the same gradient.  Moments are
+update (bias corrections, decay coefficients) is done in float32 on the
+device from the 0-dim learning-rate and step tensors, as the reference
+does it, so the two frameworks compute the same update from the same
+gradient, and a step captured as a CUDA graph follows ``set_lr`` and the
+step count.  Moments are
 f32 whatever the parameter type (Adam); Momentum's velocity is in the
 parameter's type, as the reference's.  Learning-rate schedulers come with
 a later slice of the port.
@@ -62,10 +64,11 @@ class Optimizer:
     def init_state(self, p) -> dict:
         return {}
 
-    def update_many(self, ps, gs, states, lr: float, step: int):
+    def update_many(self, ps, gs, states, lr, step):
         """(new_params, new_states) lists from lists of parameters,
-        gradients and states; ``lr`` an f32-exact float, ``step`` the
-        1-based step number.  Pure: nothing is written in place."""
+        gradients and states; ``lr`` a 0-dim f32 tensor, ``step`` the
+        1-based step number as a 0-dim int32 tensor, both on the
+        parameters' device.  Pure: nothing is written in place."""
         raise NotImplementedError
 
     def update_one(self, p, g, state: dict, lr: float, step: int):
@@ -149,11 +152,10 @@ class Adam(Optimizer):
 
     def update_many(self, ps, gs, states, lr, step):
         fe = torch
-        b1, b2 = np.float32(self._beta1), np.float32(self._beta2)
-        t = np.float32(step)
+        t = step.to(torch.float32)
         # f32 bias corrections, as the reference's `1 - beta ** t` on f32 t
-        bc1 = float(np.float32(1) - b1 ** t)
-        bc2 = float(np.float32(1) - b2 ** t)
+        bc1 = 1 - torch.pow(self._beta1, t)
+        bc2 = 1 - torch.pow(self._beta2, t)
         g32 = [g.float() for g in gs]
         # m = b1 m + (1 - b1) g ;  v = b2 v + (1 - b2) g^2
         m = fe._foreach_mul([s["moment1"] for s in states], self._beta1)

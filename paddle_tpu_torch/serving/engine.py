@@ -7,7 +7,8 @@
   ``warmup()`` makes them all and, on the card, captures each as a CUDA
   graph (all in one memory pool: they never run at once); ``step()``
   fills the buffers on the host when the batch or the allocator's tables
-  changed, replays, and pulls the outputs once.  On the CPU the same
+  changed, replays, and pulls the outputs once (``core.programs``, the
+  capture mechanism ``jit.TrainStep`` shares).  On the CPU the same
   program functions run directly.  The decode chunk is captured twice,
   all-greedy (no sampling pipeline) and mixed, where the reference
   branches inside one program: ``compile_counts()``'s bound is
@@ -57,12 +58,11 @@ import torch
 
 from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..core.errors import FatalError, InvalidArgumentError, UnavailableError
+from ..core.programs import Program
 from ..generation.keyed import (first_token_at, greedy_step, request_key,
                                sample_step)
 from ..ops import _build
-from ..ops.int8_matmul import dequant_matmul
-from ..ops.paged_attention import (RowWrites, SlotRowWrites, paged_attention,
-                                   write_slot_blocks)
+from ..ops.paged_attention import RowWrites, SlotRowWrites, write_slot_blocks
 from ..utils.monitor import stat_add
 from .kv_pool import KVPoolExhaustedError, PagedKVPool
 from .request import Request, RequestCancelled, Response
@@ -89,58 +89,6 @@ def _default_buckets(max_len: int):
         b *= 2
     buckets.append(max_len)
     return tuple(buckets)
-
-
-# the kernel wrappers the programs launch: their ``launches`` counters
-# count host calls, so a captured graph's launches are added at each replay
-_COUNTED = (paged_attention, dequant_matmul)
-
-
-class _Program:
-    """One static-shape program of the engine: ``fn(**inputs)`` over its
-    static input buffers (which the host fills before a run), returning a
-    tuple of tensors.  On the card ``capture`` records it as a CUDA graph
-    and ``run`` replays it; otherwise ``run`` calls ``fn``."""
-
-    def __init__(self, fn, inputs: Dict[str, torch.Tensor]):
-        self.fn = fn
-        self.inputs = inputs
-        self.ready = False   # made (on the card: captured)
-        self.graph = None
-        self.outputs = None
-        self.launches = ()   # (kernel wrapper, its launches per replay)
-
-    def capture(self, pool):
-        """Run ``fn`` once on a side stream, so that first-use set-up
-        (cuBLAS handles, kernel attributes) happens outside the capture,
-        then capture it into a CUDA graph in the memory pool ``pool``.
-        The launches the wrappers count while capturing were recorded,
-        not run: they are taken back and added at every replay.  A
-        capture that fails raises."""
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self.fn(**self.inputs)
-        torch.cuda.current_stream().wait_stream(side)
-        base = [w.launches for w in _COUNTED]
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph, pool=pool):
-                outputs = self.fn(**self.inputs)
-            self.launches = tuple((w, w.launches - b)
-                                  for w, b in zip(_COUNTED, base))
-        finally:
-            for w, b in zip(_COUNTED, base):
-                w.launches = b
-        self.graph, self.outputs = graph, outputs
-
-    def run(self, captured: bool = True):
-        if self.graph is None or not captured:
-            return self.fn(**self.inputs)
-        self.graph.replay()
-        for w, n in self.launches:
-            w.launches += n
-        return self.outputs
 
 
 def paged_decode_logits(model, pools, tables_np, tables_dev, active, pos,
@@ -249,7 +197,7 @@ class ServingEngine:
                                                 self._pool_len, dtype)
             self._pool_store = self._pools
         self._warm = False
-        self._programs: Dict[object, _Program] = {}
+        self._programs: Dict[object, Program] = {}
         self._compiles = {"decode": 0,
                           "prefill": {b: 0 for b in self.buckets}}
         self._warm_mark: Optional[int] = None
@@ -639,7 +587,7 @@ class ServingEngine:
         return first_token_at(logits, last, last, key, temp, top_k, top_p,
                               greedy)
 
-    def _make_programs(self) -> Dict[object, _Program]:
+    def _make_programs(self) -> Dict[object, Program]:
         """Every program with its static input buffers: one prefill per
         bucket (keyed by the bucket) and the decode chunk, mixed
         ("decode") and all-greedy ("decode_greedy"), sharing one set of
@@ -672,16 +620,16 @@ class ServingEngine:
         else:
             pre["target"] = full((1,), 0, torch.int64)
         programs = {
-            "decode": _Program(self._decode_program, dec),
-            "decode_greedy": _Program(
+            "decode": Program(self._decode_program, dec),
+            "decode_greedy": Program(
                 functools.partial(self._decode_program, sample=False), dec)}
         for b in self.buckets:
-            programs[b] = _Program(
+            programs[b] = Program(
                 functools.partial(self._prefill_program, b),
                 dict(pre, ids=full((1, b), self.pad_token_id, torch.int64)))
         return programs
 
-    def _run(self, prog: _Program):
+    def _run(self, prog: Program):
         return prog.run(captured=not self._run_uncaptured)
 
     def _decode_step(self):

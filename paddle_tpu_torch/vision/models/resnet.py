@@ -83,6 +83,7 @@ class BasicBlock(nn.Layer):
                  groups=1, base_width=64, dilation=1, norm_layer=None,
                  data_format="NCHW", device=None, generator=None):
         super().__init__()
+        self._remat_stage = True  # jit.recompute_policy("stages") boundary
         norm_layer = norm_layer or nn.BatchNorm2D
         kw = dict(data_format=data_format, device=device)
         self.conv1 = nn.Conv2D(inplanes, planes, 3, stride=stride, padding=1,
@@ -107,6 +108,7 @@ class BottleneckBlock(nn.Layer):
                  groups=1, base_width=64, dilation=1, norm_layer=None,
                  data_format="NCHW", device=None, generator=None):
         super().__init__()
+        self._remat_stage = True  # jit.recompute_policy("stages") boundary
         norm_layer = norm_layer or nn.BatchNorm2D
         kw = dict(data_format=data_format, device=device)
         width = int(planes * (base_width / 64.0)) * groups

@@ -98,7 +98,13 @@ def load_paddle_opt_state(train_step, opt_state: Mapping[str, Mapping],
             slots[slot] = torch.from_numpy(np.array(src, np.float32)).to(
                 p.device, like[slot].dtype)
         out[name] = slots
-    train_step._opt_state = out
+    if train_step._opt_state is None:
+        train_step._opt_state = out
+    else:   # the step's programs read these tensors: write them in place
+        with torch.no_grad():
+            for name, slots in out.items():
+                for slot, t in slots.items():
+                    train_step._opt_state[name][slot].copy_(t)
     if step_count is not None:
         train_step.optimizer._step_count = int(step_count)
     return train_step

@@ -1030,6 +1030,12 @@ def test_engine_captured_streams_equal_uncaptured_and_nothing_recaptured(
     assert streams[0] == streams[1]
 
 
+def _per_replay(prog):
+    """A captured program's kernel launches per replay, by wrapper."""
+    return {owner.__name__: n for (owner, key), n in prog.launches
+            if key == "launches"}
+
+
 def test_engine_replays_count_kernel_launches(cuda):
     """K3 / K4 launches counted through replays: each graph's per-replay
     counts (decode: one K3 and four K4 per layer and token; prefill: four
@@ -1041,11 +1047,11 @@ def test_engine_replays_count_kernel_launches(cuda):
     layers, chunk = 2, ENGINE["decode_chunk"]
     replays = {}
     for name, prog in eng._programs.items():
-        per = dict((w.__name__, n) for w, n in prog.launches)
         decode = isinstance(name, str)
-        assert per == {"paged_attention": layers * chunk if decode else 0,
-                       "dequant_matmul": 4 * layers * (chunk if decode
-                                                       else 1)}
+        want = {"dequant_matmul": 4 * layers * (chunk if decode else 1)}
+        if decode:
+            want["paged_attention"] = layers * chunk
+        assert _per_replay(prog) == want
         replay = prog.graph.replay
 
         def counted(replay=replay, name=name):
@@ -1059,6 +1065,198 @@ def test_engine_replays_count_kernel_launches(cuda):
     eng.run_until_drained(timeout=60)
     assert replays.get("decode") and replays.get("decode_greedy")
     for wrapper in (pa.paged_attention, int8_matmul.dequant_matmul):
-        want = sum(n * dict((w, k) for w, k in eng._programs[name].launches)
-                   [wrapper] for name, n in replays.items())
+        want = sum(n * _per_replay(eng._programs[name]).get(
+            wrapper.__name__, 0) for name, n in replays.items())
         assert wrapper.launches == want > 0
+
+
+# ---------------------------------------------------------------------------
+# jit.TrainStep: step programs captured as CUDA graphs, with recompute
+# ---------------------------------------------------------------------------
+# Inside the port a captured step is the same kernels on the same inputs as
+# the uncaptured one, and the generator is registered with the graph: the
+# losses and parameters are compared bit for bit.
+
+TRAIN_GPT = dict(vocab_size=512, hidden_size=128, num_hidden_layers=2,
+                 num_attention_heads=2, hidden_dropout_prob=0.1,
+                 attention_probs_dropout_prob=0.1,
+                 max_position_embeddings=256)
+STAGES = ("stages", "dots_saveable")
+
+
+def _policy(spec_policy):
+    from contextlib import nullcontext
+    from paddle_tpu_torch.jit import recompute_policy
+    return recompute_policy(*spec_policy) if spec_policy else nullcontext()
+
+
+def _train_gpt(cuda, uncaptured=False, **kw):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (GPTConfig, GPTForPretraining,
+                                         GPTPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import AdamW
+    pt.seed(0)
+    model = GPTForPretraining(GPTConfig(**TRAIN_GPT), device=cuda, seed=5)
+    crit = GPTPretrainingCriterion()
+    opt = AdamW(learning_rate=1e-3, weight_decay=0.01,
+                parameters=model.parameters())
+    step = TrainStep(model, lambda lg, y: crit(lg, y), opt, **kw)
+    step._run_uncaptured = uncaptured
+    return model, step
+
+
+def _train_resnet(cuda, uncaptured=False, **kw):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet18
+    pt.seed(0)
+    model = resnet18(num_classes=10, device=cuda, seed=5)
+    opt = Momentum(learning_rate=0.05, momentum=0.9,
+                   parameters=model.parameters())
+    step = TrainStep(model, lambda lg, y: F.cross_entropy(lg, y), opt,
+                     amp_level="O2", **kw)
+    step._run_uncaptured = uncaptured
+    return model, step
+
+
+def _train_batches(cuda, model, n=3, b=4):
+    rng = np.random.RandomState(6)
+    if model == "gpt":
+        return [tuple(torch.from_numpy(rng.randint(0, 512, (b, 256)))
+                      .to(cuda) for _ in range(2)) for _ in range(n)]
+    return [(torch.from_numpy(rng.randn(b * 4, 3, 64, 64).astype(np.float32))
+             .to(cuda), torch.from_numpy(rng.randint(0, 10, (b * 4,)))
+             .to(cuda)) for _ in range(n)]
+
+
+def _train_run(cuda, model, uncaptured, spec_policy=None, lrs=None):
+    """Three steps: (losses, final state, launches per wrapper, the step)."""
+    from paddle_tpu_torch.jit import layout_policy
+    make = _train_gpt if model == "gpt" else _train_resnet
+    batches = _train_batches(cuda, model)
+    with _policy(spec_policy), layout_policy("NHWC"):
+        m, step = make(cuda, uncaptured)
+        step.warmup(*batches[0])
+        base = _launch_counts()
+        losses = []
+        for i, b in enumerate(batches):
+            if lrs:
+                step.optimizer.set_lr(lrs[i])
+            losses.append(step(*b))
+        counts = {k: v - base[k] for k, v in _launch_counts().items()}
+    torch.cuda.synchronize()
+    return (torch.stack(losses),
+            {k: v.clone() for k, v in m.state_dict().items()}, counts, step)
+
+
+def _launch_counts():
+    from paddle_tpu_torch.ops import flash_attention as fa
+    return {w.__name__: w.launches for w in (
+        fa.flash_fwd, fa.flash_bwd, fbn.bn_stats, fbn.bn_apply,
+        fbn.bn_bwd_reduce, fbn.bn_bwd_dx, fbn.bn_pool_apply)}
+
+
+def _assert_equal_states(a, b):
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("spec_policy", [None, STAGES],
+                         ids=["plain", "stages"])
+@pytest.mark.parametrize("model", ["gpt", "resnet"])
+def test_train_step_captured_equals_uncaptured(cuda, model, spec_policy):
+    """Three steps replayed from the step's CUDA graph and the same three
+    run uncaptured from the same seed (GPT with dropout 0.1: the replays
+    advance the registered generator as the eager steps do, and under
+    recompute each region's twin generator redraws its masks): losses,
+    parameters and running statistics bit-equal; one capture, none after
+    warmup; launches through replays equal the eager launches."""
+    got = _train_run(cuda, model, False, spec_policy)
+    want = _train_run(cuda, model, True, spec_policy)
+    assert torch.equal(got[0], want[0]), (got[0], want[0])
+    _assert_equal_states(got[1], want[1])
+    assert got[2] == want[2]
+    assert got[3].compile_counts()["total"] == 1
+    prog = next(iter(got[3]._programs.values()))
+    assert prog.graph is not None
+    assert next(iter(want[3]._programs.values())).graph is None
+    if spec_policy and model == "gpt":   # recompute: bit-equal to none
+        plain = _train_run(cuda, model, False)
+        assert torch.equal(got[0], plain[0])
+        _assert_equal_states(got[1], plain[1])
+
+
+def test_train_step_replays_count_the_stated_launches(cuda):
+    """Kernel launches per step through replays: K1 and K2 once per layer,
+    K1 twice under "stages" (each block's region reruns its forward); the
+    ResNet-18 step's K5-K9 as eager, and under "stages" K5 and K6 once
+    more at every block site (the stem is in no block)."""
+    layers = TRAIN_GPT["num_hidden_layers"]
+    plain = _train_run(cuda, "gpt", False)[2]
+    stages = _train_run(cuda, "gpt", False, STAGES)[2]
+    assert plain["flash_fwd"] == plain["flash_bwd"] == 3 * layers
+    assert stages["flash_fwd"] == 2 * 3 * layers
+    assert stages["flash_bwd"] == 3 * layers
+    eager = _train_run(cuda, "resnet", True)[2]
+    r_plain = _train_run(cuda, "resnet", False)[2]
+    r_stages = _train_run(cuda, "resnet", False, STAGES)[2]
+    assert r_plain == eager
+    # ResNet-18: 13 single and 3 dual block sites, the pooled stem
+    assert eager["bn_stats"] == 3 * (13 + 2 * 3 + 1)
+    assert eager["bn_pool_apply"] == 3
+    assert r_stages == dict(eager, bn_stats=eager["bn_stats"] + 3 * 19,
+                            bn_apply=eager["bn_apply"] + 3 * 16)
+
+
+def test_train_step_follows_set_lr_between_replays(cuda):
+    lrs = (1e-3, 4e-3, 2e-4)
+    got = _train_run(cuda, "gpt", False, lrs=lrs)
+    want = _train_run(cuda, "gpt", True, lrs=lrs)
+    fixed = _train_run(cuda, "gpt", False)
+    assert torch.equal(got[0], want[0])
+    _assert_equal_states(got[1], want[1])
+    assert not torch.equal(got[1]["gpt.ln_f.weight"],
+                           fixed[1]["gpt.ln_f.weight"])
+
+
+def test_train_step_warmup_moves_nothing_and_captures_once(cuda):
+    """warmup() of a second signature after a real step: parameters,
+    optimizer state and generator bit-equal before and after, the next
+    steps equal a twin's that never warmed up, and no capture follows."""
+    small, large = (_train_batches(cuda, "gpt", 1, b)[0] for b in (2, 4))
+    runs = []
+    for warm in (True, False):
+        model, step = _train_gpt(cuda)
+        step(*small)
+        before = ({k: v.clone() for k, v in model.state_dict().items()},
+                  [t.clone() for s in step._opt_state.values()
+                   for t in s.values()], step._gen.get_state())
+        if warm:
+            assert step.warmup(*large)["compiled"]
+            torch.cuda.synchronize()
+            _assert_equal_states(before[0], model.state_dict())
+            assert all(torch.equal(a, b) for a, b in zip(
+                before[1], [t for s in step._opt_state.values()
+                            for t in s.values()]))
+            assert torch.equal(before[2], step._gen.get_state())
+            assert step.compile_counts()["total"] == 2
+        losses = [step(*b) for b in (large, small, large)]
+        runs.append((torch.stack(losses), model.state_dict()))
+        assert step.compile_counts()["total"] == 2
+    assert torch.equal(runs[0][0], runs[1][0])
+    _assert_equal_states(runs[0][1], runs[1][1])
+
+
+def test_train_step_run_steps_replays(cuda):
+    batches = _train_batches(cuda, "gpt")
+    stacked = tuple(torch.stack(t) for t in zip(*batches))
+    m1, s1 = _train_gpt(cuda)
+    got = s1.run_steps(*stacked)
+    m2, s2 = _train_gpt(cuda)
+    want = torch.stack([s2(*b) for b in batches])
+    assert torch.equal(got, want)
+    _assert_equal_states(m1.state_dict(), m2.state_dict())
+    assert s1.compile_counts()["total"] == 1
