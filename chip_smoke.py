@@ -8,7 +8,8 @@ Phases (any failure exits non-zero before the result line):
   2. build    — builds every kernel from paddle_tpu_torch/csrc with nvcc.
   3. check    — each kernel against its plain PyTorch version on the card
                 at the main path's shapes (int8_matmul at the decode M and
-                at every prefill bucket the serve phase's prompts fill;
+                at every prefill bucket the serve, pressure and prefix
+                phases' prompts fill;
                 paged_attention also at max_len 4096 with slots at pos
                 4095 and 0), in f32 and with bf16 operands (K3: every pair
                 of q and pool dtypes); |kernel - plain| must stay within
@@ -48,10 +49,33 @@ Phases (any failure exits non-zero before the result line):
                 their largest |value| of the CPU plain path.  Each run
                 prints tokens/s, TTFT p50 and max, warmup seconds and the
                 capture count, captured and uncaptured.
-  6. fixed    — 4-layer full-width engines on the fixed pool, captured, f32
+  6. pressure — the serve model (f32) on a paged pool of 224 blocks where
+                512 back every slot: 16 requests (prompts 200..400, 256 new
+                tokens, 12 greedy + 4 keyed-sampled), first on the full
+                pool, then on the short one, each engine captured.  On the
+                short pool runs must be preempted and parked (at least
+                one), every one resumed, none failed, and every stream must
+                equal the full pool's token for token.  K3 / K4 launches
+                counted through the replays of each run (zeroed just
+                before, read just after) must be > 0.  Prints tokens/s,
+                TTFT and the ms of each preemption and restore.
+  7. prefix   — the serve model with prefix_cache=True against the same
+                engine without: one request of a 384-token prefix plus 16
+                tokens fills the cache, then 16 greedy requests of the
+                prefix plus 16..96 tokens and the bare prefix (24 full
+                blocks: copy-on-write), 64 new tokens each.  The cache must
+                hit, copy once, capture nothing after warmup and leave the
+                prefix's 24 blocks unchanged bit for bit; K3 / K4 must
+                launch; a stream may split from the uncached engine's only
+                where the uncached path's top-two logit margin is below
+                2e-3 (each split printed with its margin).  Prints TTFT p50
+                and max with and without the cache, and the device ms of a
+                warm prefill (bucket 64 at cached_len 384) against a cold
+                one (bucket 512; and the uncached engine's bucket 512).
+  8. fixed    — 4-layer full-width engines on the fixed pool, captured, f32
                 and bf16: greedy streams must equal the uncaptured path's,
                 and in f32 solo generate()'s.
-  7. flash    — the tensor-core instructions (HMMA / HGMMA lines of
+  9. flash    — the tensor-core instructions (HMMA / HGMMA lines of
                 cuobjdump -sass) of every kernel in the built flash
                 library, failing if a bf16 (tensor-core route) kernel has
                 none; the flash kernels K1 (forward) and K2 (backward)
@@ -64,7 +88,7 @@ Phases (any failure exits non-zero before the result line):
                 memory of one call is printed; then timed like K3/K4 over
                 24 layers' tensors, beside the bound and torch's
                 scaled_dot_product_attention as the yardstick.
-  8. train    — GPT-2 medium (24 x 1024, 16 heads, vocab 50304), B 4,
+ 10. train    — GPT-2 medium (24 x 1024, 16 heads, vocab 50304), B 4,
                 S 1024, O1 bf16, AdamW(1e-4), dropout 0.1, random weights
                 and one random batch from --seed, through jit.TrainStep's
                 captured step: warmup() captures the step's CUDA graph
@@ -82,11 +106,11 @@ Phases (any failure exits non-zero before the result line):
                 1e-5 relative of the plain run's (bit-equality expected;
                 both printed), K1 48 and K2 24 launches per step, peak
                 memory below the plain run's, device time printed.
-  9. traincheck — one step's loss and every parameter's gradient of a
+ 11. traincheck — one step's loss and every parameter's gradient of a
                 2-layer full-width f32 GPT (dropout 0, B 1, S 1024) on the
                 kernel path against the same step by the plain versions on
                 the CPU, same weights and batch.
- 10. bn       — the fused BatchNorm kernels K5-K9 against their plain
+ 12. bn       — the fused BatchNorm kernels K5-K9 against their plain
                 versions on the card: at the ResNet-50 b256 main path's
                 shapes (the stem, 3,211,264 x 64; layer1's bn3 with its
                 residual, 802,816 x 256; layer4, 12,544 x 2048) and at
@@ -110,7 +134,7 @@ Phases (any failure exits non-zero before the result line):
                 (CUDA graph replay) at layer1's bn3 and at the stem, beside
                 its bound, its plain version and PyTorch's own BatchNorm
                 kernels; K9's ring route in turns with its window route.
- 11. resnet   — ResNet-50 (BASELINE config #2): resnet50() under
+ 13. resnet   — ResNet-50 (BASELINE config #2): resnet50() under
                 jit.layout_policy("NHWC"), TrainStep O2 bf16, cross-entropy
                 on the logits, Momentum(0.1, 0.9), one random batch of
                 256 x 3 x 224 x 224 from --seed, 8 steps through the
@@ -129,7 +153,7 @@ Phases (any failure exits non-zero before the result line):
                 every block site: 105 / 96 per step, peak memory below the
                 plain run's).  Then K7 and K8 timed at each of the step's
                 48 BN backward sites' shapes beside each site's bound.
- 12. resnetcheck — one f32 step of ResNet-18 (10 classes, 4 x 3 x 64 x 64)
+ 14. resnetcheck — one f32 step of ResNet-18 (10 classes, 4 x 3 x 64 x 64)
                 on the kernel path against the same step by the plain
                 versions on the CPU, same weights and batch: the loss,
                 every gradient and every running statistic within 1e-3 of
@@ -176,6 +200,16 @@ SLOTS = 8
 BLOCK = 16
 MAX_LEN = 1024
 PROMPT_LENS = (32, 64, 100, 160, 220, 280, 340, 400)   # serve phase
+# pressure phase: 224 blocks where parity would give 512 (8 x 64); 16
+# requests of 200..400 prompt tokens and 256 new ones, every 4th sampled
+PRESSURE_BLOCKS, PRESSURE_NEW = 224, 256
+PRESSURE_LENS = tuple(int(n) for n in np.linspace(200, 400, 16))
+# prefix phase: 16 requests of one 384-token prefix plus 16..96 suffix
+# tokens (buckets 16..128 of the suffix), and the bare prefix (24 full
+# blocks: the copy-on-write path), 64 new tokens each
+PREFIX_LEN, PREFIX_NEW = 384, 64
+PREFIX_SUFFIXES = tuple(int(n) for n in np.linspace(16, 96, 16))
+MARGIN_TOL = 2e-3   # a cached / uncached greedy split needs a nearer tie
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 8               # train phase
 RECOMPUTE_STEPS = 3        # the train / resnet phases' recompute legs
 RESNET_B, RESNET_HW, RESNET_STEPS = 256, 224, 8           # resnet phase
@@ -253,11 +287,14 @@ def max_err(torch, got, want, atol=TOL, rtol=TOL):
 
 
 def prefill_buckets():
-    """The prefill buckets (M of every prefill Linear) the serve phase's
-    prompts land in, by the engine's own default bucket rule."""
+    """The prefill buckets (M of every prefill Linear) the serve,
+    pressure and prefix phases' prompts (the prefix phase's: their
+    uncached suffixes) land in, by the engine's own default bucket rule."""
     from paddle_tpu_torch.serving.engine import _default_buckets
     buckets = _default_buckets(MAX_LEN)
-    return sorted({min(b for b in buckets if b >= n) for n in PROMPT_LENS})
+    lens = (PROMPT_LENS + PRESSURE_LENS + PREFIX_SUFFIXES
+            + (PREFIX_LEN + PREFIX_SUFFIXES[0], 1))
+    return sorted({min(b for b in buckets if b >= n) for n in lens})
 
 
 def int8_phase(torch, rng, dev):
@@ -680,27 +717,33 @@ def serve_run(torch, eng, prompts, sampled, new_tokens, launch_names):
             sorted(r.ttft for r in resps), launches)
 
 
-def serve_phase(torch, args, dev, card, dtype=None):
-    """GPT-2 medium, int8 weights, paged KV: the main path; with dtype
-    bf16 the model is decorated to bf16 (amp O2) before quantization and
-    the engine's pools are bf16.  The engine's programs run as CUDA graphs
-    (captured by warmup); the same requests then run again through the
-    same program functions uncaptured, for an A/B.  Returns the launches
-    of K3 and K4 in the captured run, keyed by their kernel-table names."""
+def serve_model(torch, args, dev, dtype=None):
+    """GPT-2 medium from --seed, int8 weight-only; with dtype bf16
+    decorated to bf16 (amp O2) before quantization."""
     from paddle_tpu_torch import amp
-    from paddle_tpu_torch.generation import generate
     from paddle_tpu_torch.models import GPTForPretraining, gpt2_medium_config
     from paddle_tpu_torch.quantization import quantize_for_serving
+    cfg = gpt2_medium_config(hidden_dropout_prob=0.0,
+                             attention_probs_dropout_prob=0.0)
+    model = GPTForPretraining(cfg, device=dev, seed=args.seed).eval()
+    if dtype == torch.bfloat16:
+        amp.decorate(models=model, level="O2", dtype="bfloat16")
+    return quantize_for_serving(model)
+
+
+def serve_phase(torch, args, dev, card, model, dtype=None):
+    """GPT-2 medium (``serve_model``), paged KV: the main path; with
+    dtype bf16 the engine's pools are bf16.  The engine's programs run as
+    CUDA graphs (captured by warmup); the same requests then run again
+    through the same program functions uncaptured, for an A/B.  Returns
+    the launches of K3 and K4 in the captured run, keyed by their
+    kernel-table names."""
+    from paddle_tpu_torch.generation import generate
     from paddle_tpu_torch.serving import ServingEngine
 
     bf16 = dtype == torch.bfloat16
     tag = "serve bf16" if bf16 else "serve"
-    cfg = gpt2_medium_config(hidden_dropout_prob=0.0,
-                             attention_probs_dropout_prob=0.0)
-    model = GPTForPretraining(cfg, device=dev, seed=args.seed).eval()
-    if bf16:
-        amp.decorate(models=model, level="O2", dtype="bfloat16")
-    quantize_for_serving(model)
+    cfg = model.gpt.config
     eng = ServingEngine(model, max_slots=SLOTS, max_len=MAX_LEN,
                         kv="paged", block_size=BLOCK, dtype=dtype,
                         device=dev)
@@ -819,9 +862,217 @@ def serve_phase(torch, args, dev, card, dtype=None):
               + f"; warmup {warm['seconds']:.2f}s, captures "
               f"{counts['total']}, logits err {err:.3e}")
     eng.close()
-    del eng, model
+    del eng
     torch.cuda.empty_cache()
     return main_launches
+
+
+def _timed(torch, fn, out):
+    """fn, with the ms of each call that did its work (did not return
+    False) appended to ``out``; the card is synchronized around it."""
+    def run(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        if res is not False:
+            out.append((time.perf_counter() - t0) * 1e3)
+        return res
+    return run
+
+
+def _ms_line(label, ms):
+    return (f"{label} {np.mean(ms):.3f} ms per run (max {max(ms):.3f}, "
+            f"{len(ms)} runs)" if ms else f"{label}: none")
+
+
+def _paged_engine(model, dev, **kw):
+    from paddle_tpu_torch.serving import ServingEngine
+    eng = ServingEngine(model, max_slots=SLOTS, max_len=MAX_LEN, kv="paged",
+                        block_size=BLOCK, device=dev, **kw)
+    warm = eng.warmup()
+    counts = warm["compile_counts"]
+    if not warm["captured"] or counts["total"] != counts["bound"]:
+        fail(f"warmup captured {counts} (want {counts['bound']} graphs)")
+    return eng
+
+
+def _drive(torch, eng, prompts, sampled, new_tokens, tag):
+    """serve_run with every request required to finish with its tokens
+    and K3 / K4 required to launch (counted through the replays)."""
+    names = ("int8_matmul", "paged_attention")
+    try:
+        outs, wall, ttfts, launches = serve_run(torch, eng, prompts, sampled,
+                                                new_tokens, names)
+    except Exception as e:  # noqa: BLE001 — a failed request fails the phase
+        fail(f"{tag}: a request failed: {e!r}")
+    if any(len(o) != new_tokens for o in outs):
+        fail(f"{tag}: a request did not produce {new_tokens} tokens")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"{tag}: kernel {name} was not launched")
+    if eng.post_warmup_compiles() != 0:
+        fail(f"{tag}: {eng.post_warmup_compiles()} captures after warmup")
+    return outs, wall, ttfts, launches
+
+
+def pressure_phase(torch, args, dev, card, model):
+    """The serve model's paged engine on 224 blocks where 512 back every
+    slot: 16 requests of 200..400 prompt tokens and 256 new ones (every
+    4th keyed-sampled).  Runs are parked and resumed as the pool runs
+    short; every request must complete, with its stream equal token for
+    token to the same requests on the full pool."""
+    rng = np.random.RandomState(args.seed + 2)
+    vocab = model.gpt.config.vocab_size
+    prompts = [rng.randint(0, vocab, (n,)) for n in PRESSURE_LENS]
+    sampled = {i: dict(temperature=0.8, top_k=40, top_p=0.9, seed=20 + i)
+               for i in range(1, len(prompts), 4)}
+    runs = {}
+    for tag, extra in (("full pool", {}),
+                       ("pressure", dict(num_blocks=PRESSURE_BLOCKS))):
+        eng = _paged_engine(model, dev, **extra)
+        pre_ms, res_ms = [], []
+        eng.preempt_slot = _timed(torch, eng.preempt_slot, pre_ms)
+        eng.restore_run = _timed(torch, eng.restore_run, res_ms)
+        outs, wall, ttfts, launches = _drive(torch, eng, prompts, sampled,
+                                             PRESSURE_NEW, f"pressure {tag}")
+        kv = eng.metrics()["kv_pool"]
+        total = sum(len(o) for o in outs)
+        print(f"pressure {tag} [{card}]: {len(prompts)} requests, "
+              f"{eng.kv_pool.num_blocks} blocks, {total} tokens in "
+              f"{wall:.3f}s: {total / wall:.1f} tokens/s; TTFT p50 "
+              f"{ttfts[len(ttfts) // 2] * 1e3:.1f} ms, max "
+              f"{ttfts[-1] * 1e3:.1f} ms; preemptions {kv['oom_preempts']}, "
+              f"resumes {kv['oom_resumes']}, failed {kv['oom_failed']}; "
+              + _ms_line("preempt", pre_ms) + "; "
+              + _ms_line("restore", res_ms) + f"; launches {launches}")
+        if kv["oom_failed"] or kv["oom_paused"] or \
+                kv["oom_resumes"] != kv["oom_preempts"]:
+            fail(f"pressure {tag}: {kv}")
+        runs[tag] = (outs, kv["oom_preempts"])
+        eng.close()
+        del eng
+        torch.cuda.empty_cache()
+    if runs["pressure"][1] < 1:
+        fail("pressure: the short pool preempted no run")
+    diff = [i for i, (a, b) in enumerate(zip(runs["pressure"][0],
+                                             runs["full pool"][0])) if a != b]
+    if diff:
+        fail(f"pressure: streams {diff} differ from the full pool's")
+    print(f"pressure: all {len(prompts)} streams (greedy and sampled) equal "
+          "the full pool's token for token")
+
+
+def _replay_ms(torch, prog, n: int = 10) -> float:
+    """Device ms per replay of a captured program (CUDA events)."""
+    prog.graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        prog.graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def _top2_margin(torch, model, dev, ids) -> float:
+    """Top-two margin of the next-token logits of ``ids`` (a full
+    forward, no cache)."""
+    with torch.inference_mode():
+        logits = model(torch.as_tensor(np.asarray(ids)[None]).to(dev))
+    top = logits[0, -1].float().topk(2).values
+    return float(top[0] - top[1])
+
+
+def prefix_phase(torch, args, dev, card, model):
+    """The serve model's paged engine with prefix_cache=True against one
+    without: a request of the 384-token prefix plus 16 tokens fills the
+    cache, then 16 greedy requests of the prefix plus 16..96 tokens and
+    the bare prefix (copy-on-write), 64 new tokens each.  The cache must
+    hit, copy once, capture nothing after warmup and leave the prefix's
+    blocks bit for bit unchanged; a stream may split from the uncached
+    engine's only at a near tie (the uncached path's top-two margin below
+    2e-3 there).  Prints TTFT and the device ms of a warm prefill (bucket
+    64 at cached_len 384) against a cold one (bucket 512)."""
+    rng = np.random.RandomState(args.seed + 3)
+    vocab = model.gpt.config.vocab_size
+    prefix = rng.randint(0, vocab, (PREFIX_LEN,))
+    first = np.concatenate([prefix, rng.randint(0, vocab,
+                                                (PREFIX_SUFFIXES[0],))])
+    prompts = [np.concatenate([prefix, rng.randint(0, vocab, (n,))])
+               for n in PREFIX_SUFFIXES] + [prefix]
+    runs = {}
+    for cached in (False, True):
+        tag = "prefix cached" if cached else "prefix uncached"
+        eng = _paged_engine(model, dev, prefix_cache=cached)
+        eng.submit(first, max_new_tokens=PREFIX_NEW)
+        eng.run_until_drained(timeout=300)
+        if cached:
+            chain = eng.prefix_cache.match("default", prefix)
+            if len(chain) != PREFIX_LEN // BLOCK:
+                fail(f"{tag}: {len(chain)} prefix blocks cached")
+            shared = [[t[b].clone() for pair in eng._pools for t in pair]
+                      for b in chain]
+            hits = eng.prefix_cache.hits
+        outs, wall, ttfts, launches = _drive(torch, eng, prompts, {},
+                                             PREFIX_NEW, tag)
+        extra = ""
+        if cached:
+            stats = eng.prefix_cache.stats()
+            if stats["hits"] <= hits or stats["cow_copies"] < 1:
+                fail(f"{tag}: {stats}")
+            for b, before in zip(chain, shared):
+                after = [t[b] for pair in eng._pools for t in pair]
+                if not all(torch.equal(x, y) for x, y in zip(before, after)):
+                    fail(f"{tag}: shared block {b} was written")
+            extra = (f"; {stats['hits']} block hits, {stats['misses']} "
+                     f"misses, {stats['cow_copies']} copy-on-write, shared "
+                     f"blocks unchanged")
+            warm_table = eng.kv_pool.sentinel_table()
+            warm_table[:len(chain)] = chain  # reads the prefix, writes drop
+            timed = ((64, PREFIX_LEN, warm_table),
+                     (512, 0, eng.kv_pool.sentinel_table()))
+        else:
+            timed = ((512, None, eng.kv_pool.sentinel_table()),)
+        prefill = {}
+        for bucket, cached_len, table in timed:
+            prog = eng._programs[bucket]
+            fill = dict(target=table, prompt_len=(cached_len or 0) + bucket)
+            if cached_len is not None:
+                fill["cached_len"] = cached_len
+            with torch.inference_mode():
+                eng._fill(prog.inputs, **fill)
+                prefill[bucket] = _replay_ms(torch, prog)
+        runs[cached] = outs
+        print(f"{tag} [{card}]: {len(prompts)} requests, "
+              f"{sum(len(o) for o in outs)} tokens in {wall:.3f}s; TTFT p50 "
+              f"{ttfts[len(ttfts) // 2] * 1e3:.1f} ms, max "
+              f"{ttfts[-1] * 1e3:.1f} ms; prefill device ms "
+              + ", ".join(f"bucket {b}"
+                          + (f" (cached_len {c})" if c else "")
+                          + f" {prefill[b]:.3f}" for b, c, _ in timed)
+              + f"{extra}; launches {launches}")
+        eng.close()
+        del eng
+        torch.cuda.empty_cache()
+    splits = []
+    for i, (got, want) in enumerate(zip(runs[True], runs[False])):
+        if got == want:
+            continue
+        j = next(k for k, (a, b) in enumerate(zip(got, want)) if a != b)
+        margin = _top2_margin(torch, model, dev,
+                              np.concatenate([prompts[i], want[:j]]))
+        splits.append((i, j, margin))
+        print(f"prefix: stream {i} splits from the uncached one at token "
+              f"{j}: uncached top-two margin {margin:.3e}")
+        if margin >= MARGIN_TOL:
+            fail(f"prefix: stream {i} splits at token {j} where the margin "
+                 f"is {margin:.3e} (>= {MARGIN_TOL})")
+    print(f"prefix: {len(prompts) - len(splits)} of {len(prompts)} greedy "
+          "streams equal the uncached engine's token for token; splits "
+          f"only at near ties: {splits}")
 
 
 def fixed_phase(torch, args, dev):
@@ -2066,8 +2317,14 @@ def main():
     rng = np.random.RandomState(args.seed)
     kernels = paged_phase(torch, rng, dev) + int8_phase(torch, rng, dev)
     torch.cuda.empty_cache()
-    launches = serve_phase(torch, args, dev, card)
-    launches.update(serve_phase(torch, args, dev, card, torch.bfloat16))
+    model = serve_model(torch, args, dev)
+    launches = serve_phase(torch, args, dev, card, model)
+    pressure_phase(torch, args, dev, card, model)
+    prefix_phase(torch, args, dev, card, model)
+    del model
+    launches.update(serve_phase(torch, args, dev, card,
+                                serve_model(torch, args, dev, torch.bfloat16),
+                                torch.bfloat16))
     torch.cuda.empty_cache()
     fixed_phase(torch, args, dev)
     torch.cuda.empty_cache()

@@ -18,15 +18,17 @@ layer, and each slot owns a table of block ids; the allocator's
   scrub + scatter once and applies it to every layer's pools.  Writes
   update the pool in place (the reference returns a new array).
 - **Static-shape writes** (the serving engine's programs, which run as
-  captured CUDA graphs): ``SlotRowWrites`` (one decode token per slot,
-  the reference's ``_paged_row_writer``) and ``write_slot_blocks`` (the
+  captured CUDA graphs): ``SlotRowWrites`` (consecutive rows per slot:
+  one decode token, or the cached-suffix prefill's window; the
+  reference's ``_paged_row_writer``) and ``write_slot_blocks`` (the
   paged prefill's whole-block overwrite) take device tables, positions
   and the active mask, never read them on the host, and keep every
   index tensor's shape fixed.  Their pools carry trash blocks past
   ``num_blocks`` that the allocator never hands out: a dropped write
-  goes to a trash block of its own (write ``i`` to ``num_blocks + i``),
-  so no ``index_put_`` ever holds a duplicate index and the real blocks
-  do not depend on write order.
+  goes to a trash row (or, for ``write_slot_blocks``, a trash block) of
+  its own, so no ``index_put_`` ever holds a duplicate index and the real
+  blocks do not depend on write order.  ``copy_block`` is the prefix
+  cache's copy-on-write, in place.
 - **``paged_attention``** (kernel ``csrc/paged_attention.cu``, CUDA C++ for
   sm_90a): replaces the Pallas kernel
   ``paddle_tpu/ops/paged_attention.py::_kernel``.  Batched over slots:
@@ -63,7 +65,7 @@ from . import _build
 
 __all__ = ["gather_block_rows", "scatter_block_rows", "scrub_blocks",
            "write_blocks", "RowWrites", "SlotRowWrites", "write_slot_blocks",
-           "paged_attention"]
+           "copy_block", "paged_attention"]
 
 
 # ---------------------------------------------------------------------------
@@ -161,31 +163,39 @@ def _or_trash(ids, ok, num_blocks: int):
 
 
 class SlotRowWrites:
-    """One decode token's K/V row per slot, written through the block
-    tables with static shapes (the reference's ``_paged_row_writer`` for
-    one row): slot s's row goes to (tables[s, pos // block_size],
-    pos % block_size), and the block it enters at offset 0 is zeroed
-    first.  Inactive slots, rows at or past ``pool_len`` and table
-    entries outside [0, num_blocks) go to trash block ``num_blocks + s``
-    instead (its scrub too), so the pools need ``len(pos)`` trash blocks.
-    ``tables`` (S, nb) int32, ``pos`` (S,) and ``active`` (S,) bool are
-    device tensors; nothing is read on the host.  Planned once per token,
-    applied to every layer's pools."""
+    """``n_rows`` consecutive K/V rows per slot, written through the block
+    tables with static shapes (the reference's ``_paged_row_writer``):
+    slot s's row j goes to (tables[s, p // block_size], p % block_size)
+    with p = pos[s] + j, and a block a row enters at offset 0 is zeroed
+    first.  Rows of inactive slots, at or past ``pool_len`` or through a
+    table entry outside [0, num_blocks) are dropped: flat write i (i = s *
+    n_rows + j) goes to trash row (num_blocks + i // block_size, i %
+    block_size) instead, so no two writes share an index and the pools
+    need ceil(S * n_rows / block_size) trash blocks.  ``tables`` (S, nb)
+    int32, ``pos`` (S,) and ``active`` (S,) bool are device tensors;
+    nothing is read on the host.  Planned once, applied to every layer's
+    pools.  Decode writes one row per slot; the cached-suffix prefill
+    writes its window, one slot of ``bucket`` rows."""
 
     def __init__(self, tables, pos, active, num_blocks: int,
-                 block_size: int, pool_len: int):
-        pos = pos.to(torch.long)
-        bidx = (pos // block_size).clamp(0, tables.shape[1] - 1)
-        blk = torch.gather(tables, 1, bidx[:, None])[:, 0].to(torch.long)
-        ok = active & (pos < pool_len) & (blk >= 0) & (blk < num_blocks)
-        self.off = pos % block_size
-        self.blk = _or_trash(blk, ok, num_blocks)
-        self.enter = _or_trash(blk, ok & (self.off == 0), num_blocks)
+                 block_size: int, pool_len: int, n_rows: int = 1):
+        p = (pos.to(torch.long)[:, None]
+             + torch.arange(n_rows, device=pos.device))       # (S, R)
+        bidx = (p // block_size).clamp(0, tables.shape[1] - 1)
+        blk = torch.gather(tables, 1, bidx).to(torch.long).reshape(-1)
+        ok = (active[:, None] & (p < pool_len)).reshape(-1) \
+            & (blk >= 0) & (blk < num_blocks)
+        off = (p % block_size).reshape(-1)
+        i = torch.arange(blk.shape[0], device=blk.device)
+        trash = num_blocks + i // block_size
+        self.blk = torch.where(ok, blk, trash)
+        self.off = torch.where(ok, off, i % block_size)
+        self.enter = torch.where(ok & (off == 0), blk, trash)
 
     def apply(self, pool, rows):
-        """Scrub entered blocks, then write ``rows`` (S, ...), in place.
-        (``index_fill_``: a Python 0 through a tensor index would be a
-        host-to-card copy, which a CUDA graph capture refuses.)"""
+        """Scrub entered blocks, then write ``rows`` (S * n_rows, ...), in
+        place.  (``index_fill_``: a Python 0 through a tensor index would
+        be a host-to-card copy, which a CUDA graph capture refuses.)"""
         pool.index_fill_(0, self.enter, 0)
         pool[self.blk, self.off] = rows.to(pool.dtype)
         return pool
@@ -199,6 +209,15 @@ def write_slot_blocks(pool, table, blocks, num_blocks: int):
     ok = (ids >= 0) & (ids < num_blocks)
     pool[_or_trash(ids, ok, num_blocks)] = blocks.to(pool.dtype)
     return pool
+
+
+def copy_block(pools, src: int, dst: int):
+    """pool[dst] = pool[src], in place, for every layer's k and v pool
+    (the prefix cache's copy-on-write).  Python block ids index a view:
+    nothing is copied from the host."""
+    for pair in pools:
+        for pool in pair:
+            pool[dst].copy_(pool[src])
 
 
 # ---------------------------------------------------------------------------

@@ -40,15 +40,37 @@
   CPU the kernel's plain version is the reference's gather + masked
   softmax.
 
+- **Preemption** (``preempt_slot`` / ``restore_run``): a run's KV rows
+  and sampling state (key, position, produced count, last token) are
+  copied to the host (``PreemptedRun``; paged: only the slot's own
+  blocks, gathered on the device first) and its slot and blocks freed;
+  restoring writes the rows back IN PLACE into the pool the programs
+  were captured on (paged: into freshly allocated blocks, tails zeroed,
+  which also scrubs them), so the resumed stream equals an uninterrupted
+  one token for token.
+- **Pool pressure** (paged): a decode step that cannot back its rows
+  preempts the newest run of the lowest priority class and parks it
+  (``_oom_evict``); parked runs resume first as the pool drains, their
+  blocks reserved at admission, and fail with ``KVPoolExhaustedError``
+  only when they can never fit again (``_sweep_oom_paused``).
+- **Prefix cache** (``prefix_cache=True``, paged): full prompt blocks are
+  shared between requests of one share key (``serving/prefix_cache.py``).
+  Each bucket's program is then the cached-suffix prefill: it gathers the
+  slot's table into the contiguous view, runs only the uncached suffix
+  at the device offset ``cached_len`` (0 on a miss: the cold path, one
+  program per bucket either way) and writes back only the window from
+  there.  A fully cached prompt takes a copy-on-write of its last block
+  (``ops.paged_attention.copy_block``, eager, before the program runs).
+
 Greedy streams equal a solo ``generation.generate`` run of the same
 prompt (the same float ops up to summation order).  The reference's
-preempt/restore, speculative decoding, LoRA, prefix cache, mesh and AOT
-program sets are not ported yet; without preemption a run whose next
-step cannot be backed by the pool fails with ``KVPoolExhaustedError``.
+speculative decoding, LoRA, mesh and AOT program sets are not ported
+yet.
 """
 from __future__ import annotations
 
 import functools
+import math
 import threading
 import time
 from typing import Dict, List, Optional
@@ -62,13 +84,16 @@ from ..core.programs import Program
 from ..generation.keyed import (first_token_at, greedy_step, request_key,
                                sample_step)
 from ..ops import _build
-from ..ops.paged_attention import RowWrites, SlotRowWrites, write_slot_blocks
+from ..ops.paged_attention import (RowWrites, SlotRowWrites, copy_block,
+                                   gather_block_rows, write_slot_blocks)
 from ..utils.monitor import stat_add
 from .kv_pool import KVPoolExhaustedError, PagedKVPool
+from .prefix_cache import PrefixCache
 from .request import Request, RequestCancelled, Response
 from .scheduler import DeadlineExceededError, RequestScheduler
 
-__all__ = ["ServingEngine", "NonFiniteLogitsError", "KVPoolExhaustedError"]
+__all__ = ["ServingEngine", "PreemptedRun", "NonFiniteLogitsError",
+           "KVPoolExhaustedError"]
 
 # host array dtype for each static buffer dtype (``ServingEngine._fill``)
 _HOST_DTYPE = {torch.int64: np.int64, torch.int32: np.int32,
@@ -130,6 +155,84 @@ class _SlotRun:
         self.key = key              # sampling key words (uint32 pair)
 
 
+def _views(flat, shapes):
+    """Consecutive views of the flat tensor ``flat``, shaped ``shapes``."""
+    out, off = [], 0
+    for shape in shapes:
+        n = math.prod(shape)
+        out.append(flat[off:off + n].view(shape))
+        off += n
+    return out
+
+
+def _to_host(parts):
+    """``parts`` (tensors of one dtype) on the host in one copy, into page-
+    locked memory when they come from a card (a pageable copy is staged
+    through the driver's bounce buffer at a fraction of the link's rate):
+    views of one flat buffer, shaped like them."""
+    flat = torch.cat([p.reshape(-1) for p in parts])
+    host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=flat.is_cuda)
+    return _views(host.copy_(flat), [p.shape for p in parts])
+
+
+def _staging(shapes, dtype, device):
+    """A zeroed host buffer for tensors of ``shapes`` bound for ``device``
+    in one copy (page-locked when that is a card): (flat, views)."""
+    host = torch.zeros(sum(math.prod(s) for s in shapes), dtype=dtype,
+                       pin_memory=device.type == "cuda")
+    return host, _views(host, shapes)
+
+
+class PreemptedRun:
+    """Host snapshot of a preempted run: everything needed to resume its
+    stream in any free slot later, equal to an uninterrupted run.
+    ``kv_rows`` holds per-layer ``(k_rows, v_rows)`` CPU tensors of shape
+    ``(pos, ...)``; the sampling state rides along, so decode step ``pos``
+    folds the same key it would have folded uninterrupted."""
+
+    __slots__ = ("req", "resp", "pos", "produced", "last_token", "key",
+                 "kv_rows", "preempted_at")
+
+    def __init__(self, run: _SlotRun, kv_rows):
+        self.req = run.req
+        self.resp = run.resp
+        self.pos = run.pos
+        self.produced = run.produced
+        self.last_token = run.last_token
+        self.key = run.key
+        self.kv_rows = kv_rows
+        self.preempted_at = time.monotonic()
+
+    @classmethod
+    def from_state(cls, req, resp, pos: int, produced: int,
+                   last_token: int, key, kv_rows):
+        """A PreemptedRun from raw snapshot state instead of a live run;
+        it restores through the same ``restore_run``."""
+        paused = cls.__new__(cls)
+        paused.req = req
+        paused.resp = resp
+        paused.pos = int(pos)
+        paused.produced = int(produced)
+        paused.last_token = int(last_token)
+        paused.key = np.asarray(key)
+        paused.kv_rows = kv_rows
+        paused.preempted_at = time.monotonic()
+        return paused
+
+
+class _CachedPlan:
+    """Host-side warm-admission plan (see ``_cached_plan``)."""
+
+    __slots__ = ("chain", "cow", "cached_len", "bucket", "new_live")
+
+    def __init__(self, chain, cow, cached_len, bucket, new_live):
+        self.chain = chain            # cached block ids to adopt
+        self.cow = cow                # last chain block needs a private copy
+        self.cached_len = cached_len  # the prefill's device offset
+        self.bucket = bucket          # SUFFIX bucket (plen - cached_len)
+        self.new_live = new_live      # fresh live blocks this admission costs
+
+
 class ServingEngine:
     """Continuous-batching engine over a model implementing the
     ``gen_fixed_cache`` / ``forward_fixed`` protocol (and, for
@@ -137,13 +240,17 @@ class ServingEngine:
     ``device`` (default the card; the model must already live there).
     ``dtype`` is the KV pools' and prefill scratch caches' dtype (None:
     the model's ``gen_fixed_cache`` default, f32), as in the reference;
-    a bf16 model comes from ``amp.decorate(models=model, level="O2")``."""
+    a bf16 model comes from ``amp.decorate(models=model, level="O2")``.
+    ``prefix_cache=True`` (paged only) shares full prompt blocks between
+    requests of one share key: the request's tenant, mapped through
+    ``set_share_groups``, or ``share_policy(req)`` when given."""
 
     def __init__(self, model, max_slots: int = 8, max_len: int = 256,
                  prefill_buckets=None, max_queue_depth: int = 64,
                  pad_token_id: int = 0, dtype=None, decode_chunk: int = 4,
                  kv: str = "fixed", block_size: int = 16,
-                 num_blocks: Optional[int] = None, device=DEFAULT_DEVICE):
+                 num_blocks: Optional[int] = None, prefix_cache: bool = False,
+                 share_policy=None, device=DEFAULT_DEVICE):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise InvalidArgumentError(
@@ -169,6 +276,14 @@ class ServingEngine:
             raise InvalidArgumentError(
                 f"kv must be 'fixed' or 'paged', got {kv!r}")
         self.kv = kv
+        if prefix_cache and kv != "paged":
+            raise InvalidArgumentError(
+                f"prefix_cache=True cannot be combined with kv={kv!r}: "
+                "prefix reuse shares KV blocks between requests, and only "
+                "the paged layout has blocks to share; pass kv='paged'")
+        self.prefix_cache = None
+        self._share_policy = share_policy
+        self._share_groups: Dict[str, str] = {}
         self._pool_len = self.max_len
         self.block_size = int(block_size)
         if kv == "paged":
@@ -182,14 +297,23 @@ class ServingEngine:
             self.kv_pool = PagedKVPool(int(num_blocks), self.block_size,
                                        self._pool_len)
             # trash blocks past the allocator's, where static-shape writes
-            # drop: one per slot (decode) and per prompt block (prefill)
-            trash = max(self.max_slots,
-                        self.kv_pool.blocks_for(self.buckets[-1]))
+            # drop: a row for each decode slot or prefill-window row, a
+            # block for each prompt block (the uncached prefill)
+            trash = self.kv_pool.blocks_for(max(self.max_slots,
+                                                self.buckets[-1]))
             self._pool_store = self.kv_pool.build_pools(model, dtype, trash)
             nb = self.kv_pool.num_blocks
             self._pools = [(k[:nb], v[:nb]) for k, v in self._pool_store]
             self._tables_ver = None   # allocator version in the buffer
+            # runs parked on pool pressure, resumed first as it drains
+            # (bounded: past it a run fails with KVPoolExhaustedError)
+            self._oom_paused: List[PreemptedRun] = []
+            self._max_oom_paused = max(2, 2 * self.max_slots)
+            self._oom_preempts = 0
+            self._oom_resumes = 0
             self._oom_failed = 0
+            if prefix_cache:
+                self.prefix_cache = PrefixCache(self.kv_pool)
         else:
             self.kv_pool = None
             # one gen_fixed_cache(max_slots, max_len) for the engine's life
@@ -228,18 +352,19 @@ class ServingEngine:
     # ------------------------------------------------------------------
     # requests
     # ------------------------------------------------------------------
-    def submit(self, prompt, max_new_tokens: int,
-               decode_strategy: str = "greedy_search", temperature=1.0,
-               top_k=0, top_p=1.0, eos_token_id: Optional[int] = None,
-               seed: Optional[int] = None, deadline: Optional[float] = None,
-               block: bool = False, timeout: Optional[float] = None,
-               priority: int = 0) -> Response:
-        """Enqueue one request; returns its streaming Response.  Raises
-        InvalidArgumentError for a prompt/budget the engine can never
-        serve, QueueFullError at max_queue_depth (backpressure).  A
-        sampled request draws under a key made from ``seed`` (default: the
-        request id), folded in at each token's position: its tokens
-        depend only on the seed, the positions and the logits."""
+    def make_request(self, prompt, max_new_tokens: int,
+                     decode_strategy: str = "greedy_search", temperature=1.0,
+                     top_k=0, top_p=1.0, eos_token_id: Optional[int] = None,
+                     seed: Optional[int] = None,
+                     deadline: Optional[float] = None, priority: int = 0,
+                     tenant: Optional[str] = None):
+        """Validate and build one (Request, Response) pair without queueing
+        it (``submit`` queues it; ``try_admit`` places it directly).
+        Raises InvalidArgumentError for a prompt/budget the engine can
+        never serve.  A sampled request draws under a key made from
+        ``seed`` (default: the request id), folded in at each token's
+        position: its tokens depend only on the seed, the positions and
+        the logits.  ``tenant`` scopes prefix-cache sharing."""
         if self._closed:
             raise UnavailableError("serving engine is closed")
         if self._dead is not None:
@@ -257,7 +382,7 @@ class ServingEngine:
                       temperature=temperature, top_k=top_k, top_p=top_p,
                       eos_token_id=eos_token_id,
                       seed=seed if seed is not None else rid,
-                      deadline=deadline, priority=priority)
+                      deadline=deadline, priority=priority, tenant=tenant)
         plen = req.prompt.shape[0]
         if plen > self.buckets[-1]:
             stat_add("STAT_serving_rejects")
@@ -280,9 +405,24 @@ class ServingEngine:
                     f"{self.kv_pool.num_blocks} "
                     f"(block_size={self.block_size}); raise num_blocks or "
                     "shrink the request")
-        resp = Response(req)
-        self.scheduler.submit(req, resp, block=block, timeout=timeout)
         stat_add("STAT_serving_requests")
+        return req, Response(req)
+
+    def submit(self, prompt, max_new_tokens: int,
+               decode_strategy: str = "greedy_search", temperature=1.0,
+               top_k=0, top_p=1.0, eos_token_id: Optional[int] = None,
+               seed: Optional[int] = None, deadline: Optional[float] = None,
+               block: bool = False, timeout: Optional[float] = None,
+               priority: int = 0, tenant: Optional[str] = None) -> Response:
+        """Enqueue one request (``make_request``'s checks and keys);
+        returns its streaming Response.  Raises QueueFullError at
+        max_queue_depth (backpressure)."""
+        req, resp = self.make_request(
+            prompt, max_new_tokens, decode_strategy=decode_strategy,
+            temperature=temperature, top_k=top_k, top_p=top_p,
+            eos_token_id=eos_token_id, seed=seed, deadline=deadline,
+            priority=priority, tenant=tenant)
+        self.scheduler.submit(req, resp, block=block, timeout=timeout)
         self._work.set()
         return resp
 
@@ -290,18 +430,30 @@ class ServingEngine:
     # the engine loop
     # ------------------------------------------------------------------
     def step(self) -> bool:
-        """One engine iteration: sweep deadlines/cancels, admit waiting
-        requests into free slots (one bucketed prefill each), then advance
-        every occupied slot one decode chunk.  Returns whether any work
-        was done.  An engine not yet warmed up warms up first (on the
-        card: captures its programs)."""
+        """One engine iteration: sweep deadlines/cancels (queued, active
+        and parked runs), resume parked runs, admit waiting requests into
+        free slots (one bucketed prefill each), then advance every
+        occupied slot one decode chunk.  Returns whether any work was
+        done.  An engine not yet warmed up warms up first (on the card:
+        captures its programs)."""
         if not self._warm:
             self.warmup()
         did = False
         self._sweep()
-        self.scheduler.sweep_pending()
-        gate = self._admission_gate if self.kv == "paged" else None
+        paged = self.kv == "paged"
+        dropped = self.scheduler.sweep_pending(
+            drop=((self._queued_never_fits, self._queued_exhausted_exc)
+                  if paged else None))
+        if dropped:
+            with self._m_lock:
+                self._errored += dropped
+        gate = self._admission_gate if paged else None
         with torch.inference_mode():
+            if paged:
+                did = self._sweep_oom_paused() or did
+                # parked runs hold progress and arrived earlier: they get
+                # first claim on freed slots and blocks
+                did = self._restore_oom_paused() or did
             while True:
                 adm = self.scheduler.next_admission(gate=gate)
                 if adm is None:
@@ -320,11 +472,83 @@ class ServingEngine:
             self.kv_pool.blocks_for(self._bucket_for(req.prompt.shape[0])),
             self.kv_pool.blocks_for(self._rows_needed(req)))
 
+    def _queued_never_fits(self, req: Request) -> bool:
+        """A queued request whose prefill bucket cannot fit the pool even
+        alone under the live capacity (the fault cap) can never admit."""
+        return (self.kv_pool.blocks_for(self._bucket_for(req.prompt.shape[0]))
+                > self.kv_pool.capacity())
+
+    def _queued_exhausted_exc(self, req: Request) -> BaseException:
+        # runs inside the scheduler's lock (sweep_pending's drop): takes no
+        # _m_lock (metrics() holds it while reading the scheduler); step()
+        # counts the failure from sweep_pending's return value
+        stat_add("STAT_serving_kv_exhausted")
+        return KVPoolExhaustedError(
+            f"request {req.id}: prompt bucket needs "
+            f"{self.kv_pool.blocks_for(self._bucket_for(req.prompt.shape[0]))}"
+            f" KV blocks but only {self.kv_pool.capacity()} are usable — "
+            "the request can never admit")
+
     def _admission_gate(self, req: Request) -> bool:
         """Block-aware backpressure: a request stays queued until the pool
-        can hold its prompt's bucket."""
-        bucket = self._bucket_for(req.prompt.shape[0])
-        return self.kv_pool.free_blocks() >= self.kv_pool.blocks_for(bucket)
+        can hold its prompt's bucket, beyond the blocks reserved for the
+        head parked run (parked runs resume first).  With a prefix cache a
+        warm prefix only charges its uncached suffix."""
+        reserve = (self.kv_pool.blocks_for(self._oom_paused[0].pos)
+                   if self._oom_paused else 0)
+        if self.prefix_cache is not None:
+            need = self._cached_plan(req).new_live
+        else:
+            need = self.kv_pool.blocks_for(
+                self._bucket_for(req.prompt.shape[0]))
+        return self.kv_pool.free_blocks() >= need + reserve
+
+    # ------------------------------------------------------------------
+    # prefix cache: share key and admission planning
+    # ------------------------------------------------------------------
+    def _share_key(self, req: Request) -> str:
+        """The cache partition this request may share KV with: its tenant
+        ("default" when anonymous) through the share groups, unless an
+        engine-level ``share_policy`` decides."""
+        if self._share_policy is not None:
+            return str(self._share_policy(req))
+        tenant = req.tenant if req.tenant is not None else "default"
+        return self._share_groups.get(tenant, tenant)
+
+    def set_share_groups(self, groups: Dict[str, str]):
+        """Tenant -> share-group mapping: tenants of one group share cached
+        prefixes from now on."""
+        self._share_groups = dict(groups)
+
+    def _cached_plan(self, req: Request, record: bool = False) -> _CachedPlan:
+        """The longest usable cached chain, the prefill's ``cached_len``,
+        the SUFFIX bucket and the block cost.  Two invariants: (1)
+        ``cached_len + bucket`` never exceeds the gathered view, so the
+        model's write offset never clamps onto cached rows (the chain
+        trims from its tail until it holds); (2) a prompt cached to its
+        last full block recomputes its last token inside that block, which
+        is therefore copied to a private block first (copy-on-write)."""
+        plen = int(req.prompt.shape[0])
+        bs = self.block_size
+        view_rows = self.kv_pool.max_blocks_per_slot * bs
+        chain = self.prefix_cache.match(self._share_key(req), req.prompt,
+                                        record=record)
+
+        def shape(chain):
+            cow = bool(chain) and len(chain) * bs == plen
+            cached_len = plen - 1 if cow else len(chain) * bs
+            return cow, cached_len, self._bucket_for(plen - cached_len)
+
+        cow, cached_len, bucket = shape(chain)
+        while chain and cached_len + bucket > view_rows:
+            chain = chain[:-1]
+            cow, cached_len, bucket = shape(chain)
+        total_blocks = min(self.kv_pool.blocks_for(cached_len + bucket),
+                           self.kv_pool.max_blocks_per_slot)
+        revive = sum(1 for b in chain if self.kv_pool.block_ref(b) == 0)
+        new_live = (max(0, total_blocks - len(chain)) + (1 if cow else 0)
+                    + revive)
+        return _CachedPlan(chain, cow, cached_len, bucket, new_live)
 
     def _sweep(self):
         for slot in list(self._slots):
@@ -345,8 +569,8 @@ class ServingEngine:
         self._slots.pop(slot, None)
         self.scheduler.release(slot)
         if self.kv == "paged":
-            # blocks return to the free list; their content is scrubbed
-            # when they are re-served
+            # blocks return to the free list (cached ones stay resident);
+            # their content is scrubbed when they are re-served
             self.kv_pool.free(slot)
         self._batch_dirty = True
 
@@ -364,42 +588,87 @@ class ServingEngine:
                 np.asarray(value, dtype=_HOST_DTYPE[buffers[name].dtype])
                 .reshape(buffers[name].shape)))
 
-    def _prefill(self, req: Request, slot: int, bucket: int, key):
-        """The bucket's prefill program for ``req`` into ``slot``: writes
-        the prompt's KV into the slot's pool region and samples the first
+    def _prefill(self, req: Request, slot: int, bucket: int, key,
+                 cached_len: int = 0):
+        """The bucket's prefill program for ``req`` into ``slot`` (with the
+        prefix cache: only the prompt past ``cached_len``): writes the
+        prompt's KV into the slot's pool region and samples the first
         token.  Returns (token, logp, finite) on the host."""
         plen = req.prompt.shape[0]
         ids = np.full((1, bucket), self.pad_token_id, np.int64)
-        ids[0, :plen] = req.prompt
+        ids[0, :plen - cached_len] = req.prompt[cached_len:]
         target = (self.kv_pool.table_array(slot) if self.kv == "paged"
                   else slot)
         prog = self._programs[bucket]
+        extra = ({} if self.prefix_cache is None
+                 else {"cached_len": cached_len})
         self._fill(prog.inputs, ids=ids, target=target, prompt_len=plen,
                    key=key, temp=req.temperature, top_k=req.top_k,
-                   top_p=req.top_p, greedy=req.greedy)
+                   top_p=req.top_p, greedy=req.greedy, **extra)
         tok, logp, finite = (t.cpu() for t in self._run(prog))
         return int(tok[0]), float(logp[0]), bool(finite[0])
 
+    def _admit_exhausted(self, req: Request, resp: Response, slot: int,
+                         stage: str):
+        """Blocks ran out between the admission gate and the allocation
+        (the fault cap moved): a typed terminal failure, never a hang."""
+        stat_add("STAT_serving_kv_exhausted")
+        with self._m_lock:
+            self._errored += 1
+        resp._fail(KVPoolExhaustedError(
+            f"request {req.id}: KV block pool exhausted at admission/"
+            f"{stage} ({self.kv_pool.free_blocks()} free of "
+            f"{self.kv_pool.capacity()} usable)"))
+        self.scheduler.release(slot)
+
     def _admit(self, req: Request, resp: Response, slot: int):
-        plen = req.prompt.shape[0]
-        bucket = self._bucket_for(plen)
+        if self.prefix_cache is not None:
+            return self._admit_prefix(req, resp, slot)
+        bucket = self._bucket_for(req.prompt.shape[0])
         if self.kv == "paged" and not self.kv_pool.alloc(slot, bucket):
-            stat_add("STAT_serving_kv_exhausted")
-            with self._m_lock:
-                self._errored += 1
-            resp._fail(KVPoolExhaustedError(
-                f"request {req.id}: KV block pool exhausted at admission "
-                f"({self.kv_pool.free_blocks()} free of "
-                f"{self.kv_pool.capacity()})"))
-            self.scheduler.release(slot)
-            return
+            return self._admit_exhausted(req, resp, slot, "alloc")
         key = request_key(req.seed)
         tok, logp, finite = self._prefill(req, slot, bucket, key)
+        self._start_run(req, resp, slot, key, tok, logp, finite)
+
+    def _admit_prefix(self, req: Request, resp: Response, slot: int):
+        """Warm admission: adopt the longest cached chain into the slot's
+        table, copy its last block when the whole prompt is cached, and
+        prefill only the uncached suffix (``cached_len == 0`` is the cold
+        path, in the same program)."""
+        plen = int(req.prompt.shape[0])
+        plan = self._cached_plan(req, record=True)
+        if plan.chain and not self.kv_pool.adopt(slot, plan.chain):
+            return self._admit_exhausted(req, resp, slot, "adopt")
+        if plan.cow:
+            pair = self.kv_pool.cow_last(slot)
+            if pair is None:
+                self.kv_pool.free(slot)
+                return self._admit_exhausted(req, resp, slot, "cow")
+            # before any program can write the new block
+            copy_block(self._pool_store, *pair)
+            self.prefix_cache.note_cow()
+        if not self.kv_pool.ensure(slot, plan.cached_len + plan.bucket):
+            self.kv_pool.free(slot)
+            return self._admit_exhausted(req, resp, slot, "suffix")
+        key = request_key(req.seed)
+        tok, logp, finite = self._prefill(req, slot, plan.bucket, key,
+                                          plan.cached_len)
+        if finite:
+            self.prefix_cache.insert(
+                self._share_key(req), req.prompt,
+                self.kv_pool.block_ids(slot)[:plen // self.block_size])
+        self._start_run(req, resp, slot, key, tok, logp, finite)
+
+    def _start_run(self, req: Request, resp: Response, slot: int, key,
+                   tok: int, logp: float, finite: bool):
+        """After a prefill: the slot's run, with the first token emitted."""
         stat_add("STAT_serving_prefills")
         if not finite:
             self._fail_slot(slot, resp, "prefill")
             return
-        run = _SlotRun(req, resp, pos=plen, first_token=tok, key=key)
+        run = _SlotRun(req, resp, pos=int(req.prompt.shape[0]),
+                       first_token=tok, key=key)
         self._slots[slot] = run
         self._batch_dirty = True
         self._emit(run, tok, logp)
@@ -407,7 +676,138 @@ class ServingEngine:
         self._maybe_finish(slot, run, tok)
 
     # ------------------------------------------------------------------
-    # paged KV growth and exhaustion
+    # direct placement, preemption, restore
+    # ------------------------------------------------------------------
+    def try_admit(self, req: Request, resp: Response) -> bool:
+        """Place a request (from ``make_request``) into a free slot now,
+        bypassing the FIFO queue.  Returns False when every slot is
+        occupied or, paged, when the pool cannot hold the prompt yet.
+        Call it from the thread that drives step()."""
+        if not self._warm:
+            self.warmup()
+        if self.kv == "paged" and not self._admission_gate(req):
+            return False
+        slot = self.scheduler.acquire(req, resp)
+        if slot is None:
+            return False
+        with torch.inference_mode():
+            self._admit(req, resp, slot)
+        return True
+
+    def preempt_slot(self, slot: int) -> PreemptedRun:
+        """Evict the run in ``slot``: its KV rows [0, pos) and sampling
+        state go to the host, and its slot (and blocks) are freed.  The
+        response stays open; ``restore_run`` continues it.  Paged: only
+        the slot's own blocks are gathered on the device; every layer's
+        rows then cross in one device-to-host copy.  Call it between
+        steps from the driving thread."""
+        run = self._slots.get(slot)
+        if run is None:
+            raise InvalidArgumentError(f"slot {slot} holds no active run")
+        pools = [t for pair in self._pool_store for t in pair]
+        with torch.no_grad():
+            if self.kv == "paged":
+                idx = torch.tensor(self.kv_pool.block_ids(slot),
+                                   dtype=torch.long).to(self.device)
+                parts = [t.index_select(0, idx).reshape(
+                    (-1,) + tuple(t.shape[2:]))[:run.pos] for t in pools]
+            else:
+                parts = [t[slot, :run.pos] for t in pools]
+            rows = _to_host(parts)
+        paused = PreemptedRun(run, list(zip(rows[0::2], rows[1::2])))
+        run.req.preempts += 1
+        self._slots.pop(slot, None)
+        self.scheduler.release(slot)
+        if self.kv == "paged":
+            self.kv_pool.free(slot)
+        self._batch_dirty = True
+        stat_add("STAT_serving_preemptions")
+        return paused
+
+    def restore_run(self, paused: PreemptedRun) -> bool:
+        """Resume a preempted run in any free slot: its rows cross in one
+        host-to-device copy and are written in place into the pool the
+        programs read (paged: into fresh blocks, tails zeroed; with the
+        prefix cache, past the prefix it re-pins), and decode continues
+        from the saved position with the saved key.  Returns False when no
+        slot is free or, paged, when the pool cannot hold the rows yet
+        (the caller retries)."""
+        slot = self.scheduler.acquire(paused.req, paused.resp)
+        if slot is None:
+            return False
+        with torch.no_grad():
+            if self.kv == "paged":
+                if self.prefix_cache is not None:
+                    start = self._restore_paged_prefix(slot, paused)
+                elif self.kv_pool.alloc(slot, paused.pos):
+                    start = 0
+                else:
+                    start = None
+                if start is None:
+                    self.scheduler.release(slot)
+                    return False
+                self._paged_upload(slot, paused.kv_rows, paused.pos, start)
+            else:
+                pools = [t for pair in self._pool_store for t in pair]
+                rows = [r for pair in paused.kv_rows for r in pair]
+                shapes = [r.shape for r in rows]
+                host, bufs = _staging(shapes, pools[0].dtype, self.device)
+                for buf, r in zip(bufs, rows):
+                    buf.copy_(r)
+                dev = _views(host.to(self.device), shapes)
+                for t, r in zip(pools, dev):
+                    t[slot, :paused.pos].copy_(r)
+        return self._finish_restore(slot, paused)
+
+    def _restore_paged_prefix(self, slot: int, paused: PreemptedRun):
+        """Re-pin a restored run's cached prefix instead of uploading it:
+        re-match the prompt, adopt the resident chain (less its last block
+        when it covers the whole prompt: that block's private copy was
+        freed with the slot) and allocate the rest.  Returns the first row
+        to upload, or None (holding nothing) when the pool is short."""
+        req = paused.req
+        chain = self.prefix_cache.match(self._share_key(req), req.prompt)
+        if chain and len(chain) * self.block_size >= req.prompt.shape[0]:
+            chain = chain[:-1]
+        if chain and not self.kv_pool.adopt(slot, chain):
+            return None
+        if not self.kv_pool.ensure(slot, paused.pos):
+            self.kv_pool.free(slot)
+            return None
+        return len(chain) * self.block_size
+
+    def _paged_upload(self, slot: int, rows, pos: int, start_row: int = 0):
+        """Write snapshot rows [start_row, pos) into the slot's blocks past
+        ``start_row`` (block-aligned), in place, block tails zero-filled:
+        the upload is also the scrub.  Adopted shared blocks before
+        ``start_row`` are never written."""
+        bs = self.block_size
+        ids = self.kv_pool.block_ids(slot)[start_row // bs:]
+        if not ids:
+            return
+        pools = [t for pair in self._pool_store for t in pair]
+        shapes = [(len(ids), bs) + tuple(t.shape[2:]) for t in pools]
+        host, bufs = _staging(shapes, pools[0].dtype, self.device)
+        for buf, r in zip(bufs, (r for pair in rows for r in pair)):
+            buf.view((-1,) + tuple(buf.shape[2:]))[:pos - start_row] = \
+                r[start_row:pos]
+        idx = torch.tensor(ids, dtype=torch.long).to(self.device)
+        for pool, buf in zip(pools, _views(host.to(self.device), shapes)):
+            pool.index_copy_(0, idx, buf)
+
+    def _finish_restore(self, slot: int, paused: PreemptedRun) -> bool:
+        run = _SlotRun(paused.req, paused.resp, pos=paused.pos,
+                       first_token=paused.last_token, key=paused.key)
+        run.produced = paused.produced
+        paused.req.resumes += 1
+        paused.req.paused_seconds += time.monotonic() - paused.preempted_at
+        self._slots[slot] = run
+        self._batch_dirty = True
+        stat_add("STAT_serving_resumes")
+        return True
+
+    # ------------------------------------------------------------------
+    # paged KV growth and pressure: ensure or preempt, park, resume
     # ------------------------------------------------------------------
     def _rows_needed(self, req: Request) -> int:
         """Pool rows that must be backed for every consumed token: the
@@ -436,21 +836,43 @@ class ServingEngine:
 
     def _ensure_decode_blocks(self):
         """Before a paged step: grow every active table to cover the rows
-        the step may write.  A shortfall fails the newest lowest-priority
-        run (or, when there is none, the needy run) with the typed
-        KVPoolExhaustedError and retries — each failure frees blocks."""
+        the step may write.  A shortfall preempts the newest run of the
+        lowest priority class (or, when there is none, the needy run) and
+        parks it; each preemption frees blocks."""
         for slot in sorted(self._slots):
             run = self._slots.get(slot)
             if run is None:
                 continue
             target = self._oom_target(run.pos, run.req)
+            guard = 0
             while (slot in self._slots
                    and not self.kv_pool.ensure(slot, target)):
                 victim = self._pick_oom_victim(slot)
-                self._oom_fail(slot if victim is None else victim)
+                if victim is None:
+                    self._oom_evict(slot)
+                    break
+                self._oom_evict(victim)
+                guard += 1
+                if guard > self.max_slots + 2:
+                    break
 
-    def _oom_fail(self, slot: int):
-        run = self._slots[slot]
+    def _oom_evict(self, slot: int):
+        """Park the run (preempt it) — or fail it typed when parking would
+        never end: its next step cannot fit the pool even alone, or the
+        parking budget is full."""
+        run = self._slots.get(slot)
+        if run is None:
+            return
+        if (len(self._oom_paused) >= self._max_oom_paused
+                or not self.kv_pool.can_ever_fit(
+                    self._oom_target(run.pos, run.req))):
+            self._oom_fail(slot, run)
+            return
+        self._oom_paused.append(self.preempt_slot(slot))
+        self._oom_preempts += 1
+        stat_add("STAT_serving_kv_oom_preempts")
+
+    def _oom_fail(self, slot: int, run: _SlotRun):
         stat_add("STAT_serving_kv_exhausted")
         self._oom_failed += 1
         with self._m_lock:
@@ -458,8 +880,53 @@ class ServingEngine:
         run.resp._fail(KVPoolExhaustedError(
             f"request {run.req.id}: KV block pool exhausted mid-decode "
             f"({self.kv_pool.used_blocks()} used of "
-            f"{self.kv_pool.capacity()} blocks)"))
+            f"{self.kv_pool.capacity()} usable blocks) and the run can no "
+            "longer be parked or resumed"))
         self._release(slot)
+
+    def _sweep_oom_paused(self) -> bool:
+        """Parked runs honour cancel and deadline, and one that can no
+        longer ever fit (the fault cap shrank the pool) fails typed."""
+        keep, changed = [], False
+        for p in self._oom_paused:
+            if p.resp.cancelled:
+                stat_add("STAT_serving_cancelled")
+                p.resp._fail(RequestCancelled(
+                    f"request {p.req.id} cancelled while parked on KV "
+                    "pool pressure"))
+            elif p.req.deadline is not None and p.req.deadline.expired():
+                stat_add("STAT_serving_deadline_expired")
+                p.resp._fail(DeadlineExceededError(
+                    f"request {p.req.id} deadline "
+                    f"({p.req.deadline.seconds}s) expired while parked "
+                    "on KV pool pressure"))
+            elif not self.kv_pool.can_ever_fit(
+                    self._oom_target(p.pos, p.req)):
+                stat_add("STAT_serving_kv_exhausted")
+                self._oom_failed += 1
+                with self._m_lock:
+                    self._errored += 1
+                p.resp._fail(KVPoolExhaustedError(
+                    f"request {p.req.id}: parked on KV pool pressure and "
+                    f"the pool ({self.kv_pool.capacity()} usable blocks) "
+                    "can no longer hold it"))
+            else:
+                keep.append(p)
+                continue
+            changed = True
+        self._oom_paused = keep
+        return changed
+
+    def _restore_oom_paused(self) -> bool:
+        did = False
+        while self._oom_paused and self.scheduler.free_slot_count() > 0:
+            if not self.restore_run(self._oom_paused[0]):
+                break
+            self._oom_paused.pop(0)
+            self._oom_resumes += 1
+            stat_add("STAT_serving_kv_oom_resumes")
+            did = True
+        return did
 
     def _host_tables(self) -> np.ndarray:
         """(S, nb) int32 block tables of every slot — sentinel rows for
@@ -587,12 +1054,46 @@ class ServingEngine:
         return first_token_at(logits, last, last, key, temp, top_k, top_p,
                               greedy)
 
+    def _prefill_cached_program(self, bucket: int, ids, prompt_len,
+                                cached_len, target, key, temp, top_k, top_p,
+                                greedy):
+        """One bucket's prefill with the prefix cache (reference
+        ``_build_prefill_cached``, ``:1167-1217``): the slot's table
+        gathered into its contiguous view (the adopted cached blocks give
+        rows [0, cached_len)), the prompt's uncached suffix through the
+        model at the device offset ``cached_len``, and only the window of
+        ``bucket`` rows from there written back through the table
+        (entered blocks scrubbed first; the window never clamps: see
+        ``_cached_plan``).  It starts at a block boundary unless the
+        slot's last block is its private copy-on-write copy, so a shared
+        block is never written.  The first token is sampled at
+        ``prompt_len - 1 - cached_len``.  ``cached_len == 0`` is the cold
+        path.  Returns (token, logp, finite), each (1,)."""
+        ctx = [(gather_block_rows(kp, target)[None],
+                gather_block_rows(vp, target)[None])
+               for kp, vp in self._pool_store]
+        logits, kv = self.model.forward_fixed(ids, ctx, cached_len)
+        start = cached_len.clamp(max=ctx[0][0].shape[1] - bucket).clamp(min=0)
+        writes = SlotRowWrites(
+            target[None], start,
+            torch.ones((1,), dtype=torch.bool, device=target.device),
+            self.kv_pool.num_blocks, self.block_size, self._pool_len,
+            n_rows=bucket)
+        rows = start + torch.arange(bucket, device=start.device)
+        for (kp, vp), (kc, vc) in zip(self._pool_store, kv):
+            writes.apply(kp, kc[0].index_select(0, rows))
+            writes.apply(vp, vc[0].index_select(0, rows))
+        return first_token_at(logits, prompt_len - 1 - cached_len,
+                              prompt_len - 1, key, temp, top_k, top_p,
+                              greedy)
+
     def _make_programs(self) -> Dict[object, Program]:
         """Every program with its static input buffers: one prefill per
-        bucket (keyed by the bucket) and the decode chunk, mixed
-        ("decode") and all-greedy ("decode_greedy"), sharing one set of
-        buffers.  The buffers start as a warm-up input: sentinel tables
-        and inactive slots (paged writes drop), slot 0 (fixed)."""
+        bucket (keyed by the bucket; with the prefix cache the
+        cached-suffix prefill) and the decode chunk, mixed ("decode") and
+        all-greedy ("decode_greedy"), sharing one set of buffers.  The
+        buffers start as a warm-up input: sentinel tables and inactive
+        slots (paged writes drop), slot 0 (fixed)."""
         dev, s = self.device, self.max_slots
 
         def full(shape, value, dtype):
@@ -623,9 +1124,13 @@ class ServingEngine:
             "decode": Program(self._decode_program, dec),
             "decode_greedy": Program(
                 functools.partial(self._decode_program, sample=False), dec)}
+        prefill = self._prefill_program
+        if self.prefix_cache is not None:
+            prefill = self._prefill_cached_program
+            pre["cached_len"] = full((1,), 0, torch.int64)
         for b in self.buckets:
             programs[b] = Program(
-                functools.partial(self._prefill_program, b),
+                functools.partial(prefill, b),
                 dict(pre, ids=full((1, b), self.pad_token_id, torch.int64)))
         return programs
 
@@ -717,7 +1222,8 @@ class ServingEngine:
     # driving
     # ------------------------------------------------------------------
     def has_work(self) -> bool:
-        return bool(self._slots) or self.scheduler.has_work()
+        return (bool(self._slots) or self.scheduler.has_work()
+                or bool(self.kv == "paged" and self._oom_paused))
 
     def run_until_drained(self, timeout: Optional[float] = None):
         """Drive the loop in the caller's thread until queue and slots are
@@ -740,6 +1246,10 @@ class ServingEngine:
             run.resp._fail(make_exc(run.req))
         for req, resp in self.scheduler.drain_pending():
             resp._fail(make_exc(req))
+        if self.kv == "paged":
+            paused, self._oom_paused = self._oom_paused, []
+            for p in paused:
+                p.resp._fail(make_exc(p.req))
         self._batch_dirty = True
 
     def start(self):
@@ -870,12 +1380,25 @@ class ServingEngine:
                 "slot_occupancy": self.scheduler.occupancy(),
                 "max_slots": self.max_slots,
                 "warm": self._warm,
-                "kv_pool": ({"kind": "fixed", "max_slots": self.max_slots,
-                             "pool_len": self._pool_len}
-                            if self.kv == "fixed" else
-                            {"kind": "paged", **self.kv_pool.stats(),
-                             "oom_failed": self._oom_failed}),
+                "kv_pool": self._kv_pool_metrics(),
             }
+
+    def _kv_pool_metrics(self) -> Dict:
+        """The pool's blocks (used, free, cached), the pressure counters
+        (preemptions, resumes, OOM failures, runs parked now) and the
+        prefix cache's (hits, misses, hit rate, evictions, copy-on-write
+        copies)."""
+        if self.kv != "paged":
+            return {"kind": "fixed", "max_slots": self.max_slots,
+                    "pool_len": self._pool_len}
+        out = {"kind": "paged", **self.kv_pool.stats(),
+               "oom_preempts": self._oom_preempts,
+               "oom_resumes": self._oom_resumes,
+               "oom_failed": self._oom_failed,
+               "oom_paused": len(self._oom_paused)}
+        if self.prefix_cache is not None:
+            out["prefix_cache"] = self.prefix_cache.stats()
+        return out
 
     def __enter__(self):
         return self

@@ -1,5 +1,6 @@
 """Request / streaming-Response handles for the serving engine (port of
-paddle_tpu/serving/request.py without the gateway/fleet/LoRA fields).
+paddle_tpu/serving/request.py without the gateway/fleet/LoRA/speculative
+fields).
 
 A `Request` is the immutable description of one decode job (prompt, token
 budget, sampling params, deadline); a `Response` is the caller's handle on
@@ -34,7 +35,8 @@ class Request:
 
     __slots__ = ("id", "prompt", "max_new_tokens", "greedy", "temperature",
                  "top_k", "top_p", "eos_token_id", "seed", "deadline",
-                 "priority")
+                 "priority", "tenant", "preempts", "resumes",
+                 "paused_seconds")
 
     def __init__(self, rid: int, prompt, max_new_tokens: int,
                  greedy: bool = True, temperature: float = 1.0,
@@ -42,7 +44,7 @@ class Request:
                  eos_token_id: Optional[int] = None,
                  seed: Optional[int] = None,
                  deadline: Optional[float] = None,
-                 priority: int = 0):
+                 priority: int = 0, tenant: Optional[str] = None):
         self.id = int(rid)
         self.prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
         if self.prompt.size == 0:
@@ -61,8 +63,14 @@ class Request:
         # budget counts from SUBMISSION (queue wait included)
         self.deadline = Deadline(deadline) if deadline is not None else None
         # under KV-pool pressure the newest run of the lowest priority
-        # class is the one that fails
+        # class is the one preempted
         self.priority = int(priority)
+        # the prefix cache's share key (tenant-private by default)
+        self.tenant = tenant
+        # stamped by engine.preempt_slot / restore_run
+        self.preempts = 0
+        self.resumes = 0
+        self.paused_seconds = 0.0  # total wall time spent preempted
 
 
 _TOK, _END, _ERR = 0, 1, 2

@@ -75,6 +75,10 @@ class RequestScheduler:
         with self._lock:
             return len(self._active)
 
+    def free_slot_count(self) -> int:
+        with self._lock:
+            return len(self._free)
+
     def has_work(self) -> bool:
         with self._lock:
             return bool(self._pending or self._active)
@@ -118,6 +122,18 @@ class RequestScheduler:
                 return req, resp, slot
             return None
 
+    def acquire(self, req: Request, resp: Response) -> Optional[int]:
+        """Claim a free slot for a request that bypasses the FIFO queue
+        (``ServingEngine.try_admit`` and the restore of a preempted run).
+        Returns the slot, or None when every slot is occupied."""
+        with self._lock:
+            if not self._free:
+                return None
+            slot = self._free.pop()
+            self._active[slot] = (req, resp)
+            stat_add("STAT_serving_slots_active")
+            return slot
+
     def release(self, slot: int):
         """Recycle a slot (completion, cancellation, deadline, or fault).
         The KV content is left as-is: the next prefill into this slot
@@ -139,9 +155,15 @@ class RequestScheduler:
             self._space.notify_all()
             return drained
 
-    def sweep_pending(self):
+    def sweep_pending(self, drop=None) -> int:
         """Fail queued requests whose deadline expired or that were
-        cancelled, without waiting for a free slot."""
+        cancelled, without waiting for a free slot.  ``drop`` (optional) is
+        a ``(pred, make_exc)`` pair: requests with ``pred(req)`` fail with
+        ``make_exc(req)`` (the paged engine's can-never-admit check).
+        Returns how many ``drop`` failed; ``pred`` and ``make_exc`` run
+        under the scheduler's lock and must take no lock held around
+        scheduler reads (the caller does its own accounting)."""
+        dropped = 0
         with self._space:
             keep = deque()
             for req, resp in self._pending:
@@ -154,9 +176,13 @@ class RequestScheduler:
                     resp._fail(DeadlineExceededError(
                         f"request {req.id} deadline "
                         f"({req.deadline.seconds}s) expired while queued"))
+                elif drop is not None and drop[0](req):
+                    resp._fail(drop[1](req))
+                    dropped += 1
                 else:
                     keep.append((req, resp))
                     continue
                 stat_add("STAT_serving_queue_depth", -1)
                 self._space.notify()
             self._pending = keep
+        return dropped

@@ -1001,10 +1001,10 @@ def test_engine_replayed_decode_matches_uncaptured(cuda, dt, program):
 @pytest.mark.parametrize("kv", ["fixed", "paged"])
 def test_engine_captured_streams_equal_uncaptured_and_nothing_recaptured(
         cuda, kv):
-    """Greedy and sampled traffic with churn and a mid-decode OOM failure:
-    the captured engine's streams equal the uncaptured path's, and no
-    program is captured after warmup."""
-    from paddle_tpu_torch.serving import KVPoolExhaustedError, ServingEngine
+    """Greedy and sampled traffic with churn and mid-decode OOM preemption
+    (paged, a 12-block pool): the captured engine's streams equal the
+    uncaptured path's, and no program is captured after warmup."""
+    from paddle_tpu_torch.serving import ServingEngine
     model = _serving_model(cuda, torch.float32)
     extra = dict(num_blocks=12) if kv == "paged" else {}
     streams = []
@@ -1017,16 +1017,11 @@ def test_engine_captured_streams_equal_uncaptured_and_nothing_recaptured(
             ENGINE["prefill_buckets"]) + 2
         resps = _traffic(eng, 8)
         eng.run_until_drained(timeout=300)
-        got = []
-        for r in resps:
-            try:
-                got.append(r.tokens(timeout=5))
-            except KVPoolExhaustedError:
-                got.append("oom")
-        streams.append(got)
+        streams.append([r.tokens(timeout=5) for r in resps])
         assert eng.post_warmup_compiles() == 0
         if kv == "paged":
-            assert "oom" in got, "sanity: the small pool must run out"
+            assert eng.metrics()["kv_pool"]["oom_preempts"] > 0, \
+                "sanity: the small pool must run short"
     assert streams[0] == streams[1]
 
 
@@ -1068,6 +1063,115 @@ def test_engine_replays_count_kernel_launches(cuda):
         want = sum(n * _per_replay(eng._programs[name]).get(
             wrapper.__name__, 0) for name, n in replays.items())
         assert wrapper.launches == want > 0
+
+
+# the KV lifecycle on the captured engine: preemption, pool pressure and
+# the prefix cache write the pools the graphs were captured on in place,
+# so the replays see every restore, upload and copy-on-write.  Streams are
+# compared token for token: K3 and K4 compute each decode row on its own
+# at the fixed M of 8, and the sampler folds key and position.
+
+def _long_traffic(eng, n=8):
+    rng = np.random.RandomState(6)
+    return [eng.submit(rng.randint(0, 1024, (int(rng.randint(3, 60)),)),
+                       max_new_tokens=int(rng.randint(30, 60)),
+                       **({"decode_strategy": "sampling", "seed": i,
+                           "temperature": 0.9, "top_k": 50}
+                          if i % 3 == 1 else {}))
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("kv", ["fixed", "paged"])
+def test_engine_preempt_restore_equals_uninterrupted(cuda, kv):
+    """Every active run of a captured engine preempted after two steps and
+    restored (in place, into other slots): every stream equals the
+    uninterrupted engine's."""
+    from paddle_tpu_torch.serving import ServingEngine
+    model = _serving_model(cuda, torch.float32)
+    streams = []
+    for preempt in (False, True):
+        eng = ServingEngine(model, kv=kv, device=cuda, **ENGINE)
+        eng.warmup()
+        resps = _long_traffic(eng, 6)
+        eng.step()
+        eng.step()
+        if preempt:
+            parked = [eng.preempt_slot(s) for s in sorted(eng._slots)]
+            assert len(parked) == ENGINE["max_slots"] and not eng._slots
+            for p in reversed(parked):
+                assert eng.restore_run(p)
+        eng.run_until_drained(timeout=300)
+        streams.append([r.tokens(timeout=5) for r in resps])
+        assert eng.post_warmup_compiles() == 0
+    assert streams[0] == streams[1]
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_engine_pool_pressure_equals_an_unpressured_engine(cuda, dt):
+    """A captured paged engine on 10 blocks where 32 would back every slot
+    parks and resumes runs (none fails), and every stream equals the same
+    traffic on the full pool."""
+    from paddle_tpu_torch.serving import ServingEngine
+    dtype = DTYPES[dt]
+    model = _serving_model(cuda, dtype)
+    streams = []
+    for extra in ({}, dict(num_blocks=10)):
+        eng = ServingEngine(model, kv="paged", dtype=dtype, device=cuda,
+                            **ENGINE, **extra)
+        eng.warmup()
+        resps = _long_traffic(eng)
+        eng.run_until_drained(timeout=300)
+        streams.append([r.tokens(timeout=5) for r in resps])
+        kv = eng.metrics()["kv_pool"]
+        assert kv["oom_failed"] == 0 and kv["oom_resumes"] == \
+            kv["oom_preempts"]
+        assert eng.post_warmup_compiles() == 0
+    assert kv["oom_preempts"] > 0, "sanity: the small pool must run short"
+    assert streams[0] == streams[1]
+
+
+def _cached_blocks(eng):
+    blocks = sorted(n.block for n in eng.prefix_cache._nodes.values())
+    return {b: [t[b].clone() for pair in eng._pools for t in pair]
+            for b in blocks}
+
+
+def test_engine_prefix_cache_keeps_shared_blocks_and_captures_nothing(cuda):
+    """Warm admissions (suffixes from a block boundary), a copy-on-write
+    admission and their decode steps on the captured prefix engine: the
+    blocks cached before them are unchanged bit for bit, the cache hits,
+    nothing is captured after warmup, and the streams equal the same
+    engine's uncaptured ones."""
+    from paddle_tpu_torch.serving import ServingEngine
+    model = _serving_model(cuda, torch.float32)
+    rng = np.random.RandomState(8)
+    template = rng.randint(0, 1024, (48,))
+    prompts = [np.concatenate([template[:32], rng.randint(0, 1024, (n,))])
+               for n in (5, 17, 30)] + [template]
+    streams = []
+    for uncaptured in (False, True):
+        eng = ServingEngine(model, kv="paged", prefix_cache=True,
+                            device=cuda, **ENGINE)
+        eng._run_uncaptured = uncaptured
+        eng.warmup()
+        first = eng.submit(template, max_new_tokens=4)
+        eng.run_until_drained(timeout=120)
+        shared = _cached_blocks(eng)
+        assert len(shared) == 3
+        resps = [first] + [
+            eng.submit(p, max_new_tokens=24,
+                       **({"decode_strategy": "sampling", "seed": 4}
+                          if i == 1 else {}))
+            for i, p in enumerate(prompts)]
+        eng.run_until_drained(timeout=300)
+        after = _cached_blocks(eng)
+        for b, tensors in shared.items():
+            assert all(torch.equal(x, y) for x, y in zip(tensors, after[b]))
+        stats = eng.prefix_cache.stats()
+        assert stats["hits"] > 0 and stats["cow_copies"] == 1
+        assert eng.post_warmup_compiles() == 0
+        streams.append([r.tokens(timeout=5) for r in resps])
+    assert streams[0] == streams[1]
 
 
 # ---------------------------------------------------------------------------

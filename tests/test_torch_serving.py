@@ -4,9 +4,9 @@ Greedy streams of the port's engine (fixed and paged KV pools, f32 and
 int8 weights) equal the JAX engine's streams and the port's own solo
 generate; scrub-on-recycle leaves no stale KV in the block pool (held
 bit for bit against the JAX engine's pool under the same traffic); KV
-exhaustion is backpressure at admission and a typed KVPoolExhaustedError
-mid-decode; an entry point left on its default device raises without a
-card."""
+exhaustion is backpressure at admission, and a typed KVPoolExhaustedError
+mid-decode for a run that can never fit again; an entry point left on its
+default device raises without a card."""
 import numpy as np
 import pytest
 import torch
@@ -21,6 +21,7 @@ from paddle_tpu_torch.core.errors import InvalidArgumentError, UnavailableError
 from paddle_tpu_torch.nn import Embedding, Layer
 from paddle_tpu_torch.serving import (KVPoolExhaustedError, QueueFullError,
                                       RequestCancelled, ServingEngine)
+from paddle_tpu_torch.utils import faults
 from paddle_tpu_torch.utils.monitor import stats
 
 from torch_parity import jax_state, tiny_pair, torch_solo
@@ -176,22 +177,29 @@ def test_fixed_slot_reuse_keeps_no_stale_kv():
 
 
 def test_kv_exhaustion_mid_decode_fails_newest_typed():
-    """Two runs that cannot both grow in a 4-block pool: the newer fails
-    with KVPoolExhaustedError, the older finishes equal to solo."""
+    """Two runs that cannot both grow in a 4-block pool capped live at 3
+    blocks (PDTPU_FAULT_KV_EXHAUST): they take turns parked, the newer
+    one, which would need all 4 blocks, fails with KVPoolExhaustedError
+    once it can never fit, and the older one finishes equal to solo."""
     _, tm = tiny_pair(seed=1)
     eng = ServingEngine(tm, max_slots=2, max_len=48, prefill_buckets=(8,),
                         decode_chunk=4, kv="paged", block_size=8,
                         num_blocks=4, device="cpu")
     p1, p2 = [1, 2, 3, 4], [5, 6, 7]
-    r1 = eng.submit(p1, max_new_tokens=20)
-    r2 = eng.submit(p2, max_new_tokens=20)
-    eng.run_until_drained(timeout=120)
+    r1 = eng.submit(p1, max_new_tokens=20)      # 23 rows: 3 blocks
+    r2 = eng.submit(p2, max_new_tokens=28)      # 30 rows: 4 blocks
+    faults.enable("kv_exhaust", "3")
+    try:
+        eng.run_until_drained(timeout=120)
+    finally:
+        faults.reset()
     assert r1.tokens() == torch_solo(tm, p1, 20)
     with pytest.raises(KVPoolExhaustedError):
         r2.tokens(timeout=5)
     assert r2.finish_reason == "error"
     assert eng.kv_pool.used_blocks() == 0
     assert eng.metrics()["kv_pool"]["oom_failed"] == 1
+    assert eng.metrics()["kv_pool"]["oom_preempts"] >= 1
     # the engine keeps serving
     r3 = eng.submit(p2, max_new_tokens=6)
     eng.run_until_drained(timeout=60)

@@ -13,9 +13,10 @@ paddle_tpu_torch against the JAX package on the CPU.
   leave the real blocks equal to the host-planned writes, and the engine's
   pool equal to the reference engine's after admission / release churn.
 - The programs read nothing on the host: with every host read patched to
-  raise, the prefill and both decode programs still run.
+  raise, the prefills (the cached-suffix prefill too), both decode
+  programs and the copy-on-write block copy still run.
 - ``compile_counts()`` stays at its bound and ``post_warmup_compiles()``
-  at 0 over greedy, sampled, churned and OOM-failed traffic.
+  at 0 over greedy, sampled, churned and OOM-preempted traffic.
 """
 import types
 
@@ -31,7 +32,7 @@ from paddle_tpu.serving import ServingEngine as JEngine
 from paddle_tpu_torch import load_paddle_state
 from paddle_tpu_torch.generation import keyed
 from paddle_tpu_torch.ops import paged_attention as tpa
-from paddle_tpu_torch.serving import KVPoolExhaustedError, ServingEngine
+from paddle_tpu_torch.serving import ServingEngine
 
 from test_torch_serving import JMarkerModel, MarkerModel
 from torch_parity import jax_state, tiny_pair, torch_solo
@@ -288,23 +289,38 @@ def _no_host_reads(monkeypatch):
     monkeypatch.setattr(torch.Tensor, "__setitem__", tensor_values_only)
 
 
-@pytest.mark.parametrize("kv", ["fixed", "paged"])
+@pytest.mark.parametrize("kv", ["fixed", "paged", "paged_prefix"])
 def test_programs_read_nothing_on_the_host(pair, kv, monkeypatch):
+    """The prefill and both decode programs (with the prefix cache: the
+    cached-suffix prefill on a warm admission's inputs) and the
+    copy-on-write block copy run with every host read refused."""
     _, tm = pair
-    eng = ServingEngine(tm, kv=kv, device="cpu", **ENGINE)
-    eng.submit([4, 8, 15], max_new_tokens=20, decode_strategy="sampling",
-               seed=5)
-    eng.submit([16, 23, 42, 1, 2, 3, 4, 5, 6], max_new_tokens=20)
+    prefix = kv == "paged_prefix"
+    eng = ServingEngine(tm, kv="paged" if prefix else kv,
+                        prefix_cache=prefix, device="cpu", **ENGINE)
+    eng.submit(list(range(1, 17)) if prefix else [4, 8, 15],
+               max_new_tokens=20, decode_strategy="sampling", seed=5)
+    # with the prefix cache: a warm admission (8 cached rows, bucket 8)
+    eng.submit([1, 2, 3, 4, 5, 6, 7, 8, 40, 41, 42] if prefix
+               else [16, 23, 42, 1, 2, 3, 4, 5, 6], max_new_tokens=20)
     eng.step()                 # warm up, admit both, one decode chunk
+    if prefix:
+        assert eng.prefix_cache.hits == 1
+        assert int(eng._programs[8].inputs["cached_len"]) == 8
     with torch.inference_mode():
         eng._rebuild_batch()
-        if kv == "paged":
+        if kv != "fixed":
             eng._sync_tables(True)
-        bucket = ENGINE["prefill_buckets"][-1]
+        # the prefills share their scalar buffers: run the bucket of the
+        # last admission (prefix: the warm one, 8; else 16)
+        bucket = 8 if prefix else ENGINE["prefill_buckets"][-1]
+        names = ("decode", "decode_greedy", bucket)
         with monkeypatch.context() as m:
             _no_host_reads(m)
-            out = {name: eng._programs[name].run()
-                   for name in ("decode", "decode_greedy", bucket)}
+            out = {name: eng._programs[name].run() for name in names}
+            if prefix:
+                tpa.copy_block(eng._pool_store, eng.kv_pool.block_ids(0)[0],
+                               eng.kv_pool._free[-1])
     toks, logps, finites, tokens, pos = out["decode"]
     assert toks.shape == (ENGINE["decode_chunk"], ENGINE["max_slots"])
     assert bool(finites.all()) and tokens.shape == pos.shape
@@ -312,8 +328,8 @@ def test_programs_read_nothing_on_the_host(pair, kv, monkeypatch):
 
 
 def test_compile_counts_stay_zero_over_churn_and_oom(pair):
-    """Greedy and sampled traffic, releases and a mid-decode OOM failure
-    on a paged engine: nothing is made after warmup."""
+    """Greedy and sampled traffic, releases and mid-decode OOM preemption
+    and restore on a paged engine: nothing is made after warmup."""
     _, tm = pair
     eng = ServingEngine(tm, max_slots=2, max_len=48, prefill_buckets=(8,),
                         decode_chunk=4, kv="paged", block_size=8,
@@ -326,11 +342,11 @@ def test_compile_counts_stay_zero_over_churn_and_oom(pair):
                     decode_strategy="sampling", seed=9)
     eng.run_until_drained(timeout=120)
     assert r1.tokens() == torch_solo(tm, [1, 2, 3, 4], 20)
-    with pytest.raises(KVPoolExhaustedError):
-        r2.tokens(timeout=5)
-    r3 = eng.submit([5, 6, 7], max_new_tokens=6, decode_strategy="sampling",
+    assert len(r2.tokens(timeout=5)) == 20
+    assert r1.request.preempts + r2.request.preempts >= 1
+    r3 = eng.submit([5, 6, 7], max_new_tokens=20, decode_strategy="sampling",
                     seed=9)
     eng.run_until_drained(timeout=60)
-    assert len(r3.tokens(timeout=5)) == 6
+    assert r3.tokens(timeout=5) == r2.tokens()
     assert eng.post_warmup_compiles() == 0
     assert eng.compile_counts()["total"] == 3
