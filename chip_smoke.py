@@ -72,10 +72,35 @@ Phases (any failure exits non-zero before the result line):
                 and max with and without the cache, and the device ms of a
                 warm prefill (bucket 64 at cached_len 384) against a cold
                 one (bucket 512; and the uncached engine's bucket 512).
-  8. fixed    — 4-layer full-width engines on the fixed pool, captured, f32
+  8. spec     — speculative decoding on the serve model (f32 pools) with
+                a draft of GPT-2 small's widths (12 x 768, 12 heads, vocab
+                50304, int8, random weights from --seed + 4), spec_tokens=4:
+                K3 and K4 checked against their plain versions at the spec
+                path's shapes (K3: the draft's 8 x 12 heads and the verify's
+                40 flattened rows, tables repeated per row, pos + j; K4:
+                the verify's M = 40 on GPT-2 medium's Linears, the draft's
+                M = 8 and its prefill buckets on GPT-2 small's), K3 timed
+                at the verify shape beside two bounds (the flattened rows'
+                K/V bytes and the live K/V bytes read once); then the serve
+                phase's 8 requests through the plain engine, the
+                speculative engine captured (warmup captures len(buckets)
+                + 2, none after; K3 / K4 must launch through the replays,
+                counters zeroed just before) and the same uncaptured: all
+                streams captured == uncaptured, and each greedy stream
+                equals the plain engine's or splits where the plain path's
+                top-two margin is below 2e-3 (printed).  One verify tick's
+                logits on the kernel path within 2e-3 of the plain path on
+                the CPU, same KV state.  Prints tokens/s, TTFT, the accept
+                rate and tokens per slot per tick, and a profiled tick
+                (wall, device, idle share, kernels, replay span) of both
+                engines.
+  9. fixed    — 4-layer full-width engines on the fixed pool, captured, f32
                 and bf16: greedy streams must equal the uncaptured path's,
-                and in f32 solo generate()'s.
-  9. flash    — the tensor-core instructions (HMMA / HGMMA lines of
+                and in f32 solo generate()'s.  Then the captured f32 engine
+                swaps in another draw of the weights (swap_weights): in
+                place, nothing captured, streams equal solo generate() on
+                the new weights.
+ 10. flash    — the tensor-core instructions (HMMA / HGMMA lines of
                 cuobjdump -sass) of every kernel in the built flash
                 library, failing if a bf16 (tensor-core route) kernel has
                 none; the flash kernels K1 (forward) and K2 (backward)
@@ -88,7 +113,7 @@ Phases (any failure exits non-zero before the result line):
                 memory of one call is printed; then timed like K3/K4 over
                 24 layers' tensors, beside the bound and torch's
                 scaled_dot_product_attention as the yardstick.
- 10. train    — GPT-2 medium (24 x 1024, 16 heads, vocab 50304), B 4,
+ 11. train    — GPT-2 medium (24 x 1024, 16 heads, vocab 50304), B 4,
                 S 1024, O1 bf16, AdamW(1e-4), dropout 0.1, random weights
                 and one random batch from --seed, through jit.TrainStep's
                 captured step: warmup() captures the step's CUDA graph
@@ -106,11 +131,11 @@ Phases (any failure exits non-zero before the result line):
                 1e-5 relative of the plain run's (bit-equality expected;
                 both printed), K1 48 and K2 24 launches per step, peak
                 memory below the plain run's, device time printed.
- 11. traincheck — one step's loss and every parameter's gradient of a
+ 12. traincheck — one step's loss and every parameter's gradient of a
                 2-layer full-width f32 GPT (dropout 0, B 1, S 1024) on the
                 kernel path against the same step by the plain versions on
                 the CPU, same weights and batch.
- 12. bn       — the fused BatchNorm kernels K5-K9 against their plain
+ 13. bn       — the fused BatchNorm kernels K5-K9 against their plain
                 versions on the card: at the ResNet-50 b256 main path's
                 shapes (the stem, 3,211,264 x 64; layer1's bn3 with its
                 residual, 802,816 x 256; layer4, 12,544 x 2048) and at
@@ -134,7 +159,7 @@ Phases (any failure exits non-zero before the result line):
                 (CUDA graph replay) at layer1's bn3 and at the stem, beside
                 its bound, its plain version and PyTorch's own BatchNorm
                 kernels; K9's ring route in turns with its window route.
- 13. resnet   — ResNet-50 (BASELINE config #2): resnet50() under
+ 14. resnet   — ResNet-50 (BASELINE config #2): resnet50() under
                 jit.layout_policy("NHWC"), TrainStep O2 bf16, cross-entropy
                 on the logits, Momentum(0.1, 0.9), one random batch of
                 256 x 3 x 224 x 224 from --seed, 8 steps through the
@@ -153,7 +178,7 @@ Phases (any failure exits non-zero before the result line):
                 every block site: 105 / 96 per step, peak memory below the
                 plain run's).  Then K7 and K8 timed at each of the step's
                 48 BN backward sites' shapes beside each site's bound.
- 14. resnetcheck — one f32 step of ResNet-18 (10 classes, 4 x 3 x 64 x 64)
+ 15. resnetcheck — one f32 step of ResNet-18 (10 classes, 4 x 3 x 64 x 64)
                 on the kernel path against the same step by the plain
                 versions on the CPU, same weights and batch: the loss,
                 every gradient and every running statistic within 1e-3 of
@@ -210,6 +235,7 @@ PRESSURE_LENS = tuple(int(n) for n in np.linspace(200, 400, 16))
 PREFIX_LEN, PREFIX_NEW = 384, 64
 PREFIX_SUFFIXES = tuple(int(n) for n in np.linspace(16, 96, 16))
 MARGIN_TOL = 2e-3   # a cached / uncached greedy split needs a nearer tie
+SPEC_TOKENS = 4     # spec phase: draft proposals per verify tick
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 8               # train phase
 RECOMPUTE_STEPS = 3        # the train / resnet phases' recompute legs
 RESNET_B, RESNET_HW, RESNET_STEPS = 256, 224, 8           # resnet phase
@@ -717,6 +743,16 @@ def serve_run(torch, eng, prompts, sampled, new_tokens, launch_names):
             sorted(r.ttft for r in resps), launches)
 
 
+def serve_requests(args, vocab: int):
+    """The serve phase's 8 prompts (PROMPT_LENS) from --seed, and the
+    knobs of its two sampled requests, by index."""
+    rng = np.random.RandomState(args.seed)
+    prompts = [rng.randint(0, vocab, (n,)) for n in PROMPT_LENS]
+    sampled = {3: dict(temperature=0.8, top_k=40, top_p=0.9, seed=11),
+               6: dict(temperature=1.2, top_k=0, top_p=0.8, seed=12)}
+    return prompts, sampled
+
+
 def serve_model(torch, args, dev, dtype=None):
     """GPT-2 medium from --seed, int8 weight-only; with dtype bf16
     decorated to bf16 (amp O2) before quantization."""
@@ -759,10 +795,7 @@ def serve_phase(torch, args, dev, card, model, dtype=None):
           f"graphs captured (bound {counts['bound']}: prefill buckets "
           f"{sorted(counts['prefill'])}, decode x{counts['decode']}); pools "
           f"{pool_dt}, weights {next(model.parameters()).dtype} + int8")
-    rng = np.random.RandomState(args.seed)
-    prompts = [rng.randint(0, cfg.vocab_size, (n,)) for n in PROMPT_LENS]
-    sampled = {3: dict(temperature=0.8, top_k=40, top_p=0.9, seed=11),
-               6: dict(temperature=1.2, top_k=0, top_p=0.8, seed=12)}
+    prompts, sampled = serve_requests(args, cfg.vocab_size)
     suffix = "_bf16" if bf16 else ""
     names = ("int8_matmul" + suffix, "paged_attention" + suffix)
     runs = {}
@@ -1075,11 +1108,306 @@ def prefix_phase(torch, args, dev, card, model):
           f"only at near ties: {splits}")
 
 
+def spec_draft(torch, args, dev):
+    """The spec phase's draft: GPT-2 small's widths (12 x 768, 12 heads,
+    the target's vocab 50304), random weights from --seed + 4, int8
+    weight-only, as the README's speculative config pairs them."""
+    from paddle_tpu_torch.models import GPTForPretraining, gpt2_small_config
+    from paddle_tpu_torch.quantization import quantize_for_serving
+    cfg = gpt2_small_config(hidden_dropout_prob=0.0,
+                            attention_probs_dropout_prob=0.0)
+    return quantize_for_serving(
+        GPTForPretraining(cfg, device=dev, seed=args.seed + 4).eval())
+
+
+def spec_kernel_checks(torch, dev, draft, buckets):
+    """K3 and K4 against their plain versions (and bit-repeatable) at the
+    spec path's own shapes: K3 at the draft's 8 x 12 heads and at the
+    verify's 40 flattened rows of 16 heads (tables repeated per row, pos
+    + j); K4 at the verify's M = 40 on GPT-2 medium's four Linears and at
+    the draft's M = 8 and its prefill buckets on GPT-2 small's."""
+    from paddle_tpu_torch.ops import int8_matmul as im
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.quantization import quantize_weight_int8
+    rng = np.random.RandomState(5)
+    k1 = SPEC_TOKENS + 1
+    nb = MAX_LEN // BLOCK + 1
+    serve_np = np.array([n - 1 + 32 for n in PROMPT_LENS], np.int32)
+    errs, ok = [], True
+    for label, h, rows in (("draft", 12, 1), ("verify", 16, k1)):
+        q, pools, tables, _ = _paged_case(torch, rng, dev, serve_np + k1, nb,
+                                          h=h)
+        q = torch.from_numpy(rng.randn(SLOTS * rows, h, 64).astype(
+            np.float32)).to(dev)
+        tab = tables.repeat_interleave(rows, 0)
+        pos = torch.from_numpy((serve_np[:, None] + np.arange(rows))
+                               .reshape(-1).astype(np.int32)).to(dev)
+        got = pa.paged_attention(q, *pools[0], tab, pos)
+        again = pa.paged_attention(q, *pools[0], tab, pos)
+        e, o = max_err(torch, got, pa._plain(q, *pools[0], tab, pos))
+        rep = torch.equal(got, again)
+        errs.append(e)
+        ok = ok and o and rep
+        print(f"check paged_attention {label} S={q.shape[0]} H={h} D=64: "
+              f"max_abs_err={e:.3e}{'' if o else ' OUT OF TOLERANCE'}"
+              f"{'' if rep else ' NOT BIT-REPEATABLE'}")
+    medium = [(1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024)]
+    small = [(768, 2304), (768, 768), (768, 3072), (3072, 768)]
+    for m, shapes in [(SLOTS * k1, medium), (SLOTS, small)] + [
+            (b, small) for b in buckets]:
+        for k, n in shapes:
+            x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(dev)
+            wi, sc = quantize_weight_int8(torch.randn(k, n, device=dev) * 0.02)
+            got = im.dequant_matmul(x, wi, sc)
+            again = im.dequant_matmul(x, wi, sc)
+            e, o = max_err(torch, got, im._plain(x, wi, sc))
+            rep = torch.equal(got, again)
+            errs.append(e)
+            ok = ok and o and rep
+            print(f"check int8_matmul spec M={m} K={k} N={n}: max_abs_err="
+                  f"{e:.3e}{'' if o else ' OUT OF TOLERANCE'}"
+                  f"{'' if rep else ' NOT BIT-REPEATABLE'}")
+    torch.cuda.synchronize()
+    if not ok:
+        fail(f"spec: a kernel disagrees with its plain version at the spec "
+             f"path's shapes or does not repeat ({max(errs):.3e})")
+
+
+def verify_time(torch, dev, card):
+    """K3 at the verify shape, timed like the kernel table's K3 (24
+    layers' pools, CUDA graph replay): 8 slots x 5 rows flattened at the
+    serve phase's positions (prompt + 32) + j, beside two bounds: the
+    flattened rows' K/V bytes (each row's window read once, what this
+    kernel must read) and the live K/V bytes read once per slot (what a
+    multi-query kernel would read)."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    rng = np.random.RandomState(6)
+    k1, h, d = SPEC_TOKENS + 1, 16, 64
+    nb = MAX_LEN // BLOCK + 1
+    serve_np = np.array([n - 1 + 32 for n in PROMPT_LENS], np.int32)
+    _, pools, tables, _ = _paged_case(torch, rng, dev, serve_np + k1, nb,
+                                      layers=LAYERS)
+    q = torch.from_numpy(rng.randn(SLOTS * k1, h, d).astype(np.float32)).to(
+        dev)
+    tab = tables.repeat_interleave(k1, 0)
+    pos_np = (serve_np[:, None] + np.arange(k1)).reshape(-1)
+    pos = torch.from_numpy(pos_np.astype(np.int32)).to(dev)
+    ms = graph_ms(torch, lambda: [pa.paged_attention(q, k, v, tab, pos)
+                                  for k, v in pools]) / LAYERS
+    one = graph_ms(torch, lambda: [pa.paged_attention(
+        q[::k1].contiguous(), k, v, tables, pos[::k1].contiguous())
+        for k, v in pools]) / LAYERS
+    row = h * d * 4 * 2
+    flat = bound_ms(int((pos_np + 1).sum()) * row + 2 * q.numel() * 4,
+                    4.0 * int((pos_np + 1).sum()) * h * d)
+    live = bound_ms(int((serve_np + k1).sum()) * row + 2 * q.numel() * 4,
+                    4.0 * int((pos_np + 1).sum()) * h * d)
+    print(f"time paged_attention verify [{card}]: S={SLOTS} x {k1} rows "
+          f"flattened, pos={pos_np.tolist()}: {ms:.4f} ms per layer (one row "
+          f"per slot at the same pos: {one:.4f}); bound {flat[0]:.4f} "
+          f"({flat[1]}: the flattened rows' K/V), {live[0]:.4f} ({live[1]}: "
+          f"the live K/V read once)")
+    del pools
+    torch.cuda.empty_cache()
+
+
+def verify_logits_check(torch, eng, model, dev):
+    """One verify tick's target logits (every active slot's last token and
+    SPEC_TOKENS proposals drawn from --seed) on the kernel path on the
+    card against the same rows by the plain versions on the CPU, on the
+    engine's current paged state (``paged_decode_logits`` with (S, K+1)
+    tokens, on copies of the pools).  Returns (max abs difference over
+    the active slots, the plain logits' largest |value| there)."""
+    from paddle_tpu_torch.serving.engine import paged_decode_logits
+    eng._ensure_decode_blocks()      # back the tick's rows, as a step would
+    tables_np = eng._host_tables()
+    active = np.zeros(SLOTS, bool)
+    pos = np.zeros(SLOTS, np.int64)
+    ids = np.random.RandomState(7).randint(
+        0, model.gpt.config.vocab_size, (SLOTS, SPEC_TOKENS + 1))
+    for slot, run in eng._slots.items():
+        active[slot], pos[slot], ids[slot, 0] = True, run.pos, run.last_token
+    ids = torch.from_numpy(ids)
+    geo = (eng.kv_pool.num_blocks, BLOCK, eng._pool_len)
+    with torch.inference_mode():
+        pools = [(k.clone(), v.clone()) for k, v in eng._pools]
+        kern = paged_decode_logits(
+            model, pools, tables_np, torch.from_numpy(tables_np).to(dev),
+            active, pos, ids.to(dev), *geo).cpu()
+        del pools
+        cpu_model = copy.deepcopy(model).cpu()
+        cpu_pools = [(k.cpu(), v.cpu()) for k, v in eng._pools]
+        plain = paged_decode_logits(
+            cpu_model, cpu_pools, tables_np, torch.from_numpy(tables_np),
+            active, pos, ids, *geo)
+    live = torch.from_numpy(active)
+    return (float((kern[live] - plain[live]).abs().max()),
+            float(plain[live].abs().max()))
+
+
+def check_verify_logits(torch, eng, model, dev):
+    """``verify_logits_check`` printed and held to LOGIT_TOL."""
+    err, top = verify_logits_check(torch, eng, model, dev)
+    print(f"spec: verify-tick logits kernel path vs plain path: max abs err "
+          f"{err:.3e} (tolerance {LOGIT_TOL:.1e}), |logits| max {top:.3f}")
+    if not err <= LOGIT_TOL:
+        fail(f"spec: verify logits disagree: {err:.3e}")
+
+
+def _tick_profile(torch, eng, prompts, sampled, card, tag, check=None):
+    """The engine's steady tick with 8 slots active, captured, all-greedy
+    and mixed (the requests of ``sampled`` sampling): wall, device busy,
+    idle share, kernels (device_profile) and the decode graph's replay
+    span (CUDA events), printed.  ``check(eng)`` runs first on the
+    all-greedy state."""
+    for kind, knobs in (("greedy", {}), ("mixed", sampled)):
+        resps = [eng.submit(p, max_new_tokens=96,
+                            **({"decode_strategy": "sampling", **knobs[i]}
+                               if i in knobs else {}))
+                 for i, p in enumerate(prompts)]
+        eng.step()                   # admits all eight + one tick
+        if check is not None and kind == "greedy":
+            check(eng)
+        wall_ms, busy, _, kernels = device_profile(
+            torch, eng.step, 3, f"{tag} captured {kind} tick (8 slots, "
+            f"{model_layers(eng)})", card)
+        span = replay_span_ms(torch, eng, 3)
+        print(f"spec: {tag} {kind} tick [{card}]: wall {wall_ms:.3f} ms, "
+              "device " + (f"{busy:.3f} ms, idle {1 - busy / wall_ms:.1%}, "
+                           f"{kernels:.0f} kernels" if busy
+                           else "not measured")
+              + f", replay span {span:.3f} ms")
+        eng.run_until_drained(timeout=300)
+        [r.tokens(timeout=5) for r in resps]
+
+
+def model_layers(eng) -> str:
+    layers = eng.model.gpt.config.num_hidden_layers
+    if eng.draft_model is None:
+        return f"{layers} layers, {eng.decode_chunk} tokens per step"
+    return (f"{layers} target + {eng.draft_model.gpt.config.num_hidden_layers}"
+            f" draft layers, K={eng.spec_tokens}")
+
+
+def spec_phase(torch, args, dev, card, model):
+    """Speculative decoding on the serve model (GPT-2 medium int8, paged,
+    f32 pools) with the GPT-2-small-config int8 draft (``spec_draft``),
+    spec_tokens=4: the serve phase's 8 requests (6 greedy + 2 sampled, 64
+    new tokens) through the plain engine, the speculative engine captured
+    and the same uncaptured.  Gates: warmup captures len(buckets) + 2 and
+    none follows; K3 and K4 launch through the spec run's replays; the
+    captured streams equal the uncaptured ones; each greedy stream equals
+    the plain engine's, or splits where the plain path's top-two margin is
+    below MARGIN_TOL (printed); one verify tick's logits within LOGIT_TOL
+    of the plain path on the CPU.  Prints tokens/s, TTFT, accept rate,
+    tokens per slot per tick and a profiled tick against the plain
+    engine's decode step."""
+    from paddle_tpu_torch.serving.engine import _default_buckets
+    cfg = model.gpt.config
+    draft = spec_draft(torch, args, dev)
+    prompts, sampled = serve_requests(args, cfg.vocab_size)
+    buckets = sorted({min(b for b in _default_buckets(MAX_LEN) if b >= n)
+                      for n in PROMPT_LENS})
+    spec_kernel_checks(torch, dev, draft, buckets)
+    verify_time(torch, dev, card)
+    runs = {}
+    for tag in ("plain", "captured", "uncaptured"):
+        if tag == "plain":
+            eng = _paged_engine(model, dev)
+        elif tag == "captured":
+            eng = _paged_engine(model, dev, draft_model=draft,
+                                spec_tokens=SPEC_TOKENS)
+        else:
+            eng._run_uncaptured = True
+            eng.reset_metrics()
+        outs, wall, ttfts, launches = _drive(torch, eng, prompts, sampled,
+                                             64, f"spec {tag}")
+        total = sum(len(o) for o in outs)
+        line = (f"spec {tag} [{card}]: 8 requests, {total} tokens in "
+                f"{wall:.3f}s: {total / wall:.1f} tokens/s; TTFT p50 "
+                f"{ttfts[len(ttfts) // 2] * 1e3:.1f} ms, max "
+                f"{ttfts[-1] * 1e3:.1f} ms; launches {launches}")
+        if tag != "plain":
+            m = eng.metrics()["spec"]
+            # every request speculates: proposed / K is its slot-ticks
+            slot_ticks = m["proposed"] / SPEC_TOKENS
+            line += (f"; {m['ticks']} ticks, accept rate "
+                     f"{m['accept_rate']:.4f} ({m['accepted']} of "
+                     f"{m['proposed']}), tokens per slot per tick "
+                     f"{(total - len(prompts)) / slot_ticks:.3f}")
+        print(line)
+        runs[tag] = outs
+        if tag == "plain":
+            _tick_profile(torch, eng, prompts, sampled, card, "plain engine")
+        elif tag == "captured":
+            _tick_profile(torch, eng, prompts, sampled, card, "spec engine",
+                          check=lambda e: check_verify_logits(torch, e,
+                                                              model, dev))
+        if eng.post_warmup_compiles() != 0:
+            fail(f"spec {tag}: captures after warmup")
+        if tag != "captured":
+            eng.close()
+            del eng
+            torch.cuda.empty_cache()
+    cap, unc = runs["captured"], runs["uncaptured"]
+    if cap != unc:
+        fail("spec: captured streams differ from the uncaptured ones: "
+             f"{[i for i, (a, b) in enumerate(zip(cap, unc)) if a != b]}")
+    splits = []
+    for i, (got, want) in enumerate(zip(cap, runs["plain"])):
+        if i in sampled or got == want:
+            continue
+        j = next(k for k, (a, b) in enumerate(zip(got, want)) if a != b)
+        margin = _top2_margin(torch, model, dev,
+                              np.concatenate([prompts[i], want[:j]]))
+        splits.append((i, j, margin))
+        print(f"spec: greedy stream {i} splits from the plain engine's at "
+              f"token {j}: plain top-two margin {margin:.3e}")
+        if margin >= MARGIN_TOL:
+            fail(f"spec: stream {i} splits at token {j} where the margin "
+                 f"is {margin:.3e} (>= {MARGIN_TOL})")
+    print(f"spec: captured == uncaptured (all 8 streams); "
+          f"{len(prompts) - len(sampled) - len(splits)} of "
+          f"{len(prompts) - len(sampled)} greedy streams equal the plain "
+          f"engine's; splits only at near ties: {splits}")
+    del draft
+    torch.cuda.empty_cache()
+
+
+def swap_check(torch, eng, cfg, prompts, dev, seed):
+    """``swap_weights`` on a captured fixed-pool engine: another draw of
+    the weights copied in place (every parameter keeps its storage), no
+    capture after it, greedy streams equal solo generate() on the new
+    weights."""
+    from paddle_tpu_torch.generation import generate
+    from paddle_tpu_torch.models import GPTForPretraining
+    new = GPTForPretraining(cfg, device=dev, seed=seed).eval()
+    ptrs = [t.data_ptr() for t in eng.model.state_dict().values()]
+    eng.swap_weights({k: t.clone() for k, t in new.state_dict().items()},
+                     weights_sha=f"seed {seed}")
+    if [t.data_ptr() for t in eng.model.state_dict().values()] != ptrs:
+        fail("swap_weights rebound a weight instead of writing it in place")
+    resps = [eng.submit(p, max_new_tokens=32) for p in prompts]
+    eng.run_until_drained(timeout=300)
+    for p, r in zip(prompts, resps):
+        solo, _ = generate(new, p, max_new_tokens=32, device=dev)
+        if r.tokens(timeout=5) != solo[0].tolist():
+            fail("swap_weights: a greedy stream differs from solo "
+                 "generate() on the new weights")
+    if eng.post_warmup_compiles() != 0:
+        fail("swap_weights: a program was captured after the swap")
+    print(f"fixed f32 swap_weights: {len(prompts)} greedy streams == solo "
+          f"generate() on the new weights, in place, refresh_epoch "
+          f"{eng.refresh_epoch}, no capture")
+    del new
+
+
 def fixed_phase(torch, args, dev):
     """4-layer full-width engines on the fixed pool, captured: the f32
     engine's greedy streams equal solo generate(); the bf16 one's equal
     its uncaptured path's (solo generate() runs other shapes, whose bf16
-    rounding may split a near tie)."""
+    rounding may split a near tie).  Then the captured f32 engine swaps
+    its weights (``swap_check``)."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.generation import generate
     from paddle_tpu_torch.models import GPTForPretraining, gpt2_medium_config
@@ -1093,7 +1421,7 @@ def fixed_phase(torch, args, dev):
         model = GPTForPretraining(cfg, device=dev, seed=args.seed + 1).eval()
         if dtype is not None:
             amp.decorate(models=model, level="O2", dtype="bfloat16")
-        streams = []
+        streams, engines = [], []
         for uncaptured in (False, True):
             eng = ServingEngine(model, max_slots=SLOTS, max_len=256,
                                 kv="fixed", dtype=dtype, device=dev)
@@ -1106,7 +1434,7 @@ def fixed_phase(torch, args, dev):
                 fail(f"fixed: captures {counts}, "
                      f"{eng.post_warmup_compiles()} after warmup")
             streams.append([r.tokens(timeout=5) for r in resps])
-            eng.close()
+            engines.append(eng)
         if streams[0] != streams[1]:
             fail("fixed-pool captured streams differ from the uncaptured")
         if dtype is None:
@@ -1119,7 +1447,11 @@ def fixed_phase(torch, args, dev):
               f"streams captured == uncaptured"
               + ("" if dtype else " == solo generate()")
               + f"; {counts['total']} CUDA graphs")
-        del model
+        if dtype is None:
+            swap_check(torch, engines[0], cfg, prompts, dev, args.seed + 2)
+        for eng in engines:
+            eng.close()
+        del model, engines
         torch.cuda.empty_cache()
 
 
@@ -2321,6 +2653,7 @@ def main():
     launches = serve_phase(torch, args, dev, card, model)
     pressure_phase(torch, args, dev, card, model)
     prefix_phase(torch, args, dev, card, model)
+    spec_phase(torch, args, dev, card, model)
     del model
     launches.update(serve_phase(torch, args, dev, card,
                                 serve_model(torch, args, dev, torch.bfloat16),

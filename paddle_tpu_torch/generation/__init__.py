@@ -12,7 +12,9 @@ protocol: ``model.gen_fixed_cache(batch, max_len)`` and
 ``generate`` while greedy tokens agree).  The serving engine samples
 statelessly instead, with the reference engine's keyed threefry draws
 reproduced in ``generation.keyed``, so its sampled tokens equal the
-reference engine's.  Beam search waits for a later slice.
+reference engine's; its speculative ticks commit through
+``generation.speculative`` (exported here, as the reference does).  Beam
+search waits for a later slice.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..core.errors import InvalidArgumentError, UnimplementedError
 
 __all__ = ["generate", "apply_top_k", "apply_top_p", "apply_top_k_dynamic",
-           "apply_top_p_dynamic", "process_logits_dynamic"]
+           "apply_top_p_dynamic", "process_logits_dynamic",
+           "commit_speculative_greedy", "commit_speculative_sampled"]
 
 _NEG = -1e9
 
@@ -178,3 +181,8 @@ def generate(model, input_ids, max_length=None, max_new_tokens=None,
                     nxt[:, None], caches, prompt_len + step)
                 last = logits[:, -1, :].to(torch.float32)
     return torch.stack(out, dim=1).to(torch.int32), score
+
+
+# after process_logits_dynamic: speculative imports keyed, which imports it
+from .speculative import (commit_speculative_greedy,  # noqa: E402,F401
+                          commit_speculative_sampled)

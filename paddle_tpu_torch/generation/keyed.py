@@ -20,9 +20,12 @@ integer and float arithmetic that PyTorch reproduces:
   key, as ``jax.random.fold_in`` does for a 32-bit datum;
 - ``random_bits(keys, n)`` hashes the counter pairs (0, i), i < n, and
   xors the two words: the partitionable ``jax.random.bits``;
-- ``gumbel(keys, n)`` maps 23 of those bits into [1, 2), subtracts 1,
-  lifts 0 to the smallest normal f32 and takes ``-log(-log(u))``; the
-  ``log`` of the two libraries may differ in the last bit;
+- ``uniform(keys, n)`` maps 23 of those bits into [1, 2) and subtracts 1:
+  ``jax.random.uniform``'s f32 values, bit for bit (the speculative
+  commit's accept draws);
+- ``gumbel(keys, n)`` lifts those uniforms' 0 to the smallest normal f32
+  and takes ``-log(-log(u))``; the ``log`` of the two libraries may
+  differ in the last bit;
 - ``categorical(keys, logits)`` is ``argmax(logits + gumbel)``.
 
 Keys and fold-in results are bit-equal to the reference's; a gumbel value
@@ -37,7 +40,7 @@ import torch
 from . import process_logits_dynamic
 
 __all__ = ["request_key", "threefry2x32", "fold_in", "random_bits",
-           "gumbel", "categorical", "sample_step", "greedy_step",
+           "uniform", "gumbel", "categorical", "sample_step", "greedy_step",
            "first_token_at"]
 
 _MASK = 0xFFFFFFFF
@@ -73,10 +76,14 @@ def threefry2x32(k0, k1, x0, x1):
 
 
 def fold_in(keys, data):
-    """(S, 2) keys folded in at (S,) integer ``data`` -> (S, 2) keys."""
+    """(S, 2) keys folded in at (S,) integer ``data``, or at one Python
+    int for every row -> (S, 2) keys."""
     k0, k1 = keys[:, 0], keys[:, 1]
-    y0, y1 = threefry2x32(k0, k1, torch.zeros_like(k0),
-                          data.to(torch.int64) & _MASK)
+    if isinstance(data, torch.Tensor):
+        data = data.to(torch.int64) & _MASK
+    else:   # a fill on the device, never a host-to-card copy
+        data = torch.full_like(k0, int(data) & _MASK)
+    y0, y1 = threefry2x32(k0, k1, torch.zeros_like(k0), data)
     return torch.stack([y0, y1], dim=1)
 
 
@@ -88,11 +95,15 @@ def random_bits(keys, n: int):
     return y0 ^ y1
 
 
+def uniform(keys, n: int):
+    """(S, n) f32 uniforms in [0, 1) per (S, 2) key."""
+    mant = (random_bits(keys, n) >> 9) | 0x3F800000       # [1, 2) as bits
+    return mant.to(torch.int32).view(torch.float32) - 1.0
+
+
 def gumbel(keys, n: int):
     """(S, n) f32 Gumbel(0, 1) noise per (S, 2) key ("low" mode)."""
-    mant = (random_bits(keys, n) >> 9) | 0x3F800000       # [1, 2) as bits
-    u = mant.to(torch.int32).view(torch.float32) - 1.0
-    u = torch.clamp_min(u * (1.0 - _TINY) + _TINY, _TINY)
+    u = torch.clamp_min(uniform(keys, n) * (1.0 - _TINY) + _TINY, _TINY)
     return -torch.log(-torch.log(u))
 
 

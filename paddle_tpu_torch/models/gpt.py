@@ -9,11 +9,14 @@ match the reference's state keys.  Three decode protocols:
   buffers written at ``pos`` (an int, or a (B,) tensor of per-row
   positions — the serving engine's fixed pool and ``generate`` use it).
   Buffers are updated in place (the reference returns new arrays);
-- ``forward_paged``: one decode token per slot against the paged block
-  pool — each layer writes its new K/V rows through ``writes`` (an
+- ``forward_paged``: R consecutive tokens per slot (one decode token, or
+  a speculative verify's K+1) against the paged block pool — each layer
+  writes its new K/V rows through ``writes`` (an
   ``ops.paged_attention.RowWrites`` planned on the host, or the serving
   engine's ``SlotRowWrites`` planned on the device) and attends with the
-  paged attention kernel straight on the pool, never gathering a view.
+  paged attention kernel straight on the pool, never gathering a view:
+  the S * R query rows go to the kernel as rows of their own, each with
+  its slot's table and its own position, so row j sees rows <= pos + j.
 
 Training: in training mode ``attend`` reaches the flash kernels K1/K2
 through ``F.scaled_dot_product_attention`` whenever the reference would
@@ -172,14 +175,19 @@ class GPTBlock(Layer):
         return x + self._mlp(x), kbuf, vbuf
 
     def forward_paged(self, x, kpool, vpool, tables, pos, writes):
-        """One token per slot: x (S, 1, hidden).  The new K/V rows go
+        """R tokens per slot: x (S, R, hidden).  The new K/V rows go
         through ``writes`` into the pools (scrub, then scatter; inactive
-        slots are dropped), then the paged kernel attends on the pools."""
+        slots are dropped), then the paged kernel attends on the pools for
+        the S * R query rows, ``tables`` (S * R, nb) and ``pos`` (S * R,)
+        given per row."""
+        s, r = x.shape[0], x.shape[1]
         q, k, v = self._split_qkv(self.ln1(x))
-        writes.apply(kpool, k[:, 0])
-        writes.apply(vpool, v[:, 0])
-        ctx = paged_attention(q[:, 0].contiguous(), kpool, vpool, tables, pos)
-        x = x + self.proj(ctx.reshape(x.shape[0], 1, self.hidden_size))
+        flat = (s * r, self.num_heads, self.head_dim)
+        writes.apply(kpool, k.reshape(flat))
+        writes.apply(vpool, v.reshape(flat))
+        ctx = paged_attention(q.reshape(flat).contiguous(), kpool, vpool,
+                              tables, pos)
+        x = x + self.proj(ctx.reshape(s, r, self.hidden_size))
         return x + self._mlp(x)
 
 
@@ -261,10 +269,20 @@ class GPTModel(Layer):
         return self.ln_f(h), new_caches
 
     def forward_paged(self, input_ids, pools, tables, pos, writes):
-        """Paged decode: input_ids (S, 1), pools [(kpool, vpool)] of
-        (num_blocks, block_size, H, D), tables (S, nb) int32, pos (S,)
-        int32 device positions, writes the step's row writes."""
-        h = self._embed_at(input_ids, pos.to(torch.long)[:, None])
+        """Paged decode: input_ids (S, R) at positions pos + [0, R), pools
+        [(kpool, vpool)] of (num_blocks, block_size, H, D), tables (S, nb)
+        int32, pos (S,) int32 device positions, writes the step's row
+        writes (R rows per slot).  With R > 1 each query row attends
+        through its slot's table, repeated per row (a copy, no host
+        read), up to its own position."""
+        s, r = input_ids.shape
+        q_pos = pos.to(torch.long)[:, None] + torch.arange(
+            r, device=pos.device)                            # (S, R)
+        h = self._embed_at(input_ids, q_pos)
+        if r > 1:
+            tables = tables[:, None].expand(s, r, tables.shape[1]).reshape(
+                s * r, tables.shape[1])
+            pos = q_pos.reshape(-1).to(torch.int32)
         for blk, (kp, vp) in zip(self.blocks, pools):
             h = blk.forward_paged(h, kp, vp, tables, pos, writes)
         return self.ln_f(h)

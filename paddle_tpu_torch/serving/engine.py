@@ -62,10 +62,31 @@
   there.  A fully cached prompt takes a copy-on-write of its last block
   (``ops.paged_attention.copy_block``, eager, before the program runs).
 
+- **Speculative decoding** (``draft_model=``, ``spec_tokens=K``): the
+  decode chunk's two programs become the verify tick's (reference
+  ``_build_verify`` / ``_build_verify_paged``): K+1 sequential draft
+  steps on the draft's own pool (paged: the same block tables, one
+  allocator) — step K feeds d_K at pos+K so that an all-accept tick
+  leaves the draft KV dense — then one target forward over ``[last,
+  d_1..d_K]``, K+1 rows per slot, and the commit of
+  ``generation.speculative`` (greedy equality accept, or the keyed
+  rejection sampling), 1..K+1 tokens per slot per tick.  On the paged
+  pool the verify writes its K+1 rows per slot (``SlotRowWrites``,
+  ``n_rows=K+1``) and attends through the paged kernel with the S*(K+1)
+  query rows flattened, each through its slot's table up to its own
+  position: each slot's KV is read K+1 times.  Each bucket's prefill
+  program prefills target and draft.  The pools hold K rows of headroom
+  past ``max_len`` (a tick writes pos..pos+K).  Per request ``spec=``
+  (default: on when a draft exists); a spec-off slot streams as the
+  plain engine.  ``compile_counts()``'s bound stays ``len(buckets) +
+  2``.
+- **Weight swap** (``swap_weights``): a state dict of the same keys,
+  shapes and dtypes is copied in place into the parameters and buffers
+  the captured graphs read; nothing is captured again.
+
 Greedy streams equal a solo ``generation.generate`` run of the same
 prompt (the same float ops up to summation order).  The reference's
-speculative decoding, LoRA, mesh and AOT program sets are not ported
-yet.
+LoRA, mesh and AOT program sets are not ported yet.
 """
 from __future__ import annotations
 
@@ -81,12 +102,18 @@ import torch
 from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..core.errors import FatalError, InvalidArgumentError, UnavailableError
 from ..core.programs import Program
-from ..generation.keyed import (first_token_at, greedy_step, request_key,
-                               sample_step)
+from ..generation import process_logits_dynamic
+from ..generation.keyed import (categorical, first_token_at, greedy_step,
+                               request_key, sample_step)
+from ..generation.speculative import (commit_speculative_greedy,
+                                      commit_speculative_sampled,
+                                      draft_proposal_key)
 from ..ops import _build
 from ..ops.paged_attention import (RowWrites, SlotRowWrites, copy_block,
                                    gather_block_rows, write_slot_blocks)
+from ..utils import faults
 from ..utils.monitor import stat_add
+from ..weights import host_tensor
 from .kv_pool import KVPoolExhaustedError, PagedKVPool
 from .prefix_cache import PrefixCache
 from .request import Request, RequestCancelled, Response
@@ -119,24 +146,47 @@ def _default_buckets(max_len: int):
 def paged_decode_logits(model, pools, tables_np, tables_dev, active, pos,
                         tokens, num_blocks: int, block_size: int,
                         pool_len: int):
-    """One paged decode token for every slot, its writes planned on the
-    host (``RowWrites``; the engine's programs plan them on the device):
-    write each active slot's new K/V row at ``pos`` through its table
-    (scrubbing entered blocks, dropping inactive slots and rows the table
-    does not back), then attend on the pools.  ``tables_np`` (S, nb) and
-    ``active`` (S,) are host arrays, ``pos`` (S,) host positions;
-    ``tables_dev``/``tokens`` device tensors.  Returns (S, V) f32
-    last-position logits."""
+    """One paged decode token (``tokens`` (S,)) or R consecutive tokens
+    (``tokens`` (S, R): a verify tick's rows) for every slot, the writes
+    planned on the host (``RowWrites``; the engine's programs plan them on
+    the device): write each active slot's new K/V rows at pos + [0, R)
+    through its table (scrubbing entered blocks, dropping inactive slots
+    and rows the table does not back), then attend on the pools.
+    ``tables_np`` (S, nb) and ``active`` (S,) are host arrays, ``pos``
+    (S,) host positions; ``tables_dev``/``tokens`` device tensors.
+    Returns (S, V) f32 logits, or (S, R, V) for (S, R) tokens."""
+    ids = tokens[:, None] if tokens.dim() == 1 else tokens
     pos = np.asarray(pos, np.int64)
-    bidx = np.clip(pos // block_size, 0, tables_np.shape[1] - 1)
-    blk = tables_np[np.arange(len(pos)), bidx]
-    ok = active & (pos < pool_len)
-    writes = RowWrites(np.where(ok, blk, num_blocks), pos % block_size,
+    rows = pos[:, None] + np.arange(ids.shape[1])             # (S, R)
+    bidx = np.clip(rows // block_size, 0, tables_np.shape[1] - 1)
+    blk = np.take_along_axis(tables_np, bidx, axis=1)
+    ok = active[:, None] & (rows < pool_len)
+    writes = RowWrites(np.where(ok, blk, num_blocks), rows % block_size,
                        num_blocks, tokens.device)
     pos_dev = torch.from_numpy(pos.astype(np.int32)).to(tokens.device)
-    logits = model.forward_paged(tokens[:, None], pools, tables_dev, pos_dev,
-                                 writes)
-    return logits[:, -1].to(torch.float32)
+    logits = model.forward_paged(ids, pools, tables_dev, pos_dev,
+                                 writes).to(torch.float32)
+    return logits[:, 0] if tokens.dim() == 1 else logits
+
+
+def _draft_propose(dlast, keys, pos, temp, top_k, top_p, greedy, i: int,
+                   sample: bool):
+    """One draft proposal per slot from (S, V) draft logits (reference
+    ``_draft_propose``): greedy rows take the argmax of their processed
+    logits, the others draw under ``draft_proposal_key(key, pos, i)``.
+    Returns (proposal (S,), q (S, V) the processed probabilities); the
+    all-greedy program (``sample=False``) needs no q."""
+    if not sample:
+        return torch.argmax(dlast, dim=-1), None
+    proc = process_logits_dynamic(dlast, temp, top_k, top_p, greedy)
+    sampled = categorical(draft_proposal_key(keys, pos, i), proc)
+    prop = torch.where(greedy, torch.argmax(proc, dim=-1), sampled)
+    return prop, torch.softmax(proc, dim=-1)
+
+
+def _per_row(a, r: int):
+    """(S,) per-slot values repeated for R rows per slot -> (S * R,)."""
+    return a[:, None].expand(a.shape[0], r).reshape(-1)
 
 
 class _SlotRun:
@@ -187,13 +237,16 @@ class PreemptedRun:
     """Host snapshot of a preempted run: everything needed to resume its
     stream in any free slot later, equal to an uninterrupted run.
     ``kv_rows`` holds per-layer ``(k_rows, v_rows)`` CPU tensors of shape
-    ``(pos, ...)``; the sampling state rides along, so decode step ``pos``
-    folds the same key it would have folded uninterrupted."""
+    ``(pos, ...)``; ``draft_kv_rows`` the draft pool's the same way on a
+    speculative engine (else None: a resumed run then speculates on a
+    cold draft context, which costs accepts, never tokens); the sampling
+    state rides along, so decode step ``pos`` folds the same key it would
+    have folded uninterrupted."""
 
     __slots__ = ("req", "resp", "pos", "produced", "last_token", "key",
-                 "kv_rows", "preempted_at")
+                 "kv_rows", "draft_kv_rows", "preempted_at")
 
-    def __init__(self, run: _SlotRun, kv_rows):
+    def __init__(self, run: _SlotRun, kv_rows, draft_kv_rows=None):
         self.req = run.req
         self.resp = run.resp
         self.pos = run.pos
@@ -201,11 +254,12 @@ class PreemptedRun:
         self.last_token = run.last_token
         self.key = run.key
         self.kv_rows = kv_rows
+        self.draft_kv_rows = draft_kv_rows
         self.preempted_at = time.monotonic()
 
     @classmethod
     def from_state(cls, req, resp, pos: int, produced: int,
-                   last_token: int, key, kv_rows):
+                   last_token: int, key, kv_rows, draft_kv_rows=None):
         """A PreemptedRun from raw snapshot state instead of a live run;
         it restores through the same ``restore_run``."""
         paused = cls.__new__(cls)
@@ -216,6 +270,7 @@ class PreemptedRun:
         paused.last_token = int(last_token)
         paused.key = np.asarray(key)
         paused.kv_rows = kv_rows
+        paused.draft_kv_rows = draft_kv_rows
         paused.preempted_at = time.monotonic()
         return paused
 
@@ -243,19 +298,24 @@ class ServingEngine:
     a bf16 model comes from ``amp.decorate(models=model, level="O2")``.
     ``prefix_cache=True`` (paged only) shares full prompt blocks between
     requests of one share key: the request's tenant, mapped through
-    ``set_share_groups``, or ``share_policy(req)`` when given."""
+    ``set_share_groups``, or ``share_policy(req)`` when given.
+    ``draft_model`` (same protocol and vocabulary, on the same device)
+    turns on speculative decoding with ``spec_tokens`` proposals per
+    tick."""
 
     def __init__(self, model, max_slots: int = 8, max_len: int = 256,
                  prefill_buckets=None, max_queue_depth: int = 64,
                  pad_token_id: int = 0, dtype=None, decode_chunk: int = 4,
                  kv: str = "fixed", block_size: int = 16,
                  num_blocks: Optional[int] = None, prefix_cache: bool = False,
-                 share_policy=None, device=DEFAULT_DEVICE):
+                 share_policy=None, draft_model=None, spec_tokens: int = 4,
+                 device=DEFAULT_DEVICE):
         self.device = resolve_device(device)
-        if model.device != self.device:
-            raise InvalidArgumentError(
-                f"engine on {self.device}, but the model lives on "
-                f"{model.device}")
+        for role, m in (("model", model), ("draft model", draft_model)):
+            if m is not None and m.device != self.device:
+                raise InvalidArgumentError(
+                    f"engine on {self.device}, but the {role} lives on "
+                    f"{m.device}")
         self.model = model
         self.max_slots = int(max_slots)
         self.max_len = int(max_len)
@@ -281,10 +341,35 @@ class ServingEngine:
                 f"prefix_cache=True cannot be combined with kv={kv!r}: "
                 "prefix reuse shares KV blocks between requests, and only "
                 "the paged layout has blocks to share; pass kv='paged'")
+        self.draft_model = draft_model
+        self.spec_tokens = int(spec_tokens)
+        spec = draft_model is not None
+        if spec:
+            if self.spec_tokens < 1:
+                raise InvalidArgumentError(
+                    f"spec_tokens must be >= 1, got {self.spec_tokens}")
+            if self.spec_tokens >= self.max_len:
+                raise InvalidArgumentError(
+                    f"spec_tokens {self.spec_tokens} must be < max_len "
+                    f"{self.max_len}")
+            if prefix_cache:
+                raise InvalidArgumentError(
+                    "prefix_cache=True and draft_model= (speculative "
+                    "decoding) cannot be combined on one engine yet: the "
+                    "draft pool shares the target's block tables, but a "
+                    "cached prefix has no draft KV, so a warm hit would "
+                    "leave the draft context incoherent; drop one of the "
+                    "two or split the traffic across two engines")
         self.prefix_cache = None
         self._share_policy = share_policy
         self._share_groups: Dict[str, str] = {}
-        self._pool_len = self.max_len
+        # a verify tick writes rows pos..pos+K while pos reaches max_len - 2:
+        # K rows of headroom keep a full-budget request's last ticks from
+        # overwriting committed KV (requests still fit max_len)
+        self._pool_len = self.max_len + (self.spec_tokens if spec else 0)
+        # rows a tick may write per slot (backed before each paged tick)
+        self._rows_per_tick = (self.spec_tokens + 1 if spec
+                               else self.decode_chunk)
         self.block_size = int(block_size)
         if kv == "paged":
             if self.block_size < 1:
@@ -297,13 +382,19 @@ class ServingEngine:
             self.kv_pool = PagedKVPool(int(num_blocks), self.block_size,
                                        self._pool_len)
             # trash blocks past the allocator's, where static-shape writes
-            # drop: a row for each decode slot or prefill-window row, a
-            # block for each prompt block (the uncached prefill)
-            trash = self.kv_pool.blocks_for(max(self.max_slots,
-                                                self.buckets[-1]))
+            # drop: a row for each row one program call writes (a decode
+            # token per slot, a verify's K+1 per slot, a prefill window's),
+            # a block for each prompt block (the uncached prefill)
+            rows = self.max_slots * (self.spec_tokens + 1 if spec else 1)
+            trash = self.kv_pool.blocks_for(max(rows, self.buckets[-1]))
             self._pool_store = self.kv_pool.build_pools(model, dtype, trash)
             nb = self.kv_pool.num_blocks
             self._pools = [(k[:nb], v[:nb]) for k, v in self._pool_store]
+            if spec:
+                # the draft pool pages with the target's tables (one
+                # allocator): a slot's draft KV sits at the same block ids
+                self._draft_store = self.kv_pool.build_pools(
+                    draft_model, dtype, trash)
             self._tables_ver = None   # allocator version in the buffer
             # runs parked on pool pressure, resumed first as it drains
             # (bounded: past it a run fails with KVPoolExhaustedError)
@@ -320,6 +411,20 @@ class ServingEngine:
             self._pools = model.gen_fixed_cache(self.max_slots,
                                                 self._pool_len, dtype)
             self._pool_store = self._pools
+            if spec:
+                self._draft_store = draft_model.gen_fixed_cache(
+                    self.max_slots, self._pool_len, dtype)
+        if spec:
+            # draft_diverge: presence decided now (a clean engine's verify
+            # programs carry no fault branch); the tick is an input
+            self._diverge_every = faults.draft_diverge_every()
+            self._ticks = 0            # lifetime tick count (the fault's)
+            self._spec_ticks = 0       # metrics window (reset_metrics)
+            self._spec_proposed = 0
+            self._spec_accepted = 0
+        # which weights the engine serves (swap_weights)
+        self.weights_sha: Optional[str] = None
+        self.refresh_epoch = 0
         self._warm = False
         self._programs: Dict[object, Program] = {}
         self._compiles = {"decode": 0,
@@ -357,14 +462,17 @@ class ServingEngine:
                      top_k=0, top_p=1.0, eos_token_id: Optional[int] = None,
                      seed: Optional[int] = None,
                      deadline: Optional[float] = None, priority: int = 0,
-                     tenant: Optional[str] = None):
+                     tenant: Optional[str] = None,
+                     spec: Optional[bool] = None):
         """Validate and build one (Request, Response) pair without queueing
         it (``submit`` queues it; ``try_admit`` places it directly).
         Raises InvalidArgumentError for a prompt/budget the engine can
         never serve.  A sampled request draws under a key made from
         ``seed`` (default: the request id), folded in at each token's
         position: its tokens depend only on the seed, the positions and
-        the logits.  ``tenant`` scopes prefix-cache sharing."""
+        the logits.  ``tenant`` scopes prefix-cache sharing.  ``spec``:
+        speculate (None: when the engine has a draft model; True without
+        one raises)."""
         if self._closed:
             raise UnavailableError("serving engine is closed")
         if self._dead is not None:
@@ -374,6 +482,12 @@ class ServingEngine:
             raise InvalidArgumentError(
                 f"serving supports 'greedy_search' or 'sampling', got "
                 f"{decode_strategy!r}")
+        if spec is None:
+            spec = self.draft_model is not None
+        elif spec and self.draft_model is None:
+            raise InvalidArgumentError(
+                "spec=True requires the engine to be built with a "
+                "draft_model (speculative decoding)")
         with self._submit_lock:
             rid = self._rid
             self._rid += 1
@@ -382,7 +496,8 @@ class ServingEngine:
                       temperature=temperature, top_k=top_k, top_p=top_p,
                       eos_token_id=eos_token_id,
                       seed=seed if seed is not None else rid,
-                      deadline=deadline, priority=priority, tenant=tenant)
+                      deadline=deadline, priority=priority, tenant=tenant,
+                      spec=spec)
         plen = req.prompt.shape[0]
         if plen > self.buckets[-1]:
             stat_add("STAT_serving_rejects")
@@ -413,7 +528,8 @@ class ServingEngine:
                top_k=0, top_p=1.0, eos_token_id: Optional[int] = None,
                seed: Optional[int] = None, deadline: Optional[float] = None,
                block: bool = False, timeout: Optional[float] = None,
-               priority: int = 0, tenant: Optional[str] = None) -> Response:
+               priority: int = 0, tenant: Optional[str] = None,
+               spec: Optional[bool] = None) -> Response:
         """Enqueue one request (``make_request``'s checks and keys);
         returns its streaming Response.  Raises QueueFullError at
         max_queue_depth (backpressure)."""
@@ -421,7 +537,7 @@ class ServingEngine:
             prompt, max_new_tokens, decode_strategy=decode_strategy,
             temperature=temperature, top_k=top_k, top_p=top_p,
             eos_token_id=eos_token_id, seed=seed, deadline=deadline,
-            priority=priority, tenant=tenant)
+            priority=priority, tenant=tenant, spec=spec)
         self.scheduler.submit(req, resp, block=block, timeout=timeout)
         self._work.set()
         return resp
@@ -704,7 +820,7 @@ class ServingEngine:
         run = self._slots.get(slot)
         if run is None:
             raise InvalidArgumentError(f"slot {slot} holds no active run")
-        pools = [t for pair in self._pool_store for t in pair]
+        pools = self._pool_tensors(draft=True)
         with torch.no_grad():
             if self.kv == "paged":
                 idx = torch.tensor(self.kv_pool.block_ids(slot),
@@ -714,7 +830,9 @@ class ServingEngine:
             else:
                 parts = [t[slot, :run.pos] for t in pools]
             rows = _to_host(parts)
-        paused = PreemptedRun(run, list(zip(rows[0::2], rows[1::2])))
+        pairs = list(zip(rows[0::2], rows[1::2]))
+        n = len(self._pool_store)
+        paused = PreemptedRun(run, pairs[:n], pairs[n:] or None)
         run.req.preempts += 1
         self._slots.pop(slot, None)
         self.scheduler.release(slot)
@@ -724,17 +842,32 @@ class ServingEngine:
         stat_add("STAT_serving_preemptions")
         return paused
 
+    def _pool_tensors(self, draft: bool):
+        """Every KV pool tensor the programs read, in one list: the
+        target's k and v per layer, then (``draft`` on a speculative
+        engine) the draft's."""
+        pools = [t for pair in self._pool_store for t in pair]
+        if draft and self.draft_model is not None:
+            pools += [t for pair in self._draft_store for t in pair]
+        return pools
+
     def restore_run(self, paused: PreemptedRun) -> bool:
-        """Resume a preempted run in any free slot: its rows cross in one
-        host-to-device copy and are written in place into the pool the
-        programs read (paged: into fresh blocks, tails zeroed; with the
-        prefix cache, past the prefix it re-pins), and decode continues
-        from the saved position with the saved key.  Returns False when no
-        slot is free or, paged, when the pool cannot hold the rows yet
-        (the caller retries)."""
+        """Resume a preempted run in any free slot: its rows (the draft
+        pool's too, on a speculative engine) cross in one host-to-device
+        copy and are written in place into the pools the programs read
+        (paged: into fresh blocks, tails zeroed; with the prefix cache,
+        past the prefix it re-pins), and decode continues from the saved
+        position with the saved key.  Returns False when no slot is free
+        or, paged, when the pool cannot hold the rows yet (the caller
+        retries)."""
         slot = self.scheduler.acquire(paused.req, paused.resp)
         if slot is None:
             return False
+        draft = (self.draft_model is not None
+                 and paused.draft_kv_rows is not None)
+        pools = self._pool_tensors(draft)
+        rows = [r for pair in paused.kv_rows
+                + (paused.draft_kv_rows if draft else []) for r in pair]
         with torch.no_grad():
             if self.kv == "paged":
                 if self.prefix_cache is not None:
@@ -746,10 +879,8 @@ class ServingEngine:
                 if start is None:
                     self.scheduler.release(slot)
                     return False
-                self._paged_upload(slot, paused.kv_rows, paused.pos, start)
+                self._paged_upload(slot, pools, rows, paused.pos, start)
             else:
-                pools = [t for pair in self._pool_store for t in pair]
-                rows = [r for pair in paused.kv_rows for r in pair]
                 shapes = [r.shape for r in rows]
                 host, bufs = _staging(shapes, pools[0].dtype, self.device)
                 for buf, r in zip(bufs, rows):
@@ -776,19 +907,20 @@ class ServingEngine:
             return None
         return len(chain) * self.block_size
 
-    def _paged_upload(self, slot: int, rows, pos: int, start_row: int = 0):
-        """Write snapshot rows [start_row, pos) into the slot's blocks past
-        ``start_row`` (block-aligned), in place, block tails zero-filled:
-        the upload is also the scrub.  Adopted shared blocks before
-        ``start_row`` are never written."""
+    def _paged_upload(self, slot: int, pools, rows, pos: int,
+                      start_row: int = 0):
+        """Write snapshot rows [start_row, pos) (``rows``, one per tensor of
+        ``pools``) into the slot's blocks past ``start_row``
+        (block-aligned), in place, block tails zero-filled: the upload is
+        also the scrub.  Adopted shared blocks before ``start_row`` are
+        never written."""
         bs = self.block_size
         ids = self.kv_pool.block_ids(slot)[start_row // bs:]
         if not ids:
             return
-        pools = [t for pair in self._pool_store for t in pair]
         shapes = [(len(ids), bs) + tuple(t.shape[2:]) for t in pools]
         host, bufs = _staging(shapes, pools[0].dtype, self.device)
-        for buf, r in zip(bufs, (r for pair in rows for r in pair)):
+        for buf, r in zip(bufs, rows):
             buf.view((-1,) + tuple(buf.shape[2:]))[:pos - start_row] = \
                 r[start_row:pos]
         idx = torch.tensor(ids, dtype=torch.long).to(self.device)
@@ -817,8 +949,9 @@ class ServingEngine:
                    int(req.prompt.shape[0]) + int(req.max_new_tokens) - 1)
 
     def _oom_target(self, pos: int, req: Request) -> int:
-        """Rows the next step actually requires for this run."""
-        return min(pos + self.decode_chunk,
+        """Rows the next step (chunk or verify tick) actually requires for
+        this run."""
+        return min(pos + self._rows_per_tick,
                    max(self._rows_needed(req), pos))
 
     def _pick_oom_victim(self, needy_slot: int):
@@ -960,6 +1093,8 @@ class ServingEngine:
                 "top_k": np.zeros((s,), np.int64),
                 "top_p": np.ones((s,), np.float32),
                 "greedy": np.ones((s,), bool)}
+        if self.draft_model is not None:
+            host["spec_on"] = np.zeros((s,), bool)
         active = np.zeros((s,), bool)
         for slot, run in self._slots.items():
             host["tokens"][slot] = run.last_token
@@ -969,6 +1104,8 @@ class ServingEngine:
             host["top_k"][slot] = run.req.top_k
             host["top_p"][slot] = run.req.top_p
             host["greedy"][slot] = run.req.greedy
+            if self.draft_model is not None:
+                host["spec_on"][slot] = run.req.spec
             active[slot] = True
         if self.kv == "paged":
             host["active"] = active
@@ -979,20 +1116,19 @@ class ServingEngine:
     # ------------------------------------------------------------------
     # the programs (static shapes, no host reads: captured on the card)
     # ------------------------------------------------------------------
-    def _decode_logits(self, tokens, pos, tables, active):
-        """(S, V) f32 logits of one decode token per slot at device
-        positions ``pos``; writes the new KV rows."""
+    def _forward_rows(self, model, store, ids, pos, tables, active):
+        """(S, R, V) f32 logits of ``model`` for R consecutive tokens per
+        slot ``ids`` (S, R) at device positions pos + [0, R), on its pool
+        ``store``; writes their KV rows first (paged: through the tables,
+        R rows per slot)."""
         if self.kv == "paged":
             writes = SlotRowWrites(tables, pos, active,
                                    self.kv_pool.num_blocks, self.block_size,
-                                   self._pool_len)
-            logits = self.model.forward_paged(tokens[:, None],
-                                              self._pool_store, tables, pos,
-                                              writes)
+                                   self._pool_len, n_rows=ids.shape[1])
+            logits = model.forward_paged(ids, store, tables, pos, writes)
         else:
-            logits, _ = self.model.forward_fixed(tokens[:, None],
-                                                 self._pool_store, pos)
-        return logits[:, -1].to(torch.float32)
+            logits, _ = model.forward_fixed(ids, store, pos)
+        return logits.to(torch.float32)
 
     def _decode_program(self, tokens, pos, keys, temp, top_k, top_p, greedy,
                         tables=None, active=None, *, sample: bool = True):
@@ -1004,7 +1140,8 @@ class ServingEngine:
         tok, p = tokens, pos
         toks, logps, finites = [], [], []
         for _ in range(self.decode_chunk):
-            last = self._decode_logits(tok, p, tables, active)
+            last = self._forward_rows(self.model, self._pool_store,
+                                      tok[:, None], p, tables, active)[:, 0]
             finites.append(torch.isfinite(last).all(dim=-1))
             if sample:
                 tok, logp = sample_step(last, keys, p, temp, top_k, top_p,
@@ -1018,6 +1155,61 @@ class ServingEngine:
         pos.copy_(p)
         return (torch.stack(toks), torch.stack(logps), torch.stack(finites),
                 tokens, pos)
+
+    def _verify_program(self, tokens, pos, keys, temp, top_k, top_p, greedy,
+                        spec_on, tables=None, active=None, diverge=None, *,
+                        sample: bool = True):
+        """The speculative tick (reference ``_build_verify`` ``:989-1082``,
+        ``_build_verify_paged`` ``:1319-1423``): K+1 draft steps (step K
+        only writes d_K's KV, at pos+K), one target forward over ``[last,
+        d_1..d_K]`` (K+1 rows per slot), the sampling knobs on every row
+        (``sample``; the all-greedy program commits the raw logits), and
+        the commit.  ``diverge`` (1,) bool is the draft_diverge fault's
+        input, present only when it is armed.  Returns (out (S, K+1),
+        logps (S, K+1), finite (S,), count (S,), accepted (S,), the
+        buffers ``tokens`` / ``pos`` updated in place to the last
+        committed token and pos + count, and all but the last two as one
+        (S, 2K+5) f64 host view: out, count, accepted, finite, logps)."""
+        k_spec = self.spec_tokens
+        cur, props, qs, dfin = tokens, [], [], None
+        for i in range(k_spec + 1):
+            dlast = self._forward_rows(self.draft_model, self._draft_store,
+                                       cur[:, None], pos + i, tables,
+                                       active)[:, 0]
+            if diverge is not None:
+                dlast = faults.poison_draft_logits(dlast, diverge)
+            fin = torch.isfinite(dlast).all(dim=-1)
+            dfin = fin if dfin is None else dfin & fin
+            if i < k_spec:
+                cur, q = _draft_propose(dlast, keys, pos, temp, top_k, top_p,
+                                        greedy, i, sample)
+                props.append(cur)
+                qs.append(q)
+        props = torch.stack(props, dim=1)                     # (S, K)
+        ids = torch.cat([tokens[:, None], props], dim=1)      # (S, K+1)
+        tlog = self._forward_rows(self.model, self._pool_store, ids, pos,
+                                  tables, active)             # (S, K+1, V)
+        # the draft's non-finite logits count only where the slot speculates
+        finite = torch.isfinite(tlog).all(dim=2).all(dim=1) & (dfin | ~spec_on)
+        if sample:
+            s, r, v = tlog.shape
+            plog = process_logits_dynamic(
+                tlog.reshape(s * r, v), _per_row(temp, r), _per_row(top_k, r),
+                _per_row(top_p, r), _per_row(greedy, r)).reshape(s, r, v)
+            out, count, accepted, last, logps = commit_speculative_sampled(
+                props, torch.stack(qs, dim=1), plog, keys, pos, greedy,
+                spec_on, self.pad_token_id)
+        else:
+            out, count, accepted, last, logps = commit_speculative_greedy(
+                props, None, tlog, keys, pos, greedy, spec_on,
+                self.pad_token_id)
+        tokens.copy_(last)
+        pos.copy_(pos + count)
+        host = torch.cat([out, count[:, None], accepted[:, None],
+                          finite[:, None].to(torch.int64)], dim=1)
+        host = torch.cat([host.to(torch.float64), logps.to(torch.float64)],
+                         dim=1)
+        return out, logps, finite, count, accepted, tokens, pos, host
 
     def _write_prompt(self, pool, rows, target, bucket: int):
         """A prefill's (bucket, ...) KV ``rows`` into the slot's region of
@@ -1039,17 +1231,29 @@ class ServingEngine:
             row[0, :bucket] = rows
             pool.index_copy_(0, target, row)
 
-    def _prefill_program(self, bucket: int, ids, prompt_len, target, key,
-                         temp, top_k, top_p, greedy):
-        """One bucket's prefill (reference ``:1137-1146``): the padded
-        prompt through a bucket-sized scratch cache, its KV into the
-        slot's region, the first token sampled at ``prompt_len - 1``.
-        Returns (token, logp, finite), each (1,)."""
-        scratch = self.model.gen_fixed_cache(1, bucket, self._dtype)
-        logits, kv = self.model.forward_fixed(ids, scratch, 0)
-        for (kp, vp), (kc, vc) in zip(self._pool_store, kv):
+    def _prefill_kv(self, model, store, ids, target, bucket: int):
+        """``model`` over the padded prompt against a bucket-sized scratch
+        cache, its KV into the slot's region of ``store``.  Returns the
+        (1, bucket, V) logits."""
+        scratch = model.gen_fixed_cache(1, bucket, self._dtype)
+        logits, kv = model.forward_fixed(ids, scratch, 0)
+        for (kp, vp), (kc, vc) in zip(store, kv):
             self._write_prompt(kp, kc[0], target, bucket)
             self._write_prompt(vp, vc[0], target, bucket)
+        return logits
+
+    def _prefill_program(self, bucket: int, ids, prompt_len, target, key,
+                         temp, top_k, top_p, greedy):
+        """One bucket's prefill (reference ``:1137-1163``): the padded
+        prompt through a bucket-sized scratch cache, its KV into the
+        slot's region (on a speculative engine the draft's too, into its
+        pool), the first token sampled from the target at ``prompt_len -
+        1``.  Returns (token, logp, finite), each (1,)."""
+        logits = self._prefill_kv(self.model, self._pool_store, ids, target,
+                                  bucket)
+        if self.draft_model is not None:
+            self._prefill_kv(self.draft_model, self._draft_store, ids,
+                             target, bucket)
         last = prompt_len - 1
         return first_token_at(logits, last, last, key, temp, top_k, top_p,
                               greedy)
@@ -1090,10 +1294,11 @@ class ServingEngine:
     def _make_programs(self) -> Dict[object, Program]:
         """Every program with its static input buffers: one prefill per
         bucket (keyed by the bucket; with the prefix cache the
-        cached-suffix prefill) and the decode chunk, mixed ("decode") and
-        all-greedy ("decode_greedy"), sharing one set of buffers.  The
-        buffers start as a warm-up input: sentinel tables and inactive
-        slots (paged writes drop), slot 0 (fixed)."""
+        cached-suffix prefill) and the decode chunk — on a speculative
+        engine the verify tick — mixed ("decode") and all-greedy
+        ("decode_greedy"), sharing one set of buffers.  The buffers start
+        as a warm-up input: sentinel tables and inactive slots (paged
+        writes drop), slot 0 (fixed)."""
         dev, s = self.device, self.max_slots
 
         def full(shape, value, dtype):
@@ -1120,10 +1325,16 @@ class ServingEngine:
             pre["target"] = full((nb,), sentinel, torch.int32)
         else:
             pre["target"] = full((1,), 0, torch.int64)
+        tick = self._decode_program
+        if self.draft_model is not None:
+            tick = self._verify_program
+            dec["spec_on"] = full((s,), False, torch.bool)
+            if self._diverge_every is not None:
+                dec["diverge"] = full((1,), False, torch.bool)
         programs = {
-            "decode": Program(self._decode_program, dec),
-            "decode_greedy": Program(
-                functools.partial(self._decode_program, sample=False), dec)}
+            "decode": Program(tick, dec),
+            "decode_greedy": Program(functools.partial(tick, sample=False),
+                                     dec)}
         prefill = self._prefill_program
         if self.prefix_cache is not None:
             prefill = self._prefill_cached_program
@@ -1151,6 +1362,8 @@ class ServingEngine:
             self._sync_tables(rebuilt)
         prog = self._programs["decode_greedy" if self._all_greedy
                               else "decode"]
+        if self.draft_model is not None:
+            return self._spec_tick(prog)
         # one device->host pull for the whole (chunk, slots) burst
         toks, logps, finites = (t.cpu().numpy() for t in self._run(prog)[:3])
         stat_add("STAT_serving_decode_steps")
@@ -1182,6 +1395,62 @@ class ServingEngine:
                     break  # finished mid-chunk: the tail is discarded
         if emitted:
             stat_add("STAT_serving_tokens", emitted)
+
+    def _spec_tick(self, prog: Program):
+        """One speculative tick on the host (reference ``_spec_step``
+        ``:2422-2515``): the verify program, one device-to-host pull, then
+        each slot's 1..K+1 tokens committed in order — a deadline that
+        expired while the tick was computing stops the stream before the
+        next token, and eos or the length budget mid-tick discards the
+        tail."""
+        tick = self._ticks
+        self._ticks += 1
+        if self._diverge_every is not None:
+            self._fill(prog.inputs, diverge=tick % self._diverge_every == 0)
+        host = self._run(prog)[-1].cpu().numpy()
+        k1 = self.spec_tokens + 1
+        toks = host[:, :k1].astype(np.int64)
+        counts, accepts, finites = (host[:, k1 + i].astype(np.int64)
+                                    for i in range(3))
+        logps = host[:, k1 + 3:].astype(np.float32)
+        stat_add("STAT_serving_decode_steps")
+        stat_add("STAT_spec_ticks")
+        emitted = proposed = accepted = 0
+        for slot in list(self._slots):
+            run = self._slots[slot]
+            if not finites[slot]:
+                self._fail_slot(slot, run.resp, "verify")
+                continue
+            if run.req.spec:
+                proposed += self.spec_tokens
+                accepted += int(accepts[slot])
+            for j in range(int(counts[slot])):
+                if (run.req.deadline is not None
+                        and run.req.deadline.expired()):
+                    stat_add("STAT_serving_deadline_expired")
+                    run.resp._fail(DeadlineExceededError(
+                        f"request {run.req.id} deadline "
+                        f"({run.req.deadline.seconds}s) expired mid-decode"))
+                    self._release(slot)
+                    break
+                t = int(toks[slot, j])
+                run.pos += 1
+                run.produced += 1
+                run.last_token = t
+                self._emit(run, t, float(logps[slot, j]))
+                emitted += 1
+                self._maybe_finish(slot, run, t)
+                if slot not in self._slots:
+                    break  # finished mid-tick: the tail is discarded
+        if emitted:
+            stat_add("STAT_serving_tokens", emitted)
+        if proposed:
+            stat_add("STAT_spec_proposed", proposed)
+            stat_add("STAT_spec_accepted", accepted)
+        with self._m_lock:
+            self._spec_ticks += 1
+            self._spec_proposed += proposed
+            self._spec_accepted += accepted
 
     def _fail_slot(self, slot: int, resp: Response, phase: str):
         stat_add("STAT_serving_nonfinite")
@@ -1343,9 +1612,11 @@ class ServingEngine:
     def compile_counts(self) -> Dict:
         """Programs made, under the reference's keys: on the card each
         count is one CUDA graph capture, on the CPU one program built.
-        The bound is ``len(buckets) + 2``: the decode chunk is captured
-        twice, all-greedy and mixed, where the reference branches inside
-        one program."""
+        The bound is ``len(buckets) + 2``: the decode chunk (on a
+        speculative engine the verify tick, counted under "decode") is
+        captured twice, all-greedy and mixed, where the reference
+        branches inside one program; a bucket's prefill program prefills
+        the draft too."""
         total = (self._compiles["decode"]
                  + sum(self._compiles["prefill"].values()))
         return {"decode": self._compiles["decode"],
@@ -1358,6 +1629,48 @@ class ServingEngine:
         if self._warm_mark is None:
             return -1
         return self.compile_counts()["total"] - self._warm_mark
+
+    # ------------------------------------------------------------------
+    # weight refresh
+    # ------------------------------------------------------------------
+    def swap_weights(self, state: Dict, weights_sha: Optional[str] = None):
+        """Serve the target weights ``state`` (name -> tensor or array, the
+        model's ``state_dict`` keys) from the next step on, with nothing
+        captured again (reference ``:683-738``).  The exact key set and
+        every leaf's shape and dtype are checked first, and any mismatch
+        raises InvalidArgumentError with nothing written; then each
+        tensor is copied IN PLACE into the parameter or buffer the
+        captured graphs read (a rebind would leave them on the old
+        storage).  Bumps ``refresh_epoch``, sets ``weights_sha`` and
+        flushes the prefix cache (its KV came from the old weights); a
+        speculative engine's draft is left alone.  Call it between steps
+        from the driving thread."""
+        own = self.model.state_dict(keep_vars=True)
+        missing = sorted(set(own) - set(state))
+        unexpected = sorted(set(state) - set(own))
+        if missing or unexpected:
+            raise InvalidArgumentError(
+                f"swap_weights state-dict key mismatch: missing "
+                f"{missing[:4]}, unexpected {unexpected[:4]}")
+        staged = {}
+        for name, cur in own.items():
+            new = state[name]
+            if not isinstance(new, torch.Tensor):
+                new = host_tensor(np.asarray(new))
+            if tuple(new.shape) != tuple(cur.shape) or new.dtype != cur.dtype:
+                raise InvalidArgumentError(
+                    f"swap_weights: {name} is {new.dtype} "
+                    f"{tuple(new.shape)}, the served weight "
+                    f"{cur.dtype} {tuple(cur.shape)}")
+            staged[name] = new
+        with torch.no_grad():
+            for name, cur in own.items():
+                cur.copy_(staged[name])
+        self.weights_sha = weights_sha
+        self.refresh_epoch += 1
+        if self.prefix_cache is not None:
+            # old-weights KV must never seed a new-weights stream
+            self.prefix_cache.evict(self.prefix_cache.stats()["nodes"])
 
     # ------------------------------------------------------------------
     # observability
@@ -1381,7 +1694,35 @@ class ServingEngine:
                 "max_slots": self.max_slots,
                 "warm": self._warm,
                 "kv_pool": self._kv_pool_metrics(),
+                "spec": self._spec_metrics(),
             }
+
+    def _spec_metrics(self) -> Dict:
+        """The reference's speculative counters (``:2905-2916``)."""
+        if self.draft_model is None:
+            return {"enabled": False}
+        return {"enabled": True, "spec_tokens": self.spec_tokens,
+                "ticks": self._spec_ticks,
+                "proposed": self._spec_proposed,
+                "accepted": self._spec_accepted,
+                "accept_rate": (self._spec_accepted / self._spec_proposed
+                                if self._spec_proposed else None)}
+
+    def reset_metrics(self):
+        """Start a new metrics window: TTFTs, token and request counts,
+        the rate's clock and the speculative counters."""
+        with self._m_lock:
+            self._ttfts = []
+            self._itl_sum = 0.0
+            self._itl_n = 0
+            self._tokens_out = 0
+            self._completed = 0
+            self._errored = 0
+            self._started_at = time.monotonic()
+            if self.draft_model is not None:
+                self._spec_ticks = 0
+                self._spec_proposed = 0
+                self._spec_accepted = 0
 
     def _kv_pool_metrics(self) -> Dict:
         """The pool's blocks (used, free, cached), the pressure counters

@@ -1,6 +1,5 @@
 """Request / streaming-Response handles for the serving engine (port of
-paddle_tpu/serving/request.py without the gateway/fleet/LoRA/speculative
-fields).
+paddle_tpu/serving/request.py without the gateway/fleet/LoRA fields).
 
 A `Request` is the immutable description of one decode job (prompt, token
 budget, sampling params, deadline); a `Response` is the caller's handle on
@@ -31,11 +30,13 @@ class RequestCancelled(EnforceNotMet):
 class Request:
     """One decode job.  `greedy` requests ignore the sampling knobs and are
     the ones whose stream equals a solo
-    `generation.generate(decode_strategy='greedy_search')` run."""
+    `generation.generate(decode_strategy='greedy_search')` run.  `spec`:
+    whether the request speculates on a speculative engine (the engine
+    resolves None before it builds the request)."""
 
     __slots__ = ("id", "prompt", "max_new_tokens", "greedy", "temperature",
                  "top_k", "top_p", "eos_token_id", "seed", "deadline",
-                 "priority", "tenant", "preempts", "resumes",
+                 "priority", "tenant", "spec", "preempts", "resumes",
                  "paused_seconds")
 
     def __init__(self, rid: int, prompt, max_new_tokens: int,
@@ -44,7 +45,8 @@ class Request:
                  eos_token_id: Optional[int] = None,
                  seed: Optional[int] = None,
                  deadline: Optional[float] = None,
-                 priority: int = 0, tenant: Optional[str] = None):
+                 priority: int = 0, tenant: Optional[str] = None,
+                 spec: bool = False):
         self.id = int(rid)
         self.prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
         if self.prompt.size == 0:
@@ -67,6 +69,9 @@ class Request:
         self.priority = int(priority)
         # the prefix cache's share key (tenant-private by default)
         self.tenant = tenant
+        # speculative decoding on/off (per request; a spec-off slot of a
+        # speculative engine streams as the plain engine)
+        self.spec = bool(spec)
         # stamped by engine.preempt_slot / restore_run
         self.preempts = 0
         self.resumes = 0

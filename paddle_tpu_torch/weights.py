@@ -24,7 +24,7 @@ import torch
 
 from .core.errors import InvalidArgumentError
 
-__all__ = ["load_paddle_state", "load_paddle_opt_state"]
+__all__ = ["load_paddle_state", "load_paddle_opt_state", "host_tensor"]
 
 
 def load_paddle_state(model: torch.nn.Module, state: Mapping[str, np.ndarray]):
@@ -50,11 +50,11 @@ def load_paddle_state(model: torch.nn.Module, state: Mapping[str, np.ndarray]):
                 raise InvalidArgumentError(
                     f"load_paddle_state: {name} is {src.dtype}, the model "
                     f"holds {dst.dtype}")
-            dst.copy_(_tensor(src))
+            dst.copy_(host_tensor(src))
     return model
 
 
-def _tensor(src: np.ndarray) -> torch.Tensor:
+def host_tensor(src: np.ndarray) -> torch.Tensor:
     """A CPU tensor of ``src``'s values; numpy has no bfloat16 of its own,
     so an ml_dtypes ``bfloat16`` array goes across as its 16-bit words."""
     if src.dtype.name == "bfloat16":

@@ -48,7 +48,7 @@ from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.quantization import quantize_for_serving
 from paddle_tpu_torch.serving import ServingEngine
 from paddle_tpu_torch.serving.engine import paged_decode_logits
-from paddle_tpu_torch.weights import _tensor
+from paddle_tpu_torch.weights import host_tensor as _tensor
 
 from torch_parity import TINY, jax_state, tiny_pair, torch_solo
 

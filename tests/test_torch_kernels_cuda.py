@@ -936,15 +936,15 @@ ENGINE = dict(max_slots=4, max_len=128, prefill_buckets=(16, 64),
               decode_chunk=4, block_size=16)
 
 
-def _serving_model(cuda, dtype):
+def _serving_model(cuda, dtype, seed=3, layers=2):
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
     from paddle_tpu_torch.quantization import quantize_for_serving
-    cfg = GPTConfig(vocab_size=1024, hidden_size=256, num_hidden_layers=2,
-                    num_attention_heads=4, max_position_embeddings=256,
-                    hidden_dropout_prob=0.0,
+    cfg = GPTConfig(vocab_size=1024, hidden_size=256,
+                    num_hidden_layers=layers, num_attention_heads=4,
+                    max_position_embeddings=256, hidden_dropout_prob=0.0,
                     attention_probs_dropout_prob=0.0, initializer_range=0.2)
-    model = GPTForPretraining(cfg, device=cuda, seed=3).eval()
+    model = GPTForPretraining(cfg, device=cuda, seed=seed).eval()
     if dtype == torch.bfloat16:
         amp.decorate(models=model, level="O2", dtype="bfloat16")
     return quantize_for_serving(model)
@@ -1364,3 +1364,152 @@ def test_train_step_run_steps_replays(cuda):
     assert torch.equal(got, want)
     _assert_equal_states(m1.state_dict(), m2.state_dict())
     assert s1.compile_counts()["total"] == 1
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: the verify tick's shapes, programs and weight swap
+# ---------------------------------------------------------------------------
+# GPT-2 medium's verify: 8 slots x (K + 1 = 5) rows flattened to 40 query
+# rows of 16 heads, each with its slot's table and position pos + j; the
+# draft (GPT-2 small's widths) runs K4 at M = 8 on 768 / 3072.
+
+def _verify_case(rng, slots, k1, bs, h, d, pos):
+    """A slot-level paged case, its query rows repeated K+1 times per slot
+    (tables repeated per row, positions pos + j)."""
+    nb = -(-(max(pos) + k1) // bs) + 1
+    _, kp, vp, tables, _ = _paged_case(rng, slots, nb * slots, bs, h, d, nb,
+                                       [p + k1 - 1 for p in pos])
+    q = torch.from_numpy(rng.randn(slots * k1, h, d).astype(np.float32))
+    rows = torch.repeat_interleave(tables, k1, dim=0)
+    qpos = (torch.tensor(pos)[:, None] + torch.arange(k1)).reshape(-1)
+    return q, kp, vp, rows, qpos.to(torch.int32)
+
+
+@pytest.mark.parametrize("kv_dt", ["f32", "bf16"])
+def test_paged_attention_at_the_verify_shape(cuda, kv_dt):
+    rng = np.random.RandomState(11)
+    q, kp, vp, tables, pos = [a.to(cuda) for a in _verify_case(
+        rng, 8, 5, 16, 16, 64, [17, 100, 511, 600, 700, 1000, 0, 15])]
+    kp, vp = kp.to(DTYPES[kv_dt]), vp.to(DTYPES[kv_dt])
+    assert q.shape == (40, 16, 64)
+    got = pa.paged_attention(q, kp, vp, tables, pos)
+    again = pa.paged_attention(q, kp, vp, tables, pos)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, pa._plain(q, kp, vp, tables, pos), **TOL)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (40, 1024, 3072), (40, 1024, 1024), (40, 1024, 4096), (40, 4096, 1024),
+    (8, 768, 2304), (8, 768, 768), (8, 768, 3072), (8, 3072, 768)])
+def test_int8_matmul_at_the_verify_and_draft_shapes(cuda, m, k, n):
+    rng = np.random.RandomState(m + k + n)
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(cuda)
+    wi, s = quantize_weight_int8(
+        torch.from_numpy((0.02 * rng.randn(k, n)).astype(np.float32)).to(cuda))
+    got = int8_matmul.dequant_matmul(x, wi, s)
+    again = int8_matmul.dequant_matmul(x, wi, s)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, int8_matmul._plain(x, wi, s), **TOL)
+    assert torch.equal(got, again)
+
+
+SPEC_ENGINE = dict(ENGINE, spec_tokens=3)
+
+
+@pytest.mark.parametrize("kv", ["fixed", "paged"])
+def test_spec_engine_captured_streams_equal_uncaptured(cuda, kv):
+    """A speculative engine (a 1-layer draft) with greedy, sampled and
+    spec-off traffic: the captured engine's streams equal the uncaptured
+    path's, warmup captures len(buckets) + 2 graphs and nothing after;
+    a verify replay launches K4 4 times per target layer and (K+1) x 4 per
+    draft layer, and (paged) K3 once per target layer and K+1 times per
+    draft layer."""
+    from paddle_tpu_torch.serving import ServingEngine
+    model = _serving_model(cuda, torch.float32)
+    draft = _serving_model(cuda, torch.float32, seed=5, layers=1)
+    streams = []
+    for uncaptured in (False, True):
+        eng = ServingEngine(model, kv=kv, draft_model=draft, device=cuda,
+                            **SPEC_ENGINE)
+        eng._run_uncaptured = uncaptured
+        report = eng.warmup()
+        assert report["compile_counts"]["total"] == len(
+            ENGINE["prefill_buckets"]) + 2
+        k1 = SPEC_ENGINE["spec_tokens"] + 1
+        for name in ("decode", "decode_greedy"):
+            want = {"dequant_matmul": 4 * (2 + k1)}
+            if kv == "paged":
+                want["paged_attention"] = 2 + k1
+            assert _per_replay(eng._programs[name]) == want
+        resps = _traffic(eng, 6)
+        resps.append(eng.submit([5, 6, 7], max_new_tokens=20, spec=False,
+                                decode_strategy="sampling", seed=9))
+        eng.run_until_drained(timeout=300)
+        streams.append([r.tokens(timeout=5) for r in resps])
+        assert eng.post_warmup_compiles() == 0
+        assert eng.metrics()["spec"]["ticks"] > 0
+    assert streams[0] == streams[1]
+
+
+def test_spec_verify_logits_match_the_plain_path_on_the_cpu(cuda):
+    """One verify tick's target logits (8 slots' K+1 rows) on the kernel
+    path against the same tick by the plain versions on the CPU, on the
+    same paged KV state: within the logit tolerance."""
+    import copy
+
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.serving.engine import paged_decode_logits
+    model = _serving_model(cuda, torch.float32)
+    draft = _serving_model(cuda, torch.float32, seed=5, layers=1)
+    eng = ServingEngine(model, kv="paged", draft_model=draft, device=cuda,
+                        **SPEC_ENGINE)
+    eng.warmup()
+    _traffic(eng, 4)
+    eng.step()
+    eng.step()
+    eng._ensure_decode_blocks()
+    tables = eng._host_tables()
+    active = np.zeros(ENGINE["max_slots"], bool)
+    pos = np.zeros(ENGINE["max_slots"], np.int64)
+    for slot, run in eng._slots.items():
+        active[slot], pos[slot] = True, run.pos
+    ids = torch.from_numpy(np.random.RandomState(2).randint(
+        0, 1024, (ENGINE["max_slots"], SPEC_ENGINE["spec_tokens"] + 1)))
+    geo = (eng.kv_pool.num_blocks, ENGINE["block_size"], eng._pool_len)
+    with torch.inference_mode():
+        pools = [(k.clone(), v.clone()) for k, v in eng._pools]
+        kern = paged_decode_logits(model, pools, tables,
+                                   torch.from_numpy(tables).to(cuda), active,
+                                   pos, ids.to(cuda), *geo).cpu()
+        plain = paged_decode_logits(
+            copy.deepcopy(model).cpu(),
+            [(k.cpu(), v.cpu()) for k, v in eng._pools], tables,
+            torch.from_numpy(tables), active, pos, ids, *geo)
+    live = torch.from_numpy(active)
+    assert float((kern[live] - plain[live]).abs().max()) <= LOGIT_TOL
+
+
+def test_swap_weights_on_a_captured_engine(cuda):
+    """A captured engine swapped to another draw of the weights serves
+    the new weights (streams equal a fresh captured engine's on them),
+    in place, with nothing captured again."""
+    from paddle_tpu_torch.serving import ServingEngine
+    model = _serving_model(cuda, torch.float32)
+    new = _serving_model(cuda, torch.float32, seed=4)
+    eng = ServingEngine(model, kv="paged", device=cuda, **ENGINE)
+    eng.warmup()
+    _traffic(eng)
+    eng.run_until_drained(timeout=300)
+    ptrs = [t.data_ptr() for t in model.state_dict().values()]
+    eng.swap_weights({k: t.clone() for k, t in new.state_dict().items()})
+    assert [t.data_ptr() for t in model.state_dict().values()] == ptrs
+    got = [r for r in _traffic(eng)]
+    eng.run_until_drained(timeout=300)
+    fresh = ServingEngine(new, kv="paged", device=cuda, **ENGINE)
+    fresh.warmup()
+    want = _traffic(fresh)
+    fresh.run_until_drained(timeout=300)
+    assert [r.tokens(timeout=5) for r in got] == \
+        [r.tokens(timeout=5) for r in want]
+    assert eng.post_warmup_compiles() == 0

@@ -1,0 +1,118 @@
+"""``ServingEngine.swap_weights`` of paddle_tpu_torch on the CPU.
+
+The tiny GPT of ``torch_parity`` (f32 and int8), two weight draws carried
+from the JAX package by name (``jax_state``: the reference's state keys,
+numpy arrays, as a published checkpoint holds them):
+
+- After a swap the engine's streams equal a fresh engine's on the new
+  weights and solo ``generate`` (token equality), nothing is made after
+  warmup, every parameter and buffer keeps its storage (written in place,
+  so the programs captured on it read the new weights), the prefix cache
+  is flushed, ``refresh_epoch`` / ``weights_sha`` move.
+- A missing or unexpected key, a wrong shape or a wrong dtype raises
+  InvalidArgumentError before anything is written: the old weights are
+  still served.
+- On a speculative engine the target swaps and the draft stays.
+"""
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.core.errors import InvalidArgumentError
+from paddle_tpu_torch.serving import ServingEngine
+
+from torch_parity import jax_state, tiny_pair, torch_solo
+
+ENGINE = dict(max_slots=3, max_len=48, prefill_buckets=(8, 32), block_size=8,
+              kv="paged")
+PREFIX = list(range(3, 19))          # two full blocks: cached, then hit
+PROMPTS = [PREFIX + [40, 41], PREFIX + [50], [7, 8, 9]]
+
+
+def _serve(engine, prompts=PROMPTS, max_new=10):
+    resps = [engine.submit(p, max_new_tokens=max_new) for p in prompts]
+    engine.run_until_drained(timeout=120)
+    return [r.tokens(timeout=5) for r in resps]
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["f32", "int8"])
+def weights(request):
+    return (tiny_pair(seed=1, quantize=request.param),
+            tiny_pair(seed=2, quantize=request.param))
+
+
+@pytest.fixture
+def pairs(weights):
+    """The two draws, the served port model a copy of its own (a swap
+    writes it)."""
+    (jm, tm), new = weights
+    return (jm, copy.deepcopy(tm)), new
+
+
+def test_swap_serves_the_new_weights_in_place(pairs):
+    (_, tm), (jm_new, tm_new) = pairs
+    eng = ServingEngine(tm, prefix_cache=True, device="cpu", **ENGINE)
+    old = _serve(eng)
+    assert eng.prefix_cache.hits > 0
+    ptrs = {k: t.data_ptr() for k, t in tm.state_dict().items()}
+    warm = eng.compile_counts()
+    eng.swap_weights(jax_state(jm_new), weights_sha="sha-2")
+    assert eng.prefix_cache.stats()["nodes"] == 0
+    assert (eng.refresh_epoch, eng.weights_sha) == (1, "sha-2")
+    assert {k: t.data_ptr() for k, t in tm.state_dict().items()} == ptrs
+    for k, t in tm_new.state_dict().items():
+        assert torch.equal(tm.state_dict()[k], t), k
+    got = _serve(eng)
+    fresh = ServingEngine(tm_new, prefix_cache=True, device="cpu", **ENGINE)
+    assert got == _serve(fresh) != old
+    assert got == [torch_solo(tm_new, p, 10) for p in PROMPTS]
+    assert eng.compile_counts() == warm and eng.post_warmup_compiles() == 0
+
+
+def _bad_states(state):
+    """Each state is wrong in one leaf, the LAST in the model's order, so
+    a swap that wrote while it checked would have written every other."""
+    last = list(state)[-1]
+    arr = state[last]
+    missing = dict(state)
+    del missing[last]
+    shape = dict(state, **{last: np.zeros(arr.shape + (1,), arr.dtype)})
+    dtype = dict(state, **{last: arr.astype(np.float64)})
+    extra = dict(state, extra=np.zeros((1,), np.float32))
+    return {"missing": missing, "unexpected": extra, "shape": shape,
+            "dtype": dtype}
+
+
+def test_a_mismatch_raises_and_writes_nothing(pairs):
+    (_, tm), (jm_new, _) = pairs
+    eng = ServingEngine(tm, device="cpu", **ENGINE)
+    before = _serve(eng)
+    kept = {k: t.clone() for k, t in tm.state_dict().items()}
+    new = jax_state(jm_new)
+    assert np.asarray(new[list(new)[-1]]).dtype != np.float64
+    for name, state in _bad_states(new).items():
+        with pytest.raises(InvalidArgumentError):
+            eng.swap_weights(state)
+        for k, t in tm.state_dict().items():
+            assert torch.equal(t, kept[k]), (name, k)
+    assert eng.refresh_epoch == 0
+    assert _serve(eng) == before
+
+
+def test_speculative_engine_swaps_the_target_only(pairs):
+    """Tensors are taken as well as arrays; the draft keeps its weights
+    and greedy streams follow the new target (speculation never changes a
+    greedy stream)."""
+    (_, tm), (_, tm_new) = pairs
+    _, draft = tiny_pair(seed=3)
+    eng = ServingEngine(tm, draft_model=draft, spec_tokens=3, device="cpu",
+                        **ENGINE)
+    _serve(eng)
+    drafted = {k: t.clone() for k, t in draft.state_dict().items()}
+    eng.swap_weights({k: t.clone() for k, t in tm_new.state_dict().items()})
+    for k, t in draft.state_dict().items():
+        assert torch.equal(t, drafted[k]), k
+    assert _serve(eng) == [torch_solo(tm_new, p, 10) for p in PROMPTS]
+    assert eng.post_warmup_compiles() == 0
