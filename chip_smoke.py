@@ -94,13 +94,42 @@ Phases (any failure exits non-zero before the result line):
                 rate and tokens per slot per tick, and a profiled tick
                 (wall, device, idle share, kernels, replay span) of both
                 engines.
-  9. fixed    — 4-layer full-width engines on the fixed pool, captured, f32
+  9. lora     — batched multi-adapter LoRA on the serve model (f32 pools):
+                five artifacts made by the port's apply_lora (rank 8, the
+                default targets qkv / proj / ffn_in / ffn_out, A drawn by
+                LoRALinear, B at std 0.01, from --seed) + export_adapter
+                on copies of the served int8 model; the serve phase's 8
+                requests spread over the base (2) and four adapters,
+                through the plain engine, then a LoRA engine
+                (LoRAConfig(rank=8, max_adapters=8), check_base_hash on)
+                captured and uncaptured.  Gates: warmup captures
+                len(buckets) + 2 and none follows, across a hot
+                load_adapter of the fifth artifact while the engine loop
+                serves too; K3 / K4 launch through the LoRA engine's
+                replays; captured == uncaptured; the base requests'
+                streams equal the plain engine's; each greedy adapter
+                stream equals the request served alone, or splits where
+                the adapter path's top-two margin is below 1e-3 (printed);
+                at least one adapter stream leaves the base's within 16
+                tokens; one decode step's logits with the four adapters
+                live within 2e-3 of the plain path on the CPU, same KV
+                state and stacks.  Prints tokens/s and TTFT against the
+                plain engine, the profiled decode step (wall, device,
+                idle share, kernels, replay span), the adapter gathers +
+                bmm alone per step and their share, the stacks' memory
+                and the ms of the hot load.  Then LoRA training: an f32
+                GPT-2 medium with apply_lora (rank 8), B 2 x S 512,
+                TrainStep + AdamW on the factors, 3 captured steps: finite
+                losses, every base tensor bit-unchanged, every lora_B
+                moved, K1 and K2 24 launches each per step through the
+                replays, the exported adapter read back by read_adapter.
+ 10. fixed    — 4-layer full-width engines on the fixed pool, captured, f32
                 and bf16: greedy streams must equal the uncaptured path's,
                 and in f32 solo generate()'s.  Then the captured f32 engine
                 swaps in another draw of the weights (swap_weights): in
                 place, nothing captured, streams equal solo generate() on
                 the new weights.
- 10. flash    — the tensor-core instructions (HMMA / HGMMA lines of
+ 11. flash    — the tensor-core instructions (HMMA / HGMMA lines of
                 cuobjdump -sass) of every kernel in the built flash
                 library, failing if a bf16 (tensor-core route) kernel has
                 none; the flash kernels K1 (forward) and K2 (backward)
@@ -113,7 +142,7 @@ Phases (any failure exits non-zero before the result line):
                 memory of one call is printed; then timed like K3/K4 over
                 24 layers' tensors, beside the bound and torch's
                 scaled_dot_product_attention as the yardstick.
- 11. train    — GPT-2 medium (24 x 1024, 16 heads, vocab 50304), B 4,
+ 12. train    — GPT-2 medium (24 x 1024, 16 heads, vocab 50304), B 4,
                 S 1024, O1 bf16, AdamW(1e-4), dropout 0.1, random weights
                 and one random batch from --seed, through jit.TrainStep's
                 captured step: warmup() captures the step's CUDA graph
@@ -131,11 +160,11 @@ Phases (any failure exits non-zero before the result line):
                 1e-5 relative of the plain run's (bit-equality expected;
                 both printed), K1 48 and K2 24 launches per step, peak
                 memory below the plain run's, device time printed.
- 12. traincheck — one step's loss and every parameter's gradient of a
+ 13. traincheck — one step's loss and every parameter's gradient of a
                 2-layer full-width f32 GPT (dropout 0, B 1, S 1024) on the
                 kernel path against the same step by the plain versions on
                 the CPU, same weights and batch.
- 13. bn       — the fused BatchNorm kernels K5-K9 against their plain
+ 14. bn       — the fused BatchNorm kernels K5-K9 against their plain
                 versions on the card: at the ResNet-50 b256 main path's
                 shapes (the stem, 3,211,264 x 64; layer1's bn3 with its
                 residual, 802,816 x 256; layer4, 12,544 x 2048) and at
@@ -159,7 +188,7 @@ Phases (any failure exits non-zero before the result line):
                 (CUDA graph replay) at layer1's bn3 and at the stem, beside
                 its bound, its plain version and PyTorch's own BatchNorm
                 kernels; K9's ring route in turns with its window route.
- 14. resnet   — ResNet-50 (BASELINE config #2): resnet50() under
+ 15. resnet   — ResNet-50 (BASELINE config #2): resnet50() under
                 jit.layout_policy("NHWC"), TrainStep O2 bf16, cross-entropy
                 on the logits, Momentum(0.1, 0.9), one random batch of
                 256 x 3 x 224 x 224 from --seed, 8 steps through the
@@ -178,7 +207,7 @@ Phases (any failure exits non-zero before the result line):
                 every block site: 105 / 96 per step, peak memory below the
                 plain run's).  Then K7 and K8 timed at each of the step's
                 48 BN backward sites' shapes beside each site's bound.
- 15. resnetcheck — one f32 step of ResNet-18 (10 classes, 4 x 3 x 64 x 64)
+ 16. resnetcheck — one f32 step of ResNet-18 (10 classes, 4 x 3 x 64 x 64)
                 on the kernel path against the same step by the plain
                 versions on the CPU, same weights and batch: the loss,
                 every gradient and every running statistic within 1e-3 of
@@ -236,6 +265,15 @@ PREFIX_LEN, PREFIX_NEW = 384, 64
 PREFIX_SUFFIXES = tuple(int(n) for n in np.linspace(16, 96, 16))
 MARGIN_TOL = 2e-3   # a cached / uncached greedy split needs a nearer tie
 SPEC_TOKENS = 4     # spec phase: draft proposals per verify tick
+# lora phase: LoRAConfig(rank, max_adapters) on the default targets; the
+# artifacts' B factors are drawn at this std (A: LoRALinear's own draw,
+# Normal(0, 1/rank)), which moves a projection's output by about as much
+# as the base's own spread at GPT-2 medium's init
+LORA_RANK, LORA_SLOTS, LORA_B_STD = 8, 8, 0.01
+# the serve phase's 8 requests by adapter (None: the base); 3 and 6 sample
+LORA_ADAPTERS = (None, "t1", "t2", "t3", "t4", None, "t1", "t2")
+LORA_MARGIN_TOL = 1e-3   # a batched / solo adapter split needs a nearer tie
+LORA_TRAIN_B, LORA_TRAIN_S, LORA_TRAIN_STEPS = 2, 512, 3
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 8               # train phase
 RECOMPUTE_STEPS = 3        # the train / resnet phases' recompute legs
 RESNET_B, RESNET_HW, RESNET_STEPS = 256, 224, 8           # resnet phase
@@ -720,10 +758,12 @@ def decode_logits_check(torch, eng, model, dev):
     return float((kern - plain).abs().max()), float(plain.abs().max())
 
 
-def serve_run(torch, eng, prompts, sampled, new_tokens, launch_names):
+def serve_run(torch, eng, prompts, sampled, new_tokens, launch_names,
+              adapters=None):
     """The requests through the engine (counters zeroed just before and
-    read just after).  Returns the streams, wall seconds, TTFTs and the
-    kernels' launches by name."""
+    read just after), request i under LoRA adapter ``adapters[i]`` when
+    given.  Returns the streams, wall seconds, TTFTs and the kernels'
+    launches by name."""
     from paddle_tpu_torch.ops import int8_matmul as im
     from paddle_tpu_torch.ops import paged_attention as pa
     torch.cuda.synchronize()
@@ -731,6 +771,7 @@ def serve_run(torch, eng, prompts, sampled, new_tokens, launch_names):
     pa.paged_attention.launches = 0
     t0 = time.perf_counter()
     resps = [eng.submit(p, max_new_tokens=new_tokens,
+                        adapter=adapters[i] if adapters else None,
                         **({"decode_strategy": "sampling", **sampled[i]}
                            if i in sampled else {}))
              for i, p in enumerate(prompts)]
@@ -930,13 +971,13 @@ def _paged_engine(model, dev, **kw):
     return eng
 
 
-def _drive(torch, eng, prompts, sampled, new_tokens, tag):
+def _drive(torch, eng, prompts, sampled, new_tokens, tag, adapters=None):
     """serve_run with every request required to finish with its tokens
     and K3 / K4 required to launch (counted through the replays)."""
     names = ("int8_matmul", "paged_attention")
     try:
         outs, wall, ttfts, launches = serve_run(torch, eng, prompts, sampled,
-                                                new_tokens, names)
+                                                new_tokens, names, adapters)
     except Exception as e:  # noqa: BLE001 — a failed request fails the phase
         fail(f"{tag}: a request failed: {e!r}")
     if any(len(o) != new_tokens for o in outs):
@@ -1400,6 +1441,357 @@ def swap_check(torch, eng, cfg, prompts, dev, seed):
           f"generate() on the new weights, in place, refresh_epoch "
           f"{eng.refresh_epoch}, no capture")
     del new
+
+
+def lora_artifacts(torch, args, model, n: int):
+    """``n`` adapter artifacts of the served model, each made by the
+    port's ``apply_lora`` on a copy of it (A drawn by LoRALinear from a
+    generator seeded from --seed) with B drawn at LORA_B_STD, then
+    ``export_adapter`` into build/lora/ of the checkout.  Returns the
+    paths (``tenant1.npz``, ...)."""
+    import os
+
+    from paddle_tpu_torch import lora
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "lora")
+    os.makedirs(out, exist_ok=True)
+    paths = []
+    for i in range(n):
+        wrapped = copy.deepcopy(model)
+        gen = torch.Generator(device=model.device)
+        gen.manual_seed(args.seed + 40 + i)
+        lora.apply_lora(wrapped, rank=LORA_RANK, generator=gen)
+        with torch.no_grad():
+            for m in wrapped.modules():
+                if isinstance(m, lora.LoRALinear):
+                    m.lora_B.normal_(0.0, LORA_B_STD, generator=gen)
+        paths.append(os.path.join(out, f"tenant{i + 1}.npz"))
+        lora.export_adapter(wrapped, paths[-1])
+        del wrapped
+    torch.cuda.empty_cache()
+    return paths
+
+
+def _lora_ctx(torch, reg, aids, dev):
+    """An adapter_context over the registry's stacks moved to ``dev``."""
+    from paddle_tpu_torch.lora import adapter_context
+    stacks = {k: (a.to(dev), b.to(dev)) for k, (a, b) in reg.stacks.items()}
+    return adapter_context(stacks, reg.scales.to(dev),
+                           torch.as_tensor(aids, dtype=torch.int32).to(dev))
+
+
+def lora_logits_check(torch, eng, model, dev):
+    """One decode step's logits on the LoRA engine's current paged state,
+    every slot under its own adapter, by the kernel path on the card and
+    by the plain versions on the CPU (copies of the pools and the
+    stacks).  Returns (max abs difference, the plain logits' largest
+    |value|, the adapter ids)."""
+    from paddle_tpu_torch.serving.engine import paged_decode_logits
+    eng._ensure_decode_blocks()
+    tables_np = eng._host_tables()
+    active = np.zeros(SLOTS, bool)
+    pos = np.zeros(SLOTS, np.int64)
+    aids = np.zeros(SLOTS, np.int32)
+    tokens = torch.zeros(SLOTS, dtype=torch.long)
+    for slot, run in eng._slots.items():
+        active[slot], pos[slot], tokens[slot] = True, run.pos, run.last_token
+        aids[slot] = run.aid
+    geo = (eng.kv_pool.num_blocks, BLOCK, MAX_LEN)
+    reg = eng._lora_reg
+    with torch.inference_mode():
+        pools = [(k.clone(), v.clone()) for k, v in eng._pools]
+        with _lora_ctx(torch, reg, aids, dev):
+            kern = paged_decode_logits(
+                model, pools, tables_np, torch.from_numpy(tables_np).to(dev),
+                active, pos, tokens.to(dev), *geo).cpu()
+        del pools
+        cpu_model = copy.deepcopy(model).cpu()
+        cpu_pools = [(k.cpu(), v.cpu()) for k, v in eng._pools]
+        with _lora_ctx(torch, reg, aids, "cpu"):
+            plain = paged_decode_logits(
+                cpu_model, cpu_pools, tables_np, torch.from_numpy(tables_np),
+                active, pos, tokens, *geo)
+    return (float((kern - plain).abs().max()), float(plain.abs().max()),
+            sorted(set(aids.tolist())))
+
+
+def lora_delta_ms(torch, eng, dev):
+    """Device ms of the adapter deltas alone for one decode step, as the
+    hooks compute them: the 96 hooked projections' gathers (A[aids],
+    B[aids], scale[aids], once per step) and, decode_chunk times, two
+    batched matmuls, the scale and the add at the decode shape (8 slots,
+    one token, adapters 1..4 and the base), as one CUDA graph
+    replayed."""
+    reg = eng._lora_reg
+    aids = torch.tensor([0, 1, 2, 3, 4, 0, 1, 2], dtype=torch.int32,
+                        device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    xs = {k: torch.randn(SLOTS, 1, a.shape[1], generator=gen, device=dev)
+          for k, (a, _) in reg.stacks.items()}
+    ys = {k: torch.randn(SLOTS, 1, b.shape[2], generator=gen, device=dev)
+          for k, (_, b) in reg.stacks.items()}
+
+    def deltas():
+        ctx = _lora_ctx(torch, reg, aids, dev)
+        for _ in range(eng.decode_chunk):
+            for k in reg.keys:
+                a, b, s = ctx.factors(k)
+                ys[k] + torch.bmm(torch.bmm(xs[k], a), b) * s[:, None, None]
+    with torch.inference_mode():
+        return graph_ms(torch, deltas)
+
+
+def _lora_margin(torch, model, reg, dev, aid, ids) -> float:
+    """Top-two margin of the next-token logits of ``ids`` under adapter
+    ``aid`` (a full forward, no cache)."""
+    with _lora_ctx(torch, reg, [aid], dev):
+        return _top2_margin(torch, model, dev, ids)
+
+
+def lora_phase(torch, args, dev, card, model):
+    """Batched multi-adapter LoRA on the serve model (GPT-2 medium int8,
+    paged, f32 pools): four artifacts made by the port's apply_lora +
+    export_adapter on the served model, then the serve requests spread
+    over the base and the four adapters (LORA_ADAPTERS) through the plain
+    engine and the LoRA engine (LoRAConfig(rank 8, max_adapters 8),
+    check_base_hash on), captured and uncaptured.  Gates: warmup captures
+    len(buckets) + 2 and none follows, a hot load_adapter of a fifth
+    artifact while the engine loop serves included; K3 / K4 launch
+    through the LoRA engine's replays; captured == uncaptured; the base
+    requests' streams equal the plain engine's; each greedy adapter
+    stream equals the request served alone (a split only where the
+    adapter path's top-two margin is below LORA_MARGIN_TOL); one decode
+    step's logits with the four adapters live within LOGIT_TOL of the CPU
+    plain path.  Then the training leg (``lora_train_leg``)."""
+    from paddle_tpu_torch.lora import LoRAConfig
+    cfg = model.gpt.config
+    prompts, sampled = serve_requests(args, cfg.vocab_size)
+    t0 = time.perf_counter()
+    paths = lora_artifacts(torch, args, model, 5)
+    print(f"lora: 5 artifacts (rank {LORA_RANK}, B std {LORA_B_STD}) made "
+          f"and exported in {time.perf_counter() - t0:.2f}s")
+    plain = _paged_engine(model, dev)
+    outs, wall, ttfts, _ = _drive(torch, plain, prompts, sampled, 64,
+                                  "lora plain")
+    total = sum(len(o) for o in outs)
+    base_runs = dict(outs=outs, tps=total / wall, ttfts=ttfts)
+    plain_prof = decode_profile(torch, _filled(plain, prompts), 3, card,
+                                "lora plain engine")
+    plain.run_until_drained(timeout=300)
+    plain.close()
+    del plain
+    torch.cuda.empty_cache()
+
+    eng = _paged_engine(model, dev, lora=LoRAConfig(
+        rank=LORA_RANK, max_adapters=LORA_SLOTS))
+    reg = eng._lora_reg
+    names = [f"t{i + 1}" for i in range(4)]
+    for name, path in zip(names, paths):
+        eng.load_adapter(name, path)
+    runs = {}
+    for mode in ("captured", "uncaptured"):
+        eng._run_uncaptured = mode == "uncaptured"
+        eng.reset_metrics()
+        outs, wall, ttfts, launches = _drive(torch, eng, prompts, sampled,
+                                             64, f"lora {mode}",
+                                             LORA_ADAPTERS)
+        total = sum(len(o) for o in outs)
+        runs[mode] = dict(outs=outs, tps=total / wall, ttfts=ttfts,
+                          launches=launches)
+        print(f"lora {mode} [{card}]: 8 requests over the base and 4 "
+              f"adapters, {total} tokens in {wall:.3f}s: "
+              f"{total / wall:.1f} tokens/s; TTFT p50 "
+              f"{ttfts[len(ttfts) // 2] * 1e3:.1f} ms, max "
+              f"{ttfts[-1] * 1e3:.1f} ms; launches {launches}")
+    eng._run_uncaptured = False
+    cap, unc = runs["captured"]["outs"], runs["uncaptured"]["outs"]
+    if cap != unc:
+        fail("lora: captured streams differ from the uncaptured ones: "
+             f"{[i for i, (a, b) in enumerate(zip(cap, unc)) if a != b]}")
+    differ = [i for i, a in enumerate(LORA_ADAPTERS)
+              if a is not None and cap[i][:16] != base_runs["outs"][i][:16]]
+    n_adapted = sum(a is not None for a in LORA_ADAPTERS)
+    print(f"lora: {len(differ)} of {n_adapted} adapter streams differ from "
+          f"the base's within the first 16 tokens ({differ})")
+    if not differ:
+        fail("lora: no adapter stream leaves the base's")
+    for i, a in enumerate(LORA_ADAPTERS):
+        if a is None and cap[i] != base_runs["outs"][i]:
+            fail(f"lora: base request {i}'s stream differs from the plain "
+                 "engine's")
+    splits = []
+    for i, a in enumerate(LORA_ADAPTERS):
+        if a is None or i in sampled:
+            continue
+        solo = eng.submit(prompts[i], max_new_tokens=64, adapter=a)
+        eng.run_until_drained(timeout=300)
+        want = solo.tokens(timeout=5)
+        if cap[i] == want:
+            continue
+        j = next(k for k, (x, y) in enumerate(zip(cap[i], want)) if x != y)
+        margin = _lora_margin(torch, model, reg, dev, reg.resolve(a),
+                              np.concatenate([prompts[i], want[:j]]))
+        splits.append((i, j, margin))
+        print(f"lora: adapter stream {i} ({a}) splits from its solo run at "
+              f"token {j}: top-two margin {margin:.3e}")
+        if margin >= LORA_MARGIN_TOL:
+            fail(f"lora: stream {i} splits at token {j} where the margin is "
+                 f"{margin:.3e} (>= {LORA_MARGIN_TOL})")
+    print("lora: captured == uncaptured (all 8 streams); the 2 base streams "
+          "equal the plain engine's; greedy adapter streams equal their "
+          f"solo runs but at near ties: {splits}")
+
+    # one decode step with the four adapters live: kernel path vs CPU
+    resps = [eng.submit(p, max_new_tokens=96, adapter=LORA_ADAPTERS[i])
+             for i, p in enumerate(prompts)]
+    eng.step()                       # admits all eight + one decode chunk
+    err, top, aids = lora_logits_check(torch, eng, model, dev)
+    print(f"lora: decode-step logits kernel path vs plain path, adapter ids "
+          f"{aids}: max abs err {err:.3e} (tolerance {LOGIT_TOL:.1e}), "
+          f"|logits| max {top:.3f}")
+    if not err <= LOGIT_TOL:
+        fail(f"lora: decode logits disagree: {err:.3e}")
+    lora_prof = decode_profile(torch, eng, 3, card, "lora engine")
+    span = replay_span_ms(torch, eng, 3)
+    eng.run_until_drained(timeout=300)
+    [r.tokens(timeout=5) for r in resps]
+    delta = lora_delta_ms(torch, eng, dev)
+
+    # a hot load while the engine loop serves: nothing is captured
+    eng.start()
+    resps = [eng.submit(p, max_new_tokens=64, adapter=LORA_ADAPTERS[i])
+             for i, p in enumerate(prompts)]
+    time.sleep(0.05)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.load_adapter("t5", paths[4])
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    late = eng.submit(prompts[0], max_new_tokens=16, adapter="t5")
+    try:
+        for r in resps + [late]:
+            r.tokens(timeout=300)
+    except Exception as e:  # noqa: BLE001 — a failure fails the phase
+        fail(f"lora: a request failed around the hot load: {e!r}")
+    if eng.post_warmup_compiles() != 0:
+        fail(f"lora: {eng.post_warmup_compiles()} captures after warmup "
+             "(a hot load must capture nothing)")
+    counts = eng.compile_counts()
+    stats = eng.metrics()["lora"]
+    eng.close()
+
+    wall_ms, busy, _, kernels = lora_prof
+    pw, pbusy, _, pkernels = plain_prof
+    stack_bytes = sum(a.nbytes + b.nbytes for a, b in reg.stacks.values())
+    b, r = base_runs, runs["captured"]
+    p50 = {k: v["ttfts"][len(v["ttfts"]) // 2] * 1e3
+           for k, v in (("lora", r), ("plain", b))}
+    print(f"lora summary [{card}]: {r['tps']:.1f} tokens/s against the "
+          f"plain engine's {b['tps']:.1f} on the same requests; TTFT p50 "
+          f"{p50['lora']:.1f} ms against {p50['plain']:.1f}; greedy decode "
+          "step "
+          f"(8 slots under ids {aids}) wall {wall_ms:.3f} ms, device "
+          + (f"{busy:.3f} ms, idle {1 - busy / wall_ms:.1%}, {kernels:.0f} "
+             f"kernels" if busy else "not measured")
+          + f", replay span {span:.3f} ms; plain engine's step wall "
+          f"{pw:.3f} ms, device "
+          + (f"{pbusy:.3f} ms, {pkernels:.0f} kernels" if pbusy
+             else "not measured")
+          + f"; adapter gathers + bmm alone {delta:.3f} ms per step"
+          + (f" ({delta / busy:.1%} of the step's device time)" if busy
+             else "")
+          + f"; stacks {stack_bytes / 2 ** 20:.1f} MiB ({LORA_SLOTS} + 1 "
+          f"rows x {len(reg.keys)} targets); hot load_adapter "
+          f"{load_ms:.1f} ms while serving; captures {counts['total']} "
+          f"(bound {counts['bound']}), none after warmup; registry "
+          f"{stats['loaded']} loaded, {stats['loads']} loads")
+    del eng
+    torch.cuda.empty_cache()
+    lora_train_leg(torch, args, dev, card)
+
+
+def _filled(eng, prompts):
+    """``eng`` with the serve prompts admitted (greedy, 96 new tokens) and
+    one decode chunk run: 8 active slots for a profile."""
+    for p in prompts:
+        eng.submit(p, max_new_tokens=96)
+    eng.step()
+    return eng
+
+
+def lora_train_leg(torch, args, dev, card):
+    """LoRA fine-tuning at the serve model's widths: an f32 GPT-2 medium
+    (dropout 0) with apply_lora (rank 8), B 2 x S 512, TrainStep with
+    AdamW on the factors only, LORA_TRAIN_STEPS captured steps.  Gates:
+    finite losses; every base tensor bit-unchanged; every lora_B moved; K1
+    and K2 launched 24 times each per step through the replays; the
+    exported adapter passes read_adapter."""
+    import os
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import lora
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (GPTForPretraining,
+                                         GPTPretrainingCriterion,
+                                         gpt2_medium_config)
+    from paddle_tpu_torch.ops import flash_attention as fa
+    cfg = gpt2_medium_config(hidden_dropout_prob=0.0,
+                             attention_probs_dropout_prob=0.0)
+    crit = GPTPretrainingCriterion()
+    held = {}
+
+    def make():
+        pt.seed(args.seed)
+        model = GPTForPretraining(cfg, device=dev, seed=args.seed)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed + 50)
+        lora.apply_lora(model, rank=LORA_RANK, generator=gen)
+        held["model"] = model
+        held["base"] = {k: t.clone() for k, t in model.state_dict().items()
+                        if "lora_" not in k}
+        factors = [p for p in model.parameters() if p.requires_grad]
+        opt = pt.optimizer.AdamW(learning_rate=1e-3, parameters=factors)
+        return model, TrainStep(model, lambda logits, y: crit(logits, y),
+                                opt)
+
+    def counters():
+        fa.flash_fwd.launches = fa.flash_bwd.launches = 0
+        return lambda: {"flash_attention_fwd": fa.flash_fwd.launches,
+                        "flash_attention_bwd": fa.flash_bwd.launches}
+    batch = tuple(torch.from_numpy(a).to(dev) for a in _train_batch(
+        cfg, args.seed + 5, LORA_TRAIN_B, LORA_TRAIN_S))
+    leg = train_leg(torch, make, batch, LORA_TRAIN_STEPS, counters, card,
+                    f"lora train step (GPT-2 medium f32, rank {LORA_RANK}, "
+                    f"B {LORA_TRAIN_B} x S {LORA_TRAIN_S}, captured)")
+    model = held.pop("model")
+    base = held.pop("base")
+    print(_leg_line("lora train captured", card, leg,
+                    LORA_TRAIN_B * LORA_TRAIN_S, "tokens"))
+    print("lora train: losses " + ", ".join(repr(x) for x in leg["losses"]))
+    if not all(np.isfinite(leg["losses"])):
+        fail(f"lora train: non-finite loss {leg['losses']}")
+    want = cfg.num_hidden_layers * LORA_TRAIN_STEPS
+    if any(n != want for n in leg["launches"].values()):
+        fail(f"lora train: flash launches {leg['launches']}, expected "
+             f"{want} each ({cfg.num_hidden_layers} per step)")
+    moved = [k for k, t in model.state_dict().items() if k.endswith("lora_B")
+             and bool((t != 0).any())]
+    n_b = sum(k.endswith("lora_B") for k in model.state_dict())
+    changed = [k for k, t in model.state_dict().items()
+               if k in base and not torch.equal(t, base[k])]
+    if changed or len(moved) != n_b:
+        fail(f"lora train: base tensors changed {changed[:4]}; lora_B moved "
+             f"{len(moved)} of {n_b}")
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "lora", "trained.npz")
+    lora.export_adapter(model, path)
+    header, factors, _ = lora.read_adapter(path)
+    print(f"lora train: {len(base)} base tensors bit-unchanged, {len(moved)}"
+          f" of {n_b} lora_B moved; exported {len(factors)} factor pairs, "
+          f"read back (rank {header['rank']}, {len(header['keys'])} keys)")
+    del model, base
+    torch.cuda.empty_cache()
 
 
 def fixed_phase(torch, args, dev):
@@ -2654,6 +3046,7 @@ def main():
     pressure_phase(torch, args, dev, card, model)
     prefix_phase(torch, args, dev, card, model)
     spec_phase(torch, args, dev, card, model)
+    lora_phase(torch, args, dev, card, model)
     del model
     launches.update(serve_phase(torch, args, dev, card,
                                 serve_model(torch, args, dev, torch.bfloat16),

@@ -23,7 +23,7 @@ import contextlib
 
 import torch
 
-__all__ = ["WHITE_LIST", "BLACK_LIST", "auto_cast", "amp_cast",
+__all__ = ["WHITE_LIST", "BLACK_LIST", "auto_cast", "amp_cast", "promote",
            "decorate"]
 
 # ops always run in the low-precision type (reference fp16 white list)
@@ -100,6 +100,22 @@ def amp_cast(name: str, *tensors):
     return tuple(t.to(tgt) if isinstance(t, torch.Tensor)
                  and t.is_floating_point() and t.dtype != tgt else t
                  for t in tensors)
+
+
+def promote(*tensors):
+    """The floating tensors in their common type (None and integer
+    tensors pass through), as jnp promotes mixed operands: a bf16 model
+    meets f32 activations where a LoRA hook's f32 delta joined a bf16
+    output.  Operands of one type are returned as they are."""
+    floats = [t for t in tensors if isinstance(t, torch.Tensor)
+              and t.is_floating_point()]
+    if len({t.dtype for t in floats}) < 2:
+        return tensors
+    tgt = floats[0].dtype
+    for t in floats[1:]:
+        tgt = torch.promote_types(tgt, t.dtype)
+    return tuple(t.to(tgt) if isinstance(t, torch.Tensor)
+                 and t.is_floating_point() else t for t in tensors)
 
 
 class auto_cast:

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from ...amp import amp_cast
+from ...amp import amp_cast, promote
 from ...core import rng
 
 __all__ = ["linear", "dropout"]
@@ -13,7 +13,7 @@ def linear(x, weight, bias=None):
     """y = x @ weight + bias with Paddle's (in, out) weight layout; AMP
     white-listed as ``linear`` with the bias cast too, so that under O1
     the output stays in the low type."""
-    x, weight, bias = amp_cast("linear", x, weight, bias)
+    x, weight, bias = promote(*amp_cast("linear", x, weight, bias))
     y = x @ weight
     return y if bias is None else y + bias
 

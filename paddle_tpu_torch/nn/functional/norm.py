@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from ...amp import amp_cast
+from ...amp import amp_cast, promote
 from ...core import buffer_updates as _bufup
 
 __all__ = ["layer_norm", "batch_norm", "fused_bn_act", "fused_dual_bn_act",
@@ -35,7 +35,7 @@ def layer_norm(x, normalized_shape, weight=None, bias=None,
     ``normalized_shape``; AMP black-listed (f32 under O1)."""
     ns = ((normalized_shape,) if isinstance(normalized_shape, int)
           else tuple(normalized_shape))
-    x, weight, bias = amp_cast("layer_norm", x, weight, bias)
+    x, weight, bias = promote(*amp_cast("layer_norm", x, weight, bias))
     return torch.nn.functional.layer_norm(x, ns, weight, bias, epsilon)
 
 

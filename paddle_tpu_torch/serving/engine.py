@@ -80,16 +80,34 @@
   (default: on when a draft exists); a spec-off slot streams as the
   plain engine.  ``compile_counts()``'s bound stays ``len(buckets) +
   2``.
-- **Weight swap** (``swap_weights``): a state dict of the same keys,
-  shapes and dtypes is copied in place into the parameters and buffers
-  the captured graphs read; nothing is captured again.
+- **Weight swap** (``swap_weights``): a state dict of the same keys and
+  shapes is cast to the served dtypes and copied in place into the
+  parameters and buffers the captured graphs read; nothing is captured
+  again.
+- **Batched LoRA** (``lora=LoRAConfig(...)``, fixed and paged): forward
+  hooks on the target linears (``lora.attach_serving_lora``, attached
+  before the programs are made) add each slot's adapter delta; the
+  registry's factor stacks are allocated once on the engine's device and
+  written in place by ``load_adapter``, and the adapter ids are one more
+  program input buffer (decode: ``aids`` (S,), idle slots 0 = the base;
+  prefill: ``aid`` (1,)), so heterogeneous adapters decode in one step at
+  the unchanged capture bound and a hot load captures nothing.  A request
+  pins its adapter from admission to release (and again by name at a
+  restore).  Not with ``draft_model=`` or ``prefix_cache=True``, as in the
+  reference.
+- **Fault hooks**: ``nan_logits`` (read at construction: when armed the
+  decode programs take a per-slot ``poison`` buffer and the request of
+  that submission number fails with ``NonFiniteLogitsError``; disarmed,
+  the program family is unchanged) and ``slow_decode`` (a host sleep
+  before every n-th decode call, read live).
 
 Greedy streams equal a solo ``generation.generate`` run of the same
-prompt (the same float ops up to summation order).  The reference's
-LoRA, mesh and AOT program sets are not ported yet.
+prompt (the same float ops up to summation order).  The reference's mesh
+and AOT program sets are not ported yet.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import threading
@@ -108,6 +126,9 @@ from ..generation.keyed import (categorical, first_token_at, greedy_step,
 from ..generation.speculative import (commit_speculative_greedy,
                                       commit_speculative_sampled,
                                       draft_proposal_key)
+from ..lora.layers import adapter_context, attach_serving_lora
+from ..lora.registry import AdapterRegistry
+from ..lora.train import base_weights_hash, state_hash
 from ..ops import _build
 from ..ops.paged_attention import (RowWrites, SlotRowWrites, copy_block,
                                    gather_block_rows, write_slot_blocks)
@@ -192,10 +213,10 @@ def _per_row(a, r: int):
 class _SlotRun:
     """Host-side per-slot decode state."""
     __slots__ = ("req", "resp", "pos", "produced", "last_token",
-                 "last_token_at", "key")
+                 "last_token_at", "key", "aid")
 
     def __init__(self, req: Request, resp: Response, pos: int,
-                 first_token: int, key: np.ndarray):
+                 first_token: int, key: np.ndarray, aid: int = 0):
         self.req = req
         self.resp = resp
         self.pos = pos              # kv length so far (write offset)
@@ -203,6 +224,7 @@ class _SlotRun:
         self.last_token = first_token
         self.last_token_at = time.monotonic()
         self.key = key              # sampling key words (uint32 pair)
+        self.aid = aid              # pinned adapter slot id (0 = base)
 
 
 def _views(flat, shapes):
@@ -301,7 +323,9 @@ class ServingEngine:
     ``set_share_groups``, or ``share_policy(req)`` when given.
     ``draft_model`` (same protocol and vocabulary, on the same device)
     turns on speculative decoding with ``spec_tokens`` proposals per
-    tick."""
+    tick.  ``lora`` (a ``lora.LoRAConfig``) serves batched LoRA adapters
+    on the model (``load_adapter``, ``submit(adapter=)``); it hooks the
+    model's target linears for good."""
 
     def __init__(self, model, max_slots: int = 8, max_len: int = 256,
                  prefill_buckets=None, max_queue_depth: int = 64,
@@ -309,7 +333,7 @@ class ServingEngine:
                  kv: str = "fixed", block_size: int = 16,
                  num_blocks: Optional[int] = None, prefix_cache: bool = False,
                  share_policy=None, draft_model=None, spec_tokens: int = 4,
-                 device=DEFAULT_DEVICE):
+                 lora=None, device=DEFAULT_DEVICE):
         self.device = resolve_device(device)
         for role, m in (("model", model), ("draft model", draft_model)):
             if m is not None and m.device != self.device:
@@ -332,6 +356,32 @@ class ServingEngine:
         # tail iterations (their tokens are discarded on the host)
         self.decode_chunk = max(1, int(decode_chunk))
         self.scheduler = RequestScheduler(self.max_slots, max_queue_depth)
+        # batched LoRA: the hooks go on before any program is made
+        self.lora = lora
+        self._lora_reg: Optional[AdapterRegistry] = None
+        if lora is not None:
+            if draft_model is not None:
+                raise InvalidArgumentError(
+                    "lora=LoRAConfig(...) and draft_model= (speculative "
+                    "decoding) cannot be combined on one engine yet: the "
+                    "verify program's draft proposals would need their own "
+                    "per-slot adapter gathers; drop draft_model= here or "
+                    "route speculative traffic to a separate non-LoRA "
+                    "engine")
+            if prefix_cache:
+                raise InvalidArgumentError(
+                    "lora=LoRAConfig(...) and prefix_cache=True cannot be "
+                    "combined on one engine yet: cached KV blocks are "
+                    "computed under ONE adapter's projections, so a warm "
+                    "hit served to another adapter would be silently "
+                    "wrong; drop prefix_cache=True here or serve "
+                    "prefix-heavy base traffic from a non-LoRA engine")
+            shapes = attach_serving_lora(model, lora.targets)
+            base_sha = (base_weights_hash(model)
+                        if lora.check_base_hash and lora.base_sha is None
+                        else None)
+            self._lora_reg = AdapterRegistry(lora, shapes, base_sha=base_sha,
+                                             device=self.device)
         if kv not in ("fixed", "paged"):
             raise InvalidArgumentError(
                 f"kv must be 'fixed' or 'paged', got {kv!r}")
@@ -422,6 +472,10 @@ class ServingEngine:
             self._spec_ticks = 0       # metrics window (reset_metrics)
             self._spec_proposed = 0
             self._spec_accepted = 0
+        # nan_logits: presence decided now (a clean engine's decode
+        # programs carry no poison input); the request is picked by number
+        self._poison_target = faults.nan_logits_request()
+        self._decode_calls = 0      # the slow_decode fault's stride counter
         # which weights the engine serves (swap_weights)
         self.weights_sha: Optional[str] = None
         self.refresh_epoch = 0
@@ -463,16 +517,18 @@ class ServingEngine:
                      seed: Optional[int] = None,
                      deadline: Optional[float] = None, priority: int = 0,
                      tenant: Optional[str] = None,
-                     spec: Optional[bool] = None):
+                     spec: Optional[bool] = None,
+                     adapter: Optional[str] = None):
         """Validate and build one (Request, Response) pair without queueing
         it (``submit`` queues it; ``try_admit`` places it directly).
         Raises InvalidArgumentError for a prompt/budget the engine can
-        never serve.  A sampled request draws under a key made from
-        ``seed`` (default: the request id), folded in at each token's
-        position: its tokens depend only on the seed, the positions and
-        the logits.  ``tenant`` scopes prefix-cache sharing.  ``spec``:
-        speculate (None: when the engine has a draft model; True without
-        one raises)."""
+        never serve, and ``lora.AdapterNotFoundError`` for an ``adapter``
+        that is not loaded (it is pinned at admission).  A sampled request
+        draws under a key made from ``seed`` (default: the request id),
+        folded in at each token's position: its tokens depend only on the
+        seed, the positions and the logits.  ``tenant`` scopes
+        prefix-cache sharing.  ``spec``: speculate (None: when the engine
+        has a draft model; True without one raises)."""
         if self._closed:
             raise UnavailableError("serving engine is closed")
         if self._dead is not None:
@@ -488,6 +544,18 @@ class ServingEngine:
             raise InvalidArgumentError(
                 "spec=True requires the engine to be built with a "
                 "draft_model (speculative decoding)")
+        if adapter is not None and self.lora is None:
+            stat_add("STAT_serving_rejects")
+            raise InvalidArgumentError(
+                f"adapter={adapter!r} requires the engine to be built "
+                "with lora=LoRAConfig(...)")
+        if self.lora is not None and adapter is not None:
+            try:
+                self._lora_reg.resolve(adapter)
+            except Exception:
+                stat_add("STAT_serving_rejects")
+                stat_add("STAT_lora_rejects")
+                raise
         with self._submit_lock:
             rid = self._rid
             self._rid += 1
@@ -497,7 +565,7 @@ class ServingEngine:
                       eos_token_id=eos_token_id,
                       seed=seed if seed is not None else rid,
                       deadline=deadline, priority=priority, tenant=tenant,
-                      spec=spec)
+                      spec=spec, adapter=adapter)
         plen = req.prompt.shape[0]
         if plen > self.buckets[-1]:
             stat_add("STAT_serving_rejects")
@@ -520,6 +588,8 @@ class ServingEngine:
                     f"{self.kv_pool.num_blocks} "
                     f"(block_size={self.block_size}); raise num_blocks or "
                     "shrink the request")
+        if self._poison_target is not None and rid == self._poison_target:
+            req.poison = True
         stat_add("STAT_serving_requests")
         return req, Response(req)
 
@@ -529,7 +599,8 @@ class ServingEngine:
                seed: Optional[int] = None, deadline: Optional[float] = None,
                block: bool = False, timeout: Optional[float] = None,
                priority: int = 0, tenant: Optional[str] = None,
-               spec: Optional[bool] = None) -> Response:
+               spec: Optional[bool] = None,
+               adapter: Optional[str] = None) -> Response:
         """Enqueue one request (``make_request``'s checks and keys);
         returns its streaming Response.  Raises QueueFullError at
         max_queue_depth (backpressure)."""
@@ -537,7 +608,7 @@ class ServingEngine:
             prompt, max_new_tokens, decode_strategy=decode_strategy,
             temperature=temperature, top_k=top_k, top_p=top_p,
             eos_token_id=eos_token_id, seed=seed, deadline=deadline,
-            priority=priority, tenant=tenant, spec=spec)
+            priority=priority, tenant=tenant, spec=spec, adapter=adapter)
         self.scheduler.submit(req, resp, block=block, timeout=timeout)
         self._work.set()
         return resp
@@ -682,13 +753,35 @@ class ServingEngine:
                 self._release(slot)
 
     def _release(self, slot: int):
-        self._slots.pop(slot, None)
+        run = self._slots.pop(slot, None)
         self.scheduler.release(slot)
         if self.kv == "paged":
             # blocks return to the free list (cached ones stay resident);
             # their content is scrubbed when they are re-served
             self.kv_pool.free(slot)
+        if run is not None:
+            self._unpin(run.aid)   # a ref-0 adapter is evictable again
         self._batch_dirty = True
+
+    def _unpin(self, aid: int):
+        if self._lora_reg is not None and aid:
+            self._lora_reg.release(aid)
+
+    def _pin_adapter(self, req: Request, resp: Response, slot: int):
+        """Resolve and pin the request's adapter for the life of its slot
+        (0 without LoRA).  An adapter evicted while the request queued
+        fails it typed and frees the slot: returns None."""
+        if self._lora_reg is None:
+            return 0
+        try:
+            return self._lora_reg.acquire(req.adapter)
+        except Exception as e:  # noqa: BLE001 — typed terminal failure
+            stat_add("STAT_lora_rejects")
+            with self._m_lock:
+                self._errored += 1
+            resp._fail(e)
+            self.scheduler.release(slot)
+            return None
 
     def _bucket_for(self, plen: int) -> int:
         for b in self.buckets:
@@ -705,7 +798,7 @@ class ServingEngine:
                 .reshape(buffers[name].shape)))
 
     def _prefill(self, req: Request, slot: int, bucket: int, key,
-                 cached_len: int = 0):
+                 cached_len: int = 0, aid: int = 0):
         """The bucket's prefill program for ``req`` into ``slot`` (with the
         prefix cache: only the prompt past ``cached_len``): writes the
         prompt's KV into the slot's pool region and samples the first
@@ -718,6 +811,8 @@ class ServingEngine:
         prog = self._programs[bucket]
         extra = ({} if self.prefix_cache is None
                  else {"cached_len": cached_len})
+        if self._lora_reg is not None:
+            extra["aid"] = aid
         self._fill(prog.inputs, ids=ids, target=target, prompt_len=plen,
                    key=key, temp=req.temperature, top_k=req.top_k,
                    top_p=req.top_p, greedy=req.greedy, **extra)
@@ -740,12 +835,16 @@ class ServingEngine:
     def _admit(self, req: Request, resp: Response, slot: int):
         if self.prefix_cache is not None:
             return self._admit_prefix(req, resp, slot)
+        aid = self._pin_adapter(req, resp, slot)
+        if aid is None:
+            return
         bucket = self._bucket_for(req.prompt.shape[0])
         if self.kv == "paged" and not self.kv_pool.alloc(slot, bucket):
+            self._unpin(aid)
             return self._admit_exhausted(req, resp, slot, "alloc")
         key = request_key(req.seed)
-        tok, logp, finite = self._prefill(req, slot, bucket, key)
-        self._start_run(req, resp, slot, key, tok, logp, finite)
+        tok, logp, finite = self._prefill(req, slot, bucket, key, aid=aid)
+        self._start_run(req, resp, slot, key, tok, logp, finite, aid)
 
     def _admit_prefix(self, req: Request, resp: Response, slot: int):
         """Warm admission: adopt the longest cached chain into the slot's
@@ -777,14 +876,15 @@ class ServingEngine:
         self._start_run(req, resp, slot, key, tok, logp, finite)
 
     def _start_run(self, req: Request, resp: Response, slot: int, key,
-                   tok: int, logp: float, finite: bool):
+                   tok: int, logp: float, finite: bool, aid: int = 0):
         """After a prefill: the slot's run, with the first token emitted."""
         stat_add("STAT_serving_prefills")
         if not finite:
+            self._unpin(aid)    # no run holds the pin yet
             self._fail_slot(slot, resp, "prefill")
             return
         run = _SlotRun(req, resp, pos=int(req.prompt.shape[0]),
-                       first_token=tok, key=key)
+                       first_token=tok, key=key, aid=aid)
         self._slots[slot] = run
         self._batch_dirty = True
         self._emit(run, tok, logp)
@@ -838,6 +938,9 @@ class ServingEngine:
         self.scheduler.release(slot)
         if self.kv == "paged":
             self.kv_pool.free(slot)
+        # unpinned while parked: the adapter's name travels with the
+        # request and the restore pins it again (or fails typed)
+        self._unpin(run.aid)
         self._batch_dirty = True
         stat_add("STAT_serving_preemptions")
         return paused
@@ -928,8 +1031,26 @@ class ServingEngine:
             pool.index_copy_(0, idx, buf)
 
     def _finish_restore(self, slot: int, paused: PreemptedRun) -> bool:
+        """The resumed run's bookkeeping.  With LoRA its adapter is pinned
+        again by name; one evicted meanwhile fails the run typed (the
+        paused run is consumed all the same: returns True)."""
+        aid = 0
+        if self._lora_reg is not None:
+            try:
+                aid = self._lora_reg.acquire(paused.req.adapter)
+            except Exception as e:  # noqa: BLE001 — typed terminal failure
+                stat_add("STAT_lora_rejects")
+                with self._m_lock:
+                    self._errored += 1
+                paused.resp._fail(e)
+                self.scheduler.release(slot)
+                if self.kv == "paged":
+                    self.kv_pool.free(slot)
+                self._batch_dirty = True
+                return True
         run = _SlotRun(paused.req, paused.resp, pos=paused.pos,
-                       first_token=paused.last_token, key=paused.key)
+                       first_token=paused.last_token, key=paused.key,
+                       aid=aid)
         run.produced = paused.produced
         paused.req.resumes += 1
         paused.req.paused_seconds += time.monotonic() - paused.preempted_at
@@ -1095,6 +1216,10 @@ class ServingEngine:
                 "greedy": np.ones((s,), bool)}
         if self.draft_model is not None:
             host["spec_on"] = np.zeros((s,), bool)
+        if self._lora_reg is not None:
+            host["aids"] = np.zeros((s,), np.int32)   # idle slots: the base
+        if self._poison_target is not None:
+            host["poison"] = np.zeros((s,), bool)
         active = np.zeros((s,), bool)
         for slot, run in self._slots.items():
             host["tokens"][slot] = run.last_token
@@ -1106,6 +1231,10 @@ class ServingEngine:
             host["greedy"][slot] = run.req.greedy
             if self.draft_model is not None:
                 host["spec_on"][slot] = run.req.spec
+            if self._lora_reg is not None:
+                host["aids"][slot] = run.aid
+            if self._poison_target is not None:
+                host["poison"][slot] = run.req.poison
             active[slot] = True
         if self.kv == "paged":
             host["active"] = active
@@ -1130,42 +1259,61 @@ class ServingEngine:
             logits, _ = model.forward_fixed(ids, store, pos)
         return logits.to(torch.float32)
 
+    def _lora_ctx(self, aid):
+        """The adapter context of a program body: the registry's stacks
+        (allocated once) and the program's id buffer, (S,) or (1,); no
+        context without LoRA."""
+        if aid is None:
+            return contextlib.nullcontext()
+        return adapter_context(self._lora_reg.stacks, self._lora_reg.scales,
+                               aid)
+
     def _decode_program(self, tokens, pos, keys, temp, top_k, top_p, greedy,
-                        tables=None, active=None, *, sample: bool = True):
+                        tables=None, active=None, aids=None, poison=None, *,
+                        sample: bool = True):
         """The decode chunk (reference ``:1279-1316``): ``decode_chunk``
         tokens for every slot, each sampled (``sample``; else the
-        all-greedy step) and fed back.  Returns (toks, logps, finites),
-        each (chunk, S), and the buffers ``tokens`` / ``pos``, updated in
-        place to the last token and the next position."""
+        all-greedy step) and fed back.  ``aids`` (S,) int32 are the slots'
+        adapter ids on a LoRA engine (reference ``:1239-1265``: each slot
+        gathers its own factors); ``poison`` (S,) bool is the nan_logits
+        fault's input, present only when it is armed.  Returns (toks,
+        logps, finites), each (chunk, S), and the buffers ``tokens`` /
+        ``pos``, updated in place to the last token and the next
+        position."""
         tok, p = tokens, pos
         toks, logps, finites = [], [], []
-        for _ in range(self.decode_chunk):
-            last = self._forward_rows(self.model, self._pool_store,
-                                      tok[:, None], p, tables, active)[:, 0]
-            finites.append(torch.isfinite(last).all(dim=-1))
-            if sample:
-                tok, logp = sample_step(last, keys, p, temp, top_k, top_p,
-                                        greedy)
-            else:
-                tok, logp = greedy_step(last)
-            toks.append(tok)
-            logps.append(logp)
-            p = p + 1
+        with self._lora_ctx(aids):      # the slots' factors gathered once
+            for _ in range(self.decode_chunk):
+                last = self._forward_rows(self.model, self._pool_store,
+                                          tok[:, None], p, tables,
+                                          active)[:, 0]
+                if poison is not None:
+                    last = faults.poison_logits(last, poison)
+                finites.append(torch.isfinite(last).all(dim=-1))
+                if sample:
+                    tok, logp = sample_step(last, keys, p, temp, top_k,
+                                            top_p, greedy)
+                else:
+                    tok, logp = greedy_step(last)
+                toks.append(tok)
+                logps.append(logp)
+                p = p + 1
         tokens.copy_(tok)
         pos.copy_(p)
         return (torch.stack(toks), torch.stack(logps), torch.stack(finites),
                 tokens, pos)
 
     def _verify_program(self, tokens, pos, keys, temp, top_k, top_p, greedy,
-                        spec_on, tables=None, active=None, diverge=None, *,
-                        sample: bool = True):
+                        spec_on, tables=None, active=None, diverge=None,
+                        poison=None, *, sample: bool = True):
         """The speculative tick (reference ``_build_verify`` ``:989-1082``,
         ``_build_verify_paged`` ``:1319-1423``): K+1 draft steps (step K
         only writes d_K's KV, at pos+K), one target forward over ``[last,
         d_1..d_K]`` (K+1 rows per slot), the sampling knobs on every row
         (``sample``; the all-greedy program commits the raw logits), and
         the commit.  ``diverge`` (1,) bool is the draft_diverge fault's
-        input, present only when it is armed.  Returns (out (S, K+1),
+        input and ``poison`` (S,) bool the nan_logits fault's, each present
+        only when it is armed.  Returns (out (S, K+1),
         logps (S, K+1), finite (S,), count (S,), accepted (S,), the
         buffers ``tokens`` / ``pos`` updated in place to the last
         committed token and pos + count, and all but the last two as one
@@ -1189,6 +1337,8 @@ class ServingEngine:
         ids = torch.cat([tokens[:, None], props], dim=1)      # (S, K+1)
         tlog = self._forward_rows(self.model, self._pool_store, ids, pos,
                                   tables, active)             # (S, K+1, V)
+        if poison is not None:
+            tlog = faults.poison_logits(tlog, poison)
         # the draft's non-finite logits count only where the slot speculates
         finite = torch.isfinite(tlog).all(dim=2).all(dim=1) & (dfin | ~spec_on)
         if sample:
@@ -1243,14 +1393,16 @@ class ServingEngine:
         return logits
 
     def _prefill_program(self, bucket: int, ids, prompt_len, target, key,
-                         temp, top_k, top_p, greedy):
+                         temp, top_k, top_p, greedy, aid=None):
         """One bucket's prefill (reference ``:1137-1163``): the padded
-        prompt through a bucket-sized scratch cache, its KV into the
-        slot's region (on a speculative engine the draft's too, into its
-        pool), the first token sampled from the target at ``prompt_len -
-        1``.  Returns (token, logp, finite), each (1,)."""
-        logits = self._prefill_kv(self.model, self._pool_store, ids, target,
-                                  bucket)
+        prompt through a bucket-sized scratch cache (under the adapter
+        ``aid`` (1,) on a LoRA engine), its KV into the slot's region (on a
+        speculative engine the draft's too, into its pool), the first token
+        sampled from the target at ``prompt_len - 1``.  Returns (token,
+        logp, finite), each (1,)."""
+        with self._lora_ctx(aid):
+            logits = self._prefill_kv(self.model, self._pool_store, ids,
+                                      target, bucket)
         if self.draft_model is not None:
             self._prefill_kv(self.draft_model, self._draft_store, ids,
                              target, bucket)
@@ -1296,9 +1448,11 @@ class ServingEngine:
         bucket (keyed by the bucket; with the prefix cache the
         cached-suffix prefill) and the decode chunk — on a speculative
         engine the verify tick — mixed ("decode") and all-greedy
-        ("decode_greedy"), sharing one set of buffers.  The buffers start
-        as a warm-up input: sentinel tables and inactive slots (paged
-        writes drop), slot 0 (fixed)."""
+        ("decode_greedy"), sharing one set of buffers; a LoRA engine's
+        take the adapter ids too, and with nan_logits armed the decode
+        pair the poison mask.  The buffers start as a warm-up input:
+        sentinel tables and inactive slots (paged writes drop), slot 0
+        (fixed), adapter 0."""
         dev, s = self.device, self.max_slots
 
         def full(shape, value, dtype):
@@ -1331,6 +1485,11 @@ class ServingEngine:
             dec["spec_on"] = full((s,), False, torch.bool)
             if self._diverge_every is not None:
                 dec["diverge"] = full((1,), False, torch.bool)
+        if self._lora_reg is not None:
+            dec["aids"] = full((s,), 0, torch.int32)
+            pre["aid"] = full((1,), 0, torch.int32)
+        if self._poison_target is not None:
+            dec["poison"] = full((s,), False, torch.bool)
         programs = {
             "decode": Program(tick, dec),
             "decode_greedy": Program(functools.partial(tick, sample=False),
@@ -1362,6 +1521,9 @@ class ServingEngine:
             self._sync_tables(rebuilt)
         prog = self._programs["decode_greedy" if self._all_greedy
                               else "decode"]
+        # slow_decode: a host-side sleep on its stride, read live
+        faults.maybe_slow_decode(self._decode_calls)
+        self._decode_calls += 1
         if self.draft_model is not None:
             return self._spec_tick(prog)
         # one device->host pull for the whole (chunk, slots) burst
@@ -1512,6 +1674,7 @@ class ServingEngine:
             self.scheduler.release(slot)
             if self.kv == "paged":
                 self.kv_pool.free(slot)
+            self._unpin(run.aid)
             run.resp._fail(make_exc(run.req))
         for req, resp in self.scheduler.drain_pending():
             resp._fail(make_exc(req))
@@ -1637,14 +1800,17 @@ class ServingEngine:
         """Serve the target weights ``state`` (name -> tensor or array, the
         model's ``state_dict`` keys) from the next step on, with nothing
         captured again (reference ``:683-738``).  The exact key set and
-        every leaf's shape and dtype are checked first, and any mismatch
-        raises InvalidArgumentError with nothing written; then each
-        tensor is copied IN PLACE into the parameter or buffer the
-        captured graphs read (a rebind would leave them on the old
-        storage).  Bumps ``refresh_epoch``, sets ``weights_sha`` and
-        flushes the prefix cache (its KV came from the old weights); a
-        speculative engine's draft is left alone.  Call it between steps
-        from the driving thread."""
+        every leaf's shape are checked first, and any mismatch raises
+        InvalidArgumentError with nothing written; each leaf is then cast
+        to the served tensor's dtype, as the reference casts, and copied
+        IN PLACE into the parameter or buffer the captured graphs read (a
+        rebind would leave them on the old storage).  Bumps
+        ``refresh_epoch``, sets ``weights_sha`` and flushes the prefix
+        cache (its KV came from the old weights); a speculative engine's
+        draft is left alone.  Loaded adapters stay, and the registry's
+        base hash follows the new weights (with ``check_base_hash``), so a
+        later ``load_adapter`` checks against the base now served.  Call
+        it between steps from the driving thread."""
         own = self.model.state_dict(keep_vars=True)
         missing = sorted(set(own) - set(state))
         unexpected = sorted(set(state) - set(own))
@@ -1657,12 +1823,11 @@ class ServingEngine:
             new = state[name]
             if not isinstance(new, torch.Tensor):
                 new = host_tensor(np.asarray(new))
-            if tuple(new.shape) != tuple(cur.shape) or new.dtype != cur.dtype:
+            if tuple(new.shape) != tuple(cur.shape):
                 raise InvalidArgumentError(
-                    f"swap_weights: {name} is {new.dtype} "
-                    f"{tuple(new.shape)}, the served weight "
-                    f"{cur.dtype} {tuple(cur.shape)}")
-            staged[name] = new
+                    f"swap_weights shape mismatch for {name!r}: "
+                    f"{tuple(new.shape)} != {tuple(cur.shape)}")
+            staged[name] = new.to(cur.dtype)
         with torch.no_grad():
             for name, cur in own.items():
                 cur.copy_(staged[name])
@@ -1671,6 +1836,32 @@ class ServingEngine:
         if self.prefix_cache is not None:
             # old-weights KV must never seed a new-weights stream
             self.prefix_cache.evict(self.prefix_cache.stats()["nodes"])
+        if self._lora_reg is not None and self.lora.check_base_hash:
+            self._lora_reg.base_sha = state_hash(self.model.state_dict())
+
+    def load_adapter(self, name: str, path: str) -> str:
+        """Page a tenant's exported LoRA artifact into the registry under
+        ``name`` (reference ``:740-756``): its factors are written in place
+        into a row of the stacks the captured programs read, so nothing is
+        captured, and it is safe while the engine loop serves.  The same
+        bytes again are a no-op.  Returns the artifact's file sha256.
+        Typed failures: ``AdapterIntegrityError`` (corrupt, wrong base),
+        InvalidArgumentError (rank, targets), ``AdapterExhaustedError``
+        (every slot pinned)."""
+        if self._lora_reg is None:
+            raise InvalidArgumentError(
+                "load_adapter requires an engine constructed with "
+                "lora=LoRAConfig(...) — this engine serves the base "
+                "model only")
+        idx = self._lora_reg.register(name, path)
+        return self._lora_reg.file_sha(idx)
+
+    def adapter_shas(self) -> Optional[Dict[str, str]]:
+        """name -> artifact sha256 of every resident adapter, or None on
+        an engine without LoRA (or with none loaded)."""
+        if self._lora_reg is None:
+            return None
+        return self._lora_reg.shas() or None
 
     # ------------------------------------------------------------------
     # observability
@@ -1695,6 +1886,8 @@ class ServingEngine:
                 "warm": self._warm,
                 "kv_pool": self._kv_pool_metrics(),
                 "spec": self._spec_metrics(),
+                "lora": (None if self._lora_reg is None
+                         else self._lora_reg.stats()),
             }
 
     def _spec_metrics(self) -> Dict:

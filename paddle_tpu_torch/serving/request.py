@@ -1,5 +1,5 @@
 """Request / streaming-Response handles for the serving engine (port of
-paddle_tpu/serving/request.py without the gateway/fleet/LoRA fields).
+paddle_tpu/serving/request.py without the gateway/fleet fields).
 
 A `Request` is the immutable description of one decode job (prompt, token
 budget, sampling params, deadline); a `Response` is the caller's handle on
@@ -32,12 +32,13 @@ class Request:
     the ones whose stream equals a solo
     `generation.generate(decode_strategy='greedy_search')` run.  `spec`:
     whether the request speculates on a speculative engine (the engine
-    resolves None before it builds the request)."""
+    resolves None before it builds the request).  `adapter`: the LoRA
+    adapter's registry name (None: the base model)."""
 
     __slots__ = ("id", "prompt", "max_new_tokens", "greedy", "temperature",
                  "top_k", "top_p", "eos_token_id", "seed", "deadline",
                  "priority", "tenant", "spec", "preempts", "resumes",
-                 "paused_seconds")
+                 "paused_seconds", "poison", "adapter")
 
     def __init__(self, rid: int, prompt, max_new_tokens: int,
                  greedy: bool = True, temperature: float = 1.0,
@@ -46,7 +47,7 @@ class Request:
                  seed: Optional[int] = None,
                  deadline: Optional[float] = None,
                  priority: int = 0, tenant: Optional[str] = None,
-                 spec: bool = False):
+                 spec: bool = False, adapter: Optional[str] = None):
         self.id = int(rid)
         self.prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
         if self.prompt.size == 0:
@@ -76,6 +77,11 @@ class Request:
         self.preempts = 0
         self.resumes = 0
         self.paused_seconds = 0.0  # total wall time spent preempted
+        self.poison = False  # set by the engine under PDTPU_FAULT_NAN_LOGITS
+        # batched LoRA: resolved to a slot and pinned at admission, unpinned
+        # at release; the name (not the slot) travels across preempt and
+        # restore, which resolves it again
+        self.adapter = adapter
 
 
 _TOK, _END, _ERR = 0, 1, 2

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from ..amp import amp_cast
+from ..amp import amp_cast, promote
 
 __all__ = ["matmul"]
 
@@ -11,7 +11,7 @@ __all__ = ["matmul"]
 def matmul(x, y, transpose_x: bool = False, transpose_y: bool = False):
     """x @ y over the last two axes, with optional transposes; AMP
     white-listed as ``matmul``."""
-    x, y = amp_cast("matmul", x, y)
+    x, y = promote(*amp_cast("matmul", x, y))
     if transpose_x:
         x = x.transpose(-1, -2)
     if transpose_y:

@@ -1,5 +1,6 @@
-"""Fault injection for the serving engine (the two paged-KV knobs and
-the speculative draft's of paddle_tpu/utils/faults.py).
+"""Fault injection for the serving engine and the LoRA artifacts (the
+paged-KV, speculative, poisoned-logits, slow-decode and adapter knobs of
+paddle_tpu/utils/faults.py).
 
 A knob is armed by ``enable(point, value)`` or by its environment
 variable.  The KV knobs are read live at every use (host-side bookkeeping
@@ -28,6 +29,29 @@ hits is a program input the engine fills per tick:
                 right, the accept rate collapses.
                 Env: PDTPU_FAULT_DRAFT_DIVERGE="N".
 
+The poisoned-logits knob's presence is read when an engine is built (a
+clean engine's decode programs carry no fault branch); which slot it
+hits is a program input:
+
+  nan_logits    the decode (and verify) programs multiply the logits of
+                the request with submission number N (0-based, per
+                engine) by NaN: that request fails with
+                ``NonFiniteLogitsError`` and frees its slot while the
+                others decode on.  Env: PDTPU_FAULT_NAN_LOGITS="N".
+
+Two host-side knobs are read live at every use:
+
+  slow_decode   the engine sleeps ``ms`` milliseconds before every
+                ``every_n``-th decode call (default every call), counted
+                over the engine's life.  Env:
+                PDTPU_FAULT_SLOW_DECODE="ms[:every_n]".
+  adapter_corrupt the n-th LoRA adapter artifact read by this process
+                (1-based, counted per process) has one byte of its raw
+                bytes flipped in memory before any check, so
+                ``lora.read_adapter`` raises ``AdapterIntegrityError``;
+                the file is untouched and a retry reads clean bytes.
+                Env: PDTPU_FAULT_ADAPTER_CORRUPT="n".
+
 ``enable`` mirrors the value into ``os.environ`` (subprocesses inherit
 it); ``get`` reads this module's registry first, then the environment.
 """
@@ -35,19 +59,27 @@ from __future__ import annotations
 
 import os
 import threading
-from typing import Optional
+import time
+from typing import Optional, Tuple
 
 import torch
 
 __all__ = ["enable", "disable", "reset", "get", "kv_exhaust_cap",
-           "prefix_evict_cap", "draft_diverge_every", "poison_draft_logits"]
+           "prefix_evict_cap", "draft_diverge_every", "poison_draft_logits",
+           "nan_logits_request", "poison_logits", "slow_decode_config",
+           "maybe_slow_decode", "adapter_corrupt_n",
+           "maybe_corrupt_adapter_read"]
 
 _ENV = {"kv_exhaust": "PDTPU_FAULT_KV_EXHAUST",
         "prefix_evict": "PDTPU_FAULT_PREFIX_EVICT",
-        "draft_diverge": "PDTPU_FAULT_DRAFT_DIVERGE"}
+        "draft_diverge": "PDTPU_FAULT_DRAFT_DIVERGE",
+        "nan_logits": "PDTPU_FAULT_NAN_LOGITS",
+        "slow_decode": "PDTPU_FAULT_SLOW_DECODE",
+        "adapter_corrupt": "PDTPU_FAULT_ADAPTER_CORRUPT"}
 
 _lock = threading.Lock()
 _registry = {}   # point -> raw config string
+_adapter_counter = {"n": 0}   # adapter_corrupt counts reads per process
 
 
 def enable(point: str, value="1"):
@@ -67,9 +99,11 @@ def disable(point: str):
 
 
 def reset():
-    """Disarm every fault."""
+    """Disarm every fault and zero the per-process read counter."""
     for point in _ENV:
         disable(point)
+    with _lock:
+        _adapter_counter["n"] = 0
 
 
 def get(point: str) -> Optional[str]:
@@ -104,3 +138,65 @@ def poison_draft_logits(logits, diverge):
     """(S, V) draft logits negated where the (1,) bool tensor ``diverge``
     is set (inside the verify programs, only when the fault is armed)."""
     return torch.where(diverge, -logits, logits)
+
+
+def nan_logits_request() -> Optional[int]:
+    """Submission number (0-based) of the request whose decode logits are
+    poisoned, or None when disarmed."""
+    raw = get("nan_logits")
+    return None if not raw else int(raw)
+
+
+def poison_logits(logits, poison):
+    """(S, ...) logits with every row of a set (S,) bool ``poison`` mask
+    NaN (inside the decode programs, only when nan_logits was armed at the
+    engine's construction)."""
+    return logits.masked_fill(
+        poison.reshape((-1,) + (1,) * (logits.dim() - 1)), float("nan"))
+
+
+def slow_decode_config() -> Optional[Tuple[float, int]]:
+    """(sleep ms, every_n) of slow_decode, or None when disarmed."""
+    raw = get("slow_decode")
+    if not raw:
+        return None
+    parts = raw.split(":", 1)
+    every = int(parts[1]) if len(parts) == 2 else 1
+    return float(parts[0]), max(1, every)
+
+
+def maybe_slow_decode(call_no: int) -> float:
+    """Sleep before decode call ``call_no`` (0-based) when slow_decode is
+    armed and the call is on its stride; returns the seconds slept."""
+    cfg = slow_decode_config()
+    if cfg is None or call_no % cfg[1]:
+        return 0.0
+    secs = cfg[0] / 1000.0
+    time.sleep(secs)
+    return secs
+
+
+def adapter_corrupt_n() -> Optional[int]:
+    """Which adapter artifact read (1-based, per process) to poison, or
+    None when disarmed."""
+    raw = get("adapter_corrupt")
+    return None if not raw else int(raw)
+
+
+def maybe_corrupt_adapter_read(raw: bytes, path: str = "") -> bytes:
+    """``raw`` (an adapter artifact's bytes, before any check) with its
+    middle byte flipped when this is the armed read; counts the reads
+    while armed."""
+    n = adapter_corrupt_n()
+    if n is None:
+        return raw
+    with _lock:
+        _adapter_counter["n"] += 1
+        cnt = _adapter_counter["n"]
+    if cnt != n:
+        return raw
+    if not raw:
+        return b"\xff"
+    buf = bytearray(raw)
+    buf[len(buf) // 2] ^= 0xFF
+    return bytes(buf)

@@ -1513,3 +1513,67 @@ def test_swap_weights_on_a_captured_engine(cuda):
     assert [r.tokens(timeout=5) for r in got] == \
         [r.tokens(timeout=5) for r in want]
     assert eng.post_warmup_compiles() == 0
+
+
+def _lora_artifacts(model, tmp_path, n, rank=4):
+    """``n`` adapters of ``model`` made by ``apply_lora`` + ``export_adapter``
+    on a copy, with random nonzero factors."""
+    import copy
+
+    from paddle_tpu_torch import lora
+    paths = []
+    for i in range(n):
+        wrapped = copy.deepcopy(model)
+        lora.apply_lora(wrapped, rank=rank)
+        gen = torch.Generator(device=model.device).manual_seed(10 + i)
+        with torch.no_grad():
+            for m in wrapped.modules():
+                if isinstance(m, lora.LoRALinear):
+                    m.lora_A.normal_(0.0, 0.05, generator=gen)
+                    m.lora_B.normal_(0.0, 0.05, generator=gen)
+        paths.append(str(tmp_path / f"adapter{i}.npz"))
+        lora.export_adapter(wrapped, paths[-1])
+        del wrapped
+    return paths
+
+
+@pytest.mark.parametrize("kv", ["fixed", "paged"])
+def test_lora_engine_captured_streams_equal_uncaptured(cuda, kv, tmp_path):
+    """A LoRA engine's replays (mixed adapters per slot, greedy and
+    sampled) against its uncaptured run: equal streams, K3 / K4 launches
+    through the replays, and a hot load after warmup captures nothing."""
+    import copy
+
+    from paddle_tpu_torch.lora import LoRAConfig
+    from paddle_tpu_torch.serving import ServingEngine
+    model = _serving_model(cuda, torch.float32)
+    paths = _lora_artifacts(model, tmp_path, 4)
+    streams = []
+    for uncaptured in (False, True):
+        eng = ServingEngine(copy.deepcopy(model), kv=kv, device=cuda,
+                            lora=LoRAConfig(rank=4, max_adapters=3),
+                            **ENGINE)
+        eng._run_uncaptured = uncaptured
+        assert eng.warmup()["compile_counts"]["total"] == len(
+            ENGINE["prefill_buckets"]) + 2
+        for i in range(3):
+            eng.load_adapter(f"a{i}", paths[i])
+        pa.paged_attention.launches = int8_matmul.dequant_matmul.launches = 0
+        rng = np.random.RandomState(4)
+        resps = [eng.submit(rng.randint(0, 1024, (int(rng.randint(3, 60)),)),
+                            max_new_tokens=24,
+                            adapter=None if i % 4 == 3 else f"a{i % 4}",
+                            **({"decode_strategy": "sampling", "seed": i,
+                                "top_k": 50} if i % 3 == 2 else {}))
+                 for i in range(8)]
+        eng.run_until_drained(timeout=300)
+        if kv == "paged":
+            assert pa.paged_attention.launches > 0
+        assert int8_matmul.dequant_matmul.launches > 0
+        eng.load_adapter("a3", paths[3])        # hot: evicts an idle row
+        late = eng.submit([5, 6, 7], max_new_tokens=8, adapter="a3")
+        eng.run_until_drained(timeout=60)
+        streams.append([r.tokens(timeout=5) for r in resps + [late]])
+        assert eng.post_warmup_compiles() == 0
+        del eng
+    assert streams[0] == streams[1]

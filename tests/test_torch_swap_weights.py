@@ -9,9 +9,12 @@ numpy arrays, as a published checkpoint holds them):
   warmup, every parameter and buffer keeps its storage (written in place,
   so the programs captured on it read the new weights), the prefix cache
   is flushed, ``refresh_epoch`` / ``weights_sha`` move.
-- A missing or unexpected key, a wrong shape or a wrong dtype raises
+- A missing or unexpected key or a wrong shape raises
   InvalidArgumentError before anything is written: the old weights are
   still served.
+- Another dtype is cast to the served one, as the reference casts: an f64
+  copy of a state (its values exactly representable, so the cast is exact)
+  serves the same streams as the state itself.
 - On a speculative engine the target swaps and the draft stays.
 """
 import copy
@@ -79,10 +82,8 @@ def _bad_states(state):
     missing = dict(state)
     del missing[last]
     shape = dict(state, **{last: np.zeros(arr.shape + (1,), arr.dtype)})
-    dtype = dict(state, **{last: arr.astype(np.float64)})
     extra = dict(state, extra=np.zeros((1,), np.float32))
-    return {"missing": missing, "unexpected": extra, "shape": shape,
-            "dtype": dtype}
+    return {"missing": missing, "unexpected": extra, "shape": shape}
 
 
 def test_a_mismatch_raises_and_writes_nothing(pairs):
@@ -91,7 +92,6 @@ def test_a_mismatch_raises_and_writes_nothing(pairs):
     before = _serve(eng)
     kept = {k: t.clone() for k, t in tm.state_dict().items()}
     new = jax_state(jm_new)
-    assert np.asarray(new[list(new)[-1]]).dtype != np.float64
     for name, state in _bad_states(new).items():
         with pytest.raises(InvalidArgumentError):
             eng.swap_weights(state)
@@ -99,6 +99,25 @@ def test_a_mismatch_raises_and_writes_nothing(pairs):
             assert torch.equal(t, kept[k]), (name, k)
     assert eng.refresh_epoch == 0
     assert _serve(eng) == before
+
+
+def test_another_dtype_is_cast_to_the_served_one(pairs):
+    """Every leaf as f64 (int8 buffers too): cast on the staged copy, then
+    written in place; the streams equal the f32 state's."""
+    (_, tm), (jm_new, tm_new) = pairs
+    new = jax_state(jm_new)
+    wide = {k: np.asarray(v).astype(np.float64) for k, v in new.items()}
+    eng = ServingEngine(tm, device="cpu", **ENGINE)
+    _serve(eng)
+    ptrs = {k: t.data_ptr() for k, t in tm.state_dict().items()}
+    dtypes = {k: t.dtype for k, t in tm.state_dict().items()}
+    eng.swap_weights(wide)
+    assert {k: t.data_ptr() for k, t in tm.state_dict().items()} == ptrs
+    assert {k: t.dtype for k, t in tm.state_dict().items()} == dtypes
+    for k, t in tm_new.state_dict().items():
+        assert torch.equal(tm.state_dict()[k], t), k
+    assert _serve(eng) == [torch_solo(tm_new, p, 10) for p in PROMPTS]
+    assert eng.refresh_epoch == 1 and eng.post_warmup_compiles() == 0
 
 
 def test_speculative_engine_swaps_the_target_only(pairs):
