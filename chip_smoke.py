@@ -164,7 +164,35 @@ Phases (any failure exits non-zero before the result line):
                 2-layer full-width f32 GPT (dropout 0, B 1, S 1024) on the
                 kernel path against the same step by the plain versions on
                 the CPU, same weights and batch.
- 14. bn       — the fused BatchNorm kernels K5-K9 against their plain
+ 14. bert     — BERT-large / ERNIE-large pretraining (BASELINE configs #3
+                and #4 as bench.py measures them: B 8 x S 512, O1 bf16,
+                AdamW(1e-4) with decay off for biases and norms, dropout
+                0.1, vocab 30528 / 18000, random weights and batches from
+                --seed).  (f) first: K1 / K2 at BERT's attention shape
+                (H 16, D 64, non-causal, the padding bias of lengths
+                128..512, dropout 0.1) against their plain versions in
+                bf16 and f32, then timed per layer over 24 layers' tensors
+                beside the bound (the visible pairs), SDPA with the
+                (B, 1, 1, S) mask, and each without the bias.  (a)
+                BERT-large on bench.py's batch (no mask), 8 steps
+                captured and 8 uncaptured: losses finite, falling and
+                bit-equal, K1 / K2 24 launches per step each through the
+                replays, one capture by warmup and none after; tokens/s,
+                steady wall, device ms, idle share, kernels per step, peak
+                memory.  (b) the same with the padding mask (lengths
+                128..512), two segments, MLM labels on 15% of the real
+                tokens (-100 elsewhere).  (c) ERNIE-large (relu, task
+                ids).  (d) BERT-large at dropout 0 under
+                LinearWarmup(PolynomialDecay) stepped once per step: a
+                checkpoint after step 4 (under build/bert_resume, removed
+                after), restored into a fresh warmed-up step: steps 5-8
+                bit-equal to the uninterrupted run's, each step's lr the
+                scheduler's, no capture at the restore; the checkpoint's
+                size and the save / restore seconds.  (e) one f32 step of
+                a 4-layer full-width BERT with the padding mask on the
+                kernel path against the CPU plain path (loss 1e-4
+                relative, gradients 1e-3 of each tensor's largest value).
+ 15. bn       — the fused BatchNorm kernels K5-K9 against their plain
                 versions on the card: at the ResNet-50 b256 main path's
                 shapes (the stem, 3,211,264 x 64; layer1's bn3 with its
                 residual, 802,816 x 256; layer4, 12,544 x 2048) and at
@@ -188,7 +216,7 @@ Phases (any failure exits non-zero before the result line):
                 (CUDA graph replay) at layer1's bn3 and at the stem, beside
                 its bound, its plain version and PyTorch's own BatchNorm
                 kernels; K9's ring route in turns with its window route.
- 15. resnet   — ResNet-50 (BASELINE config #2): resnet50() under
+ 16. resnet   — ResNet-50 (BASELINE config #2): resnet50() under
                 jit.layout_policy("NHWC"), TrainStep O2 bf16, cross-entropy
                 on the logits, Momentum(0.1, 0.9), one random batch of
                 256 x 3 x 224 x 224 from --seed, 8 steps through the
@@ -207,7 +235,7 @@ Phases (any failure exits non-zero before the result line):
                 every block site: 105 / 96 per step, peak memory below the
                 plain run's).  Then K7 and K8 timed at each of the step's
                 48 BN backward sites' shapes beside each site's bound.
- 16. resnetcheck — one f32 step of ResNet-18 (10 classes, 4 x 3 x 64 x 64)
+ 17. resnetcheck — one f32 step of ResNet-18 (10 classes, 4 x 3 x 64 x 64)
                 on the kernel path against the same step by the plain
                 versions on the CPU, same weights and batch: the loss,
                 every gradient and every running statistic within 1e-3 of
@@ -275,6 +303,8 @@ LORA_ADAPTERS = (None, "t1", "t2", "t3", "t4", None, "t1", "t2")
 LORA_MARGIN_TOL = 1e-3   # a batched / solo adapter split needs a nearer tie
 LORA_TRAIN_B, LORA_TRAIN_S, LORA_TRAIN_STEPS = 2, 512, 3
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 8               # train phase
+# bert phase: BERT-large / ERNIE-large as bench.py measures them
+BERT_B, BERT_S, BERT_STEPS, BERT_VOCAB = 8, 512, 8, 30528
 RECOMPUTE_STEPS = 3        # the train / resnet phases' recompute legs
 RESNET_B, RESNET_HW, RESNET_STEPS = 256, 224, 8           # resnet phase
 # the fused-BN kernels' main-path shapes at batch 256, as (N, H, W, C)
@@ -2301,6 +2331,357 @@ def train_check_phase(torch, args, dev):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# BERT / ERNIE pretraining (BASELINE configs #3 / #4, as bench.py runs them)
+# ---------------------------------------------------------------------------
+
+def _bert_large(**kw):
+    from paddle_tpu_torch.models import bert_large_config
+    return bert_large_config(vocab_size=BERT_VOCAB,
+                             max_position_embeddings=BERT_S, **kw)
+
+
+def _bert_decay(name):
+    return "bias" not in name and "norm" not in name
+
+
+def _bert_batch(torch, dev, vocab: int, seed: int, padded: bool):
+    """bench.py's batch (ids, MLM labels on every position) or the padded
+    leg's (ids, two segments, positions, the padding mask with lengths
+    drawn from 128..512, labels on 15% of the real tokens, -100 elsewhere),
+    B 8 x S 512, from ``seed``."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, (BERT_B, BERT_S))
+    if not padded:
+        lab = rng.randint(0, vocab, (BERT_B, BERT_S))
+        return tuple(torch.from_numpy(a).to(dev) for a in (ids, lab))
+    lens = rng.randint(128, BERT_S + 1, (BERT_B,))
+    keys = np.arange(BERT_S)[None, :]
+    mask = (keys < lens[:, None]).astype(np.int64)
+    tt = ((keys >= (lens // 2)[:, None]) & (mask > 0)).astype(np.int64)
+    pos = np.broadcast_to(np.arange(BERT_S), (BERT_B, BERT_S))
+    lab = np.where((rng.rand(BERT_B, BERT_S) < 0.15) & (mask > 0), ids, -100)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in (ids, tt, pos, mask, lab))
+
+
+def _bert_maker(torch, args, dev, ernie: bool = False, schedule=None,
+                **cfg_kw):
+    """make() for train_leg: the model from --seed, bench.py's AdamW
+    (decay off for biases and norms; lr 1e-4 or ``schedule()``), and
+    TrainStep(O1 bf16) on (logits, nsp, labels)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (BertForPretraining,
+                                         BertPretrainingCriterion,
+                                         ErnieForPretraining,
+                                         ernie_large_config)
+    crit = BertPretrainingCriterion()
+
+    def make():
+        pt.seed(args.seed)
+        if ernie:
+            model = ErnieForPretraining(
+                ernie_large_config(max_position_embeddings=BERT_S, **cfg_kw),
+                device=dev, seed=args.seed)
+        else:
+            model = BertForPretraining(_bert_large(**cfg_kw), device=dev,
+                                       seed=args.seed)
+        opt = pt.optimizer.AdamW(
+            learning_rate=schedule() if schedule else 1e-4,
+            parameters=model.parameters(),
+            apply_decay_param_fun=_bert_decay)
+        return model, TrainStep(model, lambda lg, nsp, y: crit(lg, nsp, y),
+                                opt, amp_level="O1", amp_dtype="bfloat16")
+    return make
+
+
+def _flash_counters(torch):
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    def counters():
+        fa.flash_fwd.launches = fa.flash_bwd.launches = 0
+        return lambda: {"flash_attention_fwd": fa.flash_fwd.launches,
+                        "flash_attention_bwd": fa.flash_bwd.launches}
+    return counters
+
+
+def _bert_leg(torch, tag, card, make, batch, layers, uncaptured=False):
+    """BERT_STEPS steps through train_leg; finite losses, K1 / K2 once per
+    layer per step through the replays, one capture and none after."""
+    what = (f"{tag} train step (B {BERT_B} x S {BERT_S}, O1 bf16, "
+            + ("uncaptured)" if uncaptured else "captured)"))
+    leg = train_leg(torch, make, batch, BERT_STEPS, _flash_counters(torch),
+                    card, what, uncaptured=uncaptured)
+    vals = leg["losses"]
+    print(f"{tag}: losses " + ", ".join(f"{x:.4f}" for x in vals))
+    print(f"{tag}: losses in full " + ", ".join(repr(x) for x in vals))
+    if not all(np.isfinite(vals)):
+        fail(f"{tag}: non-finite training loss: {vals}")
+    want = layers * BERT_STEPS
+    if any(n != want for n in leg["launches"].values()):
+        fail(f"{tag}: flash launches {leg['launches']}, expected {want} "
+             f"each ({layers} layers x {BERT_STEPS} steps, through replays)")
+    if not leg["warm"]["compiled"] or leg["recaptured"]:
+        fail(f"{tag}: warmup {leg['warm']}, {leg['recaptured']} captures "
+             "after it (expected one capture, by warmup)")
+    print(_leg_line(tag + (" uncaptured" if uncaptured else " captured"),
+                    card, leg, BERT_B * BERT_S, "tokens"))
+    return leg
+
+
+def bert_flash_time(torch, rng, dev, card):
+    """(f) K1 / K2 at BERT-large's attention shape (B 8, S 512, H 16,
+    D 64, non-causal, the padding bias of lengths 128..512, dropout 0.1):
+    checked against their plain versions in bf16 and f32, then timed per
+    layer over 24 layers' bf16 tensors beside the bound (the visible
+    pairs only), SDPA with the (B, 1, 1, S) additive mask and dropout 0.1,
+    and K1 / K2 without the bias (K2's: what the unneeded dbias costs)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    b, s, h, d, p = BERT_B, BERT_S, 16, 64, 0.1
+    seed = torch.tensor([20261018], dtype=torch.int32, device=dev)
+    lens = rng.randint(128, s + 1, (b,))
+    bias = torch.from_numpy(np.where(np.arange(s)[None] < lens[:, None],
+                                     0.0, -1e4).astype(np.float32)).to(dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do, _, _, _ = _flash_inputs(torch, rng, dev, b, s, s, h, d,
+                                             dtype)
+        flash_check(torch, fa, (q, k, v, do, bias, None, None, seed, False,
+                                p), f"bert {str(dtype)[6:]} B={b} S={s} "
+                                    f"H={h} D={d} bias p={p}")
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    layers = [_flash_inputs(torch, rng, dev, b, s, s, h, d,
+                            torch.bfloat16)[:4] for _ in range(LAYERS)]
+    saved = [fa.flash_fwd(q, k, v, bias, None, None, seed, False, p)
+             for q, k, v, _ in layers]
+    nob = [fa.flash_fwd(q, k, v, None, None, None, seed, False, p)
+           for q, k, v, _ in layers]
+
+    def fwd(f, bi=bias):
+        def run():
+            for q, k, v, _ in layers:
+                f(q, k, v, bi, None, None, seed, False, p)
+        return run
+
+    def bwd(f, bi=bias, outs=saved):
+        def run():
+            for (q, k, v, do), (o, lse) in zip(layers, outs):
+                f(q, k, v, bi, None, None, seed, o, lse, do, False, p)
+        return run
+    ms = {"fwd": (graph_ms(torch, fwd(fa.flash_fwd)) / LAYERS,
+                  call_ms(torch, fwd(fa.flash_fwd), 5) / LAYERS,
+                  graph_ms(torch, fwd(fa._plain_fwd), 3) / LAYERS),
+          "bwd": (graph_ms(torch, bwd(fa.flash_bwd)) / LAYERS,
+                  call_ms(torch, bwd(fa.flash_bwd), 5) / LAYERS,
+                  graph_ms(torch, bwd(fa._plain_bwd), 3) / LAYERS)}
+    nobias = (graph_ms(torch, fwd(fa.flash_fwd, None)) / LAYERS,
+              graph_ms(torch, bwd(fa.flash_bwd, None, nob)) / LAYERS)
+    torch.cuda.empty_cache()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = bias.to(torch.bfloat16)[:, None, None, :]
+    lib_in = [tuple(t.transpose(1, 2).detach().requires_grad_()
+                    for t in (q, k, v)) + (do.transpose(1, 2),)
+              for q, k, v, do in layers]
+
+    def lib_fwd():
+        for q, k, v, _ in lib_in:
+            sdpa(q, k, v, attn_mask=mask, dropout_p=p)
+
+    def lib_fwd_bwd():
+        for q, k, v, do in lib_in:
+            out = sdpa(q, k, v, attn_mask=mask, dropout_p=p)
+            torch.autograd.grad(out, (q, k, v), do)
+    lib_f = graph_ms(torch, lib_fwd) / LAYERS
+    lib_fb = graph_ms(torch, lib_fwd_bwd) / LAYERS
+    # bound per layer: inputs read once, outputs written once; the
+    # tensor-core products over the pairs this data needs (each query
+    # against its row's real keys), 2 * D per pair and product
+    elem = b * s * h * d * 2
+    rows = b * h * s * 4
+    pairs = int(h * s * lens.sum())
+    bound = {"fwd": bound_ms(4 * elem + rows + b * s * 4 + 4,
+                             2 * 2 * d * pairs, BF16_OPS_PER_S),
+             "bwd": bound_ms(5 * elem + rows + b * s * 4 + 4 + 3 * elem
+                             + b * s * 4, 5 * 2 * d * pairs, BF16_OPS_PER_S)}
+    for key, lib in (("fwd", lib_f), ("bwd", lib_fb - lib_f)):
+        k_ms, eager, plain = ms[key]
+        bms, by = bound[key]
+        print(f"time bert flash_attention_{key} [{card}] (bf16, B={b} S={s} "
+              f"H={h} D={d}, padding bias, p={p}, per layer): {k_ms:.4f} ms "
+              f"(call {eager:.4f}), plain {plain:.4f}, SDPA with the "
+              f"(B, 1, 1, S) mask {lib:.4f}, bound {bms:.4f} ({by})")
+    print(f"time bert flash_attention [{card}]: without the bias K1 "
+          f"{nobias[0]:.4f} ms per layer against {ms['fwd'][0]:.4f} with "
+          f"it, K2 {nobias[1]:.4f} against {ms['bwd'][0]:.4f} (dbias "
+          f"computed and dropped: {ms['bwd'][0] - nobias[1]:+.4f} ms); "
+          f"SDPA fwd+bwd {lib_fb:.4f}")
+    del layers, saved, nob, lib_in
+    torch.cuda.empty_cache()
+
+
+def bert_check_phase(torch, args, dev, card):
+    """(e) One f32 step of a 4-layer full-width BERT (vocab 30528, dropout
+    0, B 2 x S 512 with the padding mask and two segments) on the kernel
+    path against the same step by the plain versions on the CPU: the loss
+    within 1e-4 relative, every gradient within GRAD_TOL of its tensor's
+    largest |value|."""
+    from paddle_tpu_torch.jit import forward_loss
+    from paddle_tpu_torch.models import (BertForPretraining,
+                                         BertPretrainingCriterion)
+    from paddle_tpu_torch.ops import flash_attention as fa
+    cfg = _bert_large(num_hidden_layers=4, hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0)
+    crit = BertPretrainingCriterion()
+    batch = [a[:2].cpu() for a in _bert_batch(torch, dev, cfg.vocab_size,
+                                              args.seed + 5, padded=True)]
+    gpu = BertForPretraining(cfg, device=dev, seed=args.seed + 5)
+    cpu = copy.deepcopy(gpu).cpu()
+    out = []
+    for model, d in ((gpu, dev), (cpu, torch.device("cpu"))):
+        n0 = fa.flash_fwd.launches
+        loss = forward_loss(model, lambda lg, nsp, y: crit(lg, nsp, y),
+                            tuple(a.to(d) for a in batch))
+        names = [n for n, _ in model.named_parameters()]
+        # no NSP labels, as bench.py: the NSP head gets no gradient
+        grads = torch.autograd.grad(loss, [p for _, p in
+                                           model.named_parameters()],
+                                    allow_unused=True)
+        out.append((float(loss.detach()),
+                    {n: g.cpu() for n, g in zip(names, grads)
+                     if g is not None},
+                    fa.flash_fwd.launches - n0))
+    (lg, gg, ng), (lc, gc, _) = out
+    if ng != cfg.num_hidden_layers:
+        fail(f"bert check: the kernel path launched K1 {ng} times, not once "
+             "per layer")
+    worst = max(((gg[n] - gc[n]).abs().max() / gc[n].abs().max()
+                 .clamp_min(1e-30)).item() for n in gc)
+    print(f"bert check [{card}]: 4-layer f32 step (padding mask), kernel "
+          f"path vs CPU plain path: loss {lg:.6f} vs {lc:.6f}; largest "
+          f"gradient "
+          f"difference {worst:.2e} of its tensor's max (tolerance "
+          f"{GRAD_TOL}) over {len(gc)} parameters")
+    if not abs(lg - lc) <= 1e-4 * abs(lc) or not worst <= GRAD_TOL:
+        fail("the BERT kernel-path training step disagrees with the plain "
+             "path")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+
+def bert_resume_leg(torch, args, dev, card):
+    """(d) BERT-large, dropout 0, AdamW under LinearWarmup(PolynomialDecay)
+    stepped once per step: 8 captured steps with a checkpoint after step 4,
+    then a fresh captured step (warmed up) restores it and runs steps 5-8.
+    Its losses must equal the uninterrupted run's bit for bit, the lr of
+    every step the scheduler's, and the restore must capture nothing."""
+    import gc
+    import os
+    import shutil
+    from paddle_tpu_torch.optimizer import lr as sched_lr
+
+    def schedule():
+        return sched_lr.LinearWarmup(
+            sched_lr.PolynomialDecay(1e-4, decay_steps=BERT_STEPS,
+                                     end_lr=1e-5),
+            warmup_steps=3, start_lr=1e-5, end_lr=1e-4)
+    make = _bert_maker(torch, args, dev, schedule=schedule,
+                       hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0)
+    batch = _bert_batch(torch, dev, BERT_VOCAB, args.seed + 6, padded=True)
+    ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "bert_resume")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    save_at = BERT_STEPS // 2
+
+    def run(step, first, restore=False):
+        sched = step.optimizer._lr_scheduler
+        step.warmup(*batch)
+        made = step.compile_counts()["total"]
+        times = {}
+        if restore:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            meta = step.restore_checkpoint(ckpt)
+            torch.cuda.synchronize()
+            times["restore_s"] = time.perf_counter() - t0
+            if meta["step"] != save_at or sched.last_epoch != save_at:
+                fail(f"bert resume: restored step {meta['step']}, schedule "
+                     f"at {sched.last_epoch}, expected {save_at}")
+        losses, lrs = [], []
+        for i in range(first, BERT_STEPS):
+            want_lr = float(np.float32(sched()))
+            losses.append(float(step(*batch)))
+            got_lr = float(step._lr)
+            if got_lr != want_lr:
+                fail(f"bert resume: step {i + 1} ran at lr {got_lr}, the "
+                     f"schedule says {want_lr}")
+            lrs.append(got_lr)
+            sched.step()
+            if not restore and i + 1 == save_at:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step.save_checkpoint(ckpt)
+                times["save_s"] = time.perf_counter() - t0
+        if step.compile_counts()["total"] != made:
+            fail(f"bert resume: {step.compile_counts()['total'] - made} "
+                 "captures after warmup")
+        return losses, lrs, times
+    model, step = make()
+    full, lrs, t_save = run(step, 0)
+    size = sum(os.path.getsize(os.path.join(dp, f))
+               for dp, _, fs in os.walk(ckpt) for f in fs)
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, step = make()
+    got, glrs, t_rest = run(step, save_at, restore=True)
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    print(f"bert resume [{card}]: lrs {', '.join(f'{x:.3e}' for x in lrs)}; "
+          f"losses {', '.join(repr(x) for x in full)}; resumed steps "
+          f"{save_at + 1}-{BERT_STEPS}: {', '.join(repr(x) for x in got)}; "
+          f"checkpoint {size / 2 ** 30:.2f} GiB, save "
+          f"{t_save['save_s']:.2f} s, restore {t_rest['restore_s']:.2f} s")
+    if got != full[save_at:] or glrs != lrs[save_at:]:
+        fail(f"bert resume: losses {got} / lrs {glrs} differ from the "
+             f"uninterrupted run's {full[save_at:]} / {lrs[save_at:]}")
+
+
+def bert_phase(torch, args, dev, card):
+    """BERT-large and ERNIE-large pretraining on K1 / K2 with the padding
+    bias, legs (a)-(f).  The JSON line's K1 / K2 launches stay the train
+    phase's; each leg here asserts its own."""
+    from paddle_tpu_torch.models import ernie_large_config
+    rng = np.random.RandomState(args.seed + 7)
+    bert_flash_time(torch, rng, dev, card)                            # (f)
+    layers = _bert_large().num_hidden_layers
+    make = _bert_maker(torch, args, dev)
+    plain = _bert_batch(torch, dev, BERT_VOCAB, args.seed, padded=False)
+    cap = _bert_leg(torch, "bert", card, make, plain, layers)         # (a)
+    unc = _bert_leg(torch, "bert", card, make, plain, layers, uncaptured=True)
+    if unc["losses"] != cap["losses"]:
+        fail(f"bert: captured losses {cap['losses']} differ from the "
+             f"uncaptured step's {unc['losses']}")
+    if not cap["losses"][-1] < cap["losses"][0]:
+        fail(f"bert: training loss did not fall: {cap['losses']}")
+    print(f"bert: captured and uncaptured losses bit-equal over "
+          f"{BERT_STEPS} steps")
+    padded = _bert_batch(torch, dev, BERT_VOCAB, args.seed + 1, padded=True)
+    real = int(padded[3].sum())
+    print(f"bert padded: {real} real tokens of {BERT_B * BERT_S}, "
+          f"{int((padded[4] >= 0).sum())} MLM labels")
+    _bert_leg(torch, "bert padded", card, make, padded, layers)       # (b)
+    ecfg = ernie_large_config(max_position_embeddings=BERT_S)
+    _bert_leg(torch, "ernie", card, _bert_maker(torch, args, dev, True),
+              _bert_batch(torch, dev, ecfg.vocab_size, args.seed + 2,
+                          padded=False), ecfg.num_hidden_layers)      # (c)
+    bert_resume_leg(torch, args, dev, card)                           # (d)
+    bert_check_phase(torch, args, dev, card)                          # (e)
+
+
 def bn_err(torch, got, want):
     """(max abs err, ok) of a fused-BN kernel against its plain version:
     f32 within 1e-5 of the tensor's largest |value| (the column sums add
@@ -3057,6 +3438,8 @@ def main():
     kernels += flash_phase(torch, rng, dev)
     launches.update(train_phase(torch, args, dev, card))
     train_check_phase(torch, args, dev)
+    torch.cuda.empty_cache()
+    bert_phase(torch, args, dev, card)
     torch.cuda.empty_cache()
     kernels += bn_phase(torch, args, dev)
     launches.update(resnet_phase(torch, args, dev, card))

@@ -48,9 +48,16 @@ moments and buffers, selected on the device.
 reference.  As in the reference, ``TrainStep`` applies no ``grad_clip``
 (its compiled step never clips; only the eager ``Optimizer.step`` does).
 
+- **Checkpoints.** ``save_checkpoint`` / ``restore_checkpoint`` read and
+  write the reference's on-disk layout (``distributed.checkpoint``) in
+  both directions; a restore writes the state in place, so the captured
+  programs replay on.  A learning-rate scheduler's value reaches each
+  replay through the learning-rate scalar (``optimizer.get_lr()``).
+
 Not in this slice of the port, and refused with ``UnimplementedError``:
-``mesh`` / ``batch_sharding``, checkpoints, and sparse or row-sharded
-gradients (the port's ``Embedding`` has no sparse mode).
+``mesh`` / ``batch_sharding``, a checkpoint's ``scaler=`` (GradScaler),
+and sparse or row-sharded gradients (the port's ``Embedding`` has no
+sparse mode).
 """
 from __future__ import annotations
 
@@ -412,8 +419,47 @@ class TrainStep:
         once."""
         return {"step": dict(self._made), "total": sum(self._made.values())}
 
-    def save_checkpoint(self, *args, **kwargs):
-        raise UnimplementedError(f"TrainStep checkpoints {_LATER}")
+    # -- checkpoints (the reference's single-device variant) -----------------
+    def save_checkpoint(self, directory, step=None, extra_meta=None,
+                        scaler=None, data_cursor=None):
+        """Parameters and buffers, optimizer state, the step count, the
+        scheduler's state, the data cursor and the step's generator, in
+        the reference's layout (``distributed.checkpoint``); with
+        ``accum_steps`` > 1 the meta records it, as the reference's (a
+        resumed run must feed the same windows).  Returns the step
+        directory.  ``scaler=`` waits for the port's GradScaler."""
+        from ..distributed import checkpoint as dck
+        state = state_arrays(self.model)
+        if self._opt_state is None:
+            self._opt_state = self.init_opt_state(state)
+        if self.accum_steps > 1:
+            extra_meta = dict(extra_meta or {})
+            extra_meta.setdefault("accum_steps", self.accum_steps)
+        return dck.save_train_state(
+            directory, state, self._opt_state,
+            step if step is not None else self.optimizer._step_count,
+            extra_meta, optimizer=self.optimizer, scaler=scaler,
+            data_cursor=data_cursor, generator=self._gen)
 
-    def load_checkpoint(self, *args, **kwargs):
-        raise UnimplementedError(f"TrainStep checkpoints {_LATER}")
+    def restore_checkpoint(self, directory, scaler=None):
+        """Resume from the newest checkpoint under ``directory`` (the
+        port's or the reference's): parameters, buffers and optimizer
+        state are written IN PLACE into the tensors the step's programs
+        read, so a captured step replays on with no new capture.  Returns
+        the meta (``{"step", ...}``), or None when there is none."""
+        from ..distributed import checkpoint as dck
+        from ..weights import load_paddle_opt_state
+        if scaler is not None:
+            raise UnimplementedError(
+                "TrainStep.restore_checkpoint(scaler=) comes with the "
+                "port's GradScaler")
+        res = dck.restore_sharded(directory)
+        if res is None:
+            return None
+        if self._gen is None:
+            self._setup()
+        meta, restored_opt = dck.apply_train_state(
+            self.model, self.optimizer, res, generator=self._gen)
+        load_paddle_opt_state(self, dck.merge_opt_state(self._opt_state,
+                                                        restored_opt))
+        return meta

@@ -5,7 +5,7 @@ import torch
 
 from ...amp import amp_cast
 
-__all__ = ["gelu", "relu", "relu6", "softmax"]
+__all__ = ["gelu", "relu", "relu6", "softmax", "tanh"]
 
 
 def gelu(x, approximate: bool = False):
@@ -29,3 +29,9 @@ def relu(x):
 def relu6(x):
     (x,) = amp_cast("relu6", x)
     return torch.clamp(x, 0.0, 6.0)
+
+
+def tanh(x):
+    """On neither AMP list: cast under O2 only, as the reference's."""
+    (x,) = amp_cast("tanh", x)
+    return torch.tanh(x)

@@ -1,4 +1,4 @@
-from .activation import ReLU  # noqa: F401
+from .activation import ReLU, Tanh  # noqa: F401
 from .common import Dropout, Embedding, Linear  # noqa: F401
 from .container import LayerList, Sequential  # noqa: F401
 from .conv import Conv2D  # noqa: F401

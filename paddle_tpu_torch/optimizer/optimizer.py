@@ -15,8 +15,11 @@ does it, so the two frameworks compute the same update from the same
 gradient, and a step captured as a CUDA graph follows ``set_lr`` and the
 step count.  Moments are
 f32 whatever the parameter type (Adam); Momentum's velocity is in the
-parameter's type, as the reference's.  Learning-rate schedulers come with
-a later slice of the port.
+parameter's type, as the reference's.  ``learning_rate`` is a number or
+an ``optimizer.lr.LRScheduler``, which ``get_lr`` calls at every step (the
+caller steps the scheduler); ``state_dict`` / ``set_state_dict`` carry the
+step count, the eager step's slots (``param{i}.{slot}``) and the
+scheduler's state (``"LR_Scheduler"``) under the reference's keys.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..core.errors import UnimplementedError
+from .lr import LRScheduler
 
 __all__ = ["Optimizer", "Momentum", "Adam", "AdamW"]
 
@@ -40,13 +43,11 @@ class Optimizer:
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None):
-        if not isinstance(learning_rate, (int, float)):
-            raise UnimplementedError(
-                "learning-rate schedulers come with a later slice of the "
-                "port; pass a float learning_rate")
         self._parameter_list = (list(parameters) if parameters is not None
                                 else None)
-        self._learning_rate = float(learning_rate)
+        self._learning_rate = (learning_rate
+                               if isinstance(learning_rate, LRScheduler)
+                               else float(learning_rate))
         self._grad_clip = grad_clip
         # weight_decay: float -> coupled L2 coefficient added to grads;
         # AdamW overrides with decoupled decay
@@ -78,10 +79,19 @@ class Optimizer:
 
     # ---- lr ------------------------------------------------------------------
     def get_lr(self) -> float:
+        if isinstance(self._learning_rate, LRScheduler):
+            return float(self._learning_rate())
         return self._learning_rate
 
     def set_lr(self, value):
+        if isinstance(self._learning_rate, LRScheduler):
+            raise RuntimeError("cannot set_lr when using an LRScheduler")
         self._learning_rate = float(value)
+
+    @property
+    def _lr_scheduler(self):
+        return (self._learning_rate
+                if isinstance(self._learning_rate, LRScheduler) else None)
 
     # ---- eager step ----------------------------------------------------------
     @torch.no_grad()
@@ -110,6 +120,36 @@ class Optimizer:
     def clear_grad(self):
         for p in self._parameter_list or []:
             p.grad = None
+
+    # ---- state dict --------------------------------------------------------
+    def state_dict(self):
+        """The step count, each listed parameter's slots of the eager step
+        as ``param{i}.{slot}`` and the scheduler's state as
+        ``"LR_Scheduler"``, the reference's keys."""
+        out = {"_step_count": self._step_count}
+        for i, p in enumerate(self._parameter_list or []):
+            for k, v in (self._states.get(id(p)) or {}).items():
+                out[f"param{i}.{k}"] = v
+        sched = self._lr_scheduler
+        if sched is not None:
+            out["LR_Scheduler"] = sched.state_dict()
+        return out
+
+    @torch.no_grad()
+    def set_state_dict(self, state_dict):
+        self._step_count = int(state_dict.get("_step_count", 0))
+        if "LR_Scheduler" in state_dict and self._lr_scheduler is not None:
+            self._lr_scheduler.set_state_dict(state_dict["LR_Scheduler"])
+        for i, p in enumerate(self._parameter_list or []):
+            prefix = f"param{i}."
+            st = {k[len(prefix):]: v for k, v in state_dict.items()
+                  if isinstance(k, str) and k.startswith(prefix)}
+            if not st:
+                continue
+            like = self.init_state(p.detach())
+            self._states[id(p)] = {
+                k: torch.as_tensor(v).to(p.device, like[k].dtype)
+                for k, v in st.items()}
 
 
 class Momentum(Optimizer):

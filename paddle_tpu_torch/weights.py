@@ -12,8 +12,9 @@ models hold them as ml_dtypes' ``bfloat16``) load bit for bit.
 ``load_paddle_opt_state(step, opt_state)`` carries the reference's
 ``TrainStep`` optimizer state (``{name: {"moment1": ..., "moment2": ...}}``
 for Adam, ``{name: {"velocity": ...}}`` for Momentum, as its
-``init_opt_state`` builds it) into a port ``jit.TrainStep``, so a resumed
-comparison starts from equal slots.
+``init_opt_state`` builds it; arrays, or tensors as a checkpoint restore
+gives them) into a port ``jit.TrainStep``, so a resumed comparison starts
+from equal slots.
 """
 from __future__ import annotations
 
@@ -90,13 +91,13 @@ def load_paddle_opt_state(train_step, opt_state: Mapping[str, Mapping],
                 f"{sorted(like)}")
         slots = {}
         for slot, arr in opt_state[name].items():
-            src = np.asarray(arr)
+            src = (arr.detach() if isinstance(arr, torch.Tensor)
+                   else torch.from_numpy(np.array(arr, np.float32)))
             if tuple(src.shape) != tuple(p.shape):
                 raise InvalidArgumentError(
                     f"load_paddle_opt_state: {name}.{slot} has shape "
                     f"{tuple(src.shape)}, the parameter {tuple(p.shape)}")
-            slots[slot] = torch.from_numpy(np.array(src, np.float32)).to(
-                p.device, like[slot].dtype)
+            slots[slot] = src.to(p.device, like[slot].dtype)
         out[name] = slots
     if train_step._opt_state is None:
         train_step._opt_state = out

@@ -1577,3 +1577,133 @@ def test_lora_engine_captured_streams_equal_uncaptured(cuda, kv, tmp_path):
         assert eng.post_warmup_compiles() == 0
         del eng
     assert streams[0] == streams[1]
+
+
+# ---------------------------------------------------------------------------
+# BERT / ERNIE: K1 / K2 non-causal with the padding bias, the captured step
+# under a learning-rate schedule, and a checkpoint resume into a captured
+# step
+# ---------------------------------------------------------------------------
+
+def _padding_bias(cuda, b, s, seed):
+    """BERT's (B, Sk) padding bias: 0 on a row's real keys, -1e4 past its
+    length (lengths drawn from 128..s)."""
+    lens = np.random.RandomState(seed).randint(128, s + 1, (b,))
+    keys = np.arange(s)[None, :]
+    return torch.from_numpy(np.where(keys < lens[:, None], 0.0, -1e4)
+                            .astype(np.float32)).to(cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_at_bert_shape_match_plain(cuda, dtype):
+    """B 2, S 512, H 4, D 64, non-causal, the padding bias, dropout 0.1:
+    every output and gradient (dbias too) against the plain versions."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    b, s, h, d, p = 2, 512, 4, 64, 0.1
+    q, k, v, do, _, _, _ = _flash_case(cuda, b, s, s, h, d, dtype, seed=8)
+    bi = _padding_bias(cuda, b, s, 8)
+    seed = torch.tensor([2718], dtype=torch.int32, device=cuda)
+    args = (q, k, v, bi, None, None, seed, False, p)
+    f0, b0 = fa.flash_fwd.launches, fa.flash_bwd.launches
+    o, lse = fa.flash_fwd(*args)
+    grads = fa.flash_bwd(q, k, v, bi, None, None, seed, o, lse, do, False, p)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd.launches) == (f0 + 1, b0 + 1)
+    po, plse = fa._plain_fwd(*args)
+    pgrads = fa._plain_bwd(q, k, v, bi, None, None, seed, o, lse, do, False,
+                           p)
+    tol_o, tol_g = FLASH_TOL[dtype]
+    torch.testing.assert_close(o.float(), po.float(), **tol_o)
+    torch.testing.assert_close(lse, plse, rtol=1e-4, atol=1e-4)
+    for g, pg in zip(grads, pgrads):
+        assert g.dtype == pg.dtype and g.shape == pg.shape
+        torch.testing.assert_close(g.float(), pg.float(), **tol_g)
+
+
+TRAIN_BERT = dict(vocab_size=512, hidden_size=128, num_hidden_layers=2,
+                  num_attention_heads=2, intermediate_size=256,
+                  max_position_embeddings=256, hidden_dropout_prob=0.1,
+                  attention_probs_dropout_prob=0.1)
+
+
+def _bert_batch(cuda, seed=12, b=4, s=256):
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, 512, (b, s))
+    lens = rng.randint(128, s + 1, (b,))
+    mask = (np.arange(s)[None] < lens[:, None]).astype(np.int64)
+    tt = (np.arange(s)[None] >= lens[:, None] // 2).astype(np.int64)
+    pos = np.broadcast_to(np.arange(s), (b, s))
+    lab = np.where((rng.rand(b, s) < 0.15) & (mask > 0), ids, -100)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+                 for a in (ids, tt, pos, mask, lab))
+
+
+def _bert_step(cuda, uncaptured=False):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
+                                         BertPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import AdamW, lr
+    pt.seed(0)
+    model = BertForPretraining(BertConfig(**TRAIN_BERT), device=cuda, seed=5)
+    crit = BertPretrainingCriterion()
+    sched = lr.LinearWarmup(lr.PolynomialDecay(2e-3, decay_steps=4),
+                            warmup_steps=2, start_lr=1e-4, end_lr=2e-3)
+    opt = AdamW(learning_rate=sched, parameters=model.parameters(),
+                apply_decay_param_fun=lambda n: "bias" not in n
+                and "norm" not in n)
+    step = TrainStep(model, lambda lg, nsp, y: crit(lg, nsp, y), opt,
+                     amp_level="O1")
+    step._run_uncaptured = uncaptured
+    return model, sched, step
+
+
+def test_bert_train_step_captured_equals_uncaptured_under_a_schedule(cuda):
+    """Five O1 steps with dropout and the padding bias under a warmup +
+    decay schedule: captured == uncaptured bit for bit, one capture, K1 and
+    K2 once per layer per step through the replays."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    batch = _bert_batch(cuda)
+    runs = []
+    for uncaptured in (False, True):
+        model, sched, step = _bert_step(cuda, uncaptured)
+        step.warmup(*batch)
+        f0, b0 = fa.flash_fwd.launches, fa.flash_bwd.launches
+        losses = []
+        for _ in range(5):
+            losses.append(step(*batch))
+            sched.step()
+        torch.cuda.synchronize()
+        layers = TRAIN_BERT["num_hidden_layers"]
+        assert fa.flash_fwd.launches - f0 == 5 * layers
+        assert fa.flash_bwd.launches - b0 == 5 * layers
+        assert step.compile_counts()["total"] == 1
+        runs.append((torch.stack(losses),
+                     {k: v.clone() for k, v in model.state_dict().items()}))
+    assert torch.equal(runs[0][0], runs[1][0])
+    _assert_equal_states(runs[0][1], runs[1][1])
+
+
+def test_bert_checkpoint_resumes_into_a_captured_step(cuda, tmp_path):
+    """Save after step 2; a fresh captured step that already ran restores
+    in place (no new capture) and its steps 3-5 equal the uninterrupted
+    run's bit for bit, dropout and schedule included."""
+    batch = _bert_batch(cuda, seed=13)
+    model, sched, step = _bert_step(cuda)
+    full = []
+    for i in range(5):
+        full.append(step(*batch))
+        sched.step()
+        if i == 1:
+            step.save_checkpoint(str(tmp_path))
+    model2, sched2, step2 = _bert_step(cuda)
+    step2(*batch)
+    made = step2.compile_counts()["total"]
+    assert step2.restore_checkpoint(str(tmp_path))["step"] == 2
+    got = []
+    for _ in range(3):
+        got.append(step2(*batch))
+        sched2.step()
+    assert torch.equal(torch.stack(got), torch.stack(full[2:]))
+    assert step2.compile_counts()["total"] == made
+    _assert_equal_states(model.state_dict(), model2.state_dict())
