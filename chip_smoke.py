@@ -1,6 +1,9 @@
 """Chip smoke test of paddle_tpu_torch on one CUDA card (H100).
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--phases a,b,...]
+
+``--phases`` runs the named phases alone (development: no result line,
+exit 0 when they pass); the phases run in the order below.
 
 Phases (any failure exits non-zero before the result line):
   1. device   — prints the card's name and power limit (nvidia-smi);
@@ -49,6 +52,21 @@ Phases (any failure exits non-zero before the result line):
                 their largest |value| of the CPU plain path.  Each run
                 prints tokens/s, TTFT p50 and max, warmup seconds and the
                 capture count, captured and uncaptured.
+  5b. telemetry — the serve configuration on one captured engine with
+                profile=False and profile=True in turns (off, on, on, off),
+                the serve traffic each time: tokens/s and TTFT p50 of each
+                run and setting; the serving_ttft_seconds histogram must
+                count the 8 requests and it plus
+                serving_inter_token_seconds the 512 tokens; profile=True
+                must open one serving_prefill span per request and one
+                serving_decode span per decode step, profile=False none;
+                K3 / K4 launches and greedy streams equal in every run;
+                post_warmup_compiles() 0.  Prints the program registry's
+                records of the engine's names (captures, capture seconds,
+                bytes, replays), then a torch.profiler window over 3
+                decode steps: every K3 / K4 kernel in it must lie inside
+                a serving_decode range, their counts equal to the launch
+                counters'.
   6. pressure — the serve model (f32) on a paged pool of 224 blocks where
                 512 back every slot: 16 requests (prompts 200..400, 256 new
                 tokens, 12 greedy + 4 keyed-sampled), first on the full
@@ -123,6 +141,21 @@ Phases (any failure exits non-zero before the result line):
                 losses, every base tensor bit-unchanged, every lora_B
                 moved, K1 and K2 24 launches each per step through the
                 replays, the exported adapter read back by read_adapter.
+  9b. beam     — generate(decode_strategy="beam_search", num_beams=4) on
+                the serve model (int8, f32), B 2 x prompt 128, 64 new
+                tokens: ms per token; K4 launched 4 x 24 x 64 times;
+                num_beams=1 equals greedy generate(); each score within
+                1e-3 of its tokens' teacher-forced log-prob; a 2-layer
+                full-width copy's beams on the card equal the CPU plain
+                path's (or, at a near tie, the card's best beam scores
+                within 1e-3 of the CPU's on the CPU path).
+  9c. spec_bf16 — after the bf16 serve run: the bf16 serve model with a
+                bf16-decorated int8 draft on bf16 pools, spec_tokens=4,
+                the serve traffic, captured, against the plain bf16
+                engine: K3 / K4 launch, nothing captured after warmup,
+                each greedy stream equal to the plain engine's or split
+                where the plain path's top-two margin is below 5% of the
+                largest |logit|; tokens/s and the accept rate.
  10. fixed    — 4-layer full-width engines on the fixed pool, captured, f32
                 and bf16: greedy streams must equal the uncaptured path's,
                 and in f32 solo generate()'s.  Then the captured f32 engine
@@ -160,10 +193,19 @@ Phases (any failure exits non-zero before the result line):
                 1e-5 relative of the plain run's (bit-equality expected;
                 both printed), K1 48 and K2 24 launches per step, peak
                 memory below the plain run's, device time printed.
+ 12b. the train phase's captured leg also checks that the
+                train_step_seconds histogram counted its 8 steps.
  13. traincheck — one step's loss and every parameter's gradient of a
                 2-layer full-width f32 GPT (dropout 0, B 1, S 1024) on the
                 kernel path against the same step by the plain versions on
                 the CPU, same weights and batch.
+ 13b. guard    — GPT-2 medium TrainStep(guard=True) (the train phase's
+                model, batch and O1 step), captured with
+                PDTPU_FAULT_NAN_GRADS=3 armed: 5 steps; step 3's guard is
+                false and leaves the parameters and both moments
+                bit-equal, the others are true and move them; K1 / K2 24
+                launches per step through the replays; nothing captured
+                after warmup; ms per step by CUDA events printed.
  14. bert     — BERT-large / ERNIE-large pretraining (BASELINE configs #3
                 and #4 as bench.py measures them: B 8 x S 512, O1 bf16,
                 AdamW(1e-4) with decay off for biases and norms, dropout
@@ -306,6 +348,11 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 8               # train phase
 # bert phase: BERT-large / ERNIE-large as bench.py measures them
 BERT_B, BERT_S, BERT_STEPS, BERT_VOCAB = 8, 512, 8, 30528
 RECOMPUTE_STEPS = 3        # the train / resnet phases' recompute legs
+TELEMETRY_RUNS = (False, True, True, False)   # profile= in turns
+BEAM_B, BEAM_PROMPT, BEAM_NEW, BEAM_K = 2, 128, 64, 4   # beam phase
+BEAM_CHECK_NEW = 16        # the 2-layer card-vs-CPU beam check
+SCORE_TOL = 1e-3           # a beam's score vs its teacher-forced log-prob
+GUARD_STEPS, GUARD_POISONED = 5, 3   # guard phase: steps, the NaN step
 RESNET_B, RESNET_HW, RESNET_STEPS = 256, 224, 8           # resnet phase
 # the fused-BN kernels' main-path shapes at batch 256, as (N, H, W, C)
 BN_STEM = (RESNET_B, 112, 112, 64)       # M = 3,211,264
@@ -315,6 +362,11 @@ BN_KERNELS = ("bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_dx",
               "bn_pool_apply")
 BN_LINES = {"bn_stats": 119, "bn_apply": 132, "bn_bwd_reduce": 153,
             "bn_bwd_dx": 183, "bn_pool_apply": 611}
+
+
+PHASES = ("check", "serve", "telemetry", "pressure", "prefix", "spec", "lora",
+          "beam", "serve_bf16", "spec_bf16", "fixed", "flash", "train",
+          "traincheck", "guard", "bert", "bn", "resnet", "resnetcheck")
 
 
 def fail(msg: str):
@@ -971,6 +1023,156 @@ def serve_phase(torch, args, dev, card, model, dtype=None):
     return main_launches
 
 
+def _serving_hist(obs):
+    reg = obs.get_registry()
+    return {n: reg.get(n).snapshot()["count"]
+            for n in ("serving_ttft_seconds", "serving_inter_token_seconds")}
+
+
+def _span_counts(obs, prefix="serving_"):
+    return {k: v[0] for k, v in obs.get_tracer().aggregates().items()
+            if k.startswith(prefix)}
+
+
+def telemetry_window(torch, eng, prompts, steps: int = 3):
+    """A torch.profiler window over ``steps`` captured decode steps of 8
+    active slots with profile=True: the serving_decode ranges (host) and
+    the K3 / K4 kernels (device) in it, with the launch counters zeroed
+    just before.  Returns (ranges, kernels inside a range, kernels outside
+    and their largest distance in us, K3 / K4 launches counted, kernels
+    seen)."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.ops import int8_matmul as im
+    from paddle_tpu_torch.ops import paged_attention as pa
+    resps = [eng.submit(p, max_new_tokens=96) for p in prompts]
+    eng.step()                       # admits all eight + one decode step
+    torch.cuda.synchronize()
+    im.dequant_matmul.launches = pa.paged_attention.launches = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    launches = {"paged_attention": pa.paged_attention.launches,
+                "int8_matmul": im.dequant_matmul.launches}
+    eng.run_until_drained(timeout=300)
+    [r.tokens(timeout=5) for r in resps]
+    cuda = torch.autograd.DeviceType.CUDA
+    ranges = [(e.time_range.start, e.time_range.end) for e in prof.events()
+              if e.name == "serving_decode" and e.device_type != cuda]
+    seen = {"paged_attention": 0, "int8_matmul": 0}
+    inside, outside, worst = dict(seen), dict(seen), 0.0
+    for e in prof.events():
+        if e.device_type != cuda:
+            continue
+        kind = ("paged_attention" if "paged_attention" in e.name else
+                "int8_matmul" if "dequant_matmul" in e.name else None)
+        if kind is None:
+            continue
+        seen[kind] += 1
+        a, b = e.time_range.start, e.time_range.end
+        if any(lo <= a and b <= hi for lo, hi in ranges):
+            inside[kind] += 1
+        else:
+            outside[kind] += 1
+            worst = max(worst, min(max(lo - a, b - hi, 0.0)
+                                   for lo, hi in ranges) if ranges else 0.0)
+    return ranges, inside, outside, worst, launches, seen
+
+
+def telemetry_phase(torch, args, dev, card, model):
+    """The engine's telemetry on the serve configuration (GPT-2 medium
+    int8, paged, 8 slots, the serve traffic), one captured engine run with
+    profile=False and profile=True in turns (TELEMETRY_RUNS).  Gates per
+    run: the TTFT histogram counts the requests and the TTFT +
+    inter-token histograms the tokens; profile=True opens one
+    serving_prefill span per request and one serving_decode span per
+    decode step, profile=False none; K3 / K4 launch counts and the greedy
+    streams equal in every run; nothing is captured after warmup.  Then
+    the registry's entries (captures, capture seconds, bytes, replays),
+    and a torch.profiler window over decode steps: every K3 / K4 kernel
+    of it inside a serving_decode range, their counts equal to the launch
+    counters'."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.utils.monitor import stat_get
+    cfg = model.gpt.config
+    prompts, sampled = serve_requests(args, cfg.vocab_size)
+    eng = _paged_engine(model, dev)
+    by = {False: [], True: []}
+    ref = None
+    for prof in TELEMETRY_RUNS:
+        eng._profile = prof
+        eng.reset_metrics()
+        h0, s0 = _serving_hist(obs), _span_counts(obs)
+        steps0 = stat_get("STAT_serving_decode_steps")
+        outs, wall, ttfts, launches = _drive(
+            torch, eng, prompts, sampled, 64, f"telemetry profile={prof}")
+        tokens = sum(len(o) for o in outs)
+        h1, s1 = _serving_hist(obs), _span_counts(obs)
+        hist = {n: h1[n] - h0[n] for n in h1}
+        spans = {k: n - s0.get(k, 0) for k, n in s1.items()
+                 if n - s0.get(k, 0)}
+        steps = stat_get("STAT_serving_decode_steps") - steps0
+        p50 = ttfts[len(ttfts) // 2] * 1e3
+        by[prof].append((tokens / wall, p50))
+        print(f"telemetry profile={prof} [{card}]: {tokens} tokens in "
+              f"{wall:.3f}s: {tokens / wall:.1f} tokens/s; TTFT p50 "
+              f"{p50:.1f} ms; {steps} decode steps; histogram counts "
+              f"{hist}; spans {spans}; launches {launches}")
+        if hist["serving_ttft_seconds"] != len(prompts) or sum(
+                hist.values()) != tokens:
+            fail(f"telemetry: histogram counts {hist} for {len(prompts)} "
+                 f"requests and {tokens} tokens")
+        want = ({"serving_prefill": len(prompts), "serving_decode": steps}
+                if prof else {})
+        if spans != want:
+            fail(f"telemetry profile={prof}: spans {spans}, want {want}")
+        greedy = [o for i, o in enumerate(outs) if i not in sampled]
+        if ref is None:
+            ref = (launches, greedy)
+        elif (launches, greedy) != ref:
+            fail(f"telemetry profile={prof}: launches {launches} or greedy "
+                 f"streams differ from the first run's ({ref[0]})")
+    if eng.post_warmup_compiles() != 0:
+        fail(f"telemetry: post_warmup_compiles() "
+             f"{eng.post_warmup_compiles()}")
+    for prof in (False, True):
+        tps = [t for t, _ in by[prof]]
+        p50s = [p for _, p in by[prof]]
+        print(f"telemetry summary profile={prof} [{card}]: "
+              f"{np.mean(tps):.1f} tokens/s (runs {', '.join(f'{t:.1f}' for t in tps)}), "
+              f"TTFT p50 {np.mean(p50s):.1f} ms (runs "
+              f"{', '.join(f'{p:.1f}' for p in p50s)})")
+    print("telemetry: post_warmup_compiles() 0; the registry's records of "
+          "the engine's program names (process-wide: every engine's "
+          "captures and replays under a name add up):")
+    mine = {p.tracked_as for p in eng._programs.values()}
+    for name, rec in sorted(obs.get_program_registry().snapshot().items()):
+        if name in mine:
+            print(f"telemetry:   {name}: captures {rec['compiles']}, "
+                  f"capture seconds {rec['compile_seconds_total']:.3f}, "
+                  f"argument bytes {rec['argument_bytes']:.0f}, output "
+                  f"bytes {rec.get('output_bytes', 0):.0f}, replays "
+                  f"{rec['replays']}, flops {rec['flops']}")
+    eng._profile = True
+    ranges, inside, outside, worst, launches, seen = telemetry_window(
+        torch, eng, prompts)
+    print(f"telemetry window [{card}]: {len(ranges)} serving_decode ranges; "
+          f"K3 / K4 kernels seen {seen}, inside a range {inside}, outside "
+          f"{outside} (largest distance {worst:.1f} us); launches counted "
+          f"{launches}")
+    if not any(seen.values()):
+        print("telemetry window: the profiler recorded no K3 / K4 kernel "
+              "(device events not measured)")
+    elif any(outside.values()) or inside != launches or len(ranges) != 3:
+        fail(f"telemetry: the serving_decode ranges do not enclose the "
+             f"step's K3 / K4 kernels ({inside} inside, {outside} outside, "
+             f"{launches} launched)")
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+
+
 def _timed(torch, fn, out):
     """fn, with the ms of each call that did its work (did not return
     False) appended to ``out``; the card is synchronized around it."""
@@ -1179,16 +1381,20 @@ def prefix_phase(torch, args, dev, card, model):
           f"only at near ties: {splits}")
 
 
-def spec_draft(torch, args, dev):
+def spec_draft(torch, args, dev, dtype=None):
     """The spec phase's draft: GPT-2 small's widths (12 x 768, 12 heads,
     the target's vocab 50304), random weights from --seed + 4, int8
-    weight-only, as the README's speculative config pairs them."""
+    weight-only, as the README's speculative config pairs them; with
+    dtype bf16 decorated to bf16 (amp O2) before quantization."""
+    from paddle_tpu_torch import amp
     from paddle_tpu_torch.models import GPTForPretraining, gpt2_small_config
     from paddle_tpu_torch.quantization import quantize_for_serving
     cfg = gpt2_small_config(hidden_dropout_prob=0.0,
                             attention_probs_dropout_prob=0.0)
-    return quantize_for_serving(
-        GPTForPretraining(cfg, device=dev, seed=args.seed + 4).eval())
+    model = GPTForPretraining(cfg, device=dev, seed=args.seed + 4).eval()
+    if dtype == torch.bfloat16:
+        amp.decorate(models=model, level="O2", dtype="bfloat16")
+    return quantize_for_serving(model)
 
 
 def spec_kernel_checks(torch, dev, draft, buckets):
@@ -1441,6 +1647,68 @@ def spec_phase(torch, args, dev, card, model):
           f"{len(prompts) - len(sampled) - len(splits)} of "
           f"{len(prompts) - len(sampled)} greedy streams equal the plain "
           f"engine's; splits only at near ties: {splits}")
+    del draft
+    torch.cuda.empty_cache()
+
+
+def spec_bf16_phase(torch, args, dev, card, model):
+    """Speculation in bf16: the bf16 serve model (``serve_model`` decorated
+    to bf16, int8) with the draft decorated to bf16 too, on bf16 pools,
+    spec_tokens=4, the serve phase's 8 requests, against the plain bf16
+    engine.  Gates: the captured spec engine's warmup captures the bound
+    and none follows; K3 / K4 launch through its replays (bf16 operands);
+    each greedy stream equals the plain engine's or splits where the plain
+    path's top-two margin is below the bf16 tolerance (5% of the largest
+    |logit|, printed).  Prints tokens/s, TTFT and the accept rate."""
+    bf16 = torch.bfloat16
+    cfg = model.gpt.config
+    draft = spec_draft(torch, args, dev, bf16)
+    prompts, sampled = serve_requests(args, cfg.vocab_size)
+    runs = {}
+    for tag in ("plain", "spec"):
+        kw = ({"draft_model": draft, "spec_tokens": SPEC_TOKENS}
+              if tag == "spec" else {})
+        eng = _paged_engine(model, dev, dtype=bf16, **kw)
+        if any(t.dtype != bf16 for store in
+               [eng._pool_store] + ([eng._draft_store] if kw else [])
+               for pair in store for t in pair):
+            fail("spec bf16: the engine built pools of another dtype")
+        outs, wall, ttfts, launches = _drive(torch, eng, prompts, sampled,
+                                             64, f"spec bf16 {tag}")
+        total = sum(len(o) for o in outs)
+        line = (f"spec bf16 {tag} [{card}]: 8 requests, {total} tokens in "
+                f"{wall:.3f}s: {total / wall:.1f} tokens/s; TTFT p50 "
+                f"{ttfts[len(ttfts) // 2] * 1e3:.1f} ms; launches {launches}")
+        if tag == "spec":
+            m = eng.metrics()["spec"]
+            line += (f"; {m['ticks']} ticks, accept rate "
+                     f"{m['accept_rate']:.4f} ({m['accepted']} of "
+                     f"{m['proposed']})")
+        print(line)
+        runs[tag] = outs
+        eng.close()
+        del eng
+        torch.cuda.empty_cache()
+    splits = []
+    for i, (got, want) in enumerate(zip(runs["spec"], runs["plain"])):
+        if i in sampled or got == want:
+            continue
+        j = next(k for k, (a, b) in enumerate(zip(got, want)) if a != b)
+        ids = np.concatenate([prompts[i], want[:j]])
+        margin = _top2_margin(torch, model, dev, ids)
+        with torch.inference_mode():
+            top = float(model(torch.as_tensor(ids[None]).to(dev))[0, -1]
+                        .float().abs().max())
+        splits.append((i, j, margin))
+        print(f"spec bf16: greedy stream {i} splits from the plain "
+              f"engine's at token {j}: top-two margin {margin:.3e} "
+              f"(tolerance {BF16_LOGIT_TOL * top:.3e})")
+        if margin >= BF16_LOGIT_TOL * top:
+            fail(f"spec bf16: stream {i} splits at token {j} where the "
+                 f"margin is {margin:.3e}")
+    print(f"spec bf16: {len(prompts) - len(sampled) - len(splits)} of "
+          f"{len(prompts) - len(sampled)} greedy streams equal the plain "
+          f"bf16 engine's; splits only at near ties: {splits}")
     del draft
     torch.cuda.empty_cache()
 
@@ -2157,6 +2425,7 @@ def train_leg(torch, make, batch, steps: int, counters, card: str,
         warm_s = time.perf_counter() - t0
         made = step.compile_counts()["total"]
         read = counters()
+        hist0 = _step_hist_count()
         losses, t_steps = [], []
         for _ in range(steps):
             t0 = time.perf_counter()
@@ -2164,6 +2433,7 @@ def train_leg(torch, make, batch, steps: int, counters, card: str,
             torch.cuda.synchronize()
             t_steps.append(time.perf_counter() - t0)
         out = dict(losses=[float(x) for x in losses], launches=read(),
+                   hist_steps=_step_hist_count() - hist0,
                    warm=warm, warm_s=warm_s,
                    recaptured=step.compile_counts()["total"] - made,
                    first_ms=t_steps[0] * 1e3,
@@ -2180,6 +2450,12 @@ def train_leg(torch, make, batch, steps: int, counters, card: str,
     gc.collect()          # a step and its programs' bound methods: a cycle
     torch.cuda.empty_cache()
     return out
+
+
+def _step_hist_count() -> int:
+    from paddle_tpu_torch import observability as obs
+    h = obs.get_registry().get("train_step_seconds")
+    return 0 if h is None else h.snapshot()["count"]
 
 
 def _leg_line(tag: str, card: str, leg: dict, items: int, unit: str):
@@ -2259,6 +2535,11 @@ def train_phase(torch, args, dev, card):
         fail(f"train: warmup {cap['warm']}, {cap['recaptured']} captures "
              "after it (expected one capture, by warmup)")
     print(_leg_line("train captured", card, cap, tokens, "tokens"))
+    print(f"train: train_step_seconds histogram counted {cap['hist_steps']} "
+          f"calls over the {TRAIN_STEPS} steps")
+    if cap["hist_steps"] != TRAIN_STEPS:
+        fail(f"train: the train_step histogram counted "
+             f"{cap['hist_steps']} of {TRAIN_STEPS} steps")
     unc = train_leg(torch, make, batch, TRAIN_STEPS, counters, card,
                     what + ", uncaptured)", uncaptured=True)
     print(_leg_line("train uncaptured", card, unc, tokens, "tokens"))
@@ -2334,6 +2615,184 @@ def train_check_phase(torch, args, dev):
 # ---------------------------------------------------------------------------
 # BERT / ERNIE pretraining (BASELINE configs #3 / #4, as bench.py runs them)
 # ---------------------------------------------------------------------------
+
+def _beam(torch, model, ids, new: int, k: int, dev):
+    from paddle_tpu_torch.generation import generate
+    return generate(model, ids, max_new_tokens=new, num_beams=k,
+                    decode_strategy="beam_search", device=dev)
+
+
+def _forced_logp(torch, model, ids, out):
+    """The teacher-forced log-prob of each row's tokens ``out`` after its
+    prompt ``ids`` (one full forward, no cache)."""
+    with torch.inference_mode():
+        full = torch.cat([ids, out.to(torch.long)], dim=1)
+        logits = model(full)[:, ids.shape[1] - 1:-1].float()
+        logp = torch.log_softmax(logits, dim=-1)
+        return torch.gather(logp, 2, out.to(torch.long)[..., None]).sum(
+            dim=(1, 2))
+
+
+def beam_phase(torch, args, dev, card, model):
+    """Beam search on the serve model (GPT-2 medium, int8, f32
+    activations): generate(decode_strategy="beam_search", num_beams=4),
+    B 2 x prompt 128, 64 new tokens, from --seed.  Gates: K4 launches =
+    4 Linears x 24 layers x 64 forwards (the prefill and 63 steps);
+    num_beams=1 equals greedy generate() token for token; each returned
+    score within SCORE_TOL of the teacher-forced log-prob of its tokens;
+    on a 2-layer copy at full width (16 new tokens) the card's beams equal
+    the CPU plain path's, or, at a near tie, the card's best beam scores
+    within SCORE_TOL of the CPU's best on the CPU path.  Prints ms per
+    token."""
+    from paddle_tpu_torch.generation import generate
+    from paddle_tpu_torch.models import GPTForPretraining, gpt2_medium_config
+    from paddle_tpu_torch.ops import int8_matmul as im
+    from paddle_tpu_torch.quantization import quantize_for_serving
+    cfg = model.gpt.config
+    layers = cfg.num_hidden_layers
+    rng = np.random.RandomState(args.seed + 6)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                       (BEAM_B, BEAM_PROMPT))).to(dev)
+    _beam(torch, model, ids, 2, BEAM_K, dev)          # first-use set-up
+    torch.cuda.synchronize()
+    im.dequant_matmul.launches = 0
+    t0 = time.perf_counter()
+    out, scores = _beam(torch, model, ids, BEAM_NEW, BEAM_K, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = im.dequant_matmul.launches
+    want = 4 * layers * BEAM_NEW
+    print(f"beam [{card}]: num_beams={BEAM_K}, B {BEAM_B} x prompt "
+          f"{BEAM_PROMPT}, {BEAM_NEW} new tokens in {wall:.3f}s: "
+          f"{wall / BEAM_NEW * 1e3:.2f} ms per token "
+          f"({BEAM_B * BEAM_NEW / wall:.1f} tokens/s over the batch); K4 "
+          f"launches {launches} (stated {want}); scores "
+          f"{[round(float(x), 4) for x in scores]}")
+    if launches != want:
+        fail(f"beam: {launches} K4 launches, stated {want}")
+    if out.shape != (BEAM_B, BEAM_NEW) or not bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()):
+        fail(f"beam: output {tuple(out.shape)} or a token out of the "
+             "vocabulary")
+    one, _ = _beam(torch, model, ids, BEAM_NEW, 1, dev)
+    greedy, _ = generate(model, ids, max_new_tokens=BEAM_NEW, device=dev)
+    if not torch.equal(one, greedy):
+        fail("beam: num_beams=1 differs from greedy generate()")
+    forced = _forced_logp(torch, model, ids, out)
+    err = float((forced - scores).abs().max())
+    print(f"beam: num_beams=1 == greedy (B {BEAM_B} x {BEAM_NEW}); scores "
+          f"vs teacher-forced log-probs: max abs err {err:.3e} (tolerance "
+          f"{SCORE_TOL})")
+    if not err <= SCORE_TOL:
+        fail(f"beam: scores differ from the teacher-forced log-probs "
+             f"({err:.3e})")
+    small_cfg = gpt2_medium_config(num_hidden_layers=2,
+                                   hidden_dropout_prob=0.0,
+                                   attention_probs_dropout_prob=0.0)
+    small = quantize_for_serving(GPTForPretraining(
+        small_cfg, device=dev, seed=args.seed + 7).eval())
+    card_out, card_sc = _beam(torch, small, ids, BEAM_CHECK_NEW, BEAM_K, dev)
+    cpu = copy.deepcopy(small).cpu()
+    cpu_out, cpu_sc = _beam(torch, cpu, ids.cpu(), BEAM_CHECK_NEW, BEAM_K,
+                            "cpu")
+    card_out = card_out.cpu()
+    if torch.equal(card_out, cpu_out):
+        print(f"beam: 2-layer full-width beams on the card equal the CPU "
+              f"plain path's (B {BEAM_B} x {BEAM_CHECK_NEW}); scores "
+              f"{card_sc.tolist()} vs {cpu_sc.tolist()}")
+    else:
+        rescored = _forced_logp(torch, cpu, ids.cpu(), card_out)
+        gap = float((rescored - cpu_sc).abs().max())
+        print(f"beam: 2-layer beams split from the CPU's at a tie: the "
+              f"card's best beams score {rescored.tolist()} on the CPU "
+              f"path against its own best {cpu_sc.tolist()} (gap {gap:.3e})")
+        if not gap <= SCORE_TOL:
+            fail(f"beam: the card's 2-layer beams differ from the CPU's "
+                 f"beyond a near tie ({gap:.3e})")
+    del small, cpu
+    torch.cuda.empty_cache()
+
+
+def guard_phase(torch, args, dev, card):
+    """TrainStep(guard=True) on GPT-2 medium (the train phase's model,
+    batch and O1 step), captured, with PDTPU_FAULT_NAN_GRADS armed at step
+    GUARD_POISONED when the step is captured: GUARD_STEPS steps.  Gates:
+    at the poisoned step last_guard is false and the parameters and both
+    AdamW moments are bit-equal before and after it; every other step's
+    guard is true and moves them; K1 / K2 launch 24 times per step
+    through the replays; nothing is captured after warmup; the losses are
+    finite."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (GPTForPretraining,
+                                         GPTPretrainingCriterion,
+                                         gpt2_medium_config)
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.utils import faults
+    cfg = gpt2_medium_config()
+    crit = GPTPretrainingCriterion()
+    pt.seed(args.seed)
+    model = GPTForPretraining(cfg, device=dev, seed=args.seed)
+    opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                             parameters=model.parameters())
+    step = TrainStep(model, lambda logits, y: crit(logits, y), opt,
+                     amp_level="O1", amp_dtype="bfloat16", guard=True)
+    batch = tuple(torch.from_numpy(a).to(dev)
+                  for a in _train_batch(cfg, args.seed, TRAIN_B, TRAIN_S))
+    faults.enable("nan_grads", str(GUARD_POISONED))
+    try:
+        warm = step.warmup(*batch)
+    finally:
+        faults.disable("nan_grads")
+    made = step.compile_counts()["total"]
+    fa.flash_fwd.launches = fa.flash_bwd.launches = 0
+    oks, losses, moved, ms = [], [], [], []
+    for i in range(1, GUARD_STEPS + 1):
+        state = step._state_tensors()[:-2]    # parameters, buffers, moments
+        before = [t.clone() for t in state]
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss = step(*batch)
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+        losses.append(float(loss))
+        oks.append(bool(step.last_guard[1]))
+        same = sum(torch.equal(a, b) for a, b in zip(before, state))
+        moved.append(len(state) - same)
+        del before
+    launches = {"flash_attention_fwd": fa.flash_fwd.launches,
+                "flash_attention_bwd": fa.flash_bwd.launches}
+    recaptured = step.compile_counts()["total"] - made
+    print(f"guard [{card}]: GPT-2 medium TrainStep(guard=True), captured "
+          f"(warmup {warm}), PDTPU_FAULT_NAN_GRADS={GUARD_POISONED}: "
+          f"guard verdicts {oks}, losses {[round(x, 4) for x in losses]}, "
+          f"state tensors moved per step {moved} of "
+          f"{len(step._state_tensors()) - 2}; launches {launches}; "
+          f"captures after warmup {recaptured}; ms per step (CUDA events "
+          f"around each replay) {[round(x, 3) for x in ms]}")
+    want = [i != GUARD_POISONED for i in range(1, GUARD_STEPS + 1)]
+    if oks != want:
+        fail(f"guard: verdicts {oks}, want {want}")
+    if moved[GUARD_POISONED - 1] != 0:
+        fail(f"guard: the poisoned step moved {moved[GUARD_POISONED - 1]} "
+             "state tensors")
+    if not all(moved[i - 1] > 0 for i in range(1, GUARD_STEPS + 1)
+               if i != GUARD_POISONED):
+        fail(f"guard: a healthy step moved nothing: {moved}")
+    if recaptured or not warm["compiled"]:
+        fail(f"guard: warmup {warm}, {recaptured} captures after it")
+    stated = cfg.num_hidden_layers * GUARD_STEPS
+    if any(n != stated for n in launches.values()):
+        fail(f"guard: flash launches {launches}, stated {stated} each")
+    if not all(np.isfinite(losses)):
+        fail(f"guard: non-finite losses {losses}")
+    del model, step, opt
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
 
 def _bert_large(**kw):
     from paddle_tpu_torch.models import bert_large_config
@@ -3389,7 +3848,16 @@ def resnet_check_phase(torch, args, dev):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run alone (development;"
+                         " prints no result line): " + ", ".join(PHASES))
     args = ap.parse_args()
+    only = set(args.phases.split(",")) if args.phases else None
+    if only and not only <= set(PHASES):
+        fail(f"unknown phases {sorted(only - set(PHASES))}")
+
+    def want(name):
+        return only is None or name in only
     try:
         import torch
     except ImportError:
@@ -3420,33 +3888,60 @@ def main():
             elif "registers" in line or "spill" in line:
                 print(f"build {name}{kern}: {line.strip()}")
     rng = np.random.RandomState(args.seed)
-    kernels = paged_phase(torch, rng, dev) + int8_phase(torch, rng, dev)
+    kernels, launches = [], {}
+    if want("check"):
+        kernels += paged_phase(torch, rng, dev) + int8_phase(torch, rng, dev)
     torch.cuda.empty_cache()
-    model = serve_model(torch, args, dev)
-    launches = serve_phase(torch, args, dev, card, model)
-    pressure_phase(torch, args, dev, card, model)
-    prefix_phase(torch, args, dev, card, model)
-    spec_phase(torch, args, dev, card, model)
-    lora_phase(torch, args, dev, card, model)
-    del model
-    launches.update(serve_phase(torch, args, dev, card,
-                                serve_model(torch, args, dev, torch.bfloat16),
-                                torch.bfloat16))
+    serve_f32 = ("serve", "telemetry", "pressure", "prefix", "spec", "lora",
+                 "beam")
+    if any(want(p) for p in serve_f32):
+        model = serve_model(torch, args, dev)
+        if want("serve"):
+            launches.update(serve_phase(torch, args, dev, card, model))
+        for name, phase in (("telemetry", telemetry_phase),
+                            ("pressure", pressure_phase),
+                            ("prefix", prefix_phase), ("spec", spec_phase),
+                            ("lora", lora_phase), ("beam", beam_phase)):
+            if want(name):
+                phase(torch, args, dev, card, model)
+        del model
+    if want("serve_bf16") or want("spec_bf16"):
+        model = serve_model(torch, args, dev, torch.bfloat16)
+        if want("serve_bf16"):
+            launches.update(serve_phase(torch, args, dev, card, model,
+                                        torch.bfloat16))
+        if want("spec_bf16"):
+            spec_bf16_phase(torch, args, dev, card, model)
+        del model
     torch.cuda.empty_cache()
-    fixed_phase(torch, args, dev)
+    if want("fixed"):
+        fixed_phase(torch, args, dev)
     torch.cuda.empty_cache()
-    kernels += flash_phase(torch, rng, dev)
-    launches.update(train_phase(torch, args, dev, card))
-    train_check_phase(torch, args, dev)
+    if want("flash"):
+        kernels += flash_phase(torch, rng, dev)
+    if want("train"):
+        launches.update(train_phase(torch, args, dev, card))
+    if want("traincheck"):
+        train_check_phase(torch, args, dev)
     torch.cuda.empty_cache()
-    bert_phase(torch, args, dev, card)
+    if want("guard"):
+        guard_phase(torch, args, dev, card)
     torch.cuda.empty_cache()
-    kernels += bn_phase(torch, args, dev)
-    launches.update(resnet_phase(torch, args, dev, card))
-    resnet_check_phase(torch, args, dev)
+    if want("bert"):
+        bert_phase(torch, args, dev, card)
+    torch.cuda.empty_cache()
+    if want("bn"):
+        kernels += bn_phase(torch, args, dev)
+    if want("resnet"):
+        launches.update(resnet_phase(torch, args, dev, card))
+    if want("resnetcheck"):
+        resnet_check_phase(torch, args, dev)
     if any(m.startswith("paddle_tpu.") or m in ("jax", "paddle_tpu")
            for m in sys.modules):
         fail("the JAX package was imported")
+    if only is not None:
+        print(f"partial run: phases {sorted(only)} passed; no result line")
+        return
     for k in kernels:
         k["launches"] = launches[k["name"]]
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",

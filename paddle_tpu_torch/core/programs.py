@@ -16,6 +16,10 @@ output tensors, which the next replay overwrites.  Elsewhere ``run`` calls
   every wrapper's ``launches``, K9's launches by route, the fused-BN
   entries' layout copies).  A capture's counts were recorded, not run:
   they are taken back, kept on ``launches`` and re-added at every replay.
+- **The registry.** A program tagged by ``observability.track`` reports
+  to the program registry: ``made(seconds)`` (after its capture, or when
+  the CPU builds it) counts one compile with its input and output bytes,
+  and every ``run`` one replay.  Nothing of it reads a device value.
 - **Generators.** A program that draws from a generator (``generator=``)
   registers it with its graph, so that each replay advances the
   generator's Philox offset as an eager run would; its recompute regions'
@@ -69,11 +73,16 @@ class Program:
         self.fn = fn
         self.inputs = inputs
         self.ready = False   # made (on the card: captured)
+        self.compiles = 0    # times made (captures on the card)
         self.graph = None
         self.outputs = None
         self.launches = []   # ((owner, key), counts per replay)
         self.marks = (None if generator is None
                       else _rng.ProgramMarks(generator))
+        self.tracked_as = None        # registry name (observability.track)
+        self.registry = None
+        self._replays = None          # the registry's run counter
+        self._out_bytes_noted = False
 
     def capture(self, pool):
         """The warm run, then the capture into a CUDA graph in the memory
@@ -112,12 +121,41 @@ class Program:
         torch.cuda.current_stream().wait_stream(side)
         self.graph, self.outputs = graph, outputs
 
+    def made(self, seconds: float):
+        """Mark the program ready; a tracked one records its compile,
+        which took ``seconds``, in the registry."""
+        self.ready = True
+        self.compiles += 1
+        if self.tracked_as is None:
+            return
+        from ..observability.programs import XLA_ONLY, tensor_bytes
+        self._replays = self.registry.replay_cell(self.tracked_as)
+        cost = dict.fromkeys(XLA_ONLY)
+        cost["argument_bytes"] = tensor_bytes(self.inputs.values())
+        if self.outputs is not None:
+            cost["output_bytes"] = tensor_bytes(self.outputs)
+            self._out_bytes_noted = True
+        self.registry.note_compile(self.tracked_as, seconds, cost,
+                                   meta={"captured": self.graph is not None})
+
+    def _note_run(self, outputs):
+        self._replays[0] += 1
+        if not self._out_bytes_noted:
+            from ..observability.programs import tensor_bytes
+            self.registry.note_cost(self.tracked_as,
+                                    {"output_bytes": tensor_bytes(outputs)})
+            self._out_bytes_noted = True
+
     def run(self, captured: bool = True):
         if self.graph is None or not captured:
-            return self.fn(**self.inputs)
-        if self.marks:
-            self.marks.position()
-        self.graph.replay()
-        for (owner, key), n in self.launches:
-            _add(owner, key, n)
-        return self.outputs
+            out = self.fn(**self.inputs)
+        else:
+            if self.marks:
+                self.marks.position()
+            self.graph.replay()
+            for (owner, key), n in self.launches:
+                _add(owner, key, n)
+            out = self.outputs
+        if self._replays is not None:
+            self._note_run(out)
+        return out

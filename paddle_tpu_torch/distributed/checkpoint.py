@@ -63,6 +63,26 @@ _STEP_DIR_RE = re.compile(r"^step-(\d+)$")
 RNG_KEY = "__torch_rng__"
 _BF16_WORDS = np.dtype("V2")   # how numpy stores an ml_dtypes bfloat16
 
+_obs_handles = None
+
+
+def _obs():
+    """(save_stall_histogram, async_in_flight_gauge) — observability
+    handles, created once (registry.reset() zeroes in place); the gauge
+    stays 0 until the asynchronous manager is ported."""
+    global _obs_handles
+    if _obs_handles is None:
+        from ..observability import metrics as _m
+        _obs_handles = (
+            _m.histogram("checkpoint_save_stall_seconds",
+                         "wall time the training thread was stalled by a "
+                         "checkpoint save (sync: full write; async: "
+                         "snapshot + enqueue)"),
+            _m.gauge("checkpoint_async_in_flight",
+                     "snapshots queued or being written by the async "
+                     "checkpoint writer"))
+    return _obs_handles
+
 
 def _index_key(name: str, index) -> str:
     starts = ",".join(str(0 if s.start is None else int(s.start))
@@ -165,9 +185,17 @@ def _write_atomic(path: str, content: str):
 def publish_snapshot(directory: str, manifest: dict, shards: dict) -> str:
     """Write the npz and the manifest into a temporary directory, sync
     them, rename it into place, sync the parent, then point ``latest`` at
-    it.  Returns the step directory."""
-    stat_add("STAT_checkpoint_bytes_written",
-             sum(a.nbytes for a in shards.values()))
+    it, inside a ``checkpoint_publish`` span.  Returns the step
+    directory."""
+    from ..observability import span as _span
+    with _span("checkpoint_publish", args={"step": manifest["step"]}):
+        stat_add("STAT_checkpoint_bytes_written",
+                 sum(a.nbytes for a in shards.values()))
+        return _publish_snapshot_inner(directory, manifest, shards)
+
+
+def _publish_snapshot_inner(directory: str, manifest: dict,
+                            shards: dict) -> str:
     step_dir = os.path.join(directory, f"step-{manifest['step']:09d}")
     tmp_dir = step_dir + ".tmp-p00000"
     os.makedirs(tmp_dir, exist_ok=True)
@@ -190,12 +218,15 @@ def publish_snapshot(directory: str, manifest: dict, shards: dict) -> str:
 
 def save_sharded(state_tree, directory: str, step: int = 0,
                  extra_meta: Optional[dict] = None) -> str:
-    """Write a checkpoint of a tree (nested dicts) of tensors.  Returns
-    the step directory."""
+    """Write a checkpoint of a tree (nested dicts) of tensors; the whole
+    save is observed as ``checkpoint_save_stall_seconds``.  Returns the
+    step directory."""
     _single_process()
     os.makedirs(directory, exist_ok=True)
-    manifest, shards = snapshot_tree(state_tree, step, extra_meta)
-    return publish_snapshot(directory, manifest, shards)
+    stall_h, _ = _obs()
+    with stall_h.time():
+        manifest, shards = snapshot_tree(state_tree, step, extra_meta)
+        return publish_snapshot(directory, manifest, shards)
 
 
 # -- restore ----------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Text generation: greedy and sampling (port of
-paddle_tpu/generation/__init__.py, ``:36-96`` and ``:153-265``).
+"""Text generation: greedy, sampling and beam search (port of
+paddle_tpu/generation/__init__.py).
 
 The reference runs the whole decode loop as one compiled XLA program; the
 port runs it eagerly: one prefill through ``model.forward_fixed`` against
@@ -13,8 +13,19 @@ protocol: ``model.gen_fixed_cache(batch, max_len)`` and
 statelessly instead, with the reference engine's keyed threefry draws
 reproduced in ``generation.keyed``, so its sampled tokens equal the
 reference engine's; its speculative ticks commit through
-``generation.speculative`` (exported here, as the reference does).  Beam
-search waits for a later slice.
+``generation.speculative`` (exported here, as the reference does).
+
+Beam search (``decode_strategy="beam_search"``, reference ``:268-327``):
+hypotheses on a (B*K) leading axis, one cache of B*K rows; each step
+``beam_step`` picks the K best (token, parent) pairs per batch row, the
+token history and the caches' live rows [0, pos) are reordered by a
+gather (the rows past pos are never read before they are written),
+finished beams extend with ``pad`` at zero cost, and the best beam is
+ranked by score / ((5 + len) / 6) ** length_penalty.  ``torch.topk``
+promises no order among equal values, where ``jax.lax.top_k`` takes the
+lower index first; ``beam_step`` selects by a stable descending sort, so
+ties (frequent once a -1e9 mask is added: the f32 spacing there is 64)
+go to the lower index as in the reference.
 """
 from __future__ import annotations
 
@@ -23,10 +34,11 @@ from typing import Optional
 import torch
 
 from ..core.device import DEFAULT_DEVICE, resolve_device
-from ..core.errors import InvalidArgumentError, UnimplementedError
+from ..core.errors import InvalidArgumentError
 
-__all__ = ["generate", "apply_top_k", "apply_top_p", "apply_top_k_dynamic",
-           "apply_top_p_dynamic", "process_logits_dynamic",
+__all__ = ["generate", "beam_step", "apply_top_k", "apply_top_p",
+           "apply_top_k_dynamic", "apply_top_p_dynamic",
+           "process_logits_dynamic",
            "commit_speculative_greedy", "commit_speculative_sampled"]
 
 _NEG = -1e9
@@ -110,6 +122,38 @@ def _process_logits(logits, temperature, top_k, top_p, greedy):
     return logits
 
 
+def top_k_first(x, k: int):
+    """(values, indices) of the k largest entries along the last axis,
+    equal values in ascending index order (``jax.lax.top_k``'s rule)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def beam_step(logp, scores, finished, keep_token):
+    """One beam-search selection step (shared by ``generate`` and
+    ``nn.decode.BeamSearchDecoder``; reference ``:111-131``).
+
+    logp: (B, K, V) per-beam next-token log-probs; scores: (B, K) running
+    totals; finished: (B, K) bool.  Finished beams may only extend with
+    ``keep_token`` at zero added cost.  Returns (new_scores, token,
+    parent, flat_src, parent_finished), where flat_src are (B*K,) gather
+    indices for reordering any per-hypothesis state (KV caches, cell
+    states)."""
+    b, k, vocab = logp.shape
+    fin_row = torch.full((vocab,), _NEG, dtype=torch.float32,
+                         device=logp.device)
+    fin_row[keep_token] = 0.0
+    logp = torch.where(finished[:, :, None], fin_row, logp)
+    cand = scores[:, :, None] + logp
+    new_scores, top_ix = top_k_first(cand.reshape(b, k * vocab), k)
+    parent = top_ix // vocab
+    token = (top_ix % vocab).to(torch.int32)
+    parent_finished = torch.gather(finished, 1, parent)
+    flat_src = (torch.arange(b, device=logp.device)[:, None] * k
+                + parent).reshape(-1)
+    return new_scores, token, parent, flat_src, parent_finished
+
+
 def generate(model, input_ids, max_length=None, max_new_tokens=None,
              decode_strategy: str = "greedy_search", temperature=1.0,
              top_k=0, top_p=1.0, num_beams=1, length_penalty=0.0,
@@ -121,14 +165,13 @@ def generate(model, input_ids, max_length=None, max_new_tokens=None,
     Returns (ids, scores): ids (B, max_new) int32 generated tokens (pad
     after eos), scores (B,) the sequence log-prob of the emitted tokens
     (for sampling, under the tempered/filtered distribution they were
-    drawn from).  decode_strategy: "greedy_search" | "sampling"."""
-    if decode_strategy == "beam_search":
-        raise UnimplementedError(
-            "beam_search is not ported yet: use greedy_search or sampling")
-    if decode_strategy not in ("greedy_search", "sampling"):
+    drawn from; for beam search, the best beam's score after the length
+    penalty).  decode_strategy: "greedy_search" | "sampling" |
+    "beam_search" (``num_beams``, ``length_penalty``)."""
+    if decode_strategy not in ("greedy_search", "sampling", "beam_search"):
         raise ValueError(
             f"unknown decode_strategy {decode_strategy!r}: expected "
-            "'greedy_search' or 'sampling'")
+            "'greedy_search', 'sampling' or 'beam_search'")
     dev = resolve_device(device)
     if model.device != dev:
         raise InvalidArgumentError(
@@ -144,6 +187,11 @@ def generate(model, input_ids, max_length=None, max_new_tokens=None,
     max_new = int(max_new_tokens)
     if max_new <= 0:
         raise ValueError("nothing to generate")
+    if decode_strategy == "beam_search":
+        eos = -1 if eos_token_id is None else int(eos_token_id)
+        with torch.inference_mode():
+            return _beam_search(model, ids, max_new, int(num_beams), eos,
+                                int(pad_token_id), float(length_penalty))
     greedy = decode_strategy == "greedy_search"
     gen = torch.Generator(device=dev)
     if seed is None:
@@ -186,3 +234,47 @@ def generate(model, input_ids, max_length=None, max_new_tokens=None,
 # after process_logits_dynamic: speculative imports keyed, which imports it
 from .speculative import (commit_speculative_greedy,  # noqa: E402,F401
                           commit_speculative_sampled)
+
+
+def _beam_search(model, ids, max_new: int, k: int, eos: int, pad: int,
+                 length_penalty: float):
+    """Batched beam search (reference ``_beam_search``): see the module
+    docstring.  Returns (ids (B, max_new) int32, scores (B,))."""
+    b, prompt_len = ids.shape
+    dev = ids.device
+    caches = model.gen_fixed_cache(b * k, prompt_len + max_new)
+    logits, caches = model.forward_fixed(ids.repeat_interleave(k, dim=0),
+                                         caches, 0)
+    last = logits[:, -1, :].to(torch.float32)
+    vocab = last.shape[-1]
+    # beam 0 live, the others at -1e9, so step 1 picks distinct tokens
+    scores = torch.full((b, k), _NEG, dtype=torch.float32, device=dev)
+    scores[:, 0] = 0.0
+    finished = torch.zeros((b, k), dtype=torch.bool, device=dev)
+    tok_buf = torch.full((b, k, max_new), pad, dtype=torch.int32, device=dev)
+    for step in range(max_new):
+        logp = torch.log_softmax(last, dim=-1).reshape(b, k, vocab)
+        scores, tok, src_beam, flat_src, finished = beam_step(
+            logp, scores, finished, keep_token=pad)
+        tok_buf = torch.gather(tok_buf, 1,
+                               src_beam[:, :, None].expand(b, k, max_new))
+        tok = torch.where(finished, torch.full_like(tok, pad), tok)
+        tok_buf[:, :, step] = tok
+        finished = finished | (tok == eos)
+        if step + 1 == max_new:
+            break
+        pos = prompt_len + step
+        for kbuf, vbuf in caches:          # reorder the live rows only
+            for buf in (kbuf, vbuf):
+                buf[:, :pos] = buf[:, :pos].index_select(0, flat_src)
+        logits, caches = model.forward_fixed(
+            tok.reshape(-1, 1).to(torch.long), caches, pos)
+        last = logits[:, -1, :].to(torch.float32)
+    if length_penalty:
+        lens = (tok_buf != pad).to(torch.float32).sum(dim=-1).clamp(min=1.0)
+        ranked = scores / torch.pow((5.0 + lens) / 6.0, length_penalty)
+    else:
+        ranked = scores
+    best = torch.argmax(ranked, dim=1)
+    rows = torch.arange(b, device=dev)
+    return tok_buf[rows, best], ranked[rows, best]

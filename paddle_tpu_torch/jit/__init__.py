@@ -48,6 +48,15 @@ moments and buffers, selected on the device.
 reference.  As in the reference, ``TrainStep`` applies no ``grad_clip``
 (its compiled step never clips; only the eager ``Optimizer.step`` does).
 
+- **Telemetry.** Each call runs inside a ``train_step`` span and is
+  observed by the ``train_step_seconds`` histogram: host wall time per
+  call (dispatch and any synchronous device wait; nothing is added to
+  wait for the card).  Each step program is registered with the program
+  registry as ``train_step:<model class>`` (its capture seconds, bytes
+  and replays).
+- **Faults.** ``PDTPU_FAULT_NAN_GRADS`` (``utils.faults.nan_grads``),
+  armed when a step program is made, poisons the gradients at its window
+  of step numbers inside the program, compared on the device.
 - **Checkpoints.** ``save_checkpoint`` / ``restore_checkpoint`` read and
   write the reference's on-disk layout (``distributed.checkpoint``) in
   both directions; a restore writes the state in place, so the captured
@@ -62,6 +71,7 @@ sparse mode).
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
 from typing import Callable, Dict, Optional
 
@@ -76,11 +86,27 @@ from ..core.layout import layout_policy  # noqa: F401  (jit.layout_policy)
 from ..core.programs import Program
 from ..core.recompute import recompute_policy  # noqa: F401
 from ..optimizer.functional import decay_flags, update_in_place
+from ..utils import faults as _faults
 
 __all__ = ["state_arrays", "forward_loss", "guard_select", "TrainStep",
            "layout_policy", "recompute_policy"]
 
 _LATER = "comes with a later slice of the port"
+
+_obs_step_hist = None
+
+
+def _step_hist():
+    """train_step_seconds histogram handle (created once; registry.reset()
+    zeroes values in place so the cache stays valid)."""
+    global _obs_step_hist
+    if _obs_step_hist is None:
+        from ..observability import metrics as _m
+        _obs_step_hist = _m.histogram(
+            "train_step_seconds",
+            "host wall time per TrainStep/ShardedTrainStep call (dispatch "
+            "+ any synchronous device wait)")
+    return _obs_step_hist
 
 
 def state_arrays(layer) -> Dict[str, torch.Tensor]:
@@ -274,12 +300,16 @@ class TrainStep:
                  for n, g, p in zip(self._trainable, gs, args)}
         return loss.detach(), grads, outs
 
-    def _step_program(self, lr, step_no, **batch):
+    def _step_program(self, lr, step_no, nan_window=None, **batch):
         """One training step over the static inputs: every state tensor
-        written in place; returns (loss, *forward outputs)."""
+        written in place; returns (loss, *forward outputs).
+        ``nan_window`` (the nan_grads fault's, when it was armed as the
+        program was made) poisons the gradients at those step numbers."""
         state = self.model.state_dict(keep_vars=True)
         params = {k: state[k] for k in self._trainable}
         loss, grads, bufs, outs = self._grads(params, tuple(batch.values()))
+        if nan_window is not None:
+            grads = _faults.poison_grads(grads, step_no, nan_window)
         with torch.no_grad():
             ok = None
             if self._guard:
@@ -335,8 +365,13 @@ class TrainStep:
             inputs = {f"b{i}": torch.empty(b.shape, dtype=b.dtype, device=dev)
                       for i, b in enumerate(batch)}
             inputs.update(lr=self._lr, step_no=self._step_no)
-            prog = self._programs[sig] = Program(self._step_program, inputs,
-                                                 self._gen)
+            # nan_grads: presence decided now, as the program is made
+            fn = functools.partial(self._step_program,
+                                   nan_window=_faults.nan_grads_window())
+            from ..observability import track
+            prog = self._programs[sig] = track(
+                f"train_step:{type(self.model).__name__}",
+                Program(fn, inputs, self._gen))
         for i, b in enumerate(batch):
             prog.inputs[f"b{i}"].copy_(b)
         self._lr.fill_(lr)
@@ -347,6 +382,7 @@ class TrainStep:
         """Make ``prog`` ready.  On the card it is captured (its warm run,
         a real step, undone); elsewhere (or for the uncaptured A/B) it is
         run once with ``warm``, undone too, and else only marked made."""
+        t0 = time.perf_counter()
         if self._lr.device.type == "cuda" and not self._run_uncaptured:
             with self._state_kept():
                 if self._pool is None:
@@ -355,7 +391,7 @@ class TrainStep:
         elif warm:
             with self._state_kept():
                 prog.run(captured=False)
-        prog.ready = True
+        prog.made(time.perf_counter() - t0)
         self._made[sig] = self._made.get(sig, 0) + 1
 
     def _run(self, batch, lr):
@@ -369,6 +405,11 @@ class TrainStep:
         return prog.run(captured=not self._run_uncaptured)
 
     def __call__(self, *batch):
+        from ..observability import span as _span
+        with _span("train_step"), _step_hist().time():
+            return self._call_inner(*batch)
+
+    def _call_inner(self, *batch):
         out = self._run(batch, self.optimizer.get_lr())
         if self._guard:
             self.last_guard = (self._gnorm.clone(), self._ok.clone())

@@ -134,6 +134,7 @@ class AdapterRegistry:
         self._by_name: Dict[str, int] = {}
         self._evictions = 0
         self._loads = 0
+        self._publish_gauge()
 
     # -- lifecycle ---------------------------------------------------------
     def register(self, name: str, path: str) -> int:
@@ -196,6 +197,7 @@ class AdapterRegistry:
                     [header["scaling"]], dtype=torch.float32))
             self._loads += 1
             stat_add("STAT_lora_adapter_loads")
+            self._publish_gauge()
             return idx
 
     def _alloc(self, name: str) -> int:
@@ -218,6 +220,12 @@ class AdapterRegistry:
         self._evictions += 1
         stat_add("STAT_lora_adapter_evictions")
         return victim
+
+    def _publish_gauge(self):
+        from ..observability import gauge
+        gauge("lora_adapters_loaded",
+              help="adapters resident in the registry").set(
+                  len(self._by_name))
 
     def _bump(self) -> int:
         self._tick += 1

@@ -101,9 +101,26 @@
   the program family is unchanged) and ``slow_decode`` (a host sleep
   before every n-th decode call, read live).
 
+- **Telemetry** (reference ``:600-650``, ``:2557``, ``:2796-2820``):
+  ``profile=True`` opens a ``serving_prefill`` span around each admission,
+  a ``serving_decode`` span around each decode step and a
+  ``serving_verify`` span around each speculative tick (host spans of
+  ``observability``, each also a ``torch.profiler.record_function``
+  range); they enclose the program replays, never a captured function,
+  and ``profile=False`` opens none.  Every streamed token is observed by
+  the ``serving_ttft_seconds`` or ``serving_inter_token_seconds``
+  histogram, and every speculating slot's tick by
+  ``serving_spec_accept_rate``.  Each program is registered with the
+  program registry (``observability.track``) under the reference's name
+  (``serving_prefill_b<bucket>``, ``serving_prefill_spec_b<bucket>``,
+  ``serving_prefill_cached_b<bucket>``, ``serving_decode``,
+  ``serving_verify``), the all-greedy graphs as ``serving_decode_greedy``
+  / ``serving_verify_greedy``.  No telemetry call reads a device value.
+
 Greedy streams equal a solo ``generation.generate`` run of the same
 prompt (the same float ops up to summation order).  The reference's mesh
-and AOT program sets are not ported yet.
+(``mesh=``) and AOT program sets (``program_set=``) are not ported yet:
+anything but None raises ``UnimplementedError``.
 """
 from __future__ import annotations
 
@@ -118,7 +135,8 @@ import numpy as np
 import torch
 
 from ..core.device import DEFAULT_DEVICE, resolve_device
-from ..core.errors import FatalError, InvalidArgumentError, UnavailableError
+from ..core.errors import (FatalError, InvalidArgumentError, UnavailableError,
+                           UnimplementedError)
 from ..core.programs import Program
 from ..generation import process_logits_dynamic
 from ..generation.keyed import (categorical, first_token_at, greedy_step,
@@ -130,6 +148,8 @@ from ..lora.layers import adapter_context, attach_serving_lora
 from ..lora.registry import AdapterRegistry
 from ..lora.train import base_weights_hash, state_hash
 from ..ops import _build
+from ..observability import metrics as _obs_m
+from ..observability import track
 from ..ops.paged_attention import (RowWrites, SlotRowWrites, copy_block,
                                    gather_block_rows, write_slot_blocks)
 from ..utils import faults
@@ -325,15 +345,29 @@ class ServingEngine:
     turns on speculative decoding with ``spec_tokens`` proposals per
     tick.  ``lora`` (a ``lora.LoRAConfig``) serves batched LoRA adapters
     on the model (``load_adapter``, ``submit(adapter=)``); it hooks the
-    model's target linears for good."""
+    model's target linears for good.  ``profile=True`` opens the
+    engine's spans (module docstring).  The parameters are the
+    reference's, in its order, then ``device``; ``mesh`` and
+    ``program_set`` take None only."""
 
     def __init__(self, model, max_slots: int = 8, max_len: int = 256,
                  prefill_buckets=None, max_queue_depth: int = 64,
-                 pad_token_id: int = 0, dtype=None, decode_chunk: int = 4,
-                 kv: str = "fixed", block_size: int = 16,
-                 num_blocks: Optional[int] = None, prefix_cache: bool = False,
-                 share_policy=None, draft_model=None, spec_tokens: int = 4,
-                 lora=None, device=DEFAULT_DEVICE):
+                 pad_token_id: int = 0, dtype=None, profile: bool = False,
+                 decode_chunk: int = 4, draft_model=None,
+                 spec_tokens: int = 4, kv: str = "fixed",
+                 block_size: int = 16, num_blocks: Optional[int] = None,
+                 mesh=None, program_set=None, prefix_cache: bool = False,
+                 share_policy=None, lora=None, device=DEFAULT_DEVICE):
+        if mesh is not None:
+            raise UnimplementedError(
+                "ServingEngine(mesh=...) is not ported yet: tensor-parallel "
+                "serving comes with the port's parallel slice (ROADMAP §1 "
+                "item 6)")
+        if program_set is not None:
+            raise UnimplementedError(
+                "ServingEngine(program_set=...) is not ported yet: AOT "
+                "program sets come with the serving product layers "
+                "(ROADMAP §1 item 5)")
         self.device = resolve_device(device)
         for role, m in (("model", model), ("draft model", draft_model)):
             if m is not None and m.device != self.device:
@@ -345,6 +379,7 @@ class ServingEngine:
         self.max_len = int(max_len)
         self.pad_token_id = int(pad_token_id)
         self._dtype = dtype
+        self._profile = bool(profile)
         self.buckets = tuple(sorted(set(
             int(b) for b in (prefill_buckets or _default_buckets(max_len)))))
         if self.buckets[-1] > self.max_len:
@@ -472,6 +507,9 @@ class ServingEngine:
             self._spec_ticks = 0       # metrics window (reset_metrics)
             self._spec_proposed = 0
             self._spec_accepted = 0
+            self._h_accept = _obs_m.histogram(
+                "serving_spec_accept_rate",
+                "accepted draft proposals / spec_tokens, per slot per tick")
         # nan_logits: presence decided now (a clean engine's decode
         # programs carry no poison input); the request is picked by number
         self._poison_target = faults.nan_logits_request()
@@ -483,7 +521,7 @@ class ServingEngine:
         self._programs: Dict[object, Program] = {}
         self._compiles = {"decode": 0,
                           "prefill": {b: 0 for b in self.buckets}}
-        self._warm_mark: Optional[int] = None
+        self._warm_marks: Optional[Dict] = None
         self._graph_pool = None
         # A/B only (chip_smoke.py and the card tests): on the card, run the
         # same program functions without their CUDA graphs
@@ -494,6 +532,14 @@ class ServingEngine:
         self._rid = 0
         self._submit_lock = threading.Lock()
         self._m_lock = threading.Lock()
+        # latency histograms shared with the unified report and the
+        # Prometheus endpoint (handles cached; registry.reset() zeroes
+        # values in place)
+        self._h_ttft = _obs_m.histogram(
+            "serving_ttft_seconds", "submit -> first streamed token")
+        self._h_itl = _obs_m.histogram(
+            "serving_inter_token_seconds",
+            "gap between consecutive tokens of one request")
         self._ttfts: List[float] = []
         self._itl_sum = 0.0
         self._itl_n = 0
@@ -833,8 +879,17 @@ class ServingEngine:
         self.scheduler.release(slot)
 
     def _admit(self, req: Request, resp: Response, slot: int):
-        if self.prefix_cache is not None:
-            return self._admit_prefix(req, resp, slot)
+        span = self._span("serving_prefill")
+        try:
+            if self.prefix_cache is not None:
+                self._admit_prefix(req, resp, slot)
+            else:
+                self._admit_plain(req, resp, slot)
+        finally:
+            if span is not None:
+                span.__exit__(None, None, None)
+
+    def _admit_plain(self, req: Request, resp: Response, slot: int):
         aid = self._pin_adapter(req, resp, slot)
         if aid is None:
             return
@@ -1490,24 +1545,39 @@ class ServingEngine:
             pre["aid"] = full((1,), 0, torch.int32)
         if self._poison_target is not None:
             dec["poison"] = full((s,), False, torch.bool)
+        tick_name = ("serving_verify" if self.draft_model is not None
+                     else "serving_decode")
         programs = {
-            "decode": Program(tick, dec),
-            "decode_greedy": Program(functools.partial(tick, sample=False),
-                                     dec)}
+            "decode": track(tick_name, Program(tick, dec)),
+            "decode_greedy": track(
+                tick_name + "_greedy",
+                Program(functools.partial(tick, sample=False), dec))}
         prefill = self._prefill_program
+        prefill_name = ("serving_prefill_spec_b" if self.draft_model
+                        is not None else "serving_prefill_b")
         if self.prefix_cache is not None:
             prefill = self._prefill_cached_program
+            prefill_name = "serving_prefill_cached_b"
             pre["cached_len"] = full((1,), 0, torch.int64)
         for b in self.buckets:
-            programs[b] = Program(
+            programs[b] = track(f"{prefill_name}{b}", Program(
                 functools.partial(prefill, b),
-                dict(pre, ids=full((1, b), self.pad_token_id, torch.int64)))
+                dict(pre, ids=full((1, b), self.pad_token_id, torch.int64))))
         return programs
 
     def _run(self, prog: Program):
         return prog.run(captured=not self._run_uncaptured)
 
     def _decode_step(self):
+        span = self._span("serving_verify" if self.draft_model is not None
+                          else "serving_decode")
+        try:
+            self._decode_step_inner()
+        finally:
+            if span is not None:
+                span.__exit__(None, None, None)
+
+    def _decode_step_inner(self):
         if self.kv == "paged":
             # grow block tables for this chunk's writes (may fail runs
             # under pool pressure — membership can change)
@@ -1586,6 +1656,7 @@ class ServingEngine:
             if run.req.spec:
                 proposed += self.spec_tokens
                 accepted += int(accepts[slot])
+                self._h_accept.observe(int(accepts[slot]) / self.spec_tokens)
             for j in range(int(counts[slot])):
                 if (run.req.deadline is not None
                         and run.req.deadline.expired()):
@@ -1634,6 +1705,10 @@ class ServingEngine:
             else:
                 self._itl_sum += now - run.last_token_at
                 self._itl_n += 1
+        if first:
+            self._h_ttft.observe(run.resp.ttft)
+        else:
+            self._h_itl.observe(now - run.last_token_at)
         run.last_token_at = now
 
     def _maybe_finish(self, slot: int, run: _SlotRun, tok: int):
@@ -1648,6 +1723,14 @@ class ServingEngine:
             self._completed += 1
         run.resp._finish(reason)
         self._release(slot)
+
+    def _span(self, name: str):
+        """An open host span (a ``RecordEvent``) under ``profile=True``,
+        else None."""
+        if not self._profile:
+            return None
+        from ..utils.profiler import RecordEvent
+        return RecordEvent(name).__enter__()
 
     # ------------------------------------------------------------------
     # driving
@@ -1751,11 +1834,12 @@ class ServingEngine:
             for name, prog in self._programs.items():
                 if prog.ready:
                     continue
+                t_made = time.perf_counter()
                 if cuda:
                     if self._graph_pool is None:
                         self._graph_pool = torch.cuda.graph_pool_handle()
                     prog.capture(self._graph_pool)
-                prog.ready = True
+                prog.made(time.perf_counter() - t_made)
                 if isinstance(name, int):
                     self._compiles["prefill"][name] += 1
                 else:
@@ -1766,7 +1850,7 @@ class ServingEngine:
         # the warm-up runs moved the decode buffers: refill before a step
         self._batch_dirty = True
         self._warm = True
-        self._warm_mark = self.compile_counts()["total"]
+        self._warm_marks = self._compile_marks()
         report["seconds"] = time.perf_counter() - t0
         report["captured"] = cuda
         report["compile_counts"] = self.compile_counts()
@@ -1786,12 +1870,30 @@ class ServingEngine:
                 "prefill": dict(self._compiles["prefill"]),
                 "total": total, "bound": len(self.buckets) + 2}
 
+    def _compile_marks(self) -> Dict:
+        """Every serving-compile counter (reference ``:2794-2809``): the
+        engine's own counts and the program registry's captures of this
+        engine's programs, by name (the reference reads every
+        ``serving_*`` record of the process)."""
+        reg: Dict[str, int] = {}
+        for prog in self._programs.values():
+            if prog.tracked_as is not None:
+                reg[prog.tracked_as] = (reg.get(prog.tracked_as, 0)
+                                        + prog.compiles)
+        return {"engine": self.compile_counts()["total"], "registry": reg}
+
     def post_warmup_compiles(self) -> int:
-        """Programs made since warmup() finished: 0 under any traffic;
-        -1 if warmup never ran."""
-        if self._warm_mark is None:
+        """Compiles observed since warmup() finished, engine counts and
+        registry captures both: 0 under any traffic; -1 if warmup never
+        ran."""
+        if self._warm_marks is None:
             return -1
-        return self.compile_counts()["total"] - self._warm_mark
+        now = self._compile_marks()
+        extra = now["engine"] - self._warm_marks["engine"]
+        base = self._warm_marks["registry"]
+        for name, compiles in now["registry"].items():
+            extra += compiles - base.get(name, 0)
+        return extra
 
     # ------------------------------------------------------------------
     # weight refresh
@@ -1867,6 +1969,9 @@ class ServingEngine:
     # observability
     # ------------------------------------------------------------------
     def metrics(self) -> Dict:
+        """Serving metrics snapshot, under the reference's keys (also
+        published as the ``STAT_serving_*`` monitor counters and the
+        serving histograms)."""
         with self._m_lock:
             ttfts = sorted(self._ttfts)
             p50 = ttfts[len(ttfts) // 2] if ttfts else None
@@ -1883,11 +1988,16 @@ class ServingEngine:
                 "queue_depth": self.scheduler.queue_depth(),
                 "slot_occupancy": self.scheduler.occupancy(),
                 "max_slots": self.max_slots,
-                "warm": self._warm,
-                "kv_pool": self._kv_pool_metrics(),
+                "compile_counts": self.compile_counts(),
                 "spec": self._spec_metrics(),
+                "warm": self._warm,
+                "post_warmup_compiles": (self.post_warmup_compiles()
+                                         if self._warm else None),
+                "program_set": None,
+                "kv_pool": self._kv_pool_metrics(),
                 "lora": (None if self._lora_reg is None
                          else self._lora_reg.stats()),
+                "mesh": None,
             }
 
     def _spec_metrics(self) -> Dict:

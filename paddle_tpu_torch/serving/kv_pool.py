@@ -55,6 +55,28 @@ class KVPoolExhaustedError(ResourceExhaustedError):
     code = "ResourceExhausted"
 
 
+_obs_handles: Dict[str, tuple] = {}
+
+
+def _obs(pool: str):
+    """(blocks_used_gauge, blocks_free_gauge) bound to this pool's
+    ``pool=`` label — cached handles (registry.reset() zeroes values in
+    place).  The label keeps two allocators in one process from
+    overwriting each other."""
+    handles = _obs_handles.get(pool)
+    if handles is None:
+        from ..observability import metrics as _m
+        used = _m.gauge("serving_kv_blocks_used",
+                        "paged KV pool blocks currently allocated",
+                        labelnames=("pool",))
+        free = _m.gauge("serving_kv_blocks_free",
+                        "paged KV pool blocks free (after any fault cap)",
+                        labelnames=("pool",))
+        handles = _obs_handles[pool] = (used.labels(pool=pool),
+                                        free.labels(pool=pool))
+    return handles
+
+
 class PagedKVPool:
     """Host-side block allocator over a device-resident block pool.  All
     mutation happens on the engine loop thread; the lock guards the
@@ -64,6 +86,9 @@ class PagedKVPool:
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
         self.pool_len = int(pool_len)
+        # the gauges' pool= label (one allocator per engine: the draft's
+        # KV pages with the target's tables)
+        self.name = "target"
         if self.block_size < 1:
             raise InvalidArgumentError(
                 f"block_size must be >= 1, got {self.block_size}")
@@ -163,6 +188,7 @@ class PagedKVPool:
                 self._live += 1
                 self.served_log.append(b)
             self.version += 1
+        self._note_gauges()
         return True
 
     def _reclaim(self, shortfall: int):
@@ -203,6 +229,8 @@ class PagedKVPool:
                 table.append(b)
             if table:
                 self.version += 1
+        if block_ids:
+            self._note_gauges()
         return True
 
     def cow_last(self, slot: int):
@@ -244,6 +272,7 @@ class PagedKVPool:
             self.version += 1
         if unref and self._on_cached_unref is not None:
             self._on_cached_unref(unref)
+        self._note_gauges()
         return src, dst
 
     def register_cached(self, block: int):
@@ -260,6 +289,7 @@ class PagedKVPool:
                 self._cached.discard(b)
                 if self._refs.get(b, 0) == 0:
                     self._free.append(b)
+        self._note_gauges()
 
     def free(self, slot: int) -> int:
         """Drop the slot's reference on every block it holds; returns how
@@ -286,6 +316,8 @@ class PagedKVPool:
                 self.version += 1
         if unref and self._on_cached_unref is not None:
             self._on_cached_unref(unref)
+        if table:
+            self._note_gauges()
         return len(table)
 
     # -- views ---------------------------------------------------------------
@@ -312,7 +344,8 @@ class PagedKVPool:
         with self._lock:
             shared = sum(1 for r in self._refs.values() if r > 1)
             cached = len(self._cached)
-        return {"num_blocks": self.num_blocks,
+        return {"pool": self.name,
+                "num_blocks": self.num_blocks,
                 "block_size": self.block_size,
                 "capacity": self.capacity(),
                 "used_blocks": used,
@@ -320,6 +353,11 @@ class PagedKVPool:
                 "shared_blocks": shared,
                 "cached_blocks": cached,
                 "max_blocks_per_slot": self.max_blocks_per_slot}
+
+    def _note_gauges(self):
+        used_g, free_g = _obs(self.name)
+        used_g.set(self.used_blocks())
+        free_g.set(self.free_blocks())
 
     # -- device pool construction -------------------------------------------
     def build_pools(self, model, dtype=None, trash: int = 0):

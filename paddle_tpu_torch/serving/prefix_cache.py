@@ -31,7 +31,8 @@ Zheng et al. 2023):
   that block, so the engine gives the slot a private copy first.
 
 Pure host bookkeeping on the engine loop thread.  Its counters are also
-``STAT_prefix_cache_*`` monitor stats.
+the reference's ``prefix_cache_{hits,misses,evictions,cow_copies}_total``
+observability counters.
 """
 from __future__ import annotations
 
@@ -41,9 +42,28 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from ..utils import faults
-from ..utils.monitor import stat_add
 
 __all__ = ["PrefixCache"]
+
+_obs_handles = None
+
+
+def _obs():
+    """(hits, misses, evictions, cow_copies) counter handles — cached
+    (registry.reset() zeroes values in place)."""
+    global _obs_handles
+    if _obs_handles is None:
+        from ..observability import metrics as _m
+        _obs_handles = (
+            _m.counter("prefix_cache_hits_total",
+                       "prompt blocks served from the prefix cache"),
+            _m.counter("prefix_cache_misses_total",
+                       "prompt blocks prefilled cold (no cached prefix)"),
+            _m.counter("prefix_cache_evictions_total",
+                       "cached blocks LRU-evicted back to the free list"),
+            _m.counter("prefix_cache_cow_copies_total",
+                       "copy-on-write private copies of shared blocks"))
+    return _obs_handles
 
 
 class _Node:
@@ -102,10 +122,11 @@ class PrefixCache:
             h, m = len(chain), nb - len(chain)
             self.hits += h
             self.misses += m
+            hits_c, miss_c, _, _ = _obs()
             if h:
-                stat_add("STAT_prefix_cache_hits", h)
+                hits_c.inc(h)
             if m:
-                stat_add("STAT_prefix_cache_misses", m)
+                miss_c.inc(m)
         return chain
 
     # -- insertion -----------------------------------------------------------
@@ -139,7 +160,7 @@ class PrefixCache:
 
     def note_cow(self):
         self.cow_copies += 1
-        stat_add("STAT_prefix_cache_cow_copies")
+        _obs()[3].inc()
 
     # -- eviction ------------------------------------------------------------
     def _evictable(self, node: _Node) -> bool:
@@ -162,7 +183,7 @@ class PrefixCache:
             freed.append(self._remove(victim))
         if freed:
             self.evictions += len(freed)
-            stat_add("STAT_prefix_cache_evictions", len(freed))
+            _obs()[2].inc(len(freed))
             self.pool.release_cached(freed)
         return freed
 

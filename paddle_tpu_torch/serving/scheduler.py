@@ -1,5 +1,5 @@
 """Request admission + slot bookkeeping for the serving engine (port of
-paddle_tpu/serving/scheduler.py without its observability gauges).
+paddle_tpu/serving/scheduler.py).
 
 The scheduler is pure host-side state: a bounded FIFO admission queue with
 backpressure (submit blocks or rejects once `max_queue_depth` requests are
@@ -11,6 +11,10 @@ prefill), then runs one decode step over every occupied slot.
 Deadlines use `utils.retry.Deadline` — the same wall-clock-budget object
 RetryPolicy enforces — counted from submission, so queue wait burns budget
 exactly like a retry loop's backoff does.
+
+It reports the reference's ``serving_slot_occupancy`` and
+``serving_queue_depth`` gauges, the ``serving_queue_full_total`` counter
+and the ``STAT_serving_*`` counters.
 """
 from __future__ import annotations
 
@@ -23,6 +27,25 @@ from ..utils.monitor import stat_add
 from .request import Request, Response, RequestCancelled
 
 __all__ = ["RequestScheduler", "QueueFullError", "DeadlineExceededError"]
+
+_obs_handles = None
+
+
+def _obs():
+    """(slot_occupancy_gauge, queue_depth_gauge, queue_full_counter) —
+    cached observability handles (registry.reset() zeroes in place)."""
+    global _obs_handles
+    if _obs_handles is None:
+        from ..observability import metrics as _m
+        _obs_handles = (
+            _m.gauge("serving_slot_occupancy",
+                     "KV-cache slots currently decoding"),
+            _m.gauge("serving_queue_depth",
+                     "requests waiting for admission"),
+            _m.counter("serving_queue_full_total",
+                       "submissions rejected at max_queue_depth"))
+    return _obs_handles
+
 
 class QueueFullError(ResourceExhaustedError):
     """Admission queue at max_queue_depth: the request was rejected.  The
@@ -58,13 +81,16 @@ class RequestScheduler:
                 self._space.wait_for(
                     lambda: len(self._pending) < self.max_queue_depth,
                     timeout=timeout)
+            occ_g, depth_g, full_c = _obs()
             if len(self._pending) >= self.max_queue_depth:
                 stat_add("STAT_serving_rejects")
+                full_c.inc()
                 raise QueueFullError(
                     f"serving queue full ({self.max_queue_depth} waiting); "
                     "request rejected")
             self._pending.append((req, resp))
             stat_add("STAT_serving_queue_depth")
+            depth_g.set(len(self._pending))
 
     # -- engine side --------------------------------------------------------
     def queue_depth(self) -> int:
@@ -93,6 +119,7 @@ class RequestScheduler:
         a False keeps FIFO order and leaves the head queued
         (backpressure), it does not skip past it."""
         with self._space:
+            occ_g, depth_g, _ = _obs()
             while self._pending:
                 if not self._free:
                     return None
@@ -105,6 +132,7 @@ class RequestScheduler:
                 self._pending.popleft()
                 self._space.notify()
                 stat_add("STAT_serving_queue_depth", -1)
+                depth_g.set(len(self._pending))
                 if resp.cancelled:
                     stat_add("STAT_serving_cancelled")
                     resp._fail(RequestCancelled(
@@ -119,6 +147,7 @@ class RequestScheduler:
                 slot = self._free.pop()
                 self._active[slot] = (req, resp)
                 stat_add("STAT_serving_slots_active")
+                occ_g.set(len(self._active))
                 return req, resp, slot
             return None
 
@@ -132,6 +161,7 @@ class RequestScheduler:
             slot = self._free.pop()
             self._active[slot] = (req, resp)
             stat_add("STAT_serving_slots_active")
+            _obs()[0].set(len(self._active))
             return slot
 
     def release(self, slot: int):
@@ -143,6 +173,7 @@ class RequestScheduler:
                 del self._active[slot]
                 self._free.append(slot)
                 stat_add("STAT_serving_slots_active", -1)
+                _obs()[0].set(len(self._active))
 
     def drain_pending(self):
         """Remove and return every queued (request, response) — engine
@@ -152,6 +183,7 @@ class RequestScheduler:
             if drained:
                 stat_add("STAT_serving_queue_depth", -len(drained))
             self._pending = deque()
+            _obs()[1].set(0)
             self._space.notify_all()
             return drained
 
@@ -185,4 +217,5 @@ class RequestScheduler:
                 stat_add("STAT_serving_queue_depth", -1)
                 self._space.notify()
             self._pending = keep
+            _obs()[1].set(len(self._pending))
         return dropped

@@ -1,6 +1,6 @@
-"""Fault injection for the serving engine and the LoRA artifacts (the
-paged-KV, speculative, poisoned-logits, slow-decode and adapter knobs of
-paddle_tpu/utils/faults.py).
+"""Fault injection for the serving engine, the training step and the LoRA
+artifacts (the paged-KV, speculative, poisoned-logits, slow-decode,
+adapter and poisoned-gradient knobs of paddle_tpu/utils/faults.py).
 
 A knob is armed by ``enable(point, value)`` or by its environment
 variable.  The KV knobs are read live at every use (host-side bookkeeping
@@ -52,6 +52,18 @@ Two host-side knobs are read live at every use:
                 the file is untouched and a retry reads clean bytes.
                 Env: PDTPU_FAULT_ADAPTER_CORRUPT="n".
 
+The poisoned-gradient knob's presence is read when a ``TrainStep`` makes
+(on the card: captures) a step program; its window bounds are constants
+of the program, and the comparison with the step number runs on the
+device, on the step-number scalar the program already reads, so a
+captured step with the window armed replays with no host read:
+
+  nan_grads     the step programs multiply every gradient by NaN at
+                step k, or at each step of [a, b) (step numbers count
+                from 1, as the optimizer's): under ``TrainStep(guard=
+                True)`` that step is skipped on the device.
+                Env: PDTPU_FAULT_NAN_GRADS="k" or "a:b".
+
 ``enable`` mirrors the value into ``os.environ`` (subprocesses inherit
 it); ``get`` reads this module's registry first, then the environment.
 """
@@ -68,14 +80,16 @@ __all__ = ["enable", "disable", "reset", "get", "kv_exhaust_cap",
            "prefix_evict_cap", "draft_diverge_every", "poison_draft_logits",
            "nan_logits_request", "poison_logits", "slow_decode_config",
            "maybe_slow_decode", "adapter_corrupt_n",
-           "maybe_corrupt_adapter_read"]
+           "maybe_corrupt_adapter_read", "nan_grads_window",
+           "poison_grads"]
 
 _ENV = {"kv_exhaust": "PDTPU_FAULT_KV_EXHAUST",
         "prefix_evict": "PDTPU_FAULT_PREFIX_EVICT",
         "draft_diverge": "PDTPU_FAULT_DRAFT_DIVERGE",
         "nan_logits": "PDTPU_FAULT_NAN_LOGITS",
         "slow_decode": "PDTPU_FAULT_SLOW_DECODE",
-        "adapter_corrupt": "PDTPU_FAULT_ADAPTER_CORRUPT"}
+        "adapter_corrupt": "PDTPU_FAULT_ADAPTER_CORRUPT",
+        "nan_grads": "PDTPU_FAULT_NAN_GRADS"}
 
 _lock = threading.Lock()
 _registry = {}   # point -> raw config string
@@ -200,3 +214,31 @@ def maybe_corrupt_adapter_read(raw: bytes, path: str = "") -> bytes:
     buf = bytearray(raw)
     buf[len(buf) // 2] ^= 0xFF
     return bytes(buf)
+
+
+def nan_grads_window() -> Optional[Tuple[int, int]]:
+    """[a, b) step window to poison, or None when disarmed (read when a
+    step program is made)."""
+    raw = get("nan_grads")
+    if not raw:
+        return None
+    if ":" in raw:
+        a, b = raw.split(":", 1)
+        return int(a), int(b)
+    k = int(raw)
+    return k, k + 1
+
+
+def poison_grads(grads, step_no, window: Tuple[int, int]):
+    """Every gradient times NaN where the 0-dim device step number
+    ``step_no`` lies in ``window`` (times 1 elsewhere): device ops only,
+    no host read."""
+    a, b = window
+    bad = (step_no >= a) & (step_no < b)
+    out = {}
+    for k, g in grads.items():
+        factor = torch.where(bad, torch.full((), float("nan"), dtype=g.dtype,
+                                             device=g.device),
+                             torch.ones((), dtype=g.dtype, device=g.device))
+        out[k] = g * factor
+    return out

@@ -231,3 +231,46 @@ def test_load_paddle_state_takes_bf16_arrays_bit_for_bit(bf16_pair):
         if arr.dtype.name == "bfloat16":
             np.testing.assert_array_equal(
                 got.float().numpy(), arr.astype(np.float32))
+
+
+def test_bf16_speculation_matches_reference_engine(bf16_pair):
+    """A bf16-decorated int8 target and draft (a clone: every proposal is
+    accepted) on bf16 paged pools, the port's speculative engine against
+    the reference's: equal accept counts (all of them), and each greedy
+    stream equal to the reference's or split at a near tie — at the first
+    split the two tokens' logits on the port's fixed path, fed the common
+    prefix, are within LOGITS_TOL of each other."""
+    jm, tm = bf16_pair
+    jd, td = _bf16_int8_pair()
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, 128, (n,)) for n in (4, 9, 14)]
+    cfg = dict(ENGINE, kv="paged", spec_tokens=3)
+    eng = ServingEngine(tm, dtype=torch.bfloat16, draft_model=td,
+                        device="cpu", **cfg)
+    assert all(t.dtype == torch.bfloat16
+               for store in (eng._pool_store, eng._draft_store)
+               for pair in store for t in pair)
+    jeng = JEngine(jm, dtype=jnp.bfloat16, draft_model=jd, **cfg)
+    streams, specs = [], []
+    for e in (eng, jeng):
+        rs = [e.submit(p, max_new_tokens=6) for p in prompts]
+        e.run_until_drained(timeout=240)
+        streams.append([r.tokens(timeout=5) for r in rs])
+        specs.append(e.metrics()["spec"])
+    assert specs[0]["accepted"] == specs[1]["accepted"] \
+        == specs[0]["proposed"] > 0
+    assert specs[0]["proposed"] == specs[1]["proposed"]
+    with torch.inference_mode():
+        for p, got, want in zip(prompts, *streams):
+            assert len(got) == len(want) == 6
+            split = next((i for i, (a, b) in enumerate(zip(got, want))
+                          if a != b), None)
+            if split is None:
+                continue
+            ids = torch.from_numpy(np.concatenate([p, got[:split]])[None])
+            logits, _ = tm.forward_fixed(
+                ids, tm.gen_fixed_cache(1, ids.shape[1], torch.bfloat16), 0)
+            row = logits[0, -1].float()
+            top = row.abs().max()
+            assert abs(float(row[got[split]] - row[want[split]])) <= (
+                LOGITS_TOL["atol"] + LOGITS_TOL["rtol"] * float(top))

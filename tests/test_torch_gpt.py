@@ -112,8 +112,12 @@ def test_sampling_generate_is_seeded():
     b, _ = generate(tm, prompt, seed=5, **kw)
     assert a.tolist() == b.tolist()
     assert all(0 <= t < 128 for t in a[0].tolist())
-    with pytest.raises(Exception, match="beam_search"):
-        generate(tm, prompt, max_new_tokens=2, decode_strategy="beam_search",
+    # beam search is ported: it decodes; an unknown strategy still raises
+    out, _ = generate(tm, prompt, max_new_tokens=2,
+                      decode_strategy="beam_search", device="cpu")
+    assert out.shape == (1, 2)
+    with pytest.raises(ValueError, match="beam_search"):
+        generate(tm, prompt, max_new_tokens=2, decode_strategy="beam",
                  device="cpu")
 
 

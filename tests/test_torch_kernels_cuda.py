@@ -1707,3 +1707,94 @@ def test_bert_checkpoint_resumes_into_a_captured_step(cuda, tmp_path):
     assert torch.equal(torch.stack(got), torch.stack(full[2:]))
     assert step2.compile_counts()["total"] == made
     _assert_equal_states(model.state_dict(), model2.state_dict())
+
+
+# ---------------------------------------------------------------------------
+# telemetry, beam search and the nan_grads guard on the card
+# ---------------------------------------------------------------------------
+
+def test_engine_profile_keeps_launches_and_captures(cuda):
+    """The captured engine serving the same traffic with profile=False,
+    then True: equal greedy streams and K3 / K4 launch counts, one span
+    per admission and per decode step, the TTFT histogram one count per
+    request, nothing captured after warmup."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.serving import ServingEngine
+    eng = ServingEngine(_serving_model(cuda, torch.float32), kv="paged",
+                        device=cuda, **ENGINE)
+    eng.warmup()
+    runs = []
+    for profile in (False, True):
+        eng._profile = profile
+        obs.get_tracer().clear()
+        h0 = obs.get_registry().get("serving_ttft_seconds").snapshot()
+        int8_matmul.dequant_matmul.launches = 0
+        pa.paged_attention.launches = 0
+        resps = _traffic(eng, 6)
+        eng.run_until_drained(timeout=300)
+        toks = [r.tokens(timeout=5) for r in resps]
+        h1 = obs.get_registry().get("serving_ttft_seconds").snapshot()
+        assert h1["count"] - h0["count"] == len(resps)
+        spans = {k: v[0] for k, v in obs.get_tracer().aggregates().items()}
+        if profile:
+            assert spans["serving_prefill"] == len(resps)
+            assert spans["serving_decode"] > 0
+        else:
+            assert not any(k.startswith("serving_") for k in spans)
+        runs.append(([t for i, t in enumerate(toks) if i % 2 == 0],
+                     int8_matmul.dequant_matmul.launches,
+                     pa.paged_attention.launches))
+    assert runs[0] == runs[1]
+    assert eng.post_warmup_compiles() == 0
+    for name in ("serving_decode", "serving_decode_greedy"):
+        rec = obs.get_program_registry().get(name)
+        assert rec["compiles"] >= 1 and rec["meta"] == {"captured": True}
+        assert rec["compile_seconds_total"] > 0
+    # the traffic samples: every step replays the mixed graph
+    assert obs.get_program_registry().get("serving_decode")["replays"] > 0
+
+
+def test_beam_search_on_the_card_equals_the_cpu(cuda):
+    """Beam search of the int8 serving model (K4 and SDPA on the card)
+    against its copy on the CPU (the plain versions): equal beams, scores
+    within 1e-4 of each other; num_beams=1 equals greedy."""
+    import copy
+    from paddle_tpu_torch.generation import generate
+    model = _serving_model(cuda, torch.float32)
+    ids = torch.from_numpy(np.random.RandomState(2).randint(
+        0, 1024, (2, 12))).to(cuda)
+    kw = dict(max_new_tokens=10, decode_strategy="beam_search", num_beams=4)
+    out, sc = generate(model, ids, device=cuda, **kw)
+    cpu = copy.deepcopy(model).cpu()
+    want, wsc = generate(cpu, ids.cpu(), device="cpu", **kw)
+    assert torch.equal(out.cpu(), want)
+    torch.testing.assert_close(sc.cpu(), wsc, rtol=1e-4, atol=1e-4)
+    one, _ = generate(model, ids, device=cuda, max_new_tokens=10,
+                      decode_strategy="beam_search", num_beams=1)
+    greedy, _ = generate(model, ids, device=cuda, max_new_tokens=10)
+    assert torch.equal(one, greedy)
+
+
+def test_train_step_nan_grads_skips_the_step_in_the_graph(cuda):
+    """PDTPU_FAULT_NAN_GRADS="2" armed at the capture: the captured guarded
+    step skips step 2 with the parameters and moments bit-equal, replays
+    the other steps, and captures nothing more."""
+    from paddle_tpu_torch.utils import faults
+    model, step = _train_gpt(cuda, guard=True)
+    batch = _train_batches(cuda, "gpt", n=1)[0]
+    faults.enable("nan_grads", "2")
+    try:
+        step.warmup(*batch)
+    finally:
+        faults.disable("nan_grads")
+    made = step.compile_counts()["total"]
+    oks = []
+    for i in range(3):
+        before = [t.clone() for t in step._state_tensors()[:-2]]
+        step(*batch)
+        oks.append(bool(step.last_guard[1]))
+        same = all(torch.equal(a, b)
+                   for a, b in zip(before, step._state_tensors()[:-2]))
+        assert same == (i == 1)
+    assert oks == [True, False, True]
+    assert step.compile_counts()["total"] == made

@@ -251,3 +251,25 @@ def test_engine_default_device_raises_without_a_card():
     _, tm = tiny_pair(seed=1)
     with pytest.raises(UnavailableError):
         ServingEngine(tm, max_len=32)
+
+
+def test_signature_is_the_reference_one_then_device():
+    """The reference's parameters, name by name and position by position,
+    then ``device``: a positional call binds the same values in both."""
+    import inspect
+    from paddle_tpu_torch.core.errors import UnimplementedError
+    ref = list(inspect.signature(JEngine.__init__).parameters.items())
+    got = list(inspect.signature(ServingEngine.__init__).parameters.items())
+    assert [n for n, _ in got] == [n for n, _ in ref] + ["device"]
+    for (name, p), (_, q) in zip(got, ref):
+        assert (p.kind, p.default) == (q.kind, q.default), name
+    _, tm = tiny_pair(seed=1)
+    # model, max_slots, max_len, buckets, queue, pad, dtype, profile,
+    # decode_chunk: as the reference binds them
+    eng = ServingEngine(tm, 2, 32, (8, 16), 4, 0, None, True, 3,
+                        device="cpu")
+    assert (eng.max_slots, eng.max_len, eng.buckets, eng.decode_chunk,
+            eng._profile, eng.kv) == (2, 32, (8, 16), 3, True, "fixed")
+    for kw in ({"mesh": object()}, {"program_set": "programs/"}):
+        with pytest.raises(UnimplementedError, match="ROADMAP"):
+            ServingEngine(tm, device="cpu", **kw)

@@ -327,6 +327,40 @@ def test_programs_read_nothing_on_the_host(pair, kv, monkeypatch):
     assert out[bucket][0].shape == (1,)
 
 
+@pytest.mark.parametrize("kv", ["fixed", "paged"])
+def test_programs_read_nothing_on_the_host_under_profile(pair, kv,
+                                                         monkeypatch):
+    """With ``profile=True`` the engine's spans (each a host span and a
+    ``torch.profiler`` range) enclose the program runs, and the program
+    registry counts each run: with every host read refused, the spans,
+    the registry and the histograms' observations read nothing."""
+    from paddle_tpu_torch import observability as obs
+    _, tm = pair
+    eng = ServingEngine(tm, kv=kv, profile=True, device="cpu", **ENGINE)
+    eng.submit([4, 8, 15], max_new_tokens=20, decode_strategy="sampling",
+               seed=5)
+    eng.submit([16, 23, 42, 1, 2, 3, 4, 5, 6], max_new_tokens=20)
+    eng.step()                 # warm up, admit both, one decode chunk
+    before = obs.get_program_registry().get("serving_decode")["replays"]
+    with torch.inference_mode():
+        eng._rebuild_batch()
+        if kv != "fixed":
+            eng._sync_tables(True)
+        with monkeypatch.context() as m:
+            _no_host_reads(m)
+            for span, names in (("serving_decode", ("decode",
+                                                    "decode_greedy")),
+                                ("serving_prefill", (16,))):
+                sp = eng._span(span)
+                for name in names:
+                    eng._programs[name].run()
+                sp.__exit__(None, None, None)
+            eng._h_ttft.observe(0.01)
+            eng._h_itl.observe(0.001)
+    after = obs.get_program_registry().get("serving_decode")["replays"]
+    assert after == before + 1
+
+
 def test_compile_counts_stay_zero_over_churn_and_oom(pair):
     """Greedy and sampled traffic, releases and mid-decode OOM preemption
     and restore on a paged engine: nothing is made after warmup."""

@@ -277,3 +277,90 @@ def test_update_in_place_equals_apply_updates_by_chunks(make, ok,
         assert torch.equal(got_p[n], want_p[n] if moved else params[n]), n
         for s, t in got_s[n].items():
             assert torch.equal(t, want_s[n][s] if moved else state[n][s])
+
+
+def _mlp_pair(seed=0):
+    """(reference model, port model): Linear 6 -> 16 -> relu -> 3 with the
+    same weights."""
+    import paddle_tpu as paddle
+    import paddle_tpu.nn as jnn
+    from paddle_tpu.jit import state_arrays
+    from paddle_tpu_torch import load_paddle_state
+    paddle.seed(seed)
+    jm = jnn.Sequential(jnn.Linear(6, 16), jnn.ReLU(), jnn.Linear(16, 3))
+    tm = pt.nn.Sequential(pt.nn.Linear(6, 16, device="cpu"), pt.nn.ReLU(),
+                          pt.nn.Linear(16, 3, device="cpu"))
+    load_paddle_state(tm, {k: np.asarray(v)
+                           for k, v in state_arrays(jm).items()})
+    return jm, tm
+
+
+def test_nan_grads_window_skips_the_reference_steps():
+    """PDTPU_FAULT_NAN_GRADS="2:4", armed before the first step: both
+    guarded steps skip steps 2 and 3 (gradients NaN inside the program,
+    compared with the device step number), their losses agree within
+    1e-5, and a skipped step leaves the parameters and both moments
+    bit-equal; the window was read when the program was made."""
+    import paddle_tpu as paddle
+    import paddle_tpu.nn.functional as JF
+    from paddle_tpu.jit import TrainStep as JStep
+    from paddle_tpu.utils import faults as jfaults
+    from paddle_tpu_torch.utils import faults
+    jm, tm = _mlp_pair()
+    rng = np.random.RandomState(3)
+    batches = [(rng.randn(8, 6).astype(np.float32),
+                rng.randint(0, 3, (8,)).astype(np.int64)) for _ in range(5)]
+    jopt = paddle.optimizer.AdamW(learning_rate=0.05,
+                                  parameters=jm.parameters())
+    topt = AdamW(learning_rate=0.05, parameters=tm.parameters())
+    jstep = JStep(jm, lambda o, y: JF.cross_entropy(o, y), jopt, guard=True)
+    tstep = TrainStep(tm, lambda o, y: TF.cross_entropy(o, y), topt,
+                      guard=True)
+    jfaults.enable("nan_grads", "2:4")     # the environment arms both
+    try:
+        assert faults.nan_grads_window() == (2, 4)
+        tstep.warmup(*(torch.from_numpy(a) for a in batches[0]))
+        jl, tl, jok, tok, moved = [], [], [], [], []
+        for x, y in batches:
+            loss = jstep(paddle.to_tensor(x), paddle.to_tensor(y))
+            jl.append(float(loss.numpy()))
+            jok.append(bool(np.asarray(jstep.last_guard[1])))
+            before = [t.clone() for t in tstep._state_tensors()[:-2]]
+            tl.append(float(tstep(torch.from_numpy(x), torch.from_numpy(y))))
+            tok.append(bool(tstep.last_guard[1]))
+            after = tstep._state_tensors()[:-2]
+            moved.append(not all(torch.equal(a, b)
+                                 for a, b in zip(before, after)))
+    finally:
+        jfaults.reset()
+        faults.reset()
+    assert jok == tok == [True, False, False, True, True]
+    assert moved == tok
+    np.testing.assert_allclose(tl, jl, rtol=1e-5, atol=1e-6)
+    # disarmed now, but the program was made with the window: it stays
+    assert tstep._programs[next(iter(tstep._programs))].fn.keywords[
+        "nan_window"] == (2, 4)
+    got = tm.state_dict()
+    for k, v in jm.state_dict().items():
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(v.numpy()),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_nan_grads_step_program_reads_nothing_on_the_host(monkeypatch):
+    """The armed window's comparison runs on the device step scalar."""
+    from paddle_tpu_torch.utils import faults
+    _, tm = _mlp_pair()
+    step = TrainStep(tm, lambda o, y: TF.cross_entropy(o, y),
+                     AdamW(learning_rate=0.05, parameters=tm.parameters()),
+                     guard=True)
+    x, y = torch.randn(8, 6), torch.randint(0, 3, (8,))
+    faults.enable("nan_grads", "1")
+    try:
+        step.warmup(x, y)
+    finally:
+        faults.reset()
+    prog = next(iter(step._programs.values()))
+    with monkeypatch.context() as m:
+        _no_host_reads(m)
+        prog.run(captured=False)
+    assert not bool(step._ok)
