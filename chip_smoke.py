@@ -156,6 +156,32 @@ Phases (any failure exits non-zero before the result line):
                 each greedy stream equal to the plain engine's or split
                 where the plain path's top-two margin is below 5% of the
                 largest |logit|; tokens/s and the accept rate.
+ 9d. gateway  — the serving front door: GPT-2 medium (random weights from
+                --seed) saved by jit.save (weights and metadata), served by
+                create_predictor(Config(prefix).enable_serving(
+                model_provider=..., quantize="int8", kv="paged", block 16,
+                8 slots, max_len 1024, decode_chunk 4, gateway={gold:
+                weight 4, high allowed; free: weight 1, low only})).  The
+                serve phase's 8 requests from "free" at low priority and,
+                once they hold the 8 slots, 4 from "gold" at PRIORITY_HIGH
+                (prompts 64..256, 64 new tokens): the gateway preempts low
+                decodes, runs the high ones, resumes the low ones.  Gates:
+                preemptions >= 1 and resumes equal to them, no high request
+                preempted, every response terminal, no capture after
+                warmup, K3 / K4 launched (counters zeroed just before);
+                every greedy stream equals the same request's through the
+                plain engine (the same engine driven without the gateway)
+                or splits where its top-two margin is below 2e-3; sampled
+                streams equal.  Then one streamed POST /v1/completions over
+                serve_http(port=0) on 127.0.0.1: its SSE tokens equal the
+                gateway's stream; /healthz says warm, /metrics carries
+                gateway_* series.  Then a run preempted from the paged
+                engine crosses encode_run -> run_to_bytes -> run_from_bytes
+                -> decode_run into a fixed-KV engine of the same model and
+                continues the uninterrupted stream.  Prints tokens/s
+                against the plain engine, TTFT p50 per lane, preemptions
+                and resumes with ms each, the blob's MiB and the codec's ms,
+                and profile_report()'s keys.
  10. fixed    — 4-layer full-width engines on the fixed pool, captured, f32
                 and bf16: greedy streams must equal the uncaptured path's,
                 and in f32 solo generate()'s.  Then the captured f32 engine
@@ -234,6 +260,18 @@ Phases (any failure exits non-zero before the result line):
                 a 4-layer full-width BERT with the padding mask on the
                 kernel path against the CPU plain path (loss 1e-4
                 relative, gradients 1e-3 of each tensor's largest value).
+ 14b. predictor — the one-shot Predictor: a BERT-large sequence classifier
+                (bert_large_config(vocab_size=30528,
+                max_position_embeddings=512), 2 labels, eval, random
+                weights) exported by jit.save with input_spec [InputSpec(
+                [-1, 512], "int64")] * 2 (ids and the padding mask: K1's
+                (B, Sk) bias), loaded by create_predictor(Config(prefix))
+                and run at B 8 with lengths 128..512: K1 must launch 24
+                times per run through the exported program's operator
+                nodes; the logits within 2e-3 of the eager port model on
+                the card, and the eager model within 2e-3 of its CPU plain
+                path (2 rows).  Prints export and load seconds and ms per
+                run against the eager module.
  15. bn       — the fused BatchNorm kernels K5-K9 against their plain
                 versions on the card: at the ResNet-50 b256 main path's
                 shapes (the stem, 3,211,264 x 64; layer1's bn3 with its
@@ -365,8 +403,9 @@ BN_LINES = {"bn_stats": 119, "bn_apply": 132, "bn_bwd_reduce": 153,
 
 
 PHASES = ("check", "serve", "telemetry", "pressure", "prefix", "spec", "lora",
-          "beam", "serve_bf16", "spec_bf16", "fixed", "flash", "train",
-          "traincheck", "guard", "bert", "bn", "resnet", "resnetcheck")
+          "beam", "gateway", "serve_bf16", "spec_bf16", "fixed", "flash",
+          "train", "traincheck", "guard", "bert", "predictor", "bn", "resnet",
+          "resnetcheck")
 
 
 def fail(msg: str):
@@ -3845,6 +3884,373 @@ def resnet_check_phase(torch, args, dev):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the serving front door: gateway (predictor front, HTTP, codec) and the
+# exported predictor
+# ---------------------------------------------------------------------------
+
+def _build_dir(name: str) -> str:
+    import os
+    import shutil
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def _splits(torch, model, dev, prompts, got, want, tag, sampled=()):
+    """Indices where stream ``got[i]`` leaves ``want[i]``; a greedy split
+    must sit where the ``want`` path's top-two margin is below MARGIN_TOL,
+    a sampled stream must be equal."""
+    out = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        if i in sampled:
+            fail(f"{tag}: sampled stream {i} differs from the plain engine's")
+        j = next((k for k, (a, b) in enumerate(zip(g, w)) if a != b),
+                 min(len(g), len(w)))
+        margin = _top2_margin(torch, model, dev,
+                              np.concatenate([prompts[i], w[:j]]))
+        print(f"{tag}: stream {i} splits from the plain engine's at token "
+              f"{j}: top-two margin {margin:.3e}")
+        if margin >= MARGIN_TOL:
+            fail(f"{tag}: stream {i} splits at token {j} where the margin is "
+                 f"{margin:.3e} (>= {MARGIN_TOL})")
+        out.append((i, j, margin))
+    return out
+
+
+def _sse_tokens(url: str, body: dict, timeout: float):
+    """POST a streamed completion; the SSE chunks' token ids and whether the
+    stream ended with ``data: [DONE]``."""
+    import urllib.request
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 method="POST")
+    toks, done = [], False
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        for line in r:
+            line = line.strip()
+            if line == b"data: [DONE]":
+                done = True
+            elif line.startswith(b"data: "):
+                chunk = json.loads(line[6:])
+                if "error" in chunk:
+                    fail(f"gateway http: error chunk {chunk}")
+                toks += chunk["choices"][0]["token_ids"]
+    return toks, done
+
+
+def _get_json(url: str, timeout: float):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        body = r.read()
+    return body
+
+
+def gateway_phase(torch, args, dev, card):
+    """The serving front door on GPT-2 medium (random weights from --seed):
+    saved by jit.save (weights and metadata), served through
+    create_predictor(Config(prefix).enable_serving(model_provider=...,
+    quantize="int8", kv="paged", ..., gateway={gold: weight 4, may send
+    high; free: weight 1, low only})).  The serve phase's 8 requests from
+    "free" at low priority, then, once they hold the 8 slots, 4 "gold"
+    requests at PRIORITY_HIGH: the gateway preempts 4 low decodes, runs
+    the high ones and resumes the low ones.  Every stream must equal the
+    same request's through the plain engine (the same engine driven
+    without the gateway: FIFO, no preemption) or split only at a near tie;
+    every response terminal; no capture after warmup; K3 / K4 launched.
+    Then one streamed completion over serve_http (127.0.0.1, port 0) equal
+    to the gateway's stream, /healthz warm and /metrics with gateway_*
+    series; then a run preempted from the paged engine crosses the codec
+    (encode_run -> run_to_bytes -> run_from_bytes -> decode_run) into a
+    second engine of the same model on the fixed KV layout and continues
+    its stream."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.models import GPTForPretraining, gpt2_medium_config
+    from paddle_tpu_torch.ops import int8_matmul as im
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.serving import (PRIORITY_HIGH, PRIORITY_LOW,
+                                          ServingEngine, TenantConfig,
+                                          decode_run, encode_run,
+                                          run_from_bytes, run_to_bytes)
+    tag = "gateway"
+    cfg = gpt2_medium_config(hidden_dropout_prob=0.0,
+                             attention_probs_dropout_prob=0.0)
+    prefix = _build_dir("gateway") + "/gpt2_medium"
+    t0 = time.perf_counter()
+    jit.save(GPTForPretraining(cfg, device=dev, seed=args.seed).eval(),
+             prefix)
+    save_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pred = create_predictor(Config(prefix).enable_serving(
+        model_provider=lambda: GPTForPretraining(cfg, device=dev,
+                                                 seed=args.seed + 1),
+        quantize="int8", kv="paged", block_size=BLOCK, max_slots=SLOTS,
+        max_len=MAX_LEN, decode_chunk=4, start=False,
+        gateway={"tenants": {"gold": TenantConfig(weight=4.0,
+                                                  max_priority=1),
+                             "free": TenantConfig(weight=1.0,
+                                                  max_priority=0)}}))
+    boot_s = time.perf_counter() - t0
+    eng, gw = pred.engine, pred.gateway
+    counts = eng.compile_counts()
+    if not eng.warm or counts["total"] != counts["bound"]:
+        fail(f"{tag}: warmup captured {counts}")
+    model = eng.model
+    print(f"{tag}: jit.save {save_s:.2f}s (weights + metadata), "
+          f"create_predictor {boot_s:.2f}s (build, npz load, int8, warmup: "
+          f"{counts['total']} CUDA graphs)")
+    lo_prompts, sampled = serve_requests(args, cfg.vocab_size)
+    rng = np.random.RandomState(args.seed + 7)
+    hi_prompts = [rng.randint(0, cfg.vocab_size, (n,))
+                  for n in (64, 128, 192, 256)]
+    prompts = lo_prompts + hi_prompts
+    knobs = [{"decode_strategy": "sampling", **sampled[i]} if i in sampled
+             else {} for i in range(len(prompts))]
+
+    # the plain engine: the same 12 requests, FIFO, no gateway
+    outs, wall, _, _ = _drive(torch, eng, prompts, sampled, 64,
+                              f"{tag} plain")
+    plain = outs
+    plain_tps = 12 * 64 / wall
+
+    # the gateway: 8 low requests fill the slots, 4 high ones preempt
+    timing = {"preempt": [], "restore": []}
+    for name, key in (("preempt_slot", "preempt"),
+                      ("restore_run", "restore")):
+        orig = getattr(eng, name)
+
+        def timed(*a, _orig=orig, _key=key):
+            t = time.perf_counter()
+            try:
+                return _orig(*a)
+            finally:
+                torch.cuda.synchronize()
+                timing[_key].append(time.perf_counter() - t)
+        setattr(eng, name, timed)
+    torch.cuda.synchronize()
+    im.dequant_matmul.launches = pa.paged_attention.launches = 0
+    t0 = time.perf_counter()
+    resps = [pred.submit(p, 64, tenant="free", priority=PRIORITY_LOW,
+                         **knobs[i]) for i, p in enumerate(lo_prompts)]
+    gw.start()     # its first tick admits the 8 low requests together
+    deadline = time.monotonic() + 120
+    while eng.scheduler.occupancy() < SLOTS:
+        if time.monotonic() > deadline:
+            fail(f"{tag}: the low requests never held the {SLOTS} slots")
+        time.sleep(0.001)
+    resps += [pred.submit(p, 64, tenant="gold", priority=PRIORITY_HIGH)
+              for p in hi_prompts]
+    try:
+        gw_outs = [r.tokens(timeout=300) for r in resps]
+    except Exception as e:  # noqa: BLE001 — a failed request fails the phase
+        fail(f"{tag}: a request failed: {e!r}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"int8_matmul": im.dequant_matmul.launches,
+                "paged_attention": pa.paged_attention.launches}
+    if not all(r.done() for r in resps):
+        fail(f"{tag}: a response is not terminal")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"{tag}: kernel {name} was not launched")
+    m = gw.metrics()
+    if m["preempted"] < 1 or m["resumed"] != m["preempted"]:
+        fail(f"{tag}: {m['preempted']} preemptions, {m['resumed']} resumes")
+    if any(r.request.preempts for r in resps[8:]):
+        fail(f"{tag}: a high request was preempted")
+    if eng.post_warmup_compiles() != 0:
+        fail(f"{tag}: {eng.post_warmup_compiles()} captures after warmup")
+    splits = _splits(torch, model, dev, prompts, gw_outs, plain, tag,
+                     sampled=set(sampled))
+    ttft = {lane: sorted(r.ttft for r in rs) for lane, rs in
+            (("high", resps[8:]), ("low", resps[:8]))}
+    pre, res = timing["preempt"], timing["restore"]
+    print(f"{tag} [{card}]: 12 requests (8 low, 4 high), {12 * 64} tokens in "
+          f"{wall:.3f}s: {12 * 64 / wall:.1f} tokens/s against the plain "
+          f"engine's {plain_tps:.1f} on the same 12; TTFT p50 high "
+          f"{ttft['high'][len(ttft['high']) // 2] * 1e3:.1f} ms, low "
+          f"{ttft['low'][len(ttft['low']) // 2] * 1e3:.1f} ms; "
+          f"{m['preempted']} preemptions "
+          f"({np.mean(pre) * 1e3:.1f} ms each), {m['resumed']} resumes "
+          f"({np.mean(res) * 1e3:.1f} ms each); launches {launches}; "
+          f"{12 - len(splits)} of 12 streams equal the plain engine's, "
+          f"splits {splits}; captures after warmup 0")
+
+    # the HTTP side: one streamed completion over a real socket
+    server = pred.serve_http(port=0)
+    try:
+        base = f"http://127.0.0.1:{server.port}"
+        toks, done = _sse_tokens(base + "/v1/completions", {
+            "prompt": [int(t) for t in lo_prompts[0]], "max_tokens": 64,
+            "stream": True, "user": "free"}, timeout=120)
+        if not done or toks != gw_outs[0]:
+            fail(f"{tag} http: the SSE stream (done={done}, {len(toks)} "
+                 "tokens) differs from the gateway's stream")
+        health = json.loads(_get_json(base + "/healthz", 30))
+        if health.get("warm") is not True or not health.get("ok"):
+            fail(f"{tag} http: /healthz says {health}")
+        metrics = _get_json(base + "/metrics", 30).decode()
+        series = sorted({ln.split("{")[0].split(" ")[0]
+                         for ln in metrics.splitlines()
+                         if ln.startswith("gateway_")})
+        if not series:
+            fail(f"{tag} http: /metrics carries no gateway_* series")
+    finally:
+        server.close()
+    print(f"{tag} http: SSE stream of {len(toks)} tokens == the gateway's; "
+          f"/healthz warm {health['warm']}; /metrics gateway series "
+          f"{series}")
+    rep = pred.profile_report()
+    gw.close(close_engine=False)
+    print(f"{tag}: profile_report() keys {sorted(rep)}")
+
+    # the codec: a run preempted from the paged engine resumes on a fixed
+    # one of the same model
+    fixed = ServingEngine(model, max_slots=SLOTS, max_len=MAX_LEN,
+                          kv="fixed", device=dev)
+    warm = fixed.warmup()
+    if not warm["captured"]:
+        fail(f"{tag} codec: the fixed engine captured nothing")
+    i = 7
+    req, resp = eng.make_request(prompts[i], 64, **knobs[i])
+    if not eng.try_admit(req, resp):
+        fail(f"{tag} codec: no slot")
+    for _ in range(3):
+        eng.step()
+    head = resp.tokens_so_far()
+    (slot,) = list(eng._slots)
+    paused = eng.preempt_slot(slot)
+    times = {}
+    t = time.perf_counter()
+    blob = encode_run(paused)
+    times["encode"] = time.perf_counter() - t
+    t = time.perf_counter()
+    data = run_to_bytes(blob)
+    times["bytes"] = time.perf_counter() - t
+    t = time.perf_counter()
+    moved = decode_run(run_from_bytes(data), engine=fixed)
+    times["decode"] = time.perf_counter() - t
+    if not fixed.restore_run(moved):
+        fail(f"{tag} codec: the fixed engine took no restore")
+    fixed.run_until_drained(timeout=120)
+    tail = moved.resp.tokens(timeout=5)
+    if head + tail != plain[i]:
+        fail(f"{tag} codec: the moved run's stream ({len(head)} + "
+             f"{len(tail)} tokens) differs from the uninterrupted one")
+    if fixed.post_warmup_compiles() != 0:
+        fail(f"{tag} codec: captures after warmup")
+    print(f"{tag} codec [{card}]: a run preempted at {len(head)} tokens "
+          f"(pos {paused.pos}) crossed paged -> fixed: blob "
+          f"{len(data) / 2**20:.2f} MiB, encode {times['encode'] * 1e3:.1f} "
+          f"ms, bytes {times['bytes'] * 1e3:.1f} ms, decode "
+          f"{times['decode'] * 1e3:.1f} ms; the stream continues equal to "
+          f"the uninterrupted run ({len(head)} + {len(tail)} tokens)")
+    fixed.close()
+    pred.close()
+    del pred, eng, gw, fixed, model
+    torch.cuda.empty_cache()
+
+
+def predictor_phase(torch, args, dev, card):
+    """The one-shot Predictor over an exported BERT-large sequence
+    classifier (bert_large_config(vocab_size=30528,
+    max_position_embeddings=512), 2 labels, eval, random weights from
+    --seed): jit.save with input_spec [InputSpec([-1, 512], "int64")] * 2
+    (ids and the padding mask, the (B, Sk) bias of K1), then
+    create_predictor(Config(prefix)) and runs at B 8 with lengths
+    128..512.  The logits must lie within LOGIT_TOL of the eager port
+    model on the card, the eager model within LOGIT_TOL of its CPU plain
+    path (2 rows), and each run must launch K1 24 times (one per layer:
+    a run through the plain version counts 0)."""
+    from paddle_tpu_torch import jit, nn as tnn
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.models import BertForSequenceClassification
+    from paddle_tpu_torch.ops import flash_attention as fa
+    tag = "predictor"
+
+    class Classifier(tnn.Layer):
+        """BERT-large classifying (ids, padding mask)."""
+
+        def __init__(self, device):
+            super().__init__()
+            self.model = BertForSequenceClassification(
+                _bert_large(hidden_dropout_prob=0.0,
+                            attention_probs_dropout_prob=0.0),
+                num_classes=2, device=device, seed=args.seed)
+
+        def forward(self, ids, mask):
+            return self.model(ids, attention_mask=mask)
+
+    cls = Classifier(dev).eval()
+    layers = cls.model.bert.config.num_hidden_layers
+    prefix = _build_dir("predictor") + "/bert_large_cls"
+    t0 = time.perf_counter()
+    jit.save(cls, prefix, input_spec=[jit.InputSpec([-1, BERT_S], "int64"),
+                                      jit.InputSpec([-1, BERT_S], "int64")])
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred = create_predictor(Config(prefix))
+    load_s = time.perf_counter() - t0
+    meta = pred._layer._meta
+    if meta.get("export_fallback") or meta.get("export_error") \
+            or meta["input_spec"][0][0] != (-1, BERT_S):
+        fail(f"{tag}: the export degraded: {meta}")
+    ids, _, _, mask, _ = _bert_batch(torch, dev, BERT_VOCAB, args.seed + 9,
+                                     padded=True)
+    ids_np, mask_np = ids.cpu().numpy(), mask.cpu().numpy()
+
+    def run():
+        pred.get_input_handle("x0").copy_from_cpu(ids_np)
+        pred.get_input_handle("x1").copy_from_cpu(mask_np)
+        pred.run()
+        return pred.get_output_handle("out0").copy_to_cpu()
+
+    per_run, times = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        fa.flash_fwd.launches = 0
+        t = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        per_run.append(fa.flash_fwd.launches)
+    if per_run != [layers] * 5:
+        fail(f"{tag}: K1 launches per run {per_run} (want {layers})")
+    with torch.inference_mode():
+        eager = cls(ids, mask)
+        eager_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            cls(ids, mask)
+            torch.cuda.synchronize()
+            eager_ms.append(time.perf_counter() - t)
+    if out.shape != (BERT_B, 2) or not np.isfinite(out).all():
+        fail(f"{tag}: logits {out.shape}, finite {np.isfinite(out).all()}")
+    err = float(np.abs(out - eager.float().cpu().numpy()).max())
+    cpu = copy.deepcopy(cls).cpu()
+    with torch.inference_mode():
+        want = cpu(ids[:2].cpu(), mask[:2].cpu()).numpy()
+    cpu_err = float(np.abs(eager[:2].float().cpu().numpy() - want).max())
+    del cpu
+    print(f"{tag} [{card}]: BERT-large classifier, B {BERT_B} x S {BERT_S} "
+          f"(lengths {mask_np.sum(1).tolist()}): export {export_s:.2f}s, "
+          f"load {load_s:.2f}s; run {np.median(times) * 1e3:.2f} ms "
+          f"(host copies in and out included) against the eager module "
+          f"{np.median(eager_ms) * 1e3:.2f} ms; K1 launches per run "
+          f"{per_run[0]}; |predictor - eager| {err:.3e}, |eager - CPU plain| "
+          f"{cpu_err:.3e} (tolerance {LOGIT_TOL})")
+    if not err <= LOGIT_TOL or not cpu_err <= LOGIT_TOL:
+        fail(f"{tag}: logits disagree ({err:.3e}, {cpu_err:.3e})")
+    del pred, cls
+    torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3905,6 +4311,9 @@ def main():
             if want(name):
                 phase(torch, args, dev, card, model)
         del model
+    torch.cuda.empty_cache()
+    if want("gateway"):
+        gateway_phase(torch, args, dev, card)
     if want("serve_bf16") or want("spec_bf16"):
         model = serve_model(torch, args, dev, torch.bfloat16)
         if want("serve_bf16"):
@@ -3929,6 +4338,9 @@ def main():
     torch.cuda.empty_cache()
     if want("bert"):
         bert_phase(torch, args, dev, card)
+    torch.cuda.empty_cache()
+    if want("predictor"):
+        predictor_phase(torch, args, dev, card)
     torch.cuda.empty_cache()
     if want("bn"):
         kernels += bn_phase(torch, args, dev)

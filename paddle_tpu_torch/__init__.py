@@ -7,12 +7,13 @@ reference wrote as Pallas TPU kernels are hand-written CUDA kernels here
 version, which runs for CPU tensors.  Entry points run on the card unless
 the caller passes ``device="cpu"``.
 """
-from . import (amp, distributed, generation, jit, lora,  # noqa: F401
-               models, nn, observability, optimizer, quantization, serving,
-               vision)
+from . import (amp, distributed, generation, inference, jit,  # noqa: F401
+               lora, models, nn, observability, optimizer, quantization,
+               serving, vision)
 from .core.rng import seed  # noqa: F401
 from .weights import load_paddle_opt_state, load_paddle_state  # noqa: F401
 
-__all__ = ["amp", "distributed", "generation", "jit", "lora", "models", "nn",
-           "observability", "optimizer", "quantization", "serving", "vision",
-           "seed", "load_paddle_state", "load_paddle_opt_state"]
+__all__ = ["amp", "distributed", "generation", "inference", "jit", "lora",
+           "models", "nn", "observability", "optimizer", "quantization",
+           "serving", "vision", "seed", "load_paddle_state",
+           "load_paddle_opt_state"]

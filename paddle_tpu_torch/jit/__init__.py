@@ -63,6 +63,10 @@ reference.  As in the reference, ``TrainStep`` applies no ``grad_clip``
   programs replay on.  A learning-rate scheduler's value reaches each
   replay through the learning-rate scalar (``optimizer.get_lr()``).
 
+Inference artifacts: ``save`` / ``load`` / ``InputSpec`` /
+``TranslatedLayer`` (``jit/export.py``: the reference's npz and metadata,
+the program as a ``torch.export`` archive).
+
 Not in this slice of the port, and refused with ``UnimplementedError``:
 ``mesh`` / ``batch_sharding``, a checkpoint's ``scaler=`` (GradScaler),
 and sparse or row-sharded gradients (the port's ``Embedding`` has no
@@ -87,9 +91,12 @@ from ..core.programs import Program
 from ..core.recompute import recompute_policy  # noqa: F401
 from ..optimizer.functional import decay_flags, update_in_place
 from ..utils import faults as _faults
+from .export import (ArtifactFormatError, InputSpec,  # noqa: F401
+                     TranslatedLayer, load, save)
 
 __all__ = ["state_arrays", "forward_loss", "guard_select", "TrainStep",
-           "layout_policy", "recompute_policy"]
+           "layout_policy", "recompute_policy", "InputSpec", "save", "load",
+           "TranslatedLayer", "ArtifactFormatError"]
 
 _LATER = "comes with a later slice of the port"
 

@@ -23,7 +23,11 @@ in the source.
   forward saves it, so the backward sees the same mask.
 - ``_Flash`` is the ``torch.autograd.Function`` (the reference's
   ``custom_vjp``): its forward runs K1 and saves O and the logsumexp, its
-  backward runs K2.
+  backward runs K2.  With nothing to differentiate (eval, or an exported
+  forward) ``flash_attention_bshd`` calls K1 alone.
+- K1's wrapper ``flash_fwd`` is the operator
+  ``torch.ops.paddle_tpu_torch.flash_fwd`` (``ops/_library.py``), with a
+  fake implementation for ``torch.export``.
 
 ``flash_fwd.launches`` / ``flash_bwd.launches`` count wrapper calls that
 launch kernels (the plain versions never count).  The kernel is picked by
@@ -44,7 +48,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, _library
 
 __all__ = ["flash_attention_bshd", "flash_gate", "flash_fwd", "flash_bwd",
            "keep_mask"]
@@ -91,6 +95,11 @@ def flash_attention_bshd(q, k, v, causal=False, bias=None, q_segment_ids=None,
     seed = (torch.zeros(1, dtype=torch.int32, device=q.device)
             if dropout_seed is None
             else dropout_seed.reshape(1).to(torch.int32))
+    if not (torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, bias))):
+        # nothing to differentiate (eval, an exported forward): K1 alone
+        return flash_fwd(q, k, v, bias, q_segment_ids, kv_segment_ids,
+                         seed, causal, dropout_p)[0]
     return _Flash.apply(q, k, v, bias, q_segment_ids, kv_segment_ids, seed,
                         bool(causal), float(dropout_p))
 
@@ -348,15 +357,35 @@ def _bwd_kernel(q, k, v, bias, qseg, kseg, seed, o, lse, do, causal,
     return dq, dk, dv, dbias
 
 
-def flash_fwd(q, k, v, bias, qseg, kseg, seed, causal, dropout_p):
-    """K1: (o (B, Sq, H, D) in q's type, lse (B, H, Sq) f32).  CUDA tensors
-    launch the kernel (or raise on what it does not take); CPU tensors take
-    the plain version."""
+def _fwd_impl(q, k, v, bias, qseg, kseg, seed, causal, dropout_p):
     if q.device.type == "cuda":
         _check_cuda(q, k, v, bias, qseg, kseg, seed)
         return _fwd_kernel(q, k, v, bias, qseg, kseg, seed, causal,
                            dropout_p)
     return _plain_fwd(q, k, v, bias, qseg, kseg, seed, causal, dropout_p)
+
+
+def _fwd_fake(q, k, v, bias, qseg, kseg, seed, causal, dropout_p):
+    b, sq, h, d = q.shape
+    return (q.new_empty((b, sq, h, d)),
+            q.new_empty((b, h, sq), dtype=torch.float32))
+
+
+_fwd_op = _library.define(
+    "flash_fwd", "(Tensor q, Tensor k, Tensor v, Tensor? bias, "
+    "Tensor? q_segment_ids, Tensor? kv_segment_ids, Tensor seed, "
+    "bool causal, float dropout_p) -> (Tensor, Tensor)", _fwd_impl,
+    _fwd_fake)
+
+
+def flash_fwd(q, k, v, bias, qseg, kseg, seed, causal, dropout_p):
+    """K1: (o (B, Sq, H, D) in q's type, lse (B, H, Sq) f32).  CUDA tensors
+    launch the kernel (or raise on what it does not take); CPU tensors take
+    the plain version.  It is the operator
+    ``torch.ops.paddle_tpu_torch.flash_fwd``, so an exported forward keeps
+    it as one node."""
+    return _fwd_op(q, k, v, bias, qseg, kseg, seed, bool(causal),
+                   float(dropout_p))
 
 
 def flash_bwd(q, k, v, bias, qseg, kseg, seed, o, lse, do, causal,

@@ -23,7 +23,9 @@ kernel does).
   takes it only for CPU tensors.
 
 ``dequant_matmul.launches`` counts kernel launches (the plain version never
-counts).
+counts).  The wrapper's 2-d core is the operator
+``torch.ops.paddle_tpu_torch.dequant_matmul`` (``ops/_library.py``), with
+a fake implementation for ``torch.export``.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import _build
+from . import _build, _library
 
 __all__ = ["dequant_matmul"]
 
@@ -144,16 +146,26 @@ def dequant_matmul(x, w_int8, scale):
     if scale.dtype != torch.float32 or tuple(scale.shape) != (1, n):
         scale_row = scale.to(torch.float32).reshape(1, -1).expand(1, n)
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, k)
+    return _op(x.reshape(-1, k), w_int8, scale_row).reshape(*lead, n)
+
+
+def _impl(x2, w_int8, scale_row):
     if x2.shape[0] == 0:
-        out = x2.new_empty((0, n))
-    elif x2.device.type == "cuda":
+        return x2.new_empty((0, w_int8.shape[1]))
+    if x2.device.type == "cuda":
         scale_row = scale_row.contiguous()
         _check_cuda(x2, w_int8, scale_row)
-        out = _kernel(x2.contiguous(), w_int8, scale_row)
-    else:
-        out = _plain(x2, w_int8, scale_row)
-    return out.reshape(*lead, n)
+        return _kernel(x2.contiguous(), w_int8, scale_row)
+    return _plain(x2, w_int8, scale_row)
+
+
+def _fake(x2, w_int8, scale_row):
+    return x2.new_empty((x2.shape[0], w_int8.shape[1]))
+
+
+_op = _library.define(
+    "dequant_matmul", "(Tensor x, Tensor w_int8, Tensor scale) -> Tensor",
+    _impl, _fake)
 
 
 dequant_matmul.launches = 0  # kernel launches; the plain version never counts

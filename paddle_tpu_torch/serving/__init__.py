@@ -1,8 +1,27 @@
-"""Continuous-batching serving (port of paddle_tpu.serving, engine core)."""
-from .engine import (NonFiniteLogitsError, PreemptedRun,  # noqa: F401
-                     ServingEngine)
-from .kv_pool import KVPoolExhaustedError, PagedKVPool  # noqa: F401
-from .prefix_cache import PrefixCache  # noqa: F401
-from .request import Request, RequestCancelled, Response  # noqa: F401
-from .scheduler import (DeadlineExceededError, QueueFullError,  # noqa: F401
+"""Continuous-batching serving (port of paddle_tpu.serving): the engine,
+its KV pools and prefix cache, the multi-tenant gateway with its SLO
+policy objects and HTTP server, and the run-transfer codec."""
+from .engine import NonFiniteLogitsError, PreemptedRun, ServingEngine
+from .kv_pool import KVPoolExhaustedError, PagedKVPool
+from .prefix_cache import PrefixCache
+from .request import Request, RequestCancelled, Response
+from .scheduler import (DeadlineExceededError, QueueFullError,
                         RequestScheduler)
+from .slo import ShedPolicy, Signals, SLOTracker, TenantConfig, TokenBucket
+from .gateway import (PRIORITY_HIGH, PRIORITY_LOW, GatewayServer,
+                      RateLimitedError, ServingGateway, SheddedError,
+                      serve_gateway)
+from .transfer import (RunTransferError, decode_run, encode_run,
+                       engine_config_hash, run_from_bytes, run_to_bytes)
+
+__all__ = [
+    "ServingEngine", "Request", "Response", "RequestScheduler",
+    "QueueFullError", "DeadlineExceededError", "RequestCancelled",
+    "NonFiniteLogitsError", "PreemptedRun",
+    "PagedKVPool", "KVPoolExhaustedError", "PrefixCache",
+    "ServingGateway", "GatewayServer", "serve_gateway", "TenantConfig",
+    "TokenBucket", "ShedPolicy", "Signals", "SLOTracker",
+    "RateLimitedError", "SheddedError", "PRIORITY_HIGH", "PRIORITY_LOW",
+    "RunTransferError", "encode_run", "decode_run", "run_to_bytes",
+    "run_from_bytes", "engine_config_hash",
+]

@@ -286,7 +286,8 @@ class PreemptedRun:
     have folded uninterrupted."""
 
     __slots__ = ("req", "resp", "pos", "produced", "last_token", "key",
-                 "kv_rows", "draft_kv_rows", "preempted_at")
+                 "kv_rows", "draft_kv_rows", "preempted_at",
+                 "source_config_hash")
 
     def __init__(self, run: _SlotRun, kv_rows, draft_kv_rows=None):
         self.req = run.req
@@ -298,6 +299,10 @@ class PreemptedRun:
         self.kv_rows = kv_rows
         self.draft_kv_rows = draft_kv_rows
         self.preempted_at = time.monotonic()
+        # the source engine's ``transfer.engine_config_hash``, stamped by
+        # preempt_slot: it rides every re-encode of the snapshot, so a
+        # restore on an engine of another configuration is refused
+        self.source_config_hash: Optional[str] = None
 
     @classmethod
     def from_state(cls, req, resp, pos: int, produced: int,
@@ -314,6 +319,7 @@ class PreemptedRun:
         paused.kv_rows = kv_rows
         paused.draft_kv_rows = draft_kv_rows
         paused.preempted_at = time.monotonic()
+        paused.source_config_hash = None
         return paused
 
 
@@ -564,9 +570,12 @@ class ServingEngine:
                      deadline: Optional[float] = None, priority: int = 0,
                      tenant: Optional[str] = None,
                      spec: Optional[bool] = None,
+                     session: Optional[str] = None,
+                     resubmit: bool = False,
                      adapter: Optional[str] = None):
         """Validate and build one (Request, Response) pair without queueing
-        it (``submit`` queues it; ``try_admit`` places it directly).
+        it (``submit`` queues it; ``try_admit`` places it directly, as the
+        gateway does).
         Raises InvalidArgumentError for a prompt/budget the engine can
         never serve, and ``lora.AdapterNotFoundError`` for an ``adapter``
         that is not loaded (it is pinned at admission).  A sampled request
@@ -574,7 +583,9 @@ class ServingEngine:
         folded in at each token's position: its tokens depend only on the
         seed, the positions and the logits.  ``tenant`` scopes
         prefix-cache sharing.  ``spec``: speculate (None: when the engine
-        has a draft model; True without one raises)."""
+        has a draft model; True without one raises).  ``session`` is the
+        fleet's affinity key; ``resubmit=True`` (re-prefill from the prompt
+        when a replica is lost) is greedy-only, as in the reference."""
         if self._closed:
             raise UnavailableError("serving engine is closed")
         if self._dead is not None:
@@ -590,6 +601,11 @@ class ServingEngine:
             raise InvalidArgumentError(
                 "spec=True requires the engine to be built with a "
                 "draft_model (speculative decoding)")
+        if resubmit and decode_strategy != "greedy_search":
+            raise InvalidArgumentError(
+                "resubmit=True (re-prefill-from-prompt crash recovery) is "
+                "greedy-only: a replayed sampled stream is not covered by "
+                "any engine contract — drop resubmit or use greedy_search")
         if adapter is not None and self.lora is None:
             stat_add("STAT_serving_rejects")
             raise InvalidArgumentError(
@@ -611,7 +627,8 @@ class ServingEngine:
                       eos_token_id=eos_token_id,
                       seed=seed if seed is not None else rid,
                       deadline=deadline, priority=priority, tenant=tenant,
-                      spec=spec, adapter=adapter)
+                      spec=spec, session=session, resubmit=resubmit,
+                      adapter=adapter)
         plen = req.prompt.shape[0]
         if plen > self.buckets[-1]:
             stat_add("STAT_serving_rejects")
@@ -644,17 +661,19 @@ class ServingEngine:
                top_k=0, top_p=1.0, eos_token_id: Optional[int] = None,
                seed: Optional[int] = None, deadline: Optional[float] = None,
                block: bool = False, timeout: Optional[float] = None,
-               priority: int = 0, tenant: Optional[str] = None,
                spec: Optional[bool] = None,
+               tenant: Optional[str] = None,
                adapter: Optional[str] = None) -> Response:
         """Enqueue one request (``make_request``'s checks and keys);
         returns its streaming Response.  Raises QueueFullError at
-        max_queue_depth (backpressure)."""
+        max_queue_depth (backpressure).  The parameters are the
+        reference's, in its order: a priority comes in through the gateway
+        (``ServingGateway.submit``) or ``make_request``."""
         req, resp = self.make_request(
             prompt, max_new_tokens, decode_strategy=decode_strategy,
             temperature=temperature, top_k=top_k, top_p=top_p,
             eos_token_id=eos_token_id, seed=seed, deadline=deadline,
-            priority=priority, tenant=tenant, spec=spec, adapter=adapter)
+            spec=spec, tenant=tenant, adapter=adapter)
         self.scheduler.submit(req, resp, block=block, timeout=timeout)
         self._work.set()
         return resp
@@ -988,6 +1007,8 @@ class ServingEngine:
         pairs = list(zip(rows[0::2], rows[1::2]))
         n = len(self._pool_store)
         paused = PreemptedRun(run, pairs[:n], pairs[n:] or None)
+        from .transfer import engine_config_hash
+        paused.source_config_hash = engine_config_hash(self)
         run.req.preempts += 1
         self._slots.pop(slot, None)
         self.scheduler.release(slot)

@@ -1,5 +1,5 @@
 """Request / streaming-Response handles for the serving engine (port of
-paddle_tpu/serving/request.py without the gateway/fleet fields).
+paddle_tpu/serving/request.py).
 
 A `Request` is the immutable description of one decode job (prompt, token
 budget, sampling params, deadline); a `Response` is the caller's handle on
@@ -32,13 +32,20 @@ class Request:
     the ones whose stream equals a solo
     `generation.generate(decode_strategy='greedy_search')` run.  `spec`:
     whether the request speculates on a speculative engine (the engine
-    resolves None before it builds the request).  `adapter`: the LoRA
-    adapter's registry name (None: the base model)."""
+    resolves None before it builds the request).  `priority` / `tenant`:
+    the gateway's lane and fairness attribution (the bare engine uses
+    them only under KV-pool pressure and for prefix-cache sharing).
+    `session` / `resubmit` / `migrations`: the fleet's affinity key, its
+    greedy-only re-prefill opt-in and its count of completed run
+    transfers, carried by the run-transfer codec.  `adapter`: the LoRA
+    adapter's registry name (None: the base model).  The parameters are
+    the reference's, in its order."""
 
     __slots__ = ("id", "prompt", "max_new_tokens", "greedy", "temperature",
                  "top_k", "top_p", "eos_token_id", "seed", "deadline",
-                 "priority", "tenant", "spec", "preempts", "resumes",
-                 "paused_seconds", "poison", "adapter")
+                 "poison", "priority", "tenant", "preempts", "resumes",
+                 "paused_seconds", "spec", "session", "resubmit",
+                 "migrations", "adapter")
 
     def __init__(self, rid: int, prompt, max_new_tokens: int,
                  greedy: bool = True, temperature: float = 1.0,
@@ -47,7 +54,8 @@ class Request:
                  seed: Optional[int] = None,
                  deadline: Optional[float] = None,
                  priority: int = 0, tenant: Optional[str] = None,
-                 spec: bool = False, adapter: Optional[str] = None):
+                 spec: bool = False, session: Optional[str] = None,
+                 resubmit: bool = False, adapter: Optional[str] = None):
         self.id = int(rid)
         self.prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
         if self.prompt.size == 0:
@@ -65,19 +73,26 @@ class Request:
         self.seed = seed
         # budget counts from SUBMISSION (queue wait included)
         self.deadline = Deadline(deadline) if deadline is not None else None
-        # under KV-pool pressure the newest run of the lowest priority
-        # class is the one preempted
-        self.priority = int(priority)
-        # the prefix cache's share key (tenant-private by default)
-        self.tenant = tenant
+        self.poison = False  # set by the engine under PDTPU_FAULT_NAN_LOGITS
         # speculative decoding on/off (per request; a spec-off slot of a
         # speculative engine streams as the plain engine)
         self.spec = bool(spec)
+        # gateway lane (0 = best effort; a gateway preempts lower
+        # priorities for higher ones; under KV-pool pressure the newest
+        # run of the lowest class is parked) and the tenant, which is
+        # also the prefix cache's share key (tenant-private by default)
+        self.priority = int(priority)
+        self.tenant = tenant
         # stamped by engine.preempt_slot / restore_run
         self.preempts = 0
         self.resumes = 0
         self.paused_seconds = 0.0  # total wall time spent preempted
-        self.poison = False  # set by the engine under PDTPU_FAULT_NAN_LOGITS
+        # fleet routing: the session's affinity key, the greedy-only
+        # re-prefill opt-in (checked by make_request) and the completed
+        # cross-replica run transfers
+        self.session = session
+        self.resubmit = bool(resubmit)
+        self.migrations = 0
         # batched LoRA: resolved to a slot and pinned at admission, unpinned
         # at release; the name (not the slot) travels across preempt and
         # restore, which resolves it again

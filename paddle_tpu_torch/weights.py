@@ -25,7 +25,8 @@ import torch
 
 from .core.errors import InvalidArgumentError
 
-__all__ = ["load_paddle_state", "load_paddle_opt_state", "host_tensor"]
+__all__ = ["load_paddle_state", "load_paddle_opt_state", "host_tensor",
+           "host_array", "dtype_name"]
 
 
 def load_paddle_state(model: torch.nn.Module, state: Mapping[str, np.ndarray]):
@@ -62,6 +63,25 @@ def host_tensor(src: np.ndarray) -> torch.Tensor:
         bits = np.array(src).view(np.int16)
         return torch.from_numpy(bits).view(torch.bfloat16)
     return torch.from_numpy(np.array(src))
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A numpy array of ``t``'s values, as the reference holds them: a
+    bfloat16 tensor becomes an ml_dtypes ``bfloat16`` array (its 16-bit
+    words; needs ml_dtypes, which numpy's own types lack)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def dtype_name(dtype) -> str:
+    """The numpy name of a torch or numpy dtype (``"float32"``,
+    ``"bfloat16"``, ``"int8"``), as the reference spells array dtypes."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).replace("torch.", "")
+    return str(np.dtype(dtype))
 
 
 def load_paddle_opt_state(train_step, opt_state: Mapping[str, Mapping],

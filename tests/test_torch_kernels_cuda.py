@@ -1798,3 +1798,130 @@ def test_train_step_nan_grads_skips_the_step_in_the_graph(cuda):
         assert same == (i == 1)
     assert oks == [True, False, True]
     assert step.compile_counts()["total"] == made
+
+
+# ---------------------------------------------------------------------------
+# the kernels as operators: torch.export, fake implementations, CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _export_module(cuda):
+    """An int8 Linear (K4) feeding flash attention (K1), as one module."""
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.quantization import quantize_for_serving
+
+    class Block(tnn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.qkv = tnn.Linear(128, 384, device=cuda, std=0.05)
+
+        def forward(self, x, mask):
+            b, s = x.shape[0], x.shape[1]
+            qkv = self.qkv(x).reshape(b, s, 3, 2, 64)
+            bias = (1.0 - mask.to(torch.float32)) * -1e4
+            return fa.flash_attention_bshd(qkv[:, :, 0], qkv[:, :, 1],
+                                           qkv[:, :, 2], bias=bias)
+
+    torch.manual_seed(0)
+    return quantize_for_serving(Block().eval())
+
+
+def test_exported_program_launches_the_kernels_and_equals_eager(cuda,
+                                                                 tmp_path):
+    """jit.save exports K1 and K4 as one operator node each; the loaded
+    program launches both kernels (the counters rise) and equals the eager
+    kernel path."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.ops import flash_attention as fa
+    m = _export_module(cuda)
+    path = str(tmp_path / "block")
+    jit.save(m, path, input_spec=[jit.InputSpec([-1, 128, 128], "float32"),
+                                  jit.InputSpec([-1, 128], "int64")])
+    layer = jit.load(path, device=cuda)
+    targets = [str(n.target) for n in layer._exported.graph.nodes]
+    assert sum("flash_fwd" in t for t in targets) == 1
+    assert sum("dequant_matmul" in t for t in targets) == 1
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(3, 128, 128).astype(np.float32)).to(cuda)
+    mask = torch.ones(3, 128, dtype=torch.int64, device=cuda)
+    mask[1, 70:] = 0
+    k1, k4 = fa.flash_fwd.launches, int8_matmul.dequant_matmul.launches
+    got = layer(x, mask)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.launches == k1 + 1
+    assert int8_matmul.dequant_matmul.launches == k4 + 1
+    with torch.no_grad():
+        want = m(x, mask)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_operator_fakes_give_the_real_shapes_and_dtypes(cuda, dtype):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from paddle_tpu_torch.ops import flash_attention as fa
+    rng = np.random.RandomState(5)
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            cuda, dtype)
+
+    wi, s = quantize_weight_int8(torch.from_numpy(
+        (0.02 * rng.randn(256, 384)).astype(np.float32)).to(cuda))
+    seed = torch.zeros(1, dtype=torch.int32, device=cuda)
+    bias = torch.zeros(2, 128, device=cuda)
+    calls = [(torch.ops.paddle_tpu_torch.dequant_matmul.default,
+              (t(8, 256), wi, s)),
+             (torch.ops.paddle_tpu_torch.dequant_matmul.default,
+              (t(300, 256), wi, s)),
+             (torch.ops.paddle_tpu_torch.flash_fwd.default,
+              (t(2, 128, 2, 64), t(2, 128, 2, 64), t(2, 128, 2, 64), bias,
+               None, None, seed, False, 0.0)),
+             (torch.ops.paddle_tpu_torch.flash_fwd.default,
+              (t(2, 256, 2, 64), t(2, 256, 2, 64), t(2, 256, 2, 64), None,
+               None, None, seed, True, 0.0))]
+    for op, args in calls:
+        real = op(*args)
+        with FakeTensorMode(allow_non_fake_inputs=False) as mode:
+            fake = op(*[mode.from_tensor(a) if isinstance(a, torch.Tensor)
+                        else a for a in args])
+        real = real if isinstance(real, tuple) else (real,)
+        fake = fake if isinstance(fake, tuple) else (fake,)
+        for r, f in zip(real, fake):
+            assert (r.shape, r.dtype, r.device) == (f.shape, f.dtype,
+                                                    f.device)
+
+
+def test_cuda_graph_over_the_operators_replays_them(cuda):
+    """A graph captured over K4 and K1's operators replays the kernels on
+    new input values; the launches count once, at the capture."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    rng = np.random.RandomState(9)
+    x = torch.zeros(8, 1024, device=cuda)
+    q = torch.zeros(1, 128, 2, 64, device=cuda)
+    wi, s = quantize_weight_int8(torch.from_numpy(
+        (0.02 * rng.randn(1024, 256)).astype(np.float32)).to(cuda))
+
+    def run():
+        return (int8_matmul.dequant_matmul(x, wi, s),
+                fa.flash_attention_bshd(q, q, q, causal=True))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    k1, k4 = fa.flash_fwd.launches, int8_matmul.dequant_matmul.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    assert (fa.flash_fwd.launches, int8_matmul.dequant_matmul.launches) == (
+        k1 + 1, k4 + 1)
+    for seed in (1, 2):
+        r = np.random.RandomState(seed)
+        x.copy_(torch.from_numpy(r.randn(8, 1024).astype(np.float32)))
+        q.copy_(torch.from_numpy(r.randn(1, 128, 2, 64).astype(np.float32)))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = run()
+        for g, w in zip(outs, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)

@@ -273,3 +273,51 @@ def test_signature_is_the_reference_one_then_device():
     for kw in ({"mesh": object()}, {"program_set": "programs/"}):
         with pytest.raises(UnimplementedError, match="ROADMAP"):
             ServingEngine(tm, device="cpu", **kw)
+
+
+def test_request_surface_is_the_reference_one():
+    """``Request.__init__``, ``make_request`` and ``submit`` take the
+    reference's parameters name by name and position by position, and
+    ``Request`` / ``PreemptedRun`` carry the reference's fields: a
+    positional call binds the same values in both."""
+    import inspect
+    from paddle_tpu.serving import PreemptedRun as JPreempted
+    from paddle_tpu.serving import Request as JRequest
+    from paddle_tpu_torch.serving import PreemptedRun, Request
+    for ours, theirs in ((Request.__init__, JRequest.__init__),
+                         (ServingEngine.make_request, JEngine.make_request),
+                         (ServingEngine.submit, JEngine.submit)):
+        got = [(n, p.kind, p.default) for n, p in
+               inspect.signature(ours).parameters.items()]
+        ref = [(n, p.kind, p.default) for n, p in
+               inspect.signature(theirs).parameters.items()]
+        assert got == ref, ours.__qualname__
+    assert PreemptedRun.__slots__ == JPreempted.__slots__
+    assert Request.__slots__ == JRequest.__slots__
+    args = (7, [1, 2, 3], 4, True, 1.0, 0, 1.0, None, 5, None, 1, "t",
+            False, "s", True, "a")
+    ours, theirs = Request(*args), JRequest(*args)
+    for f in JRequest.__slots__:
+        if f not in ("prompt", "deadline"):
+            assert getattr(ours, f) == getattr(theirs, f), f
+    assert (ours.session, ours.resubmit, ours.adapter, ours.migrations) == (
+        "s", True, "a", 0)
+    _, tm = tiny_pair(seed=1)
+    eng = ServingEngine(tm, device="cpu", **ENGINE)
+    with pytest.raises(InvalidArgumentError, match="greedy-only"):
+        eng.make_request([1, 2], 3, decode_strategy="sampling",
+                         resubmit=True)
+    # dtype, block, timeout, then spec, tenant, adapter: as the reference
+    r = eng.submit([1, 2, 3], 3, "greedy_search", 1.0, 0, 1.0, None, 4,
+                   None, False, None, False, "t9")
+    assert (r.request.spec, r.request.tenant, r.request.priority) == (
+        False, "t9", 0)
+    eng.run_until_drained(timeout=60)
+    req, resp = eng.make_request([1, 2, 3], 8, session="s1")
+    assert eng.try_admit(req, resp)
+    eng.step()
+    paused = eng.preempt_slot(next(iter(eng._slots)))
+    from paddle_tpu_torch.serving.transfer import engine_config_hash
+    assert paused.source_config_hash == engine_config_hash(eng)
+    assert paused.req.session == "s1"
+    eng.close()
