@@ -182,6 +182,37 @@ Phases (any failure exits non-zero before the result line):
                 against the plain engine, TTFT p50 per lane, preemptions
                 and resumes with ms each, the blob's MiB and the codec's ms,
                 and profile_report()'s keys.
+ 9e. fleet    — the in-process serving fleet: two replicas of the gateway
+                phase's engine options (int8 GPT-2 medium, paged, 8 slots,
+                max_len 1024, decode_chunk 4) built over ONE model (each
+                engine serves its own copy of the weights), behind a
+                started ServingGateway over the FleetRouter, and a plain
+                engine of the same options (the uninterrupted streams, then
+                the refresher's oracle).  16 requests (prompts 32..400, 64
+                new tokens, 12 greedy with resubmit, 4 keyed-sampled, four
+                sessions of two) clean (tokens/s against the plain
+                engine), then with PDTPU_FAULT_REPLICA_CRASH mid-decode:
+                greedy streams equal the plain engine's (or split at a near
+                tie), the lost replica's sampled runs end in
+                ReplicaLostError, sessions held, exactly the one injected
+                crash; the crashed replica's remove frees its footprint.
+                A rollout while a second wave's 8 prompts keep arriving (12
+                in flight): every boot captures under traffic, every drain
+                migrates residents mid-decode through the codec, streams
+                equal, nothing dropped, no capture after warmup on the old
+                replicas, the card's memory after each remove within 2% of
+                a replica's footprint of its level before the matching
+                boot.  WeightPublisher + FleetRefresher: a second seed's
+                weights through the three gates onto both replicas (canary
+                streams equal the oracle's), a corrupt publish quarantined,
+                a diverging canary rolled back, /healthz 200 with both
+                verified.  The Autoscaler (injected clock) from one replica
+                up on a burst and down by a drain.  Prints tokens/s, the ms
+                from the crash to the first resubmitted token, ms per
+                migrated run, boot capture seconds and the inter-token p99
+                during the captures against outside them, flip / canary /
+                rollback ms, a replica's memory and its weight copy's, and
+                K3 / K4 launches over the phase and per replica.
  10. fixed    — 4-layer full-width engines on the fixed pool, captured, f32
                 and bf16: greedy streams must equal the uncaptured path's,
                 and in f32 solo generate()'s.  Then the captured f32 engine
@@ -327,6 +358,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import gc
 import json
 import subprocess
 import sys
@@ -372,6 +404,15 @@ PRESSURE_LENS = tuple(int(n) for n in np.linspace(200, 400, 16))
 PREFIX_LEN, PREFIX_NEW = 384, 64
 PREFIX_SUFFIXES = tuple(int(n) for n in np.linspace(16, 96, 16))
 MARGIN_TOL = 2e-3   # a cached / uncached greedy split needs a nearer tie
+FLEET_LENS = tuple(int(n) for n in np.linspace(32, 400, 16))   # fleet wave
+FLEET_NEW = 64
+FLEET_SAMPLED = (3, 7, 11, 15)   # keyed-sampled, no resubmit
+FLEET_SESSIONS = {0: "s0", 1: "s0", 4: "s1", 5: "s1", 8: "s2", 9: "s2",
+                  12: "s3", 13: "s3"}
+FLEET_ROLL_LENS = (64, 80, 96, 112, 128, 144, 160, 72)   # rollout wave
+FLEET_ROLL_NEW = 512
+FLEET_ROLL_INFLIGHT = 12   # rollout wave requests kept unfinished
+MEM_TOL = 0.02      # memory after a remove vs before its boot: of a replica
 SPEC_TOKENS = 4     # spec phase: draft proposals per verify tick
 # lora phase: LoRAConfig(rank, max_adapters) on the default targets; the
 # artifacts' B factors are drawn at this std (A: LoRALinear's own draw,
@@ -403,9 +444,9 @@ BN_LINES = {"bn_stats": 119, "bn_apply": 132, "bn_bwd_reduce": 153,
 
 
 PHASES = ("check", "serve", "telemetry", "pressure", "prefix", "spec", "lora",
-          "beam", "gateway", "serve_bf16", "spec_bf16", "fixed", "flash",
-          "train", "traincheck", "guard", "bert", "predictor", "bn", "resnet",
-          "resnetcheck")
+          "beam", "gateway", "fleet", "serve_bf16", "spec_bf16", "fixed",
+          "flash", "train", "traincheck", "guard", "bert", "predictor", "bn",
+          "resnet", "resnetcheck")
 
 
 def fail(msg: str):
@@ -4156,6 +4197,572 @@ def gateway_phase(torch, args, dev, card):
     torch.cuda.empty_cache()
 
 
+def _fleet_launches(eng) -> dict:
+    """K3 / K4 launches through ``eng``'s graph replays so far: each
+    program's replays times its graph's recorded launches."""
+    from paddle_tpu_torch.ops import int8_matmul as im
+    from paddle_tpu_torch.ops import paged_attention as pa
+    names = {id(pa.paged_attention): "paged_attention",
+             id(im.dequant_matmul): "int8_matmul"}
+    out = dict.fromkeys(names.values(), 0)
+    for prog in eng._programs.values():
+        for (owner, _key), n in prog.launches:
+            if id(owner) in names:
+                out[names[id(owner)]] += n * prog.replays
+    return out
+
+
+def _p99(xs):
+    return float(np.percentile(xs, 99)) * 1e3 if xs else float("nan")
+
+
+def fleet_phase(torch, args, dev, card):
+    """The in-process serving fleet on one card: two replicas of the
+    gateway phase's engine options built over ONE GPT-2 medium int8 model
+    (each engine serves a copy of its own), behind a started
+    ServingGateway over the FleetRouter; a plain engine of the same
+    options gives the uninterrupted streams and is the refresher's oracle.
+    (1) 16 requests (prompts 32..400, 64 new tokens; 12 greedy with
+    resubmit, 4 keyed-sampled; four sessions of 2) served clean, then
+    again with PDTPU_FAULT_REPLICA_CRASH mid-decode: greedy streams equal
+    the plain engine's (or split at a near tie), the crashed replica's
+    sampled runs end in ReplicaLostError, the others equal, sessions
+    held, every response terminal, exactly one crash.  (2) a second
+    wave's 8 prompts (64..160 tokens, 512 new) arriving, 12 kept in
+    flight, while ``rollout`` boots a replacement per replica (graphs
+    captured on this thread while the gateway's thread replays),
+    drains the old one (its residents migrate mid-decode through the
+    codec) and removes it: every stream equal, nothing dropped, no
+    capture after warmup on the old replicas, the card's memory after
+    each remove within 2% of a replica's footprint of its level before
+    the matching boot.  (3) WeightPublisher / FleetRefresher: a second
+    seed's weights pass the three gates and flip both replicas (canary
+    streams equal the oracle's, nothing captured), a corrupt publish is
+    quarantined, a diverging canary is rolled back; /healthz 200 with
+    both replicas verified.  (4) From one replica, the Autoscaler
+    (injected clock) scales up on a burst and down by a drain.  K3 / K4
+    launches counted over the phase (zeroed just before) and per
+    replica through its graphs' replays."""
+    import os
+    import shutil
+    import threading
+
+    from paddle_tpu_torch.models import GPTForPretraining, gpt2_medium_config
+    from paddle_tpu_torch.ops import int8_matmul as im
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.quantization import quantize_for_serving
+    from paddle_tpu_torch.serving import (Autoscaler, FleetRefresher,
+                                          FleetRouter, ReplicaLostError,
+                                          Response, ServingEngine,
+                                          ServingGateway, WeightPublisher)
+    from paddle_tpu_torch.serving import fleet as fleet_mod
+    from paddle_tpu_torch.utils import faults
+    tag = "fleet"
+    cfg = gpt2_medium_config(hidden_dropout_prob=0.0,
+                             attention_probs_dropout_prob=0.0)
+    model = GPTForPretraining(cfg, device=dev, seed=args.seed).eval()
+    # what an engine's own copy of the weights costs before and after
+    # int8 (serve_model's model: quantized in place)
+    f32_bytes = sum(t.numel() * t.element_size()
+                    for t in model.state_dict().values())
+    quantize_for_serving(model)
+    rng = np.random.RandomState(args.seed + 21)
+    prompts = [rng.randint(0, cfg.vocab_size, (n,)) for n in FLEET_LENS]
+    knobs = [dict(decode_strategy="sampling", temperature=0.8, top_k=40,
+                  top_p=0.9, seed=40 + i) if i in FLEET_SAMPLED
+             else {"resubmit": True} for i in range(len(prompts))]
+    sampled = set(FLEET_SAMPLED)
+    roll = [rng.randint(0, cfg.vocab_size, (n,)) for n in FLEET_ROLL_LENS]
+
+    def make():
+        return ServingEngine(model, max_slots=SLOTS, max_len=MAX_LEN,
+                             kv="paged", block_size=BLOCK, decode_chunk=4,
+                             device=dev)
+
+    captures = []   # (start, end) of each warmup on this thread
+
+    def warm(eng):
+        t = time.monotonic()
+        rep = eng.warmup()
+        captures.append((t, time.monotonic()))
+        c = rep["compile_counts"]
+        if not rep["captured"] or c["total"] != c["bound"]:
+            fail(f"{tag}: warmup captured {c}")
+        return rep["seconds"]
+
+    def mem():
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    # the plain engine: the uninterrupted streams, then the oracle (its
+    # warmup also makes this thread's capture stream and its workspace)
+    copy_bytes = sum(t.numel() * t.element_size()
+                     for t in model.state_dict().values())
+    plain = make()
+    warm(plain)
+
+    def plain_run(ps, new, kw):
+        t0 = time.perf_counter()
+        resps = [plain.submit(p, max_new_tokens=new,
+                              **{k: v for k, v in kw[i].items()
+                                 if k != "resubmit"})
+                 for i, p in enumerate(ps)]
+        plain.run_until_drained(timeout=600)
+        torch.cuda.synchronize()
+        return [r.tokens(timeout=5) for r in resps], time.perf_counter() - t0
+
+    want, plain_wall = plain_run(prompts, FLEET_NEW, knobs)
+    want_roll, _ = plain_run(roll, FLEET_ROLL_NEW, [{}] * len(roll))
+
+    removed = []    # per removed replica: id, captures after warmup, memory
+    orig_remove = fleet_mod.ReplicaManager.remove
+
+    def remove(self, rid):
+        rep = self.get(rid)
+        if rep is None or rep.state == fleet_mod.DRAINING:
+            return orig_remove(self, rid)   # nothing, or a deferred remove
+        rec = {"id": rid, "pwc": rep.engine.post_warmup_compiles(),
+               "launches": _fleet_launches(rep.engine)}
+        orig_remove(self, rid)
+        rec["mem_after"] = mem()
+        removed.append(rec)
+    fleet_mod.ReplicaManager.remove = remove
+    times = {}     # id(response) -> token arrival times
+    orig_push = Response._push_token
+
+    def timed_push(self, tok, logp=0.0):
+        times.setdefault(id(self), []).append(time.monotonic())
+        orig_push(self, tok, logp)
+    Response._push_token = timed_push
+    crash_at = {}
+    orig_on_crash = fleet_mod.ReplicaManager._on_crash
+
+    def on_crash(self, rep, exc):
+        crash_at.setdefault("t", time.monotonic())
+        crash_at["exc"] = exc
+        orig_on_crash(self, rep, exc)
+    fleet_mod.ReplicaManager._on_crash = on_crash
+    flip_ms, canary_ms, rollback_ms = [], [], []
+    orig_flip = fleet_mod.ReplicaManager._apply_flip
+    fleet_mod.ReplicaManager._apply_flip = _timed(torch, orig_flip, flip_ms)
+    fleet = gw = None
+    pub_dir = _build_dir("fleet_publish")
+    try:
+        m0 = mem()
+        a = make()
+        warm(a)
+        footprint = mem() - m0
+        print(f"{tag}: a replica takes {footprint / 2**30:.3f} GiB of the "
+              f"card, {copy_bytes / 2**30:.3f} GiB of it its own copy of "
+              f"the int8 weights (of the f32 weights it would be "
+              f"{f32_bytes / 2**30:.3f} GiB)")
+        b = make()
+        warm(b)
+        fleet = FleetRouter([a, b])
+        fleet.warmup()
+        del a, b
+        gw = ServingGateway(fleet)
+        gw.start()
+        placed = {}
+
+        def track(rep):
+            orig = rep.engine.try_admit
+
+            def admit(req, resp):
+                ok = orig(req, resp)
+                if ok:
+                    placed[id(resp)] = rep.id
+                return ok
+            rep.engine.try_admit = admit
+        for rep in fleet.manager.replicas():
+            track(rep)
+
+        def wave(ps, new, kw, sessions):
+            return [gw.submit(p, new, tenant="t",
+                              session=sessions.get(i), **kw[i])
+                    for i, p in enumerate(ps)]
+
+        def outcomes(resps, what):
+            try:
+                for r in resps:
+                    r.tokens(timeout=600)
+            except Exception:  # noqa: BLE001 — judged per response below
+                pass
+            if not all(r.done() for r in resps):
+                fail(f"{tag} {what}: a response is not terminal")
+            return [r.tokens_so_far() for r in resps]
+
+        # (1a) the clean wave: routing, affinity, tokens/s
+        torch.cuda.synchronize()
+        im.dequant_matmul.launches = pa.paged_attention.launches = 0
+        t0 = time.perf_counter()
+        clean = wave(prompts, FLEET_NEW, knobs, FLEET_SESSIONS)
+        got = outcomes(clean, "clean wave")
+        torch.cuda.synchronize()
+        fleet_wall = time.perf_counter() - t0
+        if any(r.error is not None for r in clean):
+            fail(f"{tag}: a clean-wave request failed: "
+                 f"{[repr(r.error) for r in clean if r.error]}")
+        splits = _splits(torch, model, dev, prompts, got, want,
+                         f"{tag} clean", sampled=sampled)
+        by_replica = {rid: sum(1 for r in clean if placed[id(r)] == rid)
+                      for rid in (0, 1)}
+        print(f"{tag} [{card}]: 2 replicas, {len(prompts)} requests, "
+              f"{len(prompts) * FLEET_NEW} tokens in {fleet_wall:.3f}s: "
+              f"{len(prompts) * FLEET_NEW / fleet_wall:.1f} tokens/s "
+              f"against one plain engine's "
+              f"{len(prompts) * FLEET_NEW / plain_wall:.1f} on the same "
+              f"{len(prompts)}; placed {by_replica}; splits {splits}")
+
+        # (1b) the same requests, replica 1 lost mid-decode
+        crash = wave(prompts, FLEET_NEW, knobs, FLEET_SESSIONS)
+        deadline = time.monotonic() + 120
+        while min(len(r.tokens_so_far()) for r in crash) < 8:
+            if time.monotonic() > deadline:
+                fail(f"{tag} crash: the wave never reached 8 tokens")
+            time.sleep(0.001)
+        victim = fleet.manager.get(1)
+        faults.enable("replica_crash", f"1:{victim.steps + 3}")
+        got = outcomes(crash, "crash wave")
+        faults.disable("replica_crash")
+        c = fleet.manager.counters()
+        if c["failovers"] != 1 or victim.state != "crashed":
+            fail(f"{tag} crash: {c['failovers']} fences (want the one "
+                 f"injected), replica 1 {victim.state}, cause "
+                 f"{crash_at.get('exc')!r}")
+        if not isinstance(crash_at["exc"], fleet_mod._InjectedReplicaCrash):
+            fail(f"{tag} crash: a crash not injected: {crash_at['exc']!r}")
+        lost = [i for i, r in enumerate(crash)
+                if isinstance(r.error, ReplicaLostError)]
+        for i, r in enumerate(crash):
+            on_victim = placed[id(r)] == 1
+            if i in sampled and on_victim:
+                if i not in lost:
+                    fail(f"{tag} crash: sampled request {i} on the lost "
+                         f"replica ended {r.error!r}")
+            elif r.error is not None:
+                fail(f"{tag} crash: request {i} failed: {r.error!r}")
+        for resps in (clean, crash):
+            for sess in set(FLEET_SESSIONS.values()):
+                if len({placed[id(resps[i])] for i, v in
+                        FLEET_SESSIONS.items() if v == sess}) != 1:
+                    fail(f"{tag}: session {sess} left its replica while "
+                         "it lived")
+        keep = [i for i in range(len(prompts)) if i not in lost]
+        splits = _splits(torch, model, dev, [prompts[i] for i in keep],
+                         [got[i] for i in keep], [want[i] for i in keep],
+                         f"{tag} crash",
+                         sampled={k for k, i in enumerate(keep)
+                                  if i in sampled})
+        resubmitted = [i for i, r in enumerate(crash)
+                       if placed[id(r)] == 1 and i not in sampled]
+        first = min(t for i in resubmitted for t in times[id(crash[i])]
+                    if t > crash_at["t"])
+        print(f"{tag} crash [{card}]: replica 1 lost at its step "
+              f"{victim.steps - 1}; {c['resubmits']} runs resubmitted "
+              f"({resubmitted}), {len(lost)} lost ({lost}, "
+              f"ReplicaLostError), {c['reroutes']} re-routed; first token "
+              f"after the crash {(first - crash_at['t']) * 1e3:.1f} ms "
+              f"later; streams equal the plain engine's but {splits}")
+
+        # the crashed replica goes, a fresh one comes
+        before = mem()
+        fleet.remove(1)
+        freed = before - removed[-1]["mem_after"]
+        boot = make()
+        idle_boot_s = warm(boot)
+        track(fleet.manager.get(fleet.add_replica(boot)))
+        fleet.manager.refresh_warm_marks()
+        del boot
+        print(f"{tag}: removing the crashed replica freed "
+              f"{freed / 2**30:.3f} GiB (a replica: "
+              f"{footprint / 2**30:.3f}); its replacement captured in "
+              f"{idle_boot_s:.3f}s with no traffic")
+        if abs(freed - footprint) > MEM_TOL * footprint:
+            fail(f"{tag}: the crashed replica's remove freed {freed} "
+                 f"bytes, its footprint is {footprint}")
+
+        # (2) rollout under traffic
+        migrate_ms = []
+        mig = fleet_mod.ReplicaManager._migrate_residents
+
+        def timed_migrate(self, rep):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            n0 = self._n["migrated"]
+            did = mig(self, rep)
+            n = self._n["migrated"] - n0
+            if n:
+                torch.cuda.synchronize()
+                migrate_ms.append((time.perf_counter() - t) * 1e3 / n)
+            return did
+        fleet_mod.ReplicaManager._migrate_residents = timed_migrate
+        boots, mems = [], []
+
+        def factory():
+            mems.append(mem())
+            eng = make()
+            boots.append(warm(eng))
+            return eng
+
+        n_caps = len(captures)
+        drained = []     # (replica, its residents when its drain began)
+        orig_drain = fleet.drain
+
+        def drain(rid):
+            drained.append((rid, fleet.manager.get(rid).engine.scheduler
+                            .occupancy()))
+            orig_drain(rid)
+        fleet.drain = drain
+        # the wave's 8 prompts go on arriving (FLEET_ROLL_INFLIGHT kept
+        # unfinished) until the rollout returns: every boot captures
+        # under traffic and every drain finds residents mid-decode
+        roll_resps, which = [], []
+        rolled = threading.Event()
+
+        def keep_up():
+            while not rolled.is_set():
+                if sum(not r.done() for r in roll_resps) \
+                        < FLEET_ROLL_INFLIGHT:
+                    i = len(roll_resps) % len(roll)
+                    roll_resps.extend(wave([roll[i]], FLEET_ROLL_NEW,
+                                           [{}], {}))
+                    which.append(i)
+                else:
+                    time.sleep(0.002)
+
+        feeder = threading.Thread(target=keep_up, name="fleet-feeder")
+        feeder.start()
+        try:
+            deadline = time.monotonic() + 120
+            while len(roll_resps) < FLEET_ROLL_INFLIGHT or min(
+                    len(r.tokens_so_far()) for r in roll_resps) < 8:
+                if time.monotonic() > deadline:
+                    fail(f"{tag} rollout: the wave never reached 8 tokens")
+                time.sleep(0.001)
+            old_ids = [r.id for r in fleet.manager.replicas(("healthy",))]
+            new_ids = fleet.rollout(factory)
+        finally:
+            rolled.set()
+            feeder.join()
+        fleet.drain = orig_drain
+        fleet_mod.ReplicaManager._migrate_residents = mig
+        for rid in new_ids:
+            track(fleet.manager.get(rid))
+        got = outcomes(roll_resps, "rollout wave")
+        if any(r.error is not None for r in roll_resps):
+            fail(f"{tag} rollout: dropped "
+                 f"{[repr(r.error) for r in roll_resps if r.error]}")
+        splits = _splits(torch, model, dev, [roll[i] for i in which], got,
+                         [want_roll[i] for i in which], f"{tag} rollout")
+        moved = sum(r.request.migrations for r in roll_resps)
+        if moved < 1:
+            fail(f"{tag} rollout: no run migrated mid-decode (residents at "
+                 f"each drain {drained}, boots {boots} s)")
+        olds = [r for r in removed if r["id"] in old_ids]
+        if any(r["pwc"] != 0 for r in olds):
+            fail(f"{tag} rollout: captures after warmup on the old "
+                 f"replicas {[r['pwc'] for r in olds]}")
+        drift = [r["mem_after"] - m for r, m in zip(olds, mems)]
+        if any(abs(d) > MEM_TOL * footprint for d in drift):
+            fail(f"{tag} rollout: memory after a remove differs from its "
+                 f"level before the matching boot by {drift} bytes")
+        windows = captures[n_caps:]
+        inside, outside = [], []
+        for r in roll_resps:
+            ts = times.get(id(r), [])
+            for t_a, t_b in zip(ts, ts[1:]):
+                hit = any(t_a < e and t_b > s for s, e in windows)
+                (inside if hit else outside).append(t_b - t_a)
+        print(f"{tag} rollout [{card}]: {len(old_ids)} replicas replaced "
+              f"under traffic; boots captured in "
+              f"{[round(x, 3) for x in boots]} s; residents at each drain "
+              f"{drained}; {moved} runs migrated "
+              f"mid-decode at {np.mean(migrate_ms):.1f} ms each (preempt + "
+              f"encode + decode + restore; max {max(migrate_ms):.1f}); "
+              f"inter-token p99 {_p99(inside):.1f} ms during the captures "
+              f"({len(inside)} gaps) against {_p99(outside):.1f} ms outside "
+              f"({len(outside)}); memory after each remove minus before its "
+              f"boot {[round(d / 2**20, 1) for d in drift]} MiB; "
+              f"{len(got) - len(splits)} of {len(got)} streams equal, "
+              f"splits {splits}; nothing dropped")
+
+        # (3) refresh
+        refresher = FleetRefresher(fleet, pub_dir, plain,
+                                   canary_prompts=[p[:64] for p in
+                                                   prompts[:2]],
+                                   canary_max_new_tokens=32,
+                                   flip_timeout_s=120.0,
+                                   canary_timeout_s=120.0)
+        refresher._replica_tokens = _timed(torch, refresher._replica_tokens,
+                                           canary_ms)
+        refresher._rollback_canary = _timed(
+            torch, refresher._rollback_canary, rollback_ms)
+        publisher = WeightPublisher(pub_dir)
+
+        def publish(seed):
+            new = quantize_for_serving(GPTForPretraining(
+                cfg, device=dev, seed=seed).eval())
+            t = time.perf_counter()
+            pub = publisher.publish(model=new)
+            del new
+            torch.cuda.empty_cache()
+            return pub, time.perf_counter() - t
+
+        def shas():
+            return [r.engine.weights_sha
+                    for r in fleet.manager.replicas(("healthy",))]
+
+        def converge(sha, what):
+            deadline = time.monotonic() + 300
+            while True:
+                refresher.poll()
+                if shas() == [sha, sha]:
+                    return
+                if time.monotonic() > deadline:
+                    fail(f"{tag} refresh: {what} never converged "
+                         f"({refresher.status()})")
+                time.sleep(0.01)
+
+        good, pub_s = publish(args.seed + 1)
+        converge(good["sha256"], "the good publish")
+        canary = [plain.submit(p[:64], max_new_tokens=32)
+                  for p in prompts[:2]]
+        plain.run_until_drained(timeout=120)
+        oracle_streams = [r.tokens(timeout=5) for r in canary]
+        for rep in fleet.manager.replicas(("healthy",)):
+            resps = []
+            for p in prompts[:2]:
+                req, resp = rep.engine.make_request(p[:64], 32)
+                rep.engine.scheduler.submit(req, resp)
+                resps.append(resp)
+            fleet._work.set()
+            if [r.tokens(timeout=120) for r in resps] != oracle_streams:
+                fail(f"{tag} refresh: replica {rep.id}'s canary streams "
+                     "differ from the oracle's")
+        if fleet.post_warmup_compiles() != 0:
+            fail(f"{tag} refresh: a capture after the flip")
+        faults.enable("publish_corrupt", "1")
+        bad, _ = publish(args.seed + 2)
+        faults.disable("publish_corrupt")
+        refresher.poll()
+        st = refresher.status()
+        if bad["sha256"] not in st["quarantined"] or \
+                shas() != [good["sha256"]] * 2:
+            fail(f"{tag} refresh: the corrupt publish was not quarantined "
+                 f"({st})")
+        faults.enable("canary_diverge")
+        div, _ = publish(args.seed + 3)
+        refresher.poll()
+        faults.disable("canary_diverge")
+        converge(good["sha256"], "the rollback")
+        st = refresher.status()
+        c = fleet.manager.counters()
+        if div["sha256"] not in st["quarantined"] or c["rollbacks"] != 2:
+            fail(f"{tag} refresh: the diverging canary was not rolled back "
+                 f"({st}, {c['rollbacks']} rollbacks)")
+        status, _, body = gw.handle("GET", "/healthz")
+        health = json.loads(body)
+        if status != 200 or health["fleet"]["routable_verified"] != 2:
+            fail(f"{tag} refresh: /healthz {status}, fleet "
+                 f"{health['fleet']['routable_verified']} verified")
+        if fleet.post_warmup_compiles() != 0:
+            fail(f"{tag} refresh: a capture after a flip")
+        print(f"{tag} refresh [{card}]: publish {pub_s:.2f}s "
+              f"({os.path.getsize(good['path']) / 2**30:.3f} GiB npz); "
+              f"{c['weight_refreshes']} flips at {np.mean(flip_ms):.1f} ms "
+              f"each (max {max(flip_ms):.1f}); canary "
+              f"{np.mean(canary_ms):.1f} ms (2 x 32 tokens); rollback "
+              f"{np.mean(rollback_ms):.1f} ms; quarantined "
+              f"{sorted(v for v in st['quarantined'].values())}; /healthz "
+              f"{status}, routable_verified 2; no capture after warmup")
+
+        # (4) the autoscaler, from one replica
+        def wait_removed(n, what):
+            # the drain's end removes the replica on the gateway's thread
+            deadline = time.monotonic() + 120
+            while len(removed) < n:
+                if time.monotonic() > deadline:
+                    fail(f"{tag} autoscale: {what} never left")
+                time.sleep(0.005)
+
+        rid = fleet.manager.replicas(("healthy",))[0].id
+        fleet.drain(rid)
+        fleet.remove(rid)
+        wait_removed(len(removed) + 1, "the drained replica")
+        with np.load(good["path"]) as z:
+            state = {k: z[k] for k in z.files}
+
+        def spawn():
+            eng = make()
+            warm(eng)
+            eng.swap_weights(state, good["sha256"])
+            new_id = fleet.add_replica(eng)
+            track(fleet.manager.get(new_id))
+            return new_id
+
+        asc = Autoscaler(fleet, gw.scale_signals, spawn, min_replicas=1,
+                         max_replicas=2, scale_up_est_wait_s=0.05,
+                         breach_ticks=2, idle_ticks=2, cooldown_s=0.0,
+                         _clock=lambda: 0.0)
+        burst = wave(prompts + prompts[:8], FLEET_NEW,
+                     knobs + knobs[:8], {})
+        acts = []
+        t = time.perf_counter()
+        while "up" not in acts and time.perf_counter() - t < 30:
+            acts.append(asc.tick())
+        up_s = time.perf_counter() - t
+        # after the scale-up, traffic reaches the new replica too
+        burst += wave(prompts, FLEET_NEW, knobs, {})
+        outcomes(burst, "burst")
+        if any(r.error is not None for r in burst):
+            fail(f"{tag} autoscale: a burst request failed")
+        spread = {rid: sum(1 for r in burst[-len(prompts):]
+                           if placed[id(r)] == rid)
+                  for rid in (r.id for r in fleet.manager.replicas())}
+        n_removed = len(removed)
+        t = time.perf_counter()
+        while "down" not in acts and time.perf_counter() - t < 30:
+            acts.append(asc.tick())
+            time.sleep(0.01)
+        wait_removed(n_removed + 1, "the retired replica")
+        c = fleet.manager.counters()
+        if (c["scale_up"], c["scale_down"]) != (1, 1):
+            fail(f"{tag} autoscale: actions {acts}, counters {c}")
+        print(f"{tag} autoscale [{card}]: 1 -> 2 -> 1 replicas on a burst "
+              f"of {len(burst)} requests (scale-up decided and booted in "
+              f"{up_s:.2f}s under traffic, the capture included; the next "
+              f"{len(prompts)} placed {spread}; the retirement a drain); "
+              f"actions {[a for a in acts if a]}")
+
+        # launches over the phase
+        launches = {"int8_matmul": im.dequant_matmul.launches,
+                    "paged_attention": pa.paged_attention.launches}
+        for name, n in launches.items():
+            if n <= 0:
+                fail(f"{tag}: kernel {name} was not launched")
+        per = {r["id"]: r["launches"] for r in removed}
+        for rep in fleet.manager.replicas():
+            per[rep.id] = _fleet_launches(rep.engine)
+        if any(v["paged_attention"] <= 0 or v["int8_matmul"] <= 0
+               for v in per.values()):
+            fail(f"{tag}: a replica launched no K3 / K4: {per}")
+        print(f"{tag}: launches over the phase {launches}; per replica "
+              f"through its replays {per}; plain engine / oracle "
+              f"{_fleet_launches(plain)}")
+    finally:
+        faults.reset()
+        Response._push_token = orig_push
+        fleet_mod.ReplicaManager.remove = orig_remove
+        fleet_mod.ReplicaManager._on_crash = orig_on_crash
+        fleet_mod.ReplicaManager._apply_flip = orig_flip
+        if gw is not None:
+            gw.close()   # closes the fleet: every replica's memory freed
+        plain.close()
+        plain._free_device()
+        shutil.rmtree(pub_dir, ignore_errors=True)
+
+
 def predictor_phase(torch, args, dev, card):
     """The one-shot Predictor over an exported BERT-large sequence
     classifier (bert_large_config(vocab_size=30528,
@@ -4314,6 +4921,10 @@ def main():
     torch.cuda.empty_cache()
     if want("gateway"):
         gateway_phase(torch, args, dev, card)
+    torch.cuda.empty_cache()
+    if want("fleet"):
+        fleet_phase(torch, args, dev, card)
+        gc.collect()   # the phase's engines and their patched methods cycle
     if want("serve_bf16") or want("spec_bf16"):
         model = serve_model(torch, args, dev, torch.bfloat16)
         if want("serve_bf16"):

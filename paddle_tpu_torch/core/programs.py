@@ -20,6 +20,15 @@ output tensors, which the next replay overwrites.  Elsewhere ``run`` calls
   to the program registry: ``made(seconds)`` (after its capture, or when
   the CPU builds it) counts one compile with its input and output bytes,
   and every ``run`` one replay.  Nothing of it reads a device value.
+- **Captures beside replays.** A fleet boots a replica (captures its
+  programs) on one thread while another thread replays other engines'
+  graphs.  So a capture runs in ``"thread_local"`` mode (the replaying
+  thread's host reads and synchronizes stay legal during it), and the
+  launch counters change only under one lock: a capture takes back what
+  its own thread counted, never what a replay elsewhere added meanwhile.
+  ``replays`` counts a program's replays (a replica's launches are
+  ``replays`` times its graphs' counts).  Each thread captures on one
+  side stream of its own.
 - **Generators.** A program that draws from a generator (``generator=``)
   registers it with its graph, so that each replay advances the
   generator's Philox offset as an eager run would; its recompute regions'
@@ -30,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -52,6 +62,24 @@ def counters():
             + [(fbn.bn_pool_apply.routes, r) for r in ("ring", "window")]
             + [(e, "relayouts") for e in (fbn.bn_act_train, fbn.bn2_act_train,
                                           fbn.bn_act_pool_train)])
+
+
+# guards the launch counters' read-modify-write by replays and captures;
+# _ledgers holds, per capture underway, what replays added meanwhile
+_count_lock = threading.Lock()
+_ledgers = []
+_tls = threading.local()   # per-thread capture streams
+
+
+def _side_stream():
+    """This thread's capture stream on the current device, made once: a
+    library's per-stream state made by a warm run (cuBLAS's workspace) is
+    then made once per thread, not once per capture."""
+    streams = _tls.__dict__.setdefault("streams", {})
+    dev = torch.cuda.current_device()
+    if dev not in streams:
+        streams[dev] = torch.cuda.Stream()
+    return streams[dev]
 
 
 def _get(owner, key) -> int:
@@ -77,6 +105,7 @@ class Program:
         self.graph = None
         self.outputs = None
         self.launches = []   # ((owner, key), counts per replay)
+        self.replays = 0     # graph replays (captured runs)
         self.marks = (None if generator is None
                       else _rng.ProgramMarks(generator))
         self.tracked_as = None        # registry name (observability.track)
@@ -89,7 +118,7 @@ class Program:
         pool ``pool``.  Whatever ``fn`` writes, the warm run writes for
         real; a caller that must not see it restores it."""
         marks = self.marks
-        side = torch.cuda.Stream()
+        side = _side_stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side), (
                 marks.recording() if marks else contextlib.nullcontext()):
@@ -98,7 +127,10 @@ class Program:
         if marks:
             marks.register(graph)
         counted = counters()
-        base = [_get(o, k) for o, k in counted]
+        ledger = {(id(o), k): 0 for o, k in counted}
+        with _count_lock:
+            base = [_get(o, k) for o, k in counted]
+            _ledgers.append(ledger)
         # an unreachable graph that the collector frees during the capture
         # (a step and its programs' bound methods are a cycle) would
         # destroy a graph mid-capture, which invalidates the capture
@@ -106,18 +138,21 @@ class Program:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=pool, stream=side), (
+            with torch.cuda.graph(graph, pool=pool, stream=side,
+                                  capture_error_mode="thread_local"), (
                     marks.capturing() if marks
                     else contextlib.nullcontext()):
                 outputs = self.fn(**self.inputs)
-            moved = [((o, k), _get(o, k) - b)
-                     for (o, k), b in zip(counted, base)]
-            self.launches = [(c, n) for c, n in moved if n]
         finally:
             if collecting:
                 gc.enable()
-            for (o, k), b in zip(counted, base):
-                _add(o, k, b - _get(o, k))
+            with _count_lock:
+                _ledgers.remove(ledger)
+                moved = [((o, k), _get(o, k) - b - ledger[(id(o), k)])
+                         for (o, k), b in zip(counted, base)]
+                for (o, k), n in moved:
+                    _add(o, k, -n)
+        self.launches = [(c, n) for c, n in moved if n]
         torch.cuda.current_stream().wait_stream(side)
         self.graph, self.outputs = graph, outputs
 
@@ -153,8 +188,12 @@ class Program:
             if self.marks:
                 self.marks.position()
             self.graph.replay()
-            for (owner, key), n in self.launches:
-                _add(owner, key, n)
+            with _count_lock:
+                self.replays += 1
+                for (owner, key), n in self.launches:
+                    _add(owner, key, n)
+                    for ledger in _ledgers:
+                        ledger[(id(owner), key)] += n
             out = self.outputs
         if self._replays is not None:
             self._note_run(out)

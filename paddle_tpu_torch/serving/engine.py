@@ -83,7 +83,9 @@
 - **Weight swap** (``swap_weights``): a state dict of the same keys and
   shapes is cast to the served dtypes and copied in place into the
   parameters and buffers the captured graphs read; nothing is captured
-  again.
+  again.  Those are the engine's own copy of the model (reference: the
+  engine's own ``_state``), so a swap changes no other engine built on
+  the same model and not the model itself.
 - **Batched LoRA** (``lora=LoRAConfig(...)``, fixed and paged): forward
   hooks on the target linears (``lora.attach_serving_lora``, attached
   before the programs are made) add each slot's adapter delta; the
@@ -125,6 +127,7 @@ anything but None raises ``UnimplementedError``.
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 import math
 import threading
@@ -351,7 +354,11 @@ class ServingEngine:
     turns on speculative decoding with ``spec_tokens`` proposals per
     tick.  ``lora`` (a ``lora.LoRAConfig``) serves batched LoRA adapters
     on the model (``load_adapter``, ``submit(adapter=)``); it hooks the
-    model's target linears for good.  ``profile=True`` opens the
+    target linears of the engine's copy for good.  The engine serves a
+    copy of its own of ``model`` (and of ``draft_model``), made at
+    construction on its device: ``swap_weights`` writes that copy, so the
+    model passed in and every other engine built on it are left alone.
+    ``profile=True`` opens the
     engine's spans (module docstring).  The parameters are the
     reference's, in its order, then ``device``; ``mesh`` and
     ``program_set`` take None only."""
@@ -380,6 +387,12 @@ class ServingEngine:
                 raise InvalidArgumentError(
                     f"engine on {self.device}, but the {role} lives on "
                     f"{m.device}")
+        # weights of its own, bound to every program: a swap writes them
+        # in place, never the caller's model or another engine's
+        with torch.no_grad():
+            model = copy.deepcopy(model)
+            if draft_model is not None:
+                draft_model = copy.deepcopy(draft_model)
         self.model = model
         self.max_slots = int(max_slots)
         self.max_len = int(max_len)
@@ -1828,6 +1841,22 @@ class ServingEngine:
                 self._thread = None
             self._abort_all(lambda req: RequestCancelled(
                 f"request {req.id} aborted: serving engine closed"))
+
+    def _free_device(self):
+        """Drop every device tensor of a closed engine: its programs (the
+        CUDA graphs and the outputs in their memory pool), KV pools,
+        weight copies and adapter stacks, so that its card memory returns
+        while the engine object may still be referenced (a fleet's
+        ``remove``).  The engine serves nothing afterwards."""
+        if not self._closed:
+            raise InvalidArgumentError("only a closed engine can be released")
+        self._programs = {}
+        self._graph_pool = None
+        self._pool_store = self._pools = None
+        self._draft_store = None
+        self.model = self.draft_model = None
+        if self._lora_reg is not None:
+            self._lora_reg.stacks = self._lora_reg.scales = None
 
     @property
     def warm(self) -> bool:

@@ -855,6 +855,21 @@ class ServingGateway:
                 # graph is not saved): the section of a store that is off
                 from ..observability.exporters import program_store_stats
                 pstore = program_store_stats()
+                # a fleet-fronted gateway aggregates per-replica health
+                # (state, warm, step EWMA, heartbeat age, post-warmup
+                # captures, served weights_sha) and the routable count:
+                # whether this front door still has capacity behind it
+                health_fn = getattr(self.engine, "health", None)
+                fleet = health_fn() if callable(health_fn) else None
+                if fleet is not None and (
+                        fleet["routable"] == 0
+                        # replicas up, but none serves canary-verified
+                        # weights (mid-rollback, or a bad publish)
+                        or fleet["routable_verified"] == 0
+                        # every routable replica's heartbeat is stale:
+                        # the driving loop itself stalled
+                        or fleet["all_routable_stale"]):
+                    status = 503
                 # prefix-cache effectiveness
                 pc = getattr(self.engine, "prefix_cache", None)
                 prefix = pc.stats() if pc is not None else None
@@ -865,8 +880,7 @@ class ServingGateway:
                 lora = reg.stats() if reg is not None else None
                 return status, "application/json", json.dumps({
                     "ok": status == 200,
-                    # no fleet fronts the port's gateway yet
-                    "fleet": None,
+                    "fleet": fleet,
                     "prefix_cache": prefix,
                     "lora": lora,
                     # readiness: warm=True means every serving program is

@@ -1,6 +1,7 @@
-"""Fault injection for the serving engine, the training step and the LoRA
-artifacts (the paged-KV, speculative, poisoned-logits, slow-decode,
-adapter and poisoned-gradient knobs of paddle_tpu/utils/faults.py).
+"""Fault injection for the serving engine, the training step, the LoRA
+artifacts, the serving fleet and its weight refresh (the paged-KV,
+speculative, poisoned-logits, slow-decode, adapter, poisoned-gradient,
+replica and publish knobs of paddle_tpu/utils/faults.py).
 
 A knob is armed by ``enable(point, value)`` or by its environment
 variable.  The KV knobs are read live at every use (host-side bookkeeping
@@ -64,6 +65,26 @@ captured step with the window armed replays with no host read:
                 True)`` that step is skipped on the device.
                 Env: PDTPU_FAULT_NAN_GRADS="k" or "a:b".
 
+The fleet's and the weight refresh's knobs are host-side and read live
+(``serving/fleet.py``, ``serving/refresh.py``):
+
+  replica_crash the fleet's replica ``replica`` dies abruptly at its step
+                ``tick`` (0-based, counted per replica): the manager
+                raises before the engine steps, as a SIGKILL would leave
+                it.  Env: PDTPU_FAULT_REPLICA_CRASH="replica:tick".
+  replica_slow  the manager sleeps ``ms`` before every ``every_n``-th
+                step of replica ``replica`` (of every replica when no
+                index is given): a brownout that the step-time health
+                sees.  Env: PDTPU_FAULT_REPLICA_SLOW="ms[:every_n[:replica]]".
+  publish_corrupt the n-th weight publish of this process (1-based) is
+                truncated and bit-flipped on disk AFTER its atomic rename;
+                its manifest keeps the good sha, so the refresher's
+                artifact gate must catch it.
+                Env: PDTPU_FAULT_PUBLISH_CORRUPT="n".
+  canary_diverge while armed, the refresher's canary comparison fails
+                whatever the streams: the rollback drill.
+                Env: PDTPU_FAULT_CANARY_DIVERGE="1".
+
 ``enable`` mirrors the value into ``os.environ`` (subprocesses inherit
 it); ``get`` reads this module's registry first, then the environment.
 """
@@ -81,7 +102,9 @@ __all__ = ["enable", "disable", "reset", "get", "kv_exhaust_cap",
            "nan_logits_request", "poison_logits", "slow_decode_config",
            "maybe_slow_decode", "adapter_corrupt_n",
            "maybe_corrupt_adapter_read", "nan_grads_window",
-           "poison_grads"]
+           "poison_grads", "replica_crash_config", "replica_slow_config",
+           "maybe_slow_replica", "publish_corrupt_n",
+           "maybe_corrupt_publish", "canary_diverge"]
 
 _ENV = {"kv_exhaust": "PDTPU_FAULT_KV_EXHAUST",
         "prefix_evict": "PDTPU_FAULT_PREFIX_EVICT",
@@ -89,11 +112,16 @@ _ENV = {"kv_exhaust": "PDTPU_FAULT_KV_EXHAUST",
         "nan_logits": "PDTPU_FAULT_NAN_LOGITS",
         "slow_decode": "PDTPU_FAULT_SLOW_DECODE",
         "adapter_corrupt": "PDTPU_FAULT_ADAPTER_CORRUPT",
-        "nan_grads": "PDTPU_FAULT_NAN_GRADS"}
+        "nan_grads": "PDTPU_FAULT_NAN_GRADS",
+        "replica_crash": "PDTPU_FAULT_REPLICA_CRASH",
+        "replica_slow": "PDTPU_FAULT_REPLICA_SLOW",
+        "publish_corrupt": "PDTPU_FAULT_PUBLISH_CORRUPT",
+        "canary_diverge": "PDTPU_FAULT_CANARY_DIVERGE"}
 
 _lock = threading.Lock()
 _registry = {}   # point -> raw config string
 _adapter_counter = {"n": 0}   # adapter_corrupt counts reads per process
+_publish_counter = {"n": 0}   # publish_corrupt counts publishes per process
 
 
 def enable(point: str, value="1"):
@@ -113,11 +141,12 @@ def disable(point: str):
 
 
 def reset():
-    """Disarm every fault and zero the per-process read counter."""
+    """Disarm every fault and zero the per-process counters."""
     for point in _ENV:
         disable(point)
     with _lock:
         _adapter_counter["n"] = 0
+        _publish_counter["n"] = 0
 
 
 def get(point: str) -> Optional[str]:
@@ -242,3 +271,79 @@ def poison_grads(grads, step_no, window: Tuple[int, int]):
                              torch.ones((), dtype=g.dtype, device=g.device))
         out[k] = g * factor
     return out
+
+
+def replica_crash_config() -> Optional[Tuple[int, int]]:
+    """(replica index, tick) at which that fleet replica dies, or None
+    when disarmed (read live at every replica step)."""
+    raw = get("replica_crash")
+    if not raw:
+        return None
+    replica, tick = raw.split(":", 1)
+    return int(replica), int(tick)
+
+
+def replica_slow_config() -> Optional[Tuple[float, int, Optional[int]]]:
+    """(sleep ms, every_n, replica or None: every replica), or None when
+    disarmed (read live at every replica step)."""
+    raw = get("replica_slow")
+    if not raw:
+        return None
+    parts = raw.split(":", 2)
+    every = int(parts[1]) if len(parts) >= 2 else 1
+    replica = int(parts[2]) if len(parts) == 3 else None
+    return float(parts[0]), max(1, every), replica
+
+
+def maybe_slow_replica(replica_idx: int, step_no: int) -> float:
+    """Sleep before step ``step_no`` (0-based) of replica ``replica_idx``
+    when replica_slow is armed, targets it (or every replica) and the step
+    is on its stride; returns the seconds slept."""
+    cfg = replica_slow_config()
+    if cfg is None:
+        return 0.0
+    ms, every, target = cfg
+    if (target is not None and target != replica_idx) or step_no % every:
+        return 0.0
+    secs = ms / 1000.0
+    time.sleep(secs)
+    return secs
+
+
+def publish_corrupt_n() -> Optional[int]:
+    """Which weight publish (1-based, per process) to corrupt, or None."""
+    raw = get("publish_corrupt")
+    return None if not raw else int(raw)
+
+
+def maybe_corrupt_publish(path: str) -> bool:
+    """Called by ``WeightPublisher`` after the atomic rename made the
+    artifact at ``path`` visible: counts publishes while armed and, on the
+    armed one, truncates the file to 70% and flips its middle byte in
+    place.  Returns whether it fired."""
+    n = publish_corrupt_n()
+    if n is None:
+        return False
+    with _lock:
+        _publish_counter["n"] += 1
+        cnt = _publish_counter["n"]
+    if cnt != n:
+        return False
+    try:
+        keep = max(1, int(os.path.getsize(path) * 0.7))
+        with open(path, "r+b") as f:
+            f.truncate(keep)
+            pos = max(0, keep // 2)
+            f.seek(pos)
+            b = f.read(1)
+            f.seek(pos)
+            f.write(bytes([b[0] ^ 0xFF]) if b else b"\xff")
+    except OSError:
+        pass  # a vanished file is corrupt too
+    return True
+
+
+def canary_diverge() -> bool:
+    """True while armed: the refresher's canary gate reports a mismatch
+    whatever the streams."""
+    return bool(get("canary_diverge"))

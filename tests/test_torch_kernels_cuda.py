@@ -1493,7 +1493,7 @@ def test_spec_verify_logits_match_the_plain_path_on_the_cpu(cuda):
 def test_swap_weights_on_a_captured_engine(cuda):
     """A captured engine swapped to another draw of the weights serves
     the new weights (streams equal a fresh captured engine's on them),
-    in place, with nothing captured again."""
+    in place in its own copy of the model, with nothing captured again."""
     from paddle_tpu_torch.serving import ServingEngine
     model = _serving_model(cuda, torch.float32)
     new = _serving_model(cuda, torch.float32, seed=4)
@@ -1501,9 +1501,12 @@ def test_swap_weights_on_a_captured_engine(cuda):
     eng.warmup()
     _traffic(eng)
     eng.run_until_drained(timeout=300)
-    ptrs = [t.data_ptr() for t in model.state_dict().values()]
+    served = eng.model.state_dict()
+    ptrs = [t.data_ptr() for t in served.values()]
     eng.swap_weights({k: t.clone() for k, t in new.state_dict().items()})
-    assert [t.data_ptr() for t in model.state_dict().values()] == ptrs
+    assert [t.data_ptr() for t in served.values()] == ptrs
+    for k, t in new.state_dict().items():
+        assert torch.equal(served[k], t), k
     got = [r for r in _traffic(eng)]
     eng.run_until_drained(timeout=300)
     fresh = ServingEngine(new, kv="paged", device=cuda, **ENGINE)
@@ -1513,6 +1516,165 @@ def test_swap_weights_on_a_captured_engine(cuda):
     assert [r.tokens(timeout=5) for r in got] == \
         [r.tokens(timeout=5) for r in want]
     assert eng.post_warmup_compiles() == 0
+
+
+def _greedy(eng, prompts, n=24):
+    resps = [eng.submit(p, max_new_tokens=n) for p in prompts]
+    eng.run_until_drained(timeout=300)
+    return [r.tokens(timeout=5) for r in resps]
+
+
+FLEET_PROMPTS = [np.random.RandomState(i).randint(0, 1024, (n,))
+                 for i, n in enumerate((5, 17, 33, 9, 50, 12, 40, 3))]
+
+
+def test_swap_on_a_captured_engine_leaves_its_peer_and_the_model(cuda):
+    """Two captured engines over one model: a swap on one leaves the
+    other's streams, and the model's tensors, unchanged; nothing is
+    captured on either."""
+    from paddle_tpu_torch.serving import ServingEngine
+    model = _serving_model(cuda, torch.float32)
+    new = _serving_model(cuda, torch.float32, seed=4)
+    kept = {k: t.clone() for k, t in model.state_dict().items()}
+    a, b = (ServingEngine(model, kv="paged", device=cuda, **ENGINE)
+            for _ in range(2))
+    a.warmup()
+    b.warmup()
+    before = _greedy(b, FLEET_PROMPTS[:4])
+    a.swap_weights({k: t.clone() for k, t in new.state_dict().items()})
+    assert _greedy(b, FLEET_PROMPTS[:4]) == before
+    for k, t in model.state_dict().items():
+        assert torch.equal(t, kept[k]), k
+    fresh = ServingEngine(new, kv="paged", device=cuda, **ENGINE)
+    fresh.warmup()
+    assert _greedy(a, FLEET_PROMPTS[:4]) == _greedy(fresh, FLEET_PROMPTS[:4])
+    assert a.post_warmup_compiles() == b.post_warmup_compiles() == 0
+
+
+def test_captured_fleet_failover_and_migration_streams(cuda):
+    """A captured two-replica fleet over one model: greedy streams
+    resubmitted off a crashed replica, and streams migrated mid-decode off
+    a drained one, equal an uninterrupted engine's with the same options;
+    the crash count is the one injected."""
+    from paddle_tpu_torch.serving import FleetRouter, ServingEngine
+    from paddle_tpu_torch.utils import faults
+    model = _serving_model(cuda, torch.float32)
+
+    def make():
+        return ServingEngine(model, kv="paged", device=cuda, **ENGINE)
+
+    solo = make()
+    solo.warmup()
+    want = _greedy(solo, FLEET_PROMPTS)
+    fleet = FleetRouter([make(), make()])
+    fleet.warmup()
+    try:
+        resps = [fleet.submit(p, 24, resubmit=True) for p in FLEET_PROMPTS]
+        for _ in range(3):
+            fleet.step()
+        faults.enable("replica_crash", f"1:{fleet.manager.get(1).steps}")
+        fleet.run_until_drained(timeout=300)
+        faults.reset()
+        assert [r.tokens(timeout=5) for r in resps] == want
+        c = fleet.manager.counters()
+        assert c["failovers"] == 1 and c["resubmits"] >= 1
+        assert c["lost"] == 0
+        fleet.add_replica(make())
+        fleet.warmup()
+        pinned = [fleet.submit(p, 24, session="pin")
+                  for p in FLEET_PROMPTS[:4]]
+        for _ in range(3):
+            fleet.step()
+        (rid,) = {r.id for r in fleet.manager.replicas(("healthy",))
+                  if r.engine.scheduler.occupancy()}
+        fleet.drain(rid)
+        fleet.run_until_drained(timeout=300)
+        assert [r.tokens(timeout=5) for r in pinned] == want[:4]
+        assert all(r.request.migrations == 1 for r in pinned)
+        assert fleet.manager.counters()["failovers"] == 1
+        assert fleet.post_warmup_compiles() == 0
+    finally:
+        faults.reset()
+        fleet.close()
+
+
+def test_a_replica_boots_while_another_replays(cuda):
+    """The fleet's loop replays one replica's graphs while this thread
+    captures a second replica's: no error, no request dropped, no crash,
+    every stream equal to an uninterrupted engine's."""
+    import threading
+
+    from paddle_tpu_torch.serving import FleetRouter, ServingEngine
+    model = _serving_model(cuda, torch.float32)
+
+    def make():
+        return ServingEngine(model, kv="paged", device=cuda, **ENGINE)
+
+    solo = make()
+    solo.warmup()
+    want = _greedy(solo, FLEET_PROMPTS, n=64)
+    fleet = FleetRouter([make()])
+    fleet.warmup()
+    resps = []
+
+    def submitter():
+        for p in FLEET_PROMPTS:
+            resps.append(fleet.submit(p, 64))
+            threading.Event().wait(0.02)
+
+    t = threading.Thread(target=submitter)
+    try:
+        fleet.start()
+        t.start()
+        while not fleet.manager.replicas()[0].engine.scheduler.occupancy():
+            threading.Event().wait(0.001)
+        eng = make()
+        assert eng.warmup()["captured"]
+        fleet.add_replica(eng)
+        fleet.warmup()
+        t.join(timeout=60)
+        assert not t.is_alive()
+        assert [r.tokens(timeout=300) for r in resps] == want
+        assert fleet.manager.counters()["failovers"] == 0
+        assert fleet.post_warmup_compiles() == 0
+    finally:
+        fleet.close()
+        t.join(timeout=5)
+
+
+def test_remove_returns_the_card_memory(cuda):
+    """A replica added, warmed, serving, drained and removed leaves the
+    card's allocated memory within 1 MiB of where it was before it was
+    built (its weights copy, KV pools and graph pool freed)."""
+    import gc
+
+    from paddle_tpu_torch.serving import FleetRouter, ServingEngine
+    model = _serving_model(cuda, torch.float32)
+
+    def make():
+        eng = ServingEngine(model, kv="paged", device=cuda, **ENGINE)
+        eng.warmup()
+        return eng
+
+    fleet = FleetRouter([make()])
+    try:
+        _greedy(fleet.manager.replicas()[0].engine, FLEET_PROMPTS[:2])
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        rid = fleet.add_replica(make())
+        grown = torch.cuda.memory_allocated() - before
+        resps = [fleet.submit(p, 24) for p in FLEET_PROMPTS]
+        fleet.run_until_drained(timeout=300)
+        assert all(r.error is None for r in resps)
+        fleet.drain(rid)
+        fleet.step()         # an idle draining replica closes at a tick
+        fleet.remove(rid)
+        torch.cuda.synchronize()
+        left = torch.cuda.memory_allocated() - before
+        assert grown > 0 and left <= 1 << 20, (grown, left)
+    finally:
+        fleet.close()
 
 
 def _lora_artifacts(model, tmp_path, n, rank=4):

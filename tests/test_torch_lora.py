@@ -511,12 +511,14 @@ def test_bf16_lora_engine_promotes_to_f32_as_the_reference(artifacts):
              for k, v in jeng._pools]
     reg = teng._lora_reg
     seen = []
-    hook = tm.gpt.blocks[0].qkv.register_forward_hook(
+    # the engine serves (and hooked) its own copy of the model
+    served = teng.model
+    hook = served.gpt.blocks[0].qkv.register_forward_hook(
         lambda m, i, o: seen.append((i[0].dtype, o.dtype)))
     with torch.inference_mode(), lora.adapter_context(
             reg.stacks, reg.scales, torch.tensor(aids, dtype=torch.int32)):
         got = paged_decode_logits(
-            tm, pools, tables, torch.from_numpy(tables),
+            served, pools, tables, torch.from_numpy(tables),
             np.ones(len(aids), bool), np.array(pos), torch.tensor(toks),
             jeng.kv_pool.num_blocks, ENGINE["block_size"], ENGINE["max_len"])
     hook.remove()

@@ -6,9 +6,13 @@ numpy arrays, as a published checkpoint holds them):
 
 - After a swap the engine's streams equal a fresh engine's on the new
   weights and solo ``generate`` (token equality), nothing is made after
-  warmup, every parameter and buffer keeps its storage (written in place,
-  so the programs captured on it read the new weights), the prefix cache
-  is flushed, ``refresh_epoch`` / ``weights_sha`` move.
+  warmup, every parameter and buffer of the engine's own copy of the
+  model keeps its storage (written in place, so the programs captured on
+  it read the new weights), the prefix cache is flushed,
+  ``refresh_epoch`` / ``weights_sha`` move.
+- The model the engine was built on, and another engine built on the
+  same model, are left alone, as the reference's engine (which swaps its
+  own state dict) leaves them.
 - A missing or unexpected key or a wrong shape raises
   InvalidArgumentError before anything is written: the old weights are
   still served.
@@ -17,11 +21,11 @@ numpy arrays, as a published checkpoint holds them):
   serves the same streams as the state itself.
 - On a speculative engine the target swaps and the draft stays.
 """
-import copy
-
 import numpy as np
 import pytest
 import torch
+
+from paddle_tpu.serving import ServingEngine as JEngine
 
 from paddle_tpu_torch.core.errors import InvalidArgumentError
 from paddle_tpu_torch.serving import ServingEngine
@@ -48,10 +52,8 @@ def weights(request):
 
 @pytest.fixture
 def pairs(weights):
-    """The two draws, the served port model a copy of its own (a swap
-    writes it)."""
-    (jm, tm), new = weights
-    return (jm, copy.deepcopy(tm)), new
+    """The two draws: ((jax model, port model), (jax new, port new))."""
+    return weights
 
 
 def test_swap_serves_the_new_weights_in_place(pairs):
@@ -59,14 +61,15 @@ def test_swap_serves_the_new_weights_in_place(pairs):
     eng = ServingEngine(tm, prefix_cache=True, device="cpu", **ENGINE)
     old = _serve(eng)
     assert eng.prefix_cache.hits > 0
-    ptrs = {k: t.data_ptr() for k, t in tm.state_dict().items()}
+    served = eng.model.state_dict()
+    ptrs = {k: t.data_ptr() for k, t in served.items()}
     warm = eng.compile_counts()
     eng.swap_weights(jax_state(jm_new), weights_sha="sha-2")
     assert eng.prefix_cache.stats()["nodes"] == 0
     assert (eng.refresh_epoch, eng.weights_sha) == (1, "sha-2")
-    assert {k: t.data_ptr() for k, t in tm.state_dict().items()} == ptrs
+    assert {k: t.data_ptr() for k, t in served.items()} == ptrs
     for k, t in tm_new.state_dict().items():
-        assert torch.equal(tm.state_dict()[k], t), k
+        assert torch.equal(served[k], t), k
     got = _serve(eng)
     fresh = ServingEngine(tm_new, prefix_cache=True, device="cpu", **ENGINE)
     assert got == _serve(fresh) != old
@@ -90,12 +93,12 @@ def test_a_mismatch_raises_and_writes_nothing(pairs):
     (_, tm), (jm_new, _) = pairs
     eng = ServingEngine(tm, device="cpu", **ENGINE)
     before = _serve(eng)
-    kept = {k: t.clone() for k, t in tm.state_dict().items()}
+    kept = {k: t.clone() for k, t in eng.model.state_dict().items()}
     new = jax_state(jm_new)
     for name, state in _bad_states(new).items():
         with pytest.raises(InvalidArgumentError):
             eng.swap_weights(state)
-        for k, t in tm.state_dict().items():
+        for k, t in eng.model.state_dict().items():
             assert torch.equal(t, kept[k]), (name, k)
     assert eng.refresh_epoch == 0
     assert _serve(eng) == before
@@ -109,13 +112,14 @@ def test_another_dtype_is_cast_to_the_served_one(pairs):
     wide = {k: np.asarray(v).astype(np.float64) for k, v in new.items()}
     eng = ServingEngine(tm, device="cpu", **ENGINE)
     _serve(eng)
-    ptrs = {k: t.data_ptr() for k, t in tm.state_dict().items()}
-    dtypes = {k: t.dtype for k, t in tm.state_dict().items()}
+    served = eng.model.state_dict()
+    ptrs = {k: t.data_ptr() for k, t in served.items()}
+    dtypes = {k: t.dtype for k, t in served.items()}
     eng.swap_weights(wide)
-    assert {k: t.data_ptr() for k, t in tm.state_dict().items()} == ptrs
-    assert {k: t.dtype for k, t in tm.state_dict().items()} == dtypes
+    assert {k: t.data_ptr() for k, t in served.items()} == ptrs
+    assert {k: t.dtype for k, t in served.items()} == dtypes
     for k, t in tm_new.state_dict().items():
-        assert torch.equal(tm.state_dict()[k], t), k
+        assert torch.equal(served[k], t), k
     assert _serve(eng) == [torch_solo(tm_new, p, 10) for p in PROMPTS]
     assert eng.refresh_epoch == 1 and eng.post_warmup_compiles() == 0
 
@@ -129,9 +133,41 @@ def test_speculative_engine_swaps_the_target_only(pairs):
     eng = ServingEngine(tm, draft_model=draft, spec_tokens=3, device="cpu",
                         **ENGINE)
     _serve(eng)
-    drafted = {k: t.clone() for k, t in draft.state_dict().items()}
+    drafted = {k: t.clone() for k, t in eng.draft_model.state_dict().items()}
     eng.swap_weights({k: t.clone() for k, t in tm_new.state_dict().items()})
-    for k, t in draft.state_dict().items():
+    for k, t in eng.draft_model.state_dict().items():
         assert torch.equal(t, drafted[k]), k
     assert _serve(eng) == [torch_solo(tm_new, p, 10) for p in PROMPTS]
     assert eng.post_warmup_compiles() == 0
+
+
+PEER = dict(max_slots=2, max_len=48, kv="paged")
+
+
+def test_swap_leaves_the_model_and_peer_engines_alone(pairs):
+    """Two engines over one model in each framework; the first of each
+    pair swaps to the second draw.  The second engine's streams and the
+    model's tensors stay as they were, as the reference's stay; the
+    swapped engine serves a fresh engine's streams on the new weights."""
+    (jm, tm), (jm_new, tm_new) = pairs
+    prompts = [[7, 8, 9]] + PROMPTS[:2]
+    kept = {k: t.clone() for k, t in tm.state_dict().items()}
+    jkept = jax_state(jm)
+    a, b = (ServingEngine(tm, device="cpu", **PEER) for _ in range(2))
+    ja, jb = (JEngine(jm, **PEER) for _ in range(2))
+    before, jbefore = _serve(b, prompts), _serve(jb, prompts)
+    assert before == jbefore
+    new = jax_state(jm_new)
+    a.swap_weights(new, weights_sha="sha-2")
+    ja.swap_weights(new, "sha-2")
+    assert _serve(b, prompts) == before
+    assert _serve(jb, prompts) == jbefore
+    for k, t in tm.state_dict().items():
+        assert torch.equal(t, kept[k]), k
+    for k, v in jax_state(jm).items():
+        assert np.array_equal(v, jkept[k]), k
+    fresh = ServingEngine(tm_new, device="cpu", **PEER)
+    got = _serve(a, prompts)
+    assert got == _serve(fresh, prompts) == _serve(ja, prompts) != before
+    assert a.post_warmup_compiles() == 0
+    assert b.weights_sha is None and b.refresh_epoch == 0
