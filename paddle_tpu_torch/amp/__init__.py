@@ -121,12 +121,16 @@ def promote(*tensors):
 class auto_cast:
     """paddle.amp.auto_cast context manager with the reference's lists."""
 
-    def __init__(self, enable=True, level="O1", dtype="bfloat16"):
+    def __init__(self, enable=True, custom_white_list=None,
+                 custom_black_list=None, level="O1", dtype="bfloat16",
+                 use_promote=True):
+        white = set(custom_white_list or ())
         self.enable = enable
         self.level = level
         self.dtype = _low_dtype(dtype)
-        self.white = frozenset(WHITE_LIST)
-        self.black = frozenset(BLACK_LIST)
+        self.white = frozenset(set(WHITE_LIST) | white)
+        self.black = frozenset(
+            (set(BLACK_LIST) | set(custom_black_list or ())) - white)
 
     def __enter__(self):
         self._prev = _snapshot()
@@ -138,10 +142,13 @@ class auto_cast:
         return False
 
 
-def decorate(models=None, optimizers=None, level="O2", dtype="bfloat16"):
+def decorate(models=None, optimizers=None, level="O2", dtype="bfloat16",
+             master_weight=None, save_dtype=None):
     """paddle.amp.decorate: under O2 the models' parameters are cast to the
     low type in place.  Optimizer moments stay f32 whatever the parameter
-    type (``Adam.init_state``), the reference's multi-precision rule."""
+    type (``Adam.init_state``), the reference's multi-precision rule, so
+    ``master_weight`` and ``save_dtype`` are taken and change nothing, as
+    in the reference."""
     low = _low_dtype(dtype)
 
     def _cast(m):
