@@ -1,4 +1,5 @@
-"""linear and dropout (counterparts of paddle_tpu/nn/functional/common.py)."""
+"""linear, dropout and embedding (counterparts of
+paddle_tpu/nn/functional/common.py)."""
 from __future__ import annotations
 
 import torch
@@ -6,7 +7,7 @@ import torch
 from ...amp import amp_cast, promote
 from ...core import rng
 
-__all__ = ["linear", "dropout"]
+__all__ = ["linear", "dropout", "embedding"]
 
 
 def linear(x, weight, bias=None):
@@ -29,3 +30,26 @@ def dropout(x, p: float = 0.5, training: bool = True):
     mask = torch.empty(x.shape, device=x.device).bernoulli_(
         keep, generator=rng.current_generator(x.device))
     return torch.where(mask.bool(), x / keep, 0.0).to(x.dtype)
+
+
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    """Rows of ``weight`` at the integer ids ``x``; the output rows at
+    ``padding_idx`` are zeros, so no gradient reaches that row (the
+    reference's ``F.embedding``).  ``sparse=True`` (row-sparse gradients)
+    is not ported yet."""
+    if sparse:
+        from ...core.errors import UnimplementedError
+        raise UnimplementedError(
+            "embedding(sparse=True): row-sparse gradients are not ported "
+            "yet (ROADMAP section 1 item 4)")
+    if x.is_floating_point() or x.is_complex():
+        raise TypeError(f"embedding: ids must be an integer tensor, got "
+                        f"{x.dtype}")
+    if weight.dim() != 2:
+        raise ValueError(f"embedding: weight must be 2-D (vocab, dim), got "
+                         f"shape {tuple(weight.shape)}")
+    out = weight[x]
+    if padding_idx is not None:
+        out = torch.where((x == padding_idx)[..., None], 0.0,
+                          out).to(weight.dtype)
+    return out

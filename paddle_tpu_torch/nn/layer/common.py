@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ...core.errors import UnimplementedError
 from .. import functional as F
 from ..layer_base import Layer
 
@@ -50,17 +51,46 @@ class Linear(Layer):
 
 
 class Embedding(Layer):
+    """The reference's ``Embedding``: a (num_embeddings, embedding_dim)
+    table looked up by ``F.embedding``.  A negative ``padding_idx`` counts
+    from the end; that row alone is zeroed at construction, and the lookup
+    zeroes its output rows, so it never takes a gradient.  The port's own
+    ``std`` / ``device`` / ``generator`` come after the reference's
+    parameters, as keywords.  ``sparse=True`` and ``weight_attr`` are not
+    ported yet."""
+
     def __init__(self, num_embeddings: int, embedding_dim: int,
-                 std: float = 0.02, device=None,
+                 padding_idx=None, sparse=False, weight_attr=None, name=None,
+                 *, std: float = 0.02, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if sparse:
+            raise UnimplementedError(
+                "Embedding(sparse=True): row-sparse gradients are not "
+                "ported yet (ROADMAP section 1 item 4)")
+        if weight_attr is not None:
+            raise UnimplementedError(
+                "Embedding(weight_attr=): ParamAttr is not ported yet "
+                "(ROADMAP section 1 item 3)")
+        self.num_embeddings = int(num_embeddings)
+        self.embedding_dim = int(embedding_dim)
+        self.padding_idx = (None if padding_idx is None else
+                            padding_idx if padding_idx >= 0 else
+                            self.num_embeddings + padding_idx)
+        self.sparse = sparse
         self.weight = nn.Parameter(torch.empty(num_embeddings, embedding_dim,
                                                device=device))
         with torch.no_grad():
             self.weight.normal_(0.0, std, generator=generator)
+            if self.padding_idx is not None:
+                self.weight[self.padding_idx] = 0.0
 
     def forward(self, ids):
-        return self.weight[ids]
+        return F.embedding(ids, self.weight, padding_idx=self.padding_idx,
+                           sparse=self.sparse)
+
+    def extra_repr(self):
+        return f"{self.num_embeddings}, {self.embedding_dim}"
 
 
 class Dropout(Layer):

@@ -88,3 +88,58 @@ def test_decorate_takes_master_weight_and_save_dtype():
                             optimizers="opt", level="O1",
                             master_weight=False, save_dtype="float16")
     assert opt == "opt" and m2[0].weight.dtype == torch.float32
+
+
+# ------------------------------------------------------------- Embedding
+
+def test_embedding_signature_is_the_reference_one_then_keywords():
+    """The port's own extras (``std``, ``device``, ``generator``) come only
+    after the reference's parameters, as keywords."""
+    _same_signature([(JF.embedding, TF.embedding)])
+    ref = _params(jnn.Embedding.__init__)
+    port = inspect.signature(tnn.Embedding.__init__).parameters
+    assert list(port)[:len(ref)] == ref
+    assert all(p.kind is p.KEYWORD_ONLY
+               for p in list(port.values())[len(ref):])
+
+
+def test_embedding_padding_idx_zeroes_that_row_and_its_gradient():
+    """``Embedding(10, 4, 0)`` zeroes row 0 only (it once built an
+    all-zero table from std 0); a negative index counts from the end; the
+    lookup zeroes the pad rows of the output, so no gradient reaches the
+    pad row.  Outputs and gradients equal the reference's on its table."""
+    ids = np.array([[1, 9, 3], [9, 0, 2]], np.int64)
+    for pad, row in ((0, 0), (-1, 9)):
+        paddle.seed(3)
+        je = jnn.Embedding(10, 4, pad)
+        te = tnn.Embedding(10, 4, pad, device="cpu")
+        assert te.padding_idx == je.padding_idx == row
+        tw = te.weight.detach().numpy()
+        assert np.all(tw[row] == 0) and np.all(np.abs(np.delete(tw, row, 0))
+                                                .sum(1) > 0)
+        with torch.no_grad():
+            te.weight.copy_(torch.as_tensor(je.weight.numpy()))
+        jo = je(paddle.to_tensor(ids))
+        jo.sum().backward()
+        to = te(torch.as_tensor(ids))
+        to.sum().backward()
+        np.testing.assert_array_equal(to.detach().numpy(), jo.numpy())
+        np.testing.assert_array_equal(te.weight.grad.numpy(),
+                                      je.weight.grad.numpy())
+        assert np.all(te.weight.grad.numpy()[row] == 0)
+        # the functional form, by position as the reference's
+        jf = JF.embedding(paddle.to_tensor(ids), je.weight, row)
+        tf = TF.embedding(torch.as_tensor(ids), te.weight, row)
+        np.testing.assert_array_equal(tf.detach().numpy(), jf.numpy())
+
+
+def test_embedding_parts_not_ported_are_refused():
+    with pytest.raises(UnimplementedError, match="item 4"):
+        tnn.Embedding(10, 4, None, True)
+    with pytest.raises(UnimplementedError, match="item 3"):
+        tnn.Embedding(10, 4, weight_attr=object())
+    w = torch.zeros(10, 4)
+    with pytest.raises(UnimplementedError, match="item 4"):
+        TF.embedding(torch.zeros(2, dtype=torch.long), w, None, True)
+    with pytest.raises(TypeError):
+        TF.embedding(torch.zeros(2), w)
