@@ -19,17 +19,29 @@ def linear(x, weight, bias=None):
     return y if bias is None else y + bias
 
 
-def dropout(x, p: float = 0.5, training: bool = True):
-    """Upscale-in-train dropout.  The keep mask is drawn with
-    ``bernoulli_`` from the current generator of ``core.rng`` (never
-    torch's global one), so the same generator seed gives the same
-    mask."""
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            name=None):
+    """Dropout with the reference's parameters.  The keep mask is drawn
+    with ``bernoulli_`` from the current generator of ``core.rng`` (never
+    torch's global one), so the same generator seed gives the same mask.
+    ``axis`` (an int or a list) draws the mask over those axes only and
+    broadcasts it over the others.  ``"upscale_in_train"`` scales the kept
+    values by 1 / (1 - p); ``"downscale_in_infer"`` keeps them as they are.
+    Out of training (or with p 0) either mode returns ``x``, as the
+    reference does."""
+    if mode not in ("upscale_in_train", "downscale_in_infer"):
+        raise ValueError(f"dropout: unknown mode {mode!r}")
     if not training or p == 0.0:
         return x
+    shape = list(x.shape)
+    if axis is not None:
+        axes = [axis] if isinstance(axis, int) else list(axis)
+        shape = [s if i in axes else 1 for i, s in enumerate(x.shape)]
     keep = 1.0 - p
-    mask = torch.empty(x.shape, device=x.device).bernoulli_(
+    mask = torch.empty(shape, device=x.device).bernoulli_(
         keep, generator=rng.current_generator(x.device))
-    return torch.where(mask.bool(), x / keep, 0.0).to(x.dtype)
+    kept = x / keep if mode == "upscale_in_train" else x
+    return torch.where(mask.bool(), kept, 0.0).to(x.dtype)
 
 
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):

@@ -94,13 +94,17 @@ class Embedding(Layer):
 
 
 class Dropout(Layer):
-    """Upscale-in-train dropout.  The mask comes from the current
-    generator of ``core.rng`` (the training step's, inside
+    """The reference's ``Dropout(p, axis, mode)``.  The mask comes from the
+    current generator of ``core.rng`` (the training step's, inside
     ``TrainStep``)."""
 
-    def __init__(self, p: float = 0.5):
+    def __init__(self, p: float = 0.5, axis=None, mode="upscale_in_train",
+                 name=None):
         super().__init__()
         self.p = float(p)
+        self.axis = axis
+        self.mode = mode
 
     def forward(self, x):
-        return F.dropout(x, self.p, training=self.training)
+        return F.dropout(x, self.p, axis=self.axis, training=self.training,
+                         mode=self.mode)

@@ -143,3 +143,85 @@ def test_embedding_parts_not_ported_are_refused():
         TF.embedding(torch.zeros(2, dtype=torch.long), w, None, True)
     with pytest.raises(TypeError):
         TF.embedding(torch.zeros(2), w)
+
+
+# ------------------------------------------------------- dropout, CE
+
+def test_dropout_and_cross_entropy_signatures_are_the_reference_ones():
+    _same_signature([(JF.dropout, TF.dropout),
+                     (jnn.Dropout.__init__, tnn.Dropout.__init__),
+                     (JF.cross_entropy, TF.cross_entropy)])
+
+
+def test_dropout_third_argument_is_axis():
+    """On 1,000 ones, ``F.dropout(x, 0.5, None)`` trains (axis None) and
+    zeroes about half, as the reference; it once read None as
+    ``training`` and zeroed none.  Kept values are scaled by 2."""
+    x = np.ones(1000, np.float32)
+    paddle.seed(0)
+    jz = int((JF.dropout(paddle.to_tensor(x), 0.5, None).numpy() == 0)
+             .sum())
+    with rng.generator_scope(torch.Generator().manual_seed(0)):
+        ty = TF.dropout(torch.as_tensor(x), 0.5, None).numpy()
+    tz = int((ty == 0).sum())
+    # binomial(1000, 0.5): 5 sigma is about 79
+    assert 420 < jz < 580 and 420 < tz < 580, (jz, tz)
+    assert set(np.unique(ty).tolist()) == {0.0, 2.0}
+
+
+def test_dropout_axis_and_modes_as_the_reference():
+    x = np.arange(1, 25, dtype=np.float32).reshape(4, 6)
+    tx = torch.as_tensor(x)
+    gen = torch.Generator().manual_seed(1)
+    with rng.generator_scope(gen):
+        for axis in (1, [1]):
+            y = TF.dropout(tx, 0.5, axis).numpy()
+            # the mask is drawn over axis 1 and broadcast over axis 0
+            cols = (y != 0).all(0)
+            assert ((y == 0).all(0) | cols).all()
+            np.testing.assert_array_equal(y[:, cols], 2 * x[:, cols])
+        y = TF.dropout(tx, 0.5, mode="downscale_in_infer").numpy()
+        kept = y != 0
+        assert 0 < kept.sum() < x.size
+        np.testing.assert_array_equal(y[kept], x[kept])
+        layer = tnn.Dropout(0.5, None, "downscale_in_infer")
+        assert 0 < (layer(tx).numpy() == 0).sum() < x.size
+    # out of training both modes return x unchanged, as the reference
+    for mode in ("upscale_in_train", "downscale_in_infer"):
+        jy = JF.dropout(paddle.to_tensor(x), 0.5, None, False, mode)
+        ty = TF.dropout(tx, 0.5, None, False, mode)
+        np.testing.assert_array_equal(ty.numpy(), jy.numpy())
+        np.testing.assert_array_equal(ty.numpy(), x)
+        assert (tnn.Dropout(0.5, None, mode).eval()(tx) == tx).all()
+    with pytest.raises(ValueError):
+        TF.dropout(tx, 0.5, mode="upscale")
+
+
+def test_cross_entropy_never_reads_a_weight_as_ignore_index():
+    """``cross_entropy(x, y, w)`` with a class weight: the reference
+    weighs the classes; the port once took ``w`` for ``ignore_index``.
+    The class-weight path is not ported yet, so the port refuses it,
+    typed.  The hard-label path takes the reference's keywords and equals
+    the reference's loss."""
+    r = np.random.RandomState(0)
+    xs = r.randn(6, 5).astype(np.float32)
+    ys = r.randint(0, 5, (6,)).astype(np.int64)
+    w = np.array([5, 1, 1, 1, 1], np.float32)
+    jw = float(JF.cross_entropy(paddle.to_tensor(xs), paddle.to_tensor(ys),
+                                paddle.to_tensor(w)).numpy())
+    jp = float(JF.cross_entropy(paddle.to_tensor(xs),
+                                paddle.to_tensor(ys)).numpy())
+    assert np.isfinite(jw) and jw != jp
+    tx, ty = torch.as_tensor(xs), torch.as_tensor(ys)
+    with pytest.raises(UnimplementedError, match="class weight"):
+        TF.cross_entropy(tx, ty, torch.as_tensor(w))
+    for kw in (dict(soft_label=True), dict(axis=0), dict(use_softmax=False),
+               dict(label_smoothing=0.1)):
+        with pytest.raises(UnimplementedError, match="item 4"):
+            TF.cross_entropy(tx, ty, **kw)
+    for red in ("mean", "sum", "none"):
+        ref = JF.cross_entropy(paddle.to_tensor(xs), paddle.to_tensor(ys),
+                               None, 2, red, False, -1, True, 0.0).numpy()
+        got = TF.cross_entropy(tx, ty, None, 2, red, False, 1, True,
+                               0.0).numpy()
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
