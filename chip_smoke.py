@@ -213,6 +213,30 @@ Phases (any failure exits non-zero before the result line):
                 during the captures against outside them, flip / canary /
                 rollback ms, a replica's memory and its weight copy's, and
                 K3 / K4 launches over the phase and per replica.
+ 9f. worker   — serving replicas in processes of their own: two
+                ``python -m paddle_tpu_torch.serving.worker`` processes
+                with the fleet phase's engine options behind a FleetRouter
+                driven on this thread, each building GPT-2 medium int8 by
+                ``chip_smoke:worker_model`` (a seeded CPU draw, the same as
+                this process's oracle engine) and capturing its graphs in
+                its own CUDA context; boot seconds from spawn to ready.
+                The fleet phase's 16 requests: streams equal the oracle's
+                (greedy may split at a near tie), each worker's K3 / K4
+                launches over the wave, read from the worker, > 0 and equal
+                to its programs' replays times their recorded counts (96 /
+                384 per decode replay), nothing captured after warmup;
+                tokens/s against the oracle and the fleet phase's
+                in-process pair.  The same wave with one worker SIGKILLed
+                at 8 tokens: its greedy runs finish on the peer (ms from
+                the kill to the first resubmitted token), its sampled runs
+                end in ReplicaLostError, one fence; the supervised restart
+                serves equal streams.  replica_wedge armed over the wire:
+                the fence's latency against heartbeat_timeout_s (3 s), the
+                kill after the grace.  A --listen worker attached with the
+                oracle's jit.save int8 weights shipped in checked chunks
+                (ship and attach seconds, equal streams), then flipped by
+                path to a second seed's weights (ms; streams equal the
+                swapped oracle's, nothing captured).
  10. fixed    — 4-layer full-width engines on the fixed pool, captured, f32
                 and bf16: greedy streams must equal the uncaptured path's,
                 and in f32 solo generate()'s.  Then the captured f32 engine
@@ -413,6 +437,10 @@ FLEET_ROLL_LENS = (64, 80, 96, 112, 128, 144, 160, 72)   # rollout wave
 FLEET_ROLL_NEW = 512
 FLEET_ROLL_INFLIGHT = 12   # rollout wave requests kept unfinished
 MEM_TOL = 0.02      # memory after a remove vs before its boot: of a replica
+WORKER_HEARTBEAT_S = 3.0   # worker phase: the wedge fence's heartbeat age
+WORKER_GRACE_S = 1.0       # and the grace before a wedged worker is killed
+WORKER_BOOT_S = 600.0      # a worker's boot budget (spawn to ready)
+WORKER_CHECK = 4           # greedy prompts served on a restarted / remote one
 SPEC_TOKENS = 4     # spec phase: draft proposals per verify tick
 # lora phase: LoRAConfig(rank, max_adapters) on the default targets; the
 # artifacts' B factors are drawn at this std (A: LoRALinear's own draw,
@@ -444,7 +472,8 @@ BN_LINES = {"bn_stats": 119, "bn_apply": 132, "bn_bwd_reduce": 153,
 
 
 PHASES = ("check", "serve", "telemetry", "pressure", "prefix", "spec", "lora",
-          "beam", "gateway", "fleet", "serve_bf16", "spec_bf16", "fixed",
+          "beam", "gateway", "fleet", "worker", "serve_bf16", "spec_bf16",
+          "fixed",
           "flash", "train", "traincheck", "guard", "bert", "predictor", "bn",
           "resnet", "resnetcheck")
 
@@ -4242,7 +4271,9 @@ def fleet_phase(torch, args, dev, card):
     both replicas verified.  (4) From one replica, the Autoscaler
     (injected clock) scales up on a burst and down by a drain.  K3 / K4
     launches counted over the phase (zeroed just before) and per
-    replica through its graphs' replays."""
+    replica through its graphs' replays.  Returns the clean wave's
+    tokens/s, the plain engine's and the mean flip ms (the worker phase
+    prints its own beside them)."""
     import os
     import shutil
     import threading
@@ -4750,6 +4781,9 @@ def fleet_phase(torch, args, dev, card):
         print(f"{tag}: launches over the phase {launches}; per replica "
               f"through its replays {per}; plain engine / oracle "
               f"{_fleet_launches(plain)}")
+        return {"tokens_per_s": len(prompts) * FLEET_NEW / fleet_wall,
+                "plain_tokens_per_s": len(prompts) * FLEET_NEW / plain_wall,
+                "flip_ms": float(np.mean(flip_ms))}
     finally:
         faults.reset()
         Response._push_token = orig_push
@@ -4761,6 +4795,436 @@ def fleet_phase(torch, args, dev, card):
         plain.close()
         plain._free_device()
         shutil.rmtree(pub_dir, ignore_errors=True)
+
+
+def worker_model(seed: int = 0, device=None, **config):
+    """The worker phase's model factory, imported by every worker process
+    as ``chip_smoke:worker_model``: the GPT of ``config`` drawn by
+    ``build_gpt`` on the CPU from ``seed`` (so each process holds the same
+    weights), then int8 weight-only as the serve phases'."""
+    from paddle_tpu_torch.quantization import quantize_for_serving
+    from paddle_tpu_torch.serving.worker import build_gpt
+    return quantize_for_serving(build_gpt(seed, device=device, **config))
+
+
+def _program_launches(eng) -> dict:
+    """K3 / K4 launches each of ``eng``'s captured programs records, by the
+    program's name as a worker reports its replays."""
+    from paddle_tpu_torch.ops import int8_matmul as im
+    from paddle_tpu_torch.ops import paged_attention as pa
+    names = {id(pa.paged_attention): "paged_attention",
+             id(im.dequant_matmul): "dequant_matmul"}
+    out = {}
+    for name, prog in eng._programs.items():
+        c = dict.fromkeys(names.values(), 0)
+        for (owner, _key), n in prog.launches:
+            if id(owner) in names:
+                c[names[id(owner)]] += n
+        out[str(name)] = c
+    return out
+
+
+def _worker_launches(tag, rid, before: dict, after: dict,
+                     counts: dict) -> dict:
+    """A worker's K3 / K4 launches between two of its process reports;
+    they must be > 0 and equal its programs' replays in between times the
+    launches each program's graph records (``counts``)."""
+    got = {k: after["launches"][k] - before["launches"][k]
+           for k in ("paged_attention", "dequant_matmul")}
+    exp = dict.fromkeys(got, 0)
+    for name, n in after["replays"].items():
+        for k in exp:
+            exp[k] += (n - before["replays"].get(name, 0)) * counts[name][k]
+    if got != exp or min(got.values()) <= 0:
+        fail(f"{tag}: worker {rid} launched {got}, its replays make {exp}")
+    return got
+
+
+def _log_tail(path, lines: int = 40) -> str:
+    try:
+        with open(path, errors="replace") as f:
+            return "".join(f.readlines()[-lines:])
+    except OSError:
+        return "(no log)"
+
+
+def worker_phase(torch, args, dev, card, inproc=None):
+    """Serving replicas in processes of their own (``serving/worker.py``):
+    the fleet phase's engine options (int8 GPT-2 medium, paged, 8 slots,
+    max_len 1024, decode_chunk 4) in two ``python -m
+    paddle_tpu_torch.serving.worker`` processes behind a FleetRouter driven
+    on this thread, each worker building its model by ``chip_smoke:
+    worker_model`` (the same seeded CPU draw as this process's oracle
+    engine, captured here) and capturing its graphs in its own CUDA
+    context.  Boot seconds from spawn to ready.  (1) The fleet phase's 16
+    requests (12 greedy with resubmit, 4 keyed-sampled): streams equal the
+    oracle's (greedy may split at a near tie), each worker's K3 / K4
+    launches over the wave (read from the worker process) > 0 and equal to
+    its programs' replays times their recorded counts (4 x layers K3 and
+    16 x layers K4 per decode replay), nothing captured after warmup;
+    tokens/s against the oracle engine and the fleet phase's in-process
+    pair.  (2) The same wave, one worker SIGKILLed once every stream holds
+    8 tokens: its greedy runs finish on the peer (ms from the kill to the
+    first resubmitted token), its sampled runs end in ReplicaLostError,
+    exactly one fence; the supervised restart (seconds from the kill to
+    ready) serves equal streams.  (3) ``replica_wedge`` armed over the
+    wire on the other worker with a run resident: the fence latency
+    against ``WORKER_HEARTBEAT_S``, the run finished on the peer, the
+    wedged process killed after the grace.  (4) A standalone ``--listen
+    127.0.0.1:0`` worker attached with the oracle's ``jit.save`` int8
+    artifact shipped in checked chunks (its factory seed differs): ship
+    and attach seconds, equal streams; then a flip by path to a second
+    seed's artifact (ms against the fleet phase's in-process flip), its
+    streams equal the oracle's after the same swap, nothing captured."""
+    import inspect
+    import os
+    import shutil
+    import signal
+
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models import GPTConfig, gpt2_medium_config
+    from paddle_tpu_torch.serving import (FleetRouter, ReplicaLostError,
+                                          Response, RestartBackoff)
+    from paddle_tpu_torch.serving import fleet as fleet_mod
+    from paddle_tpu_torch.serving import worker as worker_mod
+    from paddle_tpu_torch.serving.transfer import file_sha256
+    tag = "worker"
+    cfg = gpt2_medium_config(hidden_dropout_prob=0.0,
+                             attention_probs_dropout_prob=0.0)
+    config = {k: getattr(cfg, k)
+              for k in inspect.signature(GPTConfig.__init__).parameters
+              if k != "self"}
+    layers = cfg.num_hidden_layers
+
+    def spec(seed, weights=None):
+        out = {"model": {"factory": "chip_smoke:worker_model",
+                         "kwargs": dict(config, seed=seed)},
+               "engine": dict(max_slots=SLOTS, max_len=MAX_LEN, kv="paged",
+                              block_size=BLOCK, decode_chunk=4,
+                              device=str(dev))}
+        if weights is not None:
+            out["weights"] = weights
+        return out
+
+    model = worker_model(args.seed, device=dev, **config)
+    rng = np.random.RandomState(args.seed + 21)
+    prompts = [rng.randint(0, cfg.vocab_size, (n,)) for n in FLEET_LENS]
+    knobs = [dict(decode_strategy="sampling", temperature=0.8, top_k=40,
+                  top_p=0.9, seed=40 + i) if i in FLEET_SAMPLED
+             else {"resubmit": True} for i in range(len(prompts))]
+    sampled = set(FLEET_SAMPLED)
+    greedy = [i for i in range(len(prompts)) if i not in sampled]
+    check = greedy[:WORKER_CHECK]
+    plain = _paged_engine(model, dev, decode_chunk=4)
+    counts = _program_launches(plain)
+    if counts["decode"] != {"paged_attention": 4 * layers,
+                            "dequant_matmul": 16 * layers}:
+        fail(f"{tag}: the decode graph records {counts['decode']}")
+
+    def plain_run(idx, new=FLEET_NEW):
+        t0 = time.perf_counter()
+        resps = [plain.submit(prompts[i], max_new_tokens=new,
+                              **{k: v for k, v in knobs[i].items()
+                                 if k != "resubmit"}) for i in idx]
+        plain.run_until_drained(timeout=600)
+        torch.cuda.synchronize()
+        return [r.tokens(timeout=5) for r in resps], time.perf_counter() - t0
+
+    want, plain_wall = plain_run(range(len(prompts)))
+    fleet = FleetRouter([], heartbeat_timeout_s=WORKER_HEARTBEAT_S,
+                        kill_grace_s=WORKER_GRACE_S,
+                        restart_backoff=RestartBackoff(max_restarts=1,
+                                                       base_delay=0.1,
+                                                       max_delay=0.5))
+
+    def drive(pred, timeout, what):
+        deadline = time.monotonic() + timeout
+        while not pred():
+            if time.monotonic() > deadline:
+                fail(f"{tag}: timed out after {timeout} s waiting for "
+                     f"{what}")
+            if not fleet.step():
+                time.sleep(0.0002)
+
+    def healthy(rid):
+        rep = fleet.manager.get(rid)
+        if rep is not None and rep.state in ("crashed", "wedged"):
+            fail(f"{tag}: worker {rid} {rep.state}: {rep.fence_reason}")
+        return rep is not None and rep.state == "healthy"
+
+    def process(rid):
+        return fleet.manager.get(rid).engine.metrics(fresh=True)
+
+    def served(client, idx, what, model_=model, want_=None):
+        resps = []
+        for i in idx:
+            req, resp = client.make_request(prompts[i], FLEET_NEW)
+            client.scheduler.submit(req, resp)
+            resps.append(resp)
+        drive(lambda: all(r.done() for r in resps), 600, what)
+        got = [r.tokens_so_far() for r in resps]
+        if any(r.error is not None for r in resps):
+            fail(f"{tag} {what}: {[repr(r.error) for r in resps]}")
+        return _splits(torch, model_, dev, [prompts[i] for i in idx], got,
+                       want_ or [want[i] for i in idx], f"{tag} {what}")
+
+    times = {}
+    orig_push = Response._push_token
+
+    def timed_push(self, tok, logp=0.0):
+        times.setdefault(id(self), []).append(time.monotonic())
+        orig_push(self, tok, logp)
+    Response._push_token = timed_push
+    crash_at = {}
+    orig_on_crash = fleet_mod.ReplicaManager._on_crash
+
+    def on_crash(self, rep, exc):
+        crash_at.setdefault("t", time.monotonic())
+        crash_at["exc"] = exc
+        orig_on_crash(self, rep, exc)
+    fleet_mod.ReplicaManager._on_crash = on_crash
+    ship = []
+    orig_ship = worker_mod.RemoteWorkerClient._ship_artifacts
+
+    def timed_ship(self, *a):
+        t = time.perf_counter()
+        orig_ship(self, *a)
+        ship.append((time.perf_counter() - t, self.bytes_shipped))
+    worker_mod.RemoteWorkerClient._ship_artifacts = timed_ship
+    art = _build_dir("worker_artifacts")
+    listener = listen_log = None
+    # the remote leg's artifacts first: the workers' frames queue up while
+    # this thread does anything but drive the fleet, and a worker blocked
+    # on a full socket stops beating
+    path0, path1 = os.path.join(art, "w0"), os.path.join(art, "w1")
+    jit.save(model, path0)
+    new_model = worker_model(args.seed + 1, device=dev, **config)
+    jit.save(new_model, path1)
+    w0, w1 = path0 + ".pdiparams.npz", path1 + ".pdiparams.npz"
+    try:
+        # boot two workers at once
+        t_spawn = time.monotonic()
+        ids = [fleet.add_worker(spec(args.seed), boot_timeout_s=WORKER_BOOT_S)
+               for _ in range(2)]
+        boot_s = {}
+
+        def booted():
+            for rid in ids:
+                if rid not in boot_s and healthy(rid):
+                    boot_s[rid] = time.monotonic() - t_spawn
+            return len(boot_s) == len(ids)
+        drive(booted, WORKER_BOOT_S, "two worker boots")
+        pids = {rid: fleet.manager.get(rid).engine.pid for rid in ids}
+        print(f"{tag} [{card}]: two worker processes {sorted(pids.values())}"
+              f" ready {[round(boot_s[r], 2) for r in ids]} s after their "
+              f"spawn (import, seeded CPU draw, int8, capture; the kernels "
+              f"built by this process)")
+        placed = {}
+        for rid in ids:
+            sched = fleet.manager.get(rid).engine.scheduler
+
+            def submit(req, resp, *a, _orig=sched.submit, _rid=rid, **kw):
+                _orig(req, resp, *a, **kw)
+                placed[id(resp)] = _rid
+            sched.submit = submit
+        for rid in ids:
+            proc = process(rid)["process"]
+            if proc["modules"] != {"jax": False, "paddle_tpu": False} or \
+                    proc["device"] != str(dev):
+                fail(f"{tag}: worker {rid} reports {proc}")
+
+        # (1) the clean wave
+        before = {rid: process(rid)["process"] for rid in ids}
+        t0 = time.perf_counter()
+        clean = [fleet.submit(p, FLEET_NEW, **knobs[i])
+                 for i, p in enumerate(prompts)]
+        drive(lambda: all(r.done() for r in clean), 600, "the clean wave")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if any(r.error is not None for r in clean):
+            fail(f"{tag}: clean-wave errors "
+                 f"{[repr(r.error) for r in clean if r.error]}")
+        splits = _splits(torch, model, dev, prompts,
+                         [r.tokens_so_far() for r in clean], want,
+                         f"{tag} clean", sampled=sampled)
+        per = {}
+        for rid in ids:
+            m = process(rid)
+            per[rid] = _worker_launches(tag, rid, before[rid], m["process"],
+                                        counts)
+            if m["post_warmup_compiles"] != 0:
+                fail(f"{tag}: worker {rid} captured after warmup")
+        tps = len(prompts) * FLEET_NEW / wall
+        ref = ("not run" if inproc is None else
+               f"{inproc['tokens_per_s']:.1f}")
+        print(f"{tag} [{card}]: 2 worker processes, {len(prompts)} requests"
+              f", {len(prompts) * FLEET_NEW} tokens in {wall:.3f}s: "
+              f"{tps:.1f} tokens/s against one engine's "
+              f"{len(prompts) * FLEET_NEW / plain_wall:.1f} (this process, "
+              f"the same 16) and the fleet phase's in-process pair's {ref}; "
+              f"placed {sorted(placed[id(r)] for r in clean)}; K3 / K4 "
+              f"launches per worker over the wave {per} (= replays x "
+              f"{counts['decode']} per decode replay, "
+              f"{counts[str(plain.buckets[0])]} per prefill); splits "
+              f"{splits}")
+
+        # (2) a worker SIGKILLed mid-decode, then its supervised restart
+        crash = [fleet.submit(p, FLEET_NEW, **knobs[i])
+                 for i, p in enumerate(prompts)]
+        drive(lambda: min(len(r.tokens_so_far()) for r in crash) >= 8, 120,
+              "the kill wave at 8 tokens")
+        victim = fleet.manager.get(ids[1])
+        t_kill = time.monotonic()
+        os.kill(victim.engine.pid, signal.SIGKILL)
+        drive(lambda: all(r.done() for r in crash), 600, "the kill wave")
+        c = fleet.manager.counters()
+        if c["failovers"] != 1 or victim.state != "crashed":
+            fail(f"{tag} kill: {c['failovers']} fences, the victim "
+                 f"{victim.state} ({crash_at.get('exc')!r})")
+        lost, resub = [], []
+        for i, r in enumerate(crash):
+            on_victim = placed[id(r)] == ids[1]
+            if i in sampled and on_victim:
+                if not isinstance(r.error, ReplicaLostError):
+                    fail(f"{tag} kill: sampled request {i} ended "
+                         f"{r.error!r}")
+                lost.append(i)
+            elif r.error is not None:
+                fail(f"{tag} kill: request {i} failed: {r.error!r}")
+            elif on_victim:
+                resub.append(i)
+        keep = [i for i in range(len(prompts)) if i not in lost]
+        splits = _splits(torch, model, dev, [prompts[i] for i in keep],
+                         [crash[i].tokens_so_far() for i in keep],
+                         [want[i] for i in keep], f"{tag} kill",
+                         sampled={k for k, i in enumerate(keep)
+                                  if i in sampled})
+        first = min(t for i in resub for t in times[id(crash[i])]
+                    if t > t_kill)
+
+        def restarted():
+            return next((r for r in fleet.manager.replicas()
+                         if r.id not in ids and r.kind == "subprocess"
+                         and r.state == "healthy"), None)
+        drive(lambda: restarted() is not None, WORKER_BOOT_S,
+              "the supervised restart")
+        restart_s = time.monotonic() - t_kill
+        new = restarted()
+        rsplits = served(new.engine, check, "restart")
+        print(f"{tag} kill [{card}]: worker {ids[1]} SIGKILLed at 8+ tokens;"
+              f" fenced {(crash_at['t'] - t_kill) * 1e3:.1f} ms after the "
+              f"kill; {c['resubmits']} greedy runs resubmitted ({resub}), "
+              f"{len(lost)} sampled lost ({lost}, ReplicaLostError); first "
+              f"resubmitted token {(first - t_kill) * 1e3:.1f} ms after the "
+              f"kill; splits {splits}; the supervised restart ready "
+              f"{restart_s:.2f}s after the kill, {len(check)} streams "
+              f"equal but {rsplits}")
+
+        # (3) a wedge on the other worker
+        a = fleet.manager.get(ids[0])
+        req, resp = a.engine.make_request(prompts[check[0]], FLEET_NEW,
+                                          resubmit=True)
+        a.engine.scheduler.submit(req, resp)
+        drive(lambda: len(resp.tokens_so_far()) >= 1, 120,
+              "a run resident on the wedge's worker")
+        a.engine.set_fault("replica_wedge", f"{a.lineage['index']}:0")
+        t_arm = time.monotonic()
+        drive(lambda: a.state == "wedged", 60, "the wedge fence")
+        fence_s = time.monotonic() - t_arm
+        drive(resp.done, 600, "the wedged worker's run on its peer")
+        if resp.error is not None or resp.tokens_so_far() != want[check[0]]:
+            _splits(torch, model, dev, [prompts[check[0]]],
+                    [resp.tokens_so_far()], [want[check[0]]], f"{tag} wedge")
+        drive(lambda: a.engine.proc.poll() is not None,
+              WORKER_GRACE_S + 30, "the wedged worker's kill")
+        killed_s = time.monotonic() - t_arm
+        print(f"{tag} wedge [{card}]: fenced {fence_s:.3f}s after the wedge "
+              f"was armed (heartbeat_timeout_s {WORKER_HEARTBEAT_S}: "
+              f"{a.fence_reason}); its run finished on the peer; killed "
+              f"{killed_s:.3f}s after the arming (grace {WORKER_GRACE_S} s)")
+
+        # (4) a remote worker: shipped weights, then a flip by path
+        env = dict(os.environ)
+        root = os.path.dirname(os.path.abspath(__file__))
+        env["PYTHONPATH"] = (root + os.pathsep + env["PYTHONPATH"]
+                             if env.get("PYTHONPATH") else root)
+        listen_log = os.path.join(art, "listen.log")
+        index = fleet.manager._next_id
+        with open(listen_log, "w") as log:
+            listener = subprocess.Popen(
+                [sys.executable, "-m", "paddle_tpu_torch.serving.worker",
+                 "--listen", "127.0.0.1:0", "--index", str(index)],
+                stdin=subprocess.DEVNULL, stdout=log,
+                stderr=subprocess.STDOUT, env=env, start_new_session=True)
+        addr, deadline = None, time.monotonic() + 120
+        while addr is None:
+            for line in _log_tail(listen_log, 5).splitlines():
+                if "worker listening on" in line:
+                    addr = line.strip().rsplit(" ", 1)[-1]
+            if addr is None:
+                if listener.poll() is not None or \
+                        time.monotonic() > deadline:
+                    fail(f"{tag} remote: no listening worker:\n"
+                         f"{_log_tail(listen_log)}")
+                time.sleep(0.05)
+        t_att = time.monotonic()
+        rid = fleet.add_worker(spec(args.seed + 7, weights=w0), address=addr,
+                               boot_timeout_s=WORKER_BOOT_S)
+        drive(lambda: healthy(rid), WORKER_BOOT_S, "the remote attach")
+        attach_s = time.monotonic() - t_att
+        remote = fleet.manager.get(rid).engine
+        if remote.weights_sha != file_sha256(w0) or not ship:
+            fail(f"{tag} remote: served sha {remote.weights_sha}")
+        asplits = served(remote, check, "remote")
+        with np.load(w1, allow_pickle=False) as z:
+            state = {k: z[k] for k in z.files}
+        sha1 = file_sha256(w1)
+        t = time.perf_counter()
+        entry = fleet.flip_weights(rid, path=w1, sha=sha1)
+        drive(lambda: entry["done"], 600, "the flip")
+        flip_ms = (time.perf_counter() - t) * 1e3
+        if not entry["ok"] or remote.weights_sha != sha1:
+            fail(f"{tag} flip: {entry}")
+        plain.swap_weights(state, sha1)
+        want_new, _ = plain_run(check)
+        fsplits = served(remote, check, "flip", model_=new_model,
+                         want_=want_new)
+        if process(rid)["post_warmup_compiles"] != 0:
+            fail(f"{tag} flip: the remote worker captured after warmup")
+        inproc_flip = ("not run" if inproc is None
+                       else f"{inproc['flip_ms']:.1f}")
+        print(f"{tag} remote [{card}]: --listen worker attached in "
+              f"{attach_s:.2f}s, {ship[-1][1] / 2**30:.3f} GiB of int8 "
+              f"weights shipped in {ship[-1][0]:.2f}s in checked chunks; "
+              f"{len(check)} streams equal the oracle's but {asplits}; flip "
+              f"by path {flip_ms:.1f} ms (the fleet phase's in-process flip "
+              f"{inproc_flip} ms), {len(check)} streams equal the swapped "
+              f"oracle's but {fsplits}; nothing captured after warmup")
+    except BaseException:
+        print(f"{tag}: the last fence's cause: {crash_at.get('exc')!r}",
+              file=sys.stderr)
+        for rep in fleet.manager.replicas():
+            print(f"{tag}: replica {rep.id} ({rep.kind}) {rep.state}: "
+                  f"{rep.fence_reason}", file=sys.stderr)
+            path = getattr(rep.engine, "log_path", None)
+            if path and not path.startswith("<"):
+                print(f"{tag}: log of worker {rep.id}:\n"
+                      f"{_log_tail(path)}", file=sys.stderr)
+        if listen_log is not None:
+            print(f"{tag}: log of the listening worker:\n"
+                  f"{_log_tail(listen_log)}", file=sys.stderr)
+        raise
+    finally:
+        Response._push_token = orig_push
+        fleet_mod.ReplicaManager._on_crash = orig_on_crash
+        worker_mod.RemoteWorkerClient._ship_artifacts = orig_ship
+        fleet.close()
+        if listener is not None:
+            listener.kill()
+            listener.wait(timeout=30)
+        plain.close()
+        plain._free_device()
+        shutil.rmtree(art, ignore_errors=True)
 
 
 def predictor_phase(torch, args, dev, card):
@@ -4922,9 +5386,14 @@ def main():
     if want("gateway"):
         gateway_phase(torch, args, dev, card)
     torch.cuda.empty_cache()
+    inproc = None
     if want("fleet"):
-        fleet_phase(torch, args, dev, card)
+        inproc = fleet_phase(torch, args, dev, card)
         gc.collect()   # the phase's engines and their patched methods cycle
+    torch.cuda.empty_cache()
+    if want("worker"):
+        worker_phase(torch, args, dev, card, inproc)
+        gc.collect()
     if want("serve_bf16") or want("spec_bf16"):
         model = serve_model(torch, args, dev, torch.bfloat16)
         if want("serve_bf16"):

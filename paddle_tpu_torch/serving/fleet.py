@@ -1,5 +1,6 @@
-"""The in-process serving fleet: a replica manager and a router over N
-``ServingEngine`` replicas (port of paddle_tpu/serving/fleet.py).
+"""The serving fleet: a replica manager and a router over N replicas,
+in-process ``ServingEngine`` s and workers in processes of their own
+(port of paddle_tpu/serving/fleet.py).
 
 - **Routing** is least-loaded (occupancy + queue depth) with session
   affinity: requests sharing a ``session`` key stick to one replica while
@@ -31,17 +32,33 @@ One thread drives ``step()``: the fleet's own ``start()`` loop or a
 ``ServingGateway`` fronting the router (the router has the engine surface
 the gateway consumes).  ``submit`` is safe from any thread.
 
-On the card every replica is an engine of its own in this process: one
-thread steps them in turn, each step ending in a host read, so replicas do
-not overlap on the card; a replica booted while the loop serves captures
-its graphs on the booting thread (``core.programs``: ``"thread_local"``
-capture).  A CUDA error that is sticky loses the context of every replica
-at once, which no in-process fleet survives: replicas of their own
-processes (``add_worker``, the subprocess and remote replicas with their
-heartbeat files, kills and supervised restarts) are not ported yet.
+**Worker replicas** (``serving/worker.py``): ``add_worker(spec)`` spawns
+a replica as a process of its own (``SubprocessReplica``, whose engine is
+a ``WorkerClient`` proxy over the frame RPC with the engine surface
+above), and ``add_worker(spec, address=...)`` attaches a standalone
+``--listen`` worker over TCP (``RemoteReplica``).  A mixed fleet routes,
+migrates, drains and rolls out through the same code.  A worker adds a
+signal the in-process fleet cannot have, an out-of-band heartbeat (a file
+the worker rewrites after every step, or beat frames for a remote one):
+a replica whose step wedges (a hang, not a raise: the socket stays up) is
+fenced on the heartbeat's age (``heartbeat_timeout_s``), killed after
+``kill_grace_s`` and restarted by the supervisor with backoff and jitter
+(``RestartBackoff``) under a restart budget.  A restart boots from the
+lineage's spec, whose weights a flip by path rewrites, so restarts
+converge on the served weights.
 
-Fault knobs (``utils.faults``): ``PDTPU_FAULT_REPLICA_CRASH=replica:tick``
-and ``PDTPU_FAULT_REPLICA_SLOW=ms[:every_n[:replica]]``.
+In-process replicas on the card are engines of this process: one thread
+steps them in turn, each step ending in a host read, so they do not
+overlap on the card; a replica booted while the loop serves captures its
+graphs on the booting thread (``core.programs``: ``"thread_local"``
+capture), and a CUDA error that is sticky loses every one of them at once.
+Each worker has a CUDA context of its own: its graphs replay in its own
+process, beside other workers' by the card's time slicing, and a sticky
+error loses that worker only (failover and a restart follow).
+
+Fault knobs (``utils.faults``): ``PDTPU_FAULT_REPLICA_CRASH=replica:tick``,
+``PDTPU_FAULT_REPLICA_SLOW=ms[:every_n[:replica]]`` and, in a worker,
+``PDTPU_FAULT_REPLICA_WEDGE=replica:tick``.
 """
 from __future__ import annotations
 
@@ -63,8 +80,10 @@ from .request import Request, RequestCancelled, Response
 from .scheduler import DeadlineExceededError, QueueFullError
 from .transfer import (RunTransferError, check_compatible, decode_run,
                        encode_run)
+from .worker import RemoteWorkerClient, WorkerClient, WorkerDiedError
 
-__all__ = ["FleetRouter", "ReplicaManager", "Replica", "RestartBackoff",
+__all__ = ["FleetRouter", "ReplicaManager", "Replica",
+           "SubprocessReplica", "RemoteReplica", "RestartBackoff",
            "ReplicaLostError"]
 
 # replica lifecycle states
@@ -73,6 +92,9 @@ HEALTHY = "healthy"      # warm and fast: routable
 DEGRADED = "degraded"    # fenced by slow-step health; residents migrate
 DRAINING = "draining"    # admissions stopped; residents migrate/finish
 CRASHED = "crashed"      # step raised / injected kill; state abandoned
+WEDGED = "wedged"        # a worker's heartbeat went stale mid-step: alive,
+#                          no progress; fenced as a crash, killed after the
+#                          grace period
 CLOSED = "closed"        # engine closed (drain finished or shutdown)
 
 _LIVE = (BOOTING, HEALTHY, DEGRADED, DRAINING)
@@ -155,13 +177,19 @@ def _obs():
                 "transfer codec"),
             "hb_age": _m.gauge(
                 "serving_replica_heartbeat_age_seconds",
-                "seconds since the replica's last heartbeat (its last "
-                "step that returned)", labelnames=("replica",)),
-            # registered for the report's section; 0 until worker
-            # replicas are ported
+                "seconds since the replica's last heartbeat (a worker's "
+                "heartbeat file or beat frame; an in-process replica's "
+                "last step that returned)", labelnames=("replica",)),
             "workers": _m.gauge(
                 "fleet_worker_processes",
                 "live subprocess worker replicas (process alive)"),
+            "wedges": _m.counter(
+                "fleet_wedged_replicas_total",
+                "replicas fenced on heartbeat age (wedged step: process "
+                "alive, no progress)"),
+            "worker_restarts": _m.counter(
+                "fleet_worker_restarts_total",
+                "supervised subprocess worker restarts performed"),
             "refreshes": _m.counter(
                 "fleet_weight_refreshes_total",
                 "replica weight flips applied (one per replica per "
@@ -246,6 +274,9 @@ class Replica:
         """One step that returned: the heartbeat, and its wall time into
         the EWMA (and the fast-step streak that ends a probation)."""
         self.last_beat = time.monotonic()
+        self.note_step_time(dt, threshold)
+
+    def note_step_time(self, dt: float, threshold: Optional[float]):
         a = 0.3
         self.step_ewma = (dt if self.step_ewma is None
                           else a * dt + (1 - a) * self.step_ewma)
@@ -253,11 +284,12 @@ class Replica:
             self.fast_steps = self.fast_steps + 1 if dt < 0.5 * threshold \
                 else 0
 
-    def heartbeat_age(self) -> float:
+    def heartbeat_age(self) -> Optional[float]:
         """Seconds since the last liveness evidence."""
         return max(0.0, time.monotonic() - self.last_beat)
 
     def snapshot(self) -> Dict:
+        age = self.heartbeat_age()
         return {
             "kind": self.kind,
             "state": self.state,
@@ -267,15 +299,71 @@ class Replica:
             "steps": self.steps,
             "step_ewma_ms": (None if self.step_ewma is None
                              else round(self.step_ewma * 1e3, 3)),
-            "heartbeat_age_s": round(self.heartbeat_age(), 3),
+            "heartbeat_age_s": None if age is None else round(age, 3),
             "fence_reason": self.fence_reason,
             "post_warmup_compiles": (self.engine.post_warmup_compiles()
                                      if self.engine.warm else None),
             "weights_sha": self.engine.weights_sha,
-            "refresh_epoch": self.engine.refresh_epoch,
+            "refresh_epoch": getattr(self.engine, "refresh_epoch", 0),
             "flipping": self.flipping,
             "adapters": self.engine.adapter_shas(),
         }
+
+
+class SubprocessReplica(Replica):
+    """A replica whose engine is a ``WorkerClient`` proxy over a process of
+    its own.  Besides the in-process state: the out-of-band heartbeat's age
+    (the wedge detector), the worker's own step times feeding the
+    brownout EWMA (the pump time on this side measures nothing), and the
+    ``lineage`` the supervisor restarts it from: the spec, the stable
+    worker index the fault knobs target, and the restart count the budget
+    caps."""
+
+    kind = "subprocess"
+
+    def __init__(self, rid: int, client: WorkerClient, lineage: Dict):
+        super().__init__(rid, client)
+        self.lineage = lineage
+
+    def observe_step(self, dt: float, threshold: Optional[float]):
+        for wdt in self.engine.take_step_times():
+            self.note_step_time(wdt, threshold)
+
+    def heartbeat_age(self, fresh: bool = False) -> Optional[float]:
+        age = self.engine.heartbeat_age(fresh=fresh)
+        if age is None:
+            # no beat yet (early boot): the manager's own evidence
+            return max(0.0, time.monotonic() - self.last_beat)
+        self.last_beat = time.monotonic() - age
+        return age
+
+    def snapshot(self) -> Dict:
+        snap = super().snapshot()
+        snap.update({
+            "pid": self.engine.pid,
+            "process_alive": self.engine.process_alive(),
+            "worker_index": self.lineage.get("index"),
+            "restarts": self.lineage.get("restarts", 0),
+            "worker_steps": self.engine.heartbeat_steps(),
+            "epoch": getattr(self.engine, "epoch", 0),
+        })
+        return snap
+
+
+class RemoteReplica(SubprocessReplica):
+    """A replica attached over TCP (``RemoteWorkerClient``): the manager
+    never owned its process, liveness rides beat frames on a side
+    connection instead of a heartbeat file, and a supervised restart is a
+    re-attach to the same address with the next epoch.  Wedge fencing,
+    failover, drain and rollout are the subprocess replica's."""
+
+    kind = "remote"
+
+    def snapshot(self) -> Dict:
+        snap = super().snapshot()
+        snap["address"] = self.lineage.get("address")
+        snap["bytes_shipped"] = getattr(self.engine, "bytes_shipped", 0)
+        return snap
 
 
 class ReplicaManager:
@@ -283,16 +371,19 @@ class ReplicaManager:
     weight flips.  Replica state changes on the driving thread (the fleet
     loop or the gateway loop), except ``add`` / ``drain`` / ``remove`` /
     ``flip_weights``, which flip flags under the lock for the next tick.
-    ``heartbeat_timeout_s`` flags routable replicas whose last step is
-    older (``stale_routable``: the driving loop itself stalled);
-    ``kill_grace_s`` and ``restart_backoff`` are the reference's
-    supervisor settings for worker replicas, kept for them."""
+    A worker replica whose heartbeat is older than ``heartbeat_timeout_s``
+    is wedged: fenced and failed over although no call returned, killed
+    ``kill_grace_s`` later, and restarted under ``restart_backoff``'s
+    budget (for an in-process replica a raising step is the verdict; its
+    heartbeat only feeds ``stale_routable``).  ``_clock`` is injectable
+    (deterministic tests of the supervisor)."""
 
     def __init__(self, slow_threshold_ms: Optional[float] = None,
                  probation_steps: int = 5,
                  heartbeat_timeout_s: Optional[float] = 10.0,
                  kill_grace_s: float = 2.0,
-                 restart_backoff: Optional[RestartBackoff] = None):
+                 restart_backoff: Optional[RestartBackoff] = None,
+                 _clock: Callable[[], float] = time.monotonic):
         self._replicas: Dict[int, Replica] = {}
         self._next_id = 0
         self._lock = threading.Lock()
@@ -305,6 +396,9 @@ class ReplicaManager:
         self.kill_grace_s = float(kill_grace_s)
         self.restart_backoff = (RestartBackoff() if restart_backoff is None
                                 else restart_backoff)
+        self._clock = _clock
+        self._pending_kills: List[tuple] = []   # (replica, kill at)
+        self._restarts: List[Dict] = []         # {lineage, at, from}
         # runs preempted off a fenced replica that no peer could hold yet
         # (paged-block shortfall): retried every tick, swept for
         # cancel / deadline, failed at close
@@ -336,11 +430,56 @@ class ReplicaManager:
         self._publish_up(rep)
         return rep
 
-    def add_worker(self, spec: Dict, **kwargs):
-        raise UnimplementedError(
-            "subprocess and remote replicas (add_worker) are not ported "
-            "yet: they come with serving/worker.py (ROADMAP §1 item 5); "
-            "add in-process engines with add()")
+    def add_worker(self, spec: Dict, lineage: Optional[Dict] = None,
+                   boot_timeout_s: float = 180.0,
+                   rpc_timeout_s: float = 15.0,
+                   address: Optional[str] = None,
+                   **client_extra) -> SubprocessReplica:
+        """Spawn a worker process from a boot spec (``serving/worker.py``)
+        and register it BOOTING; the driving tick polls its handshake and
+        makes it healthy once the worker reports warm.  ``address=
+        "HOST:PORT"`` attaches a standalone ``--listen`` worker over TCP
+        instead: the spec and the ``spec["weights"]`` artifact ship over
+        the attach under a manager-issued epoch, and a supervised restart
+        is a re-attach with the next epoch.  ``lineage`` is the
+        supervisor's (a restart reuses the spec, index and budget).  A
+        spec with a program set is refused here, typed: the port has none
+        yet (ROADMAP section 1 item 2)."""
+        if (spec.get("program_set") is not None
+                or spec.get("ship_program_set")):
+            raise UnimplementedError(
+                "worker program sets are not ported yet: they come with "
+                "programs/ (ROADMAP section 1 item 2); a worker captures "
+                "its graphs at boot")
+        client_kw = {"boot_timeout_s": float(boot_timeout_s),
+                     "rpc_timeout_s": float(rpc_timeout_s)}
+        client_kw.update(client_extra)
+        with self._lock:
+            rid = self._next_id
+            self._next_id += 1
+        if lineage is None:
+            # the worker INDEX (the fault knobs' target) stays the same
+            # across restarts; a replica id never recurs
+            lineage = {"spec": dict(spec), "index": rid, "restarts": 0,
+                       "client_kw": client_kw, "exhausted": False,
+                       "address": address, "epoch": 0}
+        if lineage.get("address"):
+            # a fresh epoch at every (re)attach: a healed stale session
+            # is told to abort, never to serve on
+            lineage["epoch"] = lineage.get("epoch", 0) + 1
+            client = RemoteWorkerClient(
+                lineage["spec"], address=lineage["address"],
+                index=lineage["index"], epoch=lineage["epoch"],
+                **lineage.get("client_kw", client_kw))
+            rep = RemoteReplica(rid, client, lineage)
+        else:
+            client = WorkerClient(lineage["spec"], index=lineage["index"],
+                                  **lineage.get("client_kw", client_kw))
+            rep = SubprocessReplica(rid, client, lineage)
+        with self._lock:
+            self._replicas[rid] = rep
+        self._publish_up(rep)
+        return rep
 
     def get(self, rid: int) -> Optional[Replica]:
         with self._lock:
@@ -368,13 +507,18 @@ class ReplicaManager:
             if rep.state == DRAINING:
                 rep.remove_after_drain = True
                 return
-            if rep.state not in (CLOSED, CRASHED):
+            if rep.state not in (CLOSED, CRASHED, WEDGED):
                 raise InvalidArgumentError(
                     f"replica {rid} is {rep.state}; drain it before "
                     "remove (or let crash handling finish)")
             del self._replicas[rid]
-        rep.engine.close()
-        rep.engine._free_device()
+        if isinstance(rep, SubprocessReplica):
+            # reap: a crashed or wedged corpse cannot answer a close verb,
+            # and waiting for it would stall every other replica
+            rep.engine.close(graceful=rep.state == CLOSED)
+        else:
+            rep.engine.close()
+            rep.engine._free_device()
         _obs()["up"].labels(replica=str(rid)).set(0)
         self._publish_counts()
 
@@ -423,26 +567,35 @@ class ReplicaManager:
     # -- the driving tick ---------------------------------------------
     def tick(self) -> bool:
         """One fleet iteration on the driving thread: step every live
-        warm replica (the crash and brownout knobs consulted per step,
-        its wall time fed to health), fence what health demands, migrate
-        residents off fenced replicas, retry parked runs, apply due
-        weight flips, close drained-empty replicas."""
+        replica (the crash and brownout knobs consulted per step, its
+        wall time fed to health), poll booting workers' handshakes, fence
+        what health demands (a worker's heartbeat age included), kill
+        wedged workers past their grace, run the restart supervisor,
+        migrate residents off fenced replicas, retry parked runs, apply
+        due weight flips, close drained-empty replicas."""
         self._ticks += 1
         did = False
         crash_cfg = faults.replica_crash_config()
         for rep in self.replicas(_LIVE):
+            worker = isinstance(rep, SubprocessReplica)
             if rep.state == BOOTING:
-                continue   # warm_all / rollout make it routable
+                # a worker's handshake; warm_all / rollout make an
+                # in-process replica routable
+                did = self._poll_boot(rep) or did
+                continue
             if (rep.state == DEGRADED and not rep.engine.has_work()
-                    and self._ticks % 16):
-                # probation sampling: an idle fenced replica is stepped
-                # only now and then, so a browned-out replica's step
-                # latency cannot keep stalling the shared loop
+                    and self._ticks % 16 and not worker):
+                # probation sampling: an idle fenced in-process replica is
+                # stepped only now and then, so a browned-out replica's
+                # step latency cannot keep stalling the shared loop (a
+                # worker's pump is cheap and feeds its health)
                 continue
             try:
-                # the brownout sleep counts INTO the measured step time
+                # the brownout sleep counts INTO the measured step time;
+                # a worker sleeps in its own loop, by its own index
                 t0 = time.perf_counter()
-                faults.maybe_slow_replica(rep.id, rep.steps)
+                if not worker:
+                    faults.maybe_slow_replica(rep.id, rep.steps)
                 if crash_cfg is not None and crash_cfg == (rep.id,
                                                            rep.steps):
                     rep.steps += 1
@@ -457,14 +610,146 @@ class ReplicaManager:
             except Exception as e:  # noqa: BLE001 — fence, never hang
                 self._on_crash(rep, e)
                 did = True
+        self._check_heartbeats()
         self._update_health()
         did = self._pump_migrations() or did
         did = self._pump_parked() or did
         self._sweep_parked()
         did = self._pump_flips() or did
         did = self._finish_drains() or did
+        did = self._pump_kills() or did
+        did = self._pump_restarts() or did
         self._publish_inflight()
         return did
+
+    def _poll_boot(self, rep: Replica) -> bool:
+        """Advance a booting worker's handshake; a boot that fails (the
+        process exits, reports a typed fatal or runs out of
+        ``boot_timeout_s``) costs a restart attempt."""
+        if not isinstance(rep, SubprocessReplica):
+            return False
+        try:
+            ready = rep.engine.poll_ready()
+        except WorkerDiedError as e:
+            rep.state = CRASHED
+            rep.fence_reason = f"boot failed: {e}"
+            self._publish_up(rep)
+            rep.engine.kill()
+            self._schedule_restart(rep)
+            return True
+        if ready and rep.state == BOOTING:
+            rep.state = HEALTHY
+            rep.last_beat = time.monotonic()
+            self._converge_adapters(rep)
+            self._publish_up(rep)
+            return True
+        return False
+
+    # -- the wedge detector and the supervisor -------------------------
+    def _check_heartbeats(self):
+        """Fence a live worker whose heartbeat is older than
+        ``heartbeat_timeout_s``: its step never returned, its socket is
+        connected, and only the out-of-band signal shows no progress.  A
+        booting worker is not judged (``boot_timeout_s`` is its budget)."""
+        if self.heartbeat_timeout_s is None:
+            return
+        for rep in self.replicas((HEALTHY, DEGRADED, DRAINING)):
+            if not isinstance(rep, SubprocessReplica):
+                continue
+            age = rep.heartbeat_age()
+            if age is not None and age > self.heartbeat_timeout_s:
+                # confirm on a fresh read: a cached record may predate the
+                # worker's warm beat, and a false wedge costs a restart
+                age = rep.heartbeat_age(fresh=True)
+                if age is not None and age > self.heartbeat_timeout_s:
+                    self._on_wedge(rep, age)
+
+    def _on_wedge(self, rep: Replica, age: float):
+        """A wedged worker's state cannot be reached (any RPC would hang),
+        so failover treats it as a crash; the process gets
+        ``kill_grace_s`` to come back on its own before it is killed, and
+        the supervisor restarts it under the backoff budget."""
+        rep.state = WEDGED
+        rep.fence_reason = (f"wedged: heartbeat age {age:.2f}s > "
+                            f"{self.heartbeat_timeout_s:.2f}s threshold")
+        self._n["wedges"] += 1
+        self._n["failovers"] += 1
+        stat_add("STAT_fleet_wedges")
+        stat_add("STAT_fleet_failovers")
+        _obs()["wedges"].inc()
+        _obs()["failovers"].inc()
+        self._publish_up(rep)
+        self._fail_over_all(rep)
+        self._pending_kills.append((rep, self._clock() + self.kill_grace_s))
+        self._schedule_restart(rep)
+
+    def _pump_kills(self) -> bool:
+        """Kill the wedged workers whose grace period ran out (a second
+        kill of a dead process is a no-op)."""
+        if not self._pending_kills:
+            return False
+        now = self._clock()
+        due = [e for e in self._pending_kills if e[1] <= now]
+        if not due:
+            return False
+        self._pending_kills = [e for e in self._pending_kills if e[1] > now]
+        for rep, _ in due:
+            rep.engine.kill()
+        return True
+
+    def _schedule_restart(self, rep: Replica):
+        if not isinstance(rep, SubprocessReplica):
+            return
+        # a wedged worker keeps its grace before the kill: its successor
+        # must not spawn (and reap the corpse) earlier
+        min_delay = (self.kill_grace_s + 0.05 if rep.state == WEDGED
+                     else 0.0)
+        self._schedule_restart_lineage(rep.lineage, from_id=rep.id,
+                                       min_delay=min_delay)
+
+    def _schedule_restart_lineage(self, lineage: Dict,
+                                  from_id: Optional[int] = None,
+                                  min_delay: float = 0.0):
+        if lineage.get("exhausted"):
+            return
+        attempt = lineage.get("restarts", 0) + 1
+        delay = self.restart_backoff.delay_for(attempt)
+        if delay is None:
+            # the budget is spent: the replica is gone for good (every
+            # consumer reached a typed end when it was fenced)
+            lineage["exhausted"] = True
+            self._n["restarts_exhausted"] += 1
+            stat_add("STAT_fleet_restarts_exhausted")
+            if from_id is not None:
+                self.remove(from_id)
+            return
+        lineage["restarts"] = attempt
+        self._restarts.append({"lineage": lineage,
+                               "at": self._clock() + max(delay, min_delay),
+                               "from": from_id})
+
+    def _pump_restarts(self) -> bool:
+        if not self._restarts:
+            return False
+        now = self._clock()
+        due = [r for r in self._restarts if r["at"] <= now]
+        if not due:
+            return False
+        self._restarts = [r for r in self._restarts if r["at"] > now]
+        for r in due:
+            lineage = r["lineage"]
+            # the dead incarnation goes the moment its successor exists
+            if r.get("from") is not None and self.get(r["from"]) is not None:
+                self.remove(r["from"])
+            try:
+                self.add_worker(lineage["spec"], lineage=lineage)
+            except Exception:  # noqa: BLE001 — the spawn failed: retry
+                self._schedule_restart_lineage(lineage)
+                continue
+            self._n["worker_restarts"] += 1
+            stat_add("STAT_fleet_worker_restarts")
+            _obs()["worker_restarts"].inc()
+        return True
 
     # -- health --------------------------------------------------------
     def _update_health(self):
@@ -494,7 +779,8 @@ class ReplicaManager:
         """SIGKILL-equivalent loss: the engine had no chance to fail its
         runs.  Fence it, then give every resident stream a future:
         resubmission for greedy opt-ins, ReplicaLostError for the rest, a
-        re-route for queued work that never started."""
+        re-route for queued work that never started.  A crashed worker
+        is also reaped (no zombie) and handed to the restart supervisor."""
         rep.state = CRASHED
         rep.fence_reason = repr(exc)
         self._n["failovers"] += 1
@@ -502,10 +788,15 @@ class ReplicaManager:
         _obs()["failovers"].inc()
         self._publish_up(rep)
         self._fail_over_all(rep)
+        if isinstance(rep, SubprocessReplica):
+            rep.engine.kill()
+            self._schedule_restart(rep)
 
     def _fail_over_all(self, rep: Replica):
         """Give every consumer of an unreachable replica a future; its
-        parked OOM snapshots count as lost too."""
+        parked OOM snapshots count as lost too.  For a worker, ``_slots``
+        mirrors what was shipped to it and the scheduler queue is the
+        local backlog not yet shipped: together, every accepted request."""
         engine = rep.engine
         lost = [(run.req, run.resp) for run in engine._slots.values()]
         # release the scheduler's slot bookkeeping too: the abandoned
@@ -513,7 +804,7 @@ class ReplicaManager:
         for slot in list(engine._slots):
             engine.scheduler.release(slot)
         engine._slots.clear()
-        if engine.kv == "paged":
+        if getattr(engine, "kv", "fixed") == "paged":
             lost.extend((p.req, p.resp) for p in engine._oom_paused)
             engine._oom_paused = []
         for req, resp in lost:
@@ -610,7 +901,12 @@ class ReplicaManager:
         brownout) through the run-transfer codec."""
         did = False
         for rep in self.replicas((DRAINING, DEGRADED)):
-            did = self._migrate_residents(rep) or did
+            try:
+                did = self._migrate_residents(rep) or did
+            except WorkerDiedError as e:
+                # the source worker died (or wedged) mid-preempt
+                self._on_crash(rep, e)
+                did = True
         return did
 
     def _migrate_residents(self, rep: Replica) -> bool:
@@ -621,7 +917,14 @@ class ReplicaManager:
             target = self._pick_slot_target(exclude_id=rep.id)
             if target is None:
                 break  # fleet full: residents finish in place
-            paused = rep.engine.preempt_slot(slot)
+            if slot not in rep.engine._slots:
+                continue
+            try:
+                paused = rep.engine.preempt_slot(slot)
+            except InvalidArgumentError:
+                # the run finished in the race window (a worker steps on
+                # between our scan and its preempt)
+                continue
             try:
                 snap = decode_run(encode_run(paused), req=paused.req,
                                   resp=paused.resp, engine=target.engine)
@@ -632,6 +935,12 @@ class ReplicaManager:
                 self._n["lost"] += 1
                 stat_add("STAT_fleet_lost_runs")
                 paused.resp._fail(e)
+                did = True
+                continue
+            except WorkerDiedError as e:
+                # the TARGET died mid-restore; the snapshot is still here
+                self._on_crash(target, e)
+                self._parked.append(snap)
                 did = True
                 continue
             if restored:
@@ -664,6 +973,9 @@ class ReplicaManager:
                     restored = rep.engine.restore_run(snap)
                 except RunTransferError:
                     continue  # incompatible peer: try the next one
+                except WorkerDiedError as e:
+                    self._on_crash(rep, e)
+                    continue
                 if restored:
                     self._note_migrated(snap)
                     placed = did = True
@@ -753,6 +1065,11 @@ class ReplicaManager:
                 self._n["weight_refreshes"] += 1
                 stat_add("STAT_fleet_weight_refreshes")
                 _obs()["refreshes"].inc()
+            except WorkerDiedError as e:
+                # the worker died mid-flip: a crash (it was idle; the
+                # supervisor restarts it from the rewritten spec)
+                entry.update(done=True, ok=False, error=repr(e))
+                self._on_crash(rep, e)
             except Exception as e:  # noqa: BLE001 — a rejected swap
                 # (key or shape mismatch, unreadable artifact): the
                 # replica still serves the old weights
@@ -765,6 +1082,15 @@ class ReplicaManager:
         return did
 
     def _apply_flip(self, rep: Replica, entry: Dict):
+        if isinstance(rep, SubprocessReplica):
+            if entry["path"] is None:
+                raise InvalidArgumentError(
+                    "a worker replica's flip needs a weight artifact path "
+                    "(a state dict does not cross processes)")
+            rep.engine.swap_weights(entry["path"], entry["sha"])
+            # a restart boots on the new weights, not the boot artifact
+            rep.lineage["spec"]["weights"] = entry["path"]
+            return
         state = entry["state"]
         if state is None:
             if entry["path"] is None:
@@ -790,6 +1116,9 @@ class ReplicaManager:
                 continue  # _converge_adapters loads it when warm
             try:
                 results[rep.id] = rep.engine.load_adapter(name, path)
+            except WorkerDiedError as e:
+                errors[rep.id] = e
+                self._on_crash(rep, e)
             except Exception as e:  # noqa: BLE001 — typed per replica
                 errors[rep.id] = e
         if errors and not results:
@@ -833,15 +1162,22 @@ class ReplicaManager:
             p.resp._fail(make_exc(p.req))
 
     def close_all(self):
-        """Close every replica and release every engine's device memory;
-        parked runs fail typed."""
+        """Close every replica, releasing every engine's device memory and
+        reaping every worker (crashed and wedged ones included: no orphan
+        process, no zombie); parked runs fail typed.  The supervisor stops
+        with it."""
+        self._restarts = []
+        self._pending_kills = []
         for rep in self.replicas(_LIVE):
             rep.engine.close()
             rep.state = CLOSED
             self._publish_up(rep)
         for rep in self.replicas():
-            rep.engine.close()
-            rep.engine._free_device()
+            if isinstance(rep, SubprocessReplica):
+                rep.engine.close(graceful=rep.state == CLOSED)
+            else:
+                rep.engine.close()
+                rep.engine._free_device()
         parked, self._parked = self._parked, []
         for p in parked:
             p.resp._fail(RequestCancelled(
@@ -859,10 +1195,16 @@ class ReplicaManager:
 
     def _publish_inflight(self):
         obs = _obs()
+        workers_alive = 0
         for rep in self.replicas(_LIVE):
             obs["inflight"].labels(replica=str(rep.id)).set(rep.load())
-            obs["hb_age"].labels(replica=str(rep.id)).set(
-                rep.heartbeat_age())
+            age = rep.heartbeat_age()
+            if age is not None:
+                obs["hb_age"].labels(replica=str(rep.id)).set(age)
+            if (isinstance(rep, SubprocessReplica)
+                    and rep.engine.process_alive()):
+                workers_alive += 1
+        obs["workers"].set(workers_alive)
 
     def stale_routable(self) -> List[int]:
         """Routable replica ids whose heartbeat is older than
@@ -871,11 +1213,16 @@ class ReplicaManager:
         observer left."""
         if self.heartbeat_timeout_s is None:
             return []
-        return [rep.id for rep in self.routable()
-                if rep.heartbeat_age() > self.heartbeat_timeout_s]
+        out = []
+        for rep in self.routable():
+            age = rep.heartbeat_age()
+            if age is not None and age > self.heartbeat_timeout_s:
+                out.append(rep.id)
+        return out
 
     def counters(self) -> Dict:
-        return dict(self._n, parked=len(self._parked), pending_restarts=0,
+        return dict(self._n, parked=len(self._parked),
+                    pending_restarts=len(self._restarts),
                     pending_flips=len(self._flips))
 
 
@@ -921,8 +1268,8 @@ class FleetRouter:
     It has the engine surface ``ServingGateway`` consumes, so
     ``ServingGateway(fleet, ...)`` fronts the fleet as it fronts one
     engine (its loop drives ``fleet.step()``).  Every replica must serve
-    the same model with the same engine options.  ``workers`` (subprocess
-    replicas) take an empty sequence only."""
+    the same model with the same engine options.  ``workers`` are boot
+    specs of worker replicas (``add_worker``)."""
 
     def __init__(self, replicas=(),
                  slow_threshold_ms: Optional[float] = None,
@@ -966,12 +1313,28 @@ class FleetRouter:
             raise UnavailableError("fleet is closed")
         return self.manager.add(engine).id
 
-    def add_worker(self, spec: Dict, **kwargs) -> int:
-        """Subprocess / remote replicas: not ported yet (raises
-        UnimplementedError)."""
+    def add_worker(self, spec: Dict, boot_timeout_s: float = 180.0,
+                   rpc_timeout_s: float = 15.0,
+                   address: Optional[str] = None,
+                   **client_extra) -> int:
+        """Spawn a worker replica from a boot spec (``serving/worker.py``:
+        a model factory, optional weights and the engine's options) and
+        return its id.  The worker boots and warms in its own process; the
+        driving loop makes it routable at its ready handshake (or block on
+        ``warmup()``).  Crash and wedge handling, the kill and the
+        supervised restart are automatic.  ``address="HOST:PORT"``
+        attaches a standalone ``--listen`` worker instead: the weights
+        (``spec["weights"]``) ship over the attach, liveness rides beat
+        frames, and a re-attach takes the next epoch (``
+        RemoteWorkerClient``; extra keywords such as ``manager_silence_s``
+        or ``connect_timeout_s`` go to the client)."""
         if self._closed:
             raise UnavailableError("fleet is closed")
-        return self.manager.add_worker(spec, **kwargs)
+        rep = self.manager.add_worker(spec, boot_timeout_s=boot_timeout_s,
+                                      rpc_timeout_s=rpc_timeout_s,
+                                      address=address, **client_extra)
+        self._work.set()
+        return rep.id
 
     def _unpin(self, rid: int):
         with self._lock:
@@ -1117,7 +1480,15 @@ class FleetRouter:
         rep = self.manager.get(rid)
         if rep is None or rep.state not in _LIVE:
             raise InvalidArgumentError(f"replica {rid} is not live")
-        return rep.engine.preempt_slot(slot)
+        try:
+            return rep.engine.preempt_slot(slot)
+        except WorkerDiedError as e:
+            # the worker died or wedged mid-preempt: the crash path fails
+            # the victim over, and the caller sees the not-live error it
+            # already handles
+            self.manager._on_crash(rep, e)
+            raise InvalidArgumentError(
+                f"replica {rid} died during preempt: {e}")
 
     def restore_run(self, paused: PreemptedRun) -> bool:
         """Resume a preempted run on any replica with capacity: the
@@ -1130,6 +1501,9 @@ class FleetRouter:
                 if rep.engine.restore_run(paused):
                     return True
             except RunTransferError:
+                continue
+            except WorkerDiedError as e:
+                self.manager._on_crash(rep, e)
                 continue
         return False
 
@@ -1258,8 +1632,7 @@ class FleetRouter:
         """Per-replica health and fleet aggregates, under the reference's
         keys: the gateway's /healthz fleet block.  ``all_routable_stale``
         means every replica the router would still feed has a heartbeat
-        older than ``heartbeat_timeout_s`` (the driving loop stopped).
-        The worker fields stay 0 until subprocess replicas are ported."""
+        older than ``heartbeat_timeout_s`` (the driving loop stopped)."""
         reps = self.manager.replicas()
         stale = self.manager.stale_routable()
         routable = self.manager.routable()
@@ -1273,8 +1646,10 @@ class FleetRouter:
             "routable": len(routable),
             "routable_verified": verified,
             "total": len(reps),
-            "workers": 0,
-            "remote_workers": 0,
+            "workers": sum(1 for r in reps
+                           if isinstance(r, SubprocessReplica)),
+            "remote_workers": sum(1 for r in reps
+                                  if isinstance(r, RemoteReplica)),
             "warm": self.warm,
             "heartbeat_timeout_s": self.manager.heartbeat_timeout_s,
             "stale_routable": stale,
@@ -1299,7 +1674,10 @@ class FleetRouter:
                   "tokens_out": 0}
         per = {}
         for rep in self.manager.replicas():
-            m = rep.engine.metrics()
+            try:
+                m = rep.engine.metrics()
+            except Exception:  # noqa: BLE001 — a dead worker's view
+                m = {}
             if rep.state in _LIVE:
                 for k in totals:
                     totals[k] += m.get(k) or 0

@@ -89,7 +89,11 @@ def engine_config_hash(engine) -> str:
     override is spelled as a numpy dtype name (``"bfloat16"``); the
     reference spells its JAX dtype object, so engines built with an
     override hash apart across the two frameworks (with None, the
-    default, they hash equal)."""
+    default, they hash equal).  A worker replica's proxy answers from
+    the manifest its worker computed at boot."""
+    tm = getattr(engine, "transfer_manifest", None)
+    if callable(tm):
+        return tm()["config_hash"]
     spec = engine.draft_model is not None
     ident = {
         "model_class": type(engine.model).__name__,
@@ -110,7 +114,13 @@ def engine_config_hash(engine) -> str:
 def target_manifest(engine) -> dict:
     """The restore-compatibility descriptor of an engine: per-layer KV row
     trailing shapes and dtype names (target and draft halves), max_len,
-    and the config hash."""
+    and the config hash.  A worker replica's proxy (``serving/worker.py``)
+    returns the one its worker computed at boot, by
+    ``transfer_manifest()``, so ``check_compatible`` runs against it as
+    against a live engine."""
+    tm = getattr(engine, "transfer_manifest", None)
+    if callable(tm):
+        return tm()
 
     def side(pools):
         return [{"k_shape": [int(d) for d in k.shape[2:]],

@@ -1,7 +1,8 @@
 """Fault injection for the serving engine, the training step, the LoRA
-artifacts, the serving fleet and its weight refresh (the paged-KV,
-speculative, poisoned-logits, slow-decode, adapter, poisoned-gradient,
-replica and publish knobs of paddle_tpu/utils/faults.py).
+artifacts, the serving fleet, its worker processes and its weight refresh
+(the paged-KV, speculative, poisoned-logits, slow-decode, adapter,
+poisoned-gradient, replica, network and publish knobs of
+paddle_tpu/utils/faults.py).
 
 A knob is armed by ``enable(point, value)`` or by its environment
 variable.  The KV knobs are read live at every use (host-side bookkeeping
@@ -85,6 +86,27 @@ The fleet's and the weight refresh's knobs are host-side and read live
                 whatever the streams: the rollback drill.
                 Env: PDTPU_FAULT_CANARY_DIVERGE="1".
 
+The worker knobs are read live in the worker process (``serving/
+worker.py``; a manager arms them there by the ``fault`` verb,
+``WorkerClient.set_fault``):
+
+  replica_wedge worker ``replica``'s drive loop blocks for good at its
+                step ``tick`` or any later one (a hang, not a crash): the
+                socket stays connected and only the heartbeat's age shows
+                it.  Env: PDTPU_FAULT_REPLICA_WEDGE="replica:tick".
+  net_delay     every ``every_n``-th frame sent by this process trickles
+                out in 64-byte pieces with ``ms`` between them, so the
+                peer's frame-assembly deadline trips.
+                Env: PDTPU_FAULT_NET_DELAY="ms[:every_n]".
+  net_drop      the n-th frame sent by this process (1-based, counted
+                over every connection, once until ``reset``) is cut after
+                half its bytes and its socket closed.
+                Env: PDTPU_FAULT_NET_DROP="n".
+  net_partition the connections of replica ``replica`` drop everything
+                both ways, sockets up, for ``seconds`` from the first
+                check after arming, then heal.
+                Env: PDTPU_FAULT_NET_PARTITION="replica:seconds".
+
 ``enable`` mirrors the value into ``os.environ`` (subprocesses inherit
 it); ``get`` reads this module's registry first, then the environment.
 """
@@ -104,7 +126,10 @@ __all__ = ["enable", "disable", "reset", "get", "kv_exhaust_cap",
            "maybe_corrupt_adapter_read", "nan_grads_window",
            "poison_grads", "replica_crash_config", "replica_slow_config",
            "maybe_slow_replica", "publish_corrupt_n",
-           "maybe_corrupt_publish", "canary_diverge"]
+           "maybe_corrupt_publish", "canary_diverge",
+           "replica_wedge_config", "maybe_wedge_replica",
+           "net_delay_config", "net_drop_frame", "maybe_net_drop",
+           "net_partition_config", "net_partition_active"]
 
 _ENV = {"kv_exhaust": "PDTPU_FAULT_KV_EXHAUST",
         "prefix_evict": "PDTPU_FAULT_PREFIX_EVICT",
@@ -116,12 +141,19 @@ _ENV = {"kv_exhaust": "PDTPU_FAULT_KV_EXHAUST",
         "replica_crash": "PDTPU_FAULT_REPLICA_CRASH",
         "replica_slow": "PDTPU_FAULT_REPLICA_SLOW",
         "publish_corrupt": "PDTPU_FAULT_PUBLISH_CORRUPT",
-        "canary_diverge": "PDTPU_FAULT_CANARY_DIVERGE"}
+        "canary_diverge": "PDTPU_FAULT_CANARY_DIVERGE",
+        "replica_wedge": "PDTPU_FAULT_REPLICA_WEDGE",
+        "net_delay": "PDTPU_FAULT_NET_DELAY",
+        "net_drop": "PDTPU_FAULT_NET_DROP",
+        "net_partition": "PDTPU_FAULT_NET_PARTITION"}
 
 _lock = threading.Lock()
 _registry = {}   # point -> raw config string
 _adapter_counter = {"n": 0}   # adapter_corrupt counts reads per process
 _publish_counter = {"n": 0}   # publish_corrupt counts publishes per process
+# net_drop counts frames per process; net_partition keeps each armed
+# window's start
+_net_state = {"frames": 0, "drop_fired": False, "partitions": {}}
 
 
 def enable(point: str, value="1"):
@@ -147,6 +179,9 @@ def reset():
     with _lock:
         _adapter_counter["n"] = 0
         _publish_counter["n"] = 0
+        _net_state["frames"] = 0
+        _net_state["drop_fired"] = False
+        _net_state["partitions"] = {}
 
 
 def get(point: str) -> Optional[str]:
@@ -347,3 +382,81 @@ def canary_diverge() -> bool:
     """True while armed: the refresher's canary gate reports a mismatch
     whatever the streams."""
     return bool(get("canary_diverge"))
+
+
+def replica_wedge_config() -> Optional[Tuple[int, int]]:
+    """(replica index, tick) at which that worker's drive loop blocks for
+    good, or None when disarmed."""
+    raw = get("replica_wedge")
+    if not raw:
+        return None
+    replica, tick = raw.split(":", 1)
+    return int(replica), int(tick)
+
+
+def maybe_wedge_replica(replica_idx: int, step_no: int):
+    """Block for good when replica_wedge is armed for ``replica_idx`` and
+    ``step_no`` reached its tick (at or after it: a knob armed over the
+    wire against a worker that steps fast must not slip past).  Only a
+    kill ends it."""
+    cfg = replica_wedge_config()
+    if cfg is None or cfg[0] != replica_idx or step_no < cfg[1]:
+        return
+    while True:  # pragma: no cover - ends by SIGKILL only
+        time.sleep(3600)
+
+
+def net_delay_config() -> Optional[Tuple[float, int]]:
+    """(ms between 64-byte pieces, every_n) or None when disarmed."""
+    raw = get("net_delay")
+    if not raw:
+        return None
+    parts = raw.split(":", 1)
+    every = int(parts[1]) if len(parts) == 2 else 1
+    return float(parts[0]), max(1, every)
+
+
+def net_drop_frame() -> Optional[int]:
+    """1-based frame number (over every connection of this process) to
+    cut mid-frame, or None when disarmed."""
+    raw = get("net_drop")
+    return None if not raw else int(raw)
+
+
+def maybe_net_drop() -> bool:
+    """Count one frame send; True once, on the armed frame number (the
+    caller sends half the frame and closes the socket)."""
+    target = net_drop_frame()
+    if target is None:
+        return False
+    with _lock:
+        _net_state["frames"] += 1
+        if _net_state["drop_fired"] or _net_state["frames"] != target:
+            return False
+        _net_state["drop_fired"] = True
+    return True
+
+
+def net_partition_config() -> Optional[Tuple[int, float]]:
+    """(replica index, seconds) or None when disarmed."""
+    raw = get("net_partition")
+    if not raw:
+        return None
+    replica, secs = raw.split(":", 1)
+    return int(replica), float(secs)
+
+
+def net_partition_active(replica_idx: Optional[int]) -> bool:
+    """True while the partition window against ``replica_idx`` is open.
+    Each process starts the window at its first check after arming (arm
+    both sides at about the same time: the manager by ``enable``, the
+    worker by its ``fault`` verb); it closes ``seconds`` later with both
+    processes alive."""
+    cfg = net_partition_config()
+    if cfg is None or replica_idx is None or cfg[0] != int(replica_idx):
+        return False
+    raw = get("net_partition")
+    now = time.monotonic()
+    with _lock:
+        start = _net_state["partitions"].setdefault(raw, now)
+    return (now - start) < cfg[1]

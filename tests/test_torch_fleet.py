@@ -322,12 +322,17 @@ def test_fault_knobs_parse_as_the_reference(sides):
 
 
 def test_subprocess_replicas_are_refused(sides):
+    """Worker replicas are ported (tests/test_torch_worker.py); what the
+    port still refuses, typed and before any process is spawned, is a
+    worker spec with a program set (ROADMAP section 1 item 2)."""
     fleet = T.FleetRouter([sides["port"][2]()])
     try:
-        with pytest.raises(UnimplementedError, match="worker.py"):
-            fleet.add_worker({"model": {}})
-        with pytest.raises(UnimplementedError, match="worker.py"):
-            T.FleetRouter(workers=[{"model": {}}])
+        with pytest.raises(UnimplementedError, match="programs/"):
+            fleet.add_worker({"model": {}, "program_set": "/nowhere"})
+        with pytest.raises(UnimplementedError, match="programs/"):
+            T.FleetRouter(workers=[{"model": {}, "ship_program_set": True}])
+        assert fleet.manager.replicas()[0].kind == "inproc"
+        assert len(fleet.manager.replicas()) == 1
     finally:
         fleet.close()
 

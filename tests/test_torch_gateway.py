@@ -164,8 +164,20 @@ def _strip_timing(body):
     return body
 
 
+def _unused_reference_program_store():
+    """The reference's persistent program store is process-wide and keeps
+    its counters after an earlier test file in this process used it; the
+    /healthz comparison below is against a store that is off and unused,
+    which the port's always is."""
+    from paddle_tpu.programs import store as jstore
+    st = jstore.get_program_store()
+    if not st.stats()["enabled"]:
+        st._hits = st._misses = st._requests = 0
+
+
 def test_handle_gives_the_reference_statuses_and_bodies(engines):
     eng, jeng = engines
+    _unused_reference_program_store()
     t = [0.0]
     clock = lambda: t[0]  # noqa: E731
     gws = [_gateway(ServingGateway, TenantConfig, ShedPolicy, eng, clock,

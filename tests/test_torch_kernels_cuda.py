@@ -2087,3 +2087,64 @@ def test_cuda_graph_over_the_operators_replays_them(cuda):
         want = run()
         for g, w in zip(outs, want):
             torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def _worker_model(seed=3, device=None):
+    """The worker test's model factory (``test_torch_kernels_cuda:
+    _worker_model``, imported by each worker process): ``_serving_model``'s
+    GPT drawn by ``build_gpt`` on the CPU, so every process holds the same
+    weights, then int8."""
+    from paddle_tpu_torch.quantization import quantize_for_serving
+    from paddle_tpu_torch.serving.worker import build_gpt
+    return quantize_for_serving(build_gpt(
+        seed, device=device, vocab_size=1024, hidden_size=256,
+        num_hidden_layers=2, num_attention_heads=4,
+        max_position_embeddings=256, hidden_dropout_prob=0.0,
+        attention_probs_dropout_prob=0.0, initializer_range=0.2))
+
+
+def test_two_worker_processes_launch_the_kernels_and_equal_in_process(
+        cuda, monkeypatch):
+    """Two ``python -m paddle_tpu_torch.serving.worker`` processes, each
+    with its own CUDA context, capture their graphs and serve: each
+    worker's K3 / K4 launches (read from the worker) are > 0, it captures
+    nothing after warmup, and its greedy streams equal an in-process
+    engine's over the same weights."""
+    import os
+    from paddle_tpu_torch.serving import FleetRouter, ServingEngine
+    here = os.path.dirname(os.path.abspath(__file__))
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        p for p in (here, os.environ.get("PYTHONPATH")) if p))
+    solo = ServingEngine(_worker_model(device=cuda), kv="paged",
+                         device=cuda, **ENGINE)
+    solo.warmup()
+    want = _greedy(solo, FLEET_PROMPTS)
+    spec = {"model": {"factory": "test_torch_kernels_cuda:_worker_model",
+                      "kwargs": {"seed": 3}},
+            "engine": dict(ENGINE, kv="paged", device=str(cuda),
+                           prefill_buckets=list(ENGINE["prefill_buckets"]))}
+    fleet = FleetRouter([], heartbeat_timeout_s=60.0)
+    try:
+        ids = [fleet.add_worker(spec, boot_timeout_s=300) for _ in range(2)]
+        fleet.warmup()
+        halves = (FLEET_PROMPTS[:4], FLEET_PROMPTS[4:])
+        for rid, prompts, expect in zip(ids, halves, (want[:4], want[4:])):
+            client = fleet.manager.get(rid).engine
+            before = client.metrics(fresh=True)["process"]["launches"]
+            resps = []
+            for p in prompts:
+                req, resp = client.make_request(p, 24)
+                client.scheduler.submit(req, resp)
+                resps.append(resp)
+            fleet.run_until_drained(timeout=300)
+            assert [r.tokens(timeout=5) for r in resps] == expect
+            m = client.metrics(fresh=True)
+            after = m["process"]["launches"]
+            for k in ("paged_attention", "dequant_matmul"):
+                assert after[k] > before[k], (rid, k)
+            assert m["post_warmup_compiles"] == 0
+            assert m["process"]["modules"] == {"jax": False,
+                                               "paddle_tpu": False}
+        assert len({fleet.manager.get(r).engine.pid for r in ids}) == 2
+    finally:
+        fleet.close()
