@@ -237,6 +237,20 @@ Phases (any failure exits non-zero before the result line):
                 (ship and attach seconds, equal streams), then flipped by
                 path to a second seed's weights (ms; streams equal the
                 swapped oracle's, nothing captured).
+ 9g. programs — program sets (``programs/``) on the worker phase's
+                engine options: a set saved from a warm in-process engine
+                (its manifest, per-program records and the kernel
+                libraries its graphs launch); one worker booted from it
+                under a fresh, empty PDTPU_PROGRAM_CACHE_DIR must run no
+                nvcc (its store and build misses 0, read from the
+                process), serve streams equal to the saving engine's, and
+                launch K3 / K4 its programs' replays times their recorded
+                counts (96 / 384 per decode replay); the same worker booted
+                without the set under another empty store (its nvcc
+                builds counted); boot seconds of both.  A set with one
+                byte flipped: the engine refuses it with ProgramSetError,
+                and the predictor's fallback boots fresh and counts
+                program_set_fallback_total.  Prints the phase's seconds.
  10. fixed    — 4-layer full-width engines on the fixed pool, captured, f32
                 and bf16: greedy streams must equal the uncaptured path's,
                 and in f32 solo generate()'s.  Then the captured f32 engine
@@ -472,7 +486,8 @@ BN_LINES = {"bn_stats": 119, "bn_apply": 132, "bn_bwd_reduce": 153,
 
 
 PHASES = ("check", "serve", "telemetry", "pressure", "prefix", "spec", "lora",
-          "beam", "gateway", "fleet", "worker", "serve_bf16", "spec_bf16",
+          "beam", "gateway", "fleet", "worker", "programs", "serve_bf16",
+          "spec_bf16",
           "fixed",
           "flash", "train", "traincheck", "guard", "bert", "predictor", "bn",
           "resnet", "resnetcheck")
@@ -5227,6 +5242,162 @@ def worker_phase(torch, args, dev, card, inproc=None):
         shutil.rmtree(art, ignore_errors=True)
 
 
+PROGRAMS_LENS = (32, 100, 220, 400)   # programs phase: 3 greedy + 1 sampled
+PROGRAMS_NEW = 32
+
+
+def programs_phase(torch, args, dev, card):
+    """Program sets (``programs/``): save one from a warm engine of the
+    worker phase's options, boot a worker process from it under an empty
+    store (no nvcc: misses 0, read from the process; streams equal the
+    saving engine's; K3 / K4 launches = replays x recorded counts), boot
+    the same worker without it under another empty store, and refuse a
+    set with one flipped byte (engine: ProgramSetError; predictor: the
+    counted fallback)."""
+    import inspect
+    import os
+    import shutil
+
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.models import GPTConfig, gpt2_medium_config
+    from paddle_tpu_torch.observability import metrics as obs_metrics
+    from paddle_tpu_torch.programs import ProgramSetError, read_manifest
+    from paddle_tpu_torch.serving import FleetRouter, ServingEngine
+    tag = "programs"
+    t_phase = time.perf_counter()
+    cfg = gpt2_medium_config(hidden_dropout_prob=0.0,
+                             attention_probs_dropout_prob=0.0)
+    config = {k: getattr(cfg, k)
+              for k in inspect.signature(GPTConfig.__init__).parameters
+              if k != "self"}
+    layers = cfg.num_hidden_layers
+    engine_kw = dict(max_slots=SLOTS, max_len=MAX_LEN, kv="paged",
+                     block_size=BLOCK, decode_chunk=4)
+    spec = {"model": {"factory": "chip_smoke:worker_model",
+                      "kwargs": dict(config, seed=args.seed)},
+            "engine": dict(engine_kw, device=str(dev))}
+    model = worker_model(args.seed, device=dev, **config)
+    rng = np.random.RandomState(args.seed + 31)
+    prompts = [rng.randint(0, cfg.vocab_size, (n,)) for n in PROGRAMS_LENS]
+    knobs = [dict(decode_strategy="sampling", temperature=0.8, top_k=40,
+                  top_p=0.9, seed=7) if i == 3 else {}
+             for i in range(len(prompts))]
+    art = _build_dir("programs_phase")
+    saver = _paged_engine(model, dev, decode_chunk=4)
+    counts = _program_launches(saver)
+    if counts["decode"] != {"paged_attention": 4 * layers,
+                            "dequant_matmul": 16 * layers}:
+        fail(f"{tag}: the decode graph records {counts['decode']}")
+    t = time.perf_counter()
+    path = saver.save_program_set(os.path.join(art, "gpt2m"))
+    save_s = time.perf_counter() - t
+    man = read_manifest(path)
+    resps = [saver.submit(p, PROGRAMS_NEW, **knobs[i])
+             for i, p in enumerate(prompts)]
+    saver.run_until_drained(timeout=600)
+    want = [r.tokens(timeout=5) for r in resps]
+    print(f"{tag} [{card}]: set of {len(man['programs'])} programs and "
+          f"libraries {sorted(man['libraries'])} saved in {save_s:.2f}s, "
+          f"{os.path.getsize(path) / 2**20:.2f} MiB")
+    old_env = os.environ.get("PDTPU_PROGRAM_CACHE_DIR")
+
+    def boot(store, with_set):
+        os.environ["PDTPU_PROGRAM_CACHE_DIR"] = os.path.join(art, store)
+        fleet = FleetRouter([])
+        try:
+            t0 = time.monotonic()
+            rid = fleet.add_worker(dict(spec, program_set=path) if with_set
+                                   else spec, boot_timeout_s=WORKER_BOOT_S)
+            deadline = t0 + WORKER_BOOT_S
+            while True:
+                rep = fleet.manager.get(rid)
+                if rep is not None and rep.state in ("crashed", "wedged"):
+                    fail(f"{tag}: worker {rep.state}: {rep.fence_reason}\n"
+                         f"{_log_tail(rep.engine.log_path)}")
+                if rep is not None and rep.state == "healthy":
+                    break
+                if time.monotonic() > deadline:
+                    fail(f"{tag}: the worker did not boot")
+                if not fleet.step():
+                    time.sleep(0.0002)
+            boot_s = time.monotonic() - t0
+            client = fleet.manager.get(rid).engine
+            before = client.metrics(fresh=True)["process"]
+            out = [fleet.submit(p, PROGRAMS_NEW, **knobs[i])
+                   for i, p in enumerate(prompts)]
+            while not all(r.done() for r in out):
+                if not fleet.step():
+                    time.sleep(0.0002)
+            if any(r.error is not None for r in out):
+                fail(f"{tag}: {[repr(r.error) for r in out]}")
+            m = client.metrics(fresh=True)
+            after = m["process"]
+            got = _worker_launches(tag, rid, before, after, counts)
+            if m["post_warmup_compiles"] != 0:
+                fail(f"{tag}: the worker captured after warmup")
+            return boot_s, [r.tokens() for r in out], after, got
+        finally:
+            fleet.close()
+
+    try:
+        set_s, streams, proc, got = boot("store_a", True)
+        builds, store = proc["kernel_builds"], proc["program_store"]
+        if builds["misses"] != 0 or store["misses"] != 0 or \
+                builds["installs"] != len(man["libraries"]):
+            fail(f"{tag}: the worker booted from the set built kernels: "
+                 f"{builds}, store {store}")
+        if set(proc["program_set"]["kinds"].values()) != {"recaptured"}:
+            fail(f"{tag}: the worker's set {proc['program_set']}")
+        if proc["modules"] != {"jax": False, "paddle_tpu": False}:
+            fail(f"{tag}: the worker imported {proc['modules']}")
+        splits = _splits(torch, model, dev, prompts, streams, want,
+                         f"{tag} set", sampled={3})
+        fresh_s, fresh_streams, fproc, _ = boot("store_b", False)
+        fresh_splits = _splits(torch, model, dev, prompts, fresh_streams,
+                               want, f"{tag} fresh", sampled={3})
+        print(f"{tag} [{card}]: worker booted from the set in {set_s:.2f}s "
+              f"(store misses {store['misses']}, hits {store['hits']}, "
+              f"libraries installed {builds['installs']}), without it in "
+              f"{fresh_s:.2f}s (nvcc builds {fproc['kernel_builds']['misses']}"
+              f", store misses {fproc['program_store']['misses']}); "
+              f"{len(prompts)} streams equal the saving engine's but "
+              f"{splits} / {fresh_splits}; K3 / K4 launches {got} = replays "
+              f"x (96 / 384 per decode replay)")
+    finally:
+        if old_env is None:
+            os.environ.pop("PDTPU_PROGRAM_CACHE_DIR", None)
+        else:
+            os.environ["PDTPU_PROGRAM_CACHE_DIR"] = old_env
+        saver.close()
+        saver._free_device()
+    raw = bytearray(open(path, "rb").read())
+    raw[len(raw) // 2] ^= 0x01
+    bad = os.path.join(art, "flipped.pdprograms")
+    with open(bad, "wb") as f:
+        f.write(bytes(raw))
+    try:
+        ServingEngine(model, device=dev, program_set=bad, **engine_kw)
+        fail(f"{tag}: a set with a flipped byte was taken")
+    except ProgramSetError as e:
+        refused = str(e)[:80]
+    counter = obs_metrics.counter("program_set_fallback_total")
+    n0 = counter.value()
+    pcfg = Config()
+    pcfg.enable_serving(model=model, warmup=False, start=False,
+                        program_set=bad, **engine_kw)
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        pred = create_predictor(pcfg)
+    if counter.value() != n0 + 1 or pred.engine.program_set_info is not None:
+        fail(f"{tag}: the predictor's fallback was not counted")
+    pred.close()
+    pred.engine._free_device()
+    shutil.rmtree(art, ignore_errors=True)
+    print(f"{tag} [{card}]: flipped byte refused ({refused}...), predictor "
+          f"fallback counted; phase {time.perf_counter() - t_phase:.2f}s")
+
+
 def predictor_phase(torch, args, dev, card):
     """The one-shot Predictor over an exported BERT-large sequence
     classifier (bert_large_config(vocab_size=30528,
@@ -5393,6 +5564,10 @@ def main():
     torch.cuda.empty_cache()
     if want("worker"):
         worker_phase(torch, args, dev, card, inproc)
+        gc.collect()
+    torch.cuda.empty_cache()
+    if want("programs"):
+        programs_phase(torch, args, dev, card)
         gc.collect()
     if want("serve_bf16") or want("spec_bf16"):
         model = serve_model(torch, args, dev, torch.bfloat16)

@@ -46,7 +46,7 @@ import torch
 
 from . import rng as _rng
 
-__all__ = ["Program", "counters"]
+__all__ = ["Program", "counters", "counter_name"]
 
 
 def counters():
@@ -62,6 +62,14 @@ def counters():
             + [(fbn.bn_pool_apply.routes, r) for r in ("ring", "window")]
             + [(e, "relayouts") for e in (fbn.bn_act_train, fbn.bn2_act_train,
                                           fbn.bn_act_pool_train)])
+
+
+def counter_name(owner, key) -> str:
+    """A launch counter's name: ``<wrapper>.<key>``
+    (``paged_attention.launches``), ``bn_pool_apply.routes.<route>`` for
+    K9's routes."""
+    name = getattr(owner, "__name__", None)
+    return f"{name}.{key}" if name else f"bn_pool_apply.routes.{key}"
 
 
 # guards the launch counters' read-modify-write by replays and captures;

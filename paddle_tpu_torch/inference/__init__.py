@@ -16,10 +16,12 @@ run, read named output handles:
 The pass / optimization knobs (ir_optim, memory_optim, mkldnn, TensorRT)
 are accepted and recorded, as the reference records them.
 ``enable_profile`` wires the profiler around ``run()`` and turns on the
-serving engine's spans.  Not ported yet, and refused with
-``UnimplementedError``: ``enable_xpu`` devices, AOT program sets
-(``program_set=``, ``program_cache_dir=``, ``save_program_set``) and
-recsys serving.
+serving engine's spans.  ``enable_serving(program_cache_dir=)`` turns the
+program store on, ``program_set=`` boots the engine from a program set
+(``ServingPredictor.save_program_set``); a set the engine rejects is a
+warning, a count of ``program_set_fallback_total`` and a fresh boot.
+Not ported yet, and refused with ``UnimplementedError``: ``enable_xpu``
+devices and recsys serving.
 
     pred = create_predictor(Config(prefix).enable_serving(
         model_provider=build_gpt, quantize="int8", kv="paged"))
@@ -35,11 +37,6 @@ from ..core.errors import UnimplementedError
 
 __all__ = ["Config", "Predictor", "PredictorTensor", "ServingPredictor",
            "create_predictor"]
-
-_PROGRAMS_LATER = ("AOT program sets are not ported yet: a CUDA graph is "
-                   "not saved as an XLA executable is; they come with "
-                   "programs/ (ROADMAP §1 item 5)")
-
 
 class Config:
     """AnalysisConfig equivalent.  The device defaults to the card
@@ -155,16 +152,14 @@ class Config:
         ``ServingGateway`` keyword arguments: the gateway then fronts the
         engine and drives its loop; ``submit`` takes ``tenant=`` /
         ``priority=``, and ``serve_http`` opens the OpenAI-shaped
-        endpoint).  Returns the Config."""
+        endpoint); ``program_cache_dir`` (the program store's directory,
+        ``programs.store``); ``program_set`` (boot the engine from a
+        saved program set).  Returns the Config."""
         if (model is None) == (model_provider is None):
             raise ValueError(
                 "enable_serving needs exactly one of model= (in-memory) or "
                 "model_provider= (architecture factory for a saved "
                 "artifact)")
-        for opt in ("program_set", "program_cache_dir"):
-            if engine_opts.get(opt) is not None:
-                raise UnimplementedError(f"enable_serving({opt}=...): "
-                                         + _PROGRAMS_LATER)
         self._serving = {"model": model, "model_provider": model_provider,
                          **engine_opts}
         return self
@@ -336,6 +331,10 @@ class ServingPredictor:
         start = opts.pop("start", True)
         gateway = opts.pop("gateway", None)
         quantize = opts.pop("quantize", None)
+        program_cache_dir = opts.pop("program_cache_dir", None)
+        if program_cache_dir is not None:
+            from ..programs import store as _pstore
+            _pstore.enable(program_cache_dir)
         opts.setdefault("device", config.torch_device())
         if model is None:
             model = provider()
@@ -357,7 +356,7 @@ class ServingPredictor:
             if draft is not None:
                 opts["draft_model"] = quantize_for_serving(draft, quantize)
         self._config = config
-        self.engine = ServingEngine(model, profile=config._profile, **opts)
+        self.engine = self._boot(ServingEngine, model, config, opts)
         if warmup:
             self.engine.warmup()
         self.gateway = None
@@ -371,6 +370,28 @@ class ServingPredictor:
                 self.gateway.start()
             else:
                 self.engine.start()
+
+    @staticmethod
+    def _boot(engine_cls, model, config, opts):
+        """The engine; a program set it rejects costs a fresh boot (the
+        same kernels, built or found in the store), never an outage: a
+        warning and a count of ``program_set_fallback_total``."""
+        from ..programs.program_set import ProgramSetError
+        try:
+            return engine_cls(model, profile=config._profile, **opts)
+        except ProgramSetError as e:
+            if opts.get("program_set") is None:
+                raise
+            import warnings
+            warnings.warn(
+                f"enable_serving(program_set=...): artifact rejected ({e}); "
+                "falling back to a fresh boot")
+            from ..observability.metrics import counter
+            counter("program_set_fallback_total",
+                    "serving boots that rejected their program set and "
+                    "booted fresh").inc()
+            opts = dict(opts, program_set=None)
+            return engine_cls(model, profile=config._profile, **opts)
 
     def submit(self, prompt, max_new_tokens, **kwargs):
         """Enqueue a request; returns the streaming ``serving.Response``.
@@ -388,8 +409,10 @@ class ServingPredictor:
 
     def save_program_set(self, path: str,
                          extra_meta: Optional[dict] = None) -> str:
-        raise UnimplementedError("ServingPredictor.save_program_set: "
-                                 + _PROGRAMS_LATER)
+        """The engine's program set (``ServingEngine.save_program_set``):
+        every replica built with ``enable_serving(..., program_set=path)``
+        then boots from it."""
+        return self.engine.save_program_set(path, extra_meta)
 
     def serve_http(self, port: int = 8000, addr: str = "127.0.0.1"):
         """Start the OpenAI-shaped streaming endpoint over the gateway

@@ -1,5 +1,6 @@
 from .activation import ReLU, Tanh  # noqa: F401
-from .common import Dropout, Embedding, Linear  # noqa: F401
+from .common import (Dropout, Embedding, Linear, Upsample,  # noqa: F401
+                     UpsamplingBilinear2D, UpsamplingNearest2D)
 from .container import LayerList, Sequential  # noqa: F401
 from .conv import Conv2D  # noqa: F401
 from .norm import BatchNorm2D, LayerNorm  # noqa: F401

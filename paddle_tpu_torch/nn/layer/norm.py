@@ -1,5 +1,7 @@
 """LayerNorm and BatchNorm2D (counterparts of paddle_tpu/nn/layer/norm.py).
 
+Both take the reference's parameters in its order (``weight_attr`` /
+``bias_attr`` honoured), then the port's ``device`` as a keyword.
 ``BatchNorm2D`` keeps the reference's state names (``weight``, ``bias``
 and the buffers ``_mean`` / ``_variance``), ``momentum=0.9`` (the weight
 of the old running value) and ``epsilon=1e-5``.  ``forward`` with an
@@ -10,45 +12,59 @@ last one, gated by ``supports_dual_bn``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
-from torch import nn
 
 from .. import functional as F
+from .. import initializer as I
 from ..layer_base import Layer
 
 __all__ = ["LayerNorm", "BatchNorm2D", "dual_bn_act", "supports_dual_bn"]
 
 
 class LayerNorm(Layer):
-    def __init__(self, normalized_shape: int, epsilon: float = 1e-5,
+    """The reference's ``LayerNorm(normalized_shape, epsilon, weight_attr,
+    bias_attr)``: ``normalized_shape`` an int or a list of trailing dims;
+    the weight (ones) and bias (zeros) are flat, of their product's
+    length, as the reference keeps them; ``False`` drops either."""
+
+    def __init__(self, normalized_shape, epsilon: float = 1e-5,
+                 weight_attr=None, bias_attr=None, name=None, *,
                  device=None):
         super().__init__()
-        self.normalized_shape = int(normalized_shape)
+        self.normalized_shape = (
+            (int(normalized_shape),) if isinstance(normalized_shape, int)
+            else tuple(int(d) for d in normalized_shape))
         self.epsilon = float(epsilon)
-        self.weight = nn.Parameter(torch.ones(self.normalized_shape,
-                                              device=device))
-        self.bias = nn.Parameter(torch.zeros(self.normalized_shape,
-                                             device=device))
+        n = int(np.prod(self.normalized_shape))
+        self.weight = self.create_parameter(
+            (n,), attr=weight_attr, default_initializer=I.Constant(1.0),
+            device=device)
+        self.bias = self.create_parameter((n,), attr=bias_attr,
+                                          is_bias=True, device=device)
 
     def forward(self, x):
         # population variance, as the reference's layer_norm
-        return F.layer_norm(x, self.normalized_shape, self.weight,
-                            self.bias, self.epsilon)
+        ns = self.normalized_shape
+        w = None if self.weight is None else self.weight.view(ns)
+        b = None if self.bias is None else self.bias.view(ns)
+        return F.layer_norm(x, ns, w, b, self.epsilon)
 
 
 class _BatchNormBase(Layer):
     def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
-                 use_global_stats=None, device=None):
+                 use_global_stats=None, name=None, *, device=None):
         super().__init__()
         self.num_features = num_features
         self.momentum, self.epsilon = momentum, epsilon
         self.data_format = data_format
         self.use_global_stats = use_global_stats
-        self.weight = (None if weight_attr is False else nn.Parameter(
-            torch.ones(num_features, device=device)))
-        self.bias = (None if bias_attr is False else nn.Parameter(
-            torch.zeros(num_features, device=device)))
+        self.weight = self.create_parameter(
+            (num_features,), attr=weight_attr,
+            default_initializer=I.Constant(1.0), device=device)
+        self.bias = self.create_parameter((num_features,), attr=bias_attr,
+                                          is_bias=True, device=device)
         self.register_buffer("_mean", torch.zeros(num_features,
                                                   device=device))
         self.register_buffer("_variance", torch.ones(num_features,

@@ -22,7 +22,7 @@ from __future__ import annotations
 import json
 import threading
 import time
-from typing import Dict, Optional
+from typing import Optional
 
 from .metrics import Histogram, get_registry
 from .programs import get_program_registry
@@ -118,14 +118,6 @@ def _gauge_value(name: str):
         return m.value() if m is not None else None
     except Exception:
         return None
-
-
-def program_store_stats() -> Dict:
-    """The reference's program-store section for a store that is off: the
-    port keeps no persistent program store (a CUDA graph is not saved)."""
-    return {"enabled": False, "dir": None, "fingerprint": None,
-            "entries": 0, "bytes": 0, "hits": 0, "misses": 0,
-            "requests": 0}
 
 
 def report() -> dict:
@@ -269,8 +261,10 @@ def report() -> dict:
             stats.get("STAT_embedding_corrupt_rows_detected", 0),
         "serving_rejects": stats.get("STAT_embedding_serving_rejects", 0),
     }
+    # the live program store (the reference's "off" section while off);
     # the port has no AOT path to fall back from
-    program_store = program_store_stats()
+    from ..programs.store import store_stats
+    program_store = store_stats()
     from .programs import aot_fallbacks as _aot_fallbacks
     fallbacks = _aot_fallbacks()
 

@@ -38,6 +38,24 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
+def _refuse_param_attrs(params):
+    """A parameter made with ``ParamAttr(regularizer=...)`` or a learning
+    rate multiplier other than 1.0 is refused: the port's optimizers take
+    one float ``weight_decay`` and one learning rate for all parameters,
+    and ignoring either attribute would train another model."""
+    from ..core.errors import UnimplementedError
+    for p in params:
+        p = p["params"] if isinstance(p, dict) else p
+        for q in (p if isinstance(p, (list, tuple)) else [p]):
+            lr = getattr(q, "optimize_attr", {}).get("learning_rate", 1.0)
+            if getattr(q, "regularizer", None) is not None or lr != 1.0:
+                raise UnimplementedError(
+                    f"parameter {getattr(q, 'param_name', None)!r} carries a "
+                    f"ParamAttr regularizer or learning-rate multiplier "
+                    f"({lr}): per-parameter regularizers and multipliers "
+                    "are not ported yet (ROADMAP section 1 item 4)")
+
+
 class Optimizer:
     """Base optimizer with Paddle's eager API (step / clear_grad)."""
 
@@ -45,6 +63,7 @@ class Optimizer:
                  weight_decay=None, grad_clip=None):
         self._parameter_list = (list(parameters) if parameters is not None
                                 else None)
+        _refuse_param_attrs(self._parameter_list or ())
         self._learning_rate = (learning_rate
                                if isinstance(learning_rate, LRScheduler)
                                else float(learning_rate))

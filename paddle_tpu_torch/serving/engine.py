@@ -119,10 +119,18 @@
   ``serving_verify``), the all-greedy graphs as ``serving_decode_greedy``
   / ``serving_verify_greedy``.  No telemetry call reads a device value.
 
+- **Program sets** (``programs.program_set``): ``program_set=path``
+  boots from a set saved by ``save_program_set``: the manifest is held
+  against this engine and runtime, the set's kernel libraries are
+  installed (no ``nvcc`` runs), and every program is captured at
+  construction and held against its record; a mismatch raises
+  ``ProgramSetError``.  ``warmup()`` reports each program's source:
+  ``"program_set:recaptured"`` (from a set) or ``"traced"``.
+
 Greedy streams equal a solo ``generation.generate`` run of the same
 prompt (the same float ops up to summation order).  The reference's mesh
-(``mesh=``) and AOT program sets (``program_set=``) are not ported yet:
-anything but None raises ``UnimplementedError``.
+(``mesh=``) is not ported yet: anything but None raises
+``UnimplementedError``.
 """
 from __future__ import annotations
 
@@ -359,9 +367,10 @@ class ServingEngine:
     construction on its device: ``swap_weights`` writes that copy, so the
     model passed in and every other engine built on it are left alone.
     ``profile=True`` opens the
-    engine's spans (module docstring).  The parameters are the
-    reference's, in its order, then ``device``; ``mesh`` and
-    ``program_set`` take None only."""
+    engine's spans (module docstring).  ``program_set`` boots from a
+    saved program set (module docstring).  The parameters are the
+    reference's, in its order, then ``device``; ``mesh`` takes None
+    only."""
 
     def __init__(self, model, max_slots: int = 8, max_len: int = 256,
                  prefill_buckets=None, max_queue_depth: int = 64,
@@ -376,11 +385,6 @@ class ServingEngine:
                 "ServingEngine(mesh=...) is not ported yet: tensor-parallel "
                 "serving comes with the port's parallel slice (ROADMAP §1 "
                 "item 6)")
-        if program_set is not None:
-            raise UnimplementedError(
-                "ServingEngine(program_set=...) is not ported yet: AOT "
-                "program sets come with the serving product layers "
-                "(ROADMAP §1 item 5)")
         self.device = resolve_device(device)
         for role, m in (("model", model), ("draft model", draft_model)):
             if m is not None and m.device != self.device:
@@ -572,6 +576,20 @@ class ServingEngine:
         self._closed = False
         self._close_lock = threading.Lock()
         self._dead: Optional[BaseException] = None
+        # a program set: libraries installed, every program captured now
+        # and held against its record (ProgramSetError on any mismatch)
+        self.program_set_info = None
+        self._set_libraries = None
+        if program_set is not None:
+            from ..programs import program_set as _pset
+            loaded = _pset.load_program_set(program_set, self)
+            self._make_all()
+            _pset.check_captures(loaded, self)
+            self.program_set_info = {
+                "path": program_set if isinstance(program_set, str)
+                else None,
+                "kinds": {k: v.kind for k, v in loaded.items()},
+                "libraries": self._set_libraries}
 
     # ------------------------------------------------------------------
     # requests
@@ -1872,12 +1890,33 @@ class ServingEngine:
         next prefill overwrites.  A capture that fails raises, and the
         engine stays cold.  After it returns, ``post_warmup_compiles()``
         stays 0 under any traffic.  Safe any time no request is in
-        flight; a second call captures nothing new."""
+        flight; a second call captures nothing new.  An engine booted
+        from a program set captured its programs at construction, and
+        its kernel libraries came from the set."""
         t0 = time.perf_counter()
         report = {}
-        cuda = self.device.type == "cuda"
-        if cuda:
+        if self.device.type == "cuda" and self.program_set_info is None:
             report["kernel_build"] = _build.build_all()["seconds"]
+        self._make_all()
+        # the warm-up runs moved the decode buffers: refill before a step
+        self._batch_dirty = True
+        self._warm = True
+        self._warm_marks = self._compile_marks()
+        report["seconds"] = time.perf_counter() - t0
+        report["captured"] = self.device.type == "cuda"
+        report["compile_counts"] = self.compile_counts()
+        source = ("traced" if self.program_set_info is None
+                  else "program_set:recaptured")
+        from ..programs.program_set import program_name
+        from ..programs.store import store_stats
+        report["programs"] = {program_name(k): source
+                              for k in self._programs}
+        report["store"] = store_stats()
+        return report
+
+    def _make_all(self):
+        """Make (on the card: capture) every program not made yet."""
+        cuda = self.device.type == "cuda"
         with torch.inference_mode():
             if not self._programs:
                 self._programs = self._make_programs()
@@ -1897,14 +1936,16 @@ class ServingEngine:
                 stat_add("STAT_serving_compiles")
         if cuda:
             torch.cuda.synchronize(self.device)
-        # the warm-up runs moved the decode buffers: refill before a step
-        self._batch_dirty = True
-        self._warm = True
-        self._warm_marks = self._compile_marks()
-        report["seconds"] = time.perf_counter() - t0
-        report["captured"] = cuda
-        report["compile_counts"] = self.compile_counts()
-        return report
+
+    def save_program_set(self, path: str,
+                         extra_meta: Optional[dict] = None) -> str:
+        """Write this engine's program family, its manifest and the kernel
+        libraries its programs launch as one artifact, loadable by
+        ``ServingEngine(program_set=...)`` / ``enable_serving(program_set=
+        ...)`` (``programs/program_set.py``).  A cold engine makes its
+        programs first.  Returns the artifact's path."""
+        from ..programs.program_set import save_program_set as _save
+        return _save(self, path, extra_meta)
 
     def compile_counts(self) -> Dict:
         """Programs made, under the reference's keys: on the card each
@@ -2043,7 +2084,7 @@ class ServingEngine:
                 "warm": self._warm,
                 "post_warmup_compiles": (self.post_warmup_compiles()
                                          if self._warm else None),
-                "program_set": None,
+                "program_set": self.program_set_info,
                 "kv_pool": self._kv_pool_metrics(),
                 "lora": (None if self._lora_reg is None
                          else self._lora_reg.stats()),

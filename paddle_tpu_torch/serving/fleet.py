@@ -70,8 +70,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..core.errors import (InvalidArgumentError, UnavailableError,
-                           UnimplementedError)
+from ..core.errors import InvalidArgumentError, UnavailableError
 from ..utils import faults
 from ..utils.monitor import stat_add
 from ..utils.retry import RetryPolicy
@@ -443,14 +442,8 @@ class ReplicaManager:
         the attach under a manager-issued epoch, and a supervised restart
         is a re-attach with the next epoch.  ``lineage`` is the
         supervisor's (a restart reuses the spec, index and budget).  A
-        spec with a program set is refused here, typed: the port has none
-        yet (ROADMAP section 1 item 2)."""
-        if (spec.get("program_set") is not None
-                or spec.get("ship_program_set")):
-            raise UnimplementedError(
-                "worker program sets are not ported yet: they come with "
-                "programs/ (ROADMAP section 1 item 2); a worker captures "
-                "its graphs at boot")
+        spec's ``"program_set"`` boots the worker's engine from that set
+        (``"ship_program_set": True`` ships it over a remote attach)."""
         client_kw = {"boot_timeout_s": float(boot_timeout_s),
                      "rpc_timeout_s": float(rpc_timeout_s)}
         client_kw.update(client_extra)

@@ -851,10 +851,9 @@ class ServingGateway:
                               "owned_by": "paddle_tpu"}]}).encode()
             if route == "/healthz":
                 status = 503 if (self._closed or self._dead) else 200
-                # the port keeps no persistent program store (a CUDA
-                # graph is not saved): the section of a store that is off
-                from ..observability.exporters import program_store_stats
-                pstore = program_store_stats()
+                # the live program store (its "off" section while off)
+                from ..programs.store import store_stats
+                pstore = store_stats()
                 # a fleet-fronted gateway aggregates per-replica health
                 # (state, warm, step EWMA, heartbeat age, post-warmup
                 # captures, served weights_sha) and the routable count:

@@ -46,9 +46,11 @@ a healed worker of a stale epoch is told to abort, never to resume.  A
 retried submit is deduplicated by its wid on the worker, and the
 ``net_delay`` / ``net_drop`` / ``net_partition`` knobs drive each path.
 
-The port ships no program set: a CUDA graph cannot be saved as an XLA
-executable can, so ``spec["program_set"]`` is refused (ROADMAP section 1
-item 2) and a worker captures its graphs at every boot.
+A spec's ``"program_set"`` (a path on the worker's host) boots the
+worker's engine from a program set: its kernel libraries are installed
+(no ``nvcc`` runs) and its graphs captured and held against the set's
+records; a remote attach with ``"ship_program_set": True`` ships the
+set in checked chunks, as weights are shipped.
 """
 from __future__ import annotations
 
@@ -486,12 +488,7 @@ def _build_engine(spec: dict):
     device, the card unless it says ``"cpu"``: a worker asked for the card
     that finds none fails its boot, typed."""
     from ..core.device import resolve_device
-    from ..core.errors import UnimplementedError
     from .engine import ServingEngine
-    if spec.get("program_set") is not None:
-        raise UnimplementedError(
-            "a worker boot spec with a program_set is not ported yet: "
-            "program sets come with programs/ (ROADMAP section 1 item 2)")
     ekw = dict(spec.get("engine") or {})
     dev = resolve_device(ekw.pop("device", None))
     model = _call_factory(spec["model"], dev)
@@ -508,6 +505,7 @@ def _build_engine(spec: dict):
         from ..lora import LoRAConfig
         ekw["lora"] = LoRAConfig.from_spec(spec["lora"])
     return ServingEngine(model.to(dev), draft_model=draft, device=dev,
+                         program_set=spec.get("program_set"),
                          **ekw), weights_sha
 
 
@@ -516,14 +514,21 @@ def _process_report(engine, registry: bool = False) -> dict:
     kernel wrapper's launch count (``core.programs.counters()``: the
     replays of captured graphs included), each engine program's replays,
     its pid and device, whether the JAX package or ``jax`` was ever
-    imported here, and with ``registry`` the program registry's records
+    imported here, its kernel library builds (``ops._build.counts``:
+    hits, nvcc misses, installs from a program set) and the program
+    store's stats, and with ``registry`` the program registry's records
     (captures and capture seconds per program)."""
     from ..core.programs import counters
+    from ..ops import _build
+    from ..programs.store import store_stats
     launches = {owner.__name__: int(owner.launches)
                 for owner, key in counters() if key == "launches"}
     out = {"pid": os.getpid(), "launches": launches,
            "modules": {m: m in sys.modules for m in ("jax", "paddle_tpu")},
            "device": str(engine.device),
+           "kernel_builds": dict(_build.counts),
+           "program_store": store_stats(),
+           "program_set": _jsonable(engine.program_set_info),
            "replays": {str(name): int(prog.replays)
                        for name, prog in engine._programs.items()}}
     if registry:
@@ -2322,9 +2327,9 @@ class RemoteWorkerClient(WorkerClient):
     - **Attach, not fork**: connects over real TCP, sends an `attach`
       carrying the manager-issued `epoch` token, the boot spec, and
       the manifest of the weight artifact (``spec["weights"]``, a
-      jit.save npz) — then streams it as sha256-verified chunks.  A
-      program set (``spec["ship_program_set"]``) is refused, typed: the
-      port has none yet (ROADMAP section 1 item 2).  The worker replies
+      jit.save npz) and, with ``spec["ship_program_set"]``, of the
+      program set at ``spec["program_set"]`` — then streams them as
+      sha256-verified chunks.  The worker replies
       `attach_ok` with what it actually needs, so a re-attach onto a
       warm cached engine ships zero bytes and rebuilds nothing.
     - **Liveness on the wire**: a dedicated beat side connection carries
@@ -2346,14 +2351,7 @@ class RemoteWorkerClient(WorkerClient):
                  manager_silence_s: float = 6.0,
                  ack_timeout_s: float = 2.0, submit_retries: int = 2,
                  verb_deadlines: Optional[Dict[str, float]] = None):
-        from ..core.errors import UnimplementedError
         from .transfer import artifact_manifest
-        if spec.get("ship_program_set") or \
-                spec.get("program_set") is not None:
-            raise UnimplementedError(
-                "shipping a program set to a remote worker is not ported "
-                "yet: program sets come with programs/ (ROADMAP section 1 "
-                "item 2)")
         self._init_state(spec, index, boot_timeout_s, rpc_timeout_s,
                          verb_deadlines)
         host, _, port = str(address).rpartition(":")
@@ -2378,11 +2376,14 @@ class RemoteWorkerClient(WorkerClient):
         # THIS host's, meaningless on the worker's filesystem
         wire_spec = dict(self.spec)
         self._weights_path = wire_spec.pop("weights", None)
-        self._programs_path = None   # the wire's program-set slot, unused
+        self._programs_path = None
+        if wire_spec.pop("ship_program_set", False):
+            self._programs_path = wire_spec.pop("program_set", None)
         self._wire_spec = wire_spec
         self._weights_man = (None if self._weights_path is None
                              else artifact_manifest(self._weights_path))
-        self._programs_man = None
+        self._programs_man = (None if self._programs_path is None
+                              else artifact_manifest(self._programs_path))
         self._hs_state = "connect"
         self._connect(float(connect_timeout_s))
 

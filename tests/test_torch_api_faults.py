@@ -134,10 +134,14 @@ def test_embedding_padding_idx_zeroes_that_row_and_its_gradient():
 
 
 def test_embedding_parts_not_ported_are_refused():
+    """Row-sparse gradients are still refused; ``weight_attr`` is ported
+    (``ParamAttr``) and now sets the table's initializer."""
     with pytest.raises(UnimplementedError, match="item 4"):
         tnn.Embedding(10, 4, None, True)
-    with pytest.raises(UnimplementedError, match="item 3"):
-        tnn.Embedding(10, 4, weight_attr=object())
+    from paddle_tpu_torch import ParamAttr
+    te = tnn.Embedding(10, 4, weight_attr=ParamAttr(
+        initializer=tnn.initializer.Constant(0.5)), device="cpu")
+    assert torch.equal(te.weight.detach(), torch.full((10, 4), 0.5))
     w = torch.zeros(10, 4)
     with pytest.raises(UnimplementedError, match="item 4"):
         TF.embedding(torch.zeros(2, dtype=torch.long), w, None, True)

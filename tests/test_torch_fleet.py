@@ -32,7 +32,6 @@ from paddle_tpu.utils import faults as jfaults
 
 import paddle_tpu_torch.serving as T
 from paddle_tpu_torch import observability as tobs
-from paddle_tpu_torch.core.errors import UnimplementedError
 from paddle_tpu_torch.utils import faults as tfaults
 
 from torch_parity import tiny_pair, torch_solo
@@ -322,15 +321,17 @@ def test_fault_knobs_parse_as_the_reference(sides):
 
 
 def test_subprocess_replicas_are_refused(sides):
-    """Worker replicas are ported (tests/test_torch_worker.py); what the
-    port still refuses, typed and before any process is spawned, is a
-    worker spec with a program set (ROADMAP section 1 item 2)."""
+    """Worker replicas and their program sets are ported
+    (tests/test_torch_worker.py, tests/test_torch_programs.py): a spec
+    with a program set is no longer refused.  What fails, typed and
+    before any connection is made, is shipping a set that is not there;
+    the fleet keeps its in-process replica."""
     fleet = T.FleetRouter([sides["port"][2]()])
     try:
-        with pytest.raises(UnimplementedError, match="programs/"):
-            fleet.add_worker({"model": {}, "program_set": "/nowhere"})
-        with pytest.raises(UnimplementedError, match="programs/"):
-            T.FleetRouter(workers=[{"model": {}, "ship_program_set": True}])
+        with pytest.raises(FileNotFoundError):
+            fleet.add_worker({"model": {}, "program_set": "/nowhere",
+                              "ship_program_set": True},
+                             address="127.0.0.1:9")
         assert fleet.manager.replicas()[0].kind == "inproc"
         assert len(fleet.manager.replicas()) == 1
     finally:

@@ -223,8 +223,9 @@ def test_refusals(saved, tmp_path):
     with pytest.raises(UnimplementedError):
         create_predictor(cfg)
     for opt in ("program_set", "program_cache_dir"):
-        with pytest.raises(UnimplementedError, match="item 5"):
-            Config(jp).enable_serving(model=object(), **{opt: "x"})
+        # ported: taken and passed on to the predictor
+        cfg = Config(jp).enable_serving(model=object(), **{opt: "x"})
+        assert cfg._serving[opt] == "x"
     with pytest.raises(UnimplementedError, match="item 7"):
         Config(jp).enable_recsys_serving(model=1, table=2)
     assert Config(jp).torch_device() == "cuda:0"

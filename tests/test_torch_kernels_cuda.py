@@ -2148,3 +2148,52 @@ def test_two_worker_processes_launch_the_kernels_and_equal_in_process(
         assert len({fleet.manager.get(r).engine.pid for r in ids}) == 2
     finally:
         fleet.close()
+
+
+def test_a_set_saved_on_the_card_boots_a_worker_without_nvcc(
+        cuda, monkeypatch, tmp_path):
+    """A program set saved from a captured engine carries the kernel
+    libraries its graphs launch; a worker booted from it under an empty
+    program store installs them and builds nothing (store and build misses
+    0, read from the worker), and its greedy streams equal the saving
+    engine's."""
+    import os
+    from paddle_tpu_torch.programs import read_manifest
+    from paddle_tpu_torch.serving import FleetRouter, ServingEngine
+    here = os.path.dirname(os.path.abspath(__file__))
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        p for p in (here, os.environ.get("PYTHONPATH")) if p))
+    solo = ServingEngine(_worker_model(device=cuda), kv="paged",
+                         device=cuda, **ENGINE)
+    solo.warmup()
+    path = solo.save_program_set(str(tmp_path / "tiny"))
+    libs = read_manifest(path)["libraries"]
+    assert {"paged_attention", "int8_matmul"} <= set(libs)
+    want = _greedy(solo, FLEET_PROMPTS[:4])
+    monkeypatch.setenv("PDTPU_PROGRAM_CACHE_DIR", str(tmp_path / "store"))
+    spec = {"model": {"factory": "test_torch_kernels_cuda:_worker_model",
+                      "kwargs": {"seed": 3}},
+            "engine": dict(ENGINE, kv="paged", device=str(cuda),
+                           prefill_buckets=list(ENGINE["prefill_buckets"])),
+            "program_set": path}
+    fleet = FleetRouter([], heartbeat_timeout_s=60.0)
+    try:
+        rid = fleet.add_worker(spec, boot_timeout_s=300)
+        fleet.warmup()
+        client = fleet.manager.get(rid).engine
+        resps = []
+        for p in FLEET_PROMPTS[:4]:
+            req, resp = client.make_request(p, 24)
+            client.scheduler.submit(req, resp)
+            resps.append(resp)
+        fleet.run_until_drained(timeout=300)
+        assert [r.tokens(timeout=5) for r in resps] == want
+        proc = client.metrics(fresh=True)["process"]
+        assert proc["kernel_builds"]["misses"] == 0
+        assert proc["kernel_builds"]["installs"] == len(libs)
+        assert proc["program_store"]["misses"] == 0
+        assert proc["program_store"]["dir"].startswith(str(tmp_path))
+        assert set(proc["program_set"]["kinds"].values()) == {"recaptured"}
+    finally:
+        fleet.close()
+        solo.close()

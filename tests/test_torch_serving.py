@@ -270,9 +270,12 @@ def test_signature_is_the_reference_one_then_device():
                         device="cpu")
     assert (eng.max_slots, eng.max_len, eng.buckets, eng.decode_chunk,
             eng._profile, eng.kv) == (2, 32, (8, 16), 3, True, "fixed")
-    for kw in ({"mesh": object()}, {"program_set": "programs/"}):
-        with pytest.raises(UnimplementedError, match="ROADMAP"):
-            ServingEngine(tm, device="cpu", **kw)
+    with pytest.raises(UnimplementedError, match="ROADMAP"):
+        ServingEngine(tm, device="cpu", mesh=object())
+    # program sets are ported: a set that is not there is refused typed
+    from paddle_tpu_torch.programs import ProgramSetError
+    with pytest.raises(ProgramSetError, match="unreadable"):
+        ServingEngine(tm, device="cpu", program_set="programs/")
 
 
 def test_request_surface_is_the_reference_one():

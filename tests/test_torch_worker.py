@@ -30,8 +30,7 @@ from paddle_tpu.serving import worker as jworker
 from paddle_tpu.utils import faults as jfaults
 
 import paddle_tpu_torch.serving as T
-from paddle_tpu_torch.core.errors import (InvalidArgumentError,
-                                          UnimplementedError)
+from paddle_tpu_torch.core.errors import InvalidArgumentError
 from paddle_tpu_torch.serving import worker as tworker
 from paddle_tpu_torch.serving.fleet import ReplicaManager
 
@@ -257,31 +256,30 @@ def test_supervisor_schedule_under_an_injected_clock(monkeypatch):
 
 
 def test_program_sets_and_a_missing_card_are_refused_typed(guard):
-    """A spec with a program set is refused at ``add_worker`` (the port
-    captures at boot; ROADMAP section 1 item 2); a worker asked for the
-    card on a machine without one fails its boot typed, and a spent
-    budget removes it."""
-    with hard_limit(60):
+    """A spec whose program set cannot be read fails its worker's boot
+    with ``ProgramSetError`` (sets are ported: tests/test_torch_programs.py
+    boots a worker from one); a worker asked for the card on a machine
+    without one fails its boot typed; a spent budget removes either."""
+    with hard_limit(90):
         fleet = T.FleetRouter([], restart_backoff=T.RestartBackoff(
             max_restarts=0))
         guard(fleet)
         mgr = fleet.manager
-        with pytest.raises(UnimplementedError, match="item 2"):
-            fleet.add_worker(dict(spec(), program_set="/nowhere"))
-        with pytest.raises(UnimplementedError, match="item 2"):
-            T.FleetRouter(workers=[dict(spec(), ship_program_set=True)])
-        if torch.cuda.is_available():
-            return
-        card = spec()
-        del card["engine"]["device"]
-        rep = mgr.add_worker(card)
-        wait_for(lambda: rep.state == "crashed", 45, "a failed boot",
-                 tick=fleet.step)
-        assert "UnavailableError" in rep.fence_reason
-        assert "no CUDA device" in rep.fence_reason
-        wait_for(lambda: mgr.get(rep.id) is None, 10, "removed",
-                 tick=fleet.step)
-        assert rep.lineage["exhausted"]
+        cases = [(dict(spec(), program_set="/nowhere/gpt.pdprograms"),
+                  ("ProgramSetError", "unreadable"))]
+        if not torch.cuda.is_available():
+            card = spec()
+            del card["engine"]["device"]
+            cases.append((card, ("UnavailableError", "no CUDA device")))
+        for bad, words in cases:
+            rep = mgr.add_worker(bad)
+            wait_for(lambda: rep.state == "crashed", 45, "a failed boot",
+                     tick=fleet.step)
+            for w in words:
+                assert w in rep.fence_reason
+            wait_for(lambda: mgr.get(rep.id) is None, 10, "removed",
+                     tick=fleet.step)
+            assert rep.lineage["exhausted"]
 
 
 # -------------------------------------------- a worker and the reference
