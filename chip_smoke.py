@@ -14,11 +14,12 @@ Phases (any failure exits non-zero before the result line):
                 at every prefill bucket the serve, pressure and prefix
                 phases' prompts fill;
                 paged_attention also at max_len 4096 with slots at pos
-                4095 and 0), in f32 and with bf16 operands (K3: every pair
-                of q and pool dtypes); |kernel - plain| must stay within
-                1e-4 + 1e-4 * |plain| in f32 (sums in another order) and
-                1e-3 + 8e-3 * |plain| with bf16 (one bf16 unit), and two
-                calls must give bit-equal results.
+                4095 and 0), in f32 and with bf16 and float16 operands
+                (K3: the pairs of q and pool dtypes); |kernel - plain| must
+                stay within 1e-4 + 1e-4 * |plain| in f32 (sums in another
+                order), 1e-3 + 8e-3 * |plain| with bf16 (one bf16 unit) and
+                1e-4 + 2e-3 * |plain| with float16 (one float16 unit), and
+                two calls must give bit-equal results.
   4. time     — device times (a CUDA graph replayed, CUDA events) of each
                 kernel, its plain version and a PyTorch library call on the
                 same inputs, over a sweep of 24 layers' distinct tensors (the
@@ -27,7 +28,8 @@ Phases (any failure exits non-zero before the result line):
                 eagerly, host launch cost included.  paged_attention is
                 also timed at the serve phase's own positions, and
                 int8_matmul at the largest prefill bucket; both in f32 and
-                in bf16 (rows "paged_attention_bf16", "int8_matmul_bf16").
+                in bf16 (rows "paged_attention_bf16", "int8_matmul_bf16"),
+                and in float16 (a "time f16" line beside the bf16 row).
   5. serve    — GPT-2 medium (24 x 1024, vocab 50304), random weights from
                 --seed, int8 weight-only, paged KV (block 16, 8 slots,
                 max_len 1024): warmup must capture every program as a
@@ -251,6 +253,13 @@ Phases (any failure exits non-zero before the result line):
                 byte flipped: the engine refuses it with ProgramSetError,
                 and the predictor's fallback boots fresh and counts
                 program_set_fallback_total.  Prints the phase's seconds.
+ 9h. serve_f16 — GPT-2 medium decorated to float16 (amp.decorate O2,
+                as the reference's engine serves it), int8, on float16
+                paged pools, captured: the serve phase's 6 greedy
+                requests, K3 / K4 launched on their float16 routes,
+                nothing captured after warmup, each stream equal to solo
+                generate()'s or split where the top-two margin is below
+                2e-2 (a few float16 units of the logits; printed).
  10. fixed    — 4-layer full-width engines on the fixed pool, captured, f32
                 and bf16: greedy streams must equal the uncaptured path's,
                 and in f32 solo generate()'s.  Then the captured f32 engine
@@ -259,17 +268,21 @@ Phases (any failure exits non-zero before the result line):
                 the new weights.
  11. flash    — the tensor-core instructions (HMMA / HGMMA lines of
                 cuobjdump -sass) of every kernel in the built flash
-                library, failing if a bf16 (tensor-core route) kernel has
-                none; the flash kernels K1 (forward) and K2 (backward)
-                against their plain versions on the card at the training
-                shape (B 4, S 1024, H 16, D 64, causal, dropout 0.1, fixed
-                seed) in bf16 and f32, and at small shapes with a bias,
-                segment ids, Sk != Sq, D 128 and D 256, in both types
-                (every gradient, dbias included); two bf16 K2 calls at the
-                training shape must give bit-equal gradients, and the peak
-                memory of one call is printed; then timed like K3/K4 over
-                24 layers' tensors, beside the bound and torch's
-                scaled_dot_product_attention as the yardstick.
+                library, failing if a 16-bit (tensor-core route, bf16 and
+                float16) kernel has none; the flash kernels K1 (forward)
+                and K2 (backward) against their plain versions on the card
+                at the training shape (B 4, S 1024, H 16, D 64, causal,
+                dropout 0.1, fixed seed) in bf16, float16 and f32, and at
+                small shapes with a bias, segment ids, Sk != Sq (a dQ over
+                8 key tiles in float16), D 128 and D 256, in every type
+                (every gradient, dbias included; float16 within 2e-3 +
+                2e-3 * |plain|); two K2 calls at the training shape must
+                give bit-equal gradients in bf16 and in float16, and the
+                peak memory of one call is printed; then timed like K3/K4
+                over 24 layers' tensors in bf16 and float16, beside the
+                bound and torch's scaled_dot_product_attention as the
+                yardstick (the kernel table keeps the bf16 rows; a "time
+                f16" line per kernel).
  12. train    — GPT-2 medium (24 x 1024, 16 heads, vocab 50304), B 4,
                 S 1024, O1 bf16, AdamW(1e-4), dropout 0.1, random weights
                 and one random batch from --seed, through jit.TrainStep's
@@ -301,6 +314,22 @@ Phases (any failure exits non-zero before the result line):
                 bit-equal, the others are true and move them; K1 / K2 24
                 launches per step through the replays; nothing captured
                 after warmup; ms per step by CUDA events printed.
+ 13c. amp16   — GPT-2 medium in float16 at the train phase's batch.  (a)
+                4 eager steps under auto_cast(dtype="float16"):
+                scaler.scale(loss).backward(), scaler.step(opt),
+                opt.clear_grad(): finite losses, K1 / K2 24 launches per
+                step.  (b) GuardedTrainStep(TrainStep(O1 float16,
+                guard=True), scaler=GradScaler()), captured by warmup with
+                PDTPU_FAULT_NAN_GRADS=3:6: step 3 leaves every state tensor
+                bit-equal, halves the scale once and writes one
+                quarantine.jsonl record.  (c) After step 2
+                AsyncCheckpointManager saved the step's state (its stall on
+                the training thread printed against CheckpointManager.save
+                of the same 4 GiB); steps 4 and 5 are bad too, and the
+                third bad step rolls back: parameters bit-equal to those
+                saved, the scaler's state the saved one.  Nothing captured
+                after warmup; K1 / K2 24 launches per step; the guarded
+                float16 ms per step printed beside the guard phase's bf16.
  14. bert     — BERT-large / ERNIE-large pretraining (BASELINE configs #3
                 and #4 as bench.py measures them: B 8 x S 512, O1 bf16,
                 AdamW(1e-4) with decay off for biases and norms, dropout
@@ -410,6 +439,8 @@ TOL = 1e-4          # |kernel - plain| <= TOL + TOL * |plain|
 # their last bits may round to neighbouring bf16 values: one bf16 unit
 # (8e-3 > 2**-7, a unit's largest relative size)
 BF16_TOL = (1e-3, 8e-3)
+# the same on float16 operands: one float16 unit (2e-3 > 2**-10)
+F16_TOL = (1e-4, 2e-3)
 LOGIT_TOL = 2e-3    # kernel-path vs plain-path decode logits, max abs
 # the same in bf16, as a share of the logits' largest |value|: the card
 # and the CPU round the bf16 activations of 24 layers at other places
@@ -417,9 +448,12 @@ LOGIT_TOL = 2e-3    # kernel-path vs plain-path decode logits, max abs
 BF16_LOGIT_TOL = 5e-2
 # flash kernels vs their plain versions, (atol, rtol): f32 outputs sum in
 # another order; f32 gradients sum over up to 1024 rows; bf16 values are
-# rounded to bf16 by both, one bf16 unit (2**-8 relative) apart at most
+# rounded to bf16 by both, one bf16 unit (2**-8 relative) apart at most;
+# float16 the same with units eight times finer (2**-11 relative)
 FLASH_TOL = {"float32": ((1e-4, 1e-4), (2e-4, 1e-3)),
-             "bfloat16": ((1e-2, 1e-2), (1e-2, 1e-2))}
+             "bfloat16": ((1e-2, 1e-2), (1e-2, 1e-2)),
+             "float16": ((2e-3, 2e-3), (2e-3, 2e-3))}
+DT_SUFFIX = {"float32": "", "bfloat16": "_bf16", "float16": "_f16"}
 # kernel-path vs CPU plain-path training step (f32, TF32 off): the loss
 # within 1e-4 relative, each gradient within GRAD_TOL of its tensor's
 # largest |gradient| (cuBLAS and the CPU sum in other orders)
@@ -474,6 +508,14 @@ BEAM_B, BEAM_PROMPT, BEAM_NEW, BEAM_K = 2, 128, 64, 4   # beam phase
 BEAM_CHECK_NEW = 16        # the 2-layer card-vs-CPU beam check
 SCORE_TOL = 1e-3           # a beam's score vs its teacher-forced log-prob
 GUARD_STEPS, GUARD_POISONED = 5, 3   # guard phase: steps, the NaN step
+# amp16 phase: eager float16 steps under GradScaler; the guarded captured
+# step's NaN window (steps 3..5, max_bad_steps 3: one skip-and-decay, then
+# a rollback to the async checkpoint of step AMP16_SAVE_AT)
+AMP16_EAGER_STEPS, AMP16_NAN, AMP16_SAVE_AT, AMP16_BAD = 4, (3, 6), 2, 3
+# a float16 engine's greedy split from solo generate() must sit at a near
+# tie: float16 logits round at 2**-11 relative (about 2.4e-3 at |logit| 5)
+# on two paths that round at other places, so a few units apart
+F16_MARGIN_TOL = 2e-2
 RESNET_B, RESNET_HW, RESNET_STEPS = 256, 224, 8           # resnet phase
 # the fused-BN kernels' main-path shapes at batch 256, as (N, H, W, C)
 BN_STEM = (RESNET_B, 112, 112, 64)       # M = 3,211,264
@@ -487,10 +529,10 @@ BN_LINES = {"bn_stats": 119, "bn_apply": 132, "bn_bwd_reduce": 153,
 
 PHASES = ("check", "serve", "telemetry", "pressure", "prefix", "spec", "lora",
           "beam", "gateway", "fleet", "worker", "programs", "serve_bf16",
-          "spec_bf16",
+          "spec_bf16", "serve_f16",
           "fixed",
-          "flash", "train", "traincheck", "guard", "bert", "predictor", "bn",
-          "resnet", "resnetcheck")
+          "flash", "train", "traincheck", "guard", "amp16", "bert",
+          "predictor", "bn", "resnet", "resnetcheck")
 
 
 def fail(msg: str):
@@ -569,10 +611,11 @@ def prefill_buckets():
 
 def int8_phase(torch, rng, dev):
     """K4 checked at every M of the main path (8 decode slots and each
-    prefill bucket) over one GPT-2-medium layer's four Linears, with f32
-    and bf16 x, two calls bit-equal at each; timed per layer in both types
-    at decode M and at the largest prefill bucket, swept over 24 layers'
-    weights.  Returns the f32 and the bf16 row of the kernel table."""
+    prefill bucket) over one GPT-2-medium layer's four Linears, with f32,
+    bf16 and float16 x, two calls bit-equal at each; timed per layer in
+    each type at decode M and at the largest prefill bucket, swept over 24
+    layers' weights.  Returns the f32 and the bf16 row of the kernel
+    table; the float16 route's figures are printed beside the bf16 ones."""
     from paddle_tpu_torch.ops import _build, int8_matmul as im
     from paddle_tpu_torch.quantization import quantize_weight_int8
     shapes = [(1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024)]
@@ -589,8 +632,9 @@ def int8_phase(torch, rng, dev):
     sms = _build.sm_count(dev.index)
     rows = []
     for dt, (atol, rtol) in ((torch.float32, (TOL, TOL)),
-                             (torch.bfloat16, BF16_TOL)):
-        name = "int8_matmul" + ("" if dt == torch.float32 else "_bf16")
+                             (torch.bfloat16, BF16_TOL),
+                             (torch.float16, F16_TOL)):
+        name = "int8_matmul" + DT_SUFFIX[str(dt)[6:]]
         xs_dt = {mc: {k: x.to(dt) for k, x in xs.items()}
                  for mc, xs in xs_at.items()}
         err, ok = 0.0, True
@@ -615,7 +659,18 @@ def int8_phase(torch, rng, dev):
                  f"repeat ({err:.3e})")
         rows.append(_int8_time(torch, im, layers, shapes, xs_dt,
                                [SLOTS, ms_at[-1]], name, err))
-    return rows
+    f16_line(rows[1], rows[2])
+    return rows[:2]
+
+
+def f16_line(bf16, f16):
+    """One line with a kernel's float16 route beside its bf16 route, both
+    timed in this call (the kernel table keeps one row per kernel)."""
+    print(f"time f16 {f16['name']}: {f16['ms']:.4f} ms (bf16 "
+          f"{bf16['ms']:.4f}; plain {f16['plain_ms']:.4f}; library "
+          f"{f16['library_ms']:.4f}; bound {f16['bound_ms']:.4f} "
+          f"{f16['bound_by']}; call {f16['call_ms']:.4f}); max_abs_err "
+          f"{f16['max_abs_err']:.3e}")
 
 
 def _int8_time(torch, im, layers, shapes, xs_at, ms, name, err):
@@ -680,39 +735,43 @@ def paged_phase(torch, rng, dev):
     """K3 at decode shapes: 8 slots, ragged pos 17..1000, block 16, the
     engine's default pool (8 * 64 blocks), sentinel tail entries; and a
     long context (max_len 4096, a slot at pos 4095 and one at pos 0); f32,
-    bf16 and the two mixed dtype pairs (q and the pools); two calls
-    bit-equal at each.  Times per layer in f32 and bf16, swept over 24
-    layers' pools, at these positions and at the serve phase's own (each
-    prompt plus 32 of its 64 new tokens).  Returns the f32 and the bf16
-    row of the kernel table."""
+    bf16, float16 and the mixed dtype pairs (q and the pools); two calls
+    bit-equal at each.  Times per layer in f32, bf16 and float16, swept
+    over 24 layers' pools, at these positions and at the serve phase's own
+    (each prompt plus 32 of its 64 new tokens).  Returns the f32 and the
+    bf16 row of the kernel table; the float16 route's figures are printed
+    beside the bf16 ones."""
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import paged_attention as pa
     h, d = 16, 64
     nb = MAX_LEN // BLOCK
     sms = _build.sm_count(dev.index)
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     pos_np = np.array([17, 150, 300, 511, 512, 700, 901, 1000], np.int32)
     long_np = np.array([4095, 0, 2047, 3000, 17, 1023, 4000, 64], np.int32)
     q, pools, tables, pos = _paged_case(torch, rng, dev, pos_np, nb,
                                         layers=LAYERS)
     lq, lpools, ltables, lpos = _paged_case(torch, rng, dev, long_np,
                                             4096 // BLOCK)
-    errs = {f32: 0.0, bf16: 0.0}
+    errs = {f32: 0.0, bf16: 0.0, f16: 0.0}
     ok = True
     for label, args in (("main", (q, *pools[0], tables, pos)),
                         ("max_len 4096", (lq, *lpools[0], ltables, lpos))):
-        for qd, kvd in ((f32, f32), (bf16, bf16), (f32, bf16), (bf16, f32)):
+        for qd, kvd in ((f32, f32), (bf16, bf16), (f32, bf16), (bf16, f32),
+                        (f16, f16), (f32, f16), (f16, f32)):
             a = (args[0].to(qd), args[1].to(kvd), args[2].to(kvd),
                  *args[3:])
             got = pa.paged_attention(*a)
             again = pa.paged_attention(*a)
             want = pa._plain(*a)
             torch.cuda.synchronize()
-            atol, rtol = (TOL, TOL) if qd == kvd == f32 else BF16_TOL
+            key = f16 if f16 in (qd, kvd) else bf16 if bf16 in (qd, kvd) \
+                else f32
+            atol, rtol = {f32: (TOL, TOL), bf16: BF16_TOL,
+                          f16: F16_TOL}[key]
             e, o = max_err(torch, got, want, atol, rtol)
             o = o and got.dtype == qd
             rep = torch.equal(got, again)
-            key = f32 if qd == kvd == f32 else bf16
             errs[key], ok = max(errs[key], e), ok and o and rep
             print(f"check paged_attention {label} q {str(qd)[6:]} pools "
                   f"{str(kvd)[6:]} S={a[0].shape[0]} H={h} D={d} "
@@ -726,7 +785,7 @@ def paged_phase(torch, rng, dev):
         fail(f"paged_attention disagrees with its plain version or does "
              f"not repeat ({errs})")
     rows = []
-    for dt in (f32, bf16):
+    for dt in (f32, bf16, f16):
         dq = q.to(dt)
         dpools = pools if dt == f32 else [(k.to(dt), v.to(dt))
                                           for k, v in pools]
@@ -734,7 +793,8 @@ def paged_phase(torch, rng, dev):
                                 pos_np, nb, errs[dt]))
         del dpools
         torch.cuda.empty_cache()
-    return rows
+    f16_line(rows[1], rows[2])
+    return rows[:2]
 
 
 def _paged_time(torch, pa, sms, q, pools, tables, pos, pos_np, nb, err):
@@ -745,14 +805,15 @@ def _paged_time(torch, pa, sms, q, pools, tables, pos, pos_np, nb, err):
     from paddle_tpu_torch.ops import _build
     h, d = q.shape[1], q.shape[2]
     elem = pools[0][0].element_size()
-    name = "paged_attention" + ("" if elem == 4 else "_bf16")
+    name = "paged_attention" + DT_SUFFIX[str(pools[0][0].dtype)[6:]]
     dev = q.device
     plan = pa._plan(SLOTS, h, d, nb, sms, elem)
     fits = ctypes.c_int(0)
     _build.check(_build.function(
         "paged_attention", "pdt_paged_attention_max_clusters",
         [ctypes.c_int] * 5 + [ctypes.c_void_p])(
-            h, d, plan.hpb, plan.splits, int(elem == 2), ctypes.byref(fits)),
+            h, d, plan.hpb, plan.splits, pa._DTYPE_CODE[pools[0][0].dtype],
+            ctypes.byref(fits)),
         "paged_attention max clusters")
     print(f"{name} plan {plan}: grid {plan.grid(SLOTS, h)}, "
           f"{fits.value} clusters of {plan.splits} resident at once")
@@ -1001,16 +1062,16 @@ def serve_requests(args, vocab: int):
 
 
 def serve_model(torch, args, dev, dtype=None):
-    """GPT-2 medium from --seed, int8 weight-only; with dtype bf16
-    decorated to bf16 (amp O2) before quantization."""
+    """GPT-2 medium from --seed, int8 weight-only; with dtype bf16 or
+    float16 decorated to it (amp O2) before quantization."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.models import GPTForPretraining, gpt2_medium_config
     from paddle_tpu_torch.quantization import quantize_for_serving
     cfg = gpt2_medium_config(hidden_dropout_prob=0.0,
                              attention_probs_dropout_prob=0.0)
     model = GPTForPretraining(cfg, device=dev, seed=args.seed).eval()
-    if dtype == torch.bfloat16:
-        amp.decorate(models=model, level="O2", dtype="bfloat16")
+    if dtype in (torch.bfloat16, torch.float16):
+        amp.decorate(models=model, level="O2", dtype=str(dtype)[6:])
     return quantize_for_serving(model)
 
 
@@ -2216,6 +2277,55 @@ def lora_train_leg(torch, args, dev, card):
     torch.cuda.empty_cache()
 
 
+def serve_f16_phase(torch, args, dev, card):
+    """GPT-2 medium decorated to float16 (amp O2, as the reference's
+    engine serves it) and quantized to int8, paged KV in float16: K3 and
+    K4 on their float16 routes.  The captured engine serves the serve
+    phase's greedy prompts (64 new tokens; counters zeroed just before):
+    K3 and K4 launched, and each greedy stream equal to solo generate()'s
+    or split from it where the top-two margin is below F16_MARGIN_TOL."""
+    from paddle_tpu_torch.generation import generate
+    from paddle_tpu_torch.serving import ServingEngine
+    f16 = torch.float16
+    model = serve_model(torch, args, dev, f16)
+    eng = ServingEngine(model, max_slots=SLOTS, max_len=MAX_LEN,
+                        kv="paged", block_size=BLOCK, dtype=f16,
+                        device=dev)
+    if eng._pools[0][0].dtype != f16:
+        fail(f"serve f16: the engine built {eng._pools[0][0].dtype} pools")
+    warm = eng.warmup()
+    counts = warm["compile_counts"]
+    if not warm["captured"] or counts["total"] != counts["bound"]:
+        fail(f"serve f16: warmup captured {counts}")
+    prompts, sampled = serve_requests(args, model.gpt.config.vocab_size)
+    greedy = [p for i, p in enumerate(prompts) if i not in sampled]
+    outs, wall, ttfts, launches = serve_run(
+        torch, eng, greedy, {}, 64, ("int8_matmul_f16", "paged_attention_f16"))
+    total = sum(len(o) for o in outs)
+    print(f"serve f16 captured [{card}]: {len(greedy)} greedy requests, "
+          f"{total} tokens in {wall:.3f}s: {total / wall:.1f} tokens/s; "
+          f"TTFT p50 {ttfts[len(ttfts) // 2] * 1e3:.1f} ms; pools "
+          f"{eng._pools[0][0].dtype}, weights "
+          f"{next(model.parameters()).dtype} + int8; launches {launches}")
+    if any(n <= 0 for n in launches.values()):
+        fail(f"serve f16: a kernel was not launched: {launches}")
+    if any(len(o) != 64 for o in outs):
+        fail("serve f16: a request did not produce 64 tokens")
+    if eng.post_warmup_compiles() != 0:
+        fail("serve f16: programs captured after warmup")
+    eng.close()
+    del eng
+    solo = [generate(model, p, max_new_tokens=64, device=dev)[0][0].tolist()
+            for p in greedy]
+    splits = _splits(torch, model, dev, greedy, outs, solo, "serve f16",
+                     tol=F16_MARGIN_TOL)
+    print(f"serve f16: greedy streams equal to solo generate(): "
+          f"{len(greedy) - len(splits)} of {len(greedy)}; splits at near "
+          f"ties {splits}")
+    del model
+    torch.cuda.empty_cache()
+
+
 def fixed_phase(torch, args, dev):
     """4-layer full-width engines on the fixed pool, captured: the f32
     engine's greedy streams equal solo generate(); the bf16 one's equal
@@ -2359,7 +2469,8 @@ def _kernel_name(mangled: str) -> str:
     rest = mangled[i:]
     if not rest.startswith("I"):
         return name
-    dtype = {"If": ["f32"], "I13__nv_bfloat16": ["bf16"]}
+    dtype = {"If": ["f32"], "I13__nv_bfloat16": ["bf16"],
+             "I6__half": ["f16"]}
     head = next((v for k, v in dtype.items() if rest.startswith(k)), [])
     args = head + re.findall(r"L[ib](\d+)E", rest)
     return f"{name}<{','.join(args)}>"
@@ -2367,8 +2478,8 @@ def _kernel_name(mangled: str) -> str:
 
 def flash_sass_check():
     """Tensor-core instructions (HMMA / HGMMA lines of the SASS) in every
-    kernel of the built flash library; fails unless each of the bf16
-    route's kernels (3 kinds x 3 head_dims) has some."""
+    kernel of the built flash library; fails unless each of the 16-bit
+    route's kernels (3 kinds x 3 head_dims x bf16 and float16) has some."""
     from paddle_tpu_torch.ops import _build
     lib = _build._target("flash_attention")
     sass = subprocess.run([_cuobjdump(), "-sass", str(lib)],
@@ -2384,27 +2495,30 @@ def flash_sass_check():
         print(f"sass {n}: {counts[n]} HMMA/HGMMA")
     tc = {n: c for n, c in counts.items() if n.split("<")[0] in
           FLASH_TC_KERNELS}
-    if len(tc) != 3 * len(FLASH_TC_KERNELS) or not all(tc.values()):
-        fail(f"a bf16 flash kernel has no tensor-core instruction: {tc}")
+    if len(tc) != 2 * 3 * len(FLASH_TC_KERNELS) or not all(tc.values()):
+        fail(f"a 16-bit flash kernel has no tensor-core instruction: {tc}")
     return tc
 
 
 def flash_phase(torch, rng, dev):
-    """K1/K2 checked at the training shape in bf16 and f32 and at small
-    variant shapes; timed at the training shape in bf16 per layer over 24
-    layers' tensors."""
+    """K1/K2 checked at the training shape in bf16, float16 and f32 and at
+    small variant shapes; timed at the training shape in bf16 and float16
+    per layer over 24 layers' tensors.  Returns the kernel table's rows
+    (the bf16 route's); the float16 route's figures are printed beside."""
     from paddle_tpu_torch.ops import flash_attention as fa
     flash_sass_check()
     b, s, h, d, p = TRAIN_B, TRAIN_S, 16, 64, 0.1
     seed = torch.tensor([20260417], dtype=torch.int32, device=dev)
-    err_f, err_b = 0.0, 0.0
-    for dtype in (torch.bfloat16, torch.float32):
+    err_f = {torch.bfloat16: 0.0, torch.float16: 0.0, torch.float32: 0.0}
+    err_b = dict(err_f)
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
         ins = _flash_inputs(torch, rng, dev, b, s, s, h, d, dtype)
         e = flash_check(torch, fa, (*ins[:4], None, None, None, seed, True,
                                     p), f"{str(dtype)[6:]} B={b} S={s} "
                                         f"H={h} D={d} causal p={p}")
-        err_f = max(err_f, e)
+        err_f[dtype] = e
         torch.cuda.empty_cache()
+    f16 = torch.float16
     for name, bb, sq, sk, hh, dd, dt, causal, bias, seg, pp in (
             ("bias", 2, 256, 256, 2, 64, torch.float32, False, True, False,
              0.0),
@@ -2417,16 +2531,38 @@ def flash_phase(torch, rng, dev):
             ("segments d128", 2, 256, 256, 2, 128, torch.bfloat16, False,
              False, True, 0.0),
             ("bias+dropout d256", 1, 256, 256, 2, 256, torch.bfloat16, True,
-             True, False, 0.2)):
+             True, False, 0.2),
+            ("bias", 2, 256, 256, 2, 64, f16, False, True, False, 0.0),
+            ("segments d128", 2, 256, 256, 2, 128, f16, False, False, True,
+             0.0),
+            ("sk!=sq multi-tile dQ", 1, 128, 1024, 2, 64, f16, True, True,
+             False, 0.1),
+            ("bias+dropout d256", 1, 256, 256, 2, 256, f16, True, True,
+             False, 0.2)):
         q, k, v, do, bi, qs, ks = _flash_inputs(
             torch, rng, dev, bb, sq, sk, hh, dd, dt, bias, seg)
-        err_b = max(err_b, flash_check(
+        err_b[dt] = max(err_b[dt], flash_check(
             torch, fa, (q, k, v, do, bi, qs, ks, seed, causal, pp),
             f"{name} {str(dt)[6:]} B={bb} Sq={sq} Sk={sk} H={hh} D={dd}"))
 
-    # timing: 24 layers' distinct bf16 tensors (the step's working set)
-    layers = [_flash_inputs(torch, rng, dev, b, s, s, h, d,
-                            torch.bfloat16)[:4] for _ in range(LAYERS)]
+    rows = {}
+    for dt in (torch.bfloat16, torch.float16):
+        rows[dt] = _flash_time(torch, fa, rng, dev, dt, seed,
+                               err_f[dt], max(err_f[dt], err_b[dt]))
+    for key in range(2):
+        f16_line(rows[torch.bfloat16][key], rows[torch.float16][key])
+    return rows[torch.bfloat16]
+
+
+def _flash_time(torch, fa, rng, dev, dt, seed, err_f, err_b):
+    """K1's and K2's rows of the kernel table in dtype dt at the training
+    shape: ms per layer over 24 layers' distinct tensors (the step's
+    working set), eager call, plain and SDPA times and the bound; for bf16
+    also K2's bit-repeat and its peak memory."""
+    b, s, h, d, p = TRAIN_B, TRAIN_S, 16, 64, 0.1
+    tag = str(dt)[6:]
+    layers = [_flash_inputs(torch, rng, dev, b, s, s, h, d, dt)[:4]
+              for _ in range(LAYERS)]
     saved = [fa.flash_fwd(q, k, v, None, None, None, seed, True, p)
              for q, k, v, _ in layers]
     # K2 repeats bit for bit, and one call allocates no dQ partials
@@ -2443,14 +2579,14 @@ def flash_phase(torch, rng, dev):
     peak = torch.cuda.max_memory_allocated() - base
     same = all(torch.equal(x, y) for x, y in zip(first[:3], second[:3]))
     partials = (s // 64) * b * h * s * d * 4
-    print(f"check flash K2 repeat (bf16 B={b} S={s} H={h} D={d} causal "
+    print(f"check flash K2 repeat ({tag} B={b} S={s} H={h} D={d} causal "
           f"p={p}): dq, dk, dv {'bit-equal' if same else 'DIFFER'}; peak "
           f"memory of one call {peak / 2 ** 20:.1f} MiB (the f32 dQ "
           f"partials alone would be {partials / 2 ** 20:.1f} MiB)")
     if not same:
         fail("two flash backward calls on the same inputs differ")
     if peak >= partials:
-        fail(f"a bf16 flash backward call took {peak} bytes")
+        fail(f"a {tag} flash backward call took {peak} bytes")
     del first, second
 
     def fwd(f):
@@ -2490,8 +2626,9 @@ def flash_phase(torch, rng, dev):
     lib_b = graph_ms(torch, lib_fwd_bwd) / LAYERS - lib_f
     # bound per layer, from this run's shapes: each input read once, each
     # output written once; tensor-core operations over the visible
-    # (causal) score pairs, 2 * D per pair and product
-    elem = b * s * h * d * 2                       # one bf16 (B, S, H, D)
+    # (causal) score pairs, 2 * D per pair and product (bf16 and float16
+    # share the tensor cores' dense rate)
+    elem = b * s * h * d * 2                       # one 16-bit (B, S, H, D)
     pairs = b * h * s * (s + 1) // 2
     rows = b * h * s * 4                           # one f32 (B, H, S)
     bound = {"fwd": bound_ms(3 * elem + elem + rows + 4, 2 * 2 * d * pairs,
@@ -2501,13 +2638,15 @@ def flash_phase(torch, rng, dev):
                              5 * 2 * d * pairs, BF16_OPS_PER_S)}
     out = []
     for key, lib, err, line in (("fwd", lib_f, err_f, 257),
-                                ("bwd", lib_b, max(err_f, err_b), 417)):
+                                ("bwd", lib_b, err_b, 417)):
         ms, eager, plain = times[key]
         bms, by = bound[key]
-        print(f"time flash_attention_{key} (bf16, per layer): {ms:.4f} ms "
+        name = f"flash_attention_{key}" + ("_f16" if dt == torch.float16
+                                             else "")
+        print(f"time {name} ({tag}, per layer): {ms:.4f} ms "
               f"(call {eager:.4f}), plain {plain:.4f}, SDPA {lib:.4f}, "
               f"bound {bms:.4f} ({by})")
-        out.append({"name": f"flash_attention_{key}", "route": "cuda",
+        out.append({"name": name, "route": "cuda",
                     "source": "paddle_tpu_torch/csrc/flash_attention.cu",
                     "replaces": f"paddle_tpu/ops/flash_attention.py:{line}",
                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -2916,6 +3055,215 @@ def guard_phase(torch, args, dev, card):
     import gc
     gc.collect()
     torch.cuda.empty_cache()
+    return [x for i, x in enumerate(ms, 1) if i != GUARD_POISONED]
+
+
+def _amp16_eager(torch, args, dev, card, cfg, batch):
+    """(a) AMP16_EAGER_STEPS eager GPT-2 medium steps under
+    auto_cast(dtype="float16") with GradScaler: scale(loss).backward(),
+    step(opt), clear_grad().  Gates: finite losses, K1 / K2 launched once
+    per layer and step."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import (GPTForPretraining,
+                                         GPTPretrainingCriterion)
+    from paddle_tpu_torch.ops import flash_attention as fa
+    crit = GPTPretrainingCriterion()
+    pt.seed(args.seed)
+    model = GPTForPretraining(cfg, device=dev, seed=args.seed)
+    model.train()
+    opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                             parameters=model.parameters())
+    scaler = pt.amp.GradScaler()
+    ids, labels = batch
+    fa.flash_fwd.launches = fa.flash_bwd.launches = 0
+    losses, scales, ms = [], [], []
+    for _ in range(AMP16_EAGER_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with pt.amp.auto_cast(dtype="float16"):
+            loss = crit(model(ids), labels)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.detach()))
+        scales.append(scaler.get_init_loss_scaling())
+    launches = {"flash_attention_fwd": fa.flash_fwd.launches,
+                "flash_attention_bwd": fa.flash_bwd.launches}
+    print(f"amp16 eager [{card}]: GPT-2 medium, auto_cast(float16) + "
+          f"GradScaler, B {TRAIN_B} x S {TRAIN_S}: losses "
+          f"{[round(x, 4) for x in losses]}, loss scale after each step "
+          f"{scales}, ms per step (host clock to a synchronize) "
+          f"{[round(x, 1) for x in ms]}; launches {launches}")
+    if not all(np.isfinite(losses)):
+        fail(f"amp16 eager: non-finite losses {losses}")
+    want = cfg.num_hidden_layers * AMP16_EAGER_STEPS
+    if any(n != want for n in launches.values()):
+        fail(f"amp16 eager: flash launches {launches}, expected {want} each")
+    del model, opt
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def amp16_phase(torch, args, dev, card, guard_ms=None):
+    """GPT-2 medium in float16 at the train phase's batch.  (a) Eager
+    steps under GradScaler (``_amp16_eager``).  (b) GuardedTrainStep over
+    TrainStep(amp_dtype="float16", amp_level="O1", guard=True), captured
+    by warmup with PDTPU_FAULT_NAN_GRADS armed for steps 3..5: step 3 is
+    skipped on the device (parameters and moments bit-equal, the scale
+    halved once, one quarantine record).  (c) Steps 4 and 5 are bad too:
+    the third bad step rolls back to the checkpoint that
+    AsyncCheckpointManager wrote after step 2 (parameters bit-equal to
+    those saved, the scaler's state the saved one).  No capture after
+    warmup; K1 / K2 once per layer and step.  Prints the guarded float16
+    ms per step beside the guard phase's bf16 one, and the save's stall
+    on the training thread against CheckpointManager.save's for the same
+    state.  ``guard_ms``: the guard phase's bf16 ms per healthy step, when
+    it ran in this call."""
+    import gc
+    import json as _json
+    import os
+    import shutil
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import checkpoint as dck
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (GPTForPretraining,
+                                         GPTPretrainingCriterion,
+                                         gpt2_medium_config)
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.utils import faults
+    from paddle_tpu_torch.utils.guarded import GuardedTrainStep
+    cfg = gpt2_medium_config()
+    batch = tuple(torch.from_numpy(a).to(dev)
+                  for a in _train_batch(cfg, args.seed, TRAIN_B, TRAIN_S))
+    _amp16_eager(torch, args, dev, card, cfg, batch)
+
+    crit = GPTPretrainingCriterion()
+    pt.seed(args.seed)
+    model = GPTForPretraining(cfg, device=dev, seed=args.seed)
+    opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                             parameters=model.parameters())
+    inner = TrainStep(model, lambda logits, y: crit(logits, y), opt,
+                      amp_level="O1", amp_dtype="float16", guard=True)
+    root = _build_dir("amp16")
+    ckpt = os.path.join(root, "guarded")
+    scaler = pt.amp.GradScaler()
+    gstep = GuardedTrainStep(inner, checkpoint_dir=ckpt, scaler=scaler,
+                             max_bad_steps=AMP16_BAD)
+    faults.enable("nan_grads", f"{AMP16_NAN[0]}:{AMP16_NAN[1]}")
+    try:
+        warm = inner.warmup(*batch)
+    finally:
+        faults.disable("nan_grads")
+    made = inner.compile_counts()["total"]
+    am = dck.AsyncCheckpointManager(ckpt, max_to_keep=2)
+    fa.flash_fwd.launches = fa.flash_bwd.launches = 0
+    losses, ms, skipped, saved = [], [], [], None
+    for i in range(1, AMP16_NAN[1]):
+        if i == AMP16_NAN[0]:
+            state = inner._state_tensors()[:-2]
+            before = [t.clone() for t in state]
+            scale_before = scaler.get_init_loss_scaling()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = gstep(*batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        skipped.append(gstep.last_skipped)
+        if i == AMP16_NAN[0]:
+            same = sum(torch.equal(a, b) for a, b in zip(before, state))
+            del before
+            with open(os.path.join(ckpt, "quarantine.jsonl")) as f:
+                recs = [_json.loads(line) for line in f]
+            print(f"amp16 guarded: poisoned step {i}: {same} of "
+                  f"{len(state)} state tensors bit-equal; scale "
+                  f"{scale_before} -> {scaler.get_init_loss_scaling()}; "
+                  f"quarantine records {len(recs)}: {recs}")
+            if same != len(state):
+                fail(f"amp16 guarded: the poisoned step moved "
+                     f"{len(state) - same} state tensors")
+            if scaler.get_init_loss_scaling() != scale_before / 2:
+                fail("amp16 guarded: the scale did not halve once")
+            if len(recs) != 1 or recs[0]["reason"] != "nonfinite":
+                fail(f"amp16 guarded: quarantine holds {recs}")
+        if i == AMP16_SAVE_AT:
+            saved = _amp16_saves(torch, am, inner, model, opt, scaler, root,
+                                 card)
+    launches = {"flash_attention_fwd": fa.flash_fwd.launches,
+                "flash_attention_bwd": fa.flash_bwd.launches}
+    rec = gstep.quarantine[-1]
+    rolled = [torch.equal(p.detach(), w)
+              for p, w in zip(model.parameters(), saved["params"])]
+    recaptured = inner.compile_counts()["total"] - made
+    healthy = [x for i, x in enumerate(ms, 1) if i < AMP16_NAN[0]]
+    bf16 = guard_ms
+    print(f"amp16 guarded [{card}]: GPT-2 medium GuardedTrainStep(TrainStep("
+          f"O1 float16, guard=True)), captured (warmup {warm}), NaN window "
+          f"{AMP16_NAN}: losses {[round(x, 4) for x in losses]}, skipped "
+          f"{skipped}; last record {rec}; parameters after the rollback "
+          f"bit-equal to those saved: {sum(rolled)} of {len(rolled)}; "
+          f"scaler {scaler.state_dict()} vs saved {saved['scaler']}; "
+          f"captures after warmup {recaptured}; launches {launches}")
+    print(f"amp16 guarded [{card}]: ms per healthy step (host clock to a "
+          f"synchronize, one host read each) "
+          f"{[round(x, 2) for x in healthy]}; the guard phase's bf16 "
+          + (f"{[round(x, 2) for x in bf16]} (CUDA events)" if bf16 else
+             "not run in this call"))
+    if rec.get("rolled_back_to") != AMP16_SAVE_AT:
+        fail(f"amp16 rollback: the last record is {rec}")
+    if not all(rolled):
+        fail(f"amp16 rollback: {len(rolled) - sum(rolled)} parameters differ "
+             "from those saved")
+    if scaler.state_dict() != saved["scaler"]:
+        fail(f"amp16 rollback: scaler {scaler.state_dict()}, saved "
+             f"{saved['scaler']}")
+    if recaptured or not warm["compiled"]:
+        fail(f"amp16 guarded: warmup {warm}, {recaptured} captures after")
+    want = cfg.num_hidden_layers * (AMP16_NAN[1] - 1)
+    if any(n != want for n in launches.values()):
+        fail(f"amp16 guarded: flash launches {launches}, expected {want}")
+    if not all(np.isfinite(losses)):
+        fail(f"amp16 guarded: non-finite losses {losses}")
+    am.close()
+    del model, opt, inner, gstep, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def _amp16_saves(torch, am, inner, model, opt, scaler, root, card):
+    """The rollback's checkpoint by AsyncCheckpointManager (its stall on
+    the training thread timed), then the same state by
+    CheckpointManager.save (timed) into another directory.  Returns what
+    was saved: device clones of the parameters and the scaler's state."""
+    import os
+    from paddle_tpu_torch.distributed import checkpoint as dck
+    from paddle_tpu_torch.jit import state_arrays
+    params = [p.detach().clone() for p in model.parameters()]
+    tree = {"params": state_arrays(model), "opt": inner._opt_state}
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 dck._flatten(tree).values())
+    extra = dck.train_state_extras(opt, None, scaler, None, inner._gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    am.save(tree, opt._step_count, extra)
+    stall_async = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    am.wait_until_finished()
+    write_async = time.perf_counter() - t0
+    sync = dck.CheckpointManager(os.path.join(root, "sync"))
+    t0 = time.perf_counter()
+    sync.save(tree, opt._step_count, extra)
+    stall_sync = time.perf_counter() - t0
+    print(f"amp16 checkpoint [{card}]: {nbytes / 2 ** 30:.2f} GiB (GPT-2 "
+          f"medium parameters and AdamW moments): AsyncCheckpointManager."
+          f"save stalled the training thread {stall_async:.3f} s (pinned "
+          f"snapshot + enqueue; the writer took {write_async:.3f} s more); "
+          f"CheckpointManager.save {stall_sync:.3f} s")
+    return {"params": params, "scaler": scaler.state_dict()}
 
 
 def _bert_large(**kw):
@@ -3984,9 +4332,10 @@ def _build_dir(name: str) -> str:
     return path
 
 
-def _splits(torch, model, dev, prompts, got, want, tag, sampled=()):
+def _splits(torch, model, dev, prompts, got, want, tag, sampled=(),
+            tol=MARGIN_TOL):
     """Indices where stream ``got[i]`` leaves ``want[i]``; a greedy split
-    must sit where the ``want`` path's top-two margin is below MARGIN_TOL,
+    must sit where the ``want`` path's top-two margin is below ``tol``,
     a sampled stream must be equal."""
     out = []
     for i, (g, w) in enumerate(zip(got, want)):
@@ -4000,9 +4349,9 @@ def _splits(torch, model, dev, prompts, got, want, tag, sampled=()):
                               np.concatenate([prompts[i], w[:j]]))
         print(f"{tag}: stream {i} splits from the plain engine's at token "
               f"{j}: top-two margin {margin:.3e}")
-        if margin >= MARGIN_TOL:
+        if margin >= tol:
             fail(f"{tag}: stream {i} splits at token {j} where the margin is "
-                 f"{margin:.3e} (>= {MARGIN_TOL})")
+                 f"{margin:.3e} (>= {tol})")
         out.append((i, j, margin))
     return out
 
@@ -5578,6 +5927,9 @@ def main():
             spec_bf16_phase(torch, args, dev, card, model)
         del model
     torch.cuda.empty_cache()
+    if want("serve_f16"):
+        serve_f16_phase(torch, args, dev, card)
+    torch.cuda.empty_cache()
     if want("fixed"):
         fixed_phase(torch, args, dev)
     torch.cuda.empty_cache()
@@ -5588,8 +5940,12 @@ def main():
     if want("traincheck"):
         train_check_phase(torch, args, dev)
     torch.cuda.empty_cache()
+    guard_ms = None
     if want("guard"):
-        guard_phase(torch, args, dev, card)
+        guard_ms = guard_phase(torch, args, dev, card)
+    torch.cuda.empty_cache()
+    if want("amp16"):
+        amp16_phase(torch, args, dev, card, guard_ms)
     torch.cuda.empty_cache()
     if want("bert"):
         bert_phase(torch, args, dev, card)

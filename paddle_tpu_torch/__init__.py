@@ -9,14 +9,14 @@ the caller passes ``device="cpu"``.
 """
 from . import (amp, distributed, generation, inference, jit,  # noqa: F401
                lora, models, nn, observability, optimizer, programs,
-               quantization, serving, vision)
+               quantization, regularizer, serving, vision)
 from .core.rng import seed  # noqa: F401
 from .nn.layer_base import ParamAttr  # noqa: F401
 from .weights import load_paddle_opt_state, load_paddle_state  # noqa: F401
 
 __all__ = ["amp", "distributed", "generation", "inference", "jit", "lora",
            "models", "nn", "observability", "optimizer", "programs",
-           "quantization",
+           "quantization", "regularizer",
            "serving", "vision", "seed", "ParamAttr", "load_paddle_state",
            "load_paddle_opt_state"]
 

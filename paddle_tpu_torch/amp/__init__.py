@@ -14,17 +14,25 @@ lists differ, and it would let the bias add promote a Linear back to f32.
 The cast is a differentiable ``.to``, so each gradient comes back in its
 input's own type, as the reference's cast inside the vjp does.  Under O2
 only those entry points cast (with ``decorate`` the parameters are low
-precision already); ``GradScaler`` (fp16 loss scaling) comes with a later
-slice of the port.
+precision already).
+
+``GradScaler`` is the reference's dynamic loss scaling for float16: the
+scale's state machine (increase after ``incr_every_n_steps`` finite
+steps, decrease after ``decr_every_n_nan_or_inf`` bad ones, never below
+1.0), a per-optimizer cycle state keyed by ``id`` with a weakref identity
+check (an interleaved GAN loop never divides a gradient twice), and an
+``unscale_`` that is one fused multi-tensor pass over the gradients with
+one host read of the finite flag.
 """
 from __future__ import annotations
 
 import contextlib
+import weakref
 
 import torch
 
 __all__ = ["WHITE_LIST", "BLACK_LIST", "auto_cast", "amp_cast", "promote",
-           "decorate"]
+           "decorate", "GradScaler"]
 
 # ops always run in the low-precision type (reference fp16 white list)
 WHITE_LIST = {
@@ -162,3 +170,138 @@ def decorate(models=None, optimizers=None, level="O2", dtype="bfloat16",
     if optimizers is None:
         return models
     return models, optimizers
+
+
+class GradScaler:
+    """Dynamic loss scaling (the reference's ``amp.GradScaler``, after
+    Paddle's ``update_loss_scaling`` state machine)."""
+
+    def __init__(self, enable=True, init_loss_scaling=2.0 ** 15,
+                 incr_ratio=2.0, decr_ratio=0.5, incr_every_n_steps=1000,
+                 decr_every_n_nan_or_inf=1, use_dynamic_loss_scaling=True):
+        self._enable = enable
+        self._scale = float(init_loss_scaling) if enable else 1.0
+        self._incr_ratio = incr_ratio
+        self._decr_ratio = decr_ratio
+        self._incr_every = incr_every_n_steps
+        self._decr_every = decr_every_n_nan_or_inf
+        self._dynamic = use_dynamic_loss_scaling
+        self._good_steps = 0
+        self._bad_steps = 0
+        self._found_inf = False   # the last unscale_'s verdict
+        self._opt_states = {}     # id -> {"ref", "unscaled", "found_inf"}
+
+    def _opt_state(self, optimizer):
+        """This optimizer's cycle state; an entry whose optimizer was
+        collected, or whose id was reused by another, starts afresh."""
+        dead = [k for k, st in self._opt_states.items()
+                if st["ref"]() is None]
+        for k in dead:
+            del self._opt_states[k]
+        st = self._opt_states.get(id(optimizer))
+        if st is None or st["ref"]() is not optimizer:
+            st = {"ref": weakref.ref(optimizer), "unscaled": False,
+                  "found_inf": False}
+            self._opt_states[id(optimizer)] = st
+        return st
+
+    def scale(self, loss):
+        """``loss`` times the scale.  Unscale guards are per optimizer and
+        cleared by that optimizer's step, so scaling another loss between
+        one optimizer's ``unscale_`` and its ``step`` divides nothing
+        twice."""
+        if not self._enable:
+            return loss
+        return loss * self._scale
+
+    @torch.no_grad()
+    def unscale_(self, optimizer):
+        """Divide the optimizer's gradients by the scale in place (once per
+        cycle) and record whether all are finite: one fused multi-tensor
+        pass and one host read."""
+        if not self._enable:
+            return
+        st = self._opt_state(optimizer)
+        if st["unscaled"]:
+            return
+        st["unscaled"] = True
+        grads = [p.grad for p in optimizer._parameter_list or []
+                 if p.grad is not None]
+        if not grads:
+            self._found_inf = st["found_inf"] = False
+            return
+        dev = grads[0].device
+        found = torch.zeros(1, dtype=torch.float32, device=dev)
+        inv = torch.full((1,), 1.0 / self._scale, dtype=torch.float32,
+                         device=dev)
+        torch._amp_foreach_non_finite_check_and_unscale_(grads, found, inv)
+        self._found_inf = st["found_inf"] = bool(found.item())
+
+    def step(self, optimizer):
+        """Unscale (unless done this cycle), step unless a gradient was
+        not finite, and move the scale's state machine."""
+        if not self._enable:
+            optimizer.step()
+            return
+        self.unscale_(optimizer)
+        st = self._opt_state(optimizer)
+        if not st["found_inf"]:
+            optimizer.step()
+        self._update(st["found_inf"])
+        st["unscaled"] = False
+        st["found_inf"] = False
+
+    def minimize(self, optimizer, scaled_loss):
+        scaled_loss.backward()
+        self.step(optimizer)
+        optimizer.clear_grad()
+
+    def update(self):
+        """Folded into ``step``, as in the reference."""
+
+    def _update(self, found_inf):
+        if not self._dynamic:
+            return
+        if found_inf:
+            self._bad_steps += 1
+            self._good_steps = 0
+            if self._bad_steps >= self._decr_every:
+                self._scale = max(self._scale * self._decr_ratio, 1.0)
+                self._bad_steps = 0
+        else:
+            self._good_steps += 1
+            self._bad_steps = 0
+            if self._good_steps >= self._incr_every:
+                self._scale *= self._incr_ratio
+                self._good_steps = 0
+
+    def record_skip(self):
+        """A bad step found elsewhere (``GuardedTrainStep``'s device
+        verdict) counted as a non-finite step: the decay half of
+        skip-and-decay with no host pass over the gradients."""
+        from ..utils.monitor import stat_add
+        stat_add("STAT_amp_skipped_steps")
+        self._update(True)
+
+    def is_enable(self):
+        return self._enable
+
+    def is_use_dynamic_loss_scaling(self):
+        return self._dynamic
+
+    def get_init_loss_scaling(self):
+        return self._scale
+
+    def state_dict(self):
+        return {"scale": self._scale, "incr_ratio": self._incr_ratio,
+                "decr_ratio": self._decr_ratio,
+                "incr_every_n_steps": self._incr_every,
+                "decr_every_n_nan_or_inf": self._decr_every,
+                "good_steps": self._good_steps, "bad_steps": self._bad_steps}
+
+    def load_state_dict(self, sd):
+        self._scale = sd.get("scale", self._scale)
+        self._good_steps = sd.get("good_steps", 0)
+        self._bad_steps = sd.get("bad_steps", 0)
+
+    set_state_dict = load_state_dict

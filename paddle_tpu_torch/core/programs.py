@@ -60,8 +60,9 @@ def counters():
                 fbn.bn_pool_apply)
     return ([(w, "launches") for w in wrappers]
             + [(fbn.bn_pool_apply.routes, r) for r in ("ring", "window")]
-            + [(e, "relayouts") for e in (fbn.bn_act_train, fbn.bn2_act_train,
-                                          fbn.bn_act_pool_train)])
+            + [(e, k) for e in (fbn.bn_act_train, fbn.bn2_act_train,
+                                fbn.bn_act_pool_train)
+               for k in ("relayouts", "composite_calls")])
 
 
 def counter_name(owner, key) -> str:

@@ -2,10 +2,10 @@
 //
 // Replaces the Pallas kernels paddle_tpu/ops/flash_attention.py::_fwd_kernel
 // (driven by _fwd_impl) and ::_bwd_kernel (driven by _bwd_impl).
-//   q (B, Sq, H, D), k / v (B, Sk, H, D): f32 or bf16, any batch / seq /
-//   head strides (the fused-QKV output's views are read in place), unit
-//   stride along D; D in {64, 128, 256}; Sq, Sk multiples of 128.  The bf16
-//   kernels also need 16-byte aligned rows (base and strides multiples of 8
+//   q (B, Sq, H, D), k / v (B, Sk, H, D): f32, bf16 or f16, any batch /
+//   seq / head strides (the fused-QKV output's views are read in place),
+//   unit stride along D; D in {64, 128, 256}; Sq, Sk multiples of 128.  The
+//   16-bit kernels also need 16-byte aligned rows (base and strides multiples of 8
 //   elements); the wrapper copies a view that is not.
 //   Masks: causal with offset Sk - Sq, additive f32 per-key bias (B, Sk),
 //   int32 q / kv segment ids; masked scores are -1e30, not -inf, as in the
@@ -15,7 +15,7 @@
 //   K1 writes O (B, Sq, H, D) in the input type and the f32 logsumexp
 //   (B, H, Sq); K2 writes dQ, dK, dV in the input type and, with a bias,
 //   the per-head key sums of dS (B, H, Sk) that the wrapper sums over heads.
-//   A row that sees no key gets O = 0 (and, on the bf16 route, lse = +inf,
+//   A row that sees no key gets O = 0 (and, on the 16-bit route, lse = +inf,
 //   so that K2 gives it no gradient).
 //
 // Bound (GPT-2 medium training, B 4, S 1024, H 16, D 64, causal, bf16, one
@@ -28,17 +28,24 @@
 // Two routes, picked by dtype in pdt_flash_fwd / pdt_flash_bwd (no
 // fallback between them):
 //
-// bf16: tensor cores (FlashAttention-2's dataflow on mma.sync).
-//   - Every product is mma.sync.m16n8k16 (bf16 in, f32 accumulate).
+// bf16 and f16: tensor cores (FlashAttention-2's dataflow on mma.sync).
+//   One template over the 16-bit type T, instantiated for both: the two
+//   differ only in the mma.sync form (.bf16 or .f16 operands) and in the
+//   pair conversions (Half<T>); tiles, swizzles and copies are the same
+//   bytes.  Under f16 the -1e30 masks and the softmax state stay in f32
+//   registers; P is at most 1 / (1 - dropout) and fits, and a dS past
+//   65504 (a large loss scale) rounds to inf as the reference's astype
+//   does, for the loss scaler to see.
+//   - Every product is mma.sync.m16n8k16 (T in, f32 accumulate).
 //     Operands come from shared memory by ldmatrix (.trans where the
 //     stored tile is the transpose of the operand).  Tiles are stored as
-//     bf16 rows of D elements with a 16-byte-chunk XOR swizzle (chunk
+//     16-bit rows of D elements with a 16-byte-chunk XOR swizzle (chunk
 //     c of row r at c ^ (r % 8)), so the eight rows an ldmatrix phase
 //     reads hit eight different bank groups, with no padding.
 //   - Copies are 16-byte cp.async.cg into a two-stage ring: the copy of
 //     tile j + 1 is in flight while tile j is computed.
 //   - The accumulator layout of two adjacent n8 tiles of m16n8k16 is the
-//     A layout of one k16 slice, so P (and dS) are rounded to bf16 and
+//     A layout of one k16 slice, so P (and dS) are rounded to T and
 //     repacked in registers as the A operand of the next product: no
 //     shared-memory round trip and no barrier between softmax and PV.
 //   - K1 (flash_fwd_tc_kernel): one block of 4 warps per (64-row q tile,
@@ -95,6 +102,7 @@
 // nothing; each C entry returns cudaGetLastError().
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -103,6 +111,31 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 using bf16 = __nv_bfloat16;
+using f16 = __half;
+
+// The tensor-core route's two 16-bit types: a pair of them as one 32-bit
+// register, its conversions, and the mma.sync form that reads it.
+template <typename T> struct Half;
+template <> struct Half<bf16> {
+  using T2 = __nv_bfloat162;
+  static constexpr bool kF16 = false;
+  static __device__ __forceinline__ T2 pair(float lo, float hi) {
+    return __floats2bfloat162_rn(lo, hi);
+  }
+  static __device__ __forceinline__ float2 f2(T2 v) {
+    return __bfloat1622float2(v);
+  }
+};
+template <> struct Half<f16> {
+  using T2 = __half2;
+  static constexpr bool kF16 = true;
+  static __device__ __forceinline__ T2 pair(float lo, float hi) {
+    return __floats2half2_rn(lo, hi);
+  }
+  static __device__ __forceinline__ float2 f2(T2 v) {
+    return __half22float2(v);
+  }
+};
 
 struct Strides {
   long long b, s, h;  // elements; unit stride along D
@@ -165,7 +198,7 @@ __device__ __forceinline__ unsigned seed_bh(const Masks& mk, int b, int H,
 }
 
 // ===========================================================================
-// bf16 route: tensor cores
+// 16-bit route (bf16 and f16): tensor cores
 // ===========================================================================
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -201,21 +234,32 @@ __device__ __forceinline__ void ldsm4_t(unsigned (&r)[4], unsigned addr) {
       : "r"(addr));
 }
 
-// c += a b for one m16n8k16 tile: a four bf16 pairs (row-major 16 x 16),
+// c += a b for one m16n8k16 tile: a four T pairs (row-major 16 x 16),
 // b two (column-major 16 x 8), c four f32.
+template <typename T>
 __device__ __forceinline__ void mma16816(float (&c)[4],
                                          const unsigned (&a)[4], unsigned b0,
                                          unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (Half<T>::kF16) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
 }
 
-// Two f32 rounded to bf16 (nearest even, as astype), lo in the low half.
+// Two f32 rounded to T (nearest even, as astype), lo in the low half.
+// float16 keeps its subnormals and turns a value past 65504 into inf.
+template <typename T>
 __device__ __forceinline__ unsigned pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  typename Half<T>::T2 v = Half<T>::pair(lo, hi);
   return *reinterpret_cast<unsigned*>(&v);
 }
 
@@ -236,7 +280,7 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Element (r, c) of a swizzled (rows, D) bf16 tile: the 16-byte chunk
+// Element (r, c) of a swizzled (rows, D) 16-bit tile: the 16-byte chunk
 // c / 8 of row r sits at chunk (c / 8) ^ (r % 8).
 template <int D> __device__ __forceinline__ int swz(int r, int c) {
   return r * D + ((((c >> 3) ^ (r & 7))) << 3) + (c & 7);
@@ -246,8 +290,8 @@ template <int D> __device__ __forceinline__ int swz(int r, int c) {
 // lanes 0-15 rows r0 .. r0 + 15 at column c0, lanes 16-31 the same rows at
 // c0 + 8.  Read plainly it is an A operand; read with .trans, the B
 // operands of two n8 tiles whose k index runs along the rows.
-template <int D>
-__device__ __forceinline__ unsigned a_addr(const bf16* tile, int r0, int c0,
+template <int D, typename T>
+__device__ __forceinline__ unsigned a_addr(const T* tile, int r0, int c0,
                                            int lane) {
   return smem_u32(tile + swz<D>(r0 + (lane & 15), c0 + ((lane >> 4) << 3)));
 }
@@ -255,8 +299,8 @@ __device__ __forceinline__ unsigned a_addr(const bf16* tile, int r0, int c0,
 // ldmatrix.x4 row address for the B operands of two n8 tiles (n index
 // along rows n0 .. n0 + 15, k index along columns c0 .. c0 + 15): regs
 // 0, 1 are tile n0's b0, b1 and regs 2, 3 tile n0 + 8's.
-template <int D>
-__device__ __forceinline__ unsigned b_addr(const bf16* tile, int n0, int c0,
+template <int D, typename T>
+__device__ __forceinline__ unsigned b_addr(const T* tile, int n0, int c0,
                                            int lane) {
   return smem_u32(tile + swz<D>(n0 + (lane & 7) + ((lane >> 4) << 3),
                                 c0 + (((lane >> 3) & 1) << 3)));
@@ -264,13 +308,13 @@ __device__ __forceinline__ unsigned b_addr(const bf16* tile, int n0, int c0,
 
 // Rows r0 .. r0 + R - 1 of head h, batch b into a swizzled (R, D) tile,
 // 16-byte cp.async copies spread over the block's 128 threads.
-template <int D, int R>
-__device__ __forceinline__ void tile_async(bf16* dst, const bf16* src,
+template <int D, int R, typename T>
+__device__ __forceinline__ void tile_async(T* dst, const T* src,
                                            const Strides& st, int b, int r0,
                                            int h) {
   constexpr int CH = D / 8;
   static_assert(R * CH % 128 == 0, "whole copies per thread");
-  const bf16* base = src + b * st.b + h * st.h + (long long)r0 * st.s;
+  const T* base = src + b * st.b + h * st.h + (long long)r0 * st.s;
 #pragma unroll
   for (int i = 0; i < R * CH / 128; ++i) {
     const int e = threadIdx.x + i * 128, r = e / CH, c = (e % CH) * 8;
@@ -279,23 +323,23 @@ __device__ __forceinline__ void tile_async(bf16* dst, const bf16* src,
 }
 
 // A warp's 16 x W slab of f32 accumulators (rows r0 + g and r0 + g + 8 of
-// the tile, columns c0 + 8 j + 2 t), times mul0 / mul1, rounded to bf16
+// the tile, columns c0 + 8 j + 2 t), times mul0 / mul1, rounded to T
 // into the warp's own rows of a swizzled (., D) tile, then copied to
 // global rows (dst is row r0's column 0, row stride rs) in 16-byte stores.
-template <int D, int W>
-__device__ __forceinline__ void store_slab(bf16* tile,
+template <int D, int W, typename T>
+__device__ __forceinline__ void store_slab(T* tile,
                                            const float (&acc)[W / 8][4],
                                            float mul0, float mul1, int r0,
-                                           int c0, bf16* dst, long long rs,
+                                           int c0, T* dst, long long rs,
                                            int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int j = 0; j < W / 8; ++j) {
     const int c = c0 + 8 * j + 2 * t;
     *reinterpret_cast<unsigned*>(tile + swz<D>(r0 + g, c)) =
-        pack2(acc[j][0] * mul0, acc[j][1] * mul0);
+        pack2<T>(acc[j][0] * mul0, acc[j][1] * mul0);
     *reinterpret_cast<unsigned*>(tile + swz<D>(r0 + g + 8, c)) =
-        pack2(acc[j][2] * mul1, acc[j][3] * mul1);
+        pack2<T>(acc[j][2] * mul1, acc[j][3] * mul1);
   }
   __syncwarp();
   constexpr int CH = W / 8;
@@ -308,14 +352,14 @@ __device__ __forceinline__ void store_slab(bf16* tile,
 }
 
 // ---------------------------------------------------------------------------
-// K2's pre-pass, bf16: delta[b, h, q] = sum_d dO * O in f32; D / 8 threads
+// K2's pre-pass, 16-bit: delta[b, h, q] = sum_d dO * O in f32; D / 8 threads
 // per (b, q, h) row, 16 bytes of O and of dO each, summed by shuffles
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(256)
-flash_delta_bf16_kernel(const bf16* __restrict__ o,
-                        const bf16* __restrict__ dout, Strides dos,
+flash_delta_tc_kernel(const T* __restrict__ o,
+                        const T* __restrict__ dout, Strides dos,
                         float* __restrict__ delta, int B, int Sq, int H) {
   constexpr int TPR = D / 8;  // threads per row, a power of two <= 32
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -329,11 +373,12 @@ flash_delta_bf16_kernel(const bf16* __restrict__ o,
     const uint4 ov = *reinterpret_cast<const uint4*>(o + row * D + c);
     const uint4 gv = *reinterpret_cast<const uint4*>(
         dout + b * dos.b + qi * dos.s + h * dos.h + c);
-    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+    using T2 = typename Half<T>::T2;
+    const T2* o2 = reinterpret_cast<const T2*>(&ov);
+    const T2* g2 = reinterpret_cast<const T2*>(&gv);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float2 x = __bfloat1622float2(o2[i]), y = __bfloat1622float2(g2[i]);
+      const float2 x = Half<T>::f2(o2[i]), y = Half<T>::f2(g2[i]);
       s += x.x * y.x + x.y * y.y;
     }
   }
@@ -344,17 +389,17 @@ flash_delta_bf16_kernel(const bf16* __restrict__ o,
 }
 
 // ---------------------------------------------------------------------------
-// K1, bf16: one block of 4 warps per (q tile of 64 rows, head, batch)
+// K1, 16-bit: one block of 4 warps per (q tile of 64 rows, head, batch)
 // ---------------------------------------------------------------------------
 
-template <int D, int BN, bool QREG>
+template <typename T, int D, int BN, bool QREG>
 __global__ void __launch_bounds__(128)
 flash_fwd_tc_kernel(FwdArgs a) {
   constexpr int BM = 64, KD = D / 16, NS = BN / 8, NO = D / 8;
   extern __shared__ __align__(16) unsigned char smem_tc[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_tc);  // BM x D
-  bf16* Ks = Qs + BM * D;                       // 2 stages of BN x D
-  bf16* Vs = Ks + 2 * BN * D;                   // 2 stages of BN x D
+  T* Qs = reinterpret_cast<T*>(smem_tc);  // BM x D
+  T* Ks = Qs + BM * D;                       // 2 stages of BN x D
+  T* Vs = Ks + 2 * BN * D;                   // 2 stages of BN x D
 
   const Masks& mk = a.mk;
   const int h = blockIdx.x, b = blockIdx.y, qt = gridDim.z - 1 - blockIdx.z;
@@ -362,15 +407,15 @@ flash_fwd_tc_kernel(FwdArgs a) {
   const int wr = (threadIdx.x >> 5) * 16;  // the warp's first row
   const int q0 = qt * BM;
   const unsigned sb = seed_bh(mk, b, a.H, h);
-  const bf16* kp = static_cast<const bf16*>(a.k);
-  const bf16* vp = static_cast<const bf16*>(a.v);
+  const T* kp = static_cast<const T*>(a.k);
+  const T* vp = static_cast<const T*>(a.v);
 
   int n_kt = a.Sk / BN;
   if (mk.causal) {
     const int last = q0 + BM - 1 + mk.off;  // last key a row here may see
     n_kt = last < 0 ? 0 : min(n_kt, last / BN + 1);
   }
-  tile_async<D, BM>(Qs, static_cast<const bf16*>(a.q), a.qs, b, q0, h);
+  tile_async<D, BM>(Qs, static_cast<const T*>(a.q), a.qs, b, q0, h);
   cp_commit();
   if (n_kt > 0) {
     tile_async<D, BN>(Ks, kp, a.ks, b, 0, h);
@@ -409,8 +454,8 @@ flash_fwd_tc_kernel(FwdArgs a) {
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BN;
-    const bf16* Kt = Ks + (kt & 1) * BN * D;
-    const bf16* Vt = Vs + (kt & 1) * BN * D;
+    const T* Kt = Ks + (kt & 1) * BN * D;
+    const T* Vt = Vs + (kt & 1) * BN * D;
     if (kt + 1 < n_kt) {  // tile kt + 1 flies while tile kt is computed
       tile_async<D, BN>(Ks + ((kt + 1) & 1) * BN * D, kp, a.ks, b, k0 + BN,
                         h);
@@ -440,8 +485,8 @@ flash_fwd_tc_kernel(FwdArgs a) {
       for (int nn = 0; nn < NS / 2; ++nn) {
         unsigned bk[4];
         ldsm4(bk, b_addr<D>(Kt, nn * 16, kd * 16, lane));
-        mma16816(s[2 * nn], af, bk[0], bk[1]);
-        mma16816(s[2 * nn + 1], af, bk[2], bk[3]);
+        mma16816<T>(s[2 * nn], af, bk[0], bk[1]);
+        mma16816<T>(s[2 * nn + 1], af, bk[2], bk[3]);
       }
     }
 
@@ -498,7 +543,7 @@ flash_fwd_tc_kernel(FwdArgs a) {
       }
     }
 
-    // dropout, P to bf16, repacked as the A operand of P V
+    // dropout, P to T, repacked as the A operand of P V
     unsigned pa[BN / 16][4];
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
@@ -512,8 +557,8 @@ flash_fwd_tc_kernel(FwdArgs a) {
         p2 = keep_hash(rh[1] ^ ch0, mk.thresh) ? p2 * mk.inv_keep : 0.f;
         p3 = keep_hash(rh[1] ^ ch1, mk.thresh) ? p3 * mk.inv_keep : 0.f;
       }
-      pa[j >> 1][(j & 1) * 2] = pack2(p0, p1);
-      pa[j >> 1][(j & 1) * 2 + 1] = pack2(p2, p3);
+      pa[j >> 1][(j & 1) * 2] = pack2<T>(p0, p1);
+      pa[j >> 1][(j & 1) * 2 + 1] = pack2<T>(p2, p3);
     }
 
     // O += P V
@@ -523,8 +568,8 @@ flash_fwd_tc_kernel(FwdArgs a) {
       for (int dd = 0; dd < D / 16; ++dd) {
         unsigned bv[4];
         ldsm4_t(bv, a_addr<D>(Vt, kk * 16, dd * 16, lane));
-        mma16816(o[2 * dd], pa[kk], bv[0], bv[1]);
-        mma16816(o[2 * dd + 1], pa[kk], bv[2], bv[3]);
+        mma16816<T>(o[2 * dd], pa[kk], bv[0], bv[1]);
+        mma16816<T>(o[2 * dd + 1], pa[kk], bv[2], bv[3]);
       }
     __syncthreads();  // every warp is done with this stage
   }
@@ -542,24 +587,24 @@ flash_fwd_tc_kernel(FwdArgs a) {
           none ? __int_as_float(0x7f800000) : m[r] * xs + logf(lt);
   }
   store_slab<D, D>(Qs, o, inv[0], inv[1], wr, 0,
-                   static_cast<bf16*>(a.o) +
+                   static_cast<T*>(a.o) +
                        (((long long)b * a.Sq + q0 + wr) * a.H + h) * D,
                    (long long)a.H * D, lane);
 }
 
 // ---------------------------------------------------------------------------
-// K2, bf16: dQ, one block of 4 warps per (q tile of 64 rows, head, batch)
+// K2, 16-bit: dQ, one block of 4 warps per (q tile of 64 rows, head, batch)
 // ---------------------------------------------------------------------------
 
-template <int D, int BN, bool QREG>
+template <typename T, int D, int BN, bool QREG>
 __global__ void __launch_bounds__(128)
 flash_bwd_dq_tc_kernel(BwdArgs a) {
   constexpr int BM = 64, KD = D / 16, NO = D / 8;
   extern __shared__ __align__(16) unsigned char smem_tc[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_tc);  // BM x D
-  bf16* Gs = Qs + BM * D;                       // dO, BM x D
-  bf16* Ks = Gs + BM * D;                       // 2 stages of BN x D
-  bf16* Vs = Ks + 2 * BN * D;                   // 2 stages of BN x D
+  T* Qs = reinterpret_cast<T*>(smem_tc);  // BM x D
+  T* Gs = Qs + BM * D;                       // dO, BM x D
+  T* Ks = Gs + BM * D;                       // 2 stages of BN x D
+  T* Vs = Ks + 2 * BN * D;                   // 2 stages of BN x D
 
   const Masks& mk = a.mk;
   const int h = blockIdx.x, b = blockIdx.y, qt = gridDim.z - 1 - blockIdx.z;
@@ -568,16 +613,16 @@ flash_bwd_dq_tc_kernel(BwdArgs a) {
   const int q0 = qt * BM;
   const long long bh = (long long)b * a.H + h;
   const unsigned sb = seed_bh(mk, b, a.H, h);
-  const bf16* kp = static_cast<const bf16*>(a.k);
-  const bf16* vp = static_cast<const bf16*>(a.v);
+  const T* kp = static_cast<const T*>(a.k);
+  const T* vp = static_cast<const T*>(a.v);
 
   int n_kt = a.Sk / BN;
   if (mk.causal) {
     const int last = q0 + BM - 1 + mk.off;
     n_kt = last < 0 ? 0 : min(n_kt, last / BN + 1);
   }
-  tile_async<D, BM>(Qs, static_cast<const bf16*>(a.q), a.qs, b, q0, h);
-  tile_async<D, BM>(Gs, static_cast<const bf16*>(a.dout), a.dos, b, q0, h);
+  tile_async<D, BM>(Qs, static_cast<const T*>(a.q), a.qs, b, q0, h);
+  tile_async<D, BM>(Gs, static_cast<const T*>(a.dout), a.dos, b, q0, h);
   cp_commit();
   if (n_kt > 0) {
     tile_async<D, BN>(Ks, kp, a.ks, b, 0, h);
@@ -617,8 +662,8 @@ flash_bwd_dq_tc_kernel(BwdArgs a) {
 
   for (int kt = 0; kt < n_kt; ++kt) {  // in k order: dQ sums in one order
     const int k0 = kt * BN;
-    const bf16* Kt = Ks + (kt & 1) * BN * D;
-    const bf16* Vt = Vs + (kt & 1) * BN * D;
+    const T* Kt = Ks + (kt & 1) * BN * D;
+    const T* Vt = Vs + (kt & 1) * BN * D;
     if (kt + 1 < n_kt) {
       tile_async<D, BN>(Ks + ((kt + 1) & 1) * BN * D, kp, a.ks, b, k0 + BN,
                         h);
@@ -654,13 +699,13 @@ flash_bwd_dq_tc_kernel(BwdArgs a) {
         }
         ldsm4(bk, b_addr<D>(Kt, nn * 16, kd * 16, lane));
         ldsm4(bv, b_addr<D>(Vt, nn * 16, kd * 16, lane));
-        mma16816(s[0], aq, bk[0], bk[1]);
-        mma16816(s[1], aq, bk[2], bk[3]);
-        mma16816(dp[0], ag, bv[0], bv[1]);
-        mma16816(dp[1], ag, bv[2], bv[3]);
+        mma16816<T>(s[0], aq, bk[0], bk[1]);
+        mma16816<T>(s[1], aq, bk[2], bk[3]);
+        mma16816<T>(dp[0], ag, bv[0], bv[1]);
+        mma16816<T>(dp[1], ag, bv[2], bv[3]);
       }
 
-      // dS = P (dP_dropped - delta), rounded to bf16 as the A operand
+      // dS = P (dP_dropped - delta), rounded to T as the A operand
       unsigned da[4];
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
@@ -685,8 +730,8 @@ flash_bwd_dq_tc_kernel(BwdArgs a) {
             ds[2 * r + e] = p * (dpv - dl[r]);
           }
         }
-        da[2 * j] = pack2(ds[0], ds[1]);
-        da[2 * j + 1] = pack2(ds[2], ds[3]);
+        da[2 * j] = pack2<T>(ds[0], ds[1]);
+        da[2 * j + 1] = pack2<T>(ds[2], ds[3]);
       }
 
       // dQ += dS K over these 16 keys
@@ -694,32 +739,32 @@ flash_bwd_dq_tc_kernel(BwdArgs a) {
       for (int dd = 0; dd < D / 16; ++dd) {
         unsigned bk[4];
         ldsm4_t(bk, a_addr<D>(Kt, nn * 16, dd * 16, lane));
-        mma16816(dq[2 * dd], da, bk[0], bk[1]);
-        mma16816(dq[2 * dd + 1], da, bk[2], bk[3]);
+        mma16816<T>(dq[2 * dd], da, bk[0], bk[1]);
+        mma16816<T>(dq[2 * dd + 1], da, bk[2], bk[3]);
       }
     }
     __syncthreads();
   }
   cp_wait<0>();
   store_slab<D, D>(Qs, dq, mk.scale, mk.scale, wr, 0,
-                   static_cast<bf16*>(a.dq) +
+                   static_cast<T*>(a.dq) +
                        (((long long)b * a.Sq + q0 + wr) * a.H + h) * D,
                    (long long)a.H * D, lane);
 }
 
 // ---------------------------------------------------------------------------
-// K2, bf16: dK and dV, one block of 4 warps per (k tile of 64 keys, head,
+// K2, 16-bit: dK and dV, one block of 4 warps per (k tile of 64 keys, head,
 // batch, DS-wide column slab)
 // ---------------------------------------------------------------------------
 
 // Q, dO, lse and delta of the q tile at row q0 into one ring stage.
-template <int D, int BMQ>
-__device__ __forceinline__ void q_tile_async(bf16* Qs, bf16* Gs, float* Ls,
+template <int D, int BMQ, typename T>
+__device__ __forceinline__ void q_tile_async(T* Qs, T* Gs, float* Ls,
                                              float* Es, const BwdArgs& a,
                                              int b, int h, long long bh,
                                              int q0) {
-  tile_async<D, BMQ>(Qs, static_cast<const bf16*>(a.q), a.qs, b, q0, h);
-  tile_async<D, BMQ>(Gs, static_cast<const bf16*>(a.dout), a.dos, b, q0, h);
+  tile_async<D, BMQ>(Qs, static_cast<const T*>(a.q), a.qs, b, q0, h);
+  tile_async<D, BMQ>(Gs, static_cast<const T*>(a.dout), a.dos, b, q0, h);
   const int i = threadIdx.x;
   const long long row = bh * a.Sq + q0;
   if (i < BMQ / 4)
@@ -729,15 +774,15 @@ __device__ __forceinline__ void q_tile_async(bf16* Qs, bf16* Gs, float* Ls,
                a.delta + row + 4 * (i - BMQ / 4));
 }
 
-template <int D, int BMQ, int DS, bool KVREG>
+template <typename T, int D, int BMQ, int DS, bool KVREG>
 __global__ void __launch_bounds__(128)
 flash_bwd_dkdv_tc_kernel(BwdArgs a) {
   constexpr int BN = 64, KD = D / 16, NSLAB = D / DS;
   extern __shared__ __align__(16) unsigned char smem_tc[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_tc);  // BN x D
-  bf16* Vs = Ks + BN * D;                       // BN x D
-  bf16* Qs = Vs + BN * D;                       // 2 stages of BMQ x D
-  bf16* Gs = Qs + 2 * BMQ * D;                  // dO, 2 stages
+  T* Ks = reinterpret_cast<T*>(smem_tc);  // BN x D
+  T* Vs = Ks + BN * D;                       // BN x D
+  T* Qs = Vs + BN * D;                       // 2 stages of BMQ x D
+  T* Gs = Qs + 2 * BMQ * D;                  // dO, 2 stages
   float* Ls = reinterpret_cast<float*>(Gs + 2 * BMQ * D);  // lse, 2 stages
   float* Es = Ls + 2 * BMQ;                                // delta, 2 stages
 
@@ -753,8 +798,8 @@ flash_bwd_dkdv_tc_kernel(BwdArgs a) {
   const int n_qt = a.Sq / BMQ;
   int qt0 = 0;  // the first q tile that sees key k0
   if (mk.causal && k0 - mk.off > 0) qt0 = min(n_qt, (k0 - mk.off) / BMQ);
-  tile_async<D, BN>(Ks, static_cast<const bf16*>(a.k), a.ks, b, k0, h);
-  tile_async<D, BN>(Vs, static_cast<const bf16*>(a.v), a.vs, b, k0, h);
+  tile_async<D, BN>(Ks, static_cast<const T*>(a.k), a.ks, b, k0, h);
+  tile_async<D, BN>(Vs, static_cast<const T*>(a.v), a.vs, b, k0, h);
   cp_commit();
   if (qt0 < n_qt) q_tile_async<D, BMQ>(Qs, Gs, Ls, Es, a, b, h, bh, qt0 * BMQ);
   cp_commit();
@@ -796,8 +841,8 @@ flash_bwd_dkdv_tc_kernel(BwdArgs a) {
     cp_commit();
     cp_wait<1>();
     __syncthreads();
-    const bf16* Qt = Qs + st * BMQ * D;
-    const bf16* Gt = Gs + st * BMQ * D;
+    const T* Qt = Qs + st * BMQ * D;
+    const T* Gt = Gs + st * BMQ * D;
     const float* Lt = Ls + st * BMQ;
     const float* Et = Es + st * BMQ;
     const bool diag = mk.causal && q0 + mk.off < k0 + BN - 1;
@@ -828,13 +873,13 @@ flash_bwd_dkdv_tc_kernel(BwdArgs a) {
         }
         ldsm4(bq, b_addr<D>(Qt, nn * 16, kd * 16, lane));
         ldsm4(bg, b_addr<D>(Gt, nn * 16, kd * 16, lane));
-        mma16816(sT[0], ak, bq[0], bq[1]);
-        mma16816(sT[1], ak, bq[2], bq[3]);
-        mma16816(dpT[0], av, bg[0], bg[1]);
-        mma16816(dpT[1], av, bg[2], bg[3]);
+        mma16816<T>(sT[0], ak, bq[0], bq[1]);
+        mma16816<T>(sT[1], ak, bq[2], bq[3]);
+        mma16816<T>(dpT[0], av, bg[0], bg[1]);
+        mma16816<T>(dpT[1], av, bg[2], bg[3]);
       }
 
-      // P^T (dropped) and dS^T, rounded to bf16 as A operands; ds uses
+      // P^T (dropped) and dS^T, rounded to T as A operands; ds uses
       // the undropped p and the dropped, scaled dp, as the reference
       unsigned pa[4], da[4];
 #pragma unroll
@@ -865,10 +910,10 @@ flash_bwd_dkdv_tc_kernel(BwdArgs a) {
             ds[2 * r + e] = d;
           }
         }
-        pa[2 * j] = pack2(pd[0], pd[1]);
-        pa[2 * j + 1] = pack2(pd[2], pd[3]);
-        da[2 * j] = pack2(ds[0], ds[1]);
-        da[2 * j + 1] = pack2(ds[2], ds[3]);
+        pa[2 * j] = pack2<T>(pd[0], pd[1]);
+        pa[2 * j + 1] = pack2<T>(pd[2], pd[3]);
+        da[2 * j] = pack2<T>(ds[0], ds[1]);
+        da[2 * j + 1] = pack2<T>(ds[2], ds[3]);
       }
 
       // dV += P^T dO, dK += dS^T Q over these 16 queries and this block's
@@ -878,10 +923,10 @@ flash_bwd_dkdv_tc_kernel(BwdArgs a) {
         unsigned bg[4], bq[4];
         ldsm4_t(bg, a_addr<D>(Gt, nn * 16, c0 + dd * 16, lane));
         ldsm4_t(bq, a_addr<D>(Qt, nn * 16, c0 + dd * 16, lane));
-        mma16816(dv[2 * dd], pa, bg[0], bg[1]);
-        mma16816(dv[2 * dd + 1], pa, bg[2], bg[3]);
-        mma16816(dk[2 * dd], da, bq[0], bq[1]);
-        mma16816(dk[2 * dd + 1], da, bq[2], bq[3]);
+        mma16816<T>(dv[2 * dd], pa, bg[0], bg[1]);
+        mma16816<T>(dv[2 * dd + 1], pa, bg[2], bg[3]);
+        mma16816<T>(dk[2 * dd], da, bq[0], bq[1]);
+        mma16816<T>(dk[2 * dd + 1], da, bq[2], bq[3]);
       }
     }
     __syncthreads();
@@ -898,10 +943,10 @@ flash_bwd_dkdv_tc_kernel(BwdArgs a) {
   __syncwarp();
   const long long row0 = ((long long)b * a.Sk + k0 + wr) * a.H + h;
   store_slab<D, DS>(Ks, dk, mk.scale, mk.scale, wr, c0,
-                    static_cast<bf16*>(a.dk) + row0 * D, (long long)a.H * D,
+                    static_cast<T*>(a.dk) + row0 * D, (long long)a.H * D,
                     lane);
   store_slab<D, DS>(Vs, dv, 1.f, 1.f, wr, c0,
-                    static_cast<bf16*>(a.dv) + row0 * D, (long long)a.H * D,
+                    static_cast<T*>(a.dv) + row0 * D, (long long)a.H * D,
                     lane);
 }
 
@@ -911,38 +956,38 @@ int set_smem(K kern, size_t bytes) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes));
 }
 
-template <int D>
+template <typename T, int D>
 int launch_fwd_tc(const FwdArgs& a, cudaStream_t st) {
   constexpr int BN = D == 256 ? 32 : 64;
-  const size_t smem = sizeof(bf16) * (64 * D + 4 * BN * D);
-  auto kern = flash_fwd_tc_kernel<D, BN, (D <= 128)>;
+  const size_t smem = sizeof(T) * (64 * D + 4 * BN * D);
+  auto kern = flash_fwd_tc_kernel<T, D, BN, (D <= 128)>;
   if (int err = set_smem(kern, smem)) return err;
   kern<<<dim3(a.H, a.B, a.Sq / 64), 128, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <typename T, int D>
 int launch_bwd_tc(const BwdArgs& a, cudaStream_t st) {
   {
     const long long threads = (long long)a.B * a.Sq * a.H * (D / 8);
-    flash_delta_bf16_kernel<D><<<(unsigned)((threads + 255) / 256), 256, 0,
+    flash_delta_tc_kernel<T, D><<<(unsigned)((threads + 255) / 256), 256, 0,
                                  st>>>(
-        static_cast<const bf16*>(a.o), static_cast<const bf16*>(a.dout),
+        static_cast<const T*>(a.o), static_cast<const T*>(a.dout),
         a.dos, const_cast<float*>(a.delta), a.B, a.Sq, a.H);
     if (int err = static_cast<int>(cudaGetLastError())) return err;
   }
   {
     constexpr int BN = D == 256 ? 32 : 64;
-    const size_t smem = sizeof(bf16) * (2 * 64 * D + 4 * BN * D);
-    auto kern = flash_bwd_dq_tc_kernel<D, BN, (D == 64)>;
+    const size_t smem = sizeof(T) * (2 * 64 * D + 4 * BN * D);
+    auto kern = flash_bwd_dq_tc_kernel<T, D, BN, (D == 64)>;
     if (int err = set_smem(kern, smem)) return err;
     kern<<<dim3(a.H, a.B, a.Sq / 64), 128, smem, st>>>(a);
     if (int err = static_cast<int>(cudaGetLastError())) return err;
   }
   constexpr int BMQ = D == 256 ? 32 : 64, DS = D == 256 ? 128 : D;
   const size_t smem =
-      sizeof(bf16) * (2 * 64 * D + 4 * BMQ * D) + sizeof(float) * 4 * BMQ;
-  auto kern = flash_bwd_dkdv_tc_kernel<D, BMQ, DS, (D == 64)>;
+      sizeof(T) * (2 * 64 * D + 4 * BMQ * D) + sizeof(float) * 4 * BMQ;
+  auto kern = flash_bwd_dkdv_tc_kernel<T, D, BMQ, DS, (D == 64)>;
   if (int err = set_smem(kern, smem)) return err;
   kern<<<dim3(a.H * (D / DS), a.B, a.Sk / 64), 128, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -1421,8 +1466,9 @@ extern "C" int pdt_flash_tile(int D) {
   return D >= 256 ? 32 : 64;
 }
 
+// dtype: 0 float32 (CUDA cores), 1 bfloat16, 2 float16 (tensor cores).
 extern "C" int pdt_flash_fwd(
-    int is_bf16, const void* q, const void* k, const void* v, const void* bias,
+    int dtype, const void* q, const void* k, const void* v, const void* bias,
     const void* qseg, const void* kseg, const void* seed, void* o, void* lse,
     int B, int Sq, int Sk, int H, int D, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh,
@@ -1444,13 +1490,19 @@ extern "C" int pdt_flash_fwd(
   a.mk = make_masks(bias, qseg, kseg, seed, causal, Sk - Sq, dropout, thresh,
                     inv_keep, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
+  if (dtype == 1) {
     switch (D) {
-      case 64: return launch_fwd_tc<64>(a, st);
-      case 128: return launch_fwd_tc<128>(a, st);
-      case 256: return launch_fwd_tc<256>(a, st);
+      case 64: return launch_fwd_tc<bf16, 64>(a, st);
+      case 128: return launch_fwd_tc<bf16, 128>(a, st);
+      case 256: return launch_fwd_tc<bf16, 256>(a, st);
     }
-  } else {
+  } else if (dtype == 2) {
+    switch (D) {
+      case 64: return launch_fwd_tc<f16, 64>(a, st);
+      case 128: return launch_fwd_tc<f16, 128>(a, st);
+      case 256: return launch_fwd_tc<f16, 256>(a, st);
+    }
+  } else if (dtype == 0) {
     switch (D) {
       case 64: return launch_fwd_f32<64>(a, st);
       case 128: return launch_fwd_f32<128>(a, st);
@@ -1460,9 +1512,9 @@ extern "C" int pdt_flash_fwd(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dq_part is the f32 route's scratch; the bf16 route takes null there.
+// dq_part is the f32 route's scratch; the 16-bit route takes null there.
 extern "C" int pdt_flash_bwd(
-    int is_bf16, const void* q, const void* k, const void* v, const void* bias,
+    int dtype, const void* q, const void* k, const void* v, const void* bias,
     const void* qseg, const void* kseg, const void* seed, const void* o,
     const void* lse, const void* dout, void* dq, void* dk, void* dv,
     void* dbias_part, void* dq_part, void* delta, int B, int Sq, int Sk,
@@ -1495,13 +1547,19 @@ extern "C" int pdt_flash_bwd(
   a.mk = make_masks(bias, qseg, kseg, seed, causal, Sk - Sq, dropout, thresh,
                     inv_keep, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
+  if (dtype == 1) {
     switch (D) {
-      case 64: return launch_bwd_tc<64>(a, st);
-      case 128: return launch_bwd_tc<128>(a, st);
-      case 256: return launch_bwd_tc<256>(a, st);
+      case 64: return launch_bwd_tc<bf16, 64>(a, st);
+      case 128: return launch_bwd_tc<bf16, 128>(a, st);
+      case 256: return launch_bwd_tc<bf16, 256>(a, st);
     }
-  } else {
+  } else if (dtype == 2) {
+    switch (D) {
+      case 64: return launch_bwd_tc<f16, 64>(a, st);
+      case 128: return launch_bwd_tc<f16, 128>(a, st);
+      case 256: return launch_bwd_tc<f16, 256>(a, st);
+    }
+  } else if (dtype == 0) {
     if (!dq_part) return static_cast<int>(cudaErrorInvalidValue);
     switch (D) {
       case 64: return launch_bwd_f32<64>(a, st);

@@ -2,10 +2,11 @@
 // split-K reduced inside a thread-block cluster.
 //
 // Replaces the Pallas kernel paddle_tpu/ops/int8_matmul.py::_kernel
-// (driven by _pallas_matmul).  x (M, K) f32 or bf16, w (K, N) int8
+// (driven by _pallas_matmul).  x (M, K) f32, bf16 or f16, w (K, N) int8
 // row-major, scale (1, N) f32 per output channel; y (M, N) in x's type.
-// As in the TPU kernel the products and sums are f32: a bf16 x is
-// converted at its point of use, and only y is rounded to bf16.
+// As in the TPU kernel the products and sums are f32: a 16-bit x is
+// converted at its point of use, and only y is rounded to x's type (an f16
+// y past 65504 is inf, as the reference's astype gives).
 //
 // Bound: at decode M is the number of slots (<= 16), so the work is
 // weight bytes: K*N int8 (+ 4*N scale) over 3.35 TB/s, a few microseconds
@@ -29,8 +30,8 @@
 //     memory as [m][k] in its own type, each of its rows by one bulk copy
 //     (the TMA's one-dimensional form, on an mbarrier) where the row's
 //     address and byte count are multiples of 16 (K and k_rows multiples
-//     of 4 f32 or 8 bf16 elements), else by 4-byte cp.async (f32) or
-//     2-byte loads (bf16); the copies are issued after the wait for the
+//     of 4 f32 or 8 16-bit elements), else by 4-byte cp.async (f32) or
+//     2-byte loads (bf16, f16); the copies are issued after the wait for the
 //     kernel before;
 //   - dequantization is a byte permute and one subtraction: __byte_perm
 //     puts the int8 with its sign bit flipped into the low byte of the
@@ -47,6 +48,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -92,18 +94,25 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 __device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
+__device__ __forceinline__ void store_as(__half* p, float v) {
+  *p = __float2half_rn(v);
+}
 
 // x rows that cannot go by bulk copy: 4-byte cp.async for f32, plain
-// 2-byte loads for bf16 (its rows may start 2 bytes into a word)
+// 2-byte loads for bf16 and f16 (their rows may start 2 bytes into a word)
 __device__ __forceinline__ void stage_narrow(float* dst, const float* src) {
   __pipeline_memcpy_async(dst, src, 4);
 }
 __device__ __forceinline__ void stage_narrow(__nv_bfloat16* dst,
                                              const __nv_bfloat16* src) {
+  *dst = *src;
+}
+__device__ __forceinline__ void stage_narrow(__half* dst, const __half* src) {
   *dst = *src;
 }
 
@@ -376,11 +385,15 @@ int launch(const void* x, const void* w, const void* scale, void* y, int M,
 
 // Plan: (mt, tn) one of kernel_for's tiles, `splits` blocks per cluster
 // (<= 8) of k_rows rows of K each.  dtype: x's and y's type, 0 float32,
-// 1 bfloat16.
+// 1 bfloat16, 2 float16.
 extern "C" int pdt_int8_matmul(const void* x, const void* w,
                                const void* scale, void* y, int dtype, int M,
                                int K, int N, int mt, int tn, int splits,
                                int k_rows, void* stream) {
-  auto* f = dtype == 1 ? launch<__nv_bfloat16> : launch<float>;
+  auto* f = dtype == 2   ? launch<__half>
+            : dtype == 1 ? launch<__nv_bfloat16>
+            : dtype == 0 ? launch<float>
+                         : nullptr;
+  if (f == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return f(x, w, scale, y, M, K, N, mt, tn, splits, k_rows, stream);
 }

@@ -4,14 +4,14 @@
 // Replaces the Pallas kernel paddle_tpu/ops/paged_attention.py::_kernel
 // (driven by _pallas_paged_attention).  One decode query per slot against
 // the block pool:
-//   q (S, H, D) f32 or bf16; kpool, vpool (num_blocks, block_size, H, D),
-//   both f32 or both bf16 (independently of q); tables (S, max_blocks)
+//   q (S, H, D) f32, bf16 or f16; kpool, vpool (num_blocks, block_size, H,
+//   D), both of one of those types (independently of q); tables (S, max_blocks)
 //   int32 block ids; pos (S,) int32, the slot's write position (rows >
 //   pos are masked); out (S, H, D) in q's type.  As in the TPU kernel,
 //   everything is computed in f32 and only the output is rounded.
 //
 // Bound: bytes of live K/V, sum over slots of (pos + 1) * H * D * 2 * E
-// (E = 4 for f32 pools, 2 for bf16), over 3.35 TB/s; the arithmetic is
+// (E = 4 for f32 pools, 2 for bf16 and f16), over 3.35 TB/s; the arithmetic is
 // ~1 FMA per element.  The TPU kernel walks
 // the table in a sequential grid carrying (m, l, acc) in scratch.  Here the
 // table is cut into splits that run in parallel (flash-decoding):
@@ -22,18 +22,18 @@
 //     the rows of a split, ceil(live / splits) of them, come from pos on
 //     the device, so a short slot's rows are spread over all its blocks;
 //   - the block stages tiles of tile_rows rows (8 KB of K and of V: 2048
-//     f32 or 4096 bf16 elements, so a bf16 tile holds twice the rows) with
+//     f32 or 4096 16-bit elements, so a 16-bit tile holds twice the rows) with
 //     16-byte cp.async (4 or 8 elements) into a ring of two, so the next
 //     tile is in flight while one is scored (a ring of three, or of four
 //     4 KB tiles, lost on the card: fewer clusters fit at once).  It loads
 //     its own table entries and clamps each id into [0, num_blocks - 1]
 //     (the gather's mode="clip");
 //   - q is staged once as f32: by 16-byte cp.async (f32) or 16-byte loads
-//     converted on the way (bf16) where q is 16-byte aligned (D % 32 == 0:
-//     then so is every head's row), else 4-byte cp.async (f32) or 2-byte
-//     loads (bf16);
+//     converted on the way (bf16, f16) where q is 16-byte aligned (D % 32
+//     == 0: then so is every head's row), else 4-byte cp.async (f32) or
+//     2-byte loads (bf16, f16);
 //   - scores: a group of G lanes per (row, head), G the power of two that
-//     scores the whole tile in one pass (4 at D 64 in f32, 2 in bf16),
+//     scores the whole tile in one pass (4 at D 64 in f32, 2 in 16-bit),
 //     16-byte reads of K (converted to f32 in registers) and the matching
 //     f32 q, rotated by the row so that the groups of one shared-memory
 //     phase hit disjoint banks, a log2(G)-step shuffle sum; the scores go
@@ -53,6 +53,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -83,25 +84,39 @@ __host__ __device__ constexpr int smem_floats(int W, int hpb) {
          6 * kThreads + W + 2 * hpb;
 }
 
-__device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 __device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
+__device__ __forceinline__ void store_as(__half* p, float v) {
+  *p = __float2half_rn(v);
+}
+
+// a pair of 16-bit elements as two f32
+__device__ __forceinline__ float2 f2(const __nv_bfloat162& v) {
+  return __bfloat1622float2(v);
+}
+__device__ __forceinline__ float2 f2(const __half2& v) {
+  return __half22float2(v);
+}
+template <typename T> struct Pair;
+template <> struct Pair<__nv_bfloat16> { using T2 = __nv_bfloat162; };
+template <> struct Pair<__half> { using T2 = __half2; };
 
 // 4 consecutive elements of shared memory as f32
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* p) {
+  using T2 = typename Pair<T>::T2;
   const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  const float2 a = f2(*reinterpret_cast<const T2*>(&u.x));
+  const float2 b = f2(*reinterpret_cast<const T2*>(&u.y));
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
@@ -115,8 +130,8 @@ __device__ __forceinline__ void dot4(float4 a, float4 b, float& d) {
 // q's row of the block's heads into shared memory as f32.  f32: cp.async
 // riding with the first tile's copies, 16 bytes at a time where q is
 // 16-byte aligned (D % 32 == 0: then so is every head's row), else 4.
-// bf16: loads converted on the way, 16 bytes at a time where aligned,
-// else 2 (a bf16 q may start 2 bytes into a 4-byte word).
+// bf16, f16: loads converted on the way, 16 bytes at a time where
+// aligned, else 2 (a 16-bit q may start 2 bytes into a 4-byte word).
 __device__ __forceinline__ void stage_q(float* qs, const float* q,
                                         const float* qrow, int W, int tid) {
   if (reinterpret_cast<uintptr_t>(q) % 16 == 0) {
@@ -126,21 +141,22 @@ __device__ __forceinline__ void stage_q(float* qs, const float* q,
       __pipeline_memcpy_async(qs + i, qrow + i, 4);
   }
 }
-__device__ __forceinline__ void stage_q(float* qs, const __nv_bfloat16* q,
-                                        const __nv_bfloat16* qrow, int W,
-                                        int tid) {
+template <typename T>
+__device__ __forceinline__ void stage_q(float* qs, const T* q,
+                                        const T* qrow, int W, int tid) {
+  using T2 = typename Pair<T>::T2;
   if (reinterpret_cast<uintptr_t>(q) % 16 == 0) {
     for (int i = tid; i < W / 8; i += kThreads) {
       const uint4 u = __ldg(reinterpret_cast<const uint4*>(qrow) + i);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+      const T2* h = reinterpret_cast<const T2*>(&u);
       float4* d = reinterpret_cast<float4*>(qs + 8 * i);
-      const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-      const float2 c = __bfloat1622float2(h[2]), e = __bfloat1622float2(h[3]);
+      const float2 a = f2(h[0]), b = f2(h[1]);
+      const float2 c = f2(h[2]), e = f2(h[3]);
       d[0] = make_float4(a.x, a.y, b.x, b.y);
       d[1] = make_float4(c.x, c.y, e.x, e.y);
     }
   } else {
-    for (int i = tid; i < W; i += kThreads) qs[i] = __bfloat162float(qrow[i]);
+    for (int i = tid; i < W; i += kThreads) qs[i] = to_f(qrow[i]);
   }
 }
 
@@ -436,7 +452,24 @@ int max_clusters(int H, int D, int hpb, int splits, int* out) {
 
 // Plan: hpb heads per block (divides H, hpb * D <= 512); `splits` blocks
 // per cluster (<= 8); tiles of 8 KB / (hpb * D * element size) rows.
-// q_dtype and kv_dtype: 0 float32, 1 bfloat16 (the output takes q's).
+namespace {
+
+using LaunchFn = int (*)(const void*, const void*, const void*, const void*,
+                         const void*, void*, int, int, int, int, int, int,
+                         int, int, float, void*);
+
+template <typename TQ>
+LaunchFn launch_for(int kv_dtype) {
+  return kv_dtype == 0   ? launch<TQ, float>
+         : kv_dtype == 1 ? launch<TQ, __nv_bfloat16>
+         : kv_dtype == 2 ? launch<TQ, __half>
+                         : nullptr;
+}
+
+}  // namespace
+
+// q_dtype and kv_dtype: 0 float32, 1 bfloat16, 2 float16 (the output
+// takes q's).
 extern "C" int pdt_paged_attention(const void* q, const void* kpool,
                                    const void* vpool, const void* tables,
                                    const void* pos, void* out, int q_dtype,
@@ -444,10 +477,11 @@ extern "C" int pdt_paged_attention(const void* q, const void* kpool,
                                    int num_blocks, int block_size,
                                    int max_blocks, int hpb, int splits,
                                    float scale, void* stream) {
-  using bf16 = __nv_bfloat16;
-  auto* f = q_dtype == 0
-                ? (kv_dtype == 0 ? launch<float, float> : launch<float, bf16>)
-                : (kv_dtype == 0 ? launch<bf16, float> : launch<bf16, bf16>);
+  LaunchFn f = q_dtype == 0   ? launch_for<float>(kv_dtype)
+               : q_dtype == 1 ? launch_for<__nv_bfloat16>(kv_dtype)
+               : q_dtype == 2 ? launch_for<__half>(kv_dtype)
+                              : nullptr;
+  if (f == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return f(q, kpool, vpool, tables, pos, out, S, H, D, num_blocks,
            block_size, max_blocks, hpb, splits, scale, stream);
 }
@@ -456,7 +490,7 @@ extern "C" int pdt_paged_attention(const void* q, const void* kpool,
 extern "C" int pdt_paged_attention_max_clusters(int H, int D, int hpb,
                                                 int splits, int kv_dtype,
                                                 int* out) {
-  return kv_dtype == 0
-             ? max_clusters<float>(H, D, hpb, splits, out)
-             : max_clusters<__nv_bfloat16>(H, D, hpb, splits, out);
+  return kv_dtype == 0   ? max_clusters<float>(H, D, hpb, splits, out)
+         : kv_dtype == 1 ? max_clusters<__nv_bfloat16>(H, D, hpb, splits, out)
+                         : max_clusters<__half>(H, D, hpb, splits, out);
 }

@@ -5,8 +5,10 @@ This slice of the port carries the single-process checkpoints
 step come with the port's parallel slice.
 """
 from . import checkpoint  # noqa: F401
-from .checkpoint import (CheckpointManager, latest_step_dir,  # noqa: F401
-                         restore_sharded, save_sharded)
+from .checkpoint import (AsyncCheckpointManager,  # noqa: F401
+                         CheckpointManager, latest_step_dir,
+                         restore_sharded, save_sharded, train_epoch_range)
 
-__all__ = ["checkpoint", "CheckpointManager", "latest_step_dir",
-           "restore_sharded", "save_sharded"]
+__all__ = ["checkpoint", "CheckpointManager", "AsyncCheckpointManager",
+           "latest_step_dir", "restore_sharded", "save_sharded",
+           "train_epoch_range"]

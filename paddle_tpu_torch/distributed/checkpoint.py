@@ -24,12 +24,20 @@ with the manifest's dtype ``"bfloat16"``, and read back as its 16-bit
 words into a torch bfloat16 tensor.  ``restore_sharded`` returns CPU
 tensors; it assembles an array from whichever shards the files hold.
 
+``AsyncCheckpointManager`` takes the snapshot on the caller (CUDA tensors
+into pinned host memory, one synchronisation for the whole tree) and
+hands it to one writer thread that serialises, publishes, syncs and
+prunes; ``train_epoch_range`` resumes an epoch loop after the newest
+checkpoint's epoch.  The ``kill_mid_save`` fault (``utils.faults``) fires
+between a save's files and the rename that publishes them.
+
 Not in this slice of the port, raising ``UnimplementedError``:
-``mesh=`` / ``shardings=`` (restoring onto a device mesh), a save from
-more than one process, and ``AsyncCheckpointManager``.
+``mesh=`` / ``shardings=`` (restoring onto a device mesh) and a save from
+more than one process.
 
 The non-array training state rides in the manifest's ``extra`` under the
-reference's keys (``__lr_sched__``, ``__data_cursor__``), except the
+reference's keys (``__lr_sched__``, ``__data_cursor__``, a GradScaler's
+``__scaler__``), except the
 random stream: the reference saves its threefry key as ``__rng__``, which
 means nothing to torch generators.  The port saves its seed stream and the
 training step's generator under ``__torch_rng__`` instead, and leaves a
@@ -39,9 +47,11 @@ from __future__ import annotations
 
 import json
 import os
+import queue
 import re
 import shutil
 import tempfile
+import threading
 import time
 from typing import Dict, Optional
 
@@ -49,13 +59,15 @@ import numpy as np
 import torch
 
 from ..core import rng as _rng
-from ..core.errors import InvalidArgumentError, UnimplementedError
+from ..core.errors import (ExecutionTimeoutError, InvalidArgumentError,
+                           UnimplementedError)
 from ..utils.monitor import stat_add
 
 __all__ = ["snapshot_tree", "publish_snapshot", "save_sharded",
            "latest_step_dir", "restore_sharded", "train_state_extras",
            "save_train_state", "restore_train_extras", "apply_train_state",
-           "merge_opt_state", "CheckpointManager"]
+           "merge_opt_state", "CheckpointManager", "AsyncCheckpointManager",
+           "train_epoch_range"]
 
 _LATER = ("comes with the port's parallel slice (torch.distributed); "
           "this slice saves and restores single-process checkpoints")
@@ -68,8 +80,7 @@ _obs_handles = None
 
 def _obs():
     """(save_stall_histogram, async_in_flight_gauge) — observability
-    handles, created once (registry.reset() zeroes in place); the gauge
-    stays 0 until the asynchronous manager is ported."""
+    handles, created once (registry.reset() zeroes in place)."""
     global _obs_handles
     if _obs_handles is None:
         from ..observability import metrics as _m
@@ -132,6 +143,14 @@ def _host_array(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
+def _numpy_of(t: torch.Tensor) -> np.ndarray:
+    """``t`` (a host tensor the caller owns) as numpy, sharing its memory;
+    bf16 as its words in 2-byte voids."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(_BF16_WORDS)
+    return t.numpy()
+
+
 def _to_tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
     """A CPU tensor of a restored array whose manifest dtype is ``dtype``."""
     if dtype == "bfloat16":
@@ -142,17 +161,41 @@ def _to_tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 # -- save -------------------------------------------------------------------
 
+def _pinned_copies(flat: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Host copies of the tree's tensors: CUDA tensors into pinned host
+    buffers by asynchronous copies, then one synchronisation for all of
+    them (the copies run at the link's rate, not a pageable copy's, and the
+    caching host allocator keeps the buffers for the next snapshot); host
+    tensors are cloned."""
+    out, pending = {}, False
+    for name, t in flat.items():
+        t = t.detach()
+        if t.is_cuda:
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            buf.copy_(t, non_blocking=True)
+            pending = True
+        else:
+            buf = t.clone()
+        out[name] = buf
+    if pending:
+        torch.cuda.synchronize()
+    return {name: _numpy_of(buf) for name, buf in out.items()}
+
+
 def snapshot_tree(state_tree, step: int = 0,
-                  extra_meta: Optional[dict] = None):
+                  extra_meta: Optional[dict] = None, pinned: bool = False):
     """Copy every tensor of the tree to host memory and build the manifest.
     Returns (manifest, shards).  Each array is one shard (a whole array,
-    spec ``[]``, replicated), as the reference's unsharded save."""
+    spec ``[]``, replicated), as the reference's unsharded save.  With
+    ``pinned`` the copies go through pinned host buffers
+    (``_pinned_copies``), as the asynchronous manager takes them."""
     flat = _flatten(state_tree)
     manifest = {"step": int(step), "arrays": {}, "extra": extra_meta or {},
                 "n_processes": 1}
     shards = {}
+    hosts = _pinned_copies(flat) if pinned else {}
     for name, t in flat.items():
-        arr = _host_array(t)
+        arr = hosts[name] if pinned else _host_array(t)
         manifest["arrays"][name] = {
             "shape": list(arr.shape),
             "dtype": str(t.dtype).replace("torch.", ""), "spec": []}
@@ -207,6 +250,10 @@ def _publish_snapshot_inner(directory: str, manifest: dict,
         json.dump(manifest, f)
         f.flush()
         os.fsync(f.fileno())
+    # fault point: a kill here (files written, not yet renamed) must leave
+    # the previous checkpoint restorable
+    from ..utils import faults as _faults
+    _faults.maybe_kill_mid_save()
     if os.path.exists(step_dir):
         shutil.rmtree(step_dir)
     os.rename(tmp_dir, step_dir)
@@ -339,11 +386,8 @@ def train_state_extras(optimizer=None, extra_meta: Optional[dict] = None,
                        generator: Optional[torch.Generator] = None) -> dict:
     """The non-array training state for a checkpoint's extra dict: the
     port's seed stream and the step's ``generator`` (``__torch_rng__``),
-    the scheduler's state (``__lr_sched__``) and the data cursor
-    (``__data_cursor__``)."""
-    if scaler is not None:
-        raise UnimplementedError(
-            "a GradScaler's state comes with the port's GradScaler")
+    the scheduler's state (``__lr_sched__``), a GradScaler's
+    (``__scaler__``) and the data cursor (``__data_cursor__``)."""
     extra = dict(extra_meta or {})
     extra[RNG_KEY] = {
         "stream": _state_list(_rng._stream),
@@ -352,6 +396,8 @@ def train_state_extras(optimizer=None, extra_meta: Optional[dict] = None,
     sched = getattr(optimizer, "_lr_scheduler", None)
     if sched is not None:
         extra["__lr_sched__"] = sched.state_dict()
+    if scaler is not None:
+        extra["__scaler__"] = scaler.state_dict()
     if data_cursor is not None:
         extra["__data_cursor__"] = dict(data_cursor)
     return extra
@@ -374,13 +420,10 @@ def restore_train_extras(optimizer, step: int, extra: dict, scaler=None,
                          generator: Optional[torch.Generator] = None) -> dict:
     """Apply the non-array state of a checkpoint's extra dict: the step
     count, the seed stream and (on a generator of the saved device type)
-    the step's generator, the scheduler.  Pops the internal keys (a
-    reference checkpoint's ``__rng__`` is dropped unused) and returns the
-    user-facing meta; a saved data cursor comes back as
+    the step's generator, the scheduler and ``scaler``'s state.  Pops the
+    internal keys (a reference checkpoint's ``__rng__`` is dropped unused)
+    and returns the user-facing meta; a saved data cursor comes back as
     ``meta["data_cursor"]``."""
-    if scaler is not None:
-        raise UnimplementedError(
-            "a GradScaler's state comes with the port's GradScaler")
     optimizer._step_count = step
     extra.pop("__rng__", None)
     saved = extra.pop(RNG_KEY, None)
@@ -393,7 +436,9 @@ def restore_train_extras(optimizer, step: int, extra: dict, scaler=None,
     sched = getattr(optimizer, "_lr_scheduler", None)
     if sched_state is not None and sched is not None:
         sched.set_state_dict(sched_state)
-    extra.pop("__scaler__", None)
+    scaler_state = extra.pop("__scaler__", None)
+    if scaler_state is not None and scaler is not None:
+        scaler.load_state_dict(scaler_state)
     cursor = extra.pop("__data_cursor__", None)
     if cursor is not None:
         extra["data_cursor"] = cursor
@@ -492,3 +537,185 @@ class CheckpointManager:
                 continue   # a milestone: kept for good
             shutil.rmtree(os.path.join(self.directory, f"step-{s:09d}"),
                           ignore_errors=True)
+
+
+class AsyncCheckpointManager(CheckpointManager):
+    """Checkpoints written off the training thread (one process).
+
+    ``save`` takes only the snapshot on the caller (``snapshot_tree`` with
+    pinned host buffers: device to host copies and one synchronisation)
+    and hands it to a writer thread, which serialises the npz, renames it
+    into place, syncs the directory, moves ``latest`` and prunes.  The
+    training thread's stall per save is the snapshot plus the enqueue
+    (``checkpoint_save_stall_seconds``).
+
+    - The queue holds at most ``max_in_flight`` snapshots: a writer that
+      falls behind blocks the next save instead of buffering more copies
+      of the model in host memory.
+    - ``wait_until_finished(timeout)`` blocks until every accepted save is
+      published (False on timeout).
+    - A write running longer than ``watchdog_seconds`` makes the next save
+      or wait raise ``ExecutionTimeoutError`` on the training thread.
+    - An error on the writer is re-raised on the training thread at the
+      next save or wait.
+    - ``close()`` flushes, then stops the writer with a bounded join.
+    The ``checkpoint_async_in_flight`` gauge holds the snapshots queued or
+    being written; ``STAT_checkpoint_async_writes`` counts publishes."""
+
+    def __init__(self, directory: str, max_to_keep: int = 2,
+                 save_interval_steps: int = 100,
+                 save_interval_seconds: Optional[float] = None,
+                 keep_every_k_steps: Optional[int] = None,
+                 max_in_flight: int = 1,
+                 watchdog_seconds: float = 600.0):
+        super().__init__(directory, max_to_keep, save_interval_steps,
+                         save_interval_seconds, keep_every_k_steps)
+        self._queue: "queue.Queue" = queue.Queue(
+            maxsize=max(1, max_in_flight))
+        self._watchdog_seconds = watchdog_seconds
+        self._cv = threading.Condition()
+        self._outstanding = 0
+        self._write_started: Optional[float] = None
+        self._errors: list = []
+        self._closed = False
+        self._writer = threading.Thread(target=self._writer_loop,
+                                        name="paddle_tpu_torch-ckpt-writer",
+                                        daemon=True)
+        self._writer.start()
+
+    # -- the writer thread ---------------------------------------------------
+    def _writer_loop(self):
+        while True:
+            item = self._queue.get()
+            if item is None:
+                return
+            manifest, shards = item
+            with self._cv:
+                self._write_started = time.monotonic()
+            try:
+                publish_snapshot(self.directory, manifest, shards)
+                self._prune()
+                stat_add("STAT_checkpoint_async_writes")
+            except BaseException as e:   # re-raised on the training thread
+                with self._cv:
+                    self._errors.append(e)
+            finally:
+                del item, shards
+                with self._cv:
+                    self._write_started = None
+                    self._outstanding -= 1
+                    _obs()[1].set(self._outstanding)
+                    self._cv.notify_all()
+
+    def _raise_pending(self):
+        with self._cv:
+            if self._errors:
+                e = self._errors.pop(0)
+                raise RuntimeError(
+                    "async checkpoint write failed on the writer thread: "
+                    f"{type(e).__name__}: {e}") from e
+            started = self._write_started
+        if (started is not None and self._watchdog_seconds is not None
+                and time.monotonic() - started > self._watchdog_seconds):
+            raise ExecutionTimeoutError(
+                f"async checkpoint write has been running for over "
+                f"{self._watchdog_seconds:.0f}s (a wedged filesystem?): "
+                "checkpoints are no longer landing")
+
+    # -- API -----------------------------------------------------------------
+    def save(self, state_tree, step: int, extra_meta: Optional[dict] = None):
+        """Snapshot on the caller, write on the writer thread.  Blocks only
+        while ``max_in_flight`` earlier saves are still queued or being
+        written, and re-raises a pending writer failure or watchdog."""
+        _single_process()
+        self._raise_pending()
+        if self._closed:
+            raise RuntimeError("AsyncCheckpointManager is closed")
+        stat_add("STAT_checkpoint_saves")
+        stall_h, inflight_g = _obs()
+        t0 = time.perf_counter()
+        manifest, shards = snapshot_tree(state_tree, step, extra_meta,
+                                         pinned=True)
+        with self._cv:
+            self._outstanding += 1
+            inflight_g.set(self._outstanding)
+        while True:
+            try:
+                # a bounded put that re-checks the watchdog while blocked
+                self._queue.put((manifest, shards), timeout=0.5)
+                break
+            except queue.Full:
+                try:
+                    self._raise_pending()
+                except BaseException:
+                    with self._cv:
+                        self._outstanding -= 1
+                        inflight_g.set(self._outstanding)
+                        self._cv.notify_all()
+                    raise
+        stall_h.observe(time.perf_counter() - t0)
+        self._last_saved_step = step
+        self._last_saved_time = time.monotonic()
+        return os.path.join(self.directory, f"step-{step:09d}")
+
+    def save_train_state(self, params, opt_state, step: int,
+                         extra_meta: Optional[dict] = None, optimizer=None,
+                         scaler=None, data_cursor: Optional[dict] = None,
+                         generator: Optional[torch.Generator] = None):
+        """``save_train_state`` through the writer thread (the random
+        stream, scheduler, scaler and cursor extras included)."""
+        extra = train_state_extras(optimizer, extra_meta, scaler,
+                                   data_cursor, generator)
+        return self.save({"params": params, "opt": opt_state}, step, extra)
+
+    def wait_until_finished(self, timeout: Optional[float] = None) -> bool:
+        """Block until every accepted save is published.  False on
+        timeout; re-raises writer errors and the watchdog."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._cv:
+            while self._outstanding > 0:
+                wait = 0.5
+                if deadline is not None:
+                    wait = min(wait, deadline - time.monotonic())
+                    if wait <= 0:
+                        return False
+                self._cv.wait(wait)
+                self._raise_pending()   # the Condition's lock is an RLock
+        self._raise_pending()
+        return True
+
+    def restore_latest(self, mesh=None, shardings=None):
+        self.wait_until_finished()
+        return super().restore_latest(mesh=mesh, shardings=shardings)
+
+    def close(self, timeout: Optional[float] = None):
+        """Flush pending writes and stop the writer.  Bounded even with a
+        wedged writer: further saves are refused, the stop sentinel is
+        delivered if the queue has room, and the join waits 5 s at most
+        (the writer is a daemon thread)."""
+        if self._closed:
+            return
+        self._closed = True
+        try:
+            self.wait_until_finished(timeout)
+        finally:
+            try:
+                self._queue.put_nowait(None)
+            except queue.Full:
+                pass
+            self._writer.join(timeout=5.0)
+
+
+def train_epoch_range(n_epochs: int, manager: CheckpointManager):
+    """The epochs not yet completed according to the newest checkpoint's
+    ``extra["epoch"]`` (the reference's ``acp.train_epoch_range``); the
+    caller saves with ``extra_meta={"epoch": e}`` at each epoch's end."""
+    start = 0
+    restored = latest_step_dir(manager.directory)
+    if restored is not None:
+        with open(os.path.join(restored, "manifest.json")) as f:
+            extra = json.load(f).get("extra", {})
+        if "epoch" in extra:
+            start = int(extra["epoch"]) + 1
+    for e in range(start, n_epochs):
+        yield e

@@ -59,8 +59,8 @@ reference.  As in the reference, ``TrainStep`` applies no ``grad_clip``
   of step numbers inside the program, compared on the device.
 - **Checkpoints.** ``save_checkpoint`` / ``restore_checkpoint`` read and
   write the reference's on-disk layout (``distributed.checkpoint``) in
-  both directions; a restore writes the state in place, so the captured
-  programs replay on.  A learning-rate scheduler's value reaches each
+  both directions, a GradScaler's state included (``scaler=``); a restore
+  writes the state in place, so the captured programs replay on.  A learning-rate scheduler's value reaches each
   replay through the learning-rate scalar (``optimizer.get_lr()``).
 
 Inference artifacts: ``save`` / ``load`` / ``InputSpec`` /
@@ -68,9 +68,10 @@ Inference artifacts: ``save`` / ``load`` / ``InputSpec`` /
 the program as a ``torch.export`` archive).
 
 Not in this slice of the port, and refused with ``UnimplementedError``:
-``mesh`` / ``batch_sharding``, a checkpoint's ``scaler=`` (GradScaler),
-and sparse or row-sharded gradients (the port's ``Embedding`` has no
-sparse mode).
+``mesh`` / ``batch_sharding``, and sparse or row-sharded gradients (the
+port's ``Embedding`` has no sparse mode).  As in the reference, the step
+applies neither a parameter's ``ParamAttr`` learning-rate multiplier nor
+its regularizer (only the eager ``Optimizer.step`` does).
 """
 from __future__ import annotations
 
@@ -472,10 +473,10 @@ class TrainStep:
                         scaler=None, data_cursor=None):
         """Parameters and buffers, optimizer state, the step count, the
         scheduler's state, the data cursor and the step's generator, in
-        the reference's layout (``distributed.checkpoint``); with
-        ``accum_steps`` > 1 the meta records it, as the reference's (a
-        resumed run must feed the same windows).  Returns the step
-        directory.  ``scaler=`` waits for the port's GradScaler."""
+        the reference's layout (``distributed.checkpoint``), and
+        ``scaler``'s state under ``__scaler__``; with ``accum_steps`` > 1
+        the meta records it, as the reference's (a resumed run must feed
+        the same windows).  Returns the step directory."""
         from ..distributed import checkpoint as dck
         state = state_arrays(self.model)
         if self._opt_state is None:
@@ -493,21 +494,19 @@ class TrainStep:
         """Resume from the newest checkpoint under ``directory`` (the
         port's or the reference's): parameters, buffers and optimizer
         state are written IN PLACE into the tensors the step's programs
-        read, so a captured step replays on with no new capture.  Returns
-        the meta (``{"step", ...}``), or None when there is none."""
+        read, so a captured step replays on with no new capture; a saved
+        scaler state goes into ``scaler``.  Returns the meta (``{"step",
+        ...}``), or None when there is none."""
         from ..distributed import checkpoint as dck
         from ..weights import load_paddle_opt_state
-        if scaler is not None:
-            raise UnimplementedError(
-                "TrainStep.restore_checkpoint(scaler=) comes with the "
-                "port's GradScaler")
         res = dck.restore_sharded(directory)
         if res is None:
             return None
         if self._gen is None:
             self._setup()
         meta, restored_opt = dck.apply_train_state(
-            self.model, self.optimizer, res, generator=self._gen)
+            self.model, self.optimizer, res, scaler=scaler,
+            generator=self._gen)
         load_paddle_opt_state(self, dck.merge_opt_state(self._opt_state,
                                                         restored_opt))
         return meta

@@ -73,8 +73,11 @@ def _naive(query, key, value, attn_mask, dropout_p, is_causal):
     kt = key.transpose(1, 2)
     vt = value.transpose(1, 2)
     scores = torch.einsum("bhqd,bhkd->bhqk", qt, kt) * scale
-    # a fill, not a host copy: this runs inside captured CUDA graphs
-    neg = torch.full((), -1e30, dtype=scores.dtype, device=scores.device)
+    # a fill, not a host copy: this runs inside captured CUDA graphs.
+    # -1e30 in the scores' type, as the reference's jnp.where casts it:
+    # past float16's range that is -inf (torch.full refuses the overflow)
+    fill = -1e30 if torch.finfo(scores.dtype).max >= 1e30 else -math.inf
+    neg = torch.full((), fill, dtype=scores.dtype, device=scores.device)
     if is_causal:
         sq, sk = scores.shape[-2], scores.shape[-1]
         causal = torch.ones((sq, sk), dtype=torch.bool,

@@ -12,7 +12,7 @@ in the source.
   without a seed, one segment-id side only).  The reference also returns
   None off the TPU; the port has no such case: CPU tensors take the plain
   versions, CUDA tensors launch the kernels or raise.
-- q / k / v are (batch, seq, heads, head_dim) in f32 or bf16 and may be
+- q / k / v are (batch, seq, heads, head_dim) in f32, bf16 or f16 and may be
   strided views (the fused-QKV output's slices are read in place, with no
   ``.contiguous()``).  Softmax state and every sum are f32; p is rounded
   to v's type before the PV product and dS to q's type before the dK / dQ
@@ -31,7 +31,8 @@ in the source.
 
 ``flash_fwd.launches`` / ``flash_bwd.launches`` count wrapper calls that
 launch kernels (the plain versions never count).  The kernel is picked by
-dtype: bf16 runs the tensor-core kernels, and one K2 call runs three of
+dtype: bf16 and f16 run the tensor-core kernels (one template over the
+16-bit type), and one K2 call runs three of
 them (delta, dQ, dK/dV; deterministic, no scratch beyond delta); f32 runs
 the CUDA-core kernels, and one K2 call runs delta, the merged backward
 and the sum of its f32 dQ partials.
@@ -235,9 +236,9 @@ def _check_cuda(q, k, v, bias, qseg, kseg, seed, extra=()):
         if t.device != dev:
             raise ValueError(f"flash attention: {name} is on {t.device}, q "
                              f"on {dev}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash attention kernels take float32 or bfloat16 "
-                        f"q/k/v, got {q.dtype}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash attention kernels take float32, bfloat16 or "
+                        f"float16 q/k/v, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)) + tuple(
             (n, t) for n, t in extra if t.dim() == 4):
         if t.dtype != q.dtype:
@@ -277,7 +278,7 @@ def _ptr(t):
 
 def _rows16(t):
     """t itself when every (batch, seq, head) row starts on 16 bytes, as the
-    bf16 kernels' 16-byte copies need (the fused-QKV views do); else a
+    16-bit kernels' 16-byte copies need (the fused-QKV views do); else a
     contiguous copy."""
     if t.data_ptr() % 16 == 0 and all(
             s % 8 == 0 for s in t.stride()[:3]):
@@ -295,6 +296,9 @@ def _scalars(q, causal, dropout_p):
             1.0 / (1.0 - dropout_p)]
 
 
+# the C entries' dtype argument: 0 runs the CUDA-core kernels, 1 and 2 the
+# tensor-core ones
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P, _I, _L, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_float, ctypes.c_uint)
 _FWD_ARGTYPES = ([_I] + [_P] * 9 + [_I] * 5 + [_L] * 9
@@ -305,15 +309,15 @@ _BWD_ARGTYPES = ([_I] + [_P] * 16 + [_I] * 5 + [_L] * 12
 
 def _fwd_kernel(q, k, v, bias, qseg, kseg, seed, causal, dropout_p):
     fn = _build.function("flash_attention", "pdt_flash_fwd", _FWD_ARGTYPES)
-    bf16 = q.dtype == torch.bfloat16
-    if bf16:
+    code = _DTYPE_CODE[q.dtype]
+    if code:
         q, k, v = _rows16(q), _rows16(k), _rows16(v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(int(bf16), q.data_ptr(), k.data_ptr(),
+    err = fn(code, q.data_ptr(), k.data_ptr(),
              v.data_ptr(), _ptr(bias), _ptr(qseg), _ptr(kseg),
              seed.data_ptr(), o.data_ptr(), lse.data_ptr(), b, sq, sk, h, d,
              *_strides(q), *_strides(k), *_strides(v),
@@ -326,8 +330,8 @@ def _fwd_kernel(q, k, v, bias, qseg, kseg, seed, causal, dropout_p):
 def _bwd_kernel(q, k, v, bias, qseg, kseg, seed, o, lse, do, causal,
                 dropout_p):
     fn = _build.function("flash_attention", "pdt_flash_bwd", _BWD_ARGTYPES)
-    bf16 = q.dtype == torch.bfloat16
-    if bf16:
+    code = _DTYPE_CODE[q.dtype]
+    if code:
         q, k, v, do = _rows16(q), _rows16(k), _rows16(v), _rows16(do)
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -336,7 +340,7 @@ def _bwd_kernel(q, k, v, bias, qseg, kseg, seed, o, lse, do, causal,
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=dev)
     dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=dev)
     dq_part = None   # the f32 route's per-k-tile dQ partials
-    if not bf16:
+    if not code:
         tile = _build.function("flash_attention", "pdt_flash_tile", [_I])(d)
         dq_part = torch.empty((sk // tile, b, h, sq, d), dtype=torch.float32,
                               device=dev)
@@ -344,7 +348,7 @@ def _bwd_kernel(q, k, v, bias, qseg, kseg, seed, o, lse, do, causal,
     dbias_part = (torch.empty((b, h, sk), dtype=torch.float32, device=dev)
                   if bias is not None else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(int(bf16), q.data_ptr(), k.data_ptr(),
+    err = fn(code, q.data_ptr(), k.data_ptr(),
              v.data_ptr(), _ptr(bias), _ptr(qseg), _ptr(kseg),
              seed.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dbias_part),

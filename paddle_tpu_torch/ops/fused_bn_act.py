@@ -42,6 +42,10 @@ recomputed from the saved input instead of being stored.
   gives it without a copy; any other layout is copied once, and the
   entry points count such copies (``bn_act_train.relayouts`` and its two
   siblings), forward and backward.
+- **float16** data goes to the plain composites (``bn_act_reference`` and
+  its siblings) on every device, as the reference's gates send everything
+  but f32 and bf16 to its jnp composite; ``bn_act_train.composite_calls``
+  and its siblings' count those calls.
 - **Autograd**: ``bn_act_train`` and ``bn2_act_train`` are
   ``torch.autograd.Function``s over K5 + K6 (forward) and K7 + K8
   (backward), folding the gradients of the returned mean and variance into
@@ -737,13 +741,19 @@ def bn_act_train(x, gamma, beta, eps=1e-5, act=None, residual=None,
     read it through torch.channels_last memory); gamma/beta (C,); residual
     the shape of x or None; act in {None, "relu", "relu6"}.  Returns (y,
     batch_mean_f32, batch_var_f32).  CUDA tensors run the kernels K5-K8,
-    CPU tensors their plain versions."""
+    CPU tensors their plain versions; data of another dtype than f32 and
+    bf16 takes the composite (``bn_act_reference``), as the reference's
+    gate does."""
     _check_act("bn_act_train", act)
     if residual is not None:
         if residual.shape != x.shape:
             raise ValueError("bn_act_train: residual shape must match x "
                              f"({tuple(residual.shape)} vs {tuple(x.shape)})")
         residual = residual.to(x.dtype)
+    if x.dtype not in _DTYPE_CODE:
+        bn_act_train.composite_calls += 1
+        return bn_act_reference(x, gamma, beta, eps, act, residual,
+                                -1 if channel_last else 1)
     return _BnAct.apply(x, gamma, beta, residual, float(eps), act,
                         bool(channel_last))
 
@@ -751,11 +761,17 @@ def bn_act_train(x, gamma, beta, eps=1e-5, act=None, residual=None,
 def bn2_act_train(x, gamma_x, beta_x, res, gamma_r, beta_r, eps=1e-5,
                   act=None, channel_last=True):
     """Fused dual training-BN + add + activation: act(bn(x) + bn(res)).
-    Returns (y, mean_x, var_x, mean_r, var_r)."""
+    Returns (y, mean_x, var_x, mean_r, var_r).  Data of another dtype than
+    f32 and bf16 takes the composite (``bn2_act_reference``)."""
     _check_act("bn2_act_train", act)
     if res.shape != x.shape:
         raise ValueError("bn2_act_train: residual shape must match x "
                          f"({tuple(res.shape)} vs {tuple(x.shape)})")
+    if x.dtype not in _DTYPE_CODE:
+        bn2_act_train.composite_calls += 1
+        return bn2_act_reference(x, gamma_x, beta_x, res.to(x.dtype),
+                                 gamma_r, beta_r, eps, act,
+                                 -1 if channel_last else 1)
     return _Bn2Act.apply(x, gamma_x, beta_x, res.to(x.dtype), gamma_r,
                          beta_r, float(eps), act, bool(channel_last))
 
@@ -767,13 +783,20 @@ def bn_act_pool_train(x, gamma, beta, eps=1e-5, act=None,
     x: (N, H, W, C) when channel_last else (N, C, H, W); pool is (kind,
     kernel, stride, padding) with scalar-or-pair ints.  Returns
     (pooled_y, batch_mean_f32, batch_var_f32); only the pooled output is
-    written."""
+    written.  Data of another dtype than f32 and bf16 takes the composite
+    (``bn_act_pool_reference``)."""
     _check_act("bn_act_pool_train", act)
     if x.dim() != 4:
         raise ValueError("bn_act_pool_train takes a rank-4 input")
+    if x.dtype not in _DTYPE_CODE:
+        bn_act_pool_train.composite_calls += 1
+        return bn_act_pool_reference(x, gamma, beta, float(eps), act,
+                                     _pool_norm(pool),
+                                     -1 if channel_last else 1)
     return _BnPool.apply(x, gamma, beta, float(eps), act, _pool_norm(pool),
                          bool(channel_last))
 
 
 for _e in (bn_act_train, bn2_act_train, bn_act_pool_train):
     _e.relayouts = 0   # layout copies made for the kernels, fwd and bwd
+    _e.composite_calls = 0   # calls the dtype gate sent to the composite

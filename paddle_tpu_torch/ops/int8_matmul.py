@@ -41,7 +41,7 @@ __all__ = ["dequant_matmul"]
 
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 THREADS = 128         # threads of a block (the kernel's)
 WORDS = {8: 32, 16: 16, 32: 8}  # weight words a thread holds per chunk
 
@@ -114,8 +114,8 @@ def _check_cuda(x2, w_int8, scale_row):
         raise ValueError("dequant_matmul: x, w_int8 and scale must share a "
                          "device")
     if x2.dtype not in _DTYPE_CODE or scale_row.dtype != torch.float32:
-        raise TypeError("dequant_matmul kernel takes float32 or bfloat16 x "
-                        f"and a float32 scale, got {x2.dtype} and "
+        raise TypeError("dequant_matmul kernel takes float32, bfloat16 or "
+                        f"float16 x and a float32 scale, got {x2.dtype} and "
                         f"{scale_row.dtype}")
     if w_int8.dtype != torch.int8:
         raise TypeError(f"dequant_matmul: w must be int8, got {w_int8.dtype}")

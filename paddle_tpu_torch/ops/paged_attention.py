@@ -33,7 +33,7 @@ layer, and each slot owns a table of block ids; the allocator's
   sm_90a): replaces the Pallas kernel
   ``paddle_tpu/ops/paged_attention.py::_kernel``.  Batched over slots:
   q (S, H, D) against the pools through tables (S, nb) with positions
-  (S,).  q and the pool pair are each f32 or bf16; like the TPU kernel it
+  (S,).  q and the pool pair are each f32, bf16 or f16; like the TPU kernel it
   computes in f32 and writes q's dtype.  It reads only the blocks that
   hold rows <= pos and never materializes the contiguous view; its bound
   is the live K/V bytes, ``sum(pos + 1) * H * D * 2 * E`` (E the pool's
@@ -246,8 +246,8 @@ def _check_cuda(q, kpool, vpool, tables, pos):
                              f"q on {dev}")
     for name, t in (("q", q), ("kpool", kpool), ("vpool", vpool)):
         if t.dtype not in _DTYPE_CODE:
-            raise TypeError(f"paged_attention kernel takes float32 or "
-                            f"bfloat16 {name}, got {t.dtype}")
+            raise TypeError(f"paged_attention kernel takes float32, "
+                            f"bfloat16 or float16 {name}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"paged_attention kernel needs a contiguous "
                              f"{name}")
@@ -283,7 +283,7 @@ def _check_cuda(q, kpool, vpool, tables, pos):
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [
     ctypes.c_float, ctypes.c_void_p]
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_ROW = 512     # most elements of one block's row: hpb * head_dim
 _TILE_BYTES = 8192  # one staged K (or V) tile (the kernel's)
 
@@ -339,7 +339,8 @@ def paged_attention(q, kpool, vpool, tables, pos):
     ``tables`` (S, nb) int32 block ids, with ``pos`` (S,) int32 each
     slot's write position (rows > pos are masked; the row at pos must
     already be written).  Out-of-range table entries clamp into the pool.
-    q and the pools are each float32 or bfloat16 (the kernel's types);
+    q and the pools are each float32, bfloat16 or float16 (the kernel's
+    types);
     the math is f32.  Returns (S, H, D) in q's dtype.  CUDA tensors launch the kernel (or raise on what
     it does not take); CPU tensors take the plain version."""
     if q.device.type == "cuda":

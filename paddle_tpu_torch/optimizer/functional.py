@@ -1,10 +1,14 @@
 """Shared functional optimizer-update core (counterpart of
 paddle_tpu/optimizer/functional.py), dense gradients only.
 
-One rule (coupled L2, the optimizer's ``update_many``, decoupled AdamW
-decay, gated by ``apply_decay_param_fun``) used by the eager
-``Optimizer.step`` and by ``jit.TrainStep``.  Parameters are grouped by
-whether they decay, and each group is updated by multi-tensor launches.
+One rule (coupled decay, L2 ``g + wd * p`` or L1 ``g + wd * sign(p)``, the
+optimizer's ``update_many``, decoupled AdamW decay, gated by
+``apply_decay_param_fun``) used by the eager ``Optimizer.step`` and by
+``jit.TrainStep``.  The eager step also passes each parameter's learning
+rate multiplier and ``ParamAttr`` regularizer (``lr_mults``, ``regs``);
+``TrainStep`` passes neither, as the reference's does not.  Parameters
+are grouped by (decay flag, decay coefficient and mode, multiplier), and
+each group is updated by multi-tensor launches.
 The learning rate and the step number are 0-dim tensors on the
 parameters' device (numbers are turned into such tensors), so that a step
 captured as a CUDA graph reads the values written before each replay
@@ -12,7 +16,7 @@ instead of freezing its first step's.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -37,13 +41,17 @@ def _device_scalar(x, dtype, device) -> torch.Tensor:
     return torch.full((), x, dtype=dtype, device=device)
 
 
-def _update_group(optimizer, ps, gs, states, lr, step, decay: bool):
+def _update_group(optimizer, ps, gs, states, lr, step, key):
     """(new_params, new_states) of one group of parameters that share the
-    decay flag; no in-place writes."""
-    wd = optimizer._wd
+    decay flag, the coupled decay (coefficient, L1?) and the learning
+    rate multiplier; no in-place writes."""
+    decay, (wd, l1), mult = key
     dwd = optimizer._decoupled_wd
+    if mult != 1.0:
+        lr = lr * mult                       # f32, as the reference's
     if wd and decay:
-        gs = torch._foreach_add(gs, torch._foreach_mul(ps, wd))
+        pen = torch._foreach_sign(ps) if l1 else ps
+        gs = torch._foreach_add(gs, torch._foreach_mul(pen, wd))
     new_p, new_s = optimizer.update_many(ps, gs, states, lr, step)
     if dwd and decay:
         coef = lr * dwd                      # f32, as the reference's
@@ -54,26 +62,32 @@ def _update_group(optimizer, ps, gs, states, lr, step, decay: bool):
 
 
 def apply_updates(optimizer, params: dict, grads: dict, opt_state: dict,
-                  lr, step_no, decay: Dict[str, bool]):
+                  lr, step_no, decay: Dict[str, bool],
+                  lr_mults: Optional[Dict[str, float]] = None,
+                  regs: Optional[Dict[str, tuple]] = None):
     """Returns (new_params, new_opt_state) for the keys in ``grads``;
     parameters without gradients pass through unchanged.  ``lr`` (f32) and
     ``step_no`` (the 1-based step, int32) are 0-dim tensors on the
     parameters' device, or numbers; decay applies to floating-point
-    parameters only."""
+    parameters only.  ``lr_mults`` maps a key to its learning-rate
+    multiplier, ``regs`` to its own (coefficient, L1?) coupled decay in
+    place of the optimizer's."""
     if grads:
         dev = params[next(iter(grads))].device
         lr = _device_scalar(lr, torch.float32, dev)
         step_no = _device_scalar(step_no, torch.int32, dev)
-    groups: Dict[bool, list] = {}
+    own = (optimizer._wd, optimizer._wd_mode == "l1")
+    groups: Dict[tuple, list] = {}
     for k in grads:
         dec = decay.get(k, True) and params[k].is_floating_point()
-        groups.setdefault(dec, []).append(k)
+        key = (dec, (regs or {}).get(k, own), (lr_mults or {}).get(k, 1.0))
+        groups.setdefault(key, []).append(k)
     new_params = dict(params)
     new_opt = dict(opt_state)
-    for dec, keys in groups.items():
+    for key, keys in groups.items():
         new_p, new_s = _update_group(
             optimizer, [params[k] for k in keys], [grads[k] for k in keys],
-            [opt_state[k] for k in keys], lr, step_no, dec)
+            [opt_state[k] for k in keys], lr, step_no, key)
         new_params.update(zip(keys, new_p))
         new_opt.update(zip(keys, new_s))
     return new_params, new_opt

@@ -1,8 +1,8 @@
 """Fault injection for the serving engine, the training step, the LoRA
-artifacts, the serving fleet, its worker processes and its weight refresh
-(the paged-KV, speculative, poisoned-logits, slow-decode, adapter,
-poisoned-gradient, replica, network and publish knobs of
-paddle_tpu/utils/faults.py).
+artifacts, the serving fleet, its worker processes, its weight refresh and
+the checkpoint writer (the paged-KV, speculative, poisoned-logits,
+slow-decode, adapter, poisoned-gradient, replica, network, publish and
+kill-mid-save knobs of paddle_tpu/utils/faults.py).
 
 A knob is armed by ``enable(point, value)`` or by its environment
 variable.  The KV knobs are read live at every use (host-side bookkeeping
@@ -107,12 +107,23 @@ worker.py``; a manager arms them there by the ``fault`` verb,
                 check after arming, then heal.
                 Env: PDTPU_FAULT_NET_PARTITION="replica:seconds".
 
+The checkpoint writer's knob is read live at every publish
+(``distributed/checkpoint.py``, inside ``_publish_snapshot_inner``):
+
+  kill_mid_save the checkpoint writer SIGKILLs its own process after the
+                shard and manifest files of its N-th save (1-based,
+                counted per process) are on disk and before the rename
+                that publishes them: the previous checkpoint must stay
+                ``latest`` and restorable.
+                Env: PDTPU_FAULT_KILL_MID_SAVE="N".
+
 ``enable`` mirrors the value into ``os.environ`` (subprocesses inherit
 it); ``get`` reads this module's registry first, then the environment.
 """
 from __future__ import annotations
 
 import os
+import signal
 import threading
 import time
 from typing import Optional, Tuple
@@ -129,7 +140,8 @@ __all__ = ["enable", "disable", "reset", "get", "kv_exhaust_cap",
            "maybe_corrupt_publish", "canary_diverge",
            "replica_wedge_config", "maybe_wedge_replica",
            "net_delay_config", "net_drop_frame", "maybe_net_drop",
-           "net_partition_config", "net_partition_active"]
+           "net_partition_config", "net_partition_active",
+           "maybe_kill_mid_save"]
 
 _ENV = {"kv_exhaust": "PDTPU_FAULT_KV_EXHAUST",
         "prefix_evict": "PDTPU_FAULT_PREFIX_EVICT",
@@ -145,12 +157,14 @@ _ENV = {"kv_exhaust": "PDTPU_FAULT_KV_EXHAUST",
         "replica_wedge": "PDTPU_FAULT_REPLICA_WEDGE",
         "net_delay": "PDTPU_FAULT_NET_DELAY",
         "net_drop": "PDTPU_FAULT_NET_DROP",
-        "net_partition": "PDTPU_FAULT_NET_PARTITION"}
+        "net_partition": "PDTPU_FAULT_NET_PARTITION",
+        "kill_mid_save": "PDTPU_FAULT_KILL_MID_SAVE"}
 
 _lock = threading.Lock()
 _registry = {}   # point -> raw config string
 _adapter_counter = {"n": 0}   # adapter_corrupt counts reads per process
 _publish_counter = {"n": 0}   # publish_corrupt counts publishes per process
+_save_counter = {"n": 0}      # kill_mid_save counts saves per process
 # net_drop counts frames per process; net_partition keeps each armed
 # window's start
 _net_state = {"frames": 0, "drop_fired": False, "partitions": {}}
@@ -179,6 +193,7 @@ def reset():
     with _lock:
         _adapter_counter["n"] = 0
         _publish_counter["n"] = 0
+        _save_counter["n"] = 0
         _net_state["frames"] = 0
         _net_state["drop_fired"] = False
         _net_state["partitions"] = {}
@@ -460,3 +475,19 @@ def net_partition_active(replica_idx: Optional[int]) -> bool:
     with _lock:
         start = _net_state["partitions"].setdefault(raw, now)
     return (now - start) < cfg[1]
+
+
+# -- kill_mid_save -----------------------------------------------------------
+
+def maybe_kill_mid_save():
+    """Called by the checkpoint writer after a save's files are on disk and
+    before the rename that publishes them: SIGKILL (not ``sys.exit``, so no
+    ``finally`` or ``atexit`` softens it) at the armed save number."""
+    raw = get("kill_mid_save")
+    if not raw:
+        return
+    with _lock:
+        _save_counter["n"] += 1
+        n = _save_counter["n"]
+    if n >= int(raw):
+        os.kill(os.getpid(), signal.SIGKILL)

@@ -275,11 +275,15 @@ def _port_state():
 
 
 def test_the_parts_not_ported_are_refused(tmp_path):
+    """Restoring onto a mesh stays refused; a checkpoint's ``scaler=``,
+    once refused, is ported (test_torch_grad_scaler.py holds it against
+    the reference)."""
     tm, sched, step = _port_step(_port_state())
-    with pytest.raises(UnimplementedError):
-        step.save_checkpoint(str(tmp_path), scaler=object())
-    with pytest.raises(UnimplementedError):
-        step.restore_checkpoint(str(tmp_path), scaler=object())
+    scaler = pt.amp.GradScaler(init_loss_scaling=64.0)
+    step.save_checkpoint(str(tmp_path), scaler=scaler)
+    back = pt.amp.GradScaler()
+    assert step.restore_checkpoint(str(tmp_path), scaler=back) is not None
+    assert back.state_dict() == scaler.state_dict()
     with pytest.raises(UnimplementedError):
         tck.restore_sharded(str(tmp_path), mesh=object())
     with pytest.raises(UnimplementedError):

@@ -13,7 +13,9 @@ order; |kernel - plain| <= 1e-4 + 1e-4 * |plain|.  K3 and K4 on bf16
 operands compute in f32 like their plain versions and round once to bf16,
 so the two may round f32 values that differ in their last bits to
 neighbouring bf16 values: 1e-3 + 8e-3 * |plain| (8e-3 > 2**-7, one bf16
-unit at its largest relative size).  The
+unit at its largest relative size).  On float16 operands the same
+argument gives 1e-4 + 2e-3 * |plain| (2e-3 > 2**-10, one float16 unit at
+its largest relative size).  The
 fused BatchNorm kernels (K5-K9) as stated beside their tests.
 """
 import numpy as np
@@ -28,6 +30,7 @@ pytestmark = pytest.mark.cuda
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_TOL = dict(rtol=8e-3, atol=1e-3)
+F16_TOL = dict(rtol=2e-3, atol=1e-4)
 
 
 @pytest.fixture
@@ -106,9 +109,9 @@ def test_int8_matmul_rejects_what_the_kernel_does_not_take(cuda):
     wi = torch.zeros(32, 24, dtype=torch.int8, device=cuda)  # N % 16 != 0
     with pytest.raises(ValueError):
         int8_matmul.dequant_matmul(x, wi, torch.ones(1, 24, device=cuda))
-    with pytest.raises(TypeError):
+    with pytest.raises(TypeError):     # float64 is not a kernel type
         int8_matmul.dequant_matmul(
-            x.to(torch.float16),
+            x.to(torch.float64),
             torch.zeros(32, 32, dtype=torch.int8, device=cuda),
             torch.ones(1, 32, device=cuda))
 
@@ -264,7 +267,8 @@ def test_paged_attention_offset_views(cuda):
 # K3 / K4 on bf16 operands
 # ---------------------------------------------------------------------------
 
-DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+          "f16": torch.float16}
 
 
 def _assert_bf16(got, want):
@@ -348,8 +352,8 @@ def test_paged_attention_rejects_mixed_pools(cuda):
     pos = torch.zeros(2, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
         pa.paged_attention(q, pool, pool.to(torch.bfloat16), tables, pos)
-    with pytest.raises(TypeError):
-        pa.paged_attention(q.half(), pool, pool, tables, pos)
+    with pytest.raises(TypeError):     # float64 is not a kernel type
+        pa.paged_attention(q.double(), pool, pool, tables, pos)
 
 
 @pytest.mark.parametrize("k", [1024, 4096])
@@ -404,17 +408,95 @@ def test_int8_matmul_bf16_batch_dims_and_per_tensor_scale(cuda):
 
 
 # ---------------------------------------------------------------------------
+# K3 / K4 on float16 operands
+# ---------------------------------------------------------------------------
+
+def _assert_f16(got, want):
+    assert got.dtype == want.dtype
+    torch.testing.assert_close(got.float(), want.float(), **F16_TOL)
+
+
+@pytest.mark.parametrize("q_dt,kv_dt", [("f16", "f16"), ("f32", "f16"),
+                                        ("f16", "f32"), ("f16", "bf16")])
+@pytest.mark.parametrize("s,bs,h,d,pos", [
+    (8, 16, 16, 64, [17, 100, 511, 512, 700, 1000, 0, 15]),
+    (3, 4, 2, 32, [0, 5, 9]),
+    (1, 16, 1, 256, [200]),
+    (2, 8, 3, 96, [90, 7]),
+])
+def test_paged_attention_f16_matches_plain_and_repeats(cuda, q_dt, kv_dt,
+                                                       s, bs, h, d, pos):
+    """Every dtype pair with a float16 side runs the kernel (no plain
+    version on the card): the output in q's dtype, two calls bit-equal."""
+    rng = np.random.RandomState(len(pos) + d + 2)
+    nb = -(-(max(pos) + 1) // bs) + 2
+    q, kp, vp, tables, p = [a.to(cuda) for a in
+                            _paged_case(rng, s, nb * s, bs, h, d, nb, pos)]
+    q = q.to(DTYPES[q_dt])
+    kp, vp = kp.to(DTYPES[kv_dt]), vp.to(DTYPES[kv_dt])
+    before = pa.paged_attention.launches
+    got = pa.paged_attention(q, kp, vp, tables, p)
+    again = pa.paged_attention(q, kp, vp, tables, p)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 2
+    want = pa._plain(q, kp, vp, tables, p)
+    if q.dtype == torch.float32:
+        torch.testing.assert_close(got, want, **F16_TOL)
+    else:
+        _assert_f16(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("k", [1024, 4096])
+@pytest.mark.parametrize("n", [16, 1024, 3072])
+@pytest.mark.parametrize("m", [1, 8, 16, 33, 512])
+def test_int8_matmul_f16_plans_match_plain_and_repeat(cuda, m, n, k):
+    """float16 x at every tile and split the plan picks: y in float16,
+    within one float16 unit of the plain version; two calls bit-equal."""
+    rng = np.random.RandomState(m + n + k + 2)
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(cuda).to(
+        torch.float16)
+    wi, s = quantize_weight_int8(
+        torch.from_numpy((0.02 * rng.randn(k, n)).astype(np.float32)).to(cuda))
+    before = int8_matmul.dequant_matmul.launches
+    got = int8_matmul.dequant_matmul(x, wi, s)
+    again = int8_matmul.dequant_matmul(x, wi, s)
+    torch.cuda.synchronize()
+    assert int8_matmul.dequant_matmul.launches == before + 2
+    _assert_f16(got, int8_matmul._plain(x, wi, s))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("offset,k", [(1, 1024), (0, 36)])
+def test_int8_matmul_f16_unaligned_x(cuda, offset, k):
+    """float16 x rows that are no whole 16-byte chunks are staged element
+    by element, as bf16 ones are."""
+    rng = np.random.RandomState(offset + k + 1)
+    flat = torch.from_numpy(rng.randn(offset + 8 * k).astype(np.float32)).to(
+        cuda).to(torch.float16)
+    x = flat[offset:].view(8, k)
+    wi, s = quantize_weight_int8(torch.from_numpy(
+        (0.02 * rng.randn(k, 1024)).astype(np.float32)).to(cuda))
+    got = int8_matmul.dequant_matmul(x, wi, s)
+    torch.cuda.synchronize()
+    _assert_f16(got, int8_matmul._plain(x, wi, s))
+
+
+# ---------------------------------------------------------------------------
 # K1 / K2: flash attention forward and backward
 # ---------------------------------------------------------------------------
 # f32: the kernels sum in another order than the plain version's einsums;
 # outputs and the logsumexp within 1e-4 + 1e-4 * |plain|, gradients (sums
 # over up to 1024 rows) within 2e-4 + 1e-3 * |plain|.  bf16: both round the
 # same f32 values to bf16, so they may differ by one bf16 unit (2**-8
-# relative): 1e-2 + 1e-2 * |plain|.
+# relative): 1e-2 + 1e-2 * |plain|.  float16: the same argument with its
+# units eight times finer (2**-11 relative): 2e-3 + 2e-3 * |plain|.
 FLASH_TOL = {torch.float32: (dict(rtol=1e-4, atol=1e-4),
                              dict(rtol=1e-3, atol=2e-4)),
              torch.bfloat16: (dict(rtol=1e-2, atol=1e-2),
-                              dict(rtol=1e-2, atol=1e-2))}
+                              dict(rtol=1e-2, atol=1e-2)),
+             torch.float16: (dict(rtol=2e-3, atol=2e-3),
+                             dict(rtol=2e-3, atol=2e-3))}
 
 
 def _flash_case(cuda, b, sq, sk, h, d, dtype, bias=False, seg=False,
@@ -458,6 +540,18 @@ def _flash_case(cuda, b, sq, sk, h, d, dtype, bias=False, seg=False,
     (2, 256, 256, 2, 128, torch.bfloat16, False, False, True, 0.1),
     (1, 256, 256, 2, 256, torch.bfloat16, True, False, False, 0.0),
     (1, 128, 384, 2, 256, torch.bfloat16, True, True, False, 0.2),
+    # float16 runs the same tensor-core kernels: the training shape, every
+    # head_dim, bias, segment ids, dropout, Sq != Sk and a dQ over many
+    # key tiles
+    (4, 1024, 1024, 16, 64, torch.float16, True, False, False, 0.1),
+    (2, 256, 256, 2, 64, torch.float16, False, True, False, 0.0),
+    (2, 256, 256, 2, 64, torch.float16, False, False, True, 0.15),
+    (1, 128, 384, 2, 64, torch.float16, True, False, False, 0.1),
+    (2, 256, 256, 2, 128, torch.float16, True, True, False, 0.1),
+    (2, 256, 256, 2, 128, torch.float16, False, False, True, 0.0),
+    (1, 256, 256, 2, 256, torch.float16, False, True, True, 0.1),
+    (1, 128, 384, 2, 256, torch.float16, True, True, False, 0.2),
+    (1, 128, 1024, 2, 64, torch.float16, False, True, False, 0.0),
 ])
 def test_flash_kernels_match_plain(cuda, b, sq, sk, h, d, dtype, causal,
                                    bias, seg, p):
@@ -487,9 +581,18 @@ def test_flash_kernels_match_plain(cuda, b, sq, sk, h, d, dtype, causal,
 def test_flash_bf16_backward_repeats_bit_for_bit(cuda):
     """K2 sums dQ, dK, dV and dbias in fixed orders with no atomics: two
     calls on the same inputs give bit-equal gradients."""
+    _flash_backward_repeats(cuda, torch.bfloat16)
+
+
+def test_flash_f16_backward_repeats_bit_for_bit(cuda):
+    """The float16 route sums in the same fixed orders."""
+    _flash_backward_repeats(cuda, torch.float16)
+
+
+def _flash_backward_repeats(cuda, dtype):
     from paddle_tpu_torch.ops import flash_attention as fa
     q, k, v, do, bi, _, _ = _flash_case(cuda, 2, 512, 512, 4, 64,
-                                        torch.bfloat16, bias=True, seed=4)
+                                        dtype, bias=True, seed=4)
     seed = torch.tensor([77], dtype=torch.int32, device=cuda)
     o, lse = fa.flash_fwd(q, k, v, bi, None, None, seed, True, 0.1)
     first = fa.flash_bwd(q, k, v, bi, None, None, seed, o, lse, do, True,
@@ -561,13 +664,29 @@ def test_flash_autograd_on_fused_qkv_views(cuda):
     torch.testing.assert_close(outs[0][1], outs[1][1], rtol=1e-3, atol=2e-4)
 
 
+def test_naive_attention_in_float16_on_the_card(cuda):
+    """A shape the flash gate refuses takes the naive path; in float16 its
+    masked scores are -inf (the reference's -1e30 cast to float16, which
+    torch.full refuses as an overflow), and the output is the f32 path's
+    within float16 rounding."""
+    from paddle_tpu_torch.nn.functional import attention as A
+    rng = np.random.RandomState(3)
+    q, k, v = (torch.from_numpy(rng.randn(1, 20, 2, 32).astype(
+        np.float32)).to(cuda) for _ in range(3))
+    want = A.scaled_dot_product_attention(q, k, v, is_causal=True)
+    got = A.scaled_dot_product_attention(q.half(), k.half(), v.half(),
+                                         is_causal=True)
+    assert got.dtype == torch.float16
+    torch.testing.assert_close(got.float(), want, rtol=2e-3, atol=2e-3)
+
+
 def test_flash_rejects_what_the_kernels_do_not_take(cuda):
     from paddle_tpu_torch.ops import flash_attention as fa
     q = torch.zeros(1, 128, 2, 64, device=cuda)
     seed = torch.zeros(1, dtype=torch.int32, device=cuda)
-    with pytest.raises(TypeError):      # fp16 is not a kernel type
-        fa.flash_fwd(q.half(), q.half(), q.half(), None, None, None, seed,
-                     False, 0.0)
+    with pytest.raises(TypeError):      # float64 is not a kernel type
+        fa.flash_fwd(q.double(), q.double(), q.double(), None, None, None,
+                     seed, False, 0.0)
     with pytest.raises(ValueError):     # head_dim 32
         z = torch.zeros(1, 128, 2, 32, device=cuda)
         fa.flash_fwd(z, z, z, None, None, None, seed, False, 0.0)

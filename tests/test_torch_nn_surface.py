@@ -20,7 +20,6 @@ from paddle_tpu.nn import initializer as JI
 import paddle_tpu_torch as pt
 import paddle_tpu_torch.nn as tnn
 import paddle_tpu_torch.nn.functional as TF
-from paddle_tpu_torch.core.errors import UnimplementedError
 from paddle_tpu_torch.nn import initializer as TI
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -244,15 +243,26 @@ def test_buffers_hooks_and_the_other_methods():
 
 @pytest.mark.parametrize("opt", ["Momentum", "Adam", "AdamW"])
 def test_optimizers_refuse_regularizers_and_lr_multipliers(opt):
+    """Once refused, now ported: the optimizers take parameters that carry
+    a ParamAttr regularizer or learning-rate multiplier, and the eager
+    step applies them (a multiplier of 2.0 doubles the first step; a
+    zero-coefficient regularizer replaces the optimizer's decay).
+    tests/test_torch_optimizers.py holds both against the reference."""
     cls = getattr(pt.optimizer, opt)
-    kw = dict(learning_rate=0.1)
-    for attr in (pt.ParamAttr(regularizer=object()),
-                 pt.ParamAttr(learning_rate=2.0)):
-        layer = tnn.Linear(2, 2, weight_attr=attr)
-        with pytest.raises(UnimplementedError, match="item 4"):
-            cls(parameters=layer.parameters(), **kw)
-    cls(parameters=tnn.Linear(2, 2, weight_attr=pt.ParamAttr(
-        learning_rate=1.0)).parameters(), **kw)
+    kw = dict(learning_rate=0.1, weight_decay=0.0)
+    moves = []
+    for attr in (pt.ParamAttr(regularizer=pt.regularizer.L2Decay(0.0)),
+                 pt.ParamAttr(learning_rate=2.0),
+                 pt.ParamAttr(learning_rate=1.0)):
+        torch.manual_seed(0)
+        layer = tnn.Linear(2, 2, weight_attr=attr, device="cpu")
+        o = cls(parameters=layer.parameters(), **kw)
+        before = layer.weight.detach().clone()
+        layer.weight.grad = torch.ones(2, 2)
+        o.step()
+        moves.append(layer.weight.detach() - before)
+    torch.testing.assert_close(moves[1], 2 * moves[2])
+    torch.testing.assert_close(moves[0], moves[2])
 
 
 # ------------------------------------------------------- layers' maths
