@@ -330,6 +330,34 @@ Phases (any failure exits non-zero before the result line):
                 saved, the scaler's state the saved one.  Nothing captured
                 after warmup; K1 / K2 24 launches per step; the guarded
                 float16 ms per step printed beside the guard phase's bf16.
+ 13d. dlrm    — DLRM at the Criteo Kaggle widths of the DLRM reference
+                implementation's dlrm_s_criteo_kaggle.sh: 13 dense
+                features, bottom MLP 13-512-256-64-16, 26 tables of the
+                Kaggle sizes in one f32 table (33,762,577 x 16, 2.16 GB),
+                top MLP 512-256-1, B 128; ids drawn per feature from a
+                power law (zipf 1.2, so rows repeat), labels
+                Bernoulli(0.25), all from --seed.  TrainStep with Adam:
+                sparse (Embedding(sparse=True), the lazy row update in the
+                captured step) and dense, 5 captured steps each: the first
+                step's loss and state sparse == dense within 1e-6, one
+                uncaptured sparse step == the captured one within 1e-6,
+                rows no batch touched bit-equal after the 5 sparse steps,
+                finite losses; ms per step (CUDA events), peak memory,
+                lookups and unique rows per step and a profiled step of
+                each printed.
+ 13e. trainexport — the train phase's model and batch (GPT-2 medium, O1
+                bf16, AdamW, dropout 0.1) through save_train_program and
+                TrainSession, 3 steps against TrainStep's 3 from the same
+                state: losses within 2e-2 (dropout draws differ: the
+                session's masks come from its key), K1 / K2 24 launches per
+                step through the session's replays (steps 2-3: the first
+                step's capture runs a warm step), ms per step of both.
+ 13f. tostatic — GPT-2 medium's f32 eval forward (B 4 x S 1024, twice,
+                and B 2 x S 1024) through jit.to_static: logits within 2e-3 of
+                eager, one capture per signature (two calls of the first),
+                K1 24 launches per replay (48 at a signature's first call:
+                the capture's warm run and its replay), ms per call
+                against eager.
  14. bert     — BERT-large / ERNIE-large pretraining (BASELINE configs #3
                 and #4 as bench.py measures them: B 8 x S 512, O1 bf16,
                 AdamW(1e-4) with decay off for biases and norms, dropout
@@ -427,6 +455,7 @@ import argparse
 import copy
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -500,6 +529,12 @@ LORA_ADAPTERS = (None, "t1", "t2", "t3", "t4", None, "t1", "t2")
 LORA_MARGIN_TOL = 1e-3   # a batched / solo adapter split needs a nearer tie
 LORA_TRAIN_B, LORA_TRAIN_S, LORA_TRAIN_STEPS = 2, 512, 3
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 8               # train phase
+# dlrm phase: the Criteo Kaggle tables of dlrm_s_criteo_kaggle.sh
+CRITEO_KAGGLE = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3,
+                 93145, 5683, 8351593, 3194, 27, 14992, 5461306, 10, 5652,
+                 2173, 4, 7046547, 18, 15, 286181, 105, 142572)
+DLRM_B, DLRM_STEPS = 128, 5
+EXPORT_STEPS = 3                                         # trainexport phase
 # bert phase: BERT-large / ERNIE-large as bench.py measures them
 BERT_B, BERT_S, BERT_STEPS, BERT_VOCAB = 8, 512, 8, 30528
 RECOMPUTE_STEPS = 3        # the train / resnet phases' recompute legs
@@ -531,7 +566,8 @@ PHASES = ("check", "serve", "telemetry", "pressure", "prefix", "spec", "lora",
           "beam", "gateway", "fleet", "worker", "programs", "serve_bf16",
           "spec_bf16", "serve_f16",
           "fixed",
-          "flash", "train", "traincheck", "guard", "amp16", "bert",
+          "flash", "train", "traincheck", "dlrm", "trainexport", "tostatic",
+          "guard", "amp16", "bert",
           "predictor", "bn", "resnet", "resnetcheck")
 
 
@@ -2974,6 +3010,256 @@ def beam_phase(torch, args, dev, card, model):
                  f"beyond a near tie ({gap:.3e})")
     del small, cpu
     torch.cuda.empty_cache()
+
+
+def _event_ms(torch, fn):
+    """(fn()'s result, its ms by CUDA events, synchronized)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def _dlrm_batches(torch, cfg, seed: int, n: int, dev):
+    """n batches: dense features N(0, 1), ids per feature from a power law
+    (zipf 1.2, folded into the vocabulary: low ids repeat), labels
+    Bernoulli(0.25)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        ids = np.stack([(rng.zipf(1.2, DLRM_B) - 1) % v
+                        for v in cfg.vocab_sizes], 1)
+        out.append(tuple(torch.from_numpy(a).to(dev) for a in (
+            rng.randn(DLRM_B, cfg.dense_dim).astype(np.float32), ids,
+            (rng.rand(DLRM_B, 1) < 0.25).astype(np.float32))))
+    return out
+
+
+def dlrm_phase(torch, args, dev, card):
+    """DLRM at Criteo Kaggle widths: sparse (lazy Adam) against dense
+    TrainStep, captured (module docstring, 13d)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import DLRM, DLRMConfig, DLRMCriterion
+    cfg = DLRMConfig(dense_dim=13, vocab_sizes=CRITEO_KAGGLE,
+                     embedding_dim=16, bottom_mlp=(512, 256, 64),
+                     top_mlp=(512, 256))
+    batches = _dlrm_batches(torch, cfg, args.seed, DLRM_STEPS, dev)
+    offsets = torch.from_numpy(cfg.offsets).to(dev)
+    rows = [(b[1] + offsets).reshape(-1) for b in batches]
+    uniq = [int(torch.unique(r).numel()) for r in rows]
+    print(f"dlrm: {cfg.total_rows:,} rows x {cfg.embedding_dim} "
+          f"({cfg.total_rows * cfg.embedding_dim * 4 / 1e9:.2f} GB f32), "
+          f"B {DLRM_B}: {DLRM_B * cfg.num_features} lookups per step, "
+          f"unique rows per step {uniq}")
+
+    def make(mode, uncaptured=False):
+        model = DLRM(cfg, embedding=mode, device=dev, seed=args.seed)
+        opt = pt.optimizer.Adam(1e-3, parameters=model.parameters())
+        step = TrainStep(model, DLRMCriterion(), opt)
+        step._run_uncaptured = uncaptured
+        return model, step
+
+    legs = {}
+    for mode in ("sparse", "dense"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model, step = make(mode)
+        init = model.table.weight.detach().clone() if mode == "sparse" \
+            else None
+        t0 = time.perf_counter()
+        step.warmup(*batches[0])
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        losses, ms = [], []
+        for i, b in enumerate(batches):
+            loss, t = _event_ms(torch, lambda: step(*b))
+            losses.append(float(loss))
+            ms.append(t)
+            if i == 0:
+                first = {k: v.detach().clone()
+                         for k, v in model.state_dict().items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not all(np.isfinite(losses)):
+            fail(f"dlrm {mode}: non-finite losses {losses}")
+        if step.compile_counts()["total"] != 1:
+            fail(f"dlrm {mode}: {step.compile_counts()} captures, expected 1")
+        steady = float(np.median(ms[1:]))
+        print(f"dlrm {mode} [{card}]: warmup (capture) {warm_s:.2f} s; "
+              f"ms per step {', '.join(f'{t:.3f}' for t in ms)} (steady "
+              f"{steady:.3f}, {DLRM_B / steady * 1e3:.0f} samples/s); peak "
+              f"memory {peak:.2f} GiB; losses "
+              + ", ".join(repr(x) for x in losses))
+        prof = device_profile(torch, lambda: step(*batches[-1]), 3,
+                              f"dlrm {mode} step (B {DLRM_B}, captured)",
+                              card)
+        legs[mode] = dict(losses=losses, first=first, steady=steady,
+                          peak=peak, prof=prof)
+        if mode == "sparse":
+            touched = torch.zeros(cfg.total_rows, dtype=torch.bool,
+                                  device=dev)
+            for r in rows:
+                touched[r] = True
+            w = model.table.weight.detach()
+            if not torch.equal(w[~touched], init[~touched]):
+                fail("dlrm sparse: rows no batch touched moved")
+            moved = int((w[touched] != init[touched]).any(1).sum())
+            print(f"dlrm sparse: {int((~touched).sum()):,} untouched rows "
+                  f"bit-equal after {DLRM_STEPS} steps; {moved:,} of "
+                  f"{int(touched.sum()):,} touched rows moved")
+            del init, touched, w
+        del model, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    sp, de = legs["sparse"], legs["dense"]
+    dl = abs(sp["losses"][0] - de["losses"][0])
+    ds = max(float((v.float() - de["first"][k].float()).abs().max())
+             for k, v in sp["first"].items())
+    print(f"dlrm: first step sparse vs dense: loss {dl:.3e}, state "
+          f"{ds:.3e} (max abs)")
+    if dl > 1e-6 or ds > 1e-6:
+        fail(f"dlrm: the first sparse step differs from the dense one "
+             f"(loss {dl}, state {ds})")
+    del legs
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one uncaptured sparse step against the captured one
+    got = []
+    for uncaptured in (False, True):
+        model, step = make("sparse", uncaptured)
+        got.append((float(step(*batches[0])),
+                    {k: v.detach().clone()
+                     for k, v in model.state_dict().items()}))
+        del model, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    du = max(float((v - got[1][1][k]).abs().max())
+             for k, v in got[0][1].items())
+    print(f"dlrm: captured vs uncaptured sparse step: loss "
+          f"{abs(got[0][0] - got[1][0]):.3e}, state {du:.3e} (max abs)")
+    if abs(got[0][0] - got[1][0]) > 1e-6 or du > 1e-6:
+        fail("dlrm: the captured sparse step differs from the uncaptured")
+    print(f"dlrm [{card}]: sparse lazy Adam {sp['steady']:.3f} ms / "
+          f"{sp['peak']:.2f} GiB against dense Adam {de['steady']:.3f} ms / "
+          f"{de['peak']:.2f} GiB per step ({de['steady'] / sp['steady']:.1f}x)")
+
+
+def _gpt_train_make(torch, args, dev, cfg):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import (GPTForPretraining,
+                                         GPTPretrainingCriterion)
+    pt.seed(args.seed)
+    model = GPTForPretraining(cfg, device=dev, seed=args.seed)
+    crit = GPTPretrainingCriterion()
+    opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                             parameters=model.parameters())
+    return model, (lambda logits, y: crit(logits, y)), opt
+
+
+def trainexport_phase(torch, args, dev, card):
+    """GPT-2 medium's O1 step exported and stepped by TrainSession against
+    TrainStep from the same state (module docstring, 13e)."""
+    import shutil
+    from paddle_tpu_torch.jit import (TrainSession, TrainStep,
+                                      save_train_program)
+    from paddle_tpu_torch.models import gpt2_medium_config
+    from paddle_tpu_torch.ops import flash_attention as fa
+    cfg = gpt2_medium_config()
+    layers = cfg.num_hidden_layers
+    batches = [tuple(torch.from_numpy(a).to(dev) for a in _train_batch(
+        cfg, args.seed + i, TRAIN_B, TRAIN_S)) for i in range(EXPORT_STEPS)]
+    root = _build_dir("trainexport")
+    path = f"{root}/gpt2_medium"
+    model, loss_fn, opt = _gpt_train_make(torch, args, dev, cfg)
+    t0 = time.perf_counter()
+    save_train_program(model, loss_fn, opt, path,
+                       [(tuple(b.shape), "int64") for b in batches[0]],
+                       amp_level="O1", amp_dtype="bfloat16", seed=args.seed)
+    save_s = time.perf_counter() - t0
+    sizes = {ext: os.path.getsize(path + ext) / 2 ** 20
+             for ext in (".pdtrain", ".pdstate.npz", ".pdtrainmeta")}
+    step = TrainStep(model, loss_fn, opt, amp_level="O1",
+                     amp_dtype="bfloat16")
+    t0 = time.perf_counter()
+    sess = TrainSession(path, device=dev)
+    load_s = time.perf_counter() - t0
+    print(f"trainexport [{card}]: saved in {save_s:.1f} s ("
+          + ", ".join(f"{k} {v:.2f} MiB" for k, v in sizes.items())
+          + f"), loaded in {load_s:.1f} s")
+    got, want, ms, ms_ref, launches = [], [], [], [], []
+    for i, b in enumerate(batches):
+        fa.flash_fwd.launches = fa.flash_bwd.launches = 0
+        loss, t = _event_ms(torch, lambda: sess.step(*b))
+        got.append(loss)
+        ms.append(t)
+        launches.append((fa.flash_fwd.launches, fa.flash_bwd.launches))
+        loss, t = _event_ms(torch, lambda: float(step(*b)))
+        want.append(loss)
+        ms_ref.append(t)
+    print(f"trainexport [{card}]: TrainSession losses "
+          + ", ".join(repr(x) for x in got) + "; TrainStep "
+          + ", ".join(repr(x) for x in want))
+    print(f"trainexport [{card}]: ms per step (CUDA events, the first a "
+          f"capture) session {', '.join(f'{t:.2f}' for t in ms)}, "
+          f"TrainStep {', '.join(f'{t:.2f}' for t in ms_ref)}; K1 / K2 "
+          f"launches per session step {launches}")
+    if not all(np.isfinite(got)):
+        fail(f"trainexport: non-finite session losses {got}")
+    worst = max(abs(a - b) for a, b in zip(got, want))
+    if worst > 2e-2:
+        fail(f"trainexport: session losses {got} differ from TrainStep's "
+             f"{want} by {worst:.3e} (> 2e-2)")
+    if any(n != (layers, layers) for n in launches[1:]):
+        fail(f"trainexport: K1 / K2 launches per step {launches[1:]}, "
+             f"expected {layers} each")
+    del sess, step, model, opt
+    gc.collect()
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def tostatic_phase(torch, args, dev, card):
+    """GPT-2 medium's f32 eval forward through to_static (module
+    docstring, 13f)."""
+    from paddle_tpu_torch.jit import to_static
+    from paddle_tpu_torch.models import gpt2_medium_config
+    from paddle_tpu_torch.ops import flash_attention as fa
+    cfg = gpt2_medium_config()
+    model, _, _ = _gpt_train_make(torch, args, dev, cfg)
+    model.eval()
+    sf = to_static(model)
+    ids = [torch.from_numpy(_train_batch(cfg, args.seed, b, TRAIN_S)[0])
+           .to(dev) for b in (TRAIN_B, TRAIN_B, TRAIN_B // 2)]
+    worst, ms, ms_eager, k1 = 0.0, [], [], []
+    for x in ids:
+        fa.flash_fwd.launches = 0
+        out, t = _event_ms(torch, lambda: sf(x))
+        k1.append(fa.flash_fwd.launches)
+        ms.append(t)
+        with torch.no_grad():
+            ref, t = _event_ms(torch, lambda: model(x))
+        ms_eager.append(t)
+        worst = max(worst, float((out - ref).abs().max()))
+        del out, ref
+    counts = sf.compile_counts()["total"]
+    print(f"tostatic [{card}]: max |static - eager| {worst:.3e}; captures "
+          f"{counts} for 2 signatures; K1 launches per call {k1}; ms per "
+          f"call (the first of each signature a capture) "
+          f"{', '.join(f'{t:.2f}' for t in ms)} against eager "
+          f"{', '.join(f'{t:.2f}' for t in ms_eager)}")
+    if worst > 2e-3:
+        fail(f"tostatic: static logits differ from eager by {worst}")
+    if counts != 2:
+        fail(f"tostatic: {counts} captures for 2 signatures")
+    layers = cfg.num_hidden_layers
+    if k1 != [2 * layers, layers, 2 * layers]:
+        fail(f"tostatic: K1 launches per call {k1}, expected "
+             f"{[2 * layers, layers, 2 * layers]} (a signature's first "
+             "call captures: its warm run and the replay)")
+    del sf, model
+    gc.collect()
 
 
 def guard_phase(torch, args, dev, card):
@@ -5940,6 +6226,13 @@ def main():
     if want("traincheck"):
         train_check_phase(torch, args, dev)
     torch.cuda.empty_cache()
+    for name, phase in (("dlrm", dlrm_phase),
+                        ("trainexport", trainexport_phase),
+                        ("tostatic", tostatic_phase)):
+        if want(name):
+            phase(torch, args, dev, card)
+            gc.collect()
+            torch.cuda.empty_cache()
     guard_ms = None
     if want("guard"):
         guard_ms = guard_phase(torch, args, dev, card)

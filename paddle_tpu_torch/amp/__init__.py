@@ -225,7 +225,10 @@ class GradScaler:
         if st["unscaled"]:
             return
         st["unscaled"] = True
-        grads = [p.grad for p in optimizer._parameter_list or []
+        # a row-sparse gradient is unscaled through its values and stays
+        # row-sparse; the inf check reads the values too
+        grads = [p.grad._values() if p.grad.is_sparse else p.grad
+                 for p in optimizer._parameter_list or []
                  if p.grad is not None]
         if not grads:
             self._found_inf = st["found_inf"] = False

@@ -35,7 +35,8 @@ import threading
 import torch
 
 __all__ = ["seed", "next_seed", "step_generator", "generator_scope",
-           "scope_generator", "current_generator", "draw_seed", "mark",
+           "scope_generator", "current_generator", "draw_seed", "bernoulli",
+           "keyed_scope", "mark",
            "rewound", "ProgramMarks"]
 
 _lock = threading.Lock()
@@ -106,9 +107,70 @@ def current_generator(device) -> torch.Generator:
     return gen
 
 
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """(x * c) mod 2**32 for int64 x in [0, 2**32), in 16-bit halves so
+    that no int64 product overflows."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x):
+    """murmur3's 32-bit finalizer on int64 tensors holding uint32."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+@contextlib.contextmanager
+def keyed_scope(key: torch.Tensor):
+    """Draw every dropout mask and attention-dropout seed inside the block
+    from ``key`` (an int64 tensor of two uint32 words) and a per-draw
+    counter, by a counter hash in tensor ops: no generator state, so a
+    traced program (``jit.save_train_program``'s export) takes the key as
+    an input and draws new masks for each key."""
+    prev = getattr(_scope, "keyed", None)
+    _scope.keyed = [key, 0]
+    try:
+        yield
+    finally:
+        _scope.keyed = prev
+
+
+def _keyed_bits(n: int, device):
+    """n uint32 values (int64) of the active keyed scope's next draw."""
+    st = _scope.keyed
+    key, st[1] = st[0].to(device), st[1] + 1
+    salt = _mix32(key[0] ^ _mix32(key[1] ^ _mul32(
+        torch.full((), st[1], dtype=torch.int64, device=device),
+        0x632BE5AB)))
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    return _mix32(_mul32(idx, 0x9E3779B1) ^ salt)
+
+
+def bernoulli(shape, keep: float, device) -> torch.Tensor:
+    """A bool mask of ``shape``, True with probability ``keep``: from the
+    current generator, or in a keyed scope from its key."""
+    if getattr(_scope, "keyed", None) is not None:
+        n = 1
+        for d in shape:
+            n *= int(d)
+        u = (_keyed_bits(n, device) >> 8).to(torch.float32) / 16777216.0
+        return (u < keep).reshape(tuple(shape))
+    return torch.empty(tuple(shape), device=device).bernoulli_(
+        keep, generator=current_generator(device)).bool()
+
+
 def draw_seed(device) -> torch.Tensor:
     """An int32 seed of shape (1,) on ``device``, drawn from the current
-    generator (the attention-dropout seed the flash kernels read)."""
+    generator, or in a keyed scope from its key (the attention-dropout
+    seed the flash kernels read)."""
+    if getattr(_scope, "keyed", None) is not None:
+        bits = _keyed_bits(1, device)
+        return (bits - ((bits >> 31) << 32)).to(torch.int32)
     return torch.randint(-2 ** 31, 2 ** 31, (1,), dtype=torch.int32,
                          device=device, generator=current_generator(device))
 

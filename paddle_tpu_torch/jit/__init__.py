@@ -63,21 +63,38 @@ reference.  As in the reference, ``TrainStep`` applies no ``grad_clip``
   writes the state in place, so the captured programs replay on.  A learning-rate scheduler's value reaches each
   replay through the learning-rate scalar (``optimizer.get_lr()``).
 
+- **Row-sparse gradients.** A weight of ``Embedding(sparse=True)``
+  (``sparse_grad``) gets its gradient through the lookups' zero leaves
+  (``core.selected_rows``): a record pass at a signature's first step
+  sizes each lookup's leaf, a static buffer of the program like the
+  batch, and the step merges the leaves' gradients with the lookup ids
+  into a ``RowSparseGrad`` that takes the lazy row update
+  (``optimizer.sparse``) inside the program.  A weight registered under
+  two names (tied) or that the loss also consumes outside the lookup (a
+  tied head; the first record pass finds it in the autograd graph) is
+  demoted to a dense gradient with one ``UserWarning``.
+  ``accum_steps`` > 1 with a sparse weight raises ``NotImplementedError``,
+  as the reference's.
+
 Inference artifacts: ``save`` / ``load`` / ``InputSpec`` /
 ``TranslatedLayer`` (``jit/export.py``: the reference's npz and metadata,
-the program as a ``torch.export`` archive).
+the program as a ``torch.export`` archive).  Training artifacts:
+``save_train_program`` / ``TrainSession`` (``jit/train_export.py``).  The
+to_static surface (``to_static``, ``StaticFunction``, ``functional_call``,
+``TracedLayer`` and the rest): ``jit/static.py``.
 
 Not in this slice of the port, and refused with ``UnimplementedError``:
-``mesh`` / ``batch_sharding``, and sparse or row-sharded gradients (the
-port's ``Embedding`` has no sparse mode).  As in the reference, the step
-applies neither a parameter's ``ParamAttr`` learning-rate multiplier nor
-its regularizer (only the eager ``Optimizer.step`` does).
+``mesh`` / ``batch_sharding`` and row-sharded tables.  As in the
+reference, the step applies neither a parameter's ``ParamAttr``
+learning-rate multiplier nor its regularizer (only the eager
+``Optimizer.step`` does).
 """
 from __future__ import annotations
 
 import contextlib
 import functools
 import time
+import warnings
 from typing import Callable, Dict, Optional
 
 import torch
@@ -86,6 +103,7 @@ from .. import amp as amp_mod
 from ..core import buffer_updates as _bufup
 from ..core import recompute as _recompute
 from ..core import rng
+from ..core import selected_rows as sr
 from ..core.errors import UnimplementedError
 from ..core.layout import layout_policy  # noqa: F401  (jit.layout_policy)
 from ..core.programs import Program
@@ -97,7 +115,12 @@ from .export import (ArtifactFormatError, InputSpec,  # noqa: F401
 
 __all__ = ["state_arrays", "forward_loss", "guard_select", "TrainStep",
            "layout_policy", "recompute_policy", "InputSpec", "save", "load",
-           "TranslatedLayer", "ArtifactFormatError"]
+           "TranslatedLayer", "ArtifactFormatError", "save_train_program",
+           "TrainSession", "functional_call", "StaticFunction", "to_static",
+           "declarative", "not_to_static", "enable_to_static",
+           "ProgramTranslator", "warm_step_program", "TracedLayer",
+           "set_verbosity", "get_verbosity", "set_code_level",
+           "get_code_level"]
 
 _LATER = "comes with a later slice of the port"
 
@@ -156,7 +179,8 @@ def forward_loss(model, loss_fn, batch, generator=None, amp_level=None,
 def _verdict(loss, grads):
     """(global gradient norm, whether it and the loss are finite), on the
     device."""
-    leaves = [g.float() for g in grads.values()]
+    leaves = [(g.values if isinstance(g, sr.RowSparseGrad) else g).float()
+              for g in grads.values()]
     gnorm = (torch.sqrt(sum(torch.sum(g * g) for g in leaves)) if leaves
              else torch.zeros((), device=loss.device))
     return gnorm, torch.isfinite(loss) & torch.isfinite(gnorm)
@@ -224,6 +248,40 @@ class TrainStep:
                            if isinstance(v, torch.nn.Parameter)
                            and v.requires_grad]
         self._decay = decay_flags(optimizer, self._trainable)
+        # weights flagged by Embedding(sparse=True): their gradients are
+        # row-sparse, through the lookups' zero leaves (core.selected_rows)
+        self._sparse = {k for k, v in state.items()
+                        if getattr(v, "sparse_grad", False)}
+        if self.accum_steps > 1 and self._sparse:
+            raise NotImplementedError(
+                f"TrainStep(accum_steps={self.accum_steps}) does not "
+                f"compose with sparse-grad embedding weights "
+                f"{sorted(self._sparse)}: per-micro-batch RowSparseGrads "
+                "would need a row-union merge inside the accumulation "
+                "loop.  Rebuild the offending Embedding layers with "
+                "sparse=False (dense grads accumulate fine) or run "
+                "accum_steps=1")
+        # a weight's name in the lookups' context: its first state key
+        self._names: Dict[int, str] = {}
+        for k, v in state.items():
+            self._names.setdefault(id(v), k)
+        self._sparse_checked = False
+        # weights demoted to DENSE gradients: tied (registered under more
+        # than one name) or consumed outside the lookup; a row-sparse
+        # gradient would drop the other uses' gradients
+        self._sparse_deny = set()
+        if self._sparse:
+            by_obj: Dict[int, list] = {}
+            for k, v in state.items():
+                by_obj.setdefault(id(v), []).append(k)
+            for names in by_obj.values():
+                if len(names) > 1 and self._sparse.intersection(names):
+                    warnings.warn(
+                        f"Embedding(sparse=True) weight registered under "
+                        f"multiple names {names} (tied weight) — falling "
+                        "back to a dense gradient for it so the other "
+                        "uses' gradients are kept", UserWarning)
+                    self._sparse_deny.add(names[0])
         self._opt_state = None
         self._guard = bool(guard)
         self.last_guard = None
@@ -256,29 +314,46 @@ class TrainStep:
         self._gnorm = torch.zeros((), dtype=torch.float32, device=dev)
         self._ok = torch.ones((), dtype=torch.bool, device=dev)
 
-    def _grads(self, params, batch):
+    def _grads(self, params, batch, zeros=None):
         """(loss, {name: grad}, {buffer name: new value}, outputs) over
         ``accum_steps`` micro-batches; buffer updates are logged, not
-        applied, and compound from one micro-batch to the next."""
+        applied, and compound from one micro-batch to the next.  With
+        ``zeros`` (the lookups' zero leaves) the sparse weights' gradients
+        are ``RowSparseGrad``s."""
         with _bufup.capture() as log:
-            loss, grads, outs = self._micro_grads(params, batch)
+            loss, grads, outs = self._micro_grads(params, batch, zeros)
         return loss, grads, _bufup.resolve(
             log, self.model.state_dict(keep_vars=True)), outs
 
-    def _micro_grads(self, params, batch):
-        args = [params[k] for k in self._trainable]
+    def _micro_grads(self, params, batch, zeros=None):
+        zeros = zeros or {}
+        sparse_names = {sr.param_name(k) for k in zeros}
+        dense = [k for k in self._trainable if k not in sparse_names]
+        args = [params[k] for k in dense]
+        zkeys = list(zeros)
+        ids: Dict[str, torch.Tensor] = {}
 
         def loss_of(*micro):
-            return forward_loss(self.model, self.loss_fn, micro, self._gen,
-                                self.amp_level, self.amp_dtype,
-                                return_outputs=True)
+            # a context per run: a recompute region's rerun keys its
+            # lookups from 0 again and finds the same zero leaves
+            ctx = sr.SparseGradContext("apply", zeros=zeros,
+                                       deny=self._sparse_deny,
+                                       names=self._names)
+            with (sr.use_ctx(ctx) if zeros else contextlib.nullcontext()):
+                out = forward_loss(self.model, self.loss_fn, micro,
+                                   self._gen, self.amp_level, self.amp_dtype,
+                                   return_outputs=True)
+            if not ids:
+                ids.update(ctx.ids)
+            return out
         if self._remat:
             loss_of = _recompute.checkpoint(loss_of)
 
         def one(micro):
             with rng.generator_scope(self._gen), _recompute.step_forward():
                 loss, outs = loss_of(*micro)
-            grads = torch.autograd.grad(loss, args, allow_unused=True)
+            grads = torch.autograd.grad(
+                loss, args + [zeros[k] for k in zkeys], allow_unused=True)
             return loss, grads, outs
 
         k = self.accum_steps
@@ -305,17 +380,36 @@ class TrainStep:
             gs = [(a / k).to(p.dtype) for a, p in zip(acc, args)]
             outs = ()
         grads = {n: (g if g is not None else torch.zeros_like(p))
-                 for n, g, p in zip(self._trainable, gs, args)}
+                 for n, g, p in zip(dense, gs, args)}
+        grads = self._merge_sparse_grads(
+            grads, dict(zip(zkeys, gs[len(args):])), zeros, ids, params)
         return loss.detach(), grads, outs
 
-    def _step_program(self, lr, step_no, nan_window=None, **batch):
-        """One training step over the static inputs: every state tensor
-        written in place; returns (loss, *forward outputs).
+    @staticmethod
+    def _merge_sparse_grads(grads, zgrads, zeros, ids, params):
+        """Fold the zero leaves' gradients (the lookups' row-sparse
+        gradients, by context key) into the gradient dict as
+        ``RowSparseGrad``s; several lookups of one weight concatenate."""
+        grads = dict(grads)
+        for zk, zg in zgrads.items():
+            nm = sr.param_name(zk)
+            if zg is None:
+                zg = torch.zeros_like(zeros[zk])
+            rsg = sr.RowSparseGrad(ids[zk], zg, params[nm].shape)
+            grads[nm] = grads[nm] + rsg if nm in grads else rsg
+        return grads
+
+    def _step_program(self, lr, step_no, nan_window=None, **inputs):
+        """One training step over the static inputs (the batch ``b<i>``,
+        the lookups' zero leaves ``z:<key>``): every state tensor written
+        in place; returns (loss, *forward outputs).
         ``nan_window`` (the nan_grads fault's, when it was armed as the
         program was made) poisons the gradients at those step numbers."""
         state = self.model.state_dict(keep_vars=True)
         params = {k: state[k] for k in self._trainable}
-        loss, grads, bufs, outs = self._grads(params, tuple(batch.values()))
+        batch = tuple(v for k, v in inputs.items() if k.startswith("b"))
+        zeros = {k[2:]: v for k, v in inputs.items() if k.startswith("z:")}
+        loss, grads, bufs, outs = self._grads(params, batch, zeros)
         if nan_window is not None:
             grads = _faults.poison_grads(grads, step_no, nan_window)
         with torch.no_grad():
@@ -372,6 +466,14 @@ class TrainStep:
             dev = self._lr.device
             inputs = {f"b{i}": torch.empty(b.shape, dtype=b.dtype, device=dev)
                       for i, b in enumerate(batch)}
+            for i, b in enumerate(batch):
+                inputs[f"b{i}"].copy_(b)
+            if self._sparse:
+                # the lookups' zero leaves: static buffers of the program
+                for key, (n, w, dt) in self._sparse_specs(
+                        tuple(inputs.values())).items():
+                    inputs[f"z:{key}"] = torch.zeros(
+                        (n, w), dtype=dt, device=dev, requires_grad=True)
             inputs.update(lr=self._lr, step_no=self._step_no)
             # nan_grads: presence decided now, as the program is made
             fn = functools.partial(self._step_program,
@@ -385,6 +487,43 @@ class TrainStep:
         self._lr.fill_(lr)
         self._step_no.fill_(step_no)
         return sig, prog
+
+    def _sparse_specs(self, batch):
+        """The record pass: each sparse lookup's (count, width, dtype) on
+        this batch, by context key.  The first one also demotes, with a
+        warning, a sparse weight the loss consumes outside the lookup (a
+        tied head): its gradient becomes dense.  Nothing of the step
+        moves (the generator is put back, buffer updates are dropped)."""
+        state = self.model.state_dict(keep_vars=True)
+        while True:
+            rec = sr.SparseGradContext("record", deny=self._sparse_deny,
+                                       names=self._names)
+            gen = self._gen.get_state()
+            try:   # the graph is needed by the first pass's detector only
+                with sr.use_ctx(rec), _bufup.capture(), (
+                        torch.no_grad() if self._sparse_checked
+                        else contextlib.nullcontext()):
+                    loss = forward_loss(self.model, self.loss_fn, batch,
+                                        self._gen, self.amp_level,
+                                        self.amp_dtype)
+            finally:
+                self._gen.set_state(gen)
+            names = {sr.param_name(k) for k in rec.specs}
+            if self._sparse_checked or not names:
+                break
+            bad = sr.dense_consumed_keys(
+                lambda _: loss, {k: state[k] for k in names})
+            del loss
+            if not bad:
+                break
+            warnings.warn(
+                f"Embedding(sparse=True) weights {sorted(bad)} are also "
+                "consumed densely (tied head) — falling back to dense "
+                "gradients for them so those uses' gradients are kept",
+                UserWarning)
+            self._sparse_deny.update(bad)
+        self._sparse_checked = True
+        return rec.specs
 
     def _make(self, sig, prog, warm: bool):
         """Make ``prog`` ready.  On the card it is captured (its warm run,
@@ -510,3 +649,11 @@ class TrainStep:
         load_paddle_opt_state(self, dck.merge_opt_state(self._opt_state,
                                                         restored_opt))
         return meta
+
+
+from .static import (ProgramTranslator, StaticFunction,  # noqa: E402
+                     TracedLayer, declarative, enable_to_static,
+                     functional_call, get_code_level, get_verbosity,
+                     not_to_static, set_code_level, set_verbosity,
+                     to_static, warm_step_program)
+from .train_export import TrainSession, save_train_program  # noqa: E402

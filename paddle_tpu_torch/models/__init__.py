@@ -2,6 +2,8 @@ from .bert import (BertConfig, BertForPretraining,  # noqa: F401
                    BertForSequenceClassification, BertModel,
                    BertPretrainingCriterion, bert_base_config,
                    bert_large_config)
+from .dlrm import (DLRM, DLRMConfig, DLRMCriterion,  # noqa: F401
+                   dlrm_tiny_config)
 from .ernie import (ErnieConfig, ErnieForPretraining,  # noqa: F401
                     ErnieForSequenceClassification, ErnieModel,
                     ErniePretrainingCriterion, ernie_base_config,

@@ -2,18 +2,22 @@
 
 Each clip maps a list of (param, grad) pairs to a new one; the eager
 ``Optimizer.step`` applies its ``grad_clip``.  ``jit.TrainStep`` applies
-none, like the reference's compiled step.
+none, like the reference's compiled step.  A row-sparse gradient is
+densified first (norms need the merged rows; the reference likewise
+densifies sparse gradients before a clip).
 """
 from __future__ import annotations
 
 import torch
+
+from ..core.selected_rows import dense_grad
 
 __all__ = ["ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm"]
 
 
 class ClipGradBase:
     def __call__(self, params_grads):
-        return self._clip(params_grads)
+        return self._clip([(p, dense_grad(g)) for p, g in params_grads])
 
 
 def _skip(p, g) -> bool:

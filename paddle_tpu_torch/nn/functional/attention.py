@@ -90,8 +90,7 @@ def _naive(query, key, value, attn_mask, dropout_p, is_causal):
             scores = scores + attn_mask
     probs = torch.softmax(scores.to(torch.float32), dim=-1).to(query.dtype)
     if dropout_p > 0.0:
-        keep = torch.empty(probs.shape, device=probs.device).bernoulli_(
-            1.0 - dropout_p, generator=rng.current_generator(probs.device))
-        probs = torch.where(keep.bool(), probs / (1.0 - dropout_p), 0.0)
+        keep = rng.bernoulli(probs.shape, 1.0 - dropout_p, probs.device)
+        probs = torch.where(keep, probs / (1.0 - dropout_p), 0.0)
     out = torch.einsum("bhqk,bhkd->bhqd", probs, vt)
     return out.transpose(1, 2)

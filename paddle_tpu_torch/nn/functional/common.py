@@ -9,6 +9,7 @@ import torch
 
 from ...amp import amp_cast, promote
 from ...core import rng
+from ...core.errors import InvalidArgumentError
 
 __all__ = ["linear", "dropout", "embedding", "interpolate", "upsample"]
 
@@ -30,6 +31,7 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     ``axis`` (an int or a list) draws the mask over those axes only and
     broadcasts it over the others.  ``"upscale_in_train"`` scales the kept
     values by 1 / (1 - p); ``"downscale_in_infer"`` keeps them as they are.
+    (Inside ``core.rng.keyed_scope`` the mask comes from the scope's key.)
     Out of training (or with p 0) either mode returns ``x``, as the
     reference does."""
     if mode not in ("upscale_in_train", "downscale_in_infer"):
@@ -41,28 +43,39 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
         axes = [axis] if isinstance(axis, int) else list(axis)
         shape = [s if i in axes else 1 for i, s in enumerate(x.shape)]
     keep = 1.0 - p
-    mask = torch.empty(shape, device=x.device).bernoulli_(
-        keep, generator=rng.current_generator(x.device))
+    mask = rng.bernoulli(shape, keep, x.device)
     kept = x / keep if mode == "upscale_in_train" else x
-    return torch.where(mask.bool(), kept, 0.0).to(x.dtype)
+    return torch.where(mask, kept, 0.0).to(x.dtype)
 
 
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     """Rows of ``weight`` at the integer ids ``x``; the output rows at
     ``padding_idx`` are zeros, so no gradient reaches that row (the
-    reference's ``F.embedding``).  ``sparse=True`` (row-sparse gradients)
-    is not ported yet."""
-    if sparse:
-        from ...core.errors import UnimplementedError
-        raise UnimplementedError(
-            "embedding(sparse=True): row-sparse gradients are not ported "
-            "yet (ROADMAP section 1 item 4)")
+    reference's ``F.embedding``).  With ``sparse=True`` the weight's
+    gradient is row-sparse (``core.selected_rows``): inside a training
+    step that collects sparse gradients the lookup goes through its
+    context; eagerly, with grad enabled on a weight that requires it, the
+    weight's ``.grad`` is a sparse COO tensor of one index per lookup,
+    which the optimizers' lazy row update consumes.  As in the reference,
+    a sparse weight must only be consumed by lookups."""
     if x.is_floating_point() or x.is_complex():
-        raise TypeError(f"embedding: ids must be an integer tensor, got "
-                        f"{x.dtype}")
+        raise InvalidArgumentError(
+            f"[embedding] ids must be an integer tensor, got dtype "
+            f"{x.dtype}")
     if weight.dim() != 2:
-        raise ValueError(f"embedding: weight must be 2-D (vocab, dim), got "
-                         f"shape {tuple(weight.shape)}")
+        raise InvalidArgumentError(
+            f"[embedding] weight must be 2-D (vocab, dim), got shape "
+            f"{tuple(weight.shape)}")
+    if sparse:
+        from ...core import selected_rows as sr
+        ctx = sr.current_ctx()
+        if ctx is not None:   # inside a step collecting sparse gradients
+            if ctx.wants(ctx.name_of(weight)):
+                return sr.ctx_embedding(ctx, x, weight, padding_idx)
+            # a weight demoted to a dense gradient (the step warned once):
+            # the ordinary differentiable lookup below
+        elif torch.is_grad_enabled() and weight.requires_grad:
+            return sr.eager_sparse_embedding(x, weight, padding_idx)
     out = weight[x]
     if padding_idx is not None:
         out = torch.where((x == padding_idx)[..., None], 0.0,

@@ -22,7 +22,6 @@ from typing import Optional
 
 import torch
 
-from ...core.errors import UnimplementedError
 from .. import functional as F
 from .. import initializer as I
 from ..layer_base import Layer, ParamAttr
@@ -73,17 +72,15 @@ class Embedding(Layer):
     table looked up by ``F.embedding``.  A negative ``padding_idx`` counts
     from the end; that row alone is zeroed at construction, and the lookup
     zeroes its output rows, so it never takes a gradient.
-    ``sparse=True`` is not ported yet."""
+    ``sparse=True`` marks the weight ``sparse_grad``: its gradient is
+    row-sparse (eagerly a sparse COO ``.grad``; in ``jit.TrainStep`` the
+    step's lazy row update), as the reference's SelectedRows."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
                  padding_idx=None, sparse=False, weight_attr=None, name=None,
                  *, std: Optional[float] = None, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if sparse:
-            raise UnimplementedError(
-                "Embedding(sparse=True): row-sparse gradients are not "
-                "ported yet (ROADMAP section 1 item 4)")
         self.num_embeddings = int(num_embeddings)
         self.embedding_dim = int(embedding_dim)
         self.padding_idx = (None if padding_idx is None else
@@ -98,6 +95,8 @@ class Embedding(Layer):
         if self.padding_idx is not None:
             with torch.no_grad():
                 self.weight[self.padding_idx] = 0.0
+        if sparse:
+            self.weight.sparse_grad = True
 
     def forward(self, ids):
         return F.embedding(ids, self.weight, padding_idx=self.padding_idx,

@@ -27,7 +27,9 @@ in the source.
   forward) ``flash_attention_bshd`` calls K1 alone.
 - K1's wrapper ``flash_fwd`` is the operator
   ``torch.ops.paddle_tpu_torch.flash_fwd`` (``ops/_library.py``), with a
-  fake implementation for ``torch.export``.
+  fake implementation for ``torch.export`` and a registered backward that
+  runs K2 (``flash_bwd``), so an exported training loss differentiates
+  through the kernels.
 
 ``flash_fwd.launches`` / ``flash_bwd.launches`` count wrapper calls that
 launch kernels (the plain versions never count).  The kernel is picked by
@@ -413,6 +415,27 @@ def flash_bwd(q, k, v, bias, qseg, kseg, seed, o, lse, do, causal,
     return _plain_bwd(q, k, v, bias, qseg, kseg, seed, o, lse, do, causal,
                       dropout_p)
 
+
+def _op_setup(ctx, inputs, output):
+    q, k, v, bias, qseg, kseg, seed, causal, dropout_p = inputs
+    ctx.save_for_backward(q, k, v, bias, qseg, kseg, seed, *output)
+    ctx.causal, ctx.dropout_p = causal, dropout_p
+
+
+def _op_backward(ctx, do, dlse):
+    q, k, v, bias, qseg, kseg, seed, o, lse = ctx.saved_tensors
+    dq, dk, dv, dbias = flash_bwd(q, k, v, bias, qseg, kseg, seed, o, lse,
+                                  do.to(q.dtype), ctx.causal, ctx.dropout_p)
+    return (dq, dk, dv, dbias if ctx.needs_input_grad[3] else None, None,
+            None, None, None, None)
+
+
+# the operator's own backward, K2: an exported training loss keeps K1 as
+# the operator node (no autograd.Function survives the export), and
+# differentiating the loaded program runs K2 through this registration
+torch.library.register_autograd(f"{_library.NAMESPACE}::flash_fwd",
+                                _op_backward, setup_context=_op_setup,
+                                lib=_library._LIB)
 
 flash_fwd.launches = 0  # kernel launches; the plain version never counts
 flash_bwd.launches = 0

@@ -38,6 +38,8 @@ class DGCMomentum(Optimizer):
     """Momentum with top-k sparsified updates and error feedback; plain
     momentum until ``rampup_begin_step``."""
 
+    _elementwise_update = False  # quantile threshold is a full-tensor stat
+
     def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
                  use_nesterov=False, weight_decay=None, grad_clip=None,
                  sparsity=0.999, rampup_begin_step=0, name=None):

@@ -1,5 +1,5 @@
 """Shared functional optimizer-update core (counterpart of
-paddle_tpu/optimizer/functional.py), dense gradients only.
+paddle_tpu/optimizer/functional.py).
 
 One rule (coupled decay, L2 ``g + wd * p`` or L1 ``g + wd * sign(p)``, the
 optimizer's ``update_many``, decoupled AdamW decay, gated by
@@ -13,12 +13,20 @@ The learning rate and the step number are 0-dim tensors on the
 parameters' device (numbers are turned into such tensors), so that a step
 captured as a CUDA graph reads the values written before each replay
 instead of freezing its first step's.
+
+A ``core.selected_rows.RowSparseGrad`` takes the lazy row update
+(``optimizer.sparse``), as the reference's does; an optimizer whose
+update is not elementwise (``Lamb``, ``LarsMomentum``, ``Dpsgd``,
+``DGCMomentum``: full-tensor norms or statistics) densifies it first.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
+
+from ..core.selected_rows import RowSparseGrad
+from .sparse import lazy_row_update, lazy_row_update_
 
 __all__ = ["decay_flags", "apply_updates", "update_in_place"]
 
@@ -39,6 +47,20 @@ def _device_scalar(x, dtype, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
     return torch.full((), x, dtype=dtype, device=device)
+
+
+def _split_sparse(optimizer, grads):
+    """(dense gradients, row-sparse gradients): a row-sparse gradient is
+    densified for an optimizer whose update is not elementwise."""
+    dense, rows = {}, {}
+    for k, g in grads.items():
+        if isinstance(g, RowSparseGrad):
+            if optimizer._elementwise_update:
+                rows[k] = g
+                continue
+            g = g.to_dense()
+        dense[k] = g
+    return dense, rows
 
 
 def _update_group(optimizer, ps, gs, states, lr, step, key):
@@ -72,6 +94,13 @@ def apply_updates(optimizer, params: dict, grads: dict, opt_state: dict,
     parameters only.  ``lr_mults`` maps a key to its learning-rate
     multiplier, ``regs`` to its own (coefficient, L1?) coupled decay in
     place of the optimizer's."""
+    grads, rows = _split_sparse(optimizer, grads)
+    new_params = dict(params)
+    new_opt = dict(opt_state)
+    for k, g in rows.items():
+        new_params[k], new_opt[k] = lazy_row_update(
+            optimizer, params[k], g, opt_state[k], lr, step_no,
+            decay.get(k, True), (lr_mults or {}).get(k, 1.0))
     if grads:
         dev = params[next(iter(grads))].device
         lr = _device_scalar(lr, torch.float32, dev)
@@ -82,8 +111,6 @@ def apply_updates(optimizer, params: dict, grads: dict, opt_state: dict,
         dec = decay.get(k, True) and params[k].is_floating_point()
         key = (dec, (regs or {}).get(k, own), (lr_mults or {}).get(k, 1.0))
         groups.setdefault(key, []).append(k)
-    new_params = dict(params)
-    new_opt = dict(opt_state)
     for key, keys in groups.items():
         new_p, new_s = _update_group(
             optimizer, [params[k] for k in keys], [grads[k] for k in keys],
@@ -102,7 +129,12 @@ def update_in_place(optimizer, params: dict, grads: dict, opt_state: dict,
     the whole update would hold several copies of the entire state at
     once.  With ``ok`` (a 0-dim bool tensor), every value keeps its old
     value where ``ok`` is False (the step guard).  Element for element the
-    same arithmetic as ``apply_updates``."""
+    same arithmetic as ``apply_updates``; a row-sparse gradient's rows are
+    written in place by the lazy row update."""
+    grads, rows = _split_sparse(optimizer, grads)
+    for k, g in rows.items():
+        lazy_row_update_(optimizer, params[k], g, opt_state[k], lr, step_no,
+                         decay.get(k, True), ok=ok)
     chunks, size = [[]], 0
     for k in grads:
         if chunks[-1] and size + grads[k].numel() > _CHUNK:

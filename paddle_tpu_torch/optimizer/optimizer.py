@@ -25,7 +25,10 @@ step count, the eager step's slots (``param{i}.{slot}``) and the
 scheduler's state (``"LR_Scheduler"``) under the reference's keys.
 Constructors take the reference's parameters in its order;
 ``multi_precision``, ``lazy_mode`` and AdamW's ``lr_ratio`` are taken and
-change nothing for dense gradients, as in the reference.
+change nothing, as in the reference: a row-sparse gradient
+(``Embedding(sparse=True)``, a sparse COO ``.grad``) always takes the
+lazy row update of ``optimizer.sparse`` (only its rows and their slots
+move), a dense one never does.
 """
 from __future__ import annotations
 
@@ -34,7 +37,9 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..core.selected_rows import RowSparseGrad
 from .lr import LRScheduler
+from .sparse import lazy_row_update_
 
 __all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adamax",
            "Adagrad", "RMSProp", "Adadelta", "Lamb", "LarsMomentum",
@@ -95,6 +100,10 @@ def _per(ts, values):
 class Optimizer:
     """Base optimizer with Paddle's eager API (step / clear_grad /
     minimize)."""
+
+    # a row-sparse gradient takes the lazy row update; an optimizer whose
+    # update reads whole tensors (norms, statistics) densifies it first
+    _elementwise_update = True
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None,
@@ -160,6 +169,30 @@ class Optimizer:
             self._step_count += 1
             return
         grads = [p.grad for p in params]
+        # row-sparse gradients take the lazy row update (the reference's
+        # SelectedRows path); a grad_clip or an update that reads whole
+        # tensors densifies them first
+        sparse = [i for i, g in enumerate(grads) if g.is_sparse]
+        if sparse and (self._grad_clip is not None
+                       or not self._elementwise_update):
+            for i in sparse:
+                grads[i] = grads[i].to_dense()
+            sparse = []
+        if sparse:
+            lr = _f32(self.get_lr())
+            for i in reversed(sparse):
+                p = params[i]
+                if id(p) not in self._states:
+                    self._states[id(p)] = self.init_state(p.detach())
+                lazy_row_update_(self, p, RowSparseGrad.of(grads[i]),
+                                 self._states[id(p)], lr,
+                                 self._step_count + 1,
+                                 self._decay_applies(_param_name(p)),
+                                 _lr_mult(p))
+                del params[i], grads[i]
+            if not params:
+                self._step_count += 1
+                return
         if self._grad_clip is not None:
             grads = [g for _, g in self._grad_clip(list(zip(params, grads)))]
         self._step_count += 1
@@ -480,6 +513,8 @@ class Lamb(Optimizer):
     the reference, ``exclude_from_weight_decay_fn`` is kept and not
     read."""
 
+    _elementwise_update = False  # trust ratio needs full-tensor norms
+
     def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
                  beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,
                  grad_clip=None, exclude_from_weight_decay_fn=None,
@@ -519,6 +554,8 @@ class Lamb(Optimizer):
 class LarsMomentum(Optimizer):
     """Momentum with a per-tensor local learning rate (reference:
     operators/optimizers/lars_momentum_op)."""
+
+    _elementwise_update = False  # local lr needs full-tensor norms
 
     def __init__(self, learning_rate=0.001, momentum=0.9,
                  lars_coeff=0.001, lars_weight_decay=0.0005,
@@ -585,6 +622,8 @@ class Dpsgd(Optimizer):
     (``core.rng.current_generator``: the training step's generator inside
     ``jit.TrainStep``, else the device's default one, both seeded by
     ``paddle_tpu_torch.seed``); it is not the reference's stream."""
+
+    _elementwise_update = False  # per-tensor l2 norm
 
     def __init__(self, learning_rate=0.001, clip=0.9, batch_size=0.999,
                  sigma=0.9, parameters=None, weight_decay=None,

@@ -312,15 +312,18 @@ def poison_grads(grads, step_no, window: Tuple[int, int]):
     """Every gradient times NaN where the 0-dim device step number
     ``step_no`` lies in ``window`` (times 1 elsewhere): device ops only,
     no host read."""
+    from ..core.selected_rows import RowSparseGrad
     a, b = window
     bad = (step_no >= a) & (step_no < b)
-    out = {}
-    for k, g in grads.items():
+
+    def leaf(g):
+        if isinstance(g, RowSparseGrad):   # poisoned through its values
+            return RowSparseGrad(g.rows, leaf(g.values), g.dense_shape)
         factor = torch.where(bad, torch.full((), float("nan"), dtype=g.dtype,
                                              device=g.device),
                              torch.ones((), dtype=g.dtype, device=g.device))
-        out[k] = g * factor
-    return out
+        return g * factor
+    return {k: leaf(g) for k, g in grads.items()}
 
 
 def replica_crash_config() -> Optional[Tuple[int, int]]:

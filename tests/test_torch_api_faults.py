@@ -22,7 +22,6 @@ import paddle_tpu_torch.nn as tnn
 import paddle_tpu_torch.nn.functional as TF
 from paddle_tpu_torch import amp as tamp
 from paddle_tpu_torch.core import rng
-from paddle_tpu_torch.core.errors import UnimplementedError
 
 
 def _params(fn):
@@ -134,19 +133,31 @@ def test_embedding_padding_idx_zeroes_that_row_and_its_gradient():
 
 
 def test_embedding_parts_not_ported_are_refused():
-    """Row-sparse gradients are still refused; ``weight_attr`` is ported
-    (``ParamAttr``) and now sets the table's initializer."""
-    with pytest.raises(UnimplementedError, match="item 4"):
-        tnn.Embedding(10, 4, None, True)
+    """Row-sparse gradients are ported: ``Embedding(..., sparse=True)``
+    (by position, as the reference's) marks its weight ``sparse_grad``
+    and the functional form's gradient is row-sparse.  ``weight_attr`` is
+    ported (``ParamAttr``) and sets the table's initializer.  Float ids
+    and a weight that is not 2-D are refused with the reference's typed
+    ``InvalidArgumentError``."""
+    from paddle_tpu.core.errors import InvalidArgumentError as JInvalid
+    from paddle_tpu_torch.core.errors import InvalidArgumentError
+    te = tnn.Embedding(10, 4, None, True, device="cpu")
+    assert te.weight.sparse_grad
     from paddle_tpu_torch import ParamAttr
     te = tnn.Embedding(10, 4, weight_attr=ParamAttr(
         initializer=tnn.initializer.Constant(0.5)), device="cpu")
     assert torch.equal(te.weight.detach(), torch.full((10, 4), 0.5))
-    w = torch.zeros(10, 4)
-    with pytest.raises(UnimplementedError, match="item 4"):
-        TF.embedding(torch.zeros(2, dtype=torch.long), w, None, True)
-    with pytest.raises(TypeError):
-        TF.embedding(torch.zeros(2), w)
+    w = torch.zeros(10, 4, requires_grad=True)
+    TF.embedding(torch.zeros(2, dtype=torch.long), w, None, True).sum() \
+        .backward()
+    assert w.grad.is_sparse
+    for ids, weight in ((torch.zeros(2), w), (torch.zeros(2, dtype=torch.long),
+                                              torch.zeros(10))):
+        with pytest.raises(InvalidArgumentError):
+            TF.embedding(ids, weight)
+        with pytest.raises(JInvalid):
+            JF.embedding(paddle.to_tensor(ids.numpy()),
+                         paddle.to_tensor(weight.detach().numpy()))
 
 
 # ------------------------------------------------------- dropout, CE
@@ -204,9 +215,9 @@ def test_dropout_axis_and_modes_as_the_reference():
 def test_cross_entropy_never_reads_a_weight_as_ignore_index():
     """``cross_entropy(x, y, w)`` with a class weight: the reference
     weighs the classes; the port once took ``w`` for ``ignore_index``.
-    The class-weight path is not ported yet, so the port refuses it,
-    typed.  The hard-label path takes the reference's keywords and equals
-    the reference's loss."""
+    The class-weight path and the other generic paths are ported and
+    equal the reference's loss (1e-6); the hard-label path takes the
+    reference's keywords and equals the reference's loss."""
     r = np.random.RandomState(0)
     xs = r.randn(6, 5).astype(np.float32)
     ys = r.randint(0, 5, (6,)).astype(np.int64)
@@ -217,12 +228,18 @@ def test_cross_entropy_never_reads_a_weight_as_ignore_index():
                                 paddle.to_tensor(ys)).numpy())
     assert np.isfinite(jw) and jw != jp
     tx, ty = torch.as_tensor(xs), torch.as_tensor(ys)
-    with pytest.raises(UnimplementedError, match="class weight"):
-        TF.cross_entropy(tx, ty, torch.as_tensor(w))
-    for kw in (dict(soft_label=True), dict(axis=0), dict(use_softmax=False),
+    np.testing.assert_allclose(
+        float(TF.cross_entropy(tx, ty, torch.as_tensor(w))), jw, rtol=1e-6)
+    for kw in (dict(axis=0), dict(use_softmax=False),
                dict(label_smoothing=0.1)):
-        with pytest.raises(UnimplementedError, match="item 4"):
-            TF.cross_entropy(tx, ty, **kw)
+        x = np.abs(xs) if "use_softmax" in kw else xs
+        y = ys[:5] if "axis" in kw else ys
+        x = x[:, :5] if "axis" in kw else x
+        ref = JF.cross_entropy(paddle.to_tensor(x), paddle.to_tensor(y),
+                               **kw).numpy()
+        got = TF.cross_entropy(torch.as_tensor(x), torch.as_tensor(y),
+                               **kw).numpy()
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
     for red in ("mean", "sum", "none"):
         ref = JF.cross_entropy(paddle.to_tensor(xs), paddle.to_tensor(ys),
                                None, 2, red, False, -1, True, 0.0).numpy()

@@ -2316,3 +2316,170 @@ def test_a_set_saved_on_the_card_boots_a_worker_without_nvcc(
     finally:
         fleet.close()
         solo.close()
+
+
+# ---------------------------------------------------------------------------
+# row-sparse gradients, exported training programs (DLRM, TrainSession)
+# ---------------------------------------------------------------------------
+
+def test_merge_rows_and_lazy_update_captured_equal_eager(cuda):
+    """merge_rows and the in-place lazy row update recorded in a CUDA
+    graph (no host read in either) and replayed: equal to the eager calls
+    on the same inputs; rows no lookup touched bit-equal.  index_add_
+    sums a row's duplicates by atomics in any order, and the hottest row
+    of a zipf draw repeats about a hundred times: the merged sums, and the
+    rows and moments they move, within 1e-5."""
+    from paddle_tpu_torch.core.selected_rows import RowSparseGrad
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.optimizer.sparse import lazy_row_update_, merge_rows
+    rng = np.random.RandomState(3)
+    height, width, n = 5000, 16, 512
+    rows = torch.from_numpy((rng.zipf(1.3, n) - 1) % height).to(cuda)
+    vals = torch.from_numpy(rng.randn(n, width).astype(np.float32)).to(cuda)
+    w0 = torch.from_numpy(rng.randn(height, width).astype(np.float32))
+    opt = Adam(1e-2)
+
+    def run(captured):
+        p = w0.to(cuda)
+        state = opt.init_state(p)
+        lr = torch.full((), 1e-2, device=cuda)
+        step = torch.full((), 1, dtype=torch.int32, device=cuda)
+        grad = RowSparseGrad(rows, vals, p.shape)
+
+        def fn():
+            lazy_row_update_(opt, p, grad, state, lr, step)
+            return merge_rows(rows, vals, height)
+        if not captured:
+            return fn(), p, state
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()                        # warm run (a real update)
+        torch.cuda.current_stream().wait_stream(side)
+        p.copy_(w0.to(cuda))
+        for t in state.values():
+            t.zero_()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn()
+        p.copy_(w0.to(cuda))
+        for t in state.values():
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        return out, p, state
+    (ue, se), pe, ste = run(False)
+    (uc, sc), pc, stc = run(True)
+    assert torch.equal(ue, uc)
+    torch.testing.assert_close(sc, se, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(pc, pe, rtol=1e-5, atol=1e-5)
+    for k in ste:
+        torch.testing.assert_close(stc[k], ste[k], rtol=1e-5, atol=1e-5)
+    touched = torch.zeros(height, dtype=torch.bool, device=cuda)
+    touched[rows] = True
+    assert torch.equal(pc[~touched], w0.to(cuda)[~touched])
+    assert bool((pc[touched] != w0.to(cuda)[touched]).any(1).all())
+
+
+def _dlrm_step(cuda, uncaptured):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (DLRM, DLRMConfig, DLRMCriterion)
+    cfg = DLRMConfig(dense_dim=13, vocab_sizes=(1000, 20, 30000, 7),
+                     embedding_dim=16, bottom_mlp=(64,), top_mlp=(64,))
+    model = DLRM(cfg, device=cuda, seed=2)
+    step = TrainStep(model, DLRMCriterion(), pt.optimizer.Adam(
+        1e-2, parameters=model.parameters()))
+    step._run_uncaptured = uncaptured
+    rng = np.random.RandomState(4)
+    losses = []
+    for _ in range(3):
+        b = (torch.from_numpy(rng.randn(32, 13).astype(np.float32)),
+             torch.from_numpy(np.stack([(rng.zipf(1.2, 32) - 1) % v
+                                        for v in cfg.vocab_sizes], 1)),
+             torch.from_numpy((rng.rand(32, 1) < 0.25).astype(np.float32)))
+        losses.append(float(step(*(t.to(cuda) for t in b))))
+    return losses, {k: v.clone() for k, v in model.state_dict().items()}, \
+        step
+
+
+def test_sparse_train_step_captured_equals_uncaptured(cuda):
+    """A sparse DLRM TrainStep (the lookups' zero leaves and the lazy row
+    update inside the step program) replayed from its CUDA graph against
+    the same steps uncaptured: losses and state within 1e-5 (the merge
+    sums a row's duplicates by atomics in any order), one capture."""
+    got = _dlrm_step(cuda, False)
+    want = _dlrm_step(cuda, True)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-5)
+    for k, v in got[1].items():
+        torch.testing.assert_close(v, want[1][k], rtol=1e-5, atol=1e-5)
+    assert got[2].compile_counts()["total"] == 1
+    assert next(iter(got[2]._programs.values())).graph is not None
+
+
+def test_train_session_runs_the_flash_kernels(cuda, tmp_path):
+    """A tiny f32 GPT's exported training program on the card: its
+    gradients through the loaded program (K1 the operator node, K2 its
+    registered backward) within 2e-5 of the eager model's (K1 / K2 through
+    the autograd Function), one K1 and one K2 launch per layer each way;
+    TrainSession's captured steps launch them through the replays and
+    follow TrainStep's losses within 2e-5."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit import (TrainSession, TrainStep,
+                                      save_train_program)
+    from paddle_tpu_torch.models import (GPTConfig, GPTForPretraining,
+                                         GPTPretrainingCriterion)
+    from paddle_tpu_torch.ops import flash_attention as fa
+    cfg = dict(TRAIN_GPT, hidden_dropout_prob=0.0,
+               attention_probs_dropout_prob=0.0)
+    layers = cfg["num_hidden_layers"]
+
+    def make():
+        pt.seed(0)
+        model = GPTForPretraining(GPTConfig(**cfg), device=cuda, seed=5)
+        crit = GPTPretrainingCriterion()
+        return model, (lambda lg, y: crit(lg, y)), pt.optimizer.AdamW(
+            1e-3, parameters=model.parameters())
+    batches = _train_batches(cuda, "gpt", 3, 2)
+    model, fn, opt = make()
+    save_train_program(model, fn, opt, str(tmp_path / "gpt"),
+                       [((2, 256), "int64"), ((2, 256), "int64")])
+    sess = TrainSession(str(tmp_path / "gpt"), device=cuda)
+    # gradients: the loaded program against the eager model
+    base = _launch_counts()
+    # copies: an autograd graph kept alive over the session's own leaves
+    # would hold their accumulators on this stream into the capture
+    params = {k: sess._state[k].detach().clone().requires_grad_()
+              for k in sess._trainable}
+    buffers = {k: v.detach() for k, v in sess._state.items()
+               if k not in params}
+    loss, _ = sess._module(params, buffers,
+                           torch.zeros(2, dtype=torch.int64, device=cuda),
+                           {}, *batches[0])
+    grads = torch.autograd.grad(loss, list(params.values()))
+    counts = {k: v - base[k] for k, v in _launch_counts().items()}
+    assert counts["flash_fwd"] == counts["flash_bwd"] == layers
+    base = _launch_counts()
+    eager = fn(model(batches[0][0]), batches[0][1])
+    eager.backward()
+    counts = {k: v - base[k] for k, v in _launch_counts().items()}
+    assert counts["flash_fwd"] == counts["flash_bwd"] == layers
+    torch.testing.assert_close(loss, eager, rtol=2e-5, atol=2e-5)
+    named = dict(model.named_parameters())
+    for k, g in zip(params, grads):
+        torch.testing.assert_close(g, named[k].grad, rtol=2e-5, atol=2e-5,
+                                   msg=k)
+    del loss, grads, eager
+    # steps: the session's captured replays against TrainStep
+    model2, fn2, opt2 = make()
+    step = TrainStep(model2, fn2, opt2)
+    got, want = [], []
+    for i, b in enumerate(batches):
+        base = _launch_counts()
+        got.append(sess.step(*b))
+        counts = {k: v - base[k] for k, v in _launch_counts().items()}
+        if i:   # the first step's capture runs a warm step too
+            assert counts["flash_fwd"] == counts["flash_bwd"] == layers
+        want.append(float(step(*b)))
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    assert next(iter(sess._programs.values())).graph is not None
