@@ -8,6 +8,12 @@ kw) layout, which is torch's own.  AMP white-listed.  Under
 weight in channels-last memory, and its output stays channels-last.
 ``data_format="NHWC"`` takes (N, H, W, C) inputs and returns (N, Ho, Wo,
 C): both are free permutes of channels-last memory.
+
+``padding`` takes the reference's forms (``_padding``): an int, a list
+per spatial axis, a 2n-list ``[lo, hi, ...]``, the list of pairs over
+every axis, or ``"SAME"`` / ``"VALID"``.  Symmetric paddings go to torch's
+``padding=``; any other becomes one explicit zero pad before the
+convolution.
 """
 from __future__ import annotations
 
@@ -16,35 +22,55 @@ import torch
 from ...amp import amp_cast
 from ...core import layout as _layout
 from ...core.errors import InvalidArgumentError
+from . import _padding as P
 
 __all__ = ["conv2d"]
 
-
-def _pair(v):
-    return tuple(int(i) for i in v) if isinstance(v, (list, tuple)) \
-        else (int(v), int(v))
+_CONV = {1: torch.nn.functional.conv1d, 2: torch.nn.functional.conv2d,
+         3: torch.nn.functional.conv3d}
 
 
-def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
-           data_format="NCHW"):
-    x, weight, bias = amp_cast("conv2d", x, weight, bias)
-    if x.dim() != 4:
+def _to_nc(x, n):
+    """(N, *spatial, C) -> (N, C, *spatial), a free permute."""
+    return x.permute(0, n + 1, *range(1, n + 1))
+
+
+def _from_nc(y, n):
+    return y.permute(0, *range(2, n + 2), 1)
+
+
+def _conv(x, weight, bias, stride, padding, dilation, groups, n,
+          data_format):
+    name = f"conv{n}d"
+    x, weight, bias = amp_cast(name, x, weight, bias)
+    if x.dim() != n + 2:
         raise InvalidArgumentError(
-            f"[conv2d] expected a rank-4 input ({data_format}), got shape "
-            f"{tuple(x.shape)}")
-    channel_last = data_format == "NHWC"
+            f"[{name}] expected a rank-{n + 2} input ({data_format}), got "
+            f"shape {tuple(x.shape)}")
+    channel_last = not data_format.startswith("NC")
     if channel_last:
-        x = x.permute(0, 3, 1, 2)
-    if channel_last or _layout.policy() == _layout.NHWC:
+        x = _to_nc(x, n)
+    if n == 2 and (channel_last or _layout.policy() == _layout.NHWC):
         cl = torch.channels_last
         x = x.contiguous(memory_format=cl)
         weight = weight.contiguous(memory_format=cl)
     if weight.shape[1] * groups != x.shape[1]:
         raise InvalidArgumentError(
-            f"[conv2d] input channels {x.shape[1]} != weight in_channels "
+            f"[{name}] input channels {x.shape[1]} != weight in_channels "
             f"{weight.shape[1]} * groups {groups} (weight shape "
-            f"{tuple(weight.shape)}, layout (out_c, in_c/groups, kh, kw))")
-    out = torch.nn.functional.conv2d(x, weight, bias, _pair(stride),
-                                     _pair(padding), _pair(dilation),
-                                     groups)
-    return out.permute(0, 2, 3, 1) if channel_last else out
+            f"{tuple(weight.shape)}, layout (out_c, in_c/groups, *k))")
+    stride, dilation = P.tup(stride, n), P.tup(dilation, n)
+    extents = [(k - 1) * d + 1 for k, d in zip(weight.shape[2:], dilation)]
+    prs = P.pairs(P.spec(padding, n, data_format, full=True),
+                  x.shape[2:], extents, stride)
+    pad = P.torch_padding(prs)
+    if pad is None:
+        x, pad = P.pad_input(x, prs), 0
+    out = _CONV[n](x, weight, bias, stride, pad, dilation, groups)
+    return _from_nc(out, n) if channel_last else out
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW"):
+    return _conv(x, weight, bias, stride, padding, dilation, groups, 2,
+                 data_format)

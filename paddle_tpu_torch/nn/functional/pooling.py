@@ -5,6 +5,14 @@ outside any Pallas kernel; avg pooling counts exclusively (padding left
 out of the divisor) by default, as Paddle's.  Channels-last memory flows
 through; ``data_format="NHWC"`` takes (N, H, W, C) as a free permute.
 Under O2 AMP the input is cast to the low type, under O1 not.
+
+``padding`` takes the reference's forms (``_pad_spec``): an int, a list
+per spatial axis, a 2n-list ``[lo, hi, ...]`` or ``"SAME"`` / ``"VALID"``.
+Symmetric paddings within half the window go to torch's ``padding=``; any
+other becomes one explicit pad before the pool: -inf for a max, zeros for
+an average, whose exclusive divisor then counts the unpadded positions of
+each window.  With a string padding the reference divides an average by
+the whole window, exclusive or not, and so does the port.
 """
 from __future__ import annotations
 
@@ -12,21 +20,53 @@ import torch
 
 from ...amp import amp_cast
 from ...core.errors import UnimplementedError
+from . import _padding as P
 
 __all__ = ["max_pool2d", "avg_pool2d", "adaptive_avg_pool2d"]
 
-
-def _pair(v):
-    return tuple(int(i) for i in v) if isinstance(v, (list, tuple)) \
-        else (int(v), int(v))
-
-
-def _nchw(x, data_format):
-    return x.permute(0, 3, 1, 2) if data_format == "NHWC" else x
+_TF = torch.nn.functional
+_MAX = {1: _TF.max_pool1d, 2: _TF.max_pool2d, 3: _TF.max_pool3d}
+_AVG = {1: _TF.avg_pool1d, 2: _TF.avg_pool2d, 3: _TF.avg_pool3d}
 
 
-def _back(y, data_format):
-    return y.permute(0, 2, 3, 1) if data_format == "NHWC" else y
+def _nc(x, n, data_format):
+    """(N, C, *spatial) of x, a free permute for a channels-last format."""
+    if data_format.startswith("NC"):
+        return x
+    return x.permute(0, n + 1, *range(1, n + 1))
+
+
+def _back(y, n, data_format):
+    if data_format.startswith("NC"):
+        return y
+    return y.permute(0, *range(2, n + 2), 1)
+
+
+def _pool(x, kernel, stride, padding, n, data_format, kind,
+          exclusive=True):
+    (x,) = amp_cast(f"{kind}_pool{n}d", x)
+    k = P.tup(kernel, n)
+    s = P.tup(stride if stride is not None else kernel, n)
+    sp = P.spec(padding, n)
+    xc = _nc(x, n, data_format)
+    prs = P.pairs(sp, xc.shape[2:], k, s)
+    pad = P.torch_padding(prs, k)
+    if kind == "max":
+        if pad is None:
+            xc, pad = P.pad_input(xc, prs, float("-inf")), 0
+        y = _MAX[n](xc, k, s, pad)
+    elif isinstance(sp, str) or not exclusive:
+        # the whole window divides: zeros padded in, then counted
+        y = _AVG[n](P.pad_input(xc, prs), k, s, 0)
+    elif pad is not None:
+        y = _AVG[n](xc, k, s, pad, count_include_pad=False)
+    else:
+        # exclusive over an asymmetric pad: the divisor is the count of
+        # unpadded positions in each window
+        ones = P.pad_input(torch.ones((1, 1) + tuple(xc.shape[2:]),
+                                      dtype=xc.dtype, device=xc.device), prs)
+        y = _AVG[n](P.pad_input(xc, prs), k, s, 0) / _AVG[n](ones, k, s, 0)
+    return _back(y, n, data_format)
 
 
 def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
@@ -34,27 +74,30 @@ def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
     if return_mask:
         raise UnimplementedError("max_pool2d(return_mask=True) comes with a "
                                  "later slice of the port")
-    (x,) = amp_cast("max_pool2d", x)
-    k = _pair(kernel_size)
-    s = _pair(stride) if stride is not None else k
-    y = torch.nn.functional.max_pool2d(_nchw(x, data_format), k, s,
-                                       _pair(padding), ceil_mode=ceil_mode)
-    return _back(y, data_format)
+    if ceil_mode:
+        (x,) = amp_cast("max_pool2d", x)
+        k = P.tup(kernel_size, 2)
+        s = P.tup(stride, 2) if stride is not None else k
+        y = _TF.max_pool2d(_nc(x, 2, data_format), k, s, P.tup(padding, 2),
+                           ceil_mode=True)
+        return _back(y, 2, data_format)
+    return _pool(x, kernel_size, stride, padding, 2, data_format, "max")
 
 
 def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                exclusive=True, data_format="NCHW"):
-    (x,) = amp_cast("avg_pool2d", x)
-    k = _pair(kernel_size)
-    s = _pair(stride) if stride is not None else k
-    y = torch.nn.functional.avg_pool2d(
-        _nchw(x, data_format), k, s, _pair(padding), ceil_mode=ceil_mode,
-        count_include_pad=not exclusive)
-    return _back(y, data_format)
+    if ceil_mode:
+        (x,) = amp_cast("avg_pool2d", x)
+        k = P.tup(kernel_size, 2)
+        s = P.tup(stride, 2) if stride is not None else k
+        y = _TF.avg_pool2d(_nc(x, 2, data_format), k, s, P.tup(padding, 2),
+                           ceil_mode=True, count_include_pad=not exclusive)
+        return _back(y, 2, data_format)
+    return _pool(x, kernel_size, stride, padding, 2, data_format, "avg",
+                 exclusive)
 
 
 def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
     (x,) = amp_cast("adaptive_avg_pool2d", x)
-    y = torch.nn.functional.adaptive_avg_pool2d(_nchw(x, data_format),
-                                                output_size)
-    return _back(y, data_format)
+    y = _TF.adaptive_avg_pool2d(_nc(x, 2, data_format), output_size)
+    return _back(y, 2, data_format)

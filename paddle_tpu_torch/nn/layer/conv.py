@@ -19,6 +19,7 @@ import torch
 from ...core.errors import InvalidArgumentError
 from .. import functional as F
 from .. import initializer as I
+from ..functional import _padding as P
 from ..layer_base import Layer
 
 __all__ = ["Conv2D"]
@@ -58,16 +59,18 @@ class Conv2D(Layer):
     def forward(self, x):
         padding = self.padding
         if self.padding_mode != "zeros":
-            ph, pw = (tuple(int(p) for p in padding)
-                      if isinstance(padding, (list, tuple))
-                      else (int(padding),) * 2)
-            nhwc = self.data_format == "NHWC"
-            if nhwc:
-                x = x.permute(0, 3, 1, 2)
-            x = torch.nn.functional.pad(x, (pw, pw, ph, ph),
-                                        mode=self.padding_mode)
-            if nhwc:
-                x = x.permute(0, 2, 3, 1)
+            # Paddle's padding modes: the input padded first, then an
+            # unpadded convolution
+            nc = self.data_format.startswith("NC")
+            xc = x if nc else x.permute(0, 3, 1, 2)
+            st = P.tup(self.stride, 2)
+            ext = [(k - 1) * d + 1 for k, d in
+                   zip(self.kernel_size, P.tup(self.dilation, 2))]
+            prs = P.pairs(P.spec(padding, 2, self.data_format, full=True),
+                          xc.shape[2:], ext, st)
+            flat = [v for lo_hi in reversed(prs) for v in lo_hi]
+            xc = torch.nn.functional.pad(xc, flat, mode=self.padding_mode)
+            x = xc if nc else xc.permute(0, 2, 3, 1)
             padding = 0
         return F.conv2d(x, self.weight, self.bias, self.stride, padding,
                         self.dilation, self.groups, self.data_format)

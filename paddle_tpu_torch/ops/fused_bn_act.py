@@ -587,8 +587,8 @@ def _pool_norm(pool):
 def fusable_pool_spec(layer, data_format="NCHW"):
     """(kind, kernel, stride, padding) when ``layer`` is a stock MaxPool2D
     the fused BN/act epilogue can express (exact type, no ceil_mode /
-    return_mask, no hooks, the norm's data_format), else None: the caller
-    then runs the layer itself."""
+    return_mask, no hooks, the norm's data_format, an int or per-axis
+    padding), else None: the caller then runs the layer itself."""
     from ..nn.layer.pooling import MaxPool2D
     if type(layer) is not MaxPool2D:
         return None
@@ -597,6 +597,9 @@ def fusable_pool_spec(layer, data_format="NCHW"):
         return None
     if layer._forward_pre_hooks or layer._forward_hooks:
         return None
+    p = layer.padding
+    if isinstance(p, str) or (isinstance(p, (list, tuple)) and len(p) != 2):
+        return None   # "SAME" / "VALID" or [lo, hi, ...]: the layer runs
     return ("max", layer.kernel_size,
             layer.stride if layer.stride is not None else layer.kernel_size,
             layer.padding)

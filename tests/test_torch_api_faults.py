@@ -246,3 +246,76 @@ def test_cross_entropy_never_reads_a_weight_as_ignore_index():
         got = TF.cross_entropy(tx, ty, None, 2, red, False, 1, True,
                                0.0).numpy()
         np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+
+
+# ----------------------------------------------- conv and pool paddings
+
+PAD_FORMS = [1, [1, 2], [1, 0, 1, 0], [0, 2, 1, 1], "SAME", "same", "VALID"]
+
+
+def _pad_ids(p):
+    return str(p).replace(" ", "")
+
+
+def _np_rand(shape, seed):
+    return np.random.RandomState(seed).randn(*shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("padding", PAD_FORMS, ids=_pad_ids)
+@pytest.mark.parametrize("stride", [1, 2])
+def test_conv2d_takes_every_reference_padding(padding, stride):
+    """The reference's string and 2n-list paddings (lax's "SAME" for any
+    stride), held at 1e-5; on an 8x8 input with a 3x3 kernel "SAME"
+    gives 8x8, "VALID" 6x6 and [1, 0, 1, 0] 7x7 at stride 1."""
+    x, w = _np_rand((2, 3, 8, 8), 0), _np_rand((4, 3, 3, 3), 1)
+    b = _np_rand((4,), 2)
+    ref = JF.conv2d(paddle.to_tensor(x), paddle.to_tensor(w),
+                    paddle.to_tensor(b), stride, padding).numpy()
+    got = TF.conv2d(torch.as_tensor(x), torch.as_tensor(w),
+                    torch.as_tensor(b), stride, padding).numpy()
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    if stride == 1:
+        want = {"SAME": 8, "same": 8, "VALID": 6}.get(str(padding))
+        if padding == [1, 0, 1, 0]:
+            want = 7
+        assert want is None or got.shape[-2:] == (want, want)
+    layer = tnn.Conv2D(3, 4, 3, stride, padding)
+    layer.weight.data.copy_(torch.as_tensor(w))
+    layer.bias.data.copy_(torch.as_tensor(b))
+    np.testing.assert_allclose(layer(torch.as_tensor(x)).detach().numpy(),
+                               ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("padding", PAD_FORMS, ids=_pad_ids)
+@pytest.mark.parametrize("kind", ["max", "avg", "avg_inclusive"])
+def test_pool2d_takes_every_reference_padding(padding, kind):
+    """Max pools pad -inf; an exclusive average's divisor counts only the
+    unpadded positions of an asymmetric window; with a string padding the
+    reference divides by the whole window, as the port does."""
+    x = _np_rand((2, 3, 9, 8), 3)
+    kw = {}
+    if kind == "max":
+        jf, tf = JF.max_pool2d, TF.max_pool2d
+    else:
+        jf, tf = JF.avg_pool2d, TF.avg_pool2d
+        kw = dict(exclusive=kind == "avg")
+    ref = jf(paddle.to_tensor(x), 3, 2, padding, **kw).numpy()
+    got = tf(torch.as_tensor(x), 3, 2, padding, **kw).numpy()
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    if kind == "max":
+        layer = tnn.MaxPool2D(3, 2, padding)
+        np.testing.assert_allclose(layer(torch.as_tensor(x)).numpy(), ref,
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_nested_paddings_are_refused_as_the_reference_does():
+    x, w = _np_rand((1, 2, 6, 6), 4), _np_rand((2, 2, 3, 3), 5)
+    nested = [[0, 0], [0, 0], [1, 1], [1, 1]]   # length 2n: refused
+    with pytest.raises(TypeError):
+        JF.conv2d(paddle.to_tensor(x), paddle.to_tensor(w), padding=nested)
+    with pytest.raises(TypeError):
+        TF.conv2d(torch.as_tensor(x), torch.as_tensor(w), padding=nested)
+    with pytest.raises(TypeError):
+        TF.max_pool2d(torch.as_tensor(x), 2, 2, [[1, 1], [1, 1]])
