@@ -13,6 +13,9 @@ other becomes one explicit pad before the pool: -inf for a max, zeros for
 an average, whose exclusive divisor then counts the unpadded positions of
 each window.  With a string padding the reference divides an average by
 the whole window, exclusive or not, and so does the port.
+
+``ceil_mode`` is taken and changes nothing, as in the reference (whose
+``_pool`` never reads it): the output length is always floor division's.
 """
 from __future__ import annotations
 
@@ -74,25 +77,11 @@ def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
     if return_mask:
         raise UnimplementedError("max_pool2d(return_mask=True) comes with a "
                                  "later slice of the port")
-    if ceil_mode:
-        (x,) = amp_cast("max_pool2d", x)
-        k = P.tup(kernel_size, 2)
-        s = P.tup(stride, 2) if stride is not None else k
-        y = _TF.max_pool2d(_nc(x, 2, data_format), k, s, P.tup(padding, 2),
-                           ceil_mode=True)
-        return _back(y, 2, data_format)
     return _pool(x, kernel_size, stride, padding, 2, data_format, "max")
 
 
 def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                exclusive=True, data_format="NCHW"):
-    if ceil_mode:
-        (x,) = amp_cast("avg_pool2d", x)
-        k = P.tup(kernel_size, 2)
-        s = P.tup(stride, 2) if stride is not None else k
-        y = _TF.avg_pool2d(_nc(x, 2, data_format), k, s, P.tup(padding, 2),
-                           ceil_mode=True, count_include_pad=not exclusive)
-        return _back(y, 2, data_format)
     return _pool(x, kernel_size, stride, padding, 2, data_format, "avg",
                  exclusive)
 

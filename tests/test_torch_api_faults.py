@@ -319,3 +319,20 @@ def test_nested_paddings_are_refused_as_the_reference_does():
         TF.conv2d(torch.as_tensor(x), torch.as_tensor(w), padding=nested)
     with pytest.raises(TypeError):
         TF.max_pool2d(torch.as_tensor(x), 2, 2, [[1, 1], [1, 1]])
+
+
+@pytest.mark.parametrize("kind", ["max", "avg"])
+def test_ceil_mode_changes_nothing_as_in_the_reference(kind):
+    """8x8, kernel 3, stride 2, padding 1: 4x4 in the reference with or
+    without ceil_mode (its _pool never reads the flag), so in the port."""
+    x = _np_rand((2, 3, 8, 8), 6)
+    jf = JF.max_pool2d if kind == "max" else JF.avg_pool2d
+    tf = TF.max_pool2d if kind == "max" else TF.avg_pool2d
+    ref = jf(paddle.to_tensor(x), 3, 2, 1, ceil_mode=True).numpy()
+    got = tf(torch.as_tensor(x), 3, 2, 1, ceil_mode=True).numpy()
+    assert ref.shape[-2:] == got.shape[-2:] == (4, 4)
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    if kind == "max":
+        layer = tnn.MaxPool2D(3, 2, 1, ceil_mode=True)
+        np.testing.assert_allclose(layer(torch.as_tensor(x)).numpy(), ref,
+                                   rtol=1e-5, atol=1e-5)
