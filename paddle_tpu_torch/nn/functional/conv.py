@@ -71,6 +71,6 @@ def _conv(x, weight, bias, stride, padding, dilation, groups, n,
 
 
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
-           data_format="NCHW"):
+           data_format="NCHW", name=None):
     return _conv(x, weight, bias, stride, padding, dilation, groups, 2,
                  data_format)

@@ -30,7 +30,7 @@ __all__ = ["layer_norm", "batch_norm", "fused_bn_act", "fused_dual_bn_act",
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None,
-               epsilon: float = 1e-5):
+               epsilon: float = 1e-5, name=None):
     """Population-variance layer norm over the trailing
     ``normalized_shape``; AMP black-listed (f32 under O1)."""
     ns = ((normalized_shape,) if isinstance(normalized_shape, int)
@@ -61,7 +61,7 @@ def _update_running_stats(running_mean, running_var, mean, var, momentum):
 
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-5,
-               data_format="NCHW", use_global_stats=None):
+               data_format="NCHW", use_global_stats=None, name=None):
     """Plain BatchNorm; updates the running statistics when training with
     batch statistics.  AMP black-listed."""
     x, weight, bias = amp_cast("batch_norm", x, weight, bias)
@@ -114,7 +114,7 @@ def _gamma_beta(w, b, nf, like):
 def fused_bn_act(x, running_mean, running_var, weight=None, bias=None,
                  training=True, momentum=0.9, epsilon=1e-5,
                  data_format="NCHW", activation=None, residual=None,
-                 use_global_stats=None, pool=None):
+                 use_global_stats=None, pool=None, name=None):
     """BatchNorm + optional residual-add + activation (+ pool epilogue,
     ``pool=(kind, kernel, stride, padding)``) as one op."""
     from ...ops import fused_bn_act as _k
@@ -162,7 +162,7 @@ def fused_dual_bn_act(x, running_mean_x, running_var_x, weight_x, bias_x,
                       res, running_mean_r, running_var_r, weight_r, bias_r,
                       training=True, momentum=0.9, epsilon=1e-5,
                       data_format="NCHW", activation=None,
-                      use_global_stats=None):
+                      use_global_stats=None, name=None):
     """act(BN_x(x) + BN_r(res)) as one op: the downsample shortcut fused
     into the block's last BatchNorm.  Each BN keeps its own parameters and
     running statistics.  In eval mode, two plain BatchNorms and the

@@ -16,6 +16,7 @@ the whole window, exclusive or not, and so does the port.
 
 ``ceil_mode`` is taken and changes nothing, as in the reference (whose
 ``_pool`` never reads it): the output length is always floor division's.
+``divisor_override`` is taken and read nowhere, as in the reference.
 """
 from __future__ import annotations
 
@@ -73,7 +74,7 @@ def _pool(x, kernel, stride, padding, n, data_format, kind,
 
 
 def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
-               ceil_mode=False, data_format="NCHW"):
+               ceil_mode=False, data_format="NCHW", name=None):
     if return_mask:
         raise UnimplementedError("max_pool2d(return_mask=True) comes with a "
                                  "later slice of the port")
@@ -81,12 +82,13 @@ def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
 
 
 def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
-               exclusive=True, data_format="NCHW"):
+               exclusive=True, divisor_override=None, data_format="NCHW",
+               name=None):
     return _pool(x, kernel_size, stride, padding, 2, data_format, "avg",
                  exclusive)
 
 
-def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
     (x,) = amp_cast("adaptive_avg_pool2d", x)
     y = _TF.adaptive_avg_pool2d(_nc(x, 2, data_format), output_size)
     return _back(y, 2, data_format)

@@ -10,7 +10,8 @@ __all__ = ["MaxPool2D", "AdaptiveAvgPool2D"]
 
 class MaxPool2D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0,
-                 return_mask=False, ceil_mode=False, data_format="NCHW"):
+                 return_mask=False, ceil_mode=False, data_format="NCHW",
+                 name=None):
         super().__init__()
         self.kernel_size, self.stride, self.padding = (kernel_size, stride,
                                                        padding)
@@ -24,7 +25,7 @@ class MaxPool2D(Layer):
 
 
 class AdaptiveAvgPool2D(Layer):
-    def __init__(self, output_size, data_format="NCHW"):
+    def __init__(self, output_size, data_format="NCHW", name=None):
         super().__init__()
         self.output_size, self.data_format = output_size, data_format
 

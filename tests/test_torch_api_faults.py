@@ -336,3 +336,56 @@ def test_ceil_mode_changes_nothing_as_in_the_reference(kind):
         layer = tnn.MaxPool2D(3, 2, 1, ceil_mode=True)
         np.testing.assert_allclose(layer(torch.as_tensor(x)).numpy(), ref,
                                    rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------- conv / pool / norm signatures
+
+def _ref_params(fn):
+    """The reference's parameters in order; a pool layer's ``**kw`` (the
+    functional's keywords, passed through) is what the port spells out."""
+    return [n for n, p in inspect.signature(fn).parameters.items()
+            if p.kind is not p.VAR_KEYWORD]
+
+
+SIGNATURES = [
+    ("F", "conv2d"), ("F", "max_pool2d"), ("F", "avg_pool2d"),
+    ("F", "adaptive_avg_pool2d"), ("F", "batch_norm"), ("F", "layer_norm"),
+    ("F", "fused_bn_act"), ("F", "fused_dual_bn_act"),
+    ("nn", "Conv2D"), ("nn", "MaxPool2D"), ("nn", "AdaptiveAvgPool2D"),
+    ("nn", "BatchNorm2D"), ("nn", "LayerNorm"),
+]
+
+
+@pytest.mark.parametrize("where,name", SIGNATURES,
+                         ids=[f"{w}.{n}" for w, n in SIGNATURES])
+def test_conv_pool_norm_signatures_start_with_the_reference(where, name):
+    """Each function and layer takes the reference's parameters in the
+    reference's order (``name=`` and ``avg_pool2d``'s ``divisor_override``
+    in seventh place included); the port's extras are keywords after
+    them."""
+    ref = getattr(JF if where == "F" else jnn, name)
+    port = getattr(TF if where == "F" else tnn, name)
+    if where == "nn":
+        ref, port = ref.__init__, port.__init__
+    want = _ref_params(ref)
+    got = inspect.signature(port).parameters
+    assert list(got)[:len(want)] == want
+    if any(p.kind is p.VAR_KEYWORD
+           for p in inspect.signature(ref).parameters.values()):
+        return   # the rest are the functional's, which **kw passes on
+    assert all(p.kind is p.KEYWORD_ONLY
+               for p in list(got.values())[len(want):])
+
+
+def test_avg_pool2d_positional_call_written_for_the_reference():
+    x = _np_rand((1, 2, 6, 6), 7)
+    args = (2, 2, 0, False, True, None, "NCHW", "pool")
+    ref = JF.avg_pool2d(paddle.to_tensor(x), *args).numpy()
+    got = TF.avg_pool2d(torch.as_tensor(x), *args).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-6)
+    m, v = np.zeros(2, np.float32), np.ones(2, np.float32)
+    t = [torch.as_tensor(a) for a in (x, m, v)]
+    TF.batch_norm(*t, name="bn")
+    TF.fused_bn_act(*t, name="bn")
+    TF.adaptive_avg_pool2d(t[0], 1, name="gap")
+    tnn.AdaptiveAvgPool2D(1, name="gap")
