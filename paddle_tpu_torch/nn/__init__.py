@@ -1,11 +1,18 @@
 from . import functional, initializer  # noqa: F401
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
                    ClipGradByValue)
-from .layer import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D,  # noqa: F401
-                    Dropout, Embedding, GRUCell, LayerList, LayerNorm,
-                    Linear, LSTMCell, MaxPool2D, ReLU, RNNCellBase,
-                    Sequential, SimpleRNNCell, Tanh, Upsample,
-                    UpsamplingBilinear2D, UpsamplingNearest2D)
+from .layer import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,  # noqa: F401
+                    AdaptiveAvgPool3D, AdaptiveMaxPool1D, AdaptiveMaxPool2D,
+                    AdaptiveMaxPool3D, AvgPool1D, AvgPool2D, AvgPool3D,
+                    BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
+                    Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose,
+                    Conv3D, Conv3DTranspose, Dropout, Embedding, GRUCell,
+                    GroupNorm, InstanceNorm1D, InstanceNorm2D,
+                    InstanceNorm3D, LayerList, LayerNorm, Linear,
+                    LocalResponseNorm, LSTMCell, MaxPool1D, MaxPool2D,
+                    MaxPool3D, ReLU, RMSNorm, RNNCellBase, Sequential,
+                    SimpleRNNCell, SpectralNorm, SyncBatchNorm, Tanh,
+                    Upsample, UpsamplingBilinear2D, UpsamplingNearest2D)
 from .layer.loss import (BCELoss, BCEWithLogitsLoss,  # noqa: F401
                          CosineEmbeddingLoss, CrossEntropyLoss, CTCLoss,
                          HingeEmbeddingLoss, KLDivLoss, L1Loss,

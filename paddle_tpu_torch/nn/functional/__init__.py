@@ -1,5 +1,5 @@
 """Functional ops on the GPT serving and training paths and the BERT /
-ERNIE and ResNet training paths."""
+ERNIE and conv-net training paths."""
 from __future__ import annotations
 
 from ...tensor.linalg import matmul  # noqa: F401
@@ -7,7 +7,8 @@ from .activation import gelu, relu, relu6, softmax, tanh  # noqa: F401
 from .attention import scaled_dot_product_attention  # noqa: F401
 from .common import (dropout, embedding, interpolate, linear,  # noqa: F401
                      upsample)
-from .conv import conv2d  # noqa: F401
+from .conv import (conv1d, conv1d_transpose, conv2d,  # noqa: F401
+                   conv2d_transpose, conv3d, conv3d_transpose)
 from .loss import (binary_cross_entropy,  # noqa: F401
                    binary_cross_entropy_with_logits, cosine_embedding_loss,
                    cross_entropy, ctc_loss, hinge_embedding_loss, kl_div,
@@ -17,14 +18,20 @@ from .loss import (binary_cross_entropy,  # noqa: F401
                    square_error_cost, triplet_margin_loss)
 from .loss import __all__ as _losses
 from .norm import (batch_norm, bn_act_composite, fused_bn_act,  # noqa: F401
-                   fused_dual_bn_act, layer_norm)
-from .pooling import (adaptive_avg_pool2d, avg_pool2d,  # noqa: F401
-                      max_pool2d)
+                   fused_dual_bn_act, group_norm, instance_norm, layer_norm,
+                   local_response_norm, normalize, rms_norm)
+from .norm import __all__ as _norms
+from .pooling import (adaptive_avg_pool1d,  # noqa: F401
+                      adaptive_avg_pool2d, adaptive_avg_pool3d,
+                      adaptive_max_pool1d, adaptive_max_pool2d,
+                      adaptive_max_pool3d, avg_pool1d, avg_pool2d,
+                      avg_pool3d, max_pool1d, max_pool2d, max_pool3d)
+from .pooling import __all__ as _pools
 
-__all__ = ["adaptive_avg_pool2d", "avg_pool2d", "batch_norm",
-           "bn_act_composite", "conv2d", "cross_entropy", "dropout",
-           "embedding", "interpolate",
-           "fused_bn_act", "fused_dual_bn_act", "gelu", "layer_norm",
-           "linear", "matmul", "max_pool2d", "relu", "relu6",
-           "scaled_dot_product_attention", "softmax", "tanh",
-           "upsample"] + [n for n in _losses if n != "cross_entropy"]
+from .conv import __all__ as _convs
+
+__all__ = (["cross_entropy", "dropout", "embedding", "interpolate", "gelu",
+            "linear", "matmul", "relu", "relu6",
+            "scaled_dot_product_attention", "softmax", "tanh", "upsample"]
+           + [n for n in _losses if n != "cross_entropy"] + _convs + _pools
+           + _norms)

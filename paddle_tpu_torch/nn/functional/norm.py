@@ -1,6 +1,8 @@
 """Normalization functionals (counterpart of
-paddle_tpu/nn/functional/norm.py): layer_norm, batch_norm and the fused
-training BatchNorm entry points of the conv-net blocks.
+paddle_tpu/nn/functional/norm.py): layer_norm, batch_norm (any rank: the
+channel axis is 1 for an ``"NC..."`` format, else the last), the fused
+training BatchNorm entry points of the conv-net blocks, instance_norm,
+group_norm, local_response_norm, normalize and rms_norm.
 
 ``fused_bn_act`` / ``fused_dual_bn_act`` in training mode run the fused
 kernels of ``ops.fused_bn_act`` (K5-K9 on the card, their plain versions
@@ -16,9 +18,25 @@ read without a copy), ``"NHWC"`` means (N, ..., C).
 AMP: ``fused_bn_act`` is not black-listed.  Under O2 it casts x, gamma,
 beta and the residual to the low type (gamma/beta are rounded to it
 before the f32 coefficient math); under O1 it leaves them as they come.
-``batch_norm`` stays black-listed (f32).
+``batch_norm``, ``instance_norm`` and ``group_norm`` stay black-listed
+(f32).
+
+``PDTPU_FUSED_BN=0`` (read at each call, as the reference reads it) sends
+every ``fused_bn_act`` / ``fused_dual_bn_act`` call to ``batch_norm`` plus
+the composite tail (and the pooling functional for a pool spec), so none
+of K5-K9 launches; each such call counts on its entry's
+``composite_calls`` (``bn_act_train``, ``bn_act_pool_train`` or
+``bn2_act_train``).
+
+The reference's quirks are kept: ``instance_norm`` normalizes over the
+axes after the second whatever ``data_format`` says and reads neither
+running statistics nor ``use_input_stats``; ``local_response_norm``
+divides by (k + alpha * sum of squares) ** beta over the window of
+``size`` channels, without dividing alpha by ``size``.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -26,7 +44,8 @@ from ...amp import amp_cast, promote
 from ...core import buffer_updates as _bufup
 
 __all__ = ["layer_norm", "batch_norm", "fused_bn_act", "fused_dual_bn_act",
-           "bn_act_composite"]
+           "bn_act_composite", "instance_norm", "group_norm",
+           "local_response_norm", "normalize", "rms_norm"]
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None,
@@ -103,6 +122,10 @@ def _pool_composite(out, pool, data_format):
     return fn(out, k, s, p, data_format=data_format)
 
 
+def _fused_on() -> bool:
+    return os.environ.get("PDTPU_FUSED_BN", "1") != "0"
+
+
 def _gamma_beta(w, b, nf, like):
     g = w if w is not None else torch.ones(nf, dtype=like.dtype,
                                            device=like.device)
@@ -128,6 +151,15 @@ def fused_bn_act(x, running_mean, running_var, weight=None, bias=None,
             raise ValueError("fused_bn_act: pool= composes with the plain "
                              "BN+act epilogue, not with residual=")
         pool = _k._pool_norm(pool)
+    if not _fused_on():
+        (_k.bn_act_pool_train if pool is not None
+         else _k.bn_act_train).composite_calls += 1
+        out = bn_act_composite(
+            batch_norm(x, running_mean, running_var, weight, bias, training,
+                       momentum, epsilon, data_format, use_global_stats),
+            activation, residual)
+        return out if pool is None else _pool_composite(out, pool,
+                                                        data_format)
     x, weight, bias, residual = amp_cast("fused_bn_act", x, weight, bias,
                                          residual)
     ch = _channel_axis(x, data_format)
@@ -173,7 +205,9 @@ def fused_dual_bn_act(x, running_mean_x, running_var_x, weight_x, bias_x,
         raise ValueError(
             f"fused_dual_bn_act: unsupported activation {activation!r} "
             f"(expected one of {_k._ACTS}); apply it separately")
-    if not training or use_global_stats:
+    if not training or use_global_stats or not _fused_on():
+        if not _fused_on():
+            _k.bn2_act_train.composite_calls += 1
         out = batch_norm(x, running_mean_x, running_var_x, weight_x, bias_x,
                          training, momentum, epsilon, data_format,
                          use_global_stats)
@@ -194,3 +228,60 @@ def fused_dual_bn_act(x, running_mean_x, running_var_x, weight_x, bias_x,
     _update_running_stats(running_mean_r, running_var_r, mean_r, var_r,
                           momentum)
     return out
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats=True, momentum=0.9, eps=1e-5,
+                  data_format="NCHW", name=None):
+    """Per-sample, per-channel normalization over the axes after the
+    second (the reference's: running statistics, ``use_input_stats`` and
+    ``data_format`` are not read).  AMP black-listed."""
+    x, weight, bias = promote(*amp_cast("instance_norm", x, weight, bias))
+    axes = tuple(range(2, x.dim()))
+    var, mean = torch.var_mean(x, dim=axes, correction=0, keepdim=True)
+    out = (x - mean) / torch.sqrt(var + eps)
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
+               data_format="NCHW", name=None):
+    """Normalization over each sample's groups of channels (the channel
+    axis 1 for an ``"NC..."`` format, else the last).  AMP black-listed."""
+    x, weight, bias = promote(*amp_cast("group_norm", x, weight, bias))
+    channel_last = not data_format.startswith("NC")
+    xc = x.movedim(-1, 1) if channel_last else x
+    out = torch.nn.functional.group_norm(xc, num_groups, weight, bias,
+                                         epsilon)
+    return out.movedim(1, -1) if channel_last else out
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW", name=None):
+    """x / (k + alpha * sum of x**2 over ``size`` channels) ** beta, the
+    window [c - size // 2, c + size - size // 2 - 1] zero-padded."""
+    ch = 1 if data_format.startswith("NC") else x.dim() - 1
+    sq = (x * x).movedim(ch, -1)
+    half = size // 2
+    sq = torch.nn.functional.pad(sq, (half, size - half - 1))
+    acc = sq.unfold(-1, size, 1).sum(-1).movedim(-1, ch)
+    return x / (k + alpha * acc) ** beta
+
+
+def normalize(x, p=2.0, axis=1, epsilon=1e-12, name=None):
+    """x / max(||x||_p along ``axis``, epsilon)."""
+    norm = (x.abs() ** p).sum(dim=axis, keepdim=True) ** (1.0 / p)
+    return x / torch.clamp_min(norm, epsilon)
+
+
+def rms_norm(x, weight=None, epsilon=1e-6, name=None):
+    """x / sqrt(mean(x**2) + epsilon) over the last axis, in f32 and cast
+    back to x's type, then times ``weight``."""
+    xf = x.float()
+    ms = (xf * xf).mean(-1, keepdim=True)
+    out = (xf / torch.sqrt(ms + epsilon)).to(x.dtype)
+    return out if weight is None else out * weight

@@ -6,7 +6,14 @@ from .loss import (BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss,  # noqa: F40
                    CrossEntropyLoss, CTCLoss, HingeEmbeddingLoss, KLDivLoss,
                    L1Loss, MarginRankingLoss, MSELoss, NLLLoss, SmoothL1Loss,
                    TripletMarginLoss)
-from .conv import Conv2D  # noqa: F401
-from .norm import BatchNorm2D, LayerNorm  # noqa: F401
-from .pooling import AdaptiveAvgPool2D, MaxPool2D  # noqa: F401
+from .conv import (Conv1D, Conv1DTranspose, Conv2D,  # noqa: F401
+                   Conv2DTranspose, Conv3D, Conv3DTranspose)
+from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D,  # noqa: F401
+                   BatchNorm3D, GroupNorm, InstanceNorm1D, InstanceNorm2D,
+                   InstanceNorm3D, LayerNorm, LocalResponseNorm, RMSNorm,
+                   SpectralNorm, SyncBatchNorm)
+from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,  # noqa: F401
+                      AdaptiveAvgPool3D, AdaptiveMaxPool1D,
+                      AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool1D,
+                      AvgPool2D, AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D)
 from .rnn import GRUCell, LSTMCell, RNNCellBase, SimpleRNNCell  # noqa: F401

@@ -7,6 +7,7 @@ places, so a call written the reference's way computed something else
 without a word: a custom op list bound to ``level``, ``padding_idx=0``
 read as ``std=0`` (an all-zero table), dropout's ``axis`` read as
 ``training``, and a class ``weight`` read as ``ignore_index``."""
+import importlib
 import inspect
 
 import numpy as np
@@ -347,25 +348,34 @@ def _ref_params(fn):
             if p.kind is not p.VAR_KEYWORD]
 
 
-SIGNATURES = [
-    ("F", "conv2d"), ("F", "max_pool2d"), ("F", "avg_pool2d"),
-    ("F", "adaptive_avg_pool2d"), ("F", "batch_norm"), ("F", "layer_norm"),
-    ("F", "fused_bn_act"), ("F", "fused_dual_bn_act"),
-    ("nn", "Conv2D"), ("nn", "MaxPool2D"), ("nn", "AdaptiveAvgPool2D"),
-    ("nn", "BatchNorm2D"), ("nn", "LayerNorm"),
-]
+_SIG_MODULES = ("nn.functional.conv", "nn.functional.pooling",
+                "nn.functional.norm", "nn.layer.conv", "nn.layer.pooling",
+                "nn.layer.norm")
+
+
+def _public(module):
+    return [n for n, o in vars(module).items() if not n.startswith("_")
+            and (inspect.isfunction(o) or inspect.isclass(o))
+            and o.__module__ == module.__name__]
+
+
+SIGNATURES = [(m, n) for m in _SIG_MODULES
+              for n in _public(importlib.import_module("paddle_tpu." + m))]
 
 
 @pytest.mark.parametrize("where,name", SIGNATURES,
-                         ids=[f"{w}.{n}" for w, n in SIGNATURES])
+                         ids=[f"{w.split('.')[-2]}.{w.split('.')[-1]}.{n}"
+                              for w, n in SIGNATURES])
 def test_conv_pool_norm_signatures_start_with_the_reference(where, name):
-    """Each function and layer takes the reference's parameters in the
-    reference's order (``name=`` and ``avg_pool2d``'s ``divisor_override``
-    in seventh place included); the port's extras are keywords after
-    them."""
-    ref = getattr(JF if where == "F" else jnn, name)
-    port = getattr(TF if where == "F" else tnn, name)
-    if where == "nn":
+    """Every public function and layer of the reference's conv, pooling
+    and norm modules exists in the port's module of the same name and
+    takes the reference's parameters in the reference's order
+    (``name=`` and ``avg_pool2d``'s ``divisor_override`` in seventh place
+    included); the port's extras are keywords after them."""
+    ref = getattr(importlib.import_module("paddle_tpu." + where), name)
+    port = getattr(importlib.import_module("paddle_tpu_torch." + where),
+                   name)
+    if inspect.isclass(ref):
         ref, port = ref.__init__, port.__init__
     want = _ref_params(ref)
     got = inspect.signature(port).parameters
