@@ -10,12 +10,20 @@ a ``torch.autograd.Function`` with a Python loop over chunks.  A product
 "in bf16 with f32 accumulation" is written as an f32 product of
 bf16-rounded operands, which gives the same sums on every device (torch's
 bf16 matmul would round its output to bf16).
+
+``fused_pool_linear_cross_entropy`` is the conv nets' classifier tail:
+the global average pool (an f32 mean over the spatial axes, cast back to
+the features' type), then the same chunked CE with the Paddle Linear
+weight (C, classes) transposed, per-sample losses out; the features'
+gradient is dh / (H * W), broadcast.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["fused_linear_cross_entropy"]
+from ..amp import amp_cast
+
+__all__ = ["fused_linear_cross_entropy", "fused_pool_linear_cross_entropy"]
 
 DEFAULT_CHUNK = 2048
 
@@ -95,3 +103,23 @@ def fused_linear_cross_entropy(h, weight, labels, chunk_size=None,
     out = _FusedCE.apply(h.reshape(-1, h.shape[-1]), weight, bias, flat,
                          valid, chunk)
     return out.reshape(lead)
+
+
+def fused_pool_linear_cross_entropy(features, weight, labels, bias=None,
+                                    chunk_size=None, data_format="NCHW",
+                                    name=None):
+    """Global average pool -> linear -> softmax CE as one op: per-sample
+    f32 losses (N,).
+
+    features (N, C, H, W), or (N, H, W, C) with ``data_format="NHWC"``
+    (a logical-NCHW map in channels-last memory, as ``layout_policy``
+    runs it, is still NCHW); weight (C, classes), the Paddle Linear
+    layout; labels (N,) int.  On neither AMP list: cast under O2 only."""
+    features, weight, bias = amp_cast("fused_pool_linear_cross_entropy",
+                                      features, weight, bias)
+    chunk = DEFAULT_CHUNK if chunk_size is None else int(chunk_size)
+    axes = (1, 2) if data_format == "NHWC" else (2, 3)
+    h = features.float().mean(axes).to(features.dtype)
+    flat = labels.reshape(-1).long()
+    valid = torch.ones_like(flat, dtype=torch.bool)
+    return _FusedCE.apply(h, weight.t(), bias, flat, valid, chunk)

@@ -11,9 +11,10 @@ own BatchNorm through the dual form ``bn2_act_train``.  Run channels-last
 under ``jit.layout_policy("NHWC")`` (the model stays logical NCHW), or
 with ``data_format="NHWC"`` on (N, H, W, C) inputs.
 
-``forward(x)`` returns the logits.  The ``labels=`` path (the reference's
-fused pool + classifier + cross-entropy tail, plain jnp there) comes with
-a later slice of the port.
+``forward(x)`` returns the logits; ``forward(x, labels)`` the per-sample
+losses of the fused classifier tail (``ops.fused_ce``: the global average
+pool, the classifier and the cross-entropy as one op, plain tensor code as
+the reference's is plain jnp).
 
 Constructors take ``device`` (default ``"cuda"``; raises without a card)
 and ``seed`` for the weight draw.
@@ -25,6 +26,7 @@ import torch
 from ... import nn
 from ...core.device import DEFAULT_DEVICE, resolve_device
 from ...core.errors import UnimplementedError
+from ...ops.fused_ce import fused_pool_linear_cross_entropy
 from ...nn.functional.norm import _pool_composite, bn_act_composite
 from ...nn.layer.norm import dual_bn_act, supports_dual_bn
 from ...ops.fused_bn_act import _pool_norm, fusable_pool_spec
@@ -184,11 +186,16 @@ class ResNet(nn.Layer):
         return nn.Sequential(*layers)
 
     def forward(self, x, labels=None):
-        if labels is not None:
-            raise UnimplementedError(
-                "ResNet.forward(labels=...): the fused classifier tail comes "
-                "with a later slice of the port; compute the loss from the "
-                "logits")
+        """Logits, or with ``labels`` the per-sample CE losses of the fused
+        classifier tail (drive a TrainStep with the batch (x, labels,
+        labels) and a mean loss)."""
+        if labels is not None and not (self.with_pool
+                                       and self.num_classes > 0):
+            raise ValueError(
+                "ResNet.forward(labels=...): the fused classifier tail "
+                "needs with_pool=True and num_classes>0 (this model has "
+                f"with_pool={self.with_pool}, "
+                f"num_classes={self.num_classes})")
         # stem: conv -> BN -> relu -> maxpool with the pool folded into the
         # fused BN/act epilogue (one op, pooled output only); a replaced
         # maxpool keeps its own forward
@@ -198,6 +205,10 @@ class ResNet(nn.Layer):
         else:
             x = self.maxpool(_bn_act(self.bn1, self.conv1(x), "relu"))
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        if labels is not None:
+            return fused_pool_linear_cross_entropy(
+                x, self.fc.weight, labels, bias=self.fc.bias,
+                data_format=self.data_format)
         if self.with_pool:
             x = self.avgpool(x)
         if self.num_classes > 0:

@@ -44,7 +44,6 @@ from paddle_tpu.nn import functional as JF
 from paddle_tpu.vision import models as jvm
 
 import paddle_tpu_torch as pt
-from paddle_tpu_torch.core.errors import UnimplementedError
 from paddle_tpu_torch.jit import TrainStep, layout_policy
 from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.ops import fused_bn_act as TK
@@ -287,10 +286,20 @@ def test_layout_policy_nhwc_matches_nchw(ref18):
 
 
 def test_labels_path_waits_for_a_later_slice(ref18):
-    tm = _port18(ref18[1])
-    x, y = _batch(2, 32)
-    with pytest.raises(UnimplementedError):
-        tm(torch.from_numpy(x), labels=torch.from_numpy(y))
+    """The labels path has come: forward(x, labels) gives the reference's
+    per-sample losses of its fused classifier tail (train mode, 1e-4 of
+    the largest loss as the logits above), in NCHW and under
+    layout_policy("NHWC")."""
+    jm, state = ref18
+    x, y = _batch(4, 32)
+    jm.train()
+    want = jm(paddle.to_tensor(x), labels=paddle.to_tensor(y)).numpy()
+    for policy in (None, "NHWC"):
+        tm = _port18(state).train()
+        with torch.no_grad(), layout_policy(policy):
+            got = tm(torch.from_numpy(x), labels=torch.from_numpy(y))
+        assert got.shape == (4,)
+        assert _rel(got.numpy(), want) <= 1e-4, policy
 
 
 def test_resnet50_logits_and_kernel_calls():
