@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--seed N] [--phases a,b,...]
 
-``--phases`` runs the named phases alone (development: no result line,
+``--phases`` (or ``--only``) runs the named phases alone (development: no result line,
 exit 0 when they pass); the phases run in the order below.
 
 Phases (any failure exits non-zero before the result line):
@@ -422,6 +422,11 @@ Phases (any failure exits non-zero before the result line):
                 (CUDA graph replay) at layer1's bn3 and at the stem, beside
                 its bound, its plain version and PyTorch's own BatchNorm
                 kernels; K9's ring route in turns with its window route.
+                Also K9 at VGG-16-BN's five pooled sites (bf16, max
+                2x2/2/0, N 256) on the route its plan takes and on the
+                other one (the ring under a hand-made plan of 4 slots
+                where the plan takes the window route), and K5-K8 at
+                MobileNetV2's relu6 and residual sites.
  16. resnet   — ResNet-50 (BASELINE config #2): resnet50() under
                 jit.layout_policy("NHWC"), TrainStep O2 bf16, cross-entropy
                 on the logits, Momentum(0.1, 0.9), one random batch of
@@ -446,6 +451,48 @@ Phases (any failure exits non-zero before the result line):
                 versions on the CPU, same weights and batch: the loss,
                 every gradient and every running statistic within 1e-3 of
                 its tensor's largest |value|.
+ 18. mobilenet — MobileNetV1 at full width (scale 1.0, 1000 classes) with
+                the resnet phase's recipe (b256 x 224^2, O2 bf16, NHWC,
+                Momentum(0.1, 0.9)), TrainStep over model(x, labels)'s
+                mean (the fused pool + classifier + cross-entropy tail), 8
+                captured steps and the same uncaptured (losses bit-equal;
+                the tail's "fused_ce" range on a line of its own); then
+                MobileNetV2 at full width, captured, on its logits.  K5-K9
+                launches per step asserted against the models' sites (V1
+                27 / 27 / 27 / 27 / 0; V2 45 fused of its 52 BatchNorms,
+                ten with the residual fused in, the seven projections
+                without a shortcut plain batch_norm), V1's layout copies
+                0 (V2's printed);
+                images/s, device ms, idle, peak, profile groups.
+ 19. vgg      — vgg16(batch_norm=True), 1000 classes, b256 x 224^2, O2
+                bf16, NHWC, Momentum(0.01, 0.9), 4 captured steps: K5-K9
+                launches per step 13 / 8 / 8 / 8 / 5 and K9's routes
+                asserted (each pooled site's route printed); then 2 steps
+                uncaptured (losses bit-equal) whose profile puts the
+                pooled sites' plain backward recompute on a line of its
+                own.  (The bn phase holds K9 at the five site shapes on
+                both routes.)  The resnet phase also runs ResNet-50
+                through model(x, labels) (3 captured steps: the first
+                loss within 2e-2 of the logits leg's, the same launches
+                per step).
+ 20. convcheck — one f32 step of MobileNetV2 (scale 0.5, 10 classes, 8 x 3
+                x 96 x 96) on the kernel path against the CPU plain path,
+                then with PDTPU_FUSED_BN=0 on the card (no K5-K9 launch,
+                one composite call per fused site) against the kernel
+                path: the loss within 1e-4, the gradient within 2e-2 in
+                norm and cos 0.999, running statistics within 1e-3.
+ 21. lenet    — LeNet on synthetic MNIST-shaped data (64 x 1 x 28 x 28,
+                10 classes, from --seed): 20 eager Adam steps with a
+                falling loss, then a captured TrainStep bit-equal to the
+                same steps uncaptured.
+ 22. qat      — ImperativeQuantAware over MobileNetV1 (b32 x 224^2, f32,
+                eager, 3 steps, K5-K8 27 per step, the act_scale buffers
+                move); PostTrainingQuantization of a fresh one (2
+                calibration batches): each converted layer within 1e-4 of
+                the CPU's on the same input, the logits within 5e-2 end
+                to end (a value at an activation grid's rounding boundary
+                may land on either side); save_quantized_model +
+                jit.load: the same logits within 1e-4.
 Before the last line it prints one JSON line with every kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
 """
@@ -558,6 +605,20 @@ BN_LAYER1 = (RESNET_B, 56, 56, 256)      # layer1's bn3, M = 802,816
 BN_LAYER4 = (RESNET_B, 7, 7, 2048)       # M = 12,544
 BN_KERNELS = ("bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_dx",
               "bn_pool_apply")
+LABELS_STEPS = 3           # the resnet phase's labels leg (the fused tail)
+MOBILE_B, MOBILE_HW, MOBILE_STEPS = 256, 224, 8          # mobilenet phase
+# MobileNetV2's second block at 56 x 56: its relu6 expansion and its
+# projection with the residual fused in, as (N, H, W, C)
+MOBILE_V2_EXPAND = (MOBILE_B, 56, 56, 144)
+MOBILE_V2_PROJ = (MOBILE_B, 56, 56, 24)
+VGG_B, VGG_HW, VGG_STEPS = 256, 224, 4                   # vgg phase
+VGG_POOL = ("max", (2, 2), (2, 2), (0, 0))
+# VGG-16-BN's five pooled BatchNorm sites at 224 x 224, as (N, H, W, C)
+VGG_POOL_SITES = tuple((VGG_B, hw, hw, c) for hw, c in (
+    (224, 64), (112, 128), (56, 256), (28, 512), (14, 512)))
+CONV_CHECK_TOL = 2e-2      # convcheck: the gradient's relative distance
+LENET_B, LENET_STEPS = 64, 20                            # lenet phase
+QAT_B, QAT_STEPS = 32, 3                                 # qat phase
 BN_LINES = {"bn_stats": 119, "bn_apply": 132, "bn_bwd_reduce": 153,
             "bn_bwd_dx": 183, "bn_pool_apply": 611}
 
@@ -568,7 +629,8 @@ PHASES = ("check", "serve", "telemetry", "pressure", "prefix", "spec", "lora",
           "fixed",
           "flash", "train", "traincheck", "dlrm", "trainexport", "tostatic",
           "guard", "amp16", "bert",
-          "predictor", "bn", "resnet", "resnetcheck")
+          "predictor", "bn", "resnet", "resnetcheck", "mobilenet", "vgg",
+          "convcheck", "lenet", "qat")
 
 
 def fail(msg: str):
@@ -3966,13 +4028,16 @@ def bn_pool_check(torch, fbn, gen, dev, shape, dtype, act, pool, errs,
     bound and, in bf16, within one bf16 unit of the larger value (2**-7
     of it) plus 1e-5 of the largest |value| (both sum in f32 and round
     once); two calls bit-equal.  By the wrapper's own route choice, or
-    ``route`` "window" to hold the window route at a shape the ring takes.
-    Returns the route taken."""
+    ``route`` "window" to hold the window route at a shape the ring takes,
+    or a hand-made ``PoolPlan`` to hold the ring where the wrapper takes
+    the window route.  Returns the route taken."""
     n, h, w, c = shape
     x = _bn_rows(torch, gen, dev, n * h * w, c, dtype).view(n, h, w, c)
     coef = _bn_coef(torch, gen, dev, c)
     before = dict(fbn.bn_pool_apply.routes)
     call = fbn._pool_window if route == "window" else fbn.bn_pool_apply
+    if isinstance(route, fbn.PoolPlan):
+        call = lambda *a: fbn._pool_ring(*a, route)
     got = call(x, coef, act, *pool)
     again = call(x, coef, act, *pool)
     want = fbn._plain_pool_apply(x, coef, act, *pool)
@@ -4253,6 +4318,20 @@ def bn_phase(torch, args, dev):
                       if k[0] == "stem" and k[2] is None))
     if routes[("stem", str(bf16), None)] != "ring":
         fail("the bf16 stem did not take K9's ring route")
+    vgg_pool_sites(torch, fbn, gen, dev, errs)
+    # MobileNetV2's sites: relu6 at an expansion, the residual (no
+    # activation) at a projection, and the two together
+    for (n, h, w, c), act, res in ((MOBILE_V2_EXPAND, "relu6", "none"),
+                                   (MOBILE_V2_PROJ, None, "plain"),
+                                   (MOBILE_V2_PROJ, "relu6", "plain")):
+        for dtype in (bf16, f32):
+            bn_kernel_check(torch, fbn, gen, dev, n * h * w, c, dtype, act,
+                            res, errs)
+    print(f"check bn MobileNetV2 sites: K5-K8 at NHWC={MOBILE_V2_EXPAND} "
+          f"relu6 and NHWC={MOBILE_V2_PROJ} with the residual (no "
+          "activation, and relu6), bf16 and f32, against the plain "
+          "versions: passed")
+    torch.cuda.empty_cache()
     print("check bn kernels vs plain (main-path shapes and small odd ones, "
           "f32 and bf16, every activation and residual form): max abs err "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
@@ -4436,34 +4515,17 @@ def resnet_phase(torch, args, dev, card):
     from paddle_tpu_torch.optimizer import Momentum
     from paddle_tpu_torch.vision.models import resnet50
     torch.cuda.empty_cache()
-    entries = (fbn.bn_act_train, fbn.bn2_act_train, fbn.bn_act_pool_train)
 
-    def make():
+    def make(loss=lambda lg, y: F.cross_entropy(lg, y)):
         pt.seed(args.seed)
         model = resnet50(device=dev, seed=args.seed)
         opt = Momentum(learning_rate=0.1, momentum=0.9,
                        parameters=model.parameters())
-        return model, TrainStep(model, lambda lg, y: F.cross_entropy(lg, y),
-                                opt, amp_level="O2", amp_dtype="bfloat16")
+        return model, TrainStep(model, loss, opt, amp_level="O2",
+                                amp_dtype="bfloat16")
 
-    def counters():
-        for name in BN_KERNELS:
-            getattr(fbn, name).launches = 0
-        fbn.bn_pool_apply.routes.update(ring=0, window=0)
-        for e in entries:
-            e.relayouts = 0
-        return lambda: dict(
-            {n: getattr(fbn, n).launches for n in BN_KERNELS},
-            routes=dict(fbn.bn_pool_apply.routes),
-            relayouts=sum(e.relayouts for e in entries))
-    groups = {f"{n} (K{5 + i})": (f"{n}_kernel",)
-              for i, n in enumerate(BN_KERNELS)}
-    groups["bn_pool_apply (K9)"] += ("bn_pool_ring_kernel",)
-    groups["bn_sum_partials (K5, K7)"] = ("bn_sum_partials",)
-    groups["pooling (PyTorch)"] = ("max_pool", "avg_pool", "adaptive_avg")
-    groups["convolutions (cuDNN)"] = (
-        "conv", "xmma", "cudnn", "cutlass", "implicit_gemm", "dgrad",
-        "wgrad", "fprop", "nhwc", "nchw")
+    counters = bn_counters(fbn)
+    groups = bn_groups()
     stem = "stem backward recompute (_BnPool.backward, plain)"
     what = (f"train step (ResNet-50, b{RESNET_B} x {RESNET_HW}^2, O2 bf16, "
             "NHWC")
@@ -4526,6 +4588,8 @@ def resnet_phase(torch, args, dev, card):
               f"{RESNET_STEPS} steps; the stem's plain backward recompute "
               f"{unc['profile'][2].get(stem, 0.0):.3f} ms per step "
               "(uncaptured profile)")
+        labels = resnet_labels_leg(torch, make, (x, y), vals[0], per_step,
+                                   counters, card, what, groups)
         tag = "resnet stages/dots_saveable"
         leg = train_leg(torch, make, (x, y), RECOMPUTE_STEPS, counters, card,
                         what + ", captured, recompute stages)",
@@ -4549,7 +4613,7 @@ def resnet_phase(torch, args, dev, card):
         bn_backward_sites(torch, fbn, dev, model, card)
     del model, x
     torch.cuda.empty_cache()
-    return launches
+    return _add_launches(launches, labels)
 
 
 def resnet_check_phase(torch, args, dev):
@@ -4600,6 +4664,599 @@ def resnet_check_phase(torch, args, dev):
             not ws <= GRAD_TOL:
         fail("the kernel-path ResNet step disagrees with the plain path")
     del gpu, cpu
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the conv-net leftovers: the fused tail, MobileNetV1 / V2, VGG, LeNet, QAT
+# ---------------------------------------------------------------------------
+
+def bn_counters(fbn):
+    """A ``counters`` callable for ``train_leg``: zeroes K5-K9's launch
+    counters, K9's routes and the fused entries' layout copies and
+    composite calls, and returns their reader."""
+    entries = (fbn.bn_act_train, fbn.bn2_act_train, fbn.bn_act_pool_train)
+
+    def counters():
+        for name in BN_KERNELS:
+            getattr(fbn, name).launches = 0
+        fbn.bn_pool_apply.routes.update(ring=0, window=0)
+        for e in entries:
+            e.relayouts = 0
+            e.composite_calls = 0
+        return lambda: dict(
+            {n: getattr(fbn, n).launches for n in BN_KERNELS},
+            routes=dict(fbn.bn_pool_apply.routes),
+            relayouts=sum(e.relayouts for e in entries),
+            composite=sum(e.composite_calls for e in entries))
+    return counters
+
+
+def bn_groups():
+    """Profile groups of a conv-net step: K5-K9, the partial sums, the
+    PyTorch pools, depthwise and other convolutions (cuDNN)."""
+    groups = {f"{n} (K{5 + i})": (f"{n}_kernel",)
+              for i, n in enumerate(BN_KERNELS)}
+    groups["bn_pool_apply (K9)"] += ("bn_pool_ring_kernel",)
+    groups["bn_sum_partials (K5, K7)"] = ("bn_sum_partials",)
+    groups["pooling (PyTorch)"] = ("max_pool", "avg_pool", "adaptive_avg")
+    # cuDNN's one-channel-per-group kernels (conv2d / dgrad2d / wgrad2d
+    # _c1_k1_nhwc...): the depthwise convolutions
+    groups["depthwise convolutions (cuDNN)"] = ("c1_k1", "depthwise")
+    groups["convolutions (cuDNN)"] = (
+        "conv", "xmma", "cudnn", "cutlass", "implicit_gemm", "dgrad",
+        "wgrad", "fprop", "nhwc", "nchw")
+    return groups
+
+
+def resnet_labels_leg(torch, make, batch, first_loss, per_step, counters,
+                      card, what, groups):
+    """ResNet-50 through model(x, labels) (the fused pool + classifier +
+    cross-entropy tail) and a mean, captured, LABELS_STEPS steps from the
+    same weights and batch as the logits leg: its first loss within 2e-2
+    relative of that leg's first (the tail rounds h and W to bf16 inside
+    its products, the logits leg's Linear runs in bf16), K5-K9 launches per
+    step equal to the logits leg's."""
+    x, y = batch
+    leg = train_leg(torch, lambda: make(lambda losses, _: losses.mean()),
+                    (x, y, y), LABELS_STEPS, counters, card,
+                    what + ", captured, labels: the fused tail)",
+                    groups=groups, top=14)
+    print(_leg_line("resnet labels", card, leg, RESNET_B, "images"))
+    rel = abs(leg["losses"][0] - first_loss) / abs(first_loss)
+    print(f"resnet labels [{card}]: losses "
+          + ", ".join(repr(v) for v in leg["losses"])
+          + f"; first {leg['losses'][0]!r} against the logits leg's "
+          f"{first_loss!r} (relative {rel:.2e})")
+    if not all(np.isfinite(leg["losses"])) or not rel <= 2e-2:
+        fail(f"resnet labels: losses {leg['losses']} against the logits "
+             f"leg's first {first_loss}")
+    got = {n: leg["launches"][n] for n in BN_KERNELS}
+    want = {k: v * LABELS_STEPS for k, v in per_step.items()}
+    if got != want:
+        fail(f"resnet labels: K5-K9 launches {got}, expected {want}")
+    return got
+
+
+def conv_sites(model):
+    """Every BatchNorm of a MobileNet or VGG step as (label, form, act),
+    read from the model the way its forward routes them: "single" (K5 + K6
+    forward, K7 + K8 backward), "residual" (the same with the residual
+    added inside), "pool" (K5 + K9 forward; the backward is plain tensor
+    code) or "plain" (no activation, residual or pool: forward_fused is
+    batch_norm, no kernel)."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.ops.fused_bn_act import fusable_pool_spec
+    from paddle_tpu_torch.vision.models.mobilenet import (ConvBNLayer,
+                                                          InvertedResidual)
+    from paddle_tpu_torch.vision.models.vgg import _Features
+    residual = {id(m.conv[len(m.conv) - 1])
+                for m in model.sublayers() if isinstance(m, InvertedResidual)
+                and m.use_res}
+    sites = []
+    for name, m in model.named_sublayers():
+        if isinstance(m, ConvBNLayer):
+            form = ("residual" if id(m) in residual else
+                    "plain" if m._act_name is None else "single")
+            sites.append((name, form, m._act_name))
+        elif isinstance(m, _Features):
+            layers = list(m)
+            for i, layer in enumerate(layers[:-1]):
+                if not (isinstance(layer, nn.BatchNorm2D)
+                        and isinstance(layers[i + 1], nn.ReLU)):
+                    continue
+                pool = (fusable_pool_spec(layers[i + 2], layer.data_format)
+                        if i + 2 < len(layers) else None)
+                sites.append((f"{name}.{i}", "pool" if pool else "single",
+                              "relu"))
+    return sites
+
+
+def conv_launches_per_step(sites):
+    """K5-K9 launches of one training step over ``conv_sites``."""
+    count = {f: sum(1 for _, form, _ in sites if form == f)
+             for f in ("single", "residual", "pool")}
+    fused = count["single"] + count["residual"]
+    return {"bn_stats": fused + count["pool"], "bn_apply": fused,
+            "bn_bwd_reduce": fused, "bn_bwd_dx": fused,
+            "bn_pool_apply": count["pool"]}
+
+
+def _add_launches(total, leg):
+    for n in BN_KERNELS:
+        total[n] = total.get(n, 0) + leg[n]
+    return total
+
+
+def vgg_pool_sites(torch, fbn, gen, dev, errs):
+    """K9 at VGG-16-BN's five pooled sites (bf16, relu, max 2x2/2/0), on
+    the route the wrapper takes and on the other: the window route
+    forced where the wrapper's plan takes the ring, and where it takes
+    the window route (the ring's kh + max(kh, sh) = 4 row slots of W * C
+    elements do not fit two blocks per SM) the ring under a hand-made
+    plan of 4 slots, one block per SM.  Prints each site's routes."""
+    from paddle_tpu_torch.ops import _build
+    sms = _build.sm_count(dev.index)
+    smem = _build.smem_limits(dev.index)
+    out = []
+    for shape in VGG_POOL_SITES:
+        n, h, w, c = shape
+        plan = fbn._pool_plan(n, h, w, c, 2, *VGG_POOL, sms, smem)
+        taken = bn_pool_check(torch, fbn, gen, dev, shape, torch.bfloat16,
+                              "relu", VGG_POOL, errs)
+        if plan.route == "ring":
+            other = "window"
+        else:
+            slot = -(-w * c * 2 // 128) * 128 // 2
+            other = fbn.PoolPlan("ring", 4, slot, h // 2, min(n, sms))
+        held = bn_pool_check(torch, fbn, gen, dev, shape, torch.bfloat16,
+                             "relu", VGG_POOL, errs, other)
+        out.append((shape, taken, held))
+        torch.cuda.empty_cache()
+    print("check bn_pool_apply at VGG-16-BN's pooled sites (bf16, relu, max "
+          "2x2/2): " + "; ".join(f"{h}x{w}x{c}: the wrapper's {t}, "
+                                 f"{o} held too" for (_, h, w, c), t, o
+                                 in out))
+    if {t for _, t, _ in out} | {o for _, _, o in out} != {"ring",
+                                                           "window"}:
+        fail(f"VGG's pooled sites did not exercise both K9 routes: {out}")
+    return out
+
+
+def mobilenet_phase(torch, args, dev, card):
+    """MobileNetV1 at full width (scale 1.0, 1000 classes), BASELINE
+    config #2's recipe (b256 x 224^2, O2 bf16, layout_policy("NHWC"),
+    Momentum(0.1, 0.9)): TrainStep over model(x, labels)'s mean (the
+    fused tail), MOBILE_STEPS captured steps, then the same uncaptured
+    (losses bit-equal; its profile puts the tail on a line of its own);
+    then MobileNetV2 at full width, captured, on its logits and
+    F.cross_entropy.  K5-K9 launches per step asserted against the
+    models' sites (K9 0), layout copies 0.  Returns the launches."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit import TrainStep, layout_policy
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import fused_bn_act as fbn
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import MobileNetV1, MobileNetV2
+    torch.cuda.empty_cache()
+    counters = bn_counters(fbn)
+    groups = bn_groups()
+    tail = "classifier tail (fused_ce)"
+
+    def make(cls, loss):
+        def build():
+            pt.seed(args.seed)
+            model = cls(device=dev, seed=args.seed)
+            opt = Momentum(learning_rate=0.1, momentum=0.9,
+                           parameters=model.parameters())
+            return model, TrainStep(model, loss, opt, amp_level="O2",
+                                    amp_dtype="bfloat16")
+        return build
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 11)
+    x = torch.randn(MOBILE_B, 3, MOBILE_HW, MOBILE_HW, generator=gen,
+                    device=dev)
+    y = torch.randint(0, 1000, (MOBILE_B,), generator=gen, device=dev)
+    what = f"b{MOBILE_B} x {MOBILE_HW}^2, O2 bf16, NHWC"
+    total = {}
+    with layout_policy("NHWC"):
+        sites = conv_sites(MobileNetV1(device=dev, seed=args.seed))
+        per_step = conv_launches_per_step(sites)
+        if per_step != dict(bn_stats=27, bn_apply=27, bn_bwd_reduce=27,
+                            bn_bwd_dx=27, bn_pool_apply=0):
+            fail(f"MobileNetV1's fused-BN sites give {per_step} per step")
+        v1 = make(MobileNetV1, lambda losses, _: losses.mean())
+        cap = train_leg(torch, v1, (x, y, y), MOBILE_STEPS, counters, card,
+                        f"train step (MobileNetV1, {what}, labels, "
+                        "captured)", groups=groups, top=12)
+        unc = train_leg(torch, v1, (x, y, y), MOBILE_STEPS, counters, card,
+                        f"train step (MobileNetV1, {what}, labels, "
+                        "uncaptured)", uncaptured=True, groups=groups,
+                        top=12, ranges={tail: "fused_ce"})
+        print(_leg_line("mobilenet v1 captured", card, cap, MOBILE_B,
+                        "images"))
+        print(_leg_line("mobilenet v1 uncaptured", card, unc, MOBILE_B,
+                        "images"))
+        vals = cap["losses"]
+        print("mobilenet v1: losses in full " + ", ".join(map(repr, vals)))
+        if not all(np.isfinite(vals)) or unc["losses"] != vals:
+            fail(f"mobilenet v1: captured losses {vals}, uncaptured "
+                 f"{unc['losses']} (finite and bit-equal expected)")
+        for tag, leg in (("captured", cap), ("uncaptured", unc)):
+            got = {n: leg["launches"][n] for n in BN_KERNELS}
+            want = {k: v * MOBILE_STEPS for k, v in per_step.items()}
+            if got != want or leg["launches"]["relayouts"]:
+                fail(f"mobilenet v1 {tag}: K5-K9 launches {got}, expected "
+                     f"{want}; layout copies {leg['launches']['relayouts']}")
+        if cap["recaptured"]:
+            fail(f"mobilenet v1: {cap['recaptured']} captures after warmup")
+        _add_launches(total, cap["launches"])
+        sums = unc["profile"][2]
+        print(f"mobilenet v1 [{card}]: K5-K8 launches per step {per_step}; "
+              "layout copies 0; per step (uncaptured profile): "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(
+                  sums.items(), key=lambda kv: -kv[1])))
+        sites2 = conv_sites(MobileNetV2(device=dev, seed=args.seed))
+        per2 = conv_launches_per_step(sites2)
+        forms = {f: sum(1 for _, form, _ in sites2 if form == f)
+                 for f in ("single", "residual", "plain")}
+        relu6 = sum(1 for _, form, act in sites2
+                    if form != "plain" and act == "relu6")
+        v2 = make(MobileNetV2, lambda lg, yy: F.cross_entropy(lg, yy))
+        leg2 = train_leg(torch, v2, (x, y), MOBILE_STEPS, counters, card,
+                         f"train step (MobileNetV2, {what}, captured)",
+                         groups=groups, top=12)
+        print(_leg_line("mobilenet v2 captured", card, leg2, MOBILE_B,
+                        "images"))
+        got = {n: leg2["launches"][n] for n in BN_KERNELS}
+        want = {k: v * MOBILE_STEPS for k, v in per2.items()}
+        if got != want or not all(np.isfinite(leg2["losses"])):
+            fail(f"mobilenet v2: K5-K9 launches {got}, expected {want}; "
+                 f"losses {leg2['losses']}")
+        _add_launches(total, leg2["launches"])
+        print(f"mobilenet v2 [{card}]: {len(sites2)} BatchNorms: "
+              f"{forms['single']} single sites ({relu6} of all fused sites "
+              f"on relu6), {forms['residual']} with the residual fused in "
+              f"(K6 / K8 in their residual form), {forms['plain']} plain "
+              f"batch_norm (projections without a shortcut); K5-K8 "
+              f"launches per step {per2}; layout copies per step "
+              f"{leg2['launches']['relayouts'] / MOBILE_STEPS:g} (the "
+              "global pool's backward gradient at the last BatchNorm); "
+              "losses "
+              + ", ".join(map(repr, leg2["losses"])))
+    del x
+    torch.cuda.empty_cache()
+    return total
+
+
+def vgg_phase(torch, args, dev, card):
+    """vgg16(batch_norm=True) at full width (1000 classes), VGG_B x
+    224^2, O2 bf16, layout_policy("NHWC"), Momentum(0.01, 0.9), cross
+    entropy on the logits: VGG_STEPS captured steps (K5 / K6 / K7 / K8 /
+    K9 launches per step asserted: 13 / 8 / 8 / 8 / 5), then an uncaptured
+    profile with _BnPool.backward's plain recompute on a line of its own.
+    Prints each pooled site's K9 route.  Returns the launches."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit import TrainStep, layout_policy
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import fused_bn_act as fbn
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import vgg16
+    torch.cuda.empty_cache()
+    counters = bn_counters(fbn)
+    groups = bn_groups()
+    rec = "pooled backward recompute (_BnPool.backward, plain)"
+
+    def make():
+        pt.seed(args.seed)
+        model = vgg16(batch_norm=True, device=dev, seed=args.seed)
+        opt = Momentum(learning_rate=0.01, momentum=0.9,
+                       parameters=model.parameters())
+        return model, TrainStep(model, lambda lg, yy: F.cross_entropy(lg, yy),
+                                opt, amp_level="O2", amp_dtype="bfloat16")
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 12)
+    x = torch.randn(VGG_B, 3, VGG_HW, VGG_HW, generator=gen, device=dev)
+    y = torch.randint(0, 1000, (VGG_B,), generator=gen, device=dev)
+    what = f"train step (VGG-16-BN, b{VGG_B} x {VGG_HW}^2, O2 bf16, NHWC"
+    with layout_policy("NHWC"):
+        per_step = conv_launches_per_step(conv_sites(
+            vgg16(batch_norm=True, num_classes=0, device=dev)))
+        if per_step != dict(bn_stats=13, bn_apply=8, bn_bwd_reduce=8,
+                            bn_bwd_dx=8, bn_pool_apply=5):
+            fail(f"VGG-16-BN's fused-BN sites give {per_step} per step")
+        sms = _build.sm_count(dev.index), _build.smem_limits(dev.index)
+        shapes = [(VGG_B, VGG_HW >> i, VGG_HW >> i, c)
+                  for i, c in enumerate((64, 128, 256, 512, 512))]
+        plans = [fbn._pool_plan(n, h, w, c, 2, *VGG_POOL, *sms)
+                 for n, h, w, c in shapes]
+        cap = train_leg(torch, make, (x, y), VGG_STEPS, counters, card,
+                        what + ", captured)", groups=groups, top=12)
+        print(_leg_line("vgg captured", card, cap, VGG_B, "images"))
+        got = {n: cap["launches"][n] for n in BN_KERNELS}
+        want = {k: v * VGG_STEPS for k, v in per_step.items()}
+        routes = {r: sum(p.route == r for p in plans) * VGG_STEPS
+                  for r in ("ring", "window")}
+        if got != want or cap["launches"]["routes"] != routes or \
+                cap["launches"]["relayouts"] or cap["recaptured"] or \
+                not all(np.isfinite(cap["losses"])):
+            fail(f"vgg: K5-K9 launches {got} (expected {want}), K9 routes "
+                 f"{cap['launches']['routes']} (expected {routes}), layout "
+                 f"copies {cap['launches']['relayouts']}, captures after "
+                 f"warmup {cap['recaptured']}, losses {cap['losses']}")
+        unc = train_leg(torch, make, (x, y), 2, counters, card,
+                        what + ", uncaptured)", uncaptured=True,
+                        groups=groups, top=12,
+                        ranges={rec: "bn_pool_backward"})
+        print(_leg_line("vgg uncaptured", card, unc, VGG_B, "images"))
+        if unc["losses"] != cap["losses"][:2]:
+            fail(f"vgg: uncaptured losses {unc['losses']} differ from the "
+                 f"captured {cap['losses'][:2]}")
+        print(f"vgg [{card}]: K5-K9 launches per step {per_step}; K9 route "
+              "per pooled site: " + ", ".join(
+                  f"{h}x{w}x{c} {p.route}"
+                  + (f" ({p.ring} slots, band {p.band})"
+                     if p.route == "ring" else "")
+                  for (_, h, w, c), p in zip(shapes, plans))
+              + f"; losses {', '.join(map(repr, cap['losses']))}; the "
+              f"pooled sites' plain backward recompute "
+              f"{unc['profile'][2].get(rec, 0.0):.3f} ms per step "
+              "(uncaptured profile)")
+    total = _add_launches({}, cap["launches"])
+    del x
+    torch.cuda.empty_cache()
+    return total
+
+
+def _conv_check_run(torch, model, dev, batch, policy, fbn):
+    """One training forward and backward of ``model`` on ``dev``: (loss,
+    gradients by name, running statistics by name, K5-K9 launches, the
+    fused entries' composite calls)."""
+    from paddle_tpu_torch.jit import forward_loss, layout_policy
+    from paddle_tpu_torch.nn import functional as F
+    entries = (fbn.bn_act_train, fbn.bn2_act_train, fbn.bn_act_pool_train)
+    n0 = {k: getattr(fbn, k).launches for k in BN_KERNELS}
+    c0 = sum(e.composite_calls for e in entries)
+    x, y = (torch.from_numpy(a).to(dev) for a in batch)
+    with layout_policy(policy):
+        loss = forward_loss(model, lambda lg, yy: F.cross_entropy(lg, yy),
+                            (x, y))
+        named = list(model.named_parameters())
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+    stats = {k: v.detach().double().cpu() for k, v in
+             model.state_dict().items() if k.endswith(("_mean", "_variance"))}
+    return (float(loss.detach()),
+            {n: g.double().cpu() for (n, _), g in zip(named, grads)}, stats,
+            {k: getattr(fbn, k).launches - n0[k] for k in BN_KERNELS},
+            sum(e.composite_calls for e in entries) - c0)
+
+
+def _conv_check_compare(tag, got, want):
+    """Loss within 1e-4 relative; the whole gradient within
+    CONV_CHECK_TOL of the reference run's in norm and cos >= 0.999;
+    running means and variances each within 1e-3 of the largest |value|
+    of their kind (the means after a normalized projection are zero up
+    to rounding)."""
+    import torch
+    (lg, gg, sg, *_), (lw, gw, sw, *_) = got, want
+    a = torch.cat([gg[k].ravel() for k in gw])
+    b = torch.cat([gw[k].ravel() for k in gw])
+    dist = float((a - b).norm() / b.norm())
+    cos = float(a @ b / a.norm() / b.norm())
+    worst = 0.0
+    for kind in ("_mean", "_variance"):
+        keys = [k for k in sw if k.endswith(kind)]
+        scale = max(float(sw[k].abs().max()) for k in keys)
+        worst = max(worst, max(float((sg[k] - sw[k]).abs().max())
+                               for k in keys) / scale)
+    print(f"convcheck {tag}: loss {lg!r} vs {lw!r}; gradient distance "
+          f"{dist:.2e} (tolerance {CONV_CHECK_TOL}), cos {cos:.6f}; running "
+          f"statistics {worst:.2e} of their kind's largest |value|, over "
+          f"{len(gw)} parameters and {len(sw)} statistics")
+    if not (abs(lg - lw) <= 1e-4 * abs(lw) and dist <= CONV_CHECK_TOL
+            and cos >= 0.999 and worst <= 1e-3):
+        fail(f"convcheck {tag}: the two paths disagree")
+
+
+def conv_check_phase(torch, args, dev):
+    """One f32 step of MobileNetV2 (scale 0.5, 10 classes, 8 x 3 x 96 x 96,
+    classifier dropout 0) on the kernel path (NHWC policy) against the
+    plain path on the CPU, same weights and batch; then the same on the
+    card with PDTPU_FUSED_BN=0: no K5-K9 launch, one composite call per
+    fused site, against the kernel path.  At initialization the MobileNets'
+    backward is chaotic (the CPU's own f32 gradient moves by 0.4% of its
+    norm under a 1e-7 change of the input), so the gradient is held as a
+    whole: within 2e-2 of the other run's in norm and cos 0.999."""
+    from paddle_tpu_torch.ops import fused_bn_act as fbn
+    from paddle_tpu_torch.vision.models import MobileNetV2
+    rng = np.random.RandomState(args.seed + 13)
+    batch = (rng.randn(8, 3, 96, 96).astype(np.float32),
+             rng.randint(0, 10, (8,)))
+    gpu = MobileNetV2(0.5, 10, device=dev, seed=args.seed + 13)
+    gpu.classifier[0].p = 0.0
+    cpu = copy.deepcopy(gpu).cpu()
+    fused = conv_launches_per_step(conv_sites(gpu))
+    sites = sum(1 for _, form, _ in conv_sites(gpu) if form != "plain")
+    start = {k: v.clone() for k, v in gpu.state_dict().items()}
+    kern = _conv_check_run(torch, gpu, dev, batch, "NHWC", fbn)
+    plain = _conv_check_run(torch, cpu, torch.device("cpu"), batch, None,
+                            fbn)
+    if kern[3] != fused or any(plain[3].values()):
+        fail(f"convcheck: launches {kern[3]} on the card (expected "
+             f"{fused}), {plain[3]} on the CPU")
+    _conv_check_compare("kernel path vs CPU plain path", kern, plain)
+    gpu.load_state_dict(start)
+    os.environ["PDTPU_FUSED_BN"] = "0"
+    try:
+        comp = _conv_check_run(torch, gpu, dev, batch, "NHWC", fbn)
+    finally:
+        del os.environ["PDTPU_FUSED_BN"]
+    if any(comp[3].values()) or comp[4] != sites:
+        fail(f"convcheck PDTPU_FUSED_BN=0: launches {comp[3]}, composite "
+             f"calls {comp[4]} (expected none and {sites})")
+    print(f"convcheck PDTPU_FUSED_BN=0: no K5-K9 launch, {comp[4]} "
+          f"composite calls ({sites} fused sites)")
+    _conv_check_compare("PDTPU_FUSED_BN=0 vs the kernel path", comp, kern)
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+
+def lenet_phase(torch, args, dev, card):
+    """LeNet (BASELINE config #1's model) on synthetic MNIST-shaped data
+    from --seed (LENET_B x 1 x 28 x 28, 10 classes; no dataset is read):
+    LENET_STEPS eager Adam steps with a falling loss; then a captured
+    TrainStep's losses bit-equal to the same steps uncaptured, with
+    cuDNN's deterministic algorithms (at LeNet's widths its weight
+    gradients otherwise take algorithms that add with atomics, whose
+    order changes run to run)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.vision.models import LeNet
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 14)
+    x = torch.rand(LENET_B, 1, 28, 28, generator=gen, device=dev)
+    y = torch.randint(0, 10, (LENET_B,), generator=gen, device=dev)
+    model = LeNet(device=dev, seed=args.seed)
+    opt = Adam(learning_rate=1e-3, parameters=model.parameters())
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(LENET_STEPS):
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+    eager_ms = (time.perf_counter() - t0) / LENET_STEPS * 1e3
+    print(f"lenet [{card}]: eager Adam, {LENET_STEPS} steps at "
+          f"{eager_ms:.2f} ms per step; losses "
+          + ", ".join(f"{v:.4f}" for v in losses))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"lenet: the eager loss does not fall: {losses}")
+    runs = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for uncaptured in (False, True):
+        pt.seed(args.seed)
+        m = LeNet(device=dev, seed=args.seed)
+        step = TrainStep(m, lambda lg, yy: F.cross_entropy(lg, yy),
+                         Adam(learning_rate=1e-3, parameters=m.parameters()))
+        step._run_uncaptured = uncaptured
+        step.warmup(x, y)
+        runs.append([float(step(x, y)) for _ in range(5)])
+        del m, step
+        gc.collect()
+    torch.backends.cudnn.deterministic = deterministic
+    print(f"lenet: TrainStep captured {', '.join(map(repr, runs[0]))}; "
+          f"uncaptured {', '.join(map(repr, runs[1]))}")
+    if runs[0] != runs[1]:
+        fail("lenet: captured and uncaptured TrainStep losses differ")
+
+
+def qat_phase(torch, args, dev, card):
+    """ImperativeQuantAware over MobileNetV1 (scale 1.0, QAT_B x 224^2,
+    f32, eager Momentum, QAT_STEPS steps): finite losses, K5-K8 27 launches
+    per step each, the act_scale buffers move.  Then post-training
+    quantization of a fresh MobileNetV1: prepare, 2 calibration batches,
+    convert; each converted layer within 1e-4 of the CPU's on the card's
+    own input, the eval logits within 5e-2 of the CPU's end to end (the
+    activation grids' rounding boundaries).  Then the QAT model through
+    save_quantized_model and jit.load: the same logits (1e-4)."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import fused_bn_act as fbn
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.quantization import (ImperativeQuantAware,
+                                               Int8Conv2D, Int8Linear,
+                                               PostTrainingQuantization)
+    from paddle_tpu_torch.vision.models import MobileNetV1
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 15)
+
+    def images(n):
+        return torch.randn(n, 3, 224, 224, generator=gen, device=dev)
+    x, y = images(QAT_B), torch.randint(0, 1000, (QAT_B,), generator=gen,
+                                        device=dev)
+    model = MobileNetV1(device=dev, seed=args.seed + 15)
+    qat = ImperativeQuantAware()
+    qat.quantize(model)
+    opt = Momentum(learning_rate=0.01, momentum=0.9,
+                   parameters=model.parameters())
+    n0 = {k: getattr(fbn, k).launches for k in BN_KERNELS}
+    losses, scales = [], []
+    for _ in range(QAT_STEPS):
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+        scales.append({k: float(v) for k, v in model.state_dict().items()
+                       if k.endswith("act_scale")})
+    got = {k: getattr(fbn, k).launches - n0[k] for k in BN_KERNELS}
+    want = dict(bn_stats=27 * QAT_STEPS, bn_apply=27 * QAT_STEPS,
+                bn_bwd_reduce=27 * QAT_STEPS, bn_bwd_dx=27 * QAT_STEPS,
+                bn_pool_apply=0)
+    moved = sum(scales[-1][k] != scales[0][k] for k in scales[0])
+    print(f"qat [{card}]: MobileNetV1 b{QAT_B} f32 eager, losses "
+          + ", ".join(f"{v:.4f}" for v in losses) + f"; {len(scales[0])} "
+          f"act_scale buffers, all > 0 after the first step, {moved} moved "
+          f"between the first step and the last (fc: "
+          + ", ".join(f"{s['fc.act_scale']:.4f}" for s in scales)
+          + f"); K5-K9 launches {got}")
+    if not all(np.isfinite(losses)) or got != want or not moved or \
+            not all(v > 0 for v in scales[0].values()):
+        fail(f"qat: losses {losses}, launches {got} (expected {want}), "
+             f"act_scale buffers {scales}")
+    fp = MobileNetV1(device=dev, seed=args.seed + 16).eval()
+    ptq = PostTrainingQuantization()
+    ptq.prepare(fp)
+    with torch.no_grad():
+        for _ in range(2):
+            fp(images(QAT_B))
+    ptq.convert(fp)
+    xe = images(8)
+    cpu = copy.deepcopy(fp).cpu()
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda _, ins, out, name=name: seen.append((name, ins[0], out)))
+        for name, m in fp.named_sublayers()
+        if isinstance(m, (Int8Conv2D, Int8Linear))]
+    with torch.no_grad():
+        card_logits = fp(xe).double().cpu()
+        cpu_logits = cpu(xe.cpu()).double()
+        for h in hooks:
+            h.remove()
+        # each converted layer on the card's own input, on the CPU
+        layers = dict(cpu.named_sublayers())
+        layer_err = max(float((out.cpu() - want).abs().max()
+                              / want.abs().max())
+                        for name, inp, out in seen
+                        for want in [layers[name](inp.cpu())])
+    err = float((card_logits - cpu_logits).abs().max()
+                / cpu_logits.abs().max())
+    print(f"qat: PTQ convert (2 calibration batches of {QAT_B}): each of "
+          f"the {len(seen)} converted layers on the card within "
+          f"{layer_err:.2e} of the CPU's on the same input (tolerance "
+          f"1e-4); the converted eval logits within {err:.2e} of the "
+          "CPU's end to end (tolerance 5e-2: a value within a rounding of "
+          "a quantization boundary lands on either side, one step of "
+          "1/127 of the layer's scale, and 28 layers requantize)")
+    if not (layer_err <= 1e-4 and err <= 5e-2):
+        fail(f"qat: converted layers differ from the CPU's by "
+             f"{layer_err:.3e}, the logits by {err:.3e}")
+    path = os.path.join(_build_dir("qat"), "mobilenet_v1_qat")
+    t0 = time.perf_counter()
+    qat.save_quantized_model(model, path, input_spec=[
+        jit.InputSpec([-1, 3, 224, 224], "float32")])
+    loaded = jit.load(path, device=dev)
+    save_s = time.perf_counter() - t0
+    with torch.no_grad():
+        want_l = model(xe).double()
+        got_l = loaded(xe).double()
+    err = float((got_l - want_l).abs().max() / want_l.abs().max())
+    print(f"qat: save_quantized_model + jit.load in {save_s:.1f} s; the "
+          f"loaded program's logits within {err:.2e} of the QAT model's")
+    if not err <= 1e-4:
+        fail(f"qat: the loaded QAT program's logits differ by {err:.3e}")
+    del model, fp, loaded
     torch.cuda.empty_cache()
 
 
@@ -6131,7 +6788,7 @@ def predictor_phase(torch, args, dev, card):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default=None,
+    ap.add_argument("--phases", "--only", default=None,
                     help="comma-separated phases to run alone (development;"
                          " prints no result line): " + ", ".join(PHASES))
     args = ap.parse_args()
@@ -6252,6 +6909,19 @@ def main():
         launches.update(resnet_phase(torch, args, dev, card))
     if want("resnetcheck"):
         resnet_check_phase(torch, args, dev)
+    for name, phase in (("mobilenet", mobilenet_phase), ("vgg", vgg_phase)):
+        if want(name):   # K5-K9's launches add up over the conv nets
+            for k, v in phase(torch, args, dev, card).items():
+                launches[k] = launches.get(k, 0) + v
+        gc.collect()
+        torch.cuda.empty_cache()
+    if want("convcheck"):
+        conv_check_phase(torch, args, dev)
+    for name, phase in (("lenet", lenet_phase), ("qat", qat_phase)):
+        if want(name):
+            phase(torch, args, dev, card)
+            gc.collect()
+            torch.cuda.empty_cache()
     if any(m.startswith("paddle_tpu.") or m in ("jax", "paddle_tpu")
            for m in sys.modules):
         fail("the JAX package was imported")

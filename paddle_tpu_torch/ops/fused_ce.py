@@ -45,23 +45,34 @@ def _chunk_logits(hc, wb, b):
 
 
 class _FusedCE(torch.autograd.Function):
+    """Forward and backward each in a profiler range ("fused_ce"): a
+    step's profile reports the tail apart."""
+
     @staticmethod
     def forward(ctx, h, w, b, labels, valid, chunk):
         t = h.shape[0]
         c = _chunk_of(t, chunk)
-        wb = _bf16(w)
-        losses = []
-        for s in range(0, t, c):
-            logits = _chunk_logits(h[s:s + c], wb, b)
-            lse = torch.logsumexp(logits, dim=-1)
-            picked = logits.gather(-1, labels[s:s + c, None])[:, 0]
-            losses.append(torch.where(valid[s:s + c], lse - picked, 0.0))
+        with torch.profiler.record_function("fused_ce"):
+            wb = _bf16(w)
+            losses = []
+            for s in range(0, t, c):
+                logits = _chunk_logits(h[s:s + c], wb, b)
+                lse = torch.logsumexp(logits, dim=-1)
+                picked = logits.gather(-1, labels[s:s + c, None])[:, 0]
+                losses.append(torch.where(valid[s:s + c], lse - picked,
+                                          0.0))
+            out = torch.cat(losses)
         ctx.save_for_backward(h, w, b, labels, valid)
         ctx.chunk = c
-        return torch.cat(losses)
+        return out
 
     @staticmethod
     def backward(ctx, ct):
+        with torch.profiler.record_function("fused_ce"):
+            return _FusedCE._backward(ctx, ct)
+
+    @staticmethod
+    def _backward(ctx, ct):
         h, w, b, labels, valid = ctx.saved_tensors
         c = ctx.chunk
         wb = _bf16(w)
@@ -105,6 +116,28 @@ def fused_linear_cross_entropy(h, weight, labels, chunk_size=None,
     return out.reshape(lead)
 
 
+class _GlobalAvgPool(torch.autograd.Function):
+    """(N, C, H, W) -> (N, C) mean over H, W whose backward writes the
+    dense gradient in the input's memory format: a mean's backward is a
+    broadcast view, which the fused BatchNorm kernels before the tail
+    would have to copy into channels-last rows."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.shape = x.shape
+        ctx.fmt = (torch.channels_last
+                   if not x.is_contiguous()
+                   and x.is_contiguous(memory_format=torch.channels_last)
+                   else torch.contiguous_format)
+        return x.mean((2, 3))
+
+    @staticmethod
+    def backward(ctx, g):
+        n, c, h, w = ctx.shape
+        return (g / (h * w))[:, :, None, None].expand(ctx.shape).contiguous(
+            memory_format=ctx.fmt)
+
+
 def fused_pool_linear_cross_entropy(features, weight, labels, bias=None,
                                     chunk_size=None, data_format="NCHW",
                                     name=None):
@@ -118,8 +151,10 @@ def fused_pool_linear_cross_entropy(features, weight, labels, bias=None,
     features, weight, bias = amp_cast("fused_pool_linear_cross_entropy",
                                       features, weight, bias)
     chunk = DEFAULT_CHUNK if chunk_size is None else int(chunk_size)
-    axes = (1, 2) if data_format == "NHWC" else (2, 3)
-    h = features.float().mean(axes).to(features.dtype)
+    x = features.float()
+    if data_format == "NHWC":
+        x = x.permute(0, 3, 1, 2)
+    h = _GlobalAvgPool.apply(x).to(features.dtype)
     flat = labels.reshape(-1).long()
     valid = torch.ones_like(flat, dtype=torch.bool)
     return _FusedCE.apply(h, weight.t(), bias, flat, valid, chunk)

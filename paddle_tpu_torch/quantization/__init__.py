@@ -57,8 +57,12 @@ def _qmax(bits: int) -> float:
 
 
 def _qdq(x, scale, qmax):
-    """Quantize-dequantize x against a (broadcastable) scale."""
-    s = scale / qmax
+    """Quantize-dequantize x against a (broadcastable) scale tensor.  The
+    divisions are tensor by tensor: on the card a division by a host
+    scalar is a multiplication by its reciprocal, which can round a value
+    at a quantization boundary to the other side than the reference's
+    (and the CPU's) true division."""
+    s = scale / torch.full_like(scale, qmax)
     return torch.clamp(torch.round(x / s), -qmax, qmax) * s
 
 
@@ -215,7 +219,8 @@ class Int8Linear(Layer):
             scale = w.abs().amax(dim=0, keepdim=True).clamp_min(1e-8)
             self.register_buffer("w_int8", torch.clamp(
                 torch.round(w / scale * qmax), -qmax, qmax).to(torch.int8))
-            self.register_buffer("w_scale", (scale / qmax).float())
+            self.register_buffer("w_scale", (
+                scale / torch.full_like(scale, qmax)).float())
         self.bias = layer.bias
         self._act_scale = act_scale
         self._act_bits = act_bits
@@ -242,7 +247,8 @@ class Int8Conv2D(Layer):
             scale = w.abs().amax(dim=(1, 2, 3), keepdim=True).clamp_min(1e-8)
             self.register_buffer("w_int8", torch.clamp(
                 torch.round(w / scale * qmax), -qmax, qmax).to(torch.int8))
-            self.register_buffer("w_scale", (scale / qmax).float())
+            self.register_buffer("w_scale", (
+                scale / torch.full_like(scale, qmax)).float())
         self.bias = layer.bias
         self._cfg = (layer.stride, layer.padding, layer.dilation,
                      layer.groups, layer.data_format)

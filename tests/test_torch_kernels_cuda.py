@@ -2483,3 +2483,127 @@ def test_train_session_runs_the_flash_kernels(cuda, tmp_path):
         want.append(float(step(*b)))
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
     assert next(iter(sess._programs.values())).graph is not None
+
+
+# ------------------------------------------- the MobileNet and VGG sites
+
+VGG_POOL = ("max", (2, 2), (2, 2), (0, 0))
+
+
+@pytest.mark.parametrize("hw,c", [(224, 64), (112, 128), (56, 256),
+                                  (28, 512), (14, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_pool_at_vgg_sites_on_both_routes(cuda, hw, c, dtype):
+    """K9 at VGG-16-BN's pooled sites (batch 4, relu, max 2x2/2/0): by the
+    wrapper's plan and by the other route, the window route forced, or,
+    where the plan takes the window route, the ring under a hand-made
+    plan of its fewest slots (kh + max(kh, sh) = 4), one block per SM,
+    where they fit a block's shared memory; both bit-equal to the plain
+    version and run to run."""
+    from paddle_tpu_torch.ops import _build
+    n = 4
+    x = _bn_rows(cuda, n * hw * hw, c, dtype, 30).view(n, hw, hw, c)
+    coef = _bn_coef(cuda, c, 31)
+    dev = cuda.index if cuda.index is not None else 0
+    sms, smem = _build.sm_count(dev), _build.smem_limits(dev)
+    plan = fbn._pool_plan(n, hw, hw, c, x.element_size(), *VGG_POOL, sms,
+                          smem)
+    want = fbn._plain_pool_apply(x, coef, "relu", *VGG_POOL)
+    calls = [lambda: fbn.bn_pool_apply(x, coef, "relu", *VGG_POOL)]
+    slot = -(-hw * c * x.element_size() // 128) * 128
+    if plan.route == "ring":
+        calls.append(lambda: fbn._pool_window(x, coef, "relu", *VGG_POOL))
+    elif fbn._ring_smem(4, slot, c) <= smem[1]:
+        forced = fbn.PoolPlan("ring", 4, slot // x.element_size(), hw // 2,
+                              min(n, sms))
+        calls.append(lambda: fbn._pool_ring(x, coef, "relu", *VGG_POOL,
+                                            forced))
+    for call in calls:
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (n, hw // 2, hw // 2, c)
+        assert torch.equal(got, want) and torch.equal(got, again)
+
+
+@pytest.mark.parametrize("c", [24, 144])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", [None, "relu6"])
+def test_bn_relu6_and_residual_at_a_mobilenet_v2_site(cuda, c, dtype, act):
+    """K6 / K7 / K8 at MobileNetV2's 56 x 56 stage (batch 8) with the
+    residual added inside, without an activation (its projection) and
+    with relu6, against their plain versions."""
+    m = 8 * 56 * 56
+    x = _bn_rows(cuda, m, c, dtype, 32)
+    g = _bn_rows(cuda, m, c, dtype, 33, shift=0.0)
+    r = _bn_rows(cuda, m, c, dtype, 34)
+    coef = _bn_coef(cuda, c, 35, backward=True)
+    _assert_bn(fbn.bn_apply(x, coef, r, act),
+               fbn._plain_apply(x, coef, r, act))
+    for got, want in zip(fbn.bn_bwd_reduce(g, x, coef, r, act),
+                         fbn._plain_bwd_reduce(g, x, coef, r, act)):
+        _assert_bn(got, want)
+    for got, want in zip(fbn.bn_bwd_dx(g, x, coef, r, act),
+                         fbn._plain_bwd_dx(g, x, coef, r, act)):
+        _assert_bn(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", [None, "relu6"])
+def test_mobilenet_v2_site_fused_call_matches_plain(cuda, dtype, act):
+    """One MobileNetV2 site through F.fused_bn_act (training, the
+    residual fused in, channels-last memory): the output, the running
+    statistics and the gradients of x, gamma, beta and the residual
+    against autograd of the plain reference (bn_act_reference, f32 math),
+    tolerances as test_bn_functions_match_plain_autograd's; in f32 also
+    against the same call with PDTPU_FUSED_BN=0 (batch_norm and the
+    composite tail, which in bf16 subtracts a bf16-rounded mean)."""
+    import os
+    from paddle_tpu_torch.nn import functional as F
+    rng = np.random.RandomState(36)
+    n, c, h, w = 8, 24, 56, 56
+
+    def act_t():
+        t = torch.from_numpy(rng.randn(n, c, h, w).astype(np.float32) + 0.3)
+        return t.to(cuda).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+    x, r, ct = act_t(), act_t(), act_t()
+    gamma = torch.from_numpy(rng.rand(c).astype(np.float32) + 0.5).to(cuda)
+    beta = torch.from_numpy(rng.randn(c).astype(np.float32)).to(cuda)
+
+    def run(fused=True):
+        ins = [t.detach().clone().requires_grad_() for t in (x, gamma, beta,
+                                                             r)]
+        rm = torch.zeros(c, device=cuda)
+        rv = torch.ones(c, device=cuda)
+        if fused:
+            y = F.fused_bn_act(ins[0], rm, rv, ins[1], ins[2],
+                               activation=act, residual=ins[3])
+        else:
+            y, mean, var = fbn.bn_act_reference(*ins[:3], 1e-5, act, ins[3],
+                                                1)
+            rm, rv = 0.1 * mean.detach(), 0.9 + 0.1 * var.detach()
+        grads = torch.autograd.grad(y, ins, ct)
+        return [y.detach(), rm, rv] + list(grads)
+
+    def close(got_all, want_all):
+        for got, want in zip(got_all, want_all):
+            got, want = got.float(), want.float()
+            scale = float(want.abs().max())
+            if dtype == torch.bfloat16:
+                bad = (got - want).abs() > 2e-2 * scale + 2e-2 * want.abs()
+            else:
+                bad = (got - want).abs() > 1e-4 * scale
+            assert int(bad.sum()) <= got.numel() // 1_000_000, (
+                int(bad.sum()), float((got - want).abs().max()), scale)
+    launches = fbn.bn_apply.launches
+    kern = run()
+    assert fbn.bn_apply.launches == launches + 1
+    close(kern, run(fused=False))
+    if dtype == torch.float32:
+        os.environ["PDTPU_FUSED_BN"] = "0"
+        try:
+            switched = run()
+        finally:
+            del os.environ["PDTPU_FUSED_BN"]
+        assert fbn.bn_apply.launches == launches + 1
+        close(kern, switched)
