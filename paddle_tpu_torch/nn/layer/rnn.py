@@ -10,7 +10,9 @@ GRU's candidate is tanh(x Wc + r * (h Uc + bc_h)) and its update
 (1 - z) * n + z * h.  A cell is called as ``cell(inputs, states)`` and
 returns ``(outputs, new_states)``; ``states=None`` starts from zeros.
 The ``RNN`` / ``BiRNN`` / ``SimpleRNN`` / ``LSTM`` / ``GRU`` layers are
-not ported yet.  ``*_attr`` parameter attributes take None only.
+not ported yet.  Each ``*_attr`` goes to ``create_parameter`` as in the
+reference (initializer, ``trainable``, learning rate, name); a
+``bias_*_attr=False`` drops that bias.
 """
 from __future__ import annotations
 
@@ -18,9 +20,8 @@ import math
 from typing import Optional
 
 import torch
-from torch import nn
 
-from ...core.errors import UnimplementedError
+from .. import initializer as I
 from ..layer_base import Layer
 
 __all__ = ["RNNCellBase", "SimpleRNNCell", "LSTMCell", "GRUCell"]
@@ -36,31 +37,31 @@ class RNNCellBase(Layer):
 
     def _make_params(self, gates: int, input_size: int, hidden_size: int,
                      attrs, device, generator):
-        if any(a is not None for a in attrs):
-            raise UnimplementedError(
-                f"{type(self).__name__}: parameter attributes (*_attr) are "
-                "not ported; pass None")
         self.input_size, self.hidden_size = input_size, hidden_size
-        shapes = {"weight_ih": (gates * hidden_size, input_size),
-                  "weight_hh": (gates * hidden_size, hidden_size),
-                  "bias_ih": (gates * hidden_size,),
-                  "bias_hh": (gates * hidden_size,)}
         std = 1.0 / math.sqrt(hidden_size)
-        for name, shape in shapes.items():
-            p = nn.Parameter(torch.empty(shape, device=device))
-            with torch.no_grad():
-                p.uniform_(-std, std, generator=generator)
-            setattr(self, name, p)
+        init = I.Uniform(-std, std)
+        shapes = (("weight_ih", (gates * hidden_size, input_size), False),
+                  ("weight_hh", (gates * hidden_size, hidden_size), False),
+                  ("bias_ih", (gates * hidden_size,), True),
+                  ("bias_hh", (gates * hidden_size,), True))
+        for (name, shape, is_bias), attr in zip(shapes, attrs):
+            setattr(self, name, self.create_parameter(
+                shape, attr, is_bias=is_bias, default_initializer=init,
+                device=device, generator=generator))
+
+    def _proj(self, x, w, b):
+        y = x @ w.T
+        return y if b is None else y + b
 
     def _gates(self, x, h):
-        return (x @ self.weight_ih.T + self.bias_ih
-                + h @ self.weight_hh.T + self.bias_hh)
+        return (self._proj(x, self.weight_ih, self.bias_ih)
+                + self._proj(h, self.weight_hh, self.bias_hh))
 
 
 class SimpleRNNCell(RNNCellBase):
     def __init__(self, input_size, hidden_size, activation="tanh",
                  weight_ih_attr=None, weight_hh_attr=None, bias_ih_attr=None,
-                 bias_hh_attr=None, name=None, device=None,
+                 bias_hh_attr=None, name=None, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.activation = activation
@@ -83,7 +84,7 @@ class SimpleRNNCell(RNNCellBase):
 class LSTMCell(RNNCellBase):
     def __init__(self, input_size, hidden_size, weight_ih_attr=None,
                  weight_hh_attr=None, bias_ih_attr=None, bias_hh_attr=None,
-                 name=None, device=None,
+                 name=None, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self._make_params(4, input_size, hidden_size,
@@ -109,7 +110,7 @@ class LSTMCell(RNNCellBase):
 class GRUCell(RNNCellBase):
     def __init__(self, input_size, hidden_size, weight_ih_attr=None,
                  weight_hh_attr=None, bias_ih_attr=None, bias_hh_attr=None,
-                 name=None, device=None,
+                 name=None, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self._make_params(3, input_size, hidden_size,
@@ -120,8 +121,8 @@ class GRUCell(RNNCellBase):
         if states is None:
             states = self.get_initial_states(inputs)
         h = states
-        gi = inputs @ self.weight_ih.T + self.bias_ih
-        gh = h @ self.weight_hh.T + self.bias_hh
+        gi = self._proj(inputs, self.weight_ih, self.bias_ih)
+        gh = self._proj(h, self.weight_hh, self.bias_hh)
         ir, iz, ic = torch.chunk(gi, 3, dim=-1)
         hr, hz, hc = torch.chunk(gh, 3, dim=-1)
         r = torch.sigmoid(ir + hr)

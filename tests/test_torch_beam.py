@@ -126,6 +126,72 @@ def test_cells_match_reference(kind):
                for p in tcell.parameters())
 
 
+def test_lstm_cell_weight_attr_initializer_in_both_frameworks():
+    """``weight_ih_attr=ParamAttr(initializer=Constant(0.1))`` reaches
+    the weight in both frameworks."""
+    jcell = jnn.LSTMCell(3, 4, weight_ih_attr=paddle.ParamAttr(
+        initializer=jnn.initializer.Constant(0.1)))
+    tcell = tnn.LSTMCell(3, 4, weight_ih_attr=tnn.ParamAttr(
+        initializer=tnn.initializer.Constant(0.1)), device="cpu")
+    np.testing.assert_allclose(jcell.weight_ih.numpy(), 0.1)
+    np.testing.assert_allclose(tcell.weight_ih.detach().numpy(), 0.1)
+
+
+def _attrs(fw, frozen_name):
+    init = fw.nn.initializer
+    return dict(
+        weight_ih_attr=fw.ParamAttr(name="wih", initializer=init.Constant(
+            0.05), learning_rate=0.5),
+        weight_hh_attr=fw.ParamAttr(name=frozen_name, trainable=False,
+                                    initializer=init.Constant(-0.03)),
+        bias_ih_attr=fw.ParamAttr(initializer=init.Constant(0.2)),
+        bias_hh_attr=fw.ParamAttr(initializer=init.Uniform(-0.1, 0.1)))
+
+
+@pytest.mark.parametrize("kind", ["SimpleRNNCell", "LSTMCell", "GRUCell"])
+def test_cells_take_every_attr_as_the_reference(kind):
+    """Each cell with every ``*_attr`` given (initializers, a name, a
+    learning rate, ``trainable=False``) steps as the reference's at 1e-5
+    (the drawn bias crosses by ``load_paddle_state``).  A
+    ``bias_*_attr=False`` drops that bias in both frameworks; the port's
+    step then adds none (the reference's SimpleRNNCell / GRUCell step
+    cannot run without it)."""
+    import paddle_tpu_torch as pt
+    jcell = getattr(jnn, kind)(5, 7, **_attrs(paddle, "whh"))
+    tcell = getattr(tnn, kind)(5, 7, **_attrs(pt, "whh"), device="cpu")
+    load_paddle_state(tcell, {k: np.asarray(v)
+                              for k, v in state_arrays(jcell).items()})
+    assert tcell.weight_ih.param_name == "wih"
+    assert tcell.weight_ih.optimize_attr["learning_rate"] == 0.5
+    assert not tcell.weight_hh.requires_grad
+    for n in ("weight_ih", "weight_hh", "bias_ih"):
+        np.testing.assert_allclose(getattr(tcell, n).detach().numpy(),
+                                   getattr(jcell, n).numpy(), rtol=1e-6)
+    rng = np.random.RandomState(5)
+    x = rng.randn(3, 5).astype(np.float32)
+    h = rng.randn(3, 7).astype(np.float32)
+    if kind == "LSTMCell":
+        c = rng.randn(3, 7).astype(np.float32)
+        jst = (paddle.to_tensor(h), paddle.to_tensor(c))
+        tst = (torch.from_numpy(h), torch.from_numpy(c))
+    else:
+        jst, tst = paddle.to_tensor(h), torch.from_numpy(h)
+    jout, _ = jcell(paddle.to_tensor(x), jst)
+    tout, _ = tcell(torch.from_numpy(x), tst)
+    np.testing.assert_allclose(tout.detach().numpy(), jout.numpy(),
+                               rtol=1e-5, atol=1e-5)
+    kw = dict(_attrs(pt, "whh"), bias_hh_attr=False)
+    nobias = getattr(tnn, kind)(5, 7, **kw, device="cpu")
+    assert nobias.bias_hh is None
+    assert getattr(jnn, kind)(5, 7, **dict(_attrs(paddle, "whh"),
+                                           bias_hh_attr=False)).bias_hh is None
+    with torch.no_grad():
+        tcell.bias_hh.zero_()
+    np.testing.assert_allclose(
+        nobias(torch.from_numpy(x), tst)[0].detach().numpy(),
+        tcell(torch.from_numpy(x), tst)[0].detach().numpy(), rtol=1e-6)
+
+
 class _JSeq(jnn.Layer):
     def __init__(self):
         super().__init__()
