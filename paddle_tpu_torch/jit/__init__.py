@@ -83,10 +83,11 @@ the program as a ``torch.export`` archive).  Training artifacts:
 to_static surface (``to_static``, ``StaticFunction``, ``functional_call``,
 ``TracedLayer`` and the rest): ``jit/static.py``.
 
-Not in this slice of the port, and refused with ``UnimplementedError``:
-``mesh`` / ``batch_sharding`` and row-sharded tables.  As in the
-reference, the step applies neither a parameter's ``ParamAttr``
-learning-rate multiplier nor its regularizer (only the eager
+``mesh`` / ``batch_sharding`` are taken and read nowhere, as in the
+reference (whose step reads neither); the sharded step is
+``parallel.ShardedTrainStep``.  Row-sharded tables are not in the port
+yet.  As in the reference, the step applies neither a parameter's
+``ParamAttr`` learning-rate multiplier nor its regularizer (only the eager
 ``Optimizer.step`` does).
 """
 from __future__ import annotations
@@ -104,7 +105,6 @@ from ..core import buffer_updates as _bufup
 from ..core import recompute as _recompute
 from ..core import rng
 from ..core import selected_rows as sr
-from ..core.errors import UnimplementedError
 from ..core.layout import layout_policy  # noqa: F401  (jit.layout_policy)
 from ..core.programs import Program
 from ..core.recompute import recompute_policy  # noqa: F401
@@ -121,8 +121,6 @@ __all__ = ["state_arrays", "forward_loss", "guard_select", "TrainStep",
            "ProgramTranslator", "warm_step_program", "TracedLayer",
            "set_verbosity", "get_verbosity", "set_code_level",
            "get_code_level"]
-
-_LATER = "comes with a later slice of the port"
 
 _obs_step_hist = None
 
@@ -224,9 +222,7 @@ class TrainStep:
                  mesh=None, batch_sharding=None, remat: bool = False,
                  with_outputs: bool = False, guard: bool = False,
                  accum_steps: int = 1):
-        for name, val in (("mesh", mesh), ("batch_sharding", batch_sharding)):
-            if val:
-                raise UnimplementedError(f"TrainStep({name}=...) {_LATER}")
+        # mesh / batch_sharding: taken and read nowhere, as in the reference
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -411,7 +407,7 @@ class TrainStep:
         zeros = {k[2:]: v for k, v in inputs.items() if k.startswith("z:")}
         loss, grads, bufs, outs = self._grads(params, batch, zeros)
         if nan_window is not None:
-            grads = _faults.poison_grads(grads, step_no, nan_window)
+            grads = _faults.poison_grads(grads, step_no, window=nan_window)
         with torch.no_grad():
             ok = None
             if self._guard:
