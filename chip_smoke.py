@@ -3627,7 +3627,8 @@ def _amp16_saves(torch, am, inner, model, opt, scaler, root, card):
     tree = {"params": state_arrays(model), "opt": inner._opt_state}
     nbytes = sum(t.numel() * t.element_size() for t in
                  dck._flatten(tree).values())
-    extra = dck.train_state_extras(opt, None, scaler, None, inner._gen)
+    extra = dck.train_state_extras(opt, None, scaler, None,
+                                  generator=inner._gen)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     am.save(tree, opt._step_count, extra)

@@ -65,17 +65,17 @@ def current(buffer):
     return buffer
 
 
-def apply(buffer, value) -> None:
+def apply(buffer, raw) -> None:
     """Update a buffer: dropped inside ``dropped()``, logged under
     capture, else copied in place."""
     if _DROPPING:
         return
-    value = value.detach()
+    raw = raw.detach()
     if _ACTIVE is not None:
-        _ACTIVE.append((buffer, value))
+        _ACTIVE.append((buffer, raw))
     else:
         with torch.no_grad():
-            buffer.copy_(value)
+            buffer.copy_(raw)
 
 
 def resolve(log, state_dict) -> dict:

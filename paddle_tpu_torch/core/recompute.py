@@ -149,7 +149,7 @@ def _matches(layer) -> bool:
     return False
 
 
-def should_wrap(layer) -> bool:
+def should_wrap(layer, inputs=None) -> bool:
     """Wrap iff a policy is set, this is a TrainStep forward with grad
     enabled, we are not inside a region already, and the layer matches."""
     return (_POLICY is not None and _IN_STEP > 0 and _DEPTH == 0
@@ -238,7 +238,7 @@ def checkpoint(fn, policy: Optional[str] = None):
     return wrapped
 
 
-def run_wrapped(layer, inputs, kwargs, call):
-    """``call(*inputs, **kwargs)`` (the layer's ``nn.Module.__call__``) as
+def run_wrapped(layer, inputs, kwargs, runner):
+    """``runner(*inputs, **kwargs)`` (the layer's ``nn.Module.__call__``) as
     a checkpoint region under the active policy."""
-    return _run(lambda *a: call(*a, **kwargs), inputs, _POLICY[1], layer)
+    return _run(lambda *a: runner(*a, **kwargs), inputs, _POLICY[1], layer)

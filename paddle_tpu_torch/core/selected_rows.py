@@ -138,7 +138,7 @@ class SparseGradContext:
     names demoted to dense gradients."""
 
     def __init__(self, mode: str, zeros: Optional[Dict] = None, deny=(),
-                 names: Optional[Dict[int, str]] = None):
+                 *, names: Optional[Dict[int, str]] = None):
         self.mode = mode
         self.zeros = zeros or {}
         self.deny = frozenset(deny)

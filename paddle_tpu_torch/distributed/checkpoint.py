@@ -183,7 +183,7 @@ def _pinned_copies(flat: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 
 def snapshot_tree(state_tree, step: int = 0,
-                  extra_meta: Optional[dict] = None, pinned: bool = False):
+                  extra_meta: Optional[dict] = None, *, pinned: bool = False):
     """Copy every tensor of the tree to host memory and build the manifest.
     Returns (manifest, shards).  Each array is one shard (a whole array,
     spec ``[]``, replicated), as the reference's unsharded save.  With
@@ -383,7 +383,7 @@ def _state_tensor(values: list) -> torch.Tensor:
 
 def train_state_extras(optimizer=None, extra_meta: Optional[dict] = None,
                        scaler=None, data_cursor: Optional[dict] = None,
-                       generator: Optional[torch.Generator] = None) -> dict:
+                       *, generator: Optional[torch.Generator] = None) -> dict:
     """The non-array training state for a checkpoint's extra dict: the
     port's seed stream and the step's ``generator`` (``__torch_rng__``),
     the scheduler's state (``__lr_sched__``), a GradScaler's
@@ -406,18 +406,18 @@ def train_state_extras(optimizer=None, extra_meta: Optional[dict] = None,
 def save_train_state(directory: str, params, opt_state, step: int,
                      extra_meta: Optional[dict] = None, optimizer=None,
                      scaler=None, data_cursor: Optional[dict] = None,
-                     generator: Optional[torch.Generator] = None) -> str:
+                     *, generator: Optional[torch.Generator] = None) -> str:
     """Parameters (and buffers), optimizer state and the extras, as the
     reference's ``{"params": ..., "opt": ...}`` tree."""
     stat_add("STAT_checkpoint_saves")
     extra = train_state_extras(optimizer, extra_meta, scaler, data_cursor,
-                               generator)
+                               generator=generator)
     return save_sharded({"params": params, "opt": opt_state}, directory,
                         step, extra)
 
 
 def restore_train_extras(optimizer, step: int, extra: dict, scaler=None,
-                         generator: Optional[torch.Generator] = None) -> dict:
+                         *, generator: Optional[torch.Generator] = None) -> dict:
     """Apply the non-array state of a checkpoint's extra dict: the step
     count, the seed stream and (on a generator of the saved device type)
     the step's generator, the scheduler and ``scaler``'s state.  Pops the
@@ -447,7 +447,7 @@ def restore_train_extras(optimizer, step: int, extra: dict, scaler=None,
 
 @torch.no_grad()
 def apply_train_state(model, optimizer, restored, scaler=None,
-                      generator: Optional[torch.Generator] = None):
+                      *, generator: Optional[torch.Generator] = None):
     """Write a ``restore_sharded`` result into the model's parameters and
     buffers IN PLACE (a captured step reads them by address) and the
     extras into the optimizer, the random stream and ``generator``.
@@ -464,7 +464,8 @@ def apply_train_state(model, optimizer, restored, scaler=None,
                 f"checkpoint parameter {k!r} has shape {tuple(v.shape)}, "
                 f"the model {tuple(dst.shape)}")
         dst.copy_(v)
-    meta = restore_train_extras(optimizer, step, extra, scaler, generator)
+    meta = restore_train_extras(optimizer, step, extra, scaler,
+                                generator=generator)
     # stateless optimizers save empty per-parameter dicts, which the
     # flatten / unflatten round trip drops: merge_opt_state fills them
     return meta, tree.get("opt", {})
@@ -661,11 +662,11 @@ class AsyncCheckpointManager(CheckpointManager):
     def save_train_state(self, params, opt_state, step: int,
                          extra_meta: Optional[dict] = None, optimizer=None,
                          scaler=None, data_cursor: Optional[dict] = None,
-                         generator: Optional[torch.Generator] = None):
+                         *, generator: Optional[torch.Generator] = None):
         """``save_train_state`` through the writer thread (the random
         stream, scheduler, scaler and cursor extras included)."""
         extra = train_state_extras(optimizer, extra_meta, scaler,
-                                   data_cursor, generator)
+                                   data_cursor, generator=generator)
         return self.save({"params": params, "opt": opt_state}, step, extra)
 
     def wait_until_finished(self, timeout: Optional[float] = None) -> bool:

@@ -158,7 +158,7 @@ def generate(model, input_ids, max_length=None, max_new_tokens=None,
              decode_strategy: str = "greedy_search", temperature=1.0,
              top_k=0, top_p=1.0, num_beams=1, length_penalty=0.0,
              eos_token_id: Optional[int] = None, pad_token_id: int = 0,
-             bos_token_id=None, seed=None, device=DEFAULT_DEVICE):
+             bos_token_id=None, seed=None, *, device=DEFAULT_DEVICE):
     """Decode continuations of ``input_ids`` (B, S) with ``model`` on
     ``device`` (default the card; the model must already live there).
 

@@ -47,9 +47,9 @@ SALT_ACCEPT = 0x5A
 SALT_RESIDUAL = 0x5E
 
 
-def draft_proposal_key(keys, pos, i: int):
-    """(S, 2) keys of the draft's i-th proposal at KV lengths ``pos``."""
-    return fold_in(fold_in(fold_in(keys, pos), SALT_DRAFT), i)
+def draft_proposal_key(key, pos, i: int):
+    """(S, 2) key of the draft's i-th proposal at KV lengths ``pos``."""
+    return fold_in(fold_in(fold_in(key, pos), SALT_DRAFT), i)
 
 
 def _accept_count(acc):

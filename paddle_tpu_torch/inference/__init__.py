@@ -170,8 +170,9 @@ class Config:
     def enable_recsys_serving(self, model=None, table=None, offsets=None,
                               **opts):
         raise UnimplementedError(
-            "Config.enable_recsys_serving: the recsys scorer (embedding/, "
-            "models/dlrm.py) is not ported yet (ROADMAP §1 item 7)")
+            "Config.enable_recsys_serving: the recsys scorer (the sharded "
+            "tables of embedding/) is not ported yet; the DLRM model is "
+            "(models.DLRM).  It is the recsys part of ROADMAP §1 item 8")
 
     def recsys_enabled(self) -> bool:
         return False

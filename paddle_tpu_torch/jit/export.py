@@ -175,7 +175,7 @@ class TranslatedLayer:
     ``input_spec`` (tensors or numpy arrays); they go to the artifact's
     device, and the program runs on them with the npz's weights."""
 
-    def __init__(self, exported, state, meta=None, device=None):
+    def __init__(self, exported, state, meta=None, *, device=None):
         self._exported = exported
         self._module = exported.module()
         self._state = state
@@ -225,5 +225,5 @@ def load(path, device=DEFAULT_DEVICE, **config) -> TranslatedLayer:
     exported = move_to_device_pass(exported, dev)
     with np.load(path + ".pdiparams.npz") as data:
         state = {k: host_tensor(data[k]).to(dev) for k in data.files}
-    return TranslatedLayer(exported, state, meta, dev)
+    return TranslatedLayer(exported, state, meta, device=dev)
 

@@ -187,7 +187,7 @@ class TrainSession:
     """Drive a saved train program: holds the state, steps per batch.
     ``device`` defaults to the card."""
 
-    def __init__(self, path: str, device=DEFAULT_DEVICE):
+    def __init__(self, path: str, *, device=DEFAULT_DEVICE):
         prog_file = path + ".pdtrain"
         if not zipfile.is_zipfile(prog_file):
             raise ArtifactFormatError(

@@ -56,7 +56,7 @@ class LoRALinear(Layer):
     wrapped layer is the base layer exactly."""
 
     def __init__(self, base, rank: int = 8, alpha: Optional[float] = None,
-                 generator: Optional[torch.Generator] = None):
+                 *, generator: Optional[torch.Generator] = None):
         super().__init__()
         if not _linear_like(base):
             raise TypeError(
@@ -105,7 +105,7 @@ def _walk_targets(model: nn.Module, targets: Sequence[str], prefix=""):
 
 
 def apply_lora(model: nn.Module, rank: int = 8, alpha: Optional[float] = None,
-               targets: Sequence[str] = DEFAULT_TARGETS,
+               targets: Sequence[str] = DEFAULT_TARGETS, *,
                generator: Optional[torch.Generator] = None):
     """In-place LoRA conversion for training: freezes every parameter of
     ``model``, then swaps each target for a ``LoRALinear`` whose factors

@@ -113,7 +113,8 @@ class AdapterRegistry:
     """Thread-safe adapter slot manager over device factor stacks."""
 
     def __init__(self, cfg: LoRAConfig, shapes: Dict[str, Tuple[int, int]],
-                 base_sha: Optional[str] = None, device=DEFAULT_DEVICE):
+                 base_sha: Optional[str] = None, *,
+                 device=DEFAULT_DEVICE):
         self.cfg = cfg
         self.keys = tuple(sorted(shapes))
         self.base_sha = cfg.base_sha or base_sha

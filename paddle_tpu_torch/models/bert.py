@@ -78,7 +78,7 @@ def _generator(device, seed):
 
 
 class BertEmbeddings(Layer):
-    def __init__(self, cfg: BertConfig, device=None, generator=None):
+    def __init__(self, cfg: BertConfig, *, device=None, generator=None):
         super().__init__()
         std = cfg.initializer_range
         kw = dict(std=std, device=device, generator=generator)
@@ -115,7 +115,7 @@ class BertSelfAttention(Layer):
     """Fused-QKV attention: one (H, 3H) matmul, then attention on q, k, v
     as strided views of its output (no copy)."""
 
-    def __init__(self, cfg: BertConfig, device=None, generator=None):
+    def __init__(self, cfg: BertConfig, *, device=None, generator=None):
         super().__init__()
         std = cfg.initializer_range
         self.num_heads = cfg.num_attention_heads
@@ -138,11 +138,12 @@ class BertSelfAttention(Layer):
 
 
 class BertLayer(Layer):
-    def __init__(self, cfg: BertConfig, device=None, generator=None):
+    def __init__(self, cfg: BertConfig, *, device=None, generator=None):
         super().__init__()
         self._remat_stage = True  # jit.recompute_policy("stages") boundary
         std = cfg.initializer_range
-        self.attention = BertSelfAttention(cfg, device, generator)
+        self.attention = BertSelfAttention(cfg, device=device,
+                                           generator=generator)
         self.attn_norm = LayerNorm(cfg.hidden_size, epsilon=1e-12,
                                    device=device)
         self.ffn_in = Linear(cfg.hidden_size, cfg.intermediate_size, std=std,
@@ -161,7 +162,7 @@ class BertLayer(Layer):
 
 
 class BertPooler(Layer):
-    def __init__(self, cfg: BertConfig, device=None, generator=None):
+    def __init__(self, cfg: BertConfig, *, device=None, generator=None):
         super().__init__()
         self.dense = Linear(cfg.hidden_size, cfg.hidden_size,
                             std=cfg.initializer_range, device=device,
@@ -180,12 +181,12 @@ class BertModel(Layer):
         dev = resolve_device(device)
         gen = _generator(dev, seed)
         self.embeddings = self._make_embeddings(cfg, dev, gen)
-        self.layers = LayerList([BertLayer(cfg, dev, gen)
+        self.layers = LayerList([BertLayer(cfg, device=dev, generator=gen)
                                  for _ in range(cfg.num_hidden_layers)])
-        self.pooler = BertPooler(cfg, dev, gen)
+        self.pooler = BertPooler(cfg, device=dev, generator=gen)
 
     def _make_embeddings(self, cfg, device, generator):
-        return BertEmbeddings(cfg, device, generator)
+        return BertEmbeddings(cfg, device=device, generator=generator)
 
     def make_attn_mask(self, input_ids, attention_mask=None):
         """(B, S) padding mask (1 = a real token) or None -> an additive
@@ -214,7 +215,8 @@ class BertLMHead(Layer):
     the tied (V, H) decoder weight (``transpose_y``) plus a bias of its
     own."""
 
-    def __init__(self, cfg: BertConfig, embedding_weights=None, device=None,
+    def __init__(self, cfg: BertConfig, embedding_weights=None, *,
+                 device=None,
                  generator=None):
         super().__init__()
         self.transform = Linear(cfg.hidden_size, cfg.hidden_size,
@@ -250,7 +252,7 @@ class BertForPretraining(Layer):
         dev = self.bert.device
         gen = _generator(dev, seed + 1)
         self.cls = BertLMHead(cfg, self.bert.embeddings.word_embeddings.weight,
-                              dev, gen)
+                              device=dev, generator=gen)
         self.nsp = Linear(cfg.hidden_size, 2, std=cfg.initializer_range,
                           device=dev, generator=gen)
 

@@ -45,8 +45,8 @@ def ernie_large_config(**kw):
 
 
 class ErnieEmbeddings(BertEmbeddings):
-    def __init__(self, cfg: ErnieConfig, device=None, generator=None):
-        super().__init__(cfg, device, generator)
+    def __init__(self, cfg: ErnieConfig, *, device=None, generator=None):
+        super().__init__(cfg, device=device, generator=generator)
         if cfg.use_task_id:
             self.task_type_embeddings = Embedding(
                 cfg.task_type_vocab_size, cfg.hidden_size,
@@ -69,7 +69,7 @@ class ErnieModel(BertModel):
         super().__init__(cfg or ErnieConfig(**kw), device=device, seed=seed)
 
     def _make_embeddings(self, cfg, device, generator):
-        return ErnieEmbeddings(cfg, device, generator)
+        return ErnieEmbeddings(cfg, device=device, generator=generator)
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None,
                 attention_mask=None, task_type_ids=None):
@@ -88,7 +88,7 @@ class ErnieForPretraining(Layer):
         gen = _generator(dev, seed + 1)
         self.cls = BertLMHead(cfg,
                               self.ernie.embeddings.word_embeddings.weight,
-                              dev, gen)
+                              device=dev, generator=gen)
         # Linear's own default init, as the reference's
         self.nsp = Linear(cfg.hidden_size, 2, device=dev, generator=gen)
 

@@ -97,7 +97,7 @@ def _positions(pos, b: int, s: int, device):
 class GPTBlock(Layer):
     """Pre-LN transformer decoder block with fused QKV."""
 
-    def __init__(self, cfg: GPTConfig, device=None, generator=None):
+    def __init__(self, cfg: GPTConfig, *, device=None, generator=None):
         super().__init__()
         self._remat_stage = True  # jit.recompute_policy("stages") boundary
         std = cfg.initializer_range

@@ -57,8 +57,9 @@ class ClipGradByGlobalNorm(ClipGradBase):
     """All gradients scaled by clip_norm / max(global_norm, clip_norm),
     the global norm taken in f32 (no host sync)."""
 
-    def __init__(self, clip_norm):
+    def __init__(self, clip_norm, group_name="default_group"):
         self.clip_norm = float(clip_norm)
+        self.group_name = group_name
 
     def _clip(self, params_grads):
         sq = [torch.sum(g.float() * g.float()) for p, g in params_grads

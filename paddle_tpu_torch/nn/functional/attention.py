@@ -45,7 +45,7 @@ def _flash_kv_bias(mask, batch: int, sk: int):
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p: float = 0.0,
                                  is_causal: bool = False,
-                                 training: bool = True):
+                                 training: bool = True, name=None):
     """q/k/v: (batch, seq, heads, head_dim), the Paddle layout.
     ``attn_mask`` is boolean (True = attend) or additive, broadcast
     against (batch, heads, sq, sk).  AMP white-listed."""

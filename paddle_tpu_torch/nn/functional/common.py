@@ -14,7 +14,7 @@ from ...core.errors import InvalidArgumentError
 __all__ = ["linear", "dropout", "embedding", "interpolate", "upsample"]
 
 
-def linear(x, weight, bias=None):
+def linear(x, weight, bias=None, name=None):
     """y = x @ weight + bias with Paddle's (in, out) weight layout; AMP
     white-listed as ``linear`` with the bias cast too, so that under O1
     the output stays in the low type."""

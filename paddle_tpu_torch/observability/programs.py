@@ -147,9 +147,9 @@ class TrackedJit:
     that call's wall seconds; every call passes straight through.
     Unknown attributes go to the wrapped callable."""
 
-    def __init__(self, name: str, fn, registry: ProgramRegistry = None):
+    def __init__(self, name: str, jitted, registry: ProgramRegistry = None):
         self._name = name
-        self._fn = fn
+        self._fn = jitted
         self._registry = registry or _default_programs
         self._seen = set()
 
@@ -169,18 +169,18 @@ class TrackedJit:
         return getattr(self._fn, attr)
 
 
-def track(name: str, fn, registry: ProgramRegistry = None):
-    """Register ``fn`` under ``name``: a ``core.programs.Program`` is
+def track(name: str, jitted, registry: ProgramRegistry = None):
+    """Register ``jitted`` under ``name``: a ``core.programs.Program`` is
     tagged and returned (see the module docstring), any other callable is
     wrapped in ``TrackedJit``.  Identity when PDTPU_OBS_PROGRAMS=0."""
     if not _tracking_enabled():
-        return fn
+        return jitted
     from ..core.programs import Program
-    if isinstance(fn, Program):
-        fn.tracked_as = name
-        fn.registry = registry or _default_programs
-        return fn
-    return TrackedJit(name, fn, registry)
+    if isinstance(jitted, Program):
+        jitted.tracked_as = name
+        jitted.registry = registry or _default_programs
+        return jitted
+    return TrackedJit(name, jitted, registry)
 
 
 def aot_fallbacks(registry: ProgramRegistry = None) -> list:

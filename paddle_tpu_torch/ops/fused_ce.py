@@ -96,7 +96,7 @@ class _FusedCE(torch.autograd.Function):
 
 
 def fused_linear_cross_entropy(h, weight, labels, chunk_size=None,
-                               bias=None, ignore_index=None):
+                               bias=None, ignore_index=None, name=None):
     """Per-token CE of (h @ weight^T [+ bias]) vs labels.
 
     h (..., H) hidden states, weight (V, H) (the tied embedding layout),

@@ -333,10 +333,10 @@ def _kernel(q, kpool, vpool, tables, pos):
     return out
 
 
-def paged_attention(q, kpool, vpool, tables, pos):
+def paged_attention(q, kpool, vpool, table, pos):
     """Decode attention for S slots: query ``q`` (S, H, D) against the
     paged KV ``kpool``/``vpool`` (num_blocks, block_size, H, D) through
-    ``tables`` (S, nb) int32 block ids, with ``pos`` (S,) int32 each
+    ``table`` (S, nb) int32 block ids, with ``pos`` (S,) int32 each
     slot's write position (rows > pos are masked; the row at pos must
     already be written).  Out-of-range table entries clamp into the pool.
     q and the pools are each float32, bfloat16 or float16 (the kernel's
@@ -344,11 +344,11 @@ def paged_attention(q, kpool, vpool, tables, pos):
     the math is f32.  Returns (S, H, D) in q's dtype.  CUDA tensors launch the kernel (or raise on what
     it does not take); CPU tensors take the plain version."""
     if q.device.type == "cuda":
-        _check_cuda(q, kpool, vpool, tables, pos)
-        if q.shape[0] == 0 or tables.shape[1] == 0:  # no rows to attend
+        _check_cuda(q, kpool, vpool, table, pos)
+        if q.shape[0] == 0 or table.shape[1] == 0:  # no rows to attend
             return torch.zeros_like(q)
-        return _kernel(q, kpool, vpool, tables, pos)
-    return _plain(q, kpool, vpool, tables, pos)
+        return _kernel(q, kpool, vpool, table, pos)
+    return _plain(q, kpool, vpool, table, pos)
 
 
 paged_attention.launches = 0  # kernel launches; the plain version never counts

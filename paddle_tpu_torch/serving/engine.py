@@ -379,12 +379,11 @@ class ServingEngine:
                  spec_tokens: int = 4, kv: str = "fixed",
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  mesh=None, program_set=None, prefix_cache: bool = False,
-                 share_policy=None, lora=None, device=DEFAULT_DEVICE):
+                 share_policy=None, lora=None, *, device=DEFAULT_DEVICE):
         if mesh is not None:
             raise UnimplementedError(
                 "ServingEngine(mesh=...) is not ported yet: tensor-parallel "
-                "serving comes with the port's parallel slice (ROADMAP §1 "
-                "item 6)")
+                "serving is a later part of ROADMAP §1 item 8")
         self.device = resolve_device(device)
         for role, m in (("model", model), ("draft model", draft_model)):
             if m is not None and m.device != self.device:

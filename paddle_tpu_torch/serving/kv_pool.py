@@ -82,7 +82,8 @@ class PagedKVPool:
     mutation happens on the engine loop thread; the lock guards the
     snapshots other threads read."""
 
-    def __init__(self, num_blocks: int, block_size: int, pool_len: int):
+    def __init__(self, num_blocks: int, block_size: int, pool_len: int,
+                 name=None):
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
         self.pool_len = int(pool_len)

@@ -8,7 +8,8 @@ from ..amp import amp_cast, promote
 __all__ = ["matmul"]
 
 
-def matmul(x, y, transpose_x: bool = False, transpose_y: bool = False):
+def matmul(x, y, transpose_x: bool = False, transpose_y: bool = False,
+           name=None):
     """x @ y over the last two axes, with optional transposes; AMP
     white-listed as ``matmul``."""
     x, y = promote(*amp_cast("matmul", x, y))

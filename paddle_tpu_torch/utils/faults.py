@@ -240,12 +240,12 @@ def nan_logits_request() -> Optional[int]:
     return None if not raw else int(raw)
 
 
-def poison_logits(logits, poison):
-    """(S, ...) logits with every row of a set (S,) bool ``poison`` mask
+def poison_logits(logits, poison_mask):
+    """(S, ...) logits with every row of a set (S,) bool ``poison_mask`` mask
     NaN (inside the decode programs, only when nan_logits was armed at the
     engine's construction)."""
     return logits.masked_fill(
-        poison.reshape((-1,) + (1,) * (logits.dim() - 1)), float("nan"))
+        poison_mask.reshape((-1,) + (1,) * (logits.dim() - 1)), float("nan"))
 
 
 def slow_decode_config() -> Optional[Tuple[float, int]]:
@@ -308,7 +308,7 @@ def nan_grads_window() -> Optional[Tuple[int, int]]:
     return k, k + 1
 
 
-def poison_grads(grads, step_no, window: Tuple[int, int]):
+def poison_grads(grads, step_no, *, window: Tuple[int, int]):
     """Every gradient times NaN where the 0-dim device step number
     ``step_no`` lies in ``window`` (times 1 elsewhere): device ops only,
     no host read."""

@@ -83,7 +83,7 @@ class BasicBlock(nn.Layer):
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
                  groups=1, base_width=64, dilation=1, norm_layer=None,
-                 data_format="NCHW", device=None, generator=None):
+                 data_format="NCHW", *, device=None, generator=None):
         super().__init__()
         self._remat_stage = True  # jit.recompute_policy("stages") boundary
         norm_layer = norm_layer or nn.BatchNorm2D
@@ -108,7 +108,7 @@ class BottleneckBlock(nn.Layer):
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
                  groups=1, base_width=64, dilation=1, norm_layer=None,
-                 data_format="NCHW", device=None, generator=None):
+                 data_format="NCHW", *, device=None, generator=None):
         super().__init__()
         self._remat_stage = True  # jit.recompute_policy("stages") boundary
         norm_layer = norm_layer or nn.BatchNorm2D
@@ -137,7 +137,7 @@ class BottleneckBlock(nn.Layer):
 class ResNet(nn.Layer):
     def __init__(self, block, depth=50, width=64, num_classes=1000,
                  with_pool=True, groups=1, data_format="NCHW",
-                 device=DEFAULT_DEVICE, seed: int = 0):
+                 *, device=DEFAULT_DEVICE, seed: int = 0):
         super().__init__()
         layers = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3],
                   101: [3, 4, 23, 3], 152: [3, 8, 36, 3]}[depth]

@@ -8,6 +8,7 @@ without a word: a custom op list bound to ``level``, ``padding_idx=0``
 read as ``std=0`` (an all-zero table), dropout's ``axis`` read as
 ``training``, and a class ``weight`` read as ``ignore_index``."""
 import importlib
+import importlib.util
 import inspect
 
 import numpy as np
@@ -348,9 +349,18 @@ def _ref_params(fn):
             if p.kind is not p.VAR_KEYWORD]
 
 
-_SIG_MODULES = ("nn.functional.conv", "nn.functional.pooling",
-                "nn.functional.norm", "nn.layer.conv", "nn.layer.pooling",
-                "nn.layer.norm")
+def _port_modules():
+    """Every module of the port whose counterpart in the JAX package
+    exists (by the same dotted path)."""
+    import pkgutil
+    import paddle_tpu_torch
+    out = []
+    for info in pkgutil.walk_packages(paddle_tpu_torch.__path__,
+                                      "paddle_tpu_torch."):
+        rel = info.name[len("paddle_tpu_torch."):]
+        if importlib.util.find_spec("paddle_tpu." + rel) is not None:
+            out.append(rel)
+    return sorted(out)
 
 
 def _public(module):
@@ -359,32 +369,115 @@ def _public(module):
             and o.__module__ == module.__name__]
 
 
-SIGNATURES = [(m, n) for m in _SIG_MODULES
-              for n in _public(importlib.import_module("paddle_tpu." + m))]
+def _signature_cases():
+    cases = []
+    for m in _port_modules():
+        port = importlib.import_module("paddle_tpu_torch." + m)
+        cases += [(m, n) for n in _public(importlib.import_module(
+            "paddle_tpu." + m)) if hasattr(port, n)]
+    return cases
+
+
+SIGNATURES = _signature_cases()
+
+# Internal helpers whose parameters are the port's by design: the
+# reference's carry JAX state or versions (a functional state dict and a
+# PRNG key, the jax version, a row-sharded table's spec, a jitted
+# function).  Each case pins the port's own parameters.
+_DESIGN = {
+    ("jit", "forward_loss"): ["model", "loss_fn", "batch", "generator",
+                              "amp_level", "amp_dtype", "return_outputs"],
+    ("optimizer.functional", "apply_updates"): [
+        "optimizer", "params", "grads", "opt_state", "lr", "step_no",
+        "decay", "lr_mults", "regs"],
+    ("programs.program_set", "LoadedProgram"): ["self", "name", "record"],
+    ("programs.store", "cache_fingerprint"): [
+        "port_version", "op_versions", "torch_version", "cuda_version",
+        "nvcc_flags"],
+}
+
+
+def _case_id(where, name):
+    parts = where.split(".")
+    return ".".join(parts[-2:] + [name])
 
 
 @pytest.mark.parametrize("where,name", SIGNATURES,
-                         ids=[f"{w.split('.')[-2]}.{w.split('.')[-1]}.{n}"
-                              for w, n in SIGNATURES])
+                         ids=[_case_id(w, n) for w, n in SIGNATURES])
 def test_conv_pool_norm_signatures_start_with_the_reference(where, name):
-    """Every public function and layer of the reference's conv, pooling
-    and norm modules exists in the port's module of the same name and
-    takes the reference's parameters in the reference's order
-    (``name=`` and ``avg_pool2d``'s ``divisor_override`` in seventh place
-    included); the port's extras are keywords after them."""
+    """Every public function and layer of every module of the port that
+    has a counterpart in the JAX package takes the reference's parameters
+    in the reference's order (``name=`` and ``avg_pool2d``'s
+    ``divisor_override`` in seventh place included); the port's extras
+    are keywords after them.  The few internal helpers of ``_DESIGN``
+    keep the port's own parameters."""
     ref = getattr(importlib.import_module("paddle_tpu." + where), name)
     port = getattr(importlib.import_module("paddle_tpu_torch." + where),
                    name)
     if inspect.isclass(ref):
         ref, port = ref.__init__, port.__init__
-    want = _ref_params(ref)
     got = inspect.signature(port).parameters
+    if (where, name) in _DESIGN:
+        assert list(got) == _DESIGN[(where, name)]
+        return
+    want = _ref_params(ref)
     assert list(got)[:len(want)] == want
     if any(p.kind is p.VAR_KEYWORD
            for p in inspect.signature(ref).parameters.values()):
         return   # the rest are the functional's, which **kw passes on
     assert all(p.kind is p.KEYWORD_ONLY
                for p in list(got.values())[len(want):])
+
+
+def test_softmax_casts_to_dtype_first_as_the_reference():
+    """``F.softmax(x, axis, dtype)`` casts before the softmax: bf16 logits
+    with ``dtype="float32"`` give the f32 softmax of the bf16 values."""
+    import ml_dtypes
+    x = _np_rand((4, 33), 21).astype(ml_dtypes.bfloat16)
+    ref = JF.softmax(paddle.to_tensor(x), -1, "float32").numpy()
+    got = TF.softmax(torch.from_numpy(x.view(np.int16)).view(
+        torch.bfloat16), -1, "float32", name="sm")
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("fn", ["relu", "relu6", "tanh", "gelu"])
+def test_activations_take_name(fn):
+    x = _np_rand((3, 5), 22)
+    ref = getattr(JF, fn)(paddle.to_tensor(x), name="a").numpy()
+    got = getattr(TF, fn)(torch.from_numpy(x), name="a").numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+
+
+def test_clip_by_global_norm_keeps_group_name():
+    jc = jnn.ClipGradByGlobalNorm(1.0, "g")
+    tc = tnn.ClipGradByGlobalNorm(1.0, "g")
+    assert tc.group_name == jc.group_name == "g"
+    assert tnn.ClipGradByGlobalNorm(2.0).group_name == "default_group"
+
+
+def test_train_step_takes_mesh_and_batch_sharding_and_reads_neither():
+    """``TrainStep(mesh=, batch_sharding=)``: accepted, and a step with
+    them equals a step without them, as in the reference (whose step
+    reads neither)."""
+    from paddle_tpu_torch import jit as tjit
+    rng = np.random.RandomState(23)
+    x = torch.from_numpy(rng.randn(8, 4).astype(np.float32))
+    y = torch.from_numpy(rng.randn(8, 2).astype(np.float32))
+    losses = []
+    for kw in ({}, {"mesh": object(), "batch_sharding": object()}):
+        torch.manual_seed(0)
+        lin = tnn.Linear(4, 2, device="cpu")
+        with torch.no_grad():
+            lin.weight.copy_(torch.linspace(-1, 1, 8).view(4, 2))
+        opt = __import__("paddle_tpu_torch").optimizer.SGD(
+            0.1, parameters=lin.parameters())
+        step = tjit.TrainStep(lin, lambda o, t: ((o - t) ** 2).mean(), opt,
+                              **kw)
+        losses.append([float(step(x, y)) for _ in range(2)]
+                      + [lin.weight.detach().clone()])
+    assert losses[0][:2] == losses[1][:2]
+    assert torch.equal(losses[0][2], losses[1][2])
 
 
 def test_avg_pool2d_positional_call_written_for_the_reference():

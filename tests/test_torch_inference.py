@@ -226,7 +226,7 @@ def test_refusals(saved, tmp_path):
         # ported: taken and passed on to the predictor
         cfg = Config(jp).enable_serving(model=object(), **{opt: "x"})
         assert cfg._serving[opt] == "x"
-    with pytest.raises(UnimplementedError, match="item 7"):
+    with pytest.raises(UnimplementedError, match="item 8"):
         Config(jp).enable_recsys_serving(model=1, table=2)
     assert Config(jp).torch_device() == "cuda:0"
     cfg = Config(jp)
