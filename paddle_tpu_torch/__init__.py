@@ -8,14 +8,15 @@ version, which runs for CPU tensors.  Entry points run on the card unless
 the caller passes ``device="cpu"``.
 """
 from . import (amp, distributed, generation, inference, jit,  # noqa: F401
-               lora, models, nn, observability, optimizer, programs,
-               quantization, regularizer, serving, vision)
+               lora, models, nn, observability, optimizer, parallel,
+               programs, quantization, regularizer, serving, vision)
 from .core.rng import seed  # noqa: F401
 from .nn.layer_base import ParamAttr  # noqa: F401
 from .weights import load_paddle_opt_state, load_paddle_state  # noqa: F401
 
 __all__ = ["amp", "distributed", "generation", "inference", "jit", "lora",
-           "models", "nn", "observability", "optimizer", "programs",
+           "models", "nn", "observability", "optimizer", "parallel",
+           "programs",
            "quantization", "regularizer",
            "serving", "vision", "seed", "ParamAttr", "load_paddle_state",
            "load_paddle_opt_state"]

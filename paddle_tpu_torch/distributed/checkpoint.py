@@ -1,5 +1,5 @@
-"""Training checkpoints in the reference's on-disk layout (the
-single-process part of paddle_tpu/distributed/checkpoint.py).
+"""Training checkpoints in the reference's on-disk layout (counterpart of
+paddle_tpu/distributed/checkpoint.py).
 
 Layout of a checkpoint directory, as the reference writes it:
 
@@ -31,9 +31,21 @@ prunes; ``train_epoch_range`` resumes an epoch loop after the newest
 checkpoint's epoch.  The ``kill_mid_save`` fault (``utils.faults``) fires
 between a save's files and the rename that publishes them.
 
-Not in this slice of the port, raising ``UnimplementedError``:
-``mesh=`` / ``shardings=`` (restoring onto a device mesh) and a save from
-more than one process.
+**Several processes.** A leaf of the tree may be a ``Shard``: a rank's
+block of a larger array (its data, the whole array's shape, the block's
+index, the spec, and whether this rank owns the block).  In a started
+``torch.distributed`` world each rank writes the blocks it owns into
+``shards-p{rank}.npz`` (a whole tensor is written once, by rank 0), the
+ranks meet at a barrier, and rank 0 removes stale files of an earlier
+save with more processes, then publishes the manifest (the whole shapes
+and the specs, ``n_processes`` the world size) and ``latest``; a second
+barrier returns every rank after the publish.  ``restore_sharded(mesh=,
+shardings=)`` gives each rank its block of every array (``shardings``
+a nested dict of ``parallel.NamedSharding`` by name, else the saved spec
+on ``mesh``'s axes), assembled from whichever files hold it: a checkpoint
+restores onto another topology, the reference's included, and the
+reference reads the port's.  ``AsyncCheckpointManager`` stays
+single-process.
 
 The non-array training state rides in the manifest's ``extra`` under the
 reference's keys (``__lr_sched__``, ``__data_cursor__``, a GradScaler's
@@ -53,7 +65,7 @@ import shutil
 import tempfile
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -63,14 +75,12 @@ from ..core.errors import (ExecutionTimeoutError, InvalidArgumentError,
                            UnimplementedError)
 from ..utils.monitor import stat_add
 
-__all__ = ["snapshot_tree", "publish_snapshot", "save_sharded",
+__all__ = ["Shard", "snapshot_tree", "publish_snapshot", "save_sharded",
            "latest_step_dir", "restore_sharded", "train_state_extras",
            "save_train_state", "restore_train_extras", "apply_train_state",
            "merge_opt_state", "CheckpointManager", "AsyncCheckpointManager",
            "train_epoch_range"]
 
-_LATER = ("comes with the port's parallel slice (torch.distributed); "
-          "this slice saves and restores single-process checkpoints")
 _STEP_DIR_RE = re.compile(r"^step-(\d+)$")
 RNG_KEY = "__torch_rng__"
 _BF16_WORDS = np.dtype("V2")   # how numpy stores an ml_dtypes bfloat16
@@ -124,12 +134,32 @@ def _unflatten(flat: Dict[str, object]):
     return tree
 
 
-def _single_process():
+class Shard(NamedTuple):
+    """A rank's block of a larger array, as a leaf of a saved tree."""
+    data: torch.Tensor
+    shape: tuple          # the whole array's
+    index: tuple          # the block, as slices
+    spec: list            # the PartitionSpec's entries
+    owner: bool           # whether this rank writes the block
+
+
+def _world():
+    """(rank, world size) of the started process group, else (0, 1)."""
     dist = torch.distributed
-    if (dist.is_available() and dist.is_initialized()
-            and dist.get_world_size() > 1):
-        raise UnimplementedError(f"a checkpoint from several processes "
-                                 f"{_LATER}")
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _single_process():
+    if _world()[1] > 1:
+        raise UnimplementedError(
+            "AsyncCheckpointManager writes from one process; save a "
+            "several-process checkpoint with save_sharded")
+
+
+def _spec_json(spec) -> list:
+    return [list(e) if isinstance(e, (tuple, list)) else e for e in spec]
 
 
 # -- host arrays ------------------------------------------------------------
@@ -190,9 +220,24 @@ def snapshot_tree(state_tree, step: int = 0,
     ``pinned`` the copies go through pinned host buffers
     (``_pinned_copies``), as the asynchronous manager takes them."""
     flat = _flatten(state_tree)
+    rank, world = _world()
     manifest = {"step": int(step), "arrays": {}, "extra": extra_meta or {},
-                "n_processes": 1}
+                "n_processes": world}
     shards = {}
+    for name, t in list(flat.items()):
+        if isinstance(t, Shard):
+            manifest["arrays"][name] = {
+                "shape": list(t.shape),
+                "dtype": str(t.data.dtype).replace("torch.", ""),
+                "spec": _spec_json(t.spec)}
+            if t.owner:
+                shards[_index_key(name, t.index)] = _host_array(t.data)
+            del flat[name]
+        elif rank != 0:   # a whole array is written once, by rank 0
+            manifest["arrays"][name] = {
+                "shape": list(t.shape),
+                "dtype": str(t.dtype).replace("torch.", ""), "spec": []}
+            del flat[name]
     hosts = _pinned_copies(flat) if pinned else {}
     for name, t in flat.items():
         arr = hosts[name] if pinned else _host_array(t)
@@ -265,15 +310,51 @@ def _publish_snapshot_inner(directory: str, manifest: dict,
 
 def save_sharded(state_tree, directory: str, step: int = 0,
                  extra_meta: Optional[dict] = None) -> str:
-    """Write a checkpoint of a tree (nested dicts) of tensors; the whole
-    save is observed as ``checkpoint_save_stall_seconds``.  Returns the
-    step directory."""
-    _single_process()
+    """Write a checkpoint of a tree (nested dicts) of tensors and
+    ``Shard``s; from several processes each writes its own blocks (module
+    docstring).  The whole save is observed as
+    ``checkpoint_save_stall_seconds``.  Returns the step directory."""
     os.makedirs(directory, exist_ok=True)
     stall_h, _ = _obs()
     with stall_h.time():
         manifest, shards = snapshot_tree(state_tree, step, extra_meta)
-        return publish_snapshot(directory, manifest, shards)
+        rank, world = _world()
+        if world == 1:
+            return publish_snapshot(directory, manifest, shards)
+        return _publish_multi(directory, manifest, shards, rank, world)
+
+
+def _publish_multi(directory: str, manifest: dict, shards: dict, rank: int,
+                   world: int) -> str:
+    """Each rank lands its npz in the step directory; after a barrier rank
+    0 publishes the manifest and ``latest``; a second barrier."""
+    dist = torch.distributed
+    stat_add("STAT_checkpoint_bytes_written",
+             sum(a.nbytes for a in shards.values()))
+    step_dir = os.path.join(directory, f"step-{manifest['step']:09d}")
+    tmp_dir = step_dir + f".tmp-p{rank:05d}"
+    os.makedirs(tmp_dir, exist_ok=True)
+    npz = f"shards-p{rank:05d}.npz"
+    with open(os.path.join(tmp_dir, npz), "wb") as f:
+        np.savez(f, **shards)
+        f.flush()
+        os.fsync(f.fileno())
+    os.makedirs(step_dir, exist_ok=True)
+    os.replace(os.path.join(tmp_dir, npz), os.path.join(step_dir, npz))
+    shutil.rmtree(tmp_dir, ignore_errors=True)
+    dist.barrier()
+    if rank == 0:
+        for f in os.listdir(step_dir):
+            if (f.startswith("shards-p") and f.endswith(".npz")
+                    and int(f[len("shards-p"):-len(".npz")]) >= world):
+                os.unlink(os.path.join(step_dir, f))
+        _write_atomic(os.path.join(step_dir, "manifest.json"),
+                      json.dumps(manifest))
+        _fsync_dir(step_dir)
+        _write_atomic(os.path.join(directory, "latest"),
+                      os.path.basename(step_dir))
+    dist.barrier()
+    return step_dir
 
 
 # -- restore ----------------------------------------------------------------
@@ -350,14 +431,34 @@ def latest_step_dir(directory: str) -> Optional[str]:
     return None
 
 
+def _block_of(name: str, meta: dict, mesh, flat_shardings):
+    """The slices of this rank's block of ``name`` (None: the whole)."""
+    from ..parallel.mesh import NamedSharding, P
+    sh = flat_shardings.get(name)
+    if sh is None and mesh is not None:
+        # the saved spec on the axes this mesh has
+        def known(e):
+            return e is None or all(a in mesh.shape for a in (
+                e if isinstance(e, tuple) else (e,)))
+        entries = [tuple(e) if isinstance(e, list) else e
+                   for e in meta.get("spec", [])]
+        sh = NamedSharding(mesh, P(*[e if known(e) else None
+                                     for e in entries]))
+    return None if sh is None else sh.index(tuple(meta["shape"]))
+
+
 def restore_sharded(directory: str, mesh=None, shardings=None,
                     step: Optional[int] = None):
     """(state_tree, step, extra_meta) from a checkpoint directory (the
     newest, or ``step``'s), the arrays as CPU tensors; None when there is
-    no checkpoint."""
-    if mesh is not None or shardings:
-        raise UnimplementedError(f"restore_sharded(mesh=/shardings=) "
-                                 f"{_LATER}")
+    no checkpoint.  With ``mesh`` / ``shardings`` each array is this
+    rank's block (module docstring)."""
+    from ..parallel.mesh import Mesh
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise InvalidArgumentError(
+            f"restore_sharded: mesh must be a parallel.Mesh, got "
+            f"{type(mesh).__name__}")
+    flat_sh = _flatten(shardings) if shardings else {}
     step_dir = (os.path.join(directory, f"step-{step:09d}")
                 if step is not None else latest_step_dir(directory))
     if step_dir is None or not os.path.isdir(step_dir):
@@ -365,9 +466,14 @@ def restore_sharded(directory: str, mesh=None, shardings=None,
     with open(os.path.join(step_dir, "manifest.json")) as f:
         manifest = json.load(f)
     files = _shard_files(step_dir, manifest.get("n_processes"))
-    out = {name: _to_tensor(_assemble(files, name, tuple(meta["shape"])),
-                            meta["dtype"])
-           for name, meta in manifest["arrays"].items()}
+    out = {}
+    for name, meta in manifest["arrays"].items():
+        full = _assemble(files, name, tuple(meta["shape"]))
+        idx = (_block_of(name, meta, mesh, flat_sh)
+               if mesh is not None or flat_sh else None)
+        if idx is not None:
+            full = np.ascontiguousarray(full[idx])
+        out[name] = _to_tensor(full, meta["dtype"])
     return _unflatten(out), manifest["step"], manifest.get("extra", {})
 
 

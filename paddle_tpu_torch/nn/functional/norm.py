@@ -4,6 +4,11 @@ channel axis is 1 for an ``"NC..."`` format, else the last), the fused
 training BatchNorm entry points of the conv-net blocks, instance_norm,
 group_norm, local_response_norm, normalize and rms_norm.
 
+Inside ``ops.fused_bn_act.stats_group(group)`` every training-mode
+BatchNorm here, plain or fused, takes its batch statistics over the
+group's ranks (``nn.SyncBatchNorm``, ``parallel.ShardedTrainStep``); the
+plain one then uses the one-pass variance of the fused path.
+
 ``fused_bn_act`` / ``fused_dual_bn_act`` in training mode run the fused
 kernels of ``ops.fused_bn_act`` (K5-K9 on the card, their plain versions
 on the CPU); in eval mode, the affine with the running statistics is plain
@@ -88,7 +93,12 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     shape = _bshape(x, ch)
     if training and not use_global_stats:
         axes = tuple(i for i in range(x.dim()) if i != ch)
-        var, mean = torch.var_mean(x, dim=axes, correction=0)
+        from ...ops import fused_bn_act as _k
+        if _k._STATS_GROUP is not None:   # the batch over the group's ranks
+            mean, var = (t.to(x.dtype) for t in _k.group_stats(
+                x.float(), axes, _k._STATS_GROUP))
+        else:
+            var, mean = torch.var_mean(x, dim=axes, correction=0)
         _update_running_stats(running_mean, running_var, mean, var,
                               momentum)
     else:

@@ -17,9 +17,11 @@ bypasses, as the reference's does.  ``dual_bn_act`` fuses a downsample
 shortcut's BatchNorm into the block's last one, gated by
 ``supports_dual_bn``.
 
-``SyncBatchNorm`` is ``BatchNorm`` on one process, as the reference's
-eager path is; statistics across ranks come with the port's
-``distributed`` data parallelism.
+``SyncBatchNorm`` takes its batch statistics over the ranks of the data
+parallel group (the mesh's ``dp`` group when a mesh is set, else every
+rank of the started world), forward and backward, fused path and plain
+(``ops.fused_bn_act.stats_group``); with no such group of more than one
+rank it is ``BatchNorm2D``, as the reference's eager path is.
 """
 from __future__ import annotations
 
@@ -68,6 +70,7 @@ class LayerNorm(Layer):
 
 
 class _BatchNormBase(Layer):
+    _fused_forward = False   # a subclass forward that takes the fused args
     def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  use_global_stats=None, name=None, *, device=None):
@@ -115,7 +118,8 @@ class _BatchNormBase(Layer):
         (kind, kernel, stride, padding)``) as one fused op, through
         ``__call__`` so that hooks still see the layer run; a subclass with
         its own forward signature takes the functional path directly."""
-        if type(self).forward is _BatchNormBase.forward:
+        if type(self).forward is _BatchNormBase.forward or \
+                type(self)._fused_forward:
             return self(x, activation=activation, residual=residual,
                         pool=pool)
         return self._fused_impl(x, activation, residual, pool)
@@ -157,9 +161,29 @@ class BatchNorm3D(_BatchNormBase):
 
 
 class SyncBatchNorm(_BatchNormBase):
-    """BatchNorm over the whole batch across ranks.  On one process it is
-    ``BatchNorm2D``, as the reference's eager path; statistics across
-    ranks wait for the port's ``distributed`` data parallelism."""
+    """BatchNorm over the whole batch across the data parallel ranks (see
+    the module docstring); ``BatchNorm2D`` without such ranks."""
+
+    _fused_forward = True
+
+    def _sync_group(self):
+        import torch.distributed as dist
+        from ...ops import fused_bn_act as _k
+        if _k._STATS_GROUP is not None or not (
+                dist.is_available() and dist.is_initialized()):
+            return None   # inside a step that set the group, or one rank
+        from ...parallel.mesh import get_mesh
+        mesh = get_mesh()
+        g = mesh.group("dp") if mesh is not None else dist.group.WORLD
+        return g if g is not None and dist.get_world_size(g) > 1 else None
+
+    def forward(self, x, activation=None, residual=None, pool=None):
+        from ...ops import fused_bn_act as _k
+        g = self._sync_group() if self.training else None
+        if g is None:
+            return super().forward(x, activation, residual, pool)
+        with _k.stats_group(g):
+            return super().forward(x, activation, residual, pool)
 
     @classmethod
     def convert_sync_batchnorm(cls, layer):

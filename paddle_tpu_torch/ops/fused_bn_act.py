@@ -57,21 +57,38 @@ recomputed from the saved input instead of being stored.
 - The per-channel math (mean, variance, invstd, the ``(8, C)`` coefficient
   rows) is plain tensor code, as in the reference.  The variance is the
   reference's one-pass ``max(E[x^2] - mean^2, 0)``.
+- **Statistics over ranks.** Inside ``stats_group(group)`` (a
+  ``torch.distributed`` group; ``parallel.ShardedTrainStep`` and
+  ``nn.SyncBatchNorm`` enter it) the statistics are the whole batch's
+  over the group's ranks, as the reference's sharded step computes them
+  over its global array: K5's column sums, sums of squares and row
+  counts are summed over the group (one all-reduce per site, both BNs of
+  a dual site together) before K6 or K9 read them, and K7's two sums,
+  with the returned mean's and variance's gradients, before K8 reads
+  them.  The gamma / beta gradients stay the rank's own sums: the data
+  parallel step averages them.  The pooled site's backward recomputes
+  through the plain references, whose statistics then go through a
+  differentiable all-reduce (``torch.distributed.nn``).  Each all-reduce
+  of statistics counts on ``stats_group.all_reduces``.  The group is
+  kept by each autograd node, so an eager backward outside the block
+  still reduces over it.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from . import _build
 
 __all__ = ["bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_dx",
            "bn_pool_apply", "bn_act_reference", "bn2_act_reference",
            "bn_act_pool_reference", "bn_act_train", "bn2_act_train",
-           "bn_act_pool_train", "fusable_pool_spec"]
+           "bn_act_pool_train", "fusable_pool_spec", "stats_group"]
 
 _ACTS = (None, "relu", "relu6")
 _ACT_CODE = {None: 0, "relu": 1, "relu6": 2}
@@ -112,7 +129,51 @@ def _coef(mean, invstd, gamma, beta, A=None, B=None, Cc=None):
     return torch.stack([r.float() for r in rows])
 
 
-def _stats_of(s, sq, m: int, eps: float):
+# ---------------------------------------------------------------------------
+# statistics over the ranks of a process group
+# ---------------------------------------------------------------------------
+
+_STATS_GROUP = None
+
+
+@contextlib.contextmanager
+def stats_group(group):
+    """BatchNorm batch statistics over every rank of ``group`` inside the
+    block (None: each rank's own)."""
+    global _STATS_GROUP
+    old, _STATS_GROUP = _STATS_GROUP, group
+    try:
+        yield
+    finally:
+        _STATS_GROUP = old
+
+
+stats_group.all_reduces = 0   # statistics all-reduces launched
+
+
+def _group_sums(group, *ts):
+    """The tensors summed over ``group``: one all-reduce of their f64
+    concatenation (the row counts stay exact), each back in f32."""
+    flat = torch.cat([t.reshape(-1).double() for t in ts])
+    dist.all_reduce(flat, group=group)
+    stats_group.all_reduces += 1
+    return [v.view(t.shape).float()
+            for v, t in zip(flat.split([t.numel() for t in ts]), ts)]
+
+
+def _count(m: int, like):
+    return torch.full((1,), float(m), dtype=torch.float32, device=like.device)
+
+
+def _site_stats(group, m: int, *sums):
+    """(sums, row count) over the group: the rank's own without one."""
+    if group is None:
+        return list(sums), m
+    out = _group_sums(group, *sums, _count(m, sums[0]))
+    return out[:-1], out[-1]
+
+
+def _stats_of(s, sq, m, eps: float):
     """(mean, var, invstd) from the column sums, the reference's one-pass
     variance."""
     mean = s / m
@@ -528,8 +589,31 @@ def _unrows(t2, shape, channel_last: bool):
 
 def _ref_stats(x, axes):
     xf = x.float()
+    if _STATS_GROUP is not None:
+        return group_stats(xf, axes, _STATS_GROUP)
     mean = xf.mean(axes)
     return mean, torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+
+
+def group_stats(xf, axes, group):
+    """(mean, one-pass variance) of f32 ``xf`` over ``axes`` and over the
+    ranks of ``group``: the sums, sums of squares and row count go through
+    one differentiable all-reduce (its backward sums the gradients over
+    the ranks)."""
+    from torch.distributed.nn import functional as dnn
+    n = 1
+    for a in axes:
+        n *= xf.shape[a]
+    c = xf.numel() // n
+    tot = dnn.all_reduce(torch.cat([
+        xf.sum(axes).reshape(-1).double(),
+        (xf * xf).sum(axes).reshape(-1).double(),
+        _count(n, xf).double()]), group=group)
+    stats_group.all_reduces += 1
+    m = tot[-1].float()
+    mean = (tot[:c].float() / m).reshape(xf.sum(axes).shape)
+    msq = (tot[c:2 * c].float() / m).reshape(mean.shape)
+    return mean, torch.clamp_min(msq - mean * mean, 0.0)
 
 
 def _bshape(x, ch):
@@ -630,23 +714,27 @@ class _BnAct(torch.autograd.Function):
         x2 = _rows(x, channel_last, bn_act_train)
         res2 = (None if residual is None
                 else _rows(residual, channel_last, bn_act_train))
-        s, sq = bn_stats(x2)
-        mean, var, invstd = _stats_of(s, sq, x2.shape[0], eps)
+        group = _STATS_GROUP
+        (s, sq), m = _site_stats(group, x2.shape[0], *bn_stats(x2))
+        mean, var, invstd = _stats_of(s, sq, m, eps)
         y2 = bn_apply(x2, _coef(mean, invstd, gamma, beta), res2, act)
         ctx.save_for_backward(x2, gamma, beta, res2, mean, invstd)
-        ctx.cfg = (act, channel_last, x.shape)
+        ctx.cfg = (act, channel_last, x.shape, group, m)
         return _unrows(y2, x.shape, channel_last), mean, var
 
     @staticmethod
     def backward(ctx, gy, gmean, gvar):
         x2, gamma, beta, res2, mean, invstd = ctx.saved_tensors
-        act, channel_last, shape = ctx.cfg
+        act, channel_last, shape, group, m = ctx.cfg
         g2 = _rows(gy, channel_last, bn_act_train)
         gammaf = gamma.float()
         coef = _coef(mean, invstd, gammaf, beta)
         sgz, sgzx = bn_bwd_reduce(g2, x2, coef, res2, act)
-        A, B, Cc = _dx_coef(gammaf * invstd, sgz, sgzx, invstd, mean, gmean,
-                            gvar, x2.shape[0])
+        tz, tzx, gmean, gvar = ((sgz, sgzx, gmean, gvar) if group is None
+                                else _group_sums(group, sgz, sgzx, gmean,
+                                                 gvar))
+        A, B, Cc = _dx_coef(gammaf * invstd, tz, tzx, invstd, mean, gmean,
+                            gvar, m)
         dx2, dres2 = bn_bwd_dx(g2, x2, _coef(mean, invstd, gammaf, beta, A,
                                              B, Cc), res2, act)
         return (_unrows(dx2, shape, channel_last), sgzx.to(gamma.dtype),
@@ -662,14 +750,16 @@ class _Bn2Act(torch.autograd.Function):
                 channel_last):
         x2 = _rows(x, channel_last, bn2_act_train)
         r2 = _rows(res, channel_last, bn2_act_train)
-        m = x2.shape[0]
-        mean_x, var_x, inv_x = _stats_of(*bn_stats(x2), m, eps)
-        mean_r, var_r, inv_r = _stats_of(*bn_stats(r2), m, eps)
+        group = _STATS_GROUP
+        (sx, sqx, sr, sqr), m = _site_stats(group, x2.shape[0],
+                                            *bn_stats(x2), *bn_stats(r2))
+        mean_x, var_x, inv_x = _stats_of(sx, sqx, m, eps)
+        mean_r, var_r, inv_r = _stats_of(sr, sqr, m, eps)
         y2 = bn_apply(x2, _coef(mean_x, inv_x, gamma_x, beta_x), r2, act,
                       _coef(mean_r, inv_r, gamma_r, beta_r))
         ctx.save_for_backward(x2, gamma_x, beta_x, r2, gamma_r, beta_r,
                               mean_x, inv_x, mean_r, inv_r)
-        ctx.cfg = (act, channel_last, x.shape)
+        ctx.cfg = (act, channel_last, x.shape, group, m)
         return (_unrows(y2, x.shape, channel_last), mean_x, var_x, mean_r,
                 var_r)
 
@@ -677,16 +767,19 @@ class _Bn2Act(torch.autograd.Function):
     def backward(ctx, gy, gmx, gvx, gmr, gvr):
         (x2, gamma_x, beta_x, r2, gamma_r, beta_r, mean_x, inv_x, mean_r,
          inv_r) = ctx.saved_tensors
-        act, channel_last, shape = ctx.cfg
+        act, channel_last, shape, group, m = ctx.cfg
         g2 = _rows(gy, channel_last, bn2_act_train)
-        m = x2.shape[0]
         gxf, grf = gamma_x.float(), gamma_r.float()
         coef_x = _coef(mean_x, inv_x, gxf, beta_x)
         coef_r = _coef(mean_r, inv_r, grf, beta_r)
         sgz, sgzx, sgzr = bn_bwd_reduce(g2, x2, coef_x, r2, act, coef_r)
-        Ax, Bx, Cx = _dx_coef(gxf * inv_x, sgz, sgzx, inv_x, mean_x, gmx,
+        tz, tzx, tzr = sgz, sgzx, sgzr
+        if group is not None:
+            tz, tzx, tzr, gmx, gvx, gmr, gvr = _group_sums(
+                group, sgz, sgzx, sgzr, gmx, gvx, gmr, gvr)
+        Ax, Bx, Cx = _dx_coef(gxf * inv_x, tz, tzx, inv_x, mean_x, gmx,
                               gvx, m)
-        Ar, Br, Cr = _dx_coef(grf * inv_r, sgz, sgzr, inv_r, mean_r, gmr,
+        Ar, Br, Cr = _dx_coef(grf * inv_r, tz, tzr, inv_r, mean_r, gmr,
                               gvr, m)
         dx2, dr2 = bn_bwd_dx(
             g2, x2, _coef(mean_x, inv_x, gxf, beta_x, Ax, Bx, Cx), r2, act,
@@ -710,20 +803,21 @@ class _BnPool(torch.autograd.Function):
             x4 = x4.contiguous()
             bn_act_pool_train.relayouts += 1
         n, h, w, c = x4.shape
-        mean, var, invstd = _stats_of(*bn_stats(x4.view(-1, c)), n * h * w,
-                                      eps)
+        group = _STATS_GROUP
+        (sm, sq), m = _site_stats(group, n * h * w, *bn_stats(x4.view(-1, c)))
+        mean, var, invstd = _stats_of(sm, sq, m, eps)
         y4 = bn_pool_apply(x4, _coef(mean, invstd, gamma, beta), act, kind,
                            k, s, p)
         ctx.save_for_backward(x, gamma, beta)
-        ctx.cfg = (eps, act, pool, -1 if channel_last else 1)
+        ctx.cfg = (eps, act, pool, -1 if channel_last else 1, group)
         return (y4 if channel_last else y4.permute(0, 3, 1, 2)), mean, var
 
     @staticmethod
     def backward(ctx, gy, gmean, gvar):
-        eps, act, pool, ch = ctx.cfg
+        eps, act, pool, ch, group = ctx.cfg
         # a profiler range: the step's profile reports this recompute apart
         with torch.profiler.record_function("bn_pool_backward"), \
-                torch.enable_grad():
+                torch.enable_grad(), stats_group(group):
             ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
             outs = bn_act_pool_reference(*ins, eps, act, pool, ch)
             grads = torch.autograd.grad(outs, ins, (gy, gmean, gvar),
