@@ -66,8 +66,15 @@ def worker_num() -> int:
     return get_world_size()
 
 
+def _workers():
+    """Every worker: the started world (None: a world of one)."""
+    import torch.distributed as dist
+    return dist.group.WORLD if dist.is_available() and \
+        dist.is_initialized() else None
+
+
 def barrier_worker():
-    _collective.barrier()
+    _collective.barrier(group=_workers())
 
 
 class DistributedOptimizer:
@@ -142,13 +149,14 @@ class Role:
 
 
 class UtilBase:
-    """``fleet.util``: helpers across the workers, over the collectives."""
+    """``fleet.util``: helpers across every worker, over the collectives
+    on the started world."""
 
     def all_reduce(self, input, mode="sum", comm_world="worker"):  # noqa: A002
         op = {"sum": _collective.ReduceOp.SUM, "min": _collective.ReduceOp.MIN,
               "max": _collective.ReduceOp.MAX}[mode]
         t = torch.as_tensor(np.asarray(input)).clone()
-        _collective.all_reduce(t, op=op)
+        _collective.all_reduce(t, op=op, group=_workers())
         return t.numpy()
 
     def barrier(self, comm_world="worker"):
@@ -156,7 +164,8 @@ class UtilBase:
 
     def all_gather(self, input, comm_world="worker"):  # noqa: A002
         out = []
-        _collective.all_gather(out, torch.as_tensor(np.asarray(input)))
+        _collective.all_gather(out, torch.as_tensor(np.asarray(input)),
+                               group=_workers())
         return [o.numpy() for o in out]
 
     def get_file_shard(self, files):

@@ -27,12 +27,14 @@ class UtilBase:
         return list(files)[get_rank() % n::n]
 
     def all_reduce(self, input, mode="sum"):  # noqa: A002
+        from . import _workers
         t = torch.as_tensor(np.asarray(input)).clone()
-        _collective.all_reduce(t, op=mode)
+        _collective.all_reduce(t, op=mode, group=_workers())
         return t.numpy()
 
     def barrier(self):
-        _collective.barrier()
+        from . import _workers
+        _collective.barrier(group=_workers())
 
     def print_on_rank(self, message, rank_id=0):
         from ..env import get_rank
