@@ -502,6 +502,29 @@ Phases (any failure exits non-zero before the result line):
                 rounding boundary may land on either side); finite logits
                 of shape (8, 1000); save_quantized_model +
                 jit.load: the same logits within 1e-4.
+ 23. parallel — the parallel path on a one-rank NCCL group (a FileStore in
+                a temporary directory) and create_mesh({"dp": 1}): GPT-2
+                medium (dropout 0, B 4 x S 1024) through
+                fleet.distributed_train_step with sharding stage 2,
+                recompute and O1 bf16 (AdamW 1e-4), PARALLEL_STEPS steps,
+                then stage 3 for PARALLEL_FSDP_STEPS: each loss within
+                1e-3 relative of TrainStep(amp_level="O1", remat=True)'s
+                on the same weights and batch, K1 / K2 launches per step
+                equal to that step's; ms per step, tokens/s, peak GiB, the
+                NCCL kernels' device ms per step (the phase fails when a
+                profiled step runs none) and whether the step was captured
+                as a CUDA graph.  The same model through
+                gpt_pipeline_step(n_micro=4, remat=True) on the pp=1 mesh,
+                "gpipe" and "1f1b", PIPE_STEPS steps each: losses within
+                1e-3 of each other and the first of the sharded leg's,
+                1F1B's temp_bytes below GPipe's.  ResNet-50 (b256 x 224^2,
+                O2 bf16, NHWC, Momentum(0.1, 0.9)) through
+                ShardedTrainStep, PAR_RESNET_STEPS captured steps: K5-K9
+                launches per step equal to TrainStep's, the statistics
+                all-reduces per step two per fused site, the first loss
+                within 2e-2 of TrainStep's.  ring_attention at sp=1, (2,
+                2048, 16, 64) f32, causal and not, output and gradients
+                against the naive softmax at 2e-4.
 Before the last line it prints one JSON line with every kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
 """
@@ -585,6 +608,10 @@ LORA_ADAPTERS = (None, "t1", "t2", "t3", "t4", None, "t1", "t2")
 LORA_MARGIN_TOL = 1e-3   # a batched / solo adapter split needs a nearer tie
 LORA_TRAIN_B, LORA_TRAIN_S, LORA_TRAIN_STEPS = 2, 512, 3
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 8               # train phase
+PARALLEL_STEPS, PARALLEL_FSDP_STEPS = 5, 3      # parallel phase: sharded GPT
+PIPE_STEPS = 3                                   # and each pipeline schedule
+PAR_RESNET_STEPS = 3                             # and sharded ResNet-50
+RING_SHAPE = (2, 2048, 16, 64)                   # ring attention at sp=1
 # dlrm phase: the Criteo Kaggle tables of dlrm_s_criteo_kaggle.sh
 CRITEO_KAGGLE = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3,
                  93145, 5683, 8351593, 3194, 27, 14992, 5461306, 10, 5652,
@@ -663,7 +690,7 @@ PHASES = ("check", "serve", "telemetry", "pressure", "prefix", "spec", "lora",
           "flash", "train", "traincheck", "dlrm", "trainexport", "tostatic",
           "guard", "amp16", "bert",
           "predictor", "bn", "resnet", "resnetcheck", "mobilenet", "vgg",
-          "convcheck", "lenet", "qat")
+          "convcheck", "lenet", "qat", "parallel")
 
 
 def fail(msg: str):
@@ -6820,6 +6847,357 @@ def predictor_phase(torch, args, dev, card):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# parallel: the sharded step, the pipelines and ring attention on NCCL
+# ---------------------------------------------------------------------------
+
+def _sum_into(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+PAR_GROUPS = {"nccl (collectives)": ("nccl",),
+              "flash (K1 / K2)": ("flash_fwd", "flash_bwd")}
+
+
+def _one_rank_group(torch, root):
+    """A one-rank NCCL process group over a FileStore under ``root``."""
+    import torch.distributed as dist
+    store = dist.FileStore(os.path.join(root, "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+
+
+def _plain_losses(torch, make, batch, steps, counters):
+    """A TrainStep's losses over ``steps`` uncaptured steps (same program
+    function, no graph) and its launches: the comparison legs."""
+    model, step = make()
+    step._run_uncaptured = True
+    read = counters()
+    losses = [float(step(*batch)) for _ in range(steps)]
+    out = losses, read()
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _par_leg(torch, make, batch, steps, counters, card, what, **prof):
+    """``train_leg`` on a sharded step, captured; when the capture of the
+    NCCL collectives raises, the same leg uncaptured (printed)."""
+    try:
+        leg = train_leg(torch, make, batch, steps, counters, card,
+                        what + ", captured)", **prof)
+        leg["captured"] = True
+    except RuntimeError as e:
+        print(f"parallel: capturing the sharded step failed ({e!r:.300}); "
+              "running it uncaptured")
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        leg = train_leg(torch, make, batch, steps, counters, card,
+                        what + ", uncaptured)", uncaptured=True, **prof)
+        leg["captured"] = False
+    return leg
+
+
+def _rel_check(tag, got, want, tol):
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    print(f"{tag}: losses {', '.join(repr(x) for x in got)} vs "
+          f"{', '.join(repr(x) for x in want)}: largest relative {rel:.2e}")
+    if not rel <= tol:
+        fail(f"{tag}: losses {got} differ from {want} by {rel:.2e} "
+             f"(> {tol})")
+
+
+def _nccl_ms(tag, leg):
+    ms = leg["profile"][2].get("nccl (collectives)", 0.0)
+    if not ms > 0:
+        fail(f"{tag}: no NCCL kernel in the profiled step "
+             f"(groups {leg['profile'][2]})")
+    return ms
+
+
+def parallel_gpt_legs(torch, args, dev, card, fa):
+    """GPT-2 medium through fleet.distributed_train_step (stage 2, then
+    stage 3) against TrainStep(O1, remat); returns (launches, the sharded
+    leg's first loss)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (GPTForPretraining,
+                                         GPTPretrainingCriterion,
+                                         gpt2_medium_config)
+    cfg = gpt2_medium_config(hidden_dropout_prob=0.0,
+                             attention_probs_dropout_prob=0.0)
+    crit = GPTPretrainingCriterion()
+    batch = tuple(torch.from_numpy(a).to(dev)
+                  for a in _train_batch(cfg, args.seed, TRAIN_B, TRAIN_S))
+    tokens = TRAIN_B * TRAIN_S
+
+    def counters():
+        fa.flash_fwd.launches = fa.flash_bwd.launches = 0
+        return lambda: {"flash_attention_fwd": fa.flash_fwd.launches,
+                        "flash_attention_bwd": fa.flash_bwd.launches}
+
+    def model_opt():
+        pt.seed(args.seed)
+        model = GPTForPretraining(cfg, device=dev, seed=args.seed)
+        return model, pt.optimizer.AdamW(learning_rate=1e-4,
+                                         parameters=model.parameters())
+
+    def make_plain():
+        model, opt = model_opt()
+        return model, TrainStep(model, lambda lg, y: crit(lg, y), opt,
+                                amp_level="O1", remat=True)
+
+    def make_sharded(stage):
+        def make():
+            st = parallel.DistributedStrategy(sharding=True, recompute=True,
+                                              amp=True)
+            st.sharding_configs.stage = stage
+            st.amp_configs.level = "O1"
+            fleet.init(is_collective=True, strategy=st)
+            model, opt = model_opt()
+            return model, fleet.distributed_train_step(
+                model, lambda lg, y: crit(lg, y),
+                fleet.distributed_optimizer(opt))
+        return make
+    want, plain_n = _plain_losses(torch, make_plain, batch, PARALLEL_STEPS,
+                                  counters)
+    per_step = {k: v // PARALLEL_STEPS for k, v in plain_n.items()}
+    print(f"parallel: TrainStep(O1, remat) losses "
+          f"{', '.join(repr(x) for x in want)}; K1 / K2 launches per step "
+          f"{per_step}")
+    launches = {}
+    what = (f"sharded train step (GPT-2 medium, B {TRAIN_B} x S {TRAIN_S}, "
+            "O1 bf16, recompute, one-rank NCCL")
+    first = None
+    for stage, steps in ((2, PARALLEL_STEPS), (3, PARALLEL_FSDP_STEPS)):
+        tag = f"parallel gpt stage {stage}"
+        leg = _par_leg(torch, make_sharded(stage), batch, steps, counters,
+                       card, what + f", ZeRO stage {stage}",
+                       groups=PAR_GROUPS)
+        _rel_check(tag, leg["losses"], want[:steps], 1e-3)
+        got = {k: v // steps for k, v in leg["launches"].items()}
+        if got != per_step or any(v % steps for v in
+                                  leg["launches"].values()):
+            fail(f"{tag}: K1 / K2 launches {leg['launches']} over {steps} "
+                 f"steps, TrainStep's {per_step} per step")
+        nccl = _nccl_ms(tag, leg)
+        print(_leg_line(tag, card, leg, tokens, "tokens"))
+        print(f"{tag} [{card}]: {leg['steady_ms']:.2f} ms per step, "
+              f"{tokens / leg['steady_ms'] * 1e3:.0f} tokens/s, peak "
+              f"{leg['peak_gib']:.2f} GiB, NCCL kernels {nccl:.3f} ms per "
+              f"step ({nccl / (leg['profile'][1] or 1):.2%} of device "
+              f"time), captured {leg['captured']}")
+        _sum_into(launches, leg["launches"])
+        first = leg["losses"][0] if first is None else first
+        parallel.set_mesh(None)
+    return launches, first
+
+
+def parallel_pipe_legs(torch, args, dev, card, fa, first):
+    """The same GPT-2 medium through gpt_pipeline_step on the pp=1 mesh,
+    GPipe and 1F1B; returns the launches."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.models import GPTForPretraining, gpt2_medium_config
+    from paddle_tpu_torch.parallel.pipeline import gpt_pipeline_step
+    cfg = gpt2_medium_config(hidden_dropout_prob=0.0,
+                             attention_probs_dropout_prob=0.0)
+    ids, labels = (torch.from_numpy(a).to(dev)
+                   for a in _train_batch(cfg, args.seed, TRAIN_B, TRAIN_S))
+    mesh = parallel.create_mesh({"dp": 1})
+    launches, runs = {}, {}
+    for sched in ("gpipe", "1f1b"):
+        pt.seed(args.seed)
+        model = GPTForPretraining(cfg, device=dev, seed=args.seed)
+        opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=model.parameters())
+        step = gpt_pipeline_step(model, opt, mesh, n_micro=4, remat=True,
+                                 schedule=sched)
+        mem = step.memory_stats(ids, labels)
+        fa.flash_fwd.launches = fa.flash_bwd.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for _ in range(PIPE_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(step(ids, labels)))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        n = {"flash_attention_fwd": fa.flash_fwd.launches,
+             "flash_attention_bwd": fa.flash_bwd.launches}
+        if not all(v > 0 for v in n.values()):
+            fail(f"parallel {sched}: no K1 / K2 launch ({n})")
+        _sum_into(launches, n)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        runs[sched] = (losses, mem["temp_bytes"])
+        print(f"parallel {sched} [{card}]: GPT-2 medium f32, n_micro 4, "
+              f"remat, pp=1 on NCCL: losses "
+              f"{', '.join(repr(x) for x in losses)}; "
+              f"{float(np.median(times[1:] or times)):.1f} ms per step "
+              f"(first {times[0]:.1f} ms), peak {peak:.2f} GiB, temp_bytes "
+              f"{mem['temp_bytes'] / 2 ** 30:.3f} GiB; launches {n}")
+        del model, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    _rel_check("parallel 1f1b vs gpipe", runs["1f1b"][0], runs["gpipe"][0],
+               1e-3)
+    _rel_check("parallel gpipe vs the sharded leg's first loss",
+               runs["gpipe"][0][:1], [first], 1e-3)
+    if not runs["1f1b"][1] < runs["gpipe"][1]:
+        fail(f"parallel: 1F1B temp_bytes {runs['1f1b'][1]} not below "
+             f"GPipe's {runs['gpipe'][1]}")
+    return launches
+
+
+def parallel_resnet_leg(torch, args, dev, card):
+    """ResNet-50 through ShardedTrainStep on the one-rank NCCL mesh;
+    returns the K5-K9 launches."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.jit import TrainStep, layout_policy
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import fused_bn_act as fbn
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    def loss(lg, y):
+        return F.cross_entropy(lg, y)
+
+    def model_opt():
+        pt.seed(args.seed)
+        model = resnet50(device=dev, seed=args.seed)
+        return model, Momentum(learning_rate=0.1, momentum=0.9,
+                               parameters=model.parameters())
+
+    def make_plain():
+        model, opt = model_opt()
+        return model, TrainStep(model, loss, opt, amp_level="O2",
+                                amp_dtype="bfloat16")
+
+    def make_sharded():
+        model, opt = model_opt()
+        st = parallel.DistributedStrategy(amp=True)
+        st.amp_configs.level = "O2"
+        return model, parallel.ShardedTrainStep(
+            model, loss, opt, strategy=st,
+            mesh=parallel.create_mesh({"dp": 1}))
+    base = bn_counters(fbn)
+
+    def counters():
+        read = base()
+        fbn.stats_group.all_reduces = 0
+        return lambda: dict(read(), stats=fbn.stats_group.all_reduces)
+    with layout_policy("NHWC"):
+        model = resnet50(device=dev, seed=args.seed)
+        per_step = bn_launches_per_step(model)
+        single, dual, pooled = bn_sites(model)
+        del model
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        x = torch.randn(RESNET_B, 3, RESNET_HW, RESNET_HW, generator=gen,
+                        device=dev)
+        y = torch.randint(0, 1000, (RESNET_B,), generator=gen, device=dev)
+        want, _ = _plain_losses(torch, make_plain, (x, y), 1, base)
+        leg = _par_leg(torch, make_sharded, (x, y), PAR_RESNET_STEPS,
+                       counters, card,
+                       f"sharded train step (ResNet-50, b{RESNET_B} x "
+                       f"{RESNET_HW}^2, O2 bf16, NHWC, one-rank NCCL",
+                       groups=dict(PAR_GROUPS, **bn_groups()), top=14)
+    tag = "parallel resnet"
+    _rel_check(tag + " first loss vs TrainStep", leg["losses"][:1], want,
+               2e-2)
+    got = {n: leg["launches"][n] for n in BN_KERNELS}
+    expect = {k: v * PAR_RESNET_STEPS for k, v in per_step.items()}
+    if got != expect:
+        fail(f"{tag}: K5-K9 launches {got}, TrainStep's {expect} "
+             f"({per_step} per step)")
+    sites = single + dual + pooled
+    stats = leg["launches"]["stats"]
+    if stats != 2 * sites * PAR_RESNET_STEPS:
+        fail(f"{tag}: {stats} statistics all-reduces over "
+             f"{PAR_RESNET_STEPS} steps, expected two per fused site "
+             f"({sites} sites)")
+    nccl = _nccl_ms(tag, leg)
+    print(_leg_line(tag, card, leg, RESNET_B, "images"))
+    print(f"{tag} [{card}]: {leg['steady_ms']:.2f} ms per step, "
+          f"{RESNET_B / leg['steady_ms'] * 1e3:.0f} images/s, peak "
+          f"{leg['peak_gib']:.2f} GiB, NCCL kernels {nccl:.3f} ms per step, "
+          f"statistics all-reduces per step {stats // PAR_RESNET_STEPS} "
+          f"({sites} fused sites), K5-K9 per step {per_step}, captured "
+          f"{leg['captured']}")
+    return got
+
+
+def parallel_ring_check(torch, dev, card):
+    """ring_attention on the sp=1 mesh against the naive softmax."""
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.ops.ring_attention import ring_attention
+    mesh = parallel.create_mesh({"dp": 1})
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, s, h, d = RING_SHAPE
+    q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev)
+               for _ in range(3))
+
+    def naive(q, k, v, causal):
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sc = qt @ kt.transpose(-1, -2) / d ** 0.5
+        if causal:
+            sc = sc.masked_fill(~torch.ones(s, s, dtype=torch.bool,
+                                            device=dev).tril(), -1e30)
+        return (torch.softmax(sc, -1) @ vt).transpose(1, 2)
+    g = torch.randn(b, s, h, d, generator=gen, device=dev)
+    for causal in (False, True):
+        errs = []
+        outs = []
+        for fn in (lambda *t: ring_attention(*t, mesh, causal=causal),
+                   lambda *t: naive(*t, causal)):
+            ins = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = fn(*ins)
+            out.backward(g)
+            outs.append([out.detach()] + [t.grad for t in ins])
+        for got, want in zip(*outs):
+            errs.append(float((got - want).abs().max()
+                              / want.abs().max().clamp_min(1e-30)))
+        print(f"parallel ring [{card}]: {RING_SHAPE} f32 causal={causal}: "
+              "largest error relative to |max| of out, dq, dk, dv: "
+              + ", ".join(f"{e:.2e}" for e in errs))
+        if not max(errs) <= 2e-4:
+            fail(f"ring attention (causal={causal}) off by {errs}")
+
+
+def parallel_phase(torch, args, dev, card):
+    """The parallel paths on a one-rank NCCL group (module docstring,
+    phase 23).  Returns the K1 / K2 and K5-K9 launches of its legs."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.ops import flash_attention as fa
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="nccl-store-", dir=_build_dir("parallel"))
+    _one_rank_group(torch, root)
+    launches = {}
+    try:
+        parallel.set_mesh(parallel.create_mesh({"dp": 1}))
+        got, first = parallel_gpt_legs(torch, args, dev, card, fa)
+        _sum_into(launches, got)
+        _sum_into(launches, parallel_pipe_legs(torch, args, dev, card,
+                                                   fa, first))
+        _sum_into(launches, parallel_resnet_leg(torch, args, dev, card))
+        parallel_ring_check(torch, dev, card)
+    finally:
+        parallel.set_mesh(None)
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"parallel [{card}]: phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6957,6 +7335,11 @@ def main():
             phase(torch, args, dev, card)
             gc.collect()
             torch.cuda.empty_cache()
+    if want("parallel"):   # K1 / K2 and K5-K9 on the parallel paths too
+        for k, v in parallel_phase(torch, args, dev, card).items():
+            launches[k] = launches.get(k, 0) + v
+        gc.collect()
+        torch.cuda.empty_cache()
     if any(m.startswith("paddle_tpu.") or m in ("jax", "paddle_tpu")
            for m in sys.modules):
         fail("the JAX package was imported")

@@ -14,7 +14,7 @@ output tensors, which the next replay overwrites.  Elsewhere ``run`` calls
 
 - **Launch counts.** The kernel wrappers count host calls (``counters()``:
   every wrapper's ``launches``, K9's launches by route, the fused-BN
-  entries' layout copies).  A capture's counts were recorded, not run:
+  entries' layout copies, the BatchNorm statistics' all-reduces).  A capture's counts were recorded, not run:
   they are taken back, kept on ``launches`` and re-added at every replay.
 - **The registry.** A program tagged by ``observability.track`` reports
   to the program registry: ``made(seconds)`` (after its capture, or when
@@ -62,7 +62,8 @@ def counters():
             + [(fbn.bn_pool_apply.routes, r) for r in ("ring", "window")]
             + [(e, k) for e in (fbn.bn_act_train, fbn.bn2_act_train,
                                 fbn.bn_act_pool_train)
-               for k in ("relayouts", "composite_calls")])
+               for k in ("relayouts", "composite_calls")]
+            + [(fbn.stats_group, "all_reduces")])
 
 
 def counter_name(owner, key) -> str:

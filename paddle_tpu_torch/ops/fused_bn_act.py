@@ -68,7 +68,7 @@ recomputed from the saved input instead of being stored.
   them.  The gamma / beta gradients stay the rank's own sums: the data
   parallel step averages them.  The pooled site's backward recomputes
   through the plain references, whose statistics then go through a
-  differentiable all-reduce (``torch.distributed.nn``).  Each all-reduce
+  differentiable all-reduce (its backward all-reduces the gradients).  Each all-reduce
   of statistics counts on ``stats_group.all_reduces``.  The group is
   kept by each autograd node, so an eager backward outside the block
   still reduces over it.
@@ -595,17 +595,34 @@ def _ref_stats(x, axes):
     return mean, torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over ``group``; its backward sums the gradients over the
+    group as well (every rank's loss depends on every rank's sums)."""
+
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return None, g
+
+
 def group_stats(xf, axes, group):
     """(mean, one-pass variance) of f32 ``xf`` over ``axes`` and over the
     ranks of ``group``: the sums, sums of squares and row count go through
     one differentiable all-reduce (its backward sums the gradients over
     the ranks)."""
-    from torch.distributed.nn import functional as dnn
     n = 1
     for a in axes:
         n *= xf.shape[a]
     c = xf.numel() // n
-    tot = dnn.all_reduce(torch.cat([
+    tot = _AllReduceSum.apply(group, torch.cat([
         xf.sum(axes).reshape(-1).double(),
         (xf * xf).sum(axes).reshape(-1).double(),
         _count(n, xf).double()]), group=group)

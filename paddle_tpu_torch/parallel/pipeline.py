@@ -407,8 +407,7 @@ class PipelinedTrainStep:
             dist.all_reduce(flat_rest, group=self._pp)
         flat = torch.cat([flat_rest] + [g.reshape(-1) for g in g_blocks])
         if self._dpg is not None:
-            dist.all_reduce(flat, group=self._dpg)
-            flat /= self.dp
+            dist.all_reduce(flat, op=dist.ReduceOp.AVG, group=self._dpg)
         parts = flat.split([1] + [g.numel() for g in g_rest]
                            + [g.numel() for g in g_blocks])
         loss.copy_(parts[0].view(()))

@@ -10,17 +10,18 @@ CUDA graph on the card, whose body here is
 1. the rank's rows of the global batch (axis 0 over ``dp``);
 2. every sharded parameter gathered whole from its blocks (all-gathers
    along its spec's axes), swapped in as the parameter's data;
-3. the forward and backward of ``TrainStep`` (AMP, recompute,
-   ``accum_steps`` micro-batches), with every training BatchNorm's batch
+3. the forward and backward of ``TrainStep`` (AMP at
+   ``strategy.amp_configs.level``, where the reference's sharded step
+   always runs O1; recompute; ``accum_steps`` micro-batches), with every training BatchNorm's batch
    statistics over the ``dp`` group (``ops.fused_bn_act.stats_group``:
    K5's and K7's sums all-reduced between the kernels) and the running
    statistics left as they are, as the reference's sharded step leaves
    them;
 4. the gradients averaged over ``dp``: a parameter sharded over ``dp``
    takes its block by a reduce-scatter along that dimension, the others
-   go through all-reduces in buckets of ``bucket_mb`` MB (in bf16 under
-   ``fp16_allreduce``); a block along ``tp`` / ``ep`` is sliced from the
-   gradient, which those ranks share;
+   go through averaging all-reduces (``ReduceOp.AVG``) in buckets of
+   ``bucket_mb`` MB (in bf16 under ``fp16_allreduce``); a block along
+   ``tp`` / ``ep`` is sliced from the gradient, which those ranks share;
 5. the optimizer update on each rank's blocks: a sharded parameter and
    its moments are held only as this rank's block between steps (stage
    3 / tensor / expert parallel); under ZeRO-1/2 the moments are held as
@@ -158,7 +159,7 @@ class ShardedTrainStep(TrainStep):
                 " only — disable sharding stage 3 / tensor_parallel /"
                 " sequence_parallel / pipeline")
         super().__init__(model, loss_fn, optimizer,
-                         amp_level="O1" if st.amp else None,
+                         amp_level=st.amp_configs.level if st.amp else None,
                          amp_dtype=st.amp_configs.dtype, remat=st.recompute,
                          guard=guard, accum_steps=k_steps)
         if self._sparse:
@@ -257,8 +258,8 @@ class ShardedTrainStep(TrainStep):
         if self._dp_group is None:
             return x
         x = x.float().clone()
-        dist.all_reduce(x, group=self._dp_group)
-        return x / self._dp
+        dist.all_reduce(x, op=dist.ReduceOp.AVG, group=self._dp_group)
+        return x
 
     def _all_reduce_buckets(self, grads: Dict[str, torch.Tensor]):
         """The mean over ``dp`` of each gradient, through all-reduces of
@@ -274,11 +275,10 @@ class ShardedTrainStep(TrainStep):
             wire = self._wire or grads[bucket[0]].dtype
             flat = torch.cat([grads[k].reshape(-1).to(wire)
                               for k in bucket])
-            dist.all_reduce(flat, group=self._dp_group)
+            dist.all_reduce(flat, op=dist.ReduceOp.AVG, group=self._dp_group)
             for k, part in zip(bucket, flat.split(
                     [grads[k].numel() for k in bucket])):
-                out[k] = (part.to(grads[k].dtype) / self._dp).view(
-                    grads[k].shape)
+                out[k] = part.to(grads[k].dtype).view(grads[k].shape)
             bucket, size = [], 0
         for k in sorted(grads, key=lambda n: str(grads[n].dtype)):
             g = grads[k]

@@ -2607,3 +2607,61 @@ def test_mobilenet_v2_site_fused_call_matches_plain(cuda, dtype, act):
             del os.environ["PDTPU_FUSED_BN"]
         assert fbn.bn_apply.launches == launches + 1
         close(kern, switched)
+
+
+# -- statistics over a process group (the sharded step's BatchNorm) --------
+
+@pytest.fixture
+def nccl_one_rank(cuda, tmp_path):
+    """A one-rank NCCL process group over a FileStore: the collectives
+    between the fused BatchNorm kernels run through NCCL."""
+    import torch.distributed as dist
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("form", ["act", "pool"])
+def test_bn_group_statistics_on_nccl_match_the_plain_path(nccl_one_rank,
+                                                          form):
+    """ResNet-50's stem shape (256, 112, 112, 64) NHWC f32 inside
+    ``stats_group`` of a one-rank NCCL group: K5 -> all-reduce -> K6 (K9
+    at the pooled form) forward and K7 -> all-reduce -> K8 backward (the
+    pooled form's plain recompute through the differentiable all-reduce)
+    against the plain fused path without a group: outputs, statistics and
+    gradients within 1e-4 of each tensor's largest |value| (the kernels
+    sum in another order), one all-reduce forward and one backward."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(256, 112, 112, 64, generator=gen, device="cuda") + 0.5
+    gamma = torch.rand(64, generator=gen, device="cuda") + 0.5
+    beta = torch.randn(64, generator=gen, device="cuda")
+    pool = ("max", 3, 2, 1)
+
+    def run(group):
+        ins = [t.clone().requires_grad_() for t in (x, gamma, beta)]
+        if form == "act":
+            with fbn.stats_group(group):
+                y, mean, var = fbn.bn_act_train(*ins, 1e-5, "relu")
+        else:
+            with fbn.stats_group(group):
+                y, mean, var = fbn.bn_act_pool_train(*ins, 1e-5, "relu",
+                                                     pool)
+        ct = torch.ones_like(y) + 0.01 * torch.arange(
+            y.shape[-1], device="cuda")
+        grads = torch.autograd.grad(y, ins, ct)
+        return [y.detach(), mean, var] + list(grads)
+    n0 = fbn.stats_group.all_reduces
+    launches = (fbn.bn_stats.launches, fbn.bn_bwd_reduce.launches)
+    got = run(nccl_one_rank)
+    assert fbn.stats_group.all_reduces - n0 == 2
+    assert fbn.bn_stats.launches == launches[0] + 1
+    if form == "act":
+        assert fbn.bn_bwd_reduce.launches == launches[1] + 1
+    want = run(None)
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= 1e-4 * scale
