@@ -6857,7 +6857,9 @@ def _sum_into(total, counts):
     return total
 
 
-PAR_GROUPS = {"nccl (collectives)": ("nccl",),
+# NCCL's kernels; on one rank an averaging all-reduce is its oneRankReduce
+# kernel (the others copy or do nothing)
+PAR_GROUPS = {"nccl (collectives)": ("nccl", "oneRankReduce"),
               "flash (K1 / K2)": ("flash_fwd", "flash_bwd")}
 
 

@@ -600,7 +600,7 @@ class _AllReduceSum(torch.autograd.Function):
     group as well (every rank's loss depends on every rank's sums)."""
 
     @staticmethod
-    def forward(ctx, group, x):
+    def forward(ctx, x, group):
         ctx.group = group
         out = x.clone()
         dist.all_reduce(out, group=group)
@@ -610,7 +610,7 @@ class _AllReduceSum(torch.autograd.Function):
     def backward(ctx, g):
         g = g.clone()
         dist.all_reduce(g, group=ctx.group)
-        return None, g
+        return g, None
 
 
 def group_stats(xf, axes, group):
@@ -622,10 +622,10 @@ def group_stats(xf, axes, group):
     for a in axes:
         n *= xf.shape[a]
     c = xf.numel() // n
-    tot = _AllReduceSum.apply(group, torch.cat([
+    tot = _AllReduceSum.apply(torch.cat([
         xf.sum(axes).reshape(-1).double(),
         (xf * xf).sum(axes).reshape(-1).double(),
-        _count(n, xf).double()]), group=group)
+        _count(n, xf).double()]), group)
     stats_group.all_reduces += 1
     m = tot[-1].float()
     mean = (tot[:c].float() / m).reshape(xf.sum(axes).shape)

@@ -15,8 +15,8 @@ on-disk format, both ways.
   restore into a step whose program exists makes no new program and
   writes every state tensor in place.
 - The layout: bf16 arrays as the reference's bytes, shards assembled,
-  ``latest`` and its fallback, ``CheckpointManager`` retention, and the
-  parts not ported refused with ``UnimplementedError``.
+  ``latest`` and its fallback, ``CheckpointManager`` retention, and a
+  mesh that is no ``parallel.Mesh`` refused.
 """
 import json
 import os
@@ -37,7 +37,7 @@ from paddle_tpu.optimizer import lr as jlr
 
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import models as tmodels
-from paddle_tpu_torch.core.errors import UnimplementedError
+from paddle_tpu_torch.core.errors import InvalidArgumentError
 from paddle_tpu_torch.distributed import checkpoint as tck
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.optimizer import lr as tlr
@@ -275,18 +275,19 @@ def _port_state():
 
 
 def test_the_parts_not_ported_are_refused(tmp_path):
-    """Restoring onto a mesh stays refused; a checkpoint's ``scaler=``,
-    once refused, is ported (test_torch_grad_scaler.py holds it against
-    the reference)."""
+    """Restoring onto a mesh is ported (tests/test_torch_distributed.py
+    holds it against the reference); what is not a ``parallel.Mesh`` is
+    refused.  A checkpoint's ``scaler=``, once refused, is ported
+    (test_torch_grad_scaler.py holds it against the reference)."""
     tm, sched, step = _port_step(_port_state())
     scaler = pt.amp.GradScaler(init_loss_scaling=64.0)
     step.save_checkpoint(str(tmp_path), scaler=scaler)
     back = pt.amp.GradScaler()
     assert step.restore_checkpoint(str(tmp_path), scaler=back) is not None
     assert back.state_dict() == scaler.state_dict()
-    with pytest.raises(UnimplementedError):
+    with pytest.raises(InvalidArgumentError):
         tck.restore_sharded(str(tmp_path), mesh=object())
-    with pytest.raises(UnimplementedError):
+    with pytest.raises(InvalidArgumentError):
         tck.CheckpointManager(str(tmp_path)).restore_latest(mesh=object())
     assert not hasattr(step, "load_checkpoint")
     assert step.restore_checkpoint(str(tmp_path / "empty")) is None

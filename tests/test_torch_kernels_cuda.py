@@ -2633,8 +2633,13 @@ def test_bn_group_statistics_on_nccl_match_the_plain_path(nccl_one_rank,
     at the pooled form) forward and K7 -> all-reduce -> K8 backward (the
     pooled form's plain recompute through the differentiable all-reduce)
     against the plain fused path without a group: outputs, statistics and
-    gradients within 1e-4 of each tensor's largest |value| (the kernels
-    sum in another order), one all-reduce forward and one backward."""
+    gradients within 1e-4 of each tensor's largest |value|, one
+    all-reduce forward and one backward.  The group path divides by the
+    all-reduced row count, a device value, where the other divides by a
+    host int, so the statistics may differ in their last bit; an output
+    within that of the ReLU's kink (|z| ~ 1e-6) then lands on the other
+    side of it, and its gradient moves by its whole size: at most one
+    element in a million may do so, as in the fused Functions' test."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     x = torch.randn(256, 112, 112, 64, generator=gen, device="cuda") + 0.5
     gamma = torch.rand(64, generator=gen, device="cuda") + 0.5
@@ -2662,6 +2667,9 @@ def test_bn_group_statistics_on_nccl_match_the_plain_path(nccl_one_rank,
     if form == "act":
         assert fbn.bn_bwd_reduce.launches == launches[1] + 1
     want = run(None)
-    for g, w in zip(got, want):
+    names = ("y", "mean", "var", "dx", "dgamma", "dbeta")
+    for name, g, w in zip(names, got, want):
+        g, w = g.detach(), w.detach()
         scale = float(w.abs().max())
-        assert float((g - w).abs().max()) <= 1e-4 * scale
+        bad = int(((g - w).abs() > 1e-4 * scale).sum())
+        assert bad <= g.numel() // 1_000_000, (name, bad, scale)

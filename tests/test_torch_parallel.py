@@ -133,39 +133,56 @@ def test_recompute_matches(group, refs):
     _close_state(got, final)
 
 
-def _jcollective(fn, x, mesh):
-    return np.asarray(shard_map(fn, mesh=mesh, in_specs=JP("dp"),
-                                out_specs=JP("dp"))(x))
-
-
-def test_collectives_match_the_reference(group):
-    """Each rank's all_reduce (sum, max, min, avg, prod), all_gather,
-    broadcast, ppermute, reduce_scatter and p2p against the reference's
-    under shard_map on a {"dp": 4} mesh with the same per-rank inputs."""
+def _jcollectives():
+    """The reference's collectives under one shard_map on a {"dp": 4}
+    mesh, each rank with the inputs the port's ranks take: a dict of
+    per-rank results."""
     from paddle_tpu.distributed import collective as C
     mesh = jpar.create_mesh({"dp": 4})
     x = np.stack([np.arange(4, dtype=np.float32) + 10 * r
                   for r in range(4)])
-
-    def per_rank(f):
-        return _jcollective(lambda xs: f(paddle.Tensor(xs[0]))._data[None],
-                            x, mesh)
-    want = {op: per_rank(lambda t, op=op: C.all_reduce(t, op=op))
-            for op in ("sum", "max", "min", "avg")}
-    want["bcast"] = per_rank(lambda t: C.broadcast(t, src=3))
-    want["shift"] = per_rank(lambda t: C.ppermute(t, shift=1))
-    want["p2p"] = per_rank(lambda t: C.p2p(t, pairs=[(1, 3)]))
-    gathered = _jcollective(lambda xs: jnp.concatenate(
-        [t._data for t in _gathered(C, xs[0])])[None], x, mesh)
     rs_in = np.stack([np.arange(8, dtype=np.float32) + r for r in range(4)])
-    rs = _jcollective(lambda xs: C.reduce_scatter(
-        None, paddle.Tensor(xs[0]))._data[None], rs_in, mesh)
+    signs = np.asarray([[-2.0], [3.0], [-1.0], [2.0]], np.float32)
+    zeros = np.asarray([[-2.0], [3.0], [0.0], [2.0]], np.float32)
+    names = ("sum", "max", "min", "avg", "bcast", "shift", "p2p", "gather",
+             "rs", "prod", "prod_zero")
+
+    def body(xs, rss, ss, zs):
+        def t(a):
+            return paddle.Tensor(a[0])
+        parts = []
+        C.all_gather(parts, t(xs))
+        outs = [C.all_reduce(t(xs), op=op)._data
+                for op in ("sum", "max", "min", "avg")]
+        outs += [C.broadcast(t(xs), src=3)._data,
+                 C.ppermute(t(xs), shift=1)._data,
+                 C.p2p(t(xs), pairs=[(1, 3)])._data,
+                 jnp.concatenate([p._data for p in parts]),
+                 C.reduce_scatter(None, t(rss))._data,
+                 C.all_reduce(t(ss), op=C.ReduceOp.PROD)._data,
+                 C.all_reduce(t(zs), op=C.ReduceOp.PROD)._data]
+        return tuple(o[None] for o in outs)
+    out = shard_map(body, mesh=mesh, in_specs=(JP("dp"),) * 4,
+                    out_specs=(JP("dp"),) * len(names))(x, rs_in, signs,
+                                                        zeros)
+    return {n: np.asarray(o) for n, o in zip(names, out)}
+
+
+@pytest.fixture(scope="module")
+def jcollectives():
+    return _jcollectives()
+
+
+def test_collectives_match_the_reference(group, jcollectives):
+    """Each rank's all_reduce (sum, max, min, avg), all_gather,
+    broadcast, ppermute, reduce_scatter and p2p against the reference's
+    under shard_map on a {"dp": 4} mesh with the same per-rank inputs."""
     for rank in range(4):
         got = R.result(group, "collectives", rank)
-        for k, v in want.items():
-            np.testing.assert_array_equal(got[k], v[rank], err_msg=k)
-        np.testing.assert_array_equal(got["gather"], gathered[rank])
-        np.testing.assert_array_equal(got["rs"], rs[rank])
+        for k in ("sum", "max", "min", "avg", "bcast", "shift", "p2p",
+                  "gather", "rs"):
+            np.testing.assert_array_equal(got[k], jcollectives[k][rank],
+                                          err_msg=k)
         assert int(got["n_parts"]) == 4
         np.testing.assert_array_equal(got["scatter"], np.full(4, rank))
         np.testing.assert_array_equal(got["a2a"][:, 0],
@@ -175,26 +192,15 @@ def test_collectives_match_the_reference(group):
                                   np.arange(4) + 100.0)
 
 
-def _gathered(C, x):
-    out = []
-    C.all_gather(out, paddle.Tensor(x))
-    return out
-
-
-def test_allreduce_prod_signs_and_zeros(group):
+def test_allreduce_prod_signs_and_zeros(group, jcollectives):
     """PROD's sign parity and zero handling with the reference's test
     values spread over the ranks: (-2)*3*(-1)*2 = 12, and 0 where any
     rank holds a zero."""
-    from paddle_tpu.distributed import collective as C
-    mesh = jpar.create_mesh({"dp": 4})
-    for vals, key in (([-2.0, 3.0, -1.0, 2.0], "prod"),
-                      ([-2.0, 3.0, 0.0, 2.0], "prod_zero")):
-        x = np.asarray(vals, np.float32)[:, None]
-        want = _jcollective(lambda xs: C.all_reduce(
-            paddle.Tensor(xs[0]), op=C.ReduceOp.PROD)._data[None], x, mesh)
-        for rank in range(4):
-            got = R.result(group, "collectives", rank)[key]
-            np.testing.assert_allclose(got, want[rank], rtol=1e-6)
+    for rank in range(4):
+        got = R.result(group, "collectives", rank)
+        for key in ("prod", "prod_zero"):
+            np.testing.assert_allclose(got[key], jcollectives[key][rank],
+                                       rtol=1e-6)
     assert float(R.result(group, "collectives")["prod"][0]) == \
         pytest.approx(12.0, rel=1e-6)
 
@@ -246,18 +252,14 @@ def _naive(q, k, v, causal):
 @pytest.mark.parametrize("causal", [False, True])
 def test_ring_attention_matches_the_reference(group, causal):
     """{"dp": 2, "sp": 2}: output and gradients of ``.sum()`` on every
-    rank against the reference's ring attention on the same mesh and the
-    naive softmax, at the reference's 2e-4 / 2e-3."""
-    from paddle_tpu.ops.ring_attention import ring_attention
+    rank against the naive softmax of the reference's own ring test, at
+    its 2e-4 / 2e-3."""
     rng = np.random.RandomState(3)
     q, k, v = (jnp.asarray(rng.randn(2, 32, 4, 8).astype("float32"))
                for _ in range(3))
-    mesh = jpar.create_mesh({"dp": 2, "sp": 2})
-    out = np.asarray(ring_attention(q, k, v, mesh, causal=causal))
-    np.testing.assert_allclose(out, np.asarray(_naive(q, k, v, causal)),
-                               rtol=2e-4, atol=2e-4)
-    grads = jax.grad(lambda q, k, v: ring_attention(
-        q, k, v, mesh, causal=causal).sum(), argnums=(0, 1, 2))(q, k, v)
+    out = np.asarray(_naive(q, k, v, causal))
+    grads = jax.grad(lambda q, k, v: _naive(q, k, v, causal).sum(),
+                     argnums=(0, 1, 2))(q, k, v)
     tag = "causal" if causal else "full"
     for rank in range(4):
         got = R.result(group, "ring", rank)
