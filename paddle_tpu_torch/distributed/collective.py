@@ -28,8 +28,7 @@ import torch.distributed as dist
 
 __all__ = ["ReduceOp", "all_reduce", "all_gather", "broadcast", "reduce",
            "scatter", "reduce_scatter", "alltoall", "send", "recv", "p2p",
-           "ppermute", "barrier", "get_rank_in_spmd", "get_world_size_in_spmd",
-           "resolve_group", "group_size", "group_rank"]
+           "ppermute", "barrier", "get_rank_in_spmd", "get_world_size_in_spmd"]
 
 
 class ReduceOp:
@@ -48,7 +47,7 @@ def _started() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def resolve_group(group=None, axis_name="dp"):
+def _resolve(group=None, axis_name="dp"):
     """The process group a collective runs on, or None (identity)."""
     if group is not None:
         return group
@@ -59,11 +58,11 @@ def resolve_group(group=None, axis_name="dp"):
     return dist.group.WORLD if _started() else None
 
 
-def group_size(group) -> int:
+def _group_size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
-def group_rank(group) -> int:
+def _group_rank(group) -> int:
     return 0 if group is None else dist.get_rank(group)
 
 
@@ -85,8 +84,8 @@ def _reduce(x, op, group):
         return out
     if op == "avg":
         out = _sum(x.clone(), group)
-        return out / group_size(group) if out.is_floating_point() else \
-            out // group_size(group)
+        return out / _group_size(group) if out.is_floating_point() else \
+            out // _group_size(group)
     if op == "prod":
         absx = x.abs()
         zero = absx == 0
@@ -104,7 +103,7 @@ def _reduce(x, op, group):
 def all_reduce(tensor, op=ReduceOp.SUM, group=None, sync_op=True,
                axis_name="dp"):
     """The reduction over the group, written into ``tensor``."""
-    g = resolve_group(group, axis_name)
+    g = _resolve(group, axis_name)
     if g is None:
         return tensor
     with torch.no_grad():
@@ -116,11 +115,11 @@ def all_gather(tensor_list, tensor, group=None, sync_op=True,
                axis_name="dp"):
     """Every rank's ``tensor``, in group order: appended to
     ``tensor_list`` and returned concatenated on axis 0."""
-    g = resolve_group(group, axis_name)
+    g = _resolve(group, axis_name)
     if g is None:
         parts = [tensor]
     else:
-        parts = [torch.empty_like(tensor) for _ in range(group_size(g))]
+        parts = [torch.empty_like(tensor) for _ in range(_group_size(g))]
         dist.all_gather(parts, tensor.contiguous(), group=g)
     if tensor_list is not None:
         tensor_list.extend(parts)
@@ -130,7 +129,7 @@ def all_gather(tensor_list, tensor, group=None, sync_op=True,
 
 def broadcast(tensor, src=0, group=None, sync_op=True, axis_name="dp"):
     """``tensor`` of the group's rank ``src``, written into ``tensor``."""
-    g = resolve_group(group, axis_name)
+    g = _resolve(group, axis_name)
     if g is not None:
         with torch.no_grad():
             buf = tensor.detach().contiguous()
@@ -149,14 +148,14 @@ def reduce(tensor, dst=0, op=ReduceOp.SUM, group=None, sync_op=True,
 def scatter(tensor, tensor_list=None, src=0, group=None, sync_op=True,
             axis_name="dp"):
     """Rank i of the group gets ``tensor_list[i]`` of rank ``src``."""
-    g = resolve_group(group, axis_name)
+    g = _resolve(group, axis_name)
     if g is None:
         src_t = tensor_list[0] if tensor_list else tensor
         with torch.no_grad():
             if tensor is not None and src_t is not tensor:
                 tensor.copy_(src_t)
         return tensor if tensor is not None else src_t
-    me = group_rank(g)
+    me = _group_rank(g)
     out = tensor if tensor is not None else torch.empty_like(tensor_list[0])
     buf = torch.empty_like(out).contiguous()
     dist.scatter(buf, [t.contiguous() for t in tensor_list]
@@ -172,16 +171,15 @@ def reduce_scatter(tensor, tensor_or_tensor_list, op=ReduceOp.SUM,
     inp = tensor_or_tensor_list
     if isinstance(inp, (list, tuple)):
         inp = torch.cat(list(inp), dim=0)
-    g = resolve_group(group, axis_name)
+    g = _resolve(group, axis_name)
     if g is None:
         out = inp
     else:
-        n = group_size(g)
+        n = _group_size(g)
         out = torch.empty((inp.shape[0] // n,) + tuple(inp.shape[1:]),
                           dtype=inp.dtype, device=inp.device)
-        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
-               "min": dist.ReduceOp.MIN}[str(op).lower()]
-        dist.reduce_scatter_tensor(out, inp.contiguous(), op=red, group=g)
+        dist.reduce_scatter_tensor(out, inp.contiguous(),
+                                   op=_TORCH_OPS[str(op).lower()], group=g)
     if tensor is not None:
         with torch.no_grad():
             tensor.copy_(out)
@@ -194,7 +192,7 @@ def alltoall(in_tensor_list, out_tensor_list=None, group=None, sync_op=True,
     """Rank r sends ``in_tensor_list[i]`` to rank i and receives rank i's
     ``in_tensor_list[r]`` as its part i."""
     stacked = torch.stack(list(in_tensor_list))
-    g = resolve_group(group, axis_name)
+    g = _resolve(group, axis_name)
     if g is None:
         out = stacked
     else:
@@ -210,7 +208,7 @@ def send(tensor, dst=0, group=None, sync_op=True, axis_name="dp"):
     """Point-to-point send to the group's rank ``dst`` (one process per
     rank makes an absolute-rank send well defined, where the reference's
     SPMD region refuses it).  The identity without a group."""
-    g = resolve_group(group, axis_name)
+    g = _resolve(group, axis_name)
     if g is not None:
         dist.send(tensor.contiguous(), dst=_global(g, dst), group=g)
     return tensor
@@ -219,7 +217,7 @@ def send(tensor, dst=0, group=None, sync_op=True, axis_name="dp"):
 def recv(tensor, src=0, group=None, sync_op=True, axis_name="dp"):
     """Point-to-point receive from the group's rank ``src`` into
     ``tensor``."""
-    g = resolve_group(group, axis_name)
+    g = _resolve(group, axis_name)
     if g is not None:
         buf = tensor.detach().contiguous()
         dist.recv(buf, src=_global(g, src), group=g)
@@ -232,7 +230,7 @@ def recv(tensor, src=0, group=None, sync_op=True, axis_name="dp"):
 def _exchange(tensor, pairs, g):
     """Each (src, dst): src's ``tensor`` lands on dst; a rank that is no
     dst gets zeros (``lax.ppermute`` semantics)."""
-    me = group_rank(g)
+    me = _group_rank(g)
     x = tensor.detach().contiguous()
     out = torch.zeros_like(x)
     ops = []
@@ -254,7 +252,7 @@ def _exchange(tensor, pairs, g):
 def p2p(tensor, pairs, axis_name="dp"):
     """Explicit permutation: for every (src, dst) in ``pairs`` rank src's
     tensor goes to rank dst; ranks named as no dst receive zeros."""
-    g = resolve_group(None, axis_name)
+    g = _resolve(None, axis_name)
     if g is None:
         return tensor
     return _exchange(tensor, list(pairs), g)
@@ -262,17 +260,17 @@ def p2p(tensor, pairs, axis_name="dp"):
 
 def ppermute(tensor, perm=None, shift=1, axis_name="dp"):
     """Ring shift: rank i -> rank (i + shift) % n (or ``perm``'s pairs)."""
-    g = resolve_group(None, axis_name)
+    g = _resolve(None, axis_name)
     if g is None:
         return tensor
-    n = group_size(g)
+    n = _group_size(g)
     if perm is None:
         perm = [(i, (i + shift) % n) for i in range(n)]
     return _exchange(tensor, list(perm), g)
 
 
 def barrier(group=None, axis_name="dp"):
-    g = resolve_group(group, axis_name)
+    g = _resolve(group, axis_name)
     if g is not None:
         dist.barrier(group=g)
 

@@ -21,7 +21,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["ParallelEnv", "init_parallel_env", "get_rank", "get_world_size",
-           "is_initialized", "default_backend"]
+           "is_initialized"]
 
 _TIMEOUT = datetime.timedelta(seconds=600)
 
@@ -30,7 +30,7 @@ def _env_int(name: str, default: int) -> int:
     return int(os.environ.get(name, default))
 
 
-def default_backend() -> str:
+def _default_backend() -> str:
     """NCCL on the card, gloo on the CPU."""
     return "nccl" if torch.cuda.is_available() else "gloo"
 
@@ -100,7 +100,7 @@ def init_parallel_env(strategy=None, *, backend=None, init_method=None,
                     "init_parallel_env: PADDLE_TRAINERS_NUM > 1 but neither "
                     "PADDLE_COORDINATOR nor PADDLE_TRAINER_ENDPOINTS is set")
             init_method = f"tcp://{coordinator}"
-        backend = backend or default_backend()
+        backend = backend or _default_backend()
         if backend == "nccl":
             local = _env_int("PADDLE_LOCAL_RANK", rank)
             torch.cuda.set_device(local % torch.cuda.device_count())

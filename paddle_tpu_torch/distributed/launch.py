@@ -7,8 +7,7 @@ card on a GPU host, several for a CPU test) with the reference's
 ``init_parallel_env`` starts ``torch.distributed`` over the coordinator
 (``--ips``' first host at ``--coordinator_port``).  It watches the
 children: when one fails, it reports that rank and its exit code and
-tears the others down (SIGTERM, then SIGKILL after 10 s).  ``--timeout``
-bounds the whole run (0: unbounded).
+tears the others down (SIGTERM, then SIGKILL after 10 s).
 """
 from __future__ import annotations
 
@@ -34,9 +33,6 @@ def _parse_args(argv=None):
                    help="processes per host (one per card)")
     p.add_argument("--coordinator_port", type=int, default=12355)
     p.add_argument("--log_dir", type=str, default=None)
-    p.add_argument("--timeout", type=float, default=0.0,
-                   help="seconds before every trainer is torn down (0: "
-                        "no limit)")
     p.add_argument("training_script", type=str)
     p.add_argument("training_script_args", nargs=argparse.REMAINDER)
     return p.parse_args(argv)
@@ -57,7 +53,7 @@ def _teardown(procs):
 
 def start_local_trainers(args) -> int:
     """Start this host's trainers and watch them; the first failing exit
-    code (or 124 on ``--timeout``), else 0."""
+    code, else 0."""
     ips = args.ips.split(",")
     nproc = args.nproc_per_node
     world = len(ips) * nproc
@@ -86,8 +82,6 @@ def start_local_trainers(args) -> int:
         procs.append((rank, subprocess.Popen(
             cmd, env=env, stdout=log,
             stderr=subprocess.STDOUT if log else None), log))
-    deadline = (time.monotonic() + args.timeout) if args.timeout > 0 \
-        else None
     code = 0
     try:
         pending = list(procs)
@@ -104,12 +98,6 @@ def start_local_trainers(args) -> int:
                     still = []
                     break
             pending = still
-            if pending and deadline is not None and \
-                    time.monotonic() > deadline:
-                print(f"[launch] trainers still running after "
-                      f"{args.timeout:.0f} s; terminating", file=sys.stderr)
-                code = 124
-                break
             if pending:
                 time.sleep(0.2)
     except KeyboardInterrupt:

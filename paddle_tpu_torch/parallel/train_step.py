@@ -20,7 +20,7 @@ CUDA graph on the card, whose body here is
 4. the gradients averaged over ``dp``: a parameter sharded over ``dp``
    takes its block by a reduce-scatter along that dimension, the others
    go through averaging all-reduces (``ReduceOp.AVG``) in buckets of
-   ``bucket_mb`` MB (in bf16 under ``fp16_allreduce``); a block along
+   25 MB (in bf16 under ``fp16_allreduce``); a block along
    ``tp`` / ``ep`` is sliced from the gradient, which those ranks share;
 5. the optimizer update on each rank's blocks: a sharded parameter and
    its moments are held only as this rank's block between steps (stage
@@ -51,7 +51,9 @@ from . import sharding as shd
 from .mesh import NamedSharding, P, get_mesh
 from .strategy import DistributedStrategy
 
-__all__ = ["ShardedTrainStep", "Layout"]
+__all__ = ["ShardedTrainStep"]
+
+_BUCKET_BYTES = 25 << 20   # the reference Reducer's default bucket
 
 
 class Layout:
@@ -134,8 +136,7 @@ class ShardedTrainStep(TrainStep):
 
     def __init__(self, model, loss_fn, optimizer,
                  strategy: Optional[DistributedStrategy] = None, mesh=None,
-                 batch_spec=None, guard: bool = False, accum_steps: int = 1,
-                 *, bucket_mb: float = 25.0):
+                 batch_spec=None, guard: bool = False, accum_steps: int = 1):
         st = self.strategy = strategy or DistributedStrategy()
         self.mesh = mesh or get_mesh(create_default=True)
         k_steps = (st.gradient_merge_configs.k_steps if st.gradient_merge
@@ -196,7 +197,6 @@ class ShardedTrainStep(TrainStep):
                     self._moments[k] = mlay
         self._dp = mesh.shape["dp"]
         self._dp_group = mesh.group("dp")
-        self._bucket = int(bucket_mb * (1 << 20))
         self._wire = torch.bfloat16 if self._fp16_allreduce else None
         self._placed = False
 
@@ -263,7 +263,7 @@ class ShardedTrainStep(TrainStep):
 
     def _all_reduce_buckets(self, grads: Dict[str, torch.Tensor]):
         """The mean over ``dp`` of each gradient, through all-reduces of
-        buckets of at most ``bucket_mb`` MB of one dtype."""
+        buckets of at most 25 MB of one dtype."""
         if self._dp_group is None or not grads:
             return grads
         out, bucket, size = {}, [], 0
@@ -284,7 +284,7 @@ class ShardedTrainStep(TrainStep):
             g = grads[k]
             if bucket and (g.dtype != grads[bucket[0]].dtype
                            or size + g.numel() * g.element_size()
-                           > self._bucket):
+                           > _BUCKET_BYTES):
                 flush()
             bucket.append(k)
             size += g.numel() * g.element_size()

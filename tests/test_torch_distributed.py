@@ -350,7 +350,7 @@ def test_launch_starts_a_trainer_per_rank_and_reports_failures(tmp_path):
                    " else 0)\n")
     env = dict(os.environ, OUT=str(tmp_path / "r"))
     cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
-           "--nproc_per_node", "2", "--timeout", "60"]
+           "--nproc_per_node", "2"]
     r = subprocess.run(cmd + [str(ok)], env=env, capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr
