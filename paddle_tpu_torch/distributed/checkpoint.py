@@ -523,7 +523,8 @@ def save_train_state(directory: str, params, opt_state, step: int,
 
 
 def restore_train_extras(optimizer, step: int, extra: dict, scaler=None,
-                         *, generator: Optional[torch.Generator] = None) -> dict:
+                         *, generator: Optional[torch.Generator] = None
+                         ) -> dict:
     """Apply the non-array state of a checkpoint's extra dict: the step
     count, the seed stream and (on a generator of the saved device type)
     the step's generator, the scheduler and ``scaler``'s state.  Pops the

@@ -68,10 +68,10 @@ recomputed from the saved input instead of being stored.
   them.  The gamma / beta gradients stay the rank's own sums: the data
   parallel step averages them.  The pooled site's backward recomputes
   through the plain references, whose statistics then go through a
-  differentiable all-reduce (its backward all-reduces the gradients).  Each all-reduce
-  of statistics counts on ``stats_group.all_reduces``.  The group is
-  kept by each autograd node, so an eager backward outside the block
-  still reduces over it.
+  differentiable all-reduce (its backward all-reduces the gradients).
+  Each all-reduce of statistics counts on ``stats_group.all_reduces``.
+  The group is kept by each autograd node, so an eager backward outside
+  the block still reduces over it.
 """
 from __future__ import annotations
 

@@ -177,7 +177,7 @@ class PipelinedTrainStep:
         self._rest = {k: state[k] for k in rest}
         self._freed = False
 
-    # -- state -----------------------------------------------------------------
+    # -- state ---------------------------------------------------------------
     def _free_other_stages(self):
         """Drop this rank's copies of the other stages' block parameters."""
         if self._freed or self.n_stages == 1:
@@ -227,7 +227,8 @@ class PipelinedTrainStep:
             raise ValueError(f"batch {b} does not divide into "
                              f"{self.n_micro} micro-batches")
         mb = b // self.n_micro
-        ids = input_ids.reshape((self.n_micro, mb) + tuple(input_ids.shape[1:]))
+        ids = input_ids.reshape((self.n_micro, mb)
+                                + tuple(input_ids.shape[1:]))
         lbl = labels.reshape((self.n_micro, mb) + tuple(labels.shape[1:]))
         if self.dp > 1:
             if mb % self.dp:

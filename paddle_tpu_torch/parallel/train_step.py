@@ -12,11 +12,11 @@ CUDA graph on the card, whose body here is
    along its spec's axes), swapped in as the parameter's data;
 3. the forward and backward of ``TrainStep`` (AMP at
    ``strategy.amp_configs.level``, where the reference's sharded step
-   always runs O1; recompute; ``accum_steps`` micro-batches), with every training BatchNorm's batch
-   statistics over the ``dp`` group (``ops.fused_bn_act.stats_group``:
-   K5's and K7's sums all-reduced between the kernels) and the running
-   statistics left as they are, as the reference's sharded step leaves
-   them;
+   always runs O1; recompute; ``accum_steps`` micro-batches), with every
+   training BatchNorm's batch statistics over the ``dp`` group
+   (``ops.fused_bn_act.stats_group``: K5's and K7's sums all-reduced
+   between the kernels) and the running statistics left as they are, as
+   the reference's sharded step leaves them;
 4. the gradients averaged over ``dp``: a parameter sharded over ``dp``
    takes its block by a reduce-scatter along that dimension, the others
    go through averaging all-reduces (``ReduceOp.AVG``) in buckets of
@@ -235,7 +235,7 @@ class ShardedTrainStep(TrainStep):
         self.place_params()
         return super()._staged(batch, lr, step_no)
 
-    # -- the program -----------------------------------------------------------
+    # -- the program ---------------------------------------------------------
     def _local(self, batch):
         """The rank's rows (and columns) of each batch tensor, by the batch
         spec's axes; ``sp`` is not split (module docstring)."""
@@ -369,7 +369,7 @@ class ShardedTrainStep(TrainStep):
                 params[k].detach().copy_(mlay.gather(targets[k]))
         return (loss, *outs)
 
-    # -- checkpoints -----------------------------------------------------------
+    # -- checkpoints ---------------------------------------------------------
     def _tree(self):
         """{"params", "opt"}: blocks as ``checkpoint.Shard``s, whole
         tensors as they are."""

@@ -31,7 +31,7 @@ def gpt_batches(n=3, b=8, s=16, vocab=64):
             for _ in range(n)]
 
 
-# -- the group -----------------------------------------------------------------
+# -- the group ---------------------------------------------------------------
 
 def _rank_main(rank, world, names, out_dir):
     os.environ["OMP_NUM_THREADS"] = "1"
