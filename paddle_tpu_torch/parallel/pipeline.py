@@ -203,6 +203,11 @@ class PipelinedTrainStep:
                            for k in names}
         self._decay = decay_flags(self.optimizer, names)
         dev = next(iter(state.values())).device
+        if self._pp is not None and self.n_stages > 1:
+            # NCCL makes a group's communicator at its first collective,
+            # which every rank of the group must join: a tick's
+            # point-to-point batch involves only some stages
+            dist.all_reduce(torch.zeros(1, device=dev), group=self._pp)
         self._gen = rng.step_generator(dev)
         self._gen.manual_seed(self._gen.initial_seed()
                               + 1000003 * self.mesh.coord("dp"))

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -224,7 +225,10 @@ def main():
         ).stdout.strip().replace("\n", "; ") if card else "none (CPU)"
         print(f"cards: {cards}")
         print(json.dumps(out))
-    dist.destroy_process_group()
+    sys.stdout.flush()
+    # every rank is past the barrier: leave without tearing the NCCL
+    # groups down (a teardown on four cards once hung past the results)
+    os._exit(0)
 
 
 if __name__ == "__main__":
