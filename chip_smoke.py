@@ -512,8 +512,8 @@ Phases (any failure exits non-zero before the result line):
                 on the same weights and batch, K1 / K2 launches per step
                 equal to that step's; ms per step, tokens/s, peak GiB, the
                 NCCL kernels' device ms per step (the phase fails when a
-                profiled step runs none) and whether the step was captured
-                as a CUDA graph.  The same model through
+                profiled step runs none, or when the step was not captured
+                as a CUDA graph).  The same model through
                 gpt_pipeline_step(n_micro=4, remat=True) on the pp=1 mesh,
                 "gpipe" and "1f1b", PIPE_STEPS steps each: losses within
                 1e-3 of each other and the first of the sharded leg's,
@@ -2853,7 +2853,10 @@ def train_leg(torch, make, batch, steps: int, counters, card: str,
             losses.append(step(*batch))
             torch.cuda.synchronize()
             t_steps.append(time.perf_counter() - t0)
+        progs = getattr(step, "_programs", {}).values()
         out = dict(losses=[float(x) for x in losses], launches=read(),
+                   captured=bool(progs) and all(p.graph is not None
+                                                for p in progs),
                    hist_steps=_step_hist_count() - hist0,
                    warm=warm, warm_s=warm_s,
                    recaptured=step.compile_counts()["total"] - made,
@@ -6886,21 +6889,11 @@ def _plain_losses(torch, make, batch, steps, counters):
 
 
 def _par_leg(torch, make, batch, steps, counters, card, what, **prof):
-    """``train_leg`` on a sharded step, captured; when the capture of the
-    NCCL collectives raises, the same leg uncaptured (printed)."""
-    try:
-        leg = train_leg(torch, make, batch, steps, counters, card,
-                        what + ", captured)", **prof)
-        leg["captured"] = True
-    except RuntimeError as e:
-        print(f"parallel: capturing the sharded step failed ({e!r:.300}); "
-              "running it uncaptured")
-        torch.cuda.synchronize()
-        gc.collect()
-        torch.cuda.empty_cache()
-        leg = train_leg(torch, make, batch, steps, counters, card,
-                        what + ", uncaptured)", uncaptured=True, **prof)
-        leg["captured"] = False
+    """``train_leg`` on a sharded step, which must be captured."""
+    leg = train_leg(torch, make, batch, steps, counters, card,
+                    what + ", captured)", **prof)
+    if not leg["captured"]:
+        fail(f"{what}): the sharded step was not captured")
     return leg
 
 

@@ -101,12 +101,19 @@ def init_parallel_env(strategy=None, *, backend=None, init_method=None,
                     "PADDLE_COORDINATOR nor PADDLE_TRAINER_ENDPOINTS is set")
             init_method = f"tcp://{coordinator}"
         backend = backend or _default_backend()
+        device = None
         if backend == "nccl":
             local = _env_int("PADDLE_LOCAL_RANK", rank)
-            torch.cuda.set_device(local % torch.cuda.device_count())
+            device = torch.device("cuda",
+                                  local % torch.cuda.device_count())
+            torch.cuda.set_device(device)
+        # with its device the group makes its communicator now, and every
+        # sub-group of the mesh splits from it as it is made, in the same
+        # order on every rank
         dist.init_process_group(backend, init_method=init_method,
                                 world_size=nranks, rank=rank,
-                                timeout=timeout or _TIMEOUT)
+                                timeout=timeout or _TIMEOUT,
+                                device_id=device)
     return ParallelEnv()
 
 

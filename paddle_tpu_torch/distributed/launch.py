@@ -7,7 +7,11 @@ card on a GPU host, several for a CPU test) with the reference's
 ``init_parallel_env`` starts ``torch.distributed`` over the coordinator
 (``--ips``' first host at ``--coordinator_port``).  It watches the
 children: when one fails, it reports that rank and its exit code and
-tears the others down (SIGTERM, then SIGKILL after 10 s).
+tears the others down (SIGTERM, then SIGKILL after 10 s).  The wait is
+bounded: the job as a whole gets ``--timeout`` seconds, and once one
+worker has exited cleanly the others get ``--exit_grace`` seconds to
+follow (a rank that hangs in its teardown past its results); past either
+limit every worker left is torn down and the launcher exits 124.
 """
 from __future__ import annotations
 
@@ -21,6 +25,9 @@ import time
 __all__ = ["launch", "start_local_trainers"]
 
 _GRACE_S = 10.0
+_TIMEOUT_S = 24 * 3600.0   # --timeout: the whole job
+_EXIT_GRACE_S = 300.0      # --exit_grace: the others, after a clean exit
+TIMED_OUT = 124            # the exit code when a limit passes (timeout(1)'s)
 
 
 def _parse_args(argv=None):
@@ -33,6 +40,11 @@ def _parse_args(argv=None):
                    help="processes per host (one per card)")
     p.add_argument("--coordinator_port", type=int, default=12355)
     p.add_argument("--log_dir", type=str, default=None)
+    p.add_argument("--timeout", type=float, default=_TIMEOUT_S,
+                   help="seconds the job may run in all")
+    p.add_argument("--exit_grace", type=float, default=_EXIT_GRACE_S,
+                   help="seconds the other workers get once one has "
+                        "exited cleanly")
     p.add_argument("training_script", type=str)
     p.add_argument("training_script_args", nargs=argparse.REMAINDER)
     return p.parse_args(argv)
@@ -53,7 +65,7 @@ def _teardown(procs):
 
 def start_local_trainers(args) -> int:
     """Start this host's trainers and watch them; the first failing exit
-    code, else 0."""
+    code, ``TIMED_OUT`` when a limit passed, else 0."""
     ips = args.ips.split(",")
     nproc = args.nproc_per_node
     world = len(ips) * nproc
@@ -83,6 +95,8 @@ def start_local_trainers(args) -> int:
             cmd, env=env, stdout=log,
             stderr=subprocess.STDOUT if log else None), log))
     code = 0
+    deadline = time.monotonic() + getattr(args, "timeout", _TIMEOUT_S)
+    grace = getattr(args, "exit_grace", _EXIT_GRACE_S)
     try:
         pending = list(procs)
         while pending:
@@ -97,7 +111,15 @@ def start_local_trainers(args) -> int:
                     code = ret
                     still = []
                     break
+                else:
+                    deadline = min(deadline, time.monotonic() + grace)
             pending = still
+            if pending and time.monotonic() > deadline:
+                print(f"[launch] workers {[r for r, _, _ in pending]} still "
+                      "running past the launcher's limit; terminating them",
+                      file=sys.stderr)
+                code = TIMED_OUT
+                break
             if pending:
                 time.sleep(0.2)
     except KeyboardInterrupt:

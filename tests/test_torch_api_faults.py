@@ -369,16 +369,85 @@ def _public(module):
             and o.__module__ == module.__name__]
 
 
-def _signature_cases():
-    cases = []
-    for m in _port_modules():
-        port = importlib.import_module("paddle_tpu_torch." + m)
-        cases += [(m, n) for n in _public(importlib.import_module(
-            "paddle_tpu." + m)) if hasattr(port, n)]
-    return cases
+SIGNATURES = [(m, n) for m in _port_modules()
+              for n in _public(importlib.import_module("paddle_tpu." + m))]
 
-
-SIGNATURES = _signature_cases()
+# The reference's names that the port's module of the same path does not
+# have yet, each with the ROADMAP item that ports it.  A name missing from
+# the port fails its case unless it is here; a name here that the port has
+# fails too, so the list shrinks as the items land.
+_NOT_PORTED = {
+    "amp": ("item 9b", "amp_guard is_amp_enabled"),
+    "core.device": ("item 9b", "Place CPUPlace TPUPlace CUDAPlace XPUPlace "
+                    "CUDAPinnedPlace set_device get_device current_jax_device "
+                    "device_count is_compiled_with_cuda is_compiled_with_tpu "
+                    "is_compiled_with_xpu get_cudnn_version"),
+    "core.layout": ("item 9b", "enabled tag_of tag tag_tree to_nchw to_nhwc "
+                    "ensure_nhwc dispatch_prepare"),
+    "core.rng": ("item 9b", "Generator register_seed_listener "
+                 "default_generator next_key example_key get_rng_state "
+                 "set_rng_state key_ctx"),
+    "nn.clip": ("item 9a", "clip_grad_norm_ set_gradient_clip "
+                "ErrorClipByValue"),
+    "nn.functional": ("item 9d", "yolo_box yolov3_loss prior_box "
+                      "anchor_generator box_coder box_clip multiclass_nms "
+                      "distribute_fpn_proposals roi_align roi_pool "
+                      "generate_proposals deformable_conv gather_tree "
+                      "image_resize resize_bilinear resize_nearest "
+                      "resize_trilinear pool2d pool3d fc pad2d smooth_l1 "
+                      "dice_loss bpr_loss soft_relu space_to_depth "
+                      "shuffle_channel add_position_encoding "
+                      "pad_constant_like fsp_matrix "
+                      "teacher_student_sigmoid_loss ssd_loss"),
+    "nn.functional.activation": (
+        "item 9a", "sigmoid silu swish mish softsign tanhshrink hardswish "
+        "hardsigmoid log_sigmoid leaky_relu elu selu celu prelu rrelu "
+        "hardtanh hardshrink softshrink softplus thresholded_relu "
+        "log_softmax gumbel_softmax maxout glu softmax_ tanh_ relu_"),
+    "nn.functional.attention": ("item 9a",
+                                "set_flash_attention sequence_mask"),
+    "nn.functional.common": (
+        "item 9a", "dropout2d dropout3d alpha_dropout one_hot label_smooth "
+        "pad zeropad2d cosine_similarity pairwise_distance pixel_shuffle "
+        "pixel_unshuffle channel_shuffle bilinear unfold fold"),
+    "nn.layer.activation": (
+        "item 9a", "ReLU6 GELU Sigmoid LeakyReLU ELU CELU SELU Silu Swish "
+        "Mish Hardswish Hardsigmoid Hardtanh Hardshrink Softshrink Softplus "
+        "Softsign Tanhshrink ThresholdedReLU LogSigmoid Softmax LogSoftmax "
+        "Maxout PReLU RReLU GLU"),
+    "nn.layer.common": (
+        "item 9a", "Identity Dropout2D Dropout3D AlphaDropout Flatten Pad1D "
+        "Pad2D Pad3D ZeroPad2D CosineSimilarity PairwiseDistance Bilinear "
+        "PixelShuffle PixelUnshuffle ChannelShuffle Unfold Fold"),
+    "nn.layer.container": ("item 9a", "ParameterList LayerDict"),
+    "nn.layer.rnn": ("item 9a", "RNN BiRNN SimpleRNN LSTM GRU"),
+    "nn.layer_base": ("item 9a", "HookRemoveHelper"),
+    "observability.programs": ("item 9d", "peak_live_bytes trace_peak_live"),
+    "tensor.linalg": (
+        "item 9b", "mm bmm mv norm vector_norm matrix_norm dist cond solve "
+        "triangular_solve cholesky cholesky_solve lu qr svd svdvals pinv "
+        "eig eigvals eigh eigvalsh matrix_power matrix_rank det slogdet "
+        "multi_dot histogram bincount corrcoef cov householder_product "
+        "lstsq"),
+    "tensor.manipulation": (
+        "item 9b", "cast reshape reshape_ transpose moveaxis swapaxes "
+        "transpose_ t unsqueeze squeeze concat stack unstack split chunk "
+        "tensor_split tile expand expand_as broadcast_to broadcast_tensors "
+        "broadcast_shape slice strided_slice gather gather_nd "
+        "take_along_axis put_along_axis scatter scatter_ scatter_nd "
+        "scatter_nd_add index_select index_sample index_add index_put "
+        "masked_select masked_fill masked_scatter roll flip rot90 "
+        "repeat_interleave unique unique_consecutive as_complex as_real "
+        "view view_as atleast_1d atleast_2d atleast_3d diagonal diag_embed "
+        "unfold flatten_ shard_index reverse crop"),
+    "utils": ("item 9d", "dump_config try_import deprecated run_check "
+              "download"),
+    "utils.faults": ("§1 Fault hooks (items 8 and 9c)",
+                     "worker_crash_config maybe_crash_worker "
+                     "prefetch_stall_config maybe_stall_prefetch "
+                     "row_corrupt_fetch backend_down"),
+    "version": ("item 9d", "show"),
+}
 
 # Internal helpers whose parameters are the port's by design: the
 # reference's carry JAX state or versions (a functional state dict and a
@@ -410,10 +479,18 @@ def test_conv_pool_norm_signatures_start_with_the_reference(where, name):
     in the reference's order (``name=`` and ``avg_pool2d``'s
     ``divisor_override`` in seventh place included); the port's extras
     are keywords after them.  The few internal helpers of ``_DESIGN``
-    keep the port's own parameters."""
+    keep the port's own parameters; a name on ``_NOT_PORTED`` must still
+    be missing from the port."""
     ref = getattr(importlib.import_module("paddle_tpu." + where), name)
-    port = getattr(importlib.import_module("paddle_tpu_torch." + where),
-                   name)
+    module = importlib.import_module("paddle_tpu_torch." + where)
+    item, missing = _NOT_PORTED.get(where, ("", ""))
+    if name in missing.split():
+        assert not hasattr(module, name), \
+            f"{where}.{name} is ported: take it off _NOT_PORTED"
+        return
+    assert hasattr(module, name), \
+        f"{where}.{name} is not in the port and not on _NOT_PORTED"
+    port = getattr(module, name)
     if inspect.isclass(ref):
         ref, port = ref.__init__, port.__init__
     got = inspect.signature(port).parameters

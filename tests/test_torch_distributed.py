@@ -28,6 +28,7 @@ Tolerances, with their reasons:
 import os
 import subprocess
 import sys
+import time
 
 import jax
 import jax.numpy as jnp
@@ -361,3 +362,25 @@ def test_launch_starts_a_trainer_per_rank_and_reports_failures(tmp_path):
     assert "worker 1 FAILED (exit 3)" in r.stderr
     args = tlaunch._parse_args(["--ips", "a,b", "x.py", "--lr", "1"])
     assert (args.ips, args.training_script_args) == ("a,b", ["--lr", "1"])
+
+
+@pytest.mark.parametrize("limit", ["exit_grace", "timeout"])
+def test_launch_joins_are_bounded(tmp_path, limit):
+    """A rank that hangs (past another's clean exit, or from the start)
+    is torn down when the launcher's limit passes, and the launcher exits
+    ``TIMED_OUT``."""
+    hang = tmp_path / "hang.py"
+    hang.write_text("import os, time\n"
+                    "if os.environ['PADDLE_TRAINER_ID'] == '1' or "
+                    "os.environ['HANG_ALL'] == '1':\n"
+                    "    time.sleep(600)\n")
+    env = dict(os.environ, HANG_ALL=str(int(limit == "timeout")))
+    t0 = time.monotonic()
+    r = subprocess.run([sys.executable, "-m",
+                        "paddle_tpu_torch.distributed.launch",
+                        "--nproc_per_node", "2", f"--{limit}", "2",
+                        str(hang)], env=env, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == tlaunch.TIMED_OUT, r.stderr
+    assert "still running past the launcher's limit" in r.stderr
+    assert time.monotonic() - t0 < 60
