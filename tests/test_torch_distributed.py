@@ -368,7 +368,8 @@ def test_launch_starts_a_trainer_per_rank_and_reports_failures(tmp_path):
 def test_launch_joins_are_bounded(tmp_path, limit):
     """A rank that hangs (past another's clean exit, or from the start)
     is torn down when the launcher's limit passes, and the launcher exits
-    ``TIMED_OUT``."""
+    ``TIMED_OUT``.  The ranks write to ``--log_dir``, so no sleeper holds
+    this test's pipes."""
     hang = tmp_path / "hang.py"
     hang.write_text("import os, time\n"
                     "if os.environ['PADDLE_TRAINER_ID'] == '1' or "
@@ -379,8 +380,8 @@ def test_launch_joins_are_bounded(tmp_path, limit):
     r = subprocess.run([sys.executable, "-m",
                         "paddle_tpu_torch.distributed.launch",
                         "--nproc_per_node", "2", f"--{limit}", "2",
-                        str(hang)], env=env, capture_output=True, text=True,
-                       timeout=120)
+                        "--log_dir", str(tmp_path / "logs"), str(hang)],
+                       env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode == tlaunch.TIMED_OUT, r.stderr
     assert "still running past the launcher's limit" in r.stderr
     assert time.monotonic() - t0 < 60
