@@ -525,6 +525,31 @@ Phases (any failure exits non-zero before the result line):
                 within 2e-2 of TrainStep's.  ring_attention at sp=1, (2,
                 2048, 16, 64) f32, causal and not, output and gradients
                 against the naive softmax at 2e-4.
+ 24. tpserve  — (after spec_bf16, on the bf16 serve model) the plain paged
+                engine's 8 streams, then ServingEngine(mesh=create_mesh(
+                {"tp": 1})) on a one-rank NCCL group: the rank-local
+                forward (int8 weights whole, as the reference's layout,
+                the embeddings' masked rows all-reduced, the logits
+                all-gathered, the collectives inside the captured graphs):
+                streams equal to the plain engine's, K3 / K4 launched,
+                nothing captured after warmup.  Then K3 at a rank's heads,
+                16 / 4 and 16 / 2 (8 slots, ragged pos 17..1000, 24
+                layers' pools), f32 / bf16 / float16 against its plain
+                version, and timed in bf16 with its plain time, SDPA on
+                pre-gathered rows and the bound.
+ 25. recsys   — embedding/ at Criteo Kaggle widths (26 tables in one
+                33,762,577 x 16 f32 table, B 128, Adam 1e-3), one card:
+                DLRM("sharded") on a one-rank NCCL group against
+                DLRM("sparse") over RECSYS_STEPS captured steps from the
+                same weights (losses, every touched row and its moments
+                bit-equal); "external" through HostTableTrainStep with the
+                async prefetch against the sync one (bit-equal losses,
+                rows and moments; ms per step, prefetch hits, waits and
+                peak device bytes); RecsysPredictor's merged scores
+                against a direct forward (1e-5), ms per micro-batch.
+Depth cut for time (``CUT_LAYERS``): the fleet and worker phases, the
+trainexport phase and the bert phase's resume leg run 12 of their model's
+24 layers, at its published widths.
 Before the last line it prints one JSON line with every kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
 """
@@ -592,6 +617,11 @@ FLEET_SESSIONS = {0: "s0", 1: "s0", 4: "s1", 5: "s1", 8: "s2", 9: "s2",
 FLEET_ROLL_LENS = (64, 80, 96, 112, 128, 144, 160, 72)   # rollout wave
 FLEET_ROLL_NEW = 512
 FLEET_ROLL_INFLIGHT = 12   # rollout wave requests kept unfinished
+# depth of GPT-2 medium (of its 24 layers) in the fleet and worker phases
+# and of the trainexport phase and BERT-large in the bert phase's resume
+# leg, cut to keep the whole script within its time (their boots, ships,
+# exports and checkpoints scale with depth; widths stay published)
+CUT_LAYERS = 12
 MEM_TOL = 0.02      # memory after a remove vs before its boot: of a replica
 WORKER_HEARTBEAT_S = 3.0   # worker phase: the wedge fence's heartbeat age
 WORKER_GRACE_S = 1.0       # and the grace before a wedged worker is killed
@@ -685,12 +715,12 @@ BN_LINES = {"bn_stats": 119, "bn_apply": 132, "bn_bwd_reduce": 153,
 
 PHASES = ("check", "serve", "telemetry", "pressure", "prefix", "spec", "lora",
           "beam", "gateway", "fleet", "worker", "programs", "serve_bf16",
-          "spec_bf16", "serve_f16",
+          "spec_bf16", "tpserve", "serve_f16",
           "fixed",
           "flash", "train", "traincheck", "dlrm", "trainexport", "tostatic",
           "guard", "amp16", "bert",
           "predictor", "bn", "resnet", "resnetcheck", "mobilenet", "vgg",
-          "convcheck", "lenet", "qat", "parallel")
+          "convcheck", "lenet", "qat", "parallel", "recsys")
 
 
 def fail(msg: str):
@@ -2853,8 +2883,11 @@ def train_leg(torch, make, batch, steps: int, counters, card: str,
             losses.append(step(*batch))
             torch.cuda.synchronize()
             t_steps.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_reserved() / 2 ** 30
         progs = getattr(step, "_programs", {}).values()
         out = dict(losses=[float(x) for x in losses], launches=read(),
+                   held_gib=held,
                    captured=bool(progs) and all(p.graph is not None
                                                 for p in progs),
                    hist_steps=_step_hist_count() - hist0,
@@ -3292,7 +3325,7 @@ def trainexport_phase(torch, args, dev, card):
                                       save_train_program)
     from paddle_tpu_torch.models import gpt2_medium_config
     from paddle_tpu_torch.ops import flash_attention as fa
-    cfg = gpt2_medium_config()
+    cfg = gpt2_medium_config(num_hidden_layers=CUT_LAYERS)
     layers = cfg.num_hidden_layers
     batches = [tuple(torch.from_numpy(a).to(dev) for a in _train_batch(
         cfg, args.seed + i, TRAIN_B, TRAIN_S)) for i in range(EXPORT_STEPS)]
@@ -3930,7 +3963,8 @@ def bert_resume_leg(torch, args, dev, card):
             warmup_steps=3, start_lr=1e-5, end_lr=1e-4)
     make = _bert_maker(torch, args, dev, schedule=schedule,
                        hidden_dropout_prob=0.0,
-                       attention_probs_dropout_prob=0.0)
+                       attention_probs_dropout_prob=0.0,
+                       num_hidden_layers=CUT_LAYERS)
     batch = _bert_batch(torch, dev, BERT_VOCAB, args.seed + 6, padded=True)
     ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "bert_resume")
@@ -5662,7 +5696,8 @@ def fleet_phase(torch, args, dev, card):
     from paddle_tpu_torch.utils import faults
     tag = "fleet"
     cfg = gpt2_medium_config(hidden_dropout_prob=0.0,
-                             attention_probs_dropout_prob=0.0)
+                             attention_probs_dropout_prob=0.0,
+                             num_hidden_layers=CUT_LAYERS)
     model = GPTForPretraining(cfg, device=dev, seed=args.seed).eval()
     # what an engine's own copy of the weights costs before and after
     # int8 (serve_model's model: quantized in place)
@@ -6262,7 +6297,8 @@ def worker_phase(torch, args, dev, card, inproc=None):
     from paddle_tpu_torch.serving.transfer import file_sha256
     tag = "worker"
     cfg = gpt2_medium_config(hidden_dropout_prob=0.0,
-                             attention_probs_dropout_prob=0.0)
+                             attention_probs_dropout_prob=0.0,
+                             num_hidden_layers=CUT_LAYERS)
     config = {k: getattr(cfg, k)
               for k in inspect.signature(GPTConfig.__init__).parameters
               if k != "self"}
@@ -6970,6 +7006,7 @@ def parallel_gpt_legs(torch, args, dev, card, fa):
     what = (f"sharded train step (GPT-2 medium, B {TRAIN_B} x S {TRAIN_S}, "
             "O1 bf16, recompute, one-rank NCCL")
     first = None
+    held = {}
     for stage, steps in ((2, PARALLEL_STEPS), (3, PARALLEL_FSDP_STEPS)):
         tag = f"parallel gpt stage {stage}"
         leg = _par_leg(torch, make_sharded(stage), batch, steps, counters,
@@ -6990,6 +7027,16 @@ def parallel_gpt_legs(torch, args, dev, card, fa):
               f"time), captured {leg['captured']}")
         _sum_into(launches, leg["launches"])
         first = leg["losses"][0] if first is None else first
+        held[stage] = leg["held_gib"]
+        print(f"{tag} [{card}]: {leg['held_gib']:.2f} GiB reserved between "
+              f"steps (graph pool and state), peak of an uncaptured step "
+              f"{leg['peak_gib']:.2f} GiB")
+    # one rank: no parameter is split over dp=1, so stage 3 holds what
+    # stage 2 holds; the saving itself needs several cards
+    # (probes/parallel_probe.py)
+    if held[3] > held[2] * 1.02 + 0.05:
+        fail(f"parallel: stage 3 holds {held[3]:.2f} GiB between steps, "
+             f"stage 2 {held[2]:.2f}")
         parallel.set_mesh(None)
     return launches, first
 
@@ -7193,6 +7240,275 @@ def parallel_phase(torch, args, dev, card):
     return launches
 
 
+TP_K3_HEADS = (4, 8)          # K3's heads per rank at tp 4 and tp 2
+RECSYS_STEPS = 5              # recsys phase: steps of each leg
+RECSYS_SCORE = (4, 32)        # recsys phase: requests x rows scored
+
+
+def tpserve_phase(torch, args, dev, card, model):
+    """Tensor-parallel serving on a one-rank NCCL group (module
+    docstring, phase 24): the bf16 serve model through
+    ServingEngine(mesh=) (the rank-local forward, its collectives in the
+    captured graphs), streams against the plain engine's; K3 held against
+    its plain version and timed at the per-rank head counts of tp 4 and
+    tp 2.  Returns K3's and K4's launches on the mesh engine's run."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import paged_attention as pa
+    t0 = time.perf_counter()
+    prompts, sampled = serve_requests(args, model.gpt.config.vocab_size)
+    names = ("int8_matmul_bf16", "paged_attention_bf16")
+    eng = _paged_engine(model, dev, dtype=torch.bfloat16)
+    want, wall, ttfts, _ = _drive(torch, eng, prompts, sampled, 64,
+                                  "tpserve plain")
+    print(f"tpserve plain engine [{card}]: 8 requests, 512 tokens in "
+          f"{wall:.3f}s: {512 / wall:.1f} tokens/s; TTFT p50 "
+          f"{ttfts[len(ttfts) // 2] * 1e3:.1f} ms")
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="nccl-store-", dir=_build_dir("tpserve"))
+    _one_rank_group(torch, root)
+    try:
+        mesh = parallel.create_mesh({"tp": 1})
+        eng = _paged_engine(model, dev, dtype=torch.bfloat16, mesh=mesh)
+        if eng.metrics()["mesh"] != {"devices": 1, "tp": 1}:
+            fail(f"tpserve: metrics mesh {eng.metrics()['mesh']}")
+        if eng.model.gpt._tp_split != {"word_embeddings.weight",
+                                       "position_embeddings.weight"}:
+            fail(f"tpserve: the int8 model's split {eng.model.gpt._tp_split}"
+                 " is not the reference's (embeddings only)")
+        outs, wall, ttfts, launches = serve_run(torch, eng, prompts, sampled,
+                                                64, names)
+        for name, n in launches.items():
+            if n <= 0:
+                fail(f"tpserve: kernel {name} was not launched")
+        if eng.post_warmup_compiles() != 0:
+            fail(f"tpserve: {eng.post_warmup_compiles()} captures after "
+                 "warmup")
+        same = [a == b for a, b in zip(outs, want)]
+        total = sum(len(o) for o in outs)
+        print(f"tpserve [{card}]: ServingEngine(mesh=tp 1, one-rank NCCL), "
+              f"bf16 + int8, 8 requests, {total} tokens in {wall:.3f}s: "
+              f"{total / wall:.1f} tokens/s; TTFT p50 "
+              f"{ttfts[len(ttfts) // 2] * 1e3:.1f} ms; launches {launches}; "
+              f"streams equal to the plain engine's: {same}")
+        if not all(same):
+            fail("tpserve: the mesh engine's streams differ from the plain "
+                 "engine's")
+        eng.close()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    # K3 at a rank's heads: 16 / 4 and 16 / 2
+    rng = np.random.RandomState(args.seed + 24)
+    sms = _build.sm_count(dev.index)
+    nb = MAX_LEN // BLOCK
+    pos_np = np.array([17, 150, 300, 511, 512, 700, 901, 1000], np.int32)
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    for h in TP_K3_HEADS:
+        q, pools, tables, pos = _paged_case(torch, rng, dev, pos_np, nb,
+                                            h=h, layers=LAYERS)
+        errs = {}
+        for dt, tol in ((f32, (TOL, TOL)), (bf16, BF16_TOL),
+                        (f16, F16_TOL)):
+            a = (q.to(dt), pools[0][0].to(dt), pools[0][1].to(dt), tables,
+                 pos)
+            got = pa.paged_attention(*a)
+            e, ok = max_err(torch, got, pa._plain(*a), *tol)
+            errs[str(dt)[6:]] = e
+            print(f"check paged_attention tp H={h} {str(dt)[6:]}: plan "
+                  f"{pa._plan(SLOTS, h, 64, nb, sms, dt.itemsize)} "
+                  f"max_abs_err={e:.3e}{'' if ok else ' OUT OF TOLERANCE'}")
+            if not ok:
+                fail(f"paged_attention at H={h} {dt} disagrees with its "
+                     "plain version")
+        row = _paged_time(torch, pa, sms, q.to(bf16),
+                          [(k.to(bf16), v.to(bf16)) for k, v in pools],
+                          tables, pos, pos_np, nb, errs["bfloat16"])
+        print(f"tpserve k3 H={h} (tp {16 // h}) bf16 [{card}]: "
+              f"{row['ms']:.4f} ms per layer, plain {row['plain_ms']:.4f}, "
+              f"SDPA pre-gathered {row['library_ms']:.4f}, bound "
+              f"{row['bound_ms']:.4f} ({row['bound_by']}); errors {errs}")
+        del q, pools
+        torch.cuda.empty_cache()
+    print(f"tpserve [{card}]: phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def recsys_phase(torch, args, dev, card):
+    """embedding/ at Criteo Kaggle widths on one card (module docstring,
+    phase 25): DLRM("sharded") against "sparse" over RECSYS_STEPS captured
+    steps (losses and rows bit-equal), "external" through
+    HostTableTrainStep with the async prefetch against the sync one
+    (bit-equal), and RecsysPredictor's scores against a direct forward."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.embedding import (HostEmbeddingTable,
+                                            HostPrefetchPipeline,
+                                            HostTableTrainStep,
+                                            RecsysPredictor)
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import DLRM, DLRMConfig, DLRMCriterion
+    t0 = time.perf_counter()
+    cfg = DLRMConfig(dense_dim=13, vocab_sizes=CRITEO_KAGGLE,
+                     embedding_dim=16, bottom_mlp=(512, 256, 64),
+                     top_mlp=(512, 256))
+    batches = _dlrm_batches(torch, cfg, args.seed, RECSYS_STEPS, dev)
+    offsets = torch.from_numpy(cfg.offsets).to(dev)
+    touched = torch.zeros(cfg.total_rows, dtype=torch.bool, device=dev)
+    for b in batches:
+        touched[(b[1] + offsets).reshape(-1)] = True
+    root = tempfile.mkdtemp(prefix="nccl-store-", dir=_build_dir("recsys"))
+    _one_rank_group(torch, root)
+    legs = {}
+    try:
+        mesh = parallel.create_mesh({"tp": 1})
+        init = None
+        for mode in ("sparse", "sharded"):
+            model = DLRM(cfg, embedding=mode, mesh=mesh, device=dev,
+                         seed=args.seed)
+            if init is None:
+                init = {k: v.detach().clone()
+                        for k, v in model.state_dict().items()}
+            else:
+                model.load_state_dict(init)
+            step = TrainStep(model, DLRMCriterion(),
+                             pt.optimizer.Adam(1e-3,
+                                               parameters=model.parameters()))
+            losses, ms = [], []
+            for b in batches:
+                loss, t = _event_ms(torch, lambda b=b: step(*b))
+                losses.append(float(loss))
+                ms.append(t)
+            if step.compile_counts()["total"] != 1:
+                fail(f"recsys {mode}: {step.compile_counts()} captures")
+            w = model.table.weight.detach()
+            legs[mode] = dict(losses=losses, ms=ms,
+                              rows=w[touched].clone(),
+                              m1=step._opt_state["table.weight"]["moment1"]
+                              [touched].clone())
+            print(f"recsys dlrm {mode} [{card}]: ms per step "
+                  f"{', '.join(f'{t:.3f}' for t in ms)}; losses "
+                  + ", ".join(repr(x) for x in losses))
+            del model, step, w
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    sp, sh = legs["sparse"], legs["sharded"]
+    same = (sp["losses"] == sh["losses"] and torch.equal(sp["rows"], sh["rows"])
+            and torch.equal(sp["m1"], sh["m1"]))
+    print(f"recsys: DLRM sharded == sparse over {RECSYS_STEPS} steps "
+          f"(losses, {int(touched.sum()):,} touched rows, their moments): "
+          f"{same}")
+    if not same:
+        fail("recsys: DLRM('sharded') is not bit-equal to 'sparse'")
+    table0 = init["table.weight"].cpu().numpy()
+    del legs, sp, sh, init
+    torch.cuda.empty_cache()
+    # the host-resident table: async prefetch against sync
+    host_batches = [tuple(t.cpu().numpy() for t in b) for b in batches]
+    runs = {}
+    for asyncp in (False, True):
+        pt.seed(args.seed)
+        model = DLRM(cfg, embedding="external", device=dev, seed=args.seed)
+        opt = pt.optimizer.Adam(1e-3, parameters=model.parameters())
+        table = HostEmbeddingTable(cfg.total_rows, 16, rows=table0.copy())
+        step = HostTableTrainStep(model, DLRMCriterion(), opt, table)
+        pipe = HostPrefetchPipeline(table, lambda i: host_batches[i],
+                                    RECSYS_STEPS, optimizer=opt,
+                                    offsets=cfg.offsets,
+                                    async_prefetch=asyncp, bucket=1024,
+                                    device=dev)
+        losses, ms, split = [], [], []
+        while True:
+            t1 = time.perf_counter()
+            prep = pipe.next_prepared()
+            if prep is None:
+                break
+            t2 = time.perf_counter()
+            loss, slab, st = step.run(prep, (DLRM_B, cfg.num_features))
+            losses.append(float(loss))
+            t3 = time.perf_counter()
+            pipe.complete(prep, slab, st)
+            t4 = time.perf_counter()
+            ms.append((t4 - t1) * 1e3)
+            split.append(tuple(round((b - a) * 1e3, 3) for a, b in
+                               ((t1, t2), (t2, t3), (t3, t4))))
+        pipe.close()
+        m = pipe.metrics()
+        uids = np.unique(np.concatenate(
+            [(b[1] + cfg.offsets).reshape(-1) for b in host_batches]))
+        runs[asyncp] = dict(losses=losses, rows=table.rows[uids].copy(),
+                            mom={k: v[uids].copy()
+                                 for k, v in table.opt_slabs.items()})
+        print(f"recsys host table {'async' if asyncp else 'sync'} [{card}]: "
+              f"ms per step {', '.join(f'{t:.3f}' for t in ms)}; prefetch "
+              f"hits {m['hits']}, misses {m['misses']}, waits "
+              f"{m['wait_seconds'] * 1e3:.3f} ms; peak device table bytes "
+              f"{m['peak_device_table_bytes']:,} (table {table.nbytes:,} B "
+              f"in host RAM); captures {step.compile_counts()['total']}; "
+              f"ms (next_prepared, run to the loss, complete) {split}; "
+              "losses " + ", ".join(repr(x) for x in losses))
+        if asyncp:
+            ext_model, ext_table = model, table
+        else:
+            del model, step, table
+        del pipe, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = runs[True], runs[False]
+    same = (a["losses"] == b["losses"] and np.array_equal(a["rows"], b["rows"])
+            and all(np.array_equal(a["mom"][k], b["mom"][k]) for k in a["mom"]))
+    print(f"recsys: host-table async == sync over {RECSYS_STEPS} steps "
+          f"(losses, rows, moments): {same}")
+    if not same:
+        fail("recsys: the async host-table run differs from the sync one")
+    # serving: merged requests against a direct forward
+    n_req, rows_per = RECSYS_SCORE
+    rng = np.random.RandomState(args.seed + 25)
+    reqs = [(rng.randn(rows_per, 13).astype(np.float32),
+             np.stack([(rng.zipf(1.2, rows_per) - 1) % v
+                       for v in cfg.vocab_sizes], 1)) for _ in range(n_req)]
+    pred = RecsysPredictor(ext_model, ext_table, offsets=cfg.offsets,
+                           window_ms=20.0, start=False)
+    resps = [pred.submit(d, i) for d, i in reqs]
+    items = []
+    while not pred._queue.empty():
+        items.append(pred._queue.get_nowait())
+    torch.cuda.synchronize()
+    pred.score_batch(items)
+    got = np.concatenate([r.result(5) for r in resps])
+    dense = np.concatenate([d for d, _ in reqs])
+    ids = np.concatenate([i for _, i in reqs]) + cfg.offsets
+    with torch.no_grad():
+        emb = torch.from_numpy(ext_table.rows[ids.reshape(-1)]).to(dev)
+        want = ext_model(torch.from_numpy(dense).to(dev),
+                         emb.reshape(len(dense), -1, 16)).float().cpu()
+    err = float(np.abs(got - want.numpy()).max())
+    ms = pred.score_seconds / pred.batches * 1e3
+    print(f"recsys serving [{card}]: {n_req} requests x {rows_per} rows "
+          f"merged into {pred.batches} micro-batch: {ms:.3f} ms per "
+          f"micro-batch (dedup, host fetch, upload, forward, download); "
+          f"scores vs a direct forward max abs {err:.3e}")
+    pred.close()
+    if err > 1e-5:
+        fail(f"recsys: the predictor's scores differ by {err}")
+    print(f"recsys [{card}]: phase {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7204,7 +7520,15 @@ def main():
     if only and not only <= set(PHASES):
         fail(f"unknown phases {sorted(only - set(PHASES))}")
 
+    started, seen = time.perf_counter(), set()
+
     def want(name):
+        """Whether phase ``name`` runs; the script's elapsed seconds are
+        printed at a phase's first check (the phases' wall times)."""
+        if name not in seen:
+            seen.add(name)
+            print(f"at {time.perf_counter() - started:.1f} s: {name}",
+                  flush=True)
         return only is None or name in only
     try:
         import torch
@@ -7269,13 +7593,15 @@ def main():
     if want("programs"):
         programs_phase(torch, args, dev, card)
         gc.collect()
-    if want("serve_bf16") or want("spec_bf16"):
+    if want("serve_bf16") or want("spec_bf16") or want("tpserve"):
         model = serve_model(torch, args, dev, torch.bfloat16)
         if want("serve_bf16"):
             launches.update(serve_phase(torch, args, dev, card, model,
                                         torch.bfloat16))
         if want("spec_bf16"):
             spec_bf16_phase(torch, args, dev, card, model)
+        if want("tpserve"):   # K3 / K4 on the tensor-parallel path too
+            _sum_into(launches, tpserve_phase(torch, args, dev, card, model))
         del model
     torch.cuda.empty_cache()
     if want("serve_f16"):
@@ -7333,6 +7659,10 @@ def main():
     if want("parallel"):   # K1 / K2 and K5-K9 on the parallel paths too
         for k, v in parallel_phase(torch, args, dev, card).items():
             launches[k] = launches.get(k, 0) + v
+        gc.collect()
+        torch.cuda.empty_cache()
+    if want("recsys"):
+        recsys_phase(torch, args, dev, card)
         gc.collect()
         torch.cuda.empty_cache()
     if any(m.startswith("paddle_tpu.") or m in ("jax", "paddle_tpu")

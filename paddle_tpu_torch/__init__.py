@@ -7,9 +7,10 @@ reference wrote as Pallas TPU kernels are hand-written CUDA kernels here
 version, which runs for CPU tensors.  Entry points run on the card unless
 the caller passes ``device="cpu"``.
 """
-from . import (amp, distributed, generation, inference, jit,  # noqa: F401
-               lora, models, nn, observability, optimizer, parallel,
-               programs, quantization, regularizer, serving, vision)
+from . import (amp, distributed, embedding, generation,  # noqa: F401
+               inference, jit, lora, models, nn, observability, optimizer,
+               parallel, programs, quantization, regularizer, serving,
+               vision)
 from .core.rng import seed  # noqa: F401
 from .nn.layer_base import ParamAttr  # noqa: F401
 from .weights import load_paddle_opt_state, load_paddle_state  # noqa: F401

@@ -20,8 +20,9 @@ serving engine's spans.  ``enable_serving(program_cache_dir=)`` turns the
 program store on, ``program_set=`` boots the engine from a program set
 (``ServingPredictor.save_program_set``); a set the engine rejects is a
 warning, a count of ``program_set_fallback_total`` and a fresh boot.
-Not ported yet, and refused with ``UnimplementedError``: ``enable_xpu``
-devices and recsys serving.
+``enable_recsys_serving`` routes ``create_predictor`` to
+``embedding.RecsysPredictor`` (micro-batched deduped CTR scoring).  Not
+ported, and refused with ``UnimplementedError``: ``enable_xpu`` devices.
 
     pred = create_predictor(Config(prefix).enable_serving(
         model_provider=build_gpt, quantize="int8", kv="paged"))
@@ -56,6 +57,7 @@ class Config:
         self._device_id = 0
         self._threads = 1
         self._serving = None
+        self._recsys = None
 
     # -- model ----------------------------------------------------------------
     def set_model(self, model_path: str, params_path: Optional[str] = None):
@@ -169,13 +171,23 @@ class Config:
 
     def enable_recsys_serving(self, model=None, table=None, offsets=None,
                               **opts):
-        raise UnimplementedError(
-            "Config.enable_recsys_serving: the recsys scorer (the sharded "
-            "tables of embedding/) is not ported yet; the DLRM model is "
-            "(models.DLRM).  It is the recsys part of ROADMAP §1 item 8")
+        """Route ``create_predictor()`` to the batched deduped-lookup CTR
+        scorer (``embedding.RecsysPredictor``): ``model`` an
+        external-embedding Layer (``models.DLRM(embedding="external")``),
+        ``table`` a ``HostEmbeddingTable`` or a (rows, dim) ndarray,
+        ``offsets`` the per-feature offsets (``DLRMConfig.offsets``);
+        ``opts`` go to the predictor (max_batch, window_ms, max_queue,
+        slab_bucket).  The predictor runs on this Config's device."""
+        if model is None or table is None:
+            raise ValueError(
+                "enable_recsys_serving needs model= (external-embedding "
+                "Layer) and table= (HostEmbeddingTable or ndarray)")
+        self._recsys = {"model": model, "table": table, "offsets": offsets,
+                        **opts}
+        return self
 
     def recsys_enabled(self) -> bool:
-        return False
+        return self._recsys is not None
 
     # -- profiling ------------------------------------------------------------
     def enable_profile(self):
@@ -451,7 +463,14 @@ class ServingPredictor:
 
 
 def create_predictor(config: Config):
-    config.torch_device()   # refuses enable_xpu typed
+    dev = config.torch_device()   # refuses enable_xpu typed
+    if config.recsys_enabled():
+        from ..embedding import RecsysPredictor
+        opts = dict(config._recsys)
+        model = opts.pop("model").to(dev)
+        return RecsysPredictor(model, opts.pop("table"),
+                               offsets=opts.pop("offsets"), device=dev,
+                               **opts)
     if config.serving_enabled():
         return ServingPredictor(config)
     return Predictor(config)

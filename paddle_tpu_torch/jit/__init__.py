@@ -392,6 +392,13 @@ class TrainStep:
             if zg is None:
                 zg = torch.zeros_like(zeros[zk])
             rsg = sr.RowSparseGrad(ids[zk], zg, params[nm].shape)
+            shard = getattr(params[nm], "row_shard", None)
+            if shard is not None and shard[0] is not None:
+                # a row-sharded table (embedding.ShardedEmbedding): the
+                # update moves this rank's rows only
+                from ..embedding.functional import local_grad
+                rsg = local_grad(rsg, params[nm].shape[0], shard[1],
+                                 shard[0])
             grads[nm] = grads[nm] + rsg if nm in grads else rsg
         return grads
 

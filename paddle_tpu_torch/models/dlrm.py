@@ -9,13 +9,16 @@ reference's layout, so the table is one parameter of ``total_rows`` rows.
   table with row-sparse gradients and the lazy row update (the
   reference's parity oracle);
 - ``embedding="dense"``: ``Embedding(sparse=False)``, dense gradients
-  (the only mode that composes with ``TrainStep(accum_steps>1)``).
+  (the only mode that composes with ``TrainStep(accum_steps>1)``);
+- ``embedding="sharded"``: ``embedding.ShardedEmbedding``, the table's
+  rows split over ``axis`` of ``mesh``, the lazy update on each rank's
+  rows (``jit.TrainStep`` runs the whole batch on every rank);
+- ``embedding="external"``: no table: ``forward(dense_x, rows)`` takes
+  the pre-gathered (B, F, D) rows (``embedding.HostEmbeddingTable`` /
+  ``HostPrefetchPipeline`` / ``HostTableTrainStep``, ``RecsysPredictor``).
 
-The reference's ``"sharded"`` (rows over a mesh axis) and ``"external"``
-(host-resident rows fed pre-gathered) modes need its ``embedding/``
-package, which is not ported: they raise ``UnimplementedError``.  State
-names are the reference's (``bottom.*``, ``table.weight``, ``top.*``), so
-``load_paddle_state`` carries its weights across.  The constructor takes
+State names are the reference's (``bottom.*``, ``table.weight``,
+``top.*``), so ``load_paddle_state`` carries its weights across.  The constructor takes
 ``device`` (default ``"cuda"``; raises without a card) and ``seed`` for
 the weight draw.
 """
@@ -27,7 +30,6 @@ import numpy as np
 import torch
 
 from ..core.device import DEFAULT_DEVICE, resolve_device
-from ..core.errors import UnimplementedError
 from ..nn import functional as F
 from ..nn.layer.activation import ReLU
 from ..nn.layer.common import Embedding, Linear
@@ -75,19 +77,14 @@ def _mlp(sizes, device=None, generator=None):
 
 
 class DLRM(Layer):
-    """forward(dense_x (B, dense_dim) float, sparse (B, F) int ids) ->
-    logits (B, 1)."""
+    """forward(dense_x (B, dense_dim) float, sparse (B, F) int ids, or
+    the (B, F, D) rows for ``embedding="external"``) -> logits (B, 1)."""
 
     def __init__(self, config: DLRMConfig, embedding: str = "sparse",
                  mesh=None, axis: str = "tp", *, device=DEFAULT_DEVICE,
                  seed: int = 0):
         super().__init__()
-        if embedding in ("sharded", "external"):
-            raise UnimplementedError(
-                f"DLRM(embedding={embedding!r}) needs the reference's "
-                "embedding/ package, which is not ported yet (ROADMAP "
-                "section 1 item 8); use 'sparse' or 'dense'")
-        if embedding not in ("sparse", "dense"):
+        if embedding not in ("sparse", "dense", "sharded", "external"):
             raise ValueError(
                 f"DLRM: unknown embedding mode {embedding!r}; expected "
                 "'sparse', 'dense', 'sharded' or 'external'")
@@ -99,9 +96,17 @@ class DLRM(Layer):
         d = config.embedding_dim
         self.bottom = _mlp((config.dense_dim,) + config.bottom_mlp + (d,),
                            dev, gen)
-        self.table = Embedding(config.total_rows, d,
-                               sparse=(embedding == "sparse"), device=dev,
-                               generator=gen)
+        if embedding == "external":
+            self.table = None
+        elif embedding == "sharded":
+            from ..embedding import ShardedEmbedding
+            self.table = ShardedEmbedding(config.total_rows, d, mesh=mesh,
+                                          axis=axis, device=dev,
+                                          generator=gen)
+        else:
+            self.table = Embedding(config.total_rows, d,
+                                   sparse=(embedding == "sparse"),
+                                   device=dev, generator=gen)
         # pairwise dots over the F embeddings and the bottom output; the
         # concatenated [bottom, upper-triangle dots] feeds the top
         self._n_vec = config.num_features + 1
@@ -115,8 +120,12 @@ class DLRM(Layer):
         self.top = _mlp((d + len(iu),) + config.top_mlp + (1,), dev, gen)
 
     def forward(self, dense_x, sparse):
+        """``sparse``: (B, F) ids, or the (B, F, D) rows when external."""
         b = self.bottom(dense_x)                          # (B, D)
-        emb = self.table(sparse + self._offsets)          # (B, F, D)
+        if self.table is None:
+            emb = sparse.to(b.dtype)                      # pre-gathered
+        else:
+            emb = self.table(sparse + self._offsets)      # (B, F, D)
         z = torch.cat([b[:, None], emb], dim=1)           # (B, F+1, D)
         dots = torch.bmm(z, z.transpose(1, 2))            # (B, F+1, F+1)
         inter = dots.reshape(-1, self._n_vec * self._n_vec)[:, self._pair_idx]

@@ -26,6 +26,21 @@ labels=...)`` returns per-token losses through the fused tied-head
 cross-entropy; ``GPTPretrainingCriterion`` is the logits + cross-entropy
 loss the benchmark's training step uses.
 
+Tensor parallelism (``GPTForPretraining.shard_tensor_parallel(mesh)``,
+the serving engine's ``mesh=``): the model keeps this rank's blocks of
+the reference's Megatron layout (``parallel.sharding.param_specs(...,
+tensor_parallel=True)``) and its forward is the rank-local one GSPMD
+makes of that layout: column-parallel qkv / ffn_in (the qkv block is the
+rank's heads of q, k and v), row-parallel proj / ffn_out each followed by
+one all-reduce (their biases added after it), the vocabulary-sharded
+embeddings looked up as the rank's rows, masked and all-reduced (exact:
+one owner's row plus zeros), and the tied head's logits sharded over the
+vocabulary and all-gathered.  The KV caches hold the rank's heads.  A
+linear whose weight no rule shards (an int8 weight-only model's
+``w_int8``) runs whole on every rank (a sharded bias of it is gathered
+first): its output is cut to the rank's heads (qkv) or its input gathered
+whole (proj, ffn_out).
+
 Constructors take ``device`` (default ``"cuda"``; raises without a card)
 and ``seed`` for the weight draw.
 """
@@ -41,6 +56,7 @@ from ..nn.layer.container import LayerList
 from ..nn.layer.norm import LayerNorm
 from ..nn.layer_base import Layer
 from ..ops.fused_ce import fused_linear_cross_entropy
+from ..ops.int8_matmul import dequant_matmul
 from ..ops.paged_attention import paged_attention
 from ..tensor.linalg import matmul
 
@@ -103,8 +119,11 @@ class GPTBlock(Layer):
         std = cfg.initializer_range
         h = cfg.hidden_size
         self.num_heads = cfg.num_attention_heads
+        self.heads = self.num_heads     # this rank's (tensor parallel)
         self.head_dim = h // cfg.num_attention_heads
         self.hidden_size = h
+        self._tp = None                 # parallel.tensor_parallel context
+        self._tp_split = frozenset()    # the local names it shards
         self.ln1 = LayerNorm(h, epsilon=1e-5, device=device)
         self.qkv = Linear(h, 3 * h, std=std, device=device,
                           generator=generator)
@@ -120,11 +139,55 @@ class GPTBlock(Layer):
 
     def _split_qkv(self, x):
         b, s = x.shape[0], x.shape[1]
-        qkv = self.qkv(x).reshape(b, s, 3, self.num_heads, self.head_dim)
+        if self._tp is None or "qkv.weight" in self._tp_split:
+            qkv = self.qkv(x).reshape(b, s, 3, self.heads, self.head_dim)
+        else:   # whole weight: whole output, then this rank's heads
+            qkv = self._whole(self.qkv, x, "qkv").reshape(
+                b, s, 3, self.num_heads, self.head_dim)
+            hl, r = self.heads, self._tp.rank
+            qkv = qkv[:, :, :, r * hl:(r + 1) * hl]
         return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
+    # -- tensor parallel (module docstring) ----------------------------------
+    def _whole(self, lin, x, name):
+        """A replicated linear's whole output (its sharded bias, if any,
+        gathered whole)."""
+        if f"{name}.bias" not in self._tp_split:
+            return lin(x)
+        tp = self._tp
+        bias = (tp.gather_qkv_bias(lin.bias, self.num_heads)
+                if name == "qkv" else tp.all_gather(lin.bias, 0))
+        return _no_bias(lin, x) + bias
+
+    def _row(self, lin, x, name):
+        """Row-parallel ``lin`` over the rank's part ``x`` of its input:
+        the partial product all-reduced, then the bias; a replicated one
+        over the input gathered whole."""
+        if f"{name}.weight" not in self._tp_split:
+            return lin(self._tp.all_gather(x, -1))
+        y = self._tp.all_reduce(_no_bias(lin, x))
+        return y if lin.bias is None else y + lin.bias
+
+    def _proj(self, ctx):
+        if self._tp is None:
+            return self.proj(ctx)
+        return self._row(self.proj, ctx, "proj")
+
     def _mlp(self, x):
-        return self.ffn_out(getattr(F, self.act)(self.ffn_in(self.ln2(x))))
+        act = getattr(F, self.act)
+        if self._tp is None:
+            return self.ffn_out(act(self.ffn_in(self.ln2(x))))
+        tp, split = self._tp, self._tp_split
+        if "ffn_in.weight" in split:
+            hid = act(self.ffn_in(self.ln2(x)))
+        else:
+            hid = act(self._whole(self.ffn_in, self.ln2(x), "ffn_in"))
+            if "ffn_out.weight" in split:
+                n = hid.shape[-1] // tp.n
+                hid = hid[..., tp.rank * n:(tp.rank + 1) * n]
+        if "ffn_out.weight" not in split and "ffn_in.weight" not in split:
+            return self.ffn_out(hid)
+        return self._row(self.ffn_out, hid, "ffn_out")
 
     def attend(self, x, cache=None):
         b, s = x.shape[0], x.shape[1]
@@ -139,7 +202,7 @@ class GPTBlock(Layer):
         ctx = F.scaled_dot_product_attention(
             q, k, v, is_causal=(s > 1), dropout_p=self.attn_dropout,
             training=self.training)
-        return self.proj(ctx.reshape(b, s, self.hidden_size)), new_cache
+        return self._proj(ctx.reshape(b, s, -1)), new_cache
 
     def forward(self, x, cache=None):
         a, new_cache = self.attend(self.ln1(x), cache)
@@ -167,7 +230,7 @@ class GPTBlock(Layer):
         ctx = F.scaled_dot_product_attention(
             q, kbuf.to(q.dtype), vbuf.to(q.dtype), attn_mask=mask,
             dropout_p=0.0, training=False)
-        return self.proj(ctx.reshape(b, s, self.hidden_size)), kbuf, vbuf
+        return self._proj(ctx.reshape(b, s, -1)), kbuf, vbuf
 
     def forward_fixed(self, x, kbuf, vbuf, pos):
         a, kbuf, vbuf = self.attend_fixed(self.ln1(x), kbuf, vbuf, pos)
@@ -182,12 +245,12 @@ class GPTBlock(Layer):
         given per row."""
         s, r = x.shape[0], x.shape[1]
         q, k, v = self._split_qkv(self.ln1(x))
-        flat = (s * r, self.num_heads, self.head_dim)
+        flat = (s * r, self.heads, self.head_dim)
         writes.apply(kpool, k.reshape(flat))
         writes.apply(vpool, v.reshape(flat))
         ctx = paged_attention(q.reshape(flat).contiguous(), kpool, vpool,
                               tables, pos)
-        x = x + self.proj(ctx.reshape(s, r, self.hidden_size))
+        x = x + self._proj(ctx.reshape(s, r, -1))
         return x + self._mlp(x)
 
 
@@ -210,14 +273,39 @@ class GPTModel(Layer):
         self.blocks = LayerList([GPTBlock(cfg, device=dev, generator=gen)
                                  for _ in range(cfg.num_hidden_layers)])
         self.ln_f = LayerNorm(cfg.hidden_size, epsilon=1e-5, device=dev)
+        self._tp = None
+        self._tp_split = frozenset()
+
+    def _kv_heads(self) -> int:
+        cfg = self.config
+        h = cfg.num_attention_heads
+        return h if self._tp is None else h // self._tp.n
 
     def _embed_at(self, input_ids, position_ids):
         # out-of-range positions clamp, as the reference's gather does
         # (only decode-chunk tail iterations past max_len reach them)
         position_ids = position_ids.clamp(
             0, self.config.max_position_embeddings - 1)
-        return (self.word_embeddings(input_ids)
-                + self.position_embeddings(position_ids))
+        if self._tp is None:
+            return (self.word_embeddings(input_ids)
+                    + self.position_embeddings(position_ids))
+        # the sharded tables' masked rows summed over the ranks: one
+        # owner's row plus exact zeros, the single-device values
+        parts, whole = [], []
+        for emb, ids, name in ((self.word_embeddings, input_ids, "word"),
+                               (self.position_embeddings, position_ids,
+                                "position")):
+            if f"{name}_embeddings.weight" in self._tp_split:
+                parts.append(_local_rows(emb.weight, ids, self._tp.rank))
+            else:
+                whole.append(emb(ids))
+        if not parts:
+            return whole[0] + whole[1]
+        h = self._tp.all_reduce(parts[0] if len(parts) == 1
+                                else parts[0] + parts[1])
+        return h if not whole else (
+            whole[0] + h if "word_embeddings.weight" not in self._tp_split
+            else h + whole[0])
 
     def embed(self, input_ids, position_ids=None, past_len=0):
         if position_ids is None:
@@ -241,7 +329,7 @@ class GPTModel(Layer):
     def gen_cache(self, batch_size=1):
         cfg = self.config
         hd = cfg.hidden_size // cfg.num_attention_heads
-        shape = (batch_size, 0, cfg.num_attention_heads, hd)
+        shape = (batch_size, 0, self._kv_heads(), hd)
         return [(torch.zeros(shape, device=self.device),
                  torch.zeros(shape, device=self.device))
                 for _ in range(cfg.num_hidden_layers)]
@@ -251,7 +339,7 @@ class GPTModel(Layer):
         (B, max_length, H, D)."""
         cfg = self.config
         hd = cfg.hidden_size // cfg.num_attention_heads
-        shape = (batch_size, max_length, cfg.num_attention_heads, hd)
+        shape = (batch_size, max_length, self._kv_heads(), hd)
         dt = dtype or torch.float32
         return [(torch.zeros(shape, dtype=dt, device=self.device),
                  torch.zeros(shape, dtype=dt, device=self.device))
@@ -295,9 +383,67 @@ class GPTForPretraining(Layer):
                  seed: int = 0, **kw):
         super().__init__()
         self.gpt = GPTModel(cfg, device=device, seed=seed, **kw)
+        self._tp = None
+        self._tp_specs = None
 
     def _logits(self, h):
-        return matmul(h, self.gpt.word_embeddings.weight, transpose_y=True)
+        logits = matmul(h, self.gpt.word_embeddings.weight, transpose_y=True)
+        if "word_embeddings.weight" in self.gpt._tp_split:
+            logits = self.gpt._tp.all_gather(logits, -1)
+        return logits
+
+    # -- tensor parallel (module docstring) -----------------------------------
+    def shard_tensor_parallel(self, mesh, what: str = "KV pool"):
+        """Keep this rank's blocks of the reference's layout over
+        ``mesh``'s ``tp`` axis and run the rank-local forward from now on;
+        returns the specs by state name (a replicated one is ``P()``).
+        Refuses (InvalidArgumentError) a head count that ``tp`` does not
+        divide: every KV leaf would be replicated."""
+        from ..parallel.sharding import param_specs, tp_spec
+        from ..parallel.tensor_parallel import TensorParallel
+        tp = TensorParallel(mesh)
+        cfg = self.gpt.config
+        if tp.n > 1 and cfg.num_attention_heads % tp.n:
+            raise InvalidArgumentError(
+                f"tensor-parallel {what} fully replicated: no KV "
+                f"leaf's head axis ({cfg.num_attention_heads} heads) divides "
+                f"tp={tp.n} — fix the head count or the mesh (a replicated "
+                "pool costs tp x the memory and defeats the sharding)")
+        state = self.state_dict(keep_vars=True)
+        specs = param_specs({k: tuple(v.shape) for k, v in state.items()},
+                            mesh, tensor_parallel=True)
+        self._tp_specs = specs
+        # at tp=1 the specs replicate everything (the reference's rule);
+        # the rank-local forward still runs the rules' layout there, its
+        # collectives over the one-rank group
+        split = {k for k, spec in specs.items()
+                 if ("tp" in tuple(spec) if tp.n > 1 else
+                     tp_spec(k, tuple(state[k].shape)) is not None)}
+        with torch.no_grad():
+            for k in split:
+                state[k].data = tp.block(k, state[k].data, specs[k],
+                                         cfg.num_attention_heads).clone()
+        self._tp = tp
+        gpt = self.gpt
+        gpt._tp = tp
+        gpt._tp_split = frozenset(k[len("gpt."):] for k in split
+                                  if k.count(".") == 2)
+        for i, blk in enumerate(gpt.blocks):
+            pre = f"gpt.blocks.{i}."
+            blk._tp = tp
+            blk._tp_split = frozenset(k[len(pre):] for k in split
+                                      if k.startswith(pre))
+            blk.heads = blk.num_heads // tp.n
+        return specs
+
+    def tp_slice(self, name: str, whole):
+        """This rank's block of the whole state tensor ``name`` (as
+        ``shard_tensor_parallel`` cut it); a replicated one unchanged."""
+        spec = self._tp_specs[name]
+        if "tp" not in tuple(spec):
+            return whole
+        return self._tp.block(name, whole, spec,
+                              self.gpt.config.num_attention_heads)
 
     def forward(self, input_ids, position_ids=None, cache=None, labels=None):
         """With ``labels``, per-token losses through the fused tied-head
@@ -333,6 +479,25 @@ class GPTForPretraining(Layer):
         from ..generation import generate
         kwargs.setdefault("device", self.device)
         return generate(self, input_ids, **kwargs)
+
+
+def _no_bias(lin, x):
+    """``lin``'s product without its bias (a Linear or an int8
+    weight-only one)."""
+    if hasattr(lin, "w_int8"):
+        return dequant_matmul(x, lin.w_int8, lin.w_scale)
+    return F.linear(x, lin.weight, None)
+
+
+def _local_rows(block, ids, rank: int):
+    """Rows ``ids`` of the table whose rows ``[rank * n, (rank + 1) * n)``
+    are ``block`` (n, width): the rank's own, zeros elsewhere."""
+    n = block.shape[0]
+    local = ids - rank * n
+    mine = (local >= 0) & (local < n)
+    rows = block[local.clamp(0, n - 1)]
+    return torch.where(mine[..., None], rows, torch.zeros(
+        (), dtype=rows.dtype, device=rows.device))
 
 
 class GPTPretrainingCriterion(Layer):

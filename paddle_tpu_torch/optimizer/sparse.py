@@ -24,7 +24,8 @@ __all__ = ["merge_rows", "lazy_row_update", "lazy_row_update_"]
 
 
 def merge_rows(rows, values, height: int):
-    """SelectedRows MergeAdd: sum duplicate row entries.
+    """SelectedRows MergeAdd: sum duplicate row entries, in the
+    lookups' order.
 
     Returns (uids, summed): uids (N,) int32 whose first k slots hold the
     unique row ids in ascending order and the rest the sentinel
@@ -37,7 +38,10 @@ def merge_rows(rows, values, height: int):
     first = torch.ones(n, dtype=torch.bool, device=rows.device)
     first[1:] = sr[1:] != sr[:-1]
     seg = torch.cumsum(first, 0) - 1
-    summed = torch.zeros_like(sv).index_add_(0, seg, sv)
+    # an accumulating index_put_ adds each slot's values in their order
+    # (on the card by a stable sort, not by atomics), so a row's sum is
+    # the same bits on every run and on every rank that holds the row
+    summed = torch.zeros_like(sv).index_put_((seg,), sv, accumulate=True)
     # every write into one slot carries the same id
     uids = torch.full((n,), height, dtype=torch.long,
                       device=rows.device).scatter_(0, seg, sr)

@@ -9,7 +9,11 @@ CUDA graph on the card, whose body here is
 
 1. the rank's rows of the global batch (axis 0 over ``dp``);
 2. every sharded parameter gathered whole from its blocks (all-gathers
-   along its spec's axes), swapped in as the parameter's data;
+   along its spec's axes), swapped in as the parameter's data; under
+   ZeRO stage 3 each unit's parameters are gathered only while that unit
+   runs (``_Units``: every recompute stage, a GPT block, is a unit and a
+   recompute region, the rest of the model is the root unit) and gathered
+   again for its backward, so the whole model is never held at once;
 3. the forward and backward of ``TrainStep`` (AMP at
    ``strategy.amp_configs.level``, where the reference's sharded step
    always runs O1; recompute; ``accum_steps`` micro-batches), with every
@@ -33,16 +37,21 @@ CUDA graph on the card, whose body here is
 gradient norm (the blocks' squares summed over their axes) is not
 finite.  ``save_checkpoint`` has each rank write the blocks it owns in the
 reference's layout; ``restore_checkpoint`` gives each rank its blocks,
-from any topology.  A sparse-gradient embedding weight is refused.
+from any topology.  A sparse-gradient embedding weight is refused (a
+row-sharded table trains through ``jit.TrainStep``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
+
+import weakref
 
 import torch
 import torch.distributed as dist
 
 from ..core import buffer_updates as _bufup
+from ..core import recompute as _recompute
 from ..jit import TrainStep
 from ..ops import fused_bn_act as _fbn
 from ..optimizer.functional import update_in_place
@@ -121,6 +130,151 @@ class Layout:
         return x
 
 
+# ZeRO stage 3's gathered copies: bytes alive now and at most (a process's
+# count; ``reset_gather_stats`` zeroes it)
+gather_stats = {"alive": 0, "peak": 0, "gathers": 0}
+
+
+def reset_gather_stats():
+    gather_stats.update(alive=0, peak=0, gathers=0)
+
+
+def _note_gathered(t):
+    n = t.numel() * t.element_size()
+    gather_stats["alive"] += n
+    gather_stats["gathers"] += 1
+    gather_stats["peak"] = max(gather_stats["peak"], gather_stats["alive"])
+
+    def gone():
+        gather_stats["alive"] -= n
+    weakref.finalize(t, gone)
+    return t
+
+
+class _Gather(torch.autograd.Function):
+    """The whole parameter from this rank's block; its gradient goes,
+    whole, to ``virtual`` (a whole-shaped leaf of one element's storage
+    that stands for the parameter in the step's ``autograd.grad``), so the
+    gradients and their reduction are those of the up-front gather."""
+
+    @staticmethod
+    def forward(ctx, virtual, block, lay):
+        return _note_gathered(lay.gather(block))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Units:
+    """ZeRO stage 3's gather schedule over the model's units: each
+    recompute stage (a GPT block) not inside another is a unit, and the
+    model's remaining sharded parameters (embeddings, tied head, final
+    norm) are the root unit.  While ``active``, a unit's forward pre-hook
+    puts its parameters' gathered wholes in place of the Parameters (in
+    the owning modules' ``_parameters``) and its post-hook puts the
+    Parameters back: nothing but autograd then holds a gathered copy.
+    Inside a stage the recompute region drops everything it saved and
+    gathers again when it is recomputed for the backward; what the root
+    unit's ops save of a gathered copy is packed as its name and gathered
+    again when the backward unpacks it (``saved``)."""
+
+    def __init__(self, model, layouts):
+        self.layouts = layouts
+        self.virtual: Dict[str, torch.Tensor] = {}
+        self.active = False
+        owner = {}
+        for mname, mod in model.named_modules():
+            for pname, p in mod.named_parameters(recurse=False):
+                key = f"{mname}.{pname}" if mname else pname
+                if key in layouts:
+                    owner[key] = (mod, pname)
+        self.units = []
+        taken = set()
+        for mname, mod in model.named_modules():
+            if not getattr(mod, "_remat_stage", False) or any(
+                    mname.startswith(t + ".") for t in taken):
+                continue
+            keys = [k for k in owner if k.startswith(mname + ".")]
+            taken.add(mname)
+            if keys:
+                self.units.append((mod, [(k,) + owner[k] for k in keys]))
+        inner = {k for _, ks in self.units for k, _, _ in ks}
+        self.root = [(k,) + owner[k] for k in owner if k not in inner]
+        self.units.append((model, self.root))
+        self._live: Dict[int, str] = {}
+        for mod, keys in self.units:
+            mod.register_forward_pre_hook(self._pre(keys))
+            mod.register_forward_hook(self._post(keys))
+
+    def _pre(self, keys):
+        def hook(mod, inputs):
+            if not self.active:
+                return None
+            for k, owner, pname in keys:
+                w = _Gather.apply(self.virtual[k], owner._parameters[pname],
+                                  self.layouts[k])
+                if keys is self.root:
+                    self._live[w.untyped_storage().data_ptr()] = k
+                owner._parameters[pname] = w
+            return None
+        return hook
+
+    def _post(self, keys):
+        def hook(mod, inputs, output):
+            if self.active:
+                for k, owner, pname in keys:
+                    owner._parameters[pname] = self.params[k]
+                if keys is self.root:
+                    # nothing of the root saves after its forward; a freed
+                    # copy's address may be reused
+                    self._live.clear()
+            return None
+        return hook
+
+    @contextlib.contextmanager
+    def step(self, params):
+        """The step's forward and backward: ``params`` maps each sharded
+        key to its Parameter; yields the whole-shaped leaves to take
+        gradients of in their place."""
+        self.params = params
+        self.virtual = {
+            k: torch.empty((), dtype=params[k].dtype,
+                           device=params[k].device).expand(
+                               lay.shape).requires_grad_()
+            for k, lay in self.layouts.items()}
+        self.active = True
+        from torch.utils.checkpoint import set_checkpoint_early_stop
+        try:
+            # a recomputation runs to its end, post-hook included: stopped
+            # early it would leave its gathered copies in place
+            with torch.autograd.graph.saved_tensors_hooks(self._pack,
+                                                          self._unpack), \
+                    _recompute.recompute_policy("stages", None), \
+                    set_checkpoint_early_stop(False):
+                yield self.virtual
+        finally:
+            self.active = False
+            for _, keys in self.units:
+                for k, owner, pname in keys:
+                    owner._parameters[pname] = params[k]
+            self.virtual, self._live, self.params = {}, {}, None
+
+    def _pack(self, t):
+        k = self._live.get(t.untyped_storage().data_ptr())
+        if k is None:
+            return t
+        return (k, t.shape, t.stride(), t.storage_offset())
+
+    def _unpack(self, packed):
+        if isinstance(packed, torch.Tensor):
+            return packed
+        k, shape, stride, offset = packed
+        lay = self.layouts[k]
+        w = _note_gathered(lay.gather(self.params[k].detach()))
+        return w.as_strided(shape, stride, offset)
+
+
 def _reduce_scatter_mean(g, d: int, group, n: int, wire):
     """The mean over ``group`` of ``g``, this rank's part of dim ``d``."""
     gt = g.movedim(d, 0).contiguous().to(wire)
@@ -166,9 +320,11 @@ class ShardedTrainStep(TrainStep):
         if self._sparse:
             raise NotImplementedError(
                 "ShardedTrainStep: sparse-gradient embedding weights "
-                f"{sorted(self._sparse)} are not ported to the sharded step "
-                "(row-sharded tables come with embedding/, ROADMAP §1 item "
-                "8); build the Embedding with sparse=False")
+                f"{sorted(self._sparse)} are not taken by the sharded step "
+                "(its dp split of the batch would need the lookups' rows "
+                "exchanged); build the Embedding with sparse=False, or "
+                "train a row-sharded table (embedding.ShardedEmbedding) "
+                "through jit.TrainStep")
         self._merge_sum = (st.gradient_merge
                            and not st.gradient_merge_configs.avg)
         state = model.state_dict(keep_vars=True)
@@ -195,6 +351,13 @@ class ShardedTrainStep(TrainStep):
                 mlay = Layout(mesh, spec if spec is not None else P(), shape)
                 if mlay.dp_dim is not None and not lay:
                     self._moments[k] = mlay
+        self._units = (_Units(model, self._layouts)
+                       if fsdp and self._layouts else None)
+        if self._units is not None:
+            # stage 3 recomputes every stage region (module docstring),
+            # never the whole loss: one region would gather every block
+            # again at the start of the backward
+            self._remat = False
         self._dp = mesh.shape["dp"]
         self._dp_group = mesh.group("dp")
         self._wire = torch.bfloat16 if self._fp16_allreduce else None
@@ -339,15 +502,24 @@ class ShardedTrainStep(TrainStep):
         batch = self._local(tuple(v for k, v in inputs.items()
                                   if k.startswith("b")))
         blocks = {}
-        try:
-            for k, lay in self._layouts.items():
-                blocks[k] = params[k].data
-                params[k].data = lay.gather(blocks[k])
-            with _fbn.stats_group(self.mesh.group("dp")), _bufup.dropped():
-                loss, grads, outs = self._micro_grads(params, batch)
-        finally:
-            for k, b in blocks.items():
-                params[k].data = b
+        if self._units is not None:
+            with self._units.step(
+                    {k: params[k] for k in self._layouts}) as whole, \
+                    _fbn.stats_group(self.mesh.group("dp")), \
+                    _bufup.dropped():
+                loss, grads, outs = self._micro_grads(
+                    {**params, **whole}, batch)
+        else:
+            try:
+                for k, lay in self._layouts.items():
+                    blocks[k] = params[k].data
+                    params[k].data = lay.gather(blocks[k])
+                with _fbn.stats_group(self.mesh.group("dp")), \
+                        _bufup.dropped():
+                    loss, grads, outs = self._micro_grads(params, batch)
+            finally:
+                for k, b in blocks.items():
+                    params[k].data = b
         loss = self._mean_dp(loss)
         if self._merge_sum:
             grads = {k: g * self.accum_steps for k, g in grads.items()}

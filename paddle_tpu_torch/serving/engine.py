@@ -128,9 +128,31 @@
   ``"program_set:recaptured"`` (from a set) or ``"traced"``.
 
 Greedy streams equal a solo ``generation.generate`` run of the same
-prompt (the same float ops up to summation order).  The reference's mesh
-(``mesh=``) is not ported yet: anything but None raises
-``UnimplementedError``.
+prompt (the same float ops up to summation order).
+
+- **Tensor parallelism** (``mesh=``, reference ``:67-73``, ``:464-470``,
+  ``:761-807``): a ``parallel.Mesh`` whose only axis of more than one
+  rank is ``tp``.  Every rank of the line runs this engine in its own
+  process over its blocks of the reference's Megatron layout
+  (``GPTForPretraining.shard_tensor_parallel``: the rank-local forward,
+  one all-reduce after each row-parallel linear, the logits all-gathered
+  before sampling) and its own KV pools, allocated with the head axis cut
+  to ``heads / tp`` (so K3 attends over the rank's heads).  A head count
+  ``tp`` does not divide is refused, for the target and the draft pool
+  alike (``_assert_kv_sharded``).  The ranks must never diverge: the
+  leader (``tp`` coordinate 0) owns ``submit``; each ``step()`` starts
+  with a sync in which it broadcasts, over a gloo group of the line, the
+  requests submitted since the last one, the cancels and the expired
+  deadlines it saw, and whether to stop; every rank then applies them and
+  runs the same deterministic step (admission, buckets, preemption, the
+  keyed sampler on identical gathered logits, the speculative commit).  A
+  request's ``cancelled`` and a deadline's ``expired()`` change only at a
+  sync.  The followers call the same driving methods as the leader
+  (``run_until_drained``, ``start`` / ``close``, ``step``, ``warmup``, and
+  ``preempt_slot`` / ``restore_run`` / ``swap_weights`` in the same
+  order); their ``submit`` raises.  ``swap_weights`` takes whole tensors
+  and cuts each to the served layout.  LoRA and the gateway's
+  ``try_admit`` are not served under a mesh.
 """
 from __future__ import annotations
 
@@ -146,8 +168,7 @@ import numpy as np
 import torch
 
 from ..core.device import DEFAULT_DEVICE, resolve_device
-from ..core.errors import (FatalError, InvalidArgumentError, UnavailableError,
-                           UnimplementedError)
+from ..core.errors import FatalError, InvalidArgumentError, UnavailableError
 from ..core.programs import Program
 from ..generation import process_logits_dynamic
 from ..generation.keyed import (categorical, first_token_at, greedy_step,
@@ -167,6 +188,7 @@ from ..utils import faults
 from ..utils.monitor import stat_add
 from ..weights import host_tensor
 from .kv_pool import KVPoolExhaustedError, PagedKVPool
+from .scheduler import QueueFullError
 from .prefix_cache import PrefixCache
 from .request import Request, RequestCancelled, Response
 from .scheduler import DeadlineExceededError, RequestScheduler
@@ -347,6 +369,32 @@ class _CachedPlan:
         self.new_live = new_live      # fresh live blocks this admission costs
 
 
+class _MeshDeadline:
+    """A request's deadline on a tensor-parallel engine: expired from the
+    step sync on that says so (the leader reads the clock, ``real``)."""
+
+    def __init__(self, seconds, real=None):
+        self.seconds = seconds
+        self.real = real
+        self.hit = False
+
+    def expired(self) -> bool:
+        return self.hit
+
+
+class _MeshResponse(Response):
+    """A tensor-parallel engine's response: cancelled from the step sync
+    on that saw the caller's cancel."""
+
+    def __init__(self, request: Request):
+        super().__init__(request)
+        self._cancel_seen = False
+
+    @property
+    def cancelled(self) -> bool:
+        return self._cancel_seen
+
+
 class ServingEngine:
     """Continuous-batching engine over a model implementing the
     ``gen_fixed_cache`` / ``forward_fixed`` protocol (and, for
@@ -369,8 +417,9 @@ class ServingEngine:
     ``profile=True`` opens the
     engine's spans (module docstring).  ``program_set`` boots from a
     saved program set (module docstring).  The parameters are the
-    reference's, in its order, then ``device``; ``mesh`` takes None
-    only."""
+    reference's, in its order, then ``device``.  ``mesh`` (a
+    ``parallel.Mesh`` over ``tp``) serves tensor parallel (module
+    docstring)."""
 
     def __init__(self, model, max_slots: int = 8, max_len: int = 256,
                  prefill_buckets=None, max_queue_depth: int = 64,
@@ -380,10 +429,6 @@ class ServingEngine:
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  mesh=None, program_set=None, prefix_cache: bool = False,
                  share_policy=None, lora=None, *, device=DEFAULT_DEVICE):
-        if mesh is not None:
-            raise UnimplementedError(
-                "ServingEngine(mesh=...) is not ported yet: tensor-parallel "
-                "serving is a later part of ROADMAP §1 item 8")
         self.device = resolve_device(device)
         for role, m in (("model", model), ("draft model", draft_model)):
             if m is not None and m.device != self.device:
@@ -397,6 +442,21 @@ class ServingEngine:
             if draft_model is not None:
                 draft_model = copy.deepcopy(draft_model)
         self.model = model
+        # tensor parallelism: the blocks are cut before any pool or program
+        # is made (module docstring)
+        self.mesh = mesh
+        self._ctl = None          # the tp line's gloo group (tp > 1)
+        self._leader = True
+        self._tp_specs = None
+        if mesh is not None:
+            if lora is not None:
+                raise InvalidArgumentError(
+                    "lora=LoRAConfig(...) is not served under mesh= (the "
+                    "adapter stacks are not laid out over tp)")
+            self._init_mesh(mesh)
+            self._tp_specs = self._shard_state(model, "KV pool")
+            if draft_model is not None:
+                self._shard_state(draft_model, "draft KV pool")
         self.max_slots = int(max_slots)
         self.max_len = int(max_len)
         self.pad_token_id = int(pad_token_id)
@@ -521,6 +581,11 @@ class ServingEngine:
             if spec:
                 self._draft_store = draft_model.gen_fixed_cache(
                     self.max_slots, self._pool_len, dtype)
+        if mesh is not None:
+            self._assert_kv_sharded(self._pool_store, "KV pool", model)
+            if spec:
+                self._assert_kv_sharded(self._draft_store, "draft KV pool",
+                                        draft_model)
         if spec:
             # draft_diverge: presence decided now (a clean engine's verify
             # programs carry no fault branch); the tick is an input
@@ -621,6 +686,10 @@ class ServingEngine:
         if self._dead is not None:
             raise UnavailableError(
                 f"serving engine loop died: {self._dead!r}")
+        if not self._leader:
+            raise InvalidArgumentError(
+                "a tensor-parallel engine takes requests on its leader (tp "
+                "rank 0) only; the other ranks follow its step syncs")
         if decode_strategy not in ("greedy_search", "sampling"):
             raise InvalidArgumentError(
                 f"serving supports 'greedy_search' or 'sampling', got "
@@ -684,6 +753,11 @@ class ServingEngine:
         if self._poison_target is not None and rid == self._poison_target:
             req.poison = True
         stat_add("STAT_serving_requests")
+        if self._ctl is not None:
+            if req.deadline is not None:
+                req.deadline = _MeshDeadline(req.deadline.seconds,
+                                             req.deadline)
+            return req, _MeshResponse(req)
         return req, Response(req)
 
     def submit(self, prompt, max_new_tokens: int,
@@ -704,7 +778,19 @@ class ServingEngine:
             temperature=temperature, top_k=top_k, top_p=top_p,
             eos_token_id=eos_token_id, seed=seed, deadline=deadline,
             spec=spec, tenant=tenant, adapter=adapter)
-        self.scheduler.submit(req, resp, block=block, timeout=timeout)
+        if self._ctl is not None:
+            # delivered to every rank at the next step's sync
+            with self._submit_lock:
+                if (len(self._inbox) + self.scheduler.queue_depth()
+                        >= self.scheduler.max_queue_depth):
+                    stat_add("STAT_serving_rejects")
+                    raise QueueFullError(
+                        f"serving queue full "
+                        f"({self.scheduler.max_queue_depth} waiting); "
+                        "request rejected")
+                self._inbox.append((req, resp))
+        else:
+            self.scheduler.submit(req, resp, block=block, timeout=timeout)
         self._work.set()
         return resp
 
@@ -718,6 +804,12 @@ class ServingEngine:
         occupied slot one decode chunk.  Returns whether any work was
         done.  An engine not yet warmed up warms up first (on the card:
         captures its programs)."""
+        if self._ctl is not None:
+            if self._mesh_sync()["stop"] == "close":
+                return False
+        return self._step()
+
+    def _step(self) -> bool:
         if not self._warm:
             self.warmup()
         did = False
@@ -1792,8 +1884,23 @@ class ServingEngine:
 
     def run_until_drained(self, timeout: Optional[float] = None):
         """Drive the loop in the caller's thread until queue and slots are
-        empty.  Not for use while start() is live."""
+        empty.  Not for use while start() is live.  On a tensor-parallel
+        engine every rank calls it and the leader decides, at each sync,
+        whether to go on."""
         t0 = time.monotonic()
+        if self._ctl is not None:
+            def decide(pending: bool):
+                if timeout is not None and time.monotonic() - t0 > timeout:
+                    return "timeout"
+                return None if pending or self.has_work() else "drained"
+            while True:
+                stop = self._mesh_sync(decide)["stop"]
+                if stop == "timeout":
+                    raise TimeoutError("serving engine did not drain in "
+                                       f"{timeout}s")
+                if stop is not None:
+                    return
+                self._step()
         while self.has_work():
             self.step()
             if timeout is not None and time.monotonic() - t0 > timeout:
@@ -1848,16 +1955,140 @@ class ServingEngine:
 
     def close(self):
         """Stop the loop and fail any still-outstanding requests.
-        Idempotent and safe under concurrent double-close."""
+        Idempotent and safe under concurrent double-close.  On a
+        tensor-parallel engine every rank calls it: the leader's tells the
+        followers to stop at their next sync."""
+        if self._ctl is not None and not self._leader:
+            return self._close_follower()
         self._closed = True
         self._stop.set()
         self._work.set()
         with self._close_lock:
             if self._thread is not None:
-                self._thread.join(timeout=5.0)
+                # a tensor-parallel leader's loop may wait in a sync
+                self._thread.join(timeout=None if self._ctl else 5.0)
                 self._thread = None
+            if self._ctl is not None and not self._mesh_done:
+                self._mesh_sync(lambda pending: "close")
             self._abort_all(lambda req: RequestCancelled(
                 f"request {req.id} aborted: serving engine closed"))
+
+    def _close_follower(self):
+        """A follower's close: its loop (or a sync here) runs until the
+        leader's close reaches it."""
+        with self._close_lock:
+            if self._thread is not None:
+                self._thread.join()
+                self._thread = None
+            while not self._mesh_done:
+                self._mesh_sync()
+            self._closed = True
+            self._stop.set()
+            self._abort_all(lambda req: RequestCancelled(
+                f"request {req.id} aborted: serving engine closed"))
+
+    # ------------------------------------------------------------------
+    # tensor parallelism over the mesh
+    # ------------------------------------------------------------------
+    def _init_mesh(self, mesh):
+        """The tp line (every other axis must be of one rank) and, when it
+        has more than one rank, the gloo group of its step syncs (made by
+        every rank of the world, in one order)."""
+        import torch.distributed as dist
+        from ..parallel.mesh import Mesh
+        if not isinstance(mesh, Mesh):
+            raise InvalidArgumentError(
+                f"ServingEngine(mesh=) takes a parallel.Mesh, got "
+                f"{type(mesh).__name__}")
+        others = {a: n for a, n in mesh.shape.items() if a != "tp" and n > 1}
+        if others:
+            raise InvalidArgumentError(
+                f"ServingEngine(mesh=) serves over tp only; the mesh also "
+                f"has {others}")
+        self._mesh_tp = int(mesh.shape["tp"])
+        self._inbox: List = []
+        self._mesh_live: Dict[int, tuple] = {}
+        self._mesh_done = False
+        if self._mesh_tp > 1:
+            ranks = mesh.axis_ranks("tp")
+            self._ctl = dist.new_group(ranks, backend="gloo")
+            self._ctl_src = ranks[0]
+            self._leader = mesh.coord("tp") == 0
+
+    def _shard_state(self, model, what: str):
+        """``model``'s blocks of the reference's layout (refused when no
+        KV leaf's head axis divides tp); returns the specs."""
+        if not hasattr(model, "shard_tensor_parallel"):
+            raise InvalidArgumentError(
+                f"ServingEngine(mesh=): {type(model).__name__} has no "
+                "tensor-parallel forward (shard_tensor_parallel)")
+        return model.shard_tensor_parallel(self.mesh, what)
+
+    def _assert_kv_sharded(self, pools, what: str, model):
+        """The pools hold heads / tp on every leaf (``_shard_state``
+        refused the rest); a check that nothing replicated them."""
+        heads = model.gpt.config.num_attention_heads
+        for k, v in pools:
+            if k.shape[2] * self._mesh_tp != heads and self._mesh_tp > 1:
+                raise InvalidArgumentError(
+                    f"tensor-parallel {what} fully replicated: "
+                    f"{k.shape[2]} heads per rank at tp={self._mesh_tp}")
+
+    def _mesh_sync(self, decide=None) -> dict:
+        """The step sync (module docstring): the leader broadcasts the
+        requests submitted since the last one, the cancels and expired
+        deadlines it sees and ``decide(pending)``'s stop (None, "drained",
+        "timeout" or "close"); every rank applies them.  Returns the
+        message."""
+        import torch.distributed as dist
+        if self._leader:
+            with self._submit_lock:
+                inbox, self._inbox = self._inbox, []
+            live = self._mesh_live
+            msg = {
+                "subs": [self._wire(req) for req, _ in inbox],
+                "cancel": [rid for rid, (_, r) in live.items()
+                           if r._cancel_requested and not r._cancel_seen],
+                "expire": [rid for rid, (q, _) in live.items()
+                           if q.deadline is not None and not q.deadline.hit
+                           and q.deadline.real.expired()],
+                "stop": None if decide is None else decide(bool(inbox))}
+            dist.broadcast_object_list([msg], src=self._ctl_src,
+                                       group=self._ctl)
+            pairs = inbox
+        else:
+            box = [None]
+            dist.broadcast_object_list(box, src=self._ctl_src,
+                                       group=self._ctl)
+            msg = box[0]
+            pairs = []
+            for req in msg["subs"]:
+                if req.deadline is not None:
+                    req.deadline = _MeshDeadline(req.deadline)
+                pairs.append((req, _MeshResponse(req)))
+        for req, resp in pairs:
+            self._mesh_live[req.id] = (req, resp)
+            self.scheduler.submit(req, resp)
+        for rid in msg["cancel"]:
+            self._mesh_live[rid][1]._cancel_seen = True
+        for rid in msg["expire"]:
+            self._mesh_live[rid][0].deadline.hit = True
+        for rid in [rid for rid, (_, r) in self._mesh_live.items()
+                    if r.done()]:
+            del self._mesh_live[rid]
+        if msg["stop"] == "close":
+            self._mesh_done = True
+            self._stop.set()
+        return msg
+
+    @staticmethod
+    def _wire(req: Request) -> Request:
+        """The request as the followers get it: its deadline's seconds in
+        place of the deadline."""
+        out = copy.copy(req)
+        if req.deadline is not None:
+            out.deadline = req.deadline.seconds
+        return out
 
     def _free_device(self):
         """Drop every device tensor of a closed engine: its programs (the
@@ -2015,6 +2246,9 @@ class ServingEngine:
             new = state[name]
             if not isinstance(new, torch.Tensor):
                 new = host_tensor(np.asarray(new))
+            if self._tp_specs is not None:
+                # the incumbent's layout: this rank's block of the whole
+                new = self.model.tp_slice(name, new)
             if tuple(new.shape) != tuple(cur.shape):
                 raise InvalidArgumentError(
                     f"swap_weights shape mismatch for {name!r}: "
@@ -2087,7 +2321,9 @@ class ServingEngine:
                 "kv_pool": self._kv_pool_metrics(),
                 "lora": (None if self._lora_reg is None
                          else self._lora_reg.stats()),
-                "mesh": None,
+                "mesh": (None if self.mesh is None else {
+                    "devices": int(self.mesh.size),
+                    "tp": int(self.mesh.shape.get("tp", 1))}),
             }
 
     def _spec_metrics(self) -> Dict:

@@ -141,7 +141,8 @@ __all__ = ["enable", "disable", "reset", "get", "kv_exhaust_cap",
            "replica_wedge_config", "maybe_wedge_replica",
            "net_delay_config", "net_drop_frame", "maybe_net_drop",
            "net_partition_config", "net_partition_active",
-           "maybe_kill_mid_save"]
+           "maybe_kill_mid_save", "prefetch_stall_config",
+           "maybe_stall_prefetch", "row_corrupt_fetch"]
 
 _ENV = {"kv_exhaust": "PDTPU_FAULT_KV_EXHAUST",
         "prefix_evict": "PDTPU_FAULT_PREFIX_EVICT",
@@ -158,7 +159,9 @@ _ENV = {"kv_exhaust": "PDTPU_FAULT_KV_EXHAUST",
         "net_delay": "PDTPU_FAULT_NET_DELAY",
         "net_drop": "PDTPU_FAULT_NET_DROP",
         "net_partition": "PDTPU_FAULT_NET_PARTITION",
-        "kill_mid_save": "PDTPU_FAULT_KILL_MID_SAVE"}
+        "kill_mid_save": "PDTPU_FAULT_KILL_MID_SAVE",
+        "prefetch_stall": "PDTPU_FAULT_PREFETCH_STALL",
+        "row_corrupt": "PDTPU_FAULT_ROW_CORRUPT"}
 
 _lock = threading.Lock()
 _registry = {}   # point -> raw config string
@@ -494,3 +497,45 @@ def maybe_kill_mid_save():
         n = _save_counter["n"]
     if n >= int(raw):
         os.kill(os.getpid(), signal.SIGKILL)
+
+
+# -- the host-table prefetch knobs (embedding.HostPrefetchPipeline) ---------
+#
+#   prefetch_stall  the prefetch worker sleeps ``ms`` before every
+#                   ``every_n``-th row fetch (default every one): a slow
+#                   host memory tier; the async pipeline degrades to
+#                   synchronous throughput without changing any result.
+#                   Env: PDTPU_FAULT_PREFETCH_STALL="ms[:every_n]".
+#   row_corrupt     one row (NaN) of the N-th (1-based) fetched slab is
+#                   poisoned after it leaves the table: the fetch-side
+#                   check must find it and fetch again.
+#                   Env: PDTPU_FAULT_ROW_CORRUPT="N".
+# Both are read live, at every fetch.
+
+def prefetch_stall_config() -> Optional[Tuple[float, int]]:
+    """(sleep ms, every_n) or None when disarmed."""
+    raw = get("prefetch_stall")
+    if not raw:
+        return None
+    parts = raw.split(":", 1)
+    every = int(parts[1]) if len(parts) == 2 else 1
+    return float(parts[0]), max(1, every)
+
+
+def maybe_stall_prefetch(fetch_no: int) -> float:
+    """Sleep before fetch ``fetch_no`` (0-based) when prefetch_stall is
+    armed and the stride hits; returns the seconds slept."""
+    cfg = prefetch_stall_config()
+    if cfg is None:
+        return 0.0
+    ms, every = cfg
+    if fetch_no % every:
+        return 0.0
+    time.sleep(ms / 1000.0)
+    return ms / 1000.0
+
+
+def row_corrupt_fetch() -> Optional[int]:
+    """The 1-based fetch whose slab copy is poisoned, or None."""
+    raw = get("row_corrupt")
+    return int(raw) if raw else None

@@ -39,7 +39,27 @@ One process per card (the launcher's ``PADDLE_*`` variables;
    after ``empty_cache``; the captured graph's pool included); rank 0
    first times ``TrainStep(remat=True)`` on its 4 rows alone, the
    one-card baseline;
-4. tears its process groups down under a watchdog: each rank prints how
+   The bytes held between steps are read right after the timed steps
+   (stage 3 gathers one block at a time: ``ShardedTrainStep``);
+5. serves the bf16 GPT-2 medium engine of ``chip_smoke.py``'s serve phase
+   (int8 weight-only, paged KV in bf16, 8 slots, 8 prompts of 32..400
+   tokens, 64 new tokens each, two of them sampled) through
+   ``ServingEngine(mesh=create_mesh({"tp": 4}))``, captured: rank 0
+   submits, every rank drives; rank 0 first serves the same requests on
+   one card alone.  Streams equal, or a split only where the one-card
+   model's top two logits are within ``TIE`` (bf16); decode tokens/s and
+   TTFT against the one card; weight and KV GiB per card; the NCCL
+   kernels' device ms per decode step (torch.profiler on rank 0);
+6. trains DLRM at Criteo Kaggle widths with its table row-sharded over
+   tp 4 (``DLRM("sharded")``, B 128, Adam 1e-3, 5 captured steps; the
+   last table padded by 3 rows to 33,762,580, which no batch looks up,
+   since 33,762,577 divides by no card count above 1) against rank 0's
+   one-card ``DLRM("sparse")`` from the same weights: losses, every
+   rank's rows and their Adam moments bit-equal; the table bytes per
+   card.
+``--parts`` picks the parts to run (default all: tiny, bn, resnet, gpt,
+tpserve, dlrm).
+7. tears its process groups down under a watchdog: each rank prints how
    long ``destroy_process_group`` took, or its threads' stacks and exit
    code 3 when it has not returned in ``TEARDOWN_S`` seconds.
 
@@ -361,6 +381,219 @@ def gpt_medium(torch, dev, seed, rank, world, steps):
     return out
 
 
+TIE = (0.1, 2e-2)   # a bf16 stream may split where top-2 < a + r * |top|
+CRITEO_KAGGLE = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3,
+                 93145, 5683, 8351593, 3194, 27, 14992, 5461306, 10, 5652,
+                 2173, 4, 7046547, 18, 15, 286181, 105, 142572)
+
+
+def _serve_prompts(seed, vocab):
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, vocab, (n,)) for n in
+               (32, 64, 100, 160, 220, 280, 340, 400)]
+    sampled = {3: dict(temperature=0.8, top_k=40, top_p=0.9, seed=11),
+               6: dict(temperature=1.2, top_k=0, top_p=0.8, seed=12)}
+    return prompts, sampled
+
+
+def _serve(torch, eng, prompts, sampled, rank):
+    import torch.distributed as dist
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resps = ([eng.submit(p, max_new_tokens=64,
+                         **({"decode_strategy": "sampling", **sampled[i]}
+                            if i in sampled else {}))
+              for i, p in enumerate(prompts)] if rank == 0 else [])
+    eng.run_until_drained(timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    outs = [r.tokens(timeout=5) for r in resps]
+    ttfts = sorted(r.ttft for r in resps)
+    return outs, wall, ttfts
+
+
+def tp_serving(torch, dev, seed, rank, world):
+    """Part 5: the tp-4 engine against one card."""
+    import torch.distributed as dist
+    from paddle_tpu_torch import amp, parallel
+    from paddle_tpu_torch.models import GPTForPretraining, gpt2_medium_config
+    from paddle_tpu_torch.quantization import quantize_for_serving
+    from paddle_tpu_torch.serving import ServingEngine
+    cfg = gpt2_medium_config(hidden_dropout_prob=0.0,
+                             attention_probs_dropout_prob=0.0)
+    model = GPTForPretraining(cfg, device=dev, seed=seed).eval()
+    amp.decorate(models=model, level="O2", dtype="bfloat16")
+    model = quantize_for_serving(model)
+    prompts, sampled = _serve_prompts(seed, cfg.vocab_size)
+    kw = dict(max_slots=8, max_len=1024, kv="paged", block_size=16,
+              dtype=torch.bfloat16, device=dev)
+    out = {}
+    one = None
+    if rank == 0:
+        eng = ServingEngine(model, **kw)
+        eng.warmup()
+        t0 = time.perf_counter()
+        resps = [eng.submit(p, max_new_tokens=64,
+                            **({"decode_strategy": "sampling", **sampled[i]}
+                               if i in sampled else {}))
+                 for i, p in enumerate(prompts)]
+        eng.run_until_drained(timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        one = [r.tokens(timeout=5) for r in resps]
+        ttft = sorted(r.ttft for r in resps)
+        out["one_card"] = {"tokens_per_s": 512 / wall,
+                           "ttft_p50_ms": ttft[4] * 1e3,
+                           "ttft_max_ms": ttft[-1] * 1e3}
+        eng.close()
+        del eng
+        torch.cuda.empty_cache()
+    mesh = parallel.create_mesh({"tp": world})
+    eng = ServingEngine(model, mesh=mesh, **kw)
+    warm = eng.warmup()
+    if not warm["captured"]:
+        raise SystemExit("parallel_probe: the tp engine was not captured")
+    outs, wall, ttfts = _serve(torch, eng, prompts, sampled, rank)
+    weights = sum(t.numel() * t.element_size()
+                  for t in eng.model.state_dict().values())
+    kv = sum(t.numel() * t.element_size()
+             for pair in eng._pool_store for t in pair)
+    # the NCCL kernels' device time per decode step (all slots busy)
+    sub = ([eng.submit(p, max_new_tokens=40) for p in prompts]
+           if rank == 0 else [])
+    for _ in range(3):
+        eng.step()
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        steps = 0
+        for _ in range(4):
+            eng.step()
+            steps += 1
+        torch.cuda.synchronize()
+    nccl = sum(e.self_device_time_total for e in prof.key_averages()
+               if "nccl" in e.key.lower()) / 1e3 / steps
+    total = sum(e.self_device_time_total for e in prof.key_averages()) \
+        / 1e3 / steps
+    eng.run_until_drained(timeout=600)
+    del sub
+    out["tp4"] = {"tokens_per_s": 512 / wall,
+                  "ttft_p50_ms": ttfts[4] * 1e3 if ttfts else None,
+                  "ttft_max_ms": ttfts[-1] * 1e3 if ttfts else None,
+                  "weight_gib_per_card": weights / 2 ** 30,
+                  "kv_gib_per_card": kv / 2 ** 30,
+                  "nccl_ms_per_decode_step": nccl,
+                  "device_ms_per_decode_step": total,
+                  "decode_chunk": eng.decode_chunk,
+                  "compiles": eng.compile_counts()}
+    eng.close()
+    if rank == 0:
+        splits = []
+        for i, (a, b) in enumerate(zip(outs, one)):
+            if a == b:
+                continue
+            j = next(k for k, (x, y) in enumerate(zip(a, b)) if x != y)
+            ids = torch.as_tensor(np.concatenate([prompts[i], b[:j]])[None],
+                                  device=dev)
+            with torch.no_grad():
+                lg, _ = model.forward_fixed(
+                    ids, model.gen_fixed_cache(1, ids.shape[1],
+                                               torch.bfloat16), 0)
+            top = torch.topk(lg[0, -1].float(), 2).values
+            margin = float(top[0] - top[1])
+            splits.append({"stream": i, "at": j, "margin": margin,
+                           "sampled": i in sampled})
+            if margin > TIE[0] + TIE[1] * abs(float(top[0])):
+                raise SystemExit(f"parallel_probe: tp-4 stream {i} splits "
+                                 f"at {j} with a top-2 margin {margin}")
+        out["streams_equal"] = sum(a == b for a, b in zip(outs, one))
+        out["splits"] = splits
+    dist.barrier()
+    del model, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def dlrm_sharded(torch, dev, seed, rank, world):
+    """Part 6: DLRM("sharded") over tp 4 against one card's "sparse"."""
+    import torch.distributed as dist
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import DLRM, DLRMConfig, DLRMCriterion
+    vocab = CRITEO_KAGGLE[:-1] + (CRITEO_KAGGLE[-1] + 3,)
+    cfg = DLRMConfig(dense_dim=13, vocab_sizes=vocab, embedding_dim=16,
+                     bottom_mlp=(512, 256, 64), top_mlp=(512, 256))
+    rng = np.random.RandomState(seed)
+    batches = []
+    for _ in range(5):
+        ids = np.stack([(rng.zipf(1.2, 128) - 1) % v
+                        for v in CRITEO_KAGGLE], 1)
+        batches.append(tuple(torch.from_numpy(a).to(dev) for a in (
+            rng.randn(128, 13).astype(np.float32), ids,
+            (rng.rand(128, 1) < 0.25).astype(np.float32))))
+
+    def run(model):
+        step = TrainStep(model, DLRMCriterion(),
+                         pt.optimizer.Adam(1e-3,
+                                           parameters=model.parameters()))
+        losses, ms = [], []
+        for b in batches:
+            a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            losses.append(float(step(*b)))
+            e.record()
+            e.synchronize()
+            ms.append(a.elapsed_time(e))
+        return step, losses, ms
+    ref = DLRM(cfg, embedding="sparse", device=dev, seed=seed)
+    init = {k: v.detach().clone() for k, v in ref.state_dict().items()}
+    out = {}
+    if rank == 0:
+        step, losses, ms = run(ref)
+        out["one_card"] = {"losses": losses, "ms": ms}
+        table = ref.table.weight.detach()
+        moment = step._opt_state["table.weight"]["moment1"]
+        del step
+    else:
+        table = torch.empty_like(init["table.weight"])
+        moment = torch.empty_like(init["table.weight"])
+    del ref
+    dist.broadcast(table, 0)
+    dist.broadcast(moment, 0)
+    n = cfg.total_rows // world
+    model = DLRM(cfg, embedding="sharded",
+                 mesh=parallel.create_mesh({"tp": world}), device=dev,
+                 seed=seed)
+    init["table.weight"] = init["table.weight"][rank * n:(rank + 1) * n]
+    model.load_state_dict(init)
+    del init
+    torch.cuda.empty_cache()
+    step, losses, ms = run(model)
+    w = model.table.weight.detach()
+    m1 = step._opt_state["table.weight"]["moment1"]
+    diff = torch.stack([
+        (w - table[rank * n:(rank + 1) * n]).abs().max(),
+        (m1 - moment[rank * n:(rank + 1) * n]).abs().max()])
+    dist.all_reduce(diff, op=dist.ReduceOp.MAX)
+    flag = (diff == 0).all().to(torch.int32)
+    out["tp4"] = {"losses": losses, "ms": ms,
+                  "table_bytes_per_card": w.numel() * w.element_size(),
+                  "rows": cfg.total_rows,
+                  "rows_and_moments_equal": bool(flag.item()),
+                  "max_abs_diff_rows_moments": diff.tolist()}
+    if rank == 0:
+        out["losses_equal"] = losses == out["one_card"]["losses"]
+        if not (out["losses_equal"] and flag.item()):
+            raise SystemExit("parallel_probe: DLRM sharded over tp 4 is not "
+                             f"bit-equal to one card's sparse: {out}")
+    del model, step, table, moment
+    torch.cuda.empty_cache()
+    return out
+
+
 def teardown(rank):
     """``dist.destroy_process_group()`` under a watchdog: its seconds, or
     the threads' stacks and exit code 3 past ``TEARDOWN_S``."""
@@ -385,7 +618,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--parts", default="tiny,bn,resnet,gpt,tpserve,dlrm")
     args = ap.parse_args()
+    parts = set(args.parts.split(","))
     import torch
     import torch.distributed as dist
 
@@ -402,13 +637,24 @@ def main():
         torch.cuda.set_device(dev)
     t0 = time.perf_counter()
     from paddle_tpu_torch import parallel
-    out = {"tiny_rel": tiny_cases(torch, dev, args.seed),
-           "bn_dp4": bn_case(torch, dev, card,
-                             parallel.create_mesh({"dp": 4})),
-           "resnet_dp4": resnet_case(torch, dev, args.seed, card)}
-    # without a card (a rehearsal on gloo): no GPT-2 medium timing
-    out["gpt2_medium_dp4"] = (gpt_medium(torch, dev, args.seed, rank, world,
-                                         args.steps) if card else None)
+    out = {}
+    if "tiny" in parts:
+        out["tiny_rel"] = tiny_cases(torch, dev, args.seed)
+    if "bn" in parts:
+        out["bn_dp4"] = bn_case(torch, dev, card,
+                                parallel.create_mesh({"dp": 4}))
+    if "resnet" in parts:
+        out["resnet_dp4"] = resnet_case(torch, dev, args.seed, card)
+    # without a card (a rehearsal on gloo): no GPT-2 medium, no Kaggle table
+    for key, part, fn in (("gpt2_medium_dp4", "gpt", gpt_medium),
+                          ("tp4_serving", "tpserve", tp_serving),
+                          ("dlrm_tp4", "dlrm", dlrm_sharded)):
+        if card and part in parts:
+            out[key] = (fn(torch, dev, args.seed, rank, world, args.steps)
+                        if part == "gpt" else
+                        fn(torch, dev, args.seed, rank, world))
+            if rank == 0:   # each part's result as soon as it is in
+                print(f"part {part}: {json.dumps(out[key])}", flush=True)
     out["seconds"] = time.perf_counter() - t0
     dist.barrier()
     if rank == 0:

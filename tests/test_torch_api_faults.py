@@ -442,10 +442,9 @@ _NOT_PORTED = {
         "unfold flatten_ shard_index reverse crop"),
     "utils": ("item 9d", "dump_config try_import deprecated run_check "
               "download"),
-    "utils.faults": ("§1 Fault hooks (items 8 and 9c)",
+    "utils.faults": ("§1 Fault hooks (item 9c)",
                      "worker_crash_config maybe_crash_worker "
-                     "prefetch_stall_config maybe_stall_prefetch "
-                     "row_corrupt_fetch backend_down"),
+                     "backend_down"),
     "version": ("item 9d", "show"),
 }
 

@@ -16,7 +16,6 @@ from paddle_tpu.jit import TrainStep as JTrainStep
 from paddle_tpu.models import dlrm as jdlrm
 
 import paddle_tpu_torch as pt
-from paddle_tpu_torch.core.errors import UnimplementedError
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import (DLRM, DLRMConfig, DLRMCriterion,
                                      dlrm_tiny_config)
@@ -106,11 +105,18 @@ def test_sparse_first_step_equals_dense():
 
 
 def test_other_modes_are_refused():
+    """"sharded" (one shard without a started group) and "external" (no
+    table: the forward takes the gathered rows) are built; an unknown mode
+    is still refused."""
     cfg = DLRMConfig()
     assert cfg.num_features == 4 and cfg.total_rows == 256
     np.testing.assert_array_equal(cfg.offsets, [0, 64, 128, 192])
-    for mode in ("sharded", "external"):
-        with pytest.raises(UnimplementedError, match="item 8"):
-            DLRM(cfg, embedding=mode, device="cpu")
+    sharded = DLRM(cfg, embedding="sharded", device="cpu")
+    assert tuple(sharded.table.weight.shape) == (256, 8)
+    assert sharded.table.weight.sparse_grad
+    ext = DLRM(cfg, embedding="external", device="cpu")
+    assert ext.table is None and "table.weight" not in ext.state_dict()
+    rows = torch.randn(2, 4, 8)
+    assert tuple(ext(torch.randn(2, 4), rows).shape) == (2, 1)
     with pytest.raises(ValueError, match="unknown embedding mode"):
         DLRM(cfg, embedding="lazy", device="cpu")

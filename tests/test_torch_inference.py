@@ -226,8 +226,11 @@ def test_refusals(saved, tmp_path):
         # ported: taken and passed on to the predictor
         cfg = Config(jp).enable_serving(model=object(), **{opt: "x"})
         assert cfg._serving[opt] == "x"
-    with pytest.raises(UnimplementedError, match="item 8"):
-        Config(jp).enable_recsys_serving(model=1, table=2)
+    # recsys serving is ported: recorded, and refused without a table
+    cfg = Config(jp).enable_recsys_serving(model=1, table=2)
+    assert cfg.recsys_enabled() and not Config(jp).recsys_enabled()
+    with pytest.raises(ValueError, match="table="):
+        Config(jp).enable_recsys_serving(model=1)
     assert Config(jp).torch_device() == "cuda:0"
     cfg = Config(jp)
     cfg.enable_use_gpu(device_id=1)

@@ -2673,3 +2673,74 @@ def test_bn_group_statistics_on_nccl_match_the_plain_path(nccl_one_rank,
         scale = float(w.abs().max())
         bad = int(((g - w).abs() > 1e-4 * scale).sum())
         assert bad <= g.numel() // 1_000_000, (name, bad, scale)
+
+
+# -- tensor-parallel serving and the row-sharded table ----------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("h", [4, 8])
+def test_paged_attention_at_a_ranks_heads(cuda, h, dtype):
+    """K3 at GPT-2 medium's heads per rank under tp 4 (4) and tp 2 (8): 8
+    slots, block 16, ragged positions with sentinel tails, in each dtype
+    against its plain version; two calls bit-equal."""
+    dt = getattr(torch, dtype)
+    tol = {"float32": TOL, "bfloat16": BF16_TOL, "float16": F16_TOL}[dtype]
+    pos = [17, 150, 300, 511, 512, 700, 901, 1000]
+    rng = np.random.RandomState(h * 31)
+    args = [a.to(cuda) for a in _paged_case(rng, 8, 8 * 64, 16, h, 64, 64,
+                                            pos)]
+    args[:3] = [a.to(dt) for a in args[:3]]
+    before = pa.paged_attention.launches
+    got = pa.paged_attention(*args)
+    again = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 2
+    torch.testing.assert_close(got.float(), pa._plain(*args).float(), **tol)
+    assert torch.equal(got, again)
+
+
+def test_mesh_engine_captured_on_one_rank_nccl(nccl_one_rank):
+    """ServingEngine(mesh=create_mesh({"tp": 1})) on a one-rank NCCL
+    group: the rank-local forward (masked embedding rows all-reduced, the
+    logits all-gathered) captured with its collectives; greedy streams
+    equal the plain engine's and K3 launches through the replays."""
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.serving import ServingEngine
+    m = GPTForPretraining(GPTConfig(
+        vocab_size=256, hidden_size=128, num_hidden_layers=2,
+        num_attention_heads=2, max_position_embeddings=128,
+        hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+        initializer_range=0.2), device="cuda", seed=3).eval()
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, 256, (n,)) for n in (5, 17, 30)]
+    out = {}
+    for tag, mesh in (("plain", None),
+                      ("mesh", parallel.create_mesh({"tp": 1}))):
+        eng = ServingEngine(m, max_slots=4, max_len=64, kv="paged",
+                            block_size=16, mesh=mesh, device="cuda")
+        warm = eng.warmup()
+        assert warm["captured"]
+        before = pa.paged_attention.launches
+        rs = [eng.submit(p, max_new_tokens=12) for p in prompts]
+        eng.run_until_drained(timeout=120)
+        out[tag] = [r.tokens() for r in rs]
+        assert pa.paged_attention.launches > before
+        assert eng.post_warmup_compiles() == 0
+        eng.close()
+    assert out["mesh"] == out["plain"]
+
+
+def test_psum_gather_on_one_rank_nccl_is_a_gather(nccl_one_rank):
+    """The row-sharded gather over a one-rank NCCL group (its all-reduce
+    included) is bit-equal to a plain gather."""
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.embedding import dedup_ids, psum_gather
+    mesh = parallel.create_mesh({"tp": 1})
+    rng = np.random.RandomState(8)
+    w = torch.from_numpy(rng.randn(1000, 16).astype(np.float32)).to("cuda")
+    ids = torch.from_numpy(rng.randint(0, 1000, (3328,))).to("cuda")
+    uids, inv, _ = dedup_ids(ids, 1000)
+    rows = psum_gather(w, uids.long().clamp(0, 999), "tp", mesh)
+    got = rows[inv.long()]
+    assert torch.equal(got, w[ids])

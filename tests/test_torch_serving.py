@@ -257,7 +257,6 @@ def test_signature_is_the_reference_one_then_device():
     """The reference's parameters, name by name and position by position,
     then ``device``: a positional call binds the same values in both."""
     import inspect
-    from paddle_tpu_torch.core.errors import UnimplementedError
     ref = list(inspect.signature(JEngine.__init__).parameters.items())
     got = list(inspect.signature(ServingEngine.__init__).parameters.items())
     assert [n for n, _ in got] == [n for n, _ in ref] + ["device"]
@@ -270,7 +269,13 @@ def test_signature_is_the_reference_one_then_device():
                         device="cpu")
     assert (eng.max_slots, eng.max_len, eng.buckets, eng.decode_chunk,
             eng._profile, eng.kv) == (2, 32, (8, 16), 3, True, "fixed")
-    with pytest.raises(UnimplementedError, match="ROADMAP"):
+    # mesh= is ported: a parallel.Mesh serves (one rank here), anything
+    # else is refused typed
+    from paddle_tpu_torch import parallel
+    eng = ServingEngine(tm, device="cpu", mesh=parallel.create_mesh(
+        {"tp": 1}))
+    assert eng.metrics()["mesh"] == {"devices": 1, "tp": 1}
+    with pytest.raises(InvalidArgumentError, match="parallel.Mesh"):
         ServingEngine(tm, device="cpu", mesh=object())
     # program sets are ported: a set that is not there is refused typed
     from paddle_tpu_torch.programs import ProgramSetError

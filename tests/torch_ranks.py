@@ -11,6 +11,7 @@ scenario needs (the reference's initial weights, written by the test
 before the spawn) are read from ``out_dir``; batches come from numpy
 seeds.  Nothing here imports the JAX package.
 """
+import json
 import multiprocessing as mp
 import os
 import time
@@ -544,6 +545,318 @@ def sc_fleet(rank, world, out_dir):
             "shard": util.get_file_shard(["a", "b", "c"])}
 
 
+def sc_stage3_blocks(rank, world, out_dir):
+    """Stage 2 and stage 3 on {"dp": 4} over a 4-layer GPT, with and
+    without recompute: losses, the whole parameters after the steps, and
+    stage 3's gathered bytes alive at most against the model's."""
+    import torch
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel import train_step as ts
+    out = {}
+    for remat in (False, True):
+        for stage in (2, 3):
+            model, crit = _tiny_gpt(out_dir, 4)
+            st = parallel.DistributedStrategy(sharding=True, recompute=remat)
+            st.sharding_configs.stage = stage
+            step = parallel.ShardedTrainStep(
+                model, lambda lg, y: crit(lg, y),
+                Adam(learning_rate=LR, parameters=model.parameters()),
+                strategy=st, mesh=parallel.create_mesh({"dp": world}))
+            ts.reset_gather_stats()
+            tag = f"s{stage}{'r' if remat else ''}"
+            out[tag + "_losses"] = [
+                float(step(torch.from_numpy(i), torch.from_numpy(y)))
+                for i, y in gpt_batches(2)]
+            out[tag + "_peak"] = ts.gather_stats["peak"]
+            state = model.state_dict()
+            for k, v in state.items():
+                lay = step._layouts.get(k)
+                out[f"{tag}:{k}"] = (lay.gather(v) if lay else v).numpy()
+            if stage == 3:
+                units = step._units
+                size = {k: int(np.prod(lay.shape)) * 4
+                        for k, lay in step._layouts.items()}
+                out["whole_bytes"] = sum(size.values())
+                out["root_bytes"] = sum(size[k] for k, _, _ in units.root)
+                out["block_bytes"] = max(
+                    sum(size[k] for k, _, _ in keys)
+                    for mod, keys in units.units[:-1])
+    return out
+
+
+# -- tensor-parallel serving: tests/test_torch_tp_serving.py -----------------
+
+TP_GPT = dict(vocab_size=64, hidden_size=32, num_hidden_layers=2,
+              num_attention_heads=8, hidden_dropout_prob=0.0,
+              attention_probs_dropout_prob=0.0, max_position_embeddings=64)
+TP_CASES = (dict(max_new_tokens=8),
+            dict(max_new_tokens=8, decode_strategy="sampling",
+                 temperature=0.9, top_k=5, seed=11),
+            dict(max_new_tokens=6, decode_strategy="sampling", top_p=0.85,
+                 seed=4))
+
+
+def tp_prompts():
+    rng = np.random.RandomState(3)
+    return [rng.randint(0, 64, (int(rng.randint(3, 8)),)) for _ in TP_CASES]
+
+
+def _tp_model(out_dir, cfg=None, name="tp_gpt.npz"):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    m = GPTForPretraining(GPTConfig(**(cfg or TP_GPT)), device="cpu").eval()
+    with np.load(os.path.join(out_dir, name)) as f:
+        pt.load_paddle_state(m, {k: f[k] for k in f.files})
+    return m
+
+
+def _engines(m, world, **kw):
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.serving import ServingEngine
+    base = dict(max_slots=2, max_len=32, prefill_buckets=(8,),
+                decode_chunk=4, device="cpu")
+    base.update(kw)
+    tp = ServingEngine(m, mesh=parallel.create_mesh({"tp": world}), **base)
+    return tp, ServingEngine(m, **base)
+
+
+def _serve(eng, rank, prompts, cases, **drain):
+    """Every rank drives; the leader submits.  Tokens on the leader, []
+    elsewhere."""
+    out = []
+    for p, kw in zip(prompts, cases):
+        r = eng.submit(p, **kw) if rank == 0 else None
+        eng.run_until_drained(**drain)
+        out.append(r.tokens() if r is not None else [])
+    return out
+
+
+def _single(eng, prompts, cases):
+    out = []
+    for p, kw in zip(prompts, cases):
+        r = eng.submit(p, **kw)
+        eng.run_until_drained()
+        out.append(r.tokens())
+    return out
+
+
+def sc_tp_serve(rank, world, out_dir):
+    """The tp engine against the single-device one: layouts, greedy and
+    sampled streams, logits on the same prompt, preempt/restore, the
+    compile bound, and paged KV."""
+    import torch
+    m = _tp_model(out_dir)
+    tp, sd = _engines(m, world)
+    tp.warmup()
+    out = {"mesh": [tp.metrics()["mesh"]["devices"],
+                    tp.metrics()["mesh"]["tp"]]}
+    st = tp.model.state_dict()
+    for k in ("gpt.blocks.0.qkv.weight", "gpt.blocks.0.qkv.bias",
+              "gpt.blocks.0.proj.weight", "gpt.blocks.0.ffn_in.weight",
+              "gpt.blocks.0.ffn_out.weight", "gpt.word_embeddings.weight",
+              "gpt.position_embeddings.weight", "gpt.ln_f.weight",
+              "gpt.blocks.0.proj.bias"):
+        out["spec:" + k] = repr(tuple(tp._tp_specs[k]))
+        out["shape:" + k] = list(st[k].shape)
+    out["qkv_block"] = st["gpt.blocks.0.qkv.weight"].numpy()
+    out["pool"] = list(tp._pools[0][0].shape)
+    prompts = tp_prompts()
+    out["tp"] = json.dumps(_serve(tp, rank, prompts, TP_CASES, timeout=120))
+    out["sd"] = json.dumps(_single(sd, prompts, TP_CASES))
+    cc = tp.compile_counts()
+    out["compiles"] = [cc["total"], cc["bound"]]
+    # logits of one prompt through the rank-local forward and the whole
+    ids = torch.as_tensor(prompts[0][None].astype("int64"))
+    with torch.inference_mode():
+        got, _ = tp.model.forward_fixed(
+            ids, tp.model.gen_fixed_cache(1, 8), 0)
+        want, _ = sd.model.forward_fixed(
+            ids, sd.model.gen_fixed_cache(1, 8), 0)
+    out["logit_err"] = float((got - want).abs().max())
+    # preempt / restore keeps the pool this rank's heads, nothing captured
+    before = tp.compile_counts()["total"]
+    r = tp.submit([9, 8, 7], max_new_tokens=10) if rank == 0 else None
+    tp.step()
+    paused = tp.preempt_slot(next(iter(tp._slots)))
+    out["restored"] = bool(tp.restore_run(paused))
+    out["pool_after"] = list(tp._pools[0][0].shape)
+    tp.run_until_drained(timeout=120)
+    out["restore_tokens"] = r.tokens() if r is not None else []
+    s = sd.submit([9, 8, 7], max_new_tokens=10)
+    sd.run_until_drained()
+    out["restore_want"] = s.tokens()
+    out["restore_compiles"] = tp.compile_counts()["total"] - before
+    tp.close()
+    # paged KV + tp
+    tpp, sdp = _engines(m, world, max_slots=4, kv="paged", block_size=8)
+    tpp.warmup()
+    rng = np.random.RandomState(9)
+    pp = [rng.randint(0, 64, (n,)) for n in (4, 6, 7)]
+    if rank == 0:
+        rs = [tpp.submit(p, max_new_tokens=10) for p in pp]
+    tpp.run_until_drained(timeout=120)
+    out["paged"] = [r.tokens() for r in rs] if rank == 0 else []
+    ss = [sdp.submit(p, max_new_tokens=10) for p in pp]
+    sdp.run_until_drained()
+    out["paged_want"] = [r.tokens() for r in ss]
+    out["paged_pool"] = list(tpp._pools[0][0].shape)
+    out["paged_used"] = tpp.kv_pool.used_blocks()
+    tpp.close()
+    return out
+
+
+def sc_tp_more(rank, world, out_dir):
+    """int8 layout and streams, a speculative engine (draft sharded too),
+    swap_weights, requests submitted while the loops run, and the
+    refusals of a head count tp does not divide."""
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.core.errors import InvalidArgumentError
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.quantization import quantize_for_serving
+    from paddle_tpu_torch.serving import ServingEngine
+    out = {}
+    prompts = tp_prompts()
+    # int8 weight-only: w_int8 / w_scale stay whole, biases and the
+    # embeddings follow the reference's rules
+    q = quantize_for_serving(_tp_model(out_dir))
+    tp, sd = _engines(q, world)
+    st = tp.model.state_dict()
+    for k in ("gpt.blocks.0.qkv.w_int8", "gpt.blocks.0.qkv.w_scale",
+              "gpt.blocks.0.qkv.bias", "gpt.blocks.0.ffn_in.bias",
+              "gpt.word_embeddings.weight"):
+        out["int8_spec:" + k] = repr(tuple(tp._tp_specs[k]))
+        out["int8_shape:" + k] = list(st[k].shape)
+    out["int8_pool"] = list(tp._pools[0][0].shape)
+    out["int8"] = json.dumps(_serve(tp, rank, prompts, TP_CASES, timeout=120))
+    out["int8_want"] = json.dumps(_single(sd, prompts, TP_CASES))
+    tp.close()
+    # speculative: the draft (4 heads) sharded as the target
+    m = _tp_model(out_dir)
+    dcfg = dict(TP_GPT, num_hidden_layers=1, num_attention_heads=4)
+    draft = _tp_model(out_dir, dcfg, "tp_draft.npz")
+    tp, sd = _engines(m, world, draft_model=draft, spec_tokens=2)
+    out["draft_pool"] = list(tp._draft_store[0][0].shape)
+    out["spec"] = json.dumps(_serve(tp, rank, prompts, TP_CASES, timeout=120))
+    out["spec_want"] = json.dumps(_single(sd, prompts, TP_CASES))
+    # swap_weights: whole tensors, cut to the served layout
+    other = _tp_model(out_dir, name="tp_other.npz")
+    new = {k: v.detach() for k, v in other.state_dict().items()}
+    tp.swap_weights(new)
+    sd.swap_weights(new)
+    out["swap"] = json.dumps(_serve(tp, rank, prompts[:1], TP_CASES[:1],
+                                    timeout=120))
+    out["swap_want"] = json.dumps(_single(sd, prompts[:1], TP_CASES[:1]))
+    tp.close()
+    # requests submitted from another thread while every rank's loop runs
+    tp, sd = _engines(m, world, max_slots=4)
+    tp.start()
+    if rank == 0:
+        rs = []
+        for i, (p, kw) in enumerate(zip(prompts * 2, TP_CASES * 2)):
+            rs.append(tp.submit(p, **kw))
+            time.sleep(0.01 * (i % 3))
+        out["live"] = json.dumps([r.tokens(timeout=120) for r in rs])
+    else:
+        out["live"] = "[]"
+    tp.close()
+    out["live_want"] = json.dumps(_single(sd, prompts * 2, TP_CASES * 2))
+    # refusals: 2 heads over tp=4, for the target and for the draft
+    if world == 4:
+        small = GPTForPretraining(GPTConfig(
+            vocab_size=64, hidden_size=16, num_hidden_layers=1,
+            num_attention_heads=2, max_position_embeddings=64),
+            device="cpu").eval()
+        mesh = parallel.create_mesh({"tp": world})
+        msgs = []
+        for kw in (dict(model=small), dict(model=m, draft_model=small,
+                                           spec_tokens=2)):
+            try:
+                ServingEngine(max_slots=2, max_len=32, prefill_buckets=(8,),
+                              mesh=mesh, device="cpu", **kw)
+                msgs.append("")
+            except InvalidArgumentError as e:
+                msgs.append(str(e))
+        out["refusals"] = msgs
+    return out
+
+
+# -- embedding/: tests/test_torch_embedding.py ------------------------------
+
+def dlrm_batch(i, b=16, high=64, dense_dim=4, feats=4):
+    rng = np.random.RandomState(1000 + i)
+    return (rng.randn(b, dense_dim).astype("float32"),
+            rng.randint(0, high, (b, feats)).astype("int64"),
+            rng.randint(0, 2, (b, 1)).astype("float32"))
+
+
+def sc_emb_sharded(rank, world, out_dir):
+    """DLRM with its table's rows over tp=world against the sparse oracle
+    (the reference's initial weights in both), TrainStep on every rank;
+    the eager lookup's row-sparse update; the refusal of a vocabulary
+    the axis does not divide."""
+    import torch
+    import torch.distributed as dist
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.embedding import ShardedEmbedding
+    from paddle_tpu_torch.models import DLRM, DLRMCriterion, dlrm_tiny_config
+    from paddle_tpu_torch.optimizer import Adam
+    cfg = dlrm_tiny_config()
+    with np.load(os.path.join(out_dir, "dlrm.npz")) as f:
+        init = {k: f[k] for k in f.files}
+    mesh = parallel.create_mesh({"tp": world})
+    out = {}
+    for mode in ("sparse", "sharded"):
+        m = DLRM(cfg, embedding=mode, mesh=mesh, device="cpu")
+        state = dict(init)
+        if mode == "sharded":
+            n = cfg.total_rows // world
+            state["table.weight"] = init["table.weight"][rank * n:
+                                                         (rank + 1) * n]
+        pt.load_paddle_state(m, state)
+        opt = Adam(0.01, parameters=m.parameters())
+        step = pt.jit.TrainStep(m, DLRMCriterion(), opt)
+        out[mode + "_losses"] = [
+            float(step(*map(torch.from_numpy, dlrm_batch(i))))
+            for i in range(2)]
+        w = m.state_dict()["table.weight"]
+        m1 = step._opt_state["table.weight"]["moment1"]
+        if mode == "sharded":
+            out["block_shape"] = list(w.shape)
+            parts = [torch.empty_like(w) for _ in range(world)]
+            dist.all_gather(parts, w.contiguous())
+            w = torch.cat(parts)
+            parts = [torch.empty_like(m1) for _ in range(world)]
+            dist.all_gather(parts, m1.contiguous())
+            m1 = torch.cat(parts)
+        out[mode + "_table"] = w.numpy()
+        out[mode + "_m1"] = m1.numpy()
+        out[mode + "_top"] = m.state_dict()["top.0.weight"].numpy()
+    # eager: a row-sparse COO gradient of the rank's rows, Adam moves only
+    # the looked-up rows
+    emb = ShardedEmbedding(64, 8, mesh=mesh, device="cpu",
+                           generator=torch.Generator().manual_seed(1))
+    opt = Adam(0.1, parameters=[emb.weight])
+    ids = torch.tensor([3, 3, 9, 20, 63])
+    o = emb(ids)
+    (o * o).sum().backward()
+    out["eager_sparse"] = bool(emb.weight.grad.is_sparse)
+    w0 = emb.weight.detach().clone()
+    opt.step()
+    out["eager_moved"] = (emb.weight.detach() != w0).any(dim=1).numpy()
+    out["eager_out"] = o.detach().numpy()
+    whole = [torch.empty_like(w0) for _ in range(world)]
+    dist.all_gather(whole, w0.contiguous())
+    out["eager_w0"] = torch.cat(whole).numpy()
+    try:
+        ShardedEmbedding(63, 8, mesh=mesh, device="cpu")
+        out["undivisible"] = ""
+    except Exception as e:   # noqa: BLE001 — the message is the result
+        out["undivisible"] = str(e)
+    return out
+
+
 def spawn_worker(expect):
     """``spawn``'s worker: the launcher's variables are set."""
     assert os.environ["PADDLE_TRAINERS_NUM"] == str(expect)
@@ -566,5 +879,7 @@ SCENARIOS = {
     "env": sc_env, "ddp": sc_ddp, "syncbn": sc_syncbn, "resnet": sc_resnet,
     "localsgd": sc_localsgd, "localsgd_ckpt": sc_localsgd_ckpt,
     "fp16": sc_fp16, "ckpt_port": sc_ckpt_port, "ckpt_ref": sc_ckpt_ref,
-    "fleet": sc_fleet,
+    "fleet": sc_fleet, "stage3_blocks": sc_stage3_blocks,
+    "tp_serve": sc_tp_serve, "tp_more": sc_tp_more,
+    "emb_sharded": sc_emb_sharded,
 }
