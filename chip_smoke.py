@@ -386,6 +386,29 @@ Phases (any failure exits non-zero before the result line):
                 a 4-layer full-width BERT with the padding mask on the
                 kernel path against the CPU plain path (loss 1e-4
                 relative, gradients 1e-3 of each tensor's largest value).
+ 14a. seq2seq  — the Transformer-base translation model built from the
+                port's nn.Transformer (vocab 37,000 shared by source,
+                target and the tied output projection, a learned position
+                embedding, d_model 512, 8 heads, d_ff 2048, 6 + 6 layers,
+                dropout 0.1; B 16 x source 256 x target 256, lengths
+                64..256, the (B, 1, 1, S) padding mask, the (S, S) causal
+                mask): K1 / K2 at its attention shape (B 16, S 256, H 8,
+                D 64, bias, dropout 0.1) against their plain versions (bf16
+                and f32) and timed per layer over 12 layers' tensors
+                beside the bound, SDPA with the mask and K1 / K2 without
+                the bias; then S2S_STEPS captured TrainStep steps (O1
+                bf16, label-smoothed soft cross-entropy masked on the
+                target's padding, Adam(0.9, 0.98, 1e-9) under
+                NoamDecay(512, 4000)): finite losses, K1 and K2 12 launches
+                per step each through the replays (6 encoder self- and 6
+                cross-attentions; the decoder's self-attention stays
+                naive), one capture; ms per step, target tokens/s, device
+                busy and idle share, peak GiB.  A 2 + 2-layer f32 copy
+                (dropout 0, B 4) over 3 steps on the card and on the CPU
+                from the same weights: losses within 1e-4 relative.
+                Greedy decoding of 8 sources for 32 tokens through
+                gen_cache against a full recompute: equal, or split only
+                where the full recompute's top-two margin is below 1e-3.
  14b. predictor — the one-shot Predictor: a BERT-large sequence classifier
                 (bert_large_config(vocab_size=30528,
                 max_position_embeddings=512), 2 labels, eval, random
@@ -547,6 +570,15 @@ Phases (any failure exits non-zero before the result line):
                 rows and moments; ms per step, prefetch hits, waits and
                 peak device bytes); RecsysPredictor's merged scores
                 against a direct forward (1e-5), ms per micro-batch.
+ 26. dataset  — the datasets' host path to the card: 8 text files of
+                32,768 rows (label<TAB>39 values: Criteo's 13 + 26 fields,
+                integers written exactly) from --seed, InMemoryDataset
+                loaded on 4 threads, global_shuffle at one rank, one epoch
+                of 4,096-row batches copied to the card, then one
+                QueueDataset pass: the rows that arrive equal the rows
+                written (count, label sum and an exact int64 checksum of
+                the rows, taken on the card); prints the load's rows/s and
+                the iterate-to-card rows/s.  No kernel runs here.
 Depth cut for time (``CUT_LAYERS``): the fleet and worker phases, the
 trainexport phase and the bert phase's resume leg run 12 of their model's
 24 layers, at its published widths.
@@ -711,6 +743,26 @@ LENET_B, LENET_STEPS = 64, 20                            # lenet phase
 QAT_B, QAT_STEPS = 32, 3                                 # qat phase
 BN_LINES = {"bn_stats": 119, "bn_apply": 132, "bn_bwd_reduce": 153,
             "bn_bwd_dx": 183, "bn_pool_apply": 611}
+# seq2seq phase: Transformer-base (Vaswani et al. 2017) on its shared BPE
+# vocabulary, B 16 x source 256 x target 256, lengths 64..256
+S2S_VOCAB, S2S_D, S2S_LEN, S2S_B, S2S_MIN_LEN = 37000, 512, 256, 16, 64
+S2S_STEPS = 20
+S2S_CHECK_B, S2S_CHECK_STEPS = 4, 3        # the 2 + 2-layer f32 check
+S2S_DECODE_B, S2S_DECODE_NEW = 8, 32       # greedy decoding
+S2S_MARGIN_TOL = 1e-3   # a cached / full-recompute split needs a nearer tie
+S2S_PAD, S2S_BOS = 0, 1
+S2S_GROUPS = {   # the seq2seq step's device time by kernel name
+    "flash (K1 / K2)": ("flash_",),
+    "GEMMs": ("nvjet", "gemm", "cutlass", "sm90_", "xmma"),
+    "embedding backward": ("indexing_backward", "embedding_backward"),
+    "copies and casts": ("copy_kernel", "direct_copy"),
+    "softmax and loss": ("SoftMax", "softmax", "log_softmax", "cross"),
+    "optimizer": ("multi_tensor_apply",),
+    "layer norm": ("layer_norm", "LayerNorm"),
+    "reductions": ("reduce_kernel",),
+}
+# dataset phase: Criteo's 13 + 26 fields per row
+DATASET_FILES, DATASET_ROWS, DATASET_DIM, DATASET_BATCH = 8, 32768, 39, 4096
 
 
 PHASES = ("check", "serve", "telemetry", "pressure", "prefix", "spec", "lora",
@@ -718,9 +770,9 @@ PHASES = ("check", "serve", "telemetry", "pressure", "prefix", "spec", "lora",
           "spec_bf16", "tpserve", "serve_f16",
           "fixed",
           "flash", "train", "traincheck", "dlrm", "trainexport", "tostatic",
-          "guard", "amp16", "bert",
+          "guard", "amp16", "bert", "seq2seq",
           "predictor", "bn", "resnet", "resnetcheck", "mobilenet", "vgg",
-          "convcheck", "lenet", "qat", "parallel", "recsys")
+          "convcheck", "lenet", "qat", "parallel", "recsys", "dataset")
 
 
 def fail(msg: str):
@@ -3808,27 +3860,34 @@ def _bert_leg(torch, tag, card, make, batch, layers, uncaptured=False):
 
 def bert_flash_time(torch, rng, dev, card):
     """(f) K1 / K2 at BERT-large's attention shape (B 8, S 512, H 16,
-    D 64, non-causal, the padding bias of lengths 128..512, dropout 0.1):
+    D 64, the padding bias of lengths 128..512) over 24 layers' tensors."""
+    flash_shape_time(torch, rng, dev, card, "bert", BERT_B, BERT_S, 16, 64,
+                     128, LAYERS)
+
+
+def flash_shape_time(torch, rng, dev, card, tag, b, s, h, d, lo, n):
+    """K1 / K2 at one model's attention shape (B b, Sq = Sk = s, H h,
+    D d, non-causal, the padding bias of key lengths lo..s, dropout 0.1):
     checked against their plain versions in bf16 and f32, then timed per
-    layer over 24 layers' bf16 tensors beside the bound (the visible
-    pairs only), SDPA with the (B, 1, 1, S) additive mask and dropout 0.1,
-    and K1 / K2 without the bias (K2's: what the unneeded dbias costs)."""
+    layer over n layers' bf16 tensors beside the bound (the visible pairs
+    only), SDPA with the (B, 1, 1, S) additive mask and dropout 0.1, and
+    K1 / K2 without the bias (K2's: what the unneeded dbias costs)."""
     from paddle_tpu_torch.ops import flash_attention as fa
-    b, s, h, d, p = BERT_B, BERT_S, 16, 64, 0.1
+    p = 0.1
     seed = torch.tensor([20261018], dtype=torch.int32, device=dev)
-    lens = rng.randint(128, s + 1, (b,))
+    lens = rng.randint(lo, s + 1, (b,))
     bias = torch.from_numpy(np.where(np.arange(s)[None] < lens[:, None],
                                      0.0, -1e4).astype(np.float32)).to(dev)
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, do, _, _, _ = _flash_inputs(torch, rng, dev, b, s, s, h, d,
                                              dtype)
         flash_check(torch, fa, (q, k, v, do, bias, None, None, seed, False,
-                                p), f"bert {str(dtype)[6:]} B={b} S={s} "
+                                p), f"{tag} {str(dtype)[6:]} B={b} S={s} "
                                     f"H={h} D={d} bias p={p}")
         del q, k, v, do
         torch.cuda.empty_cache()
     layers = [_flash_inputs(torch, rng, dev, b, s, s, h, d,
-                            torch.bfloat16)[:4] for _ in range(LAYERS)]
+                            torch.bfloat16)[:4] for _ in range(n)]
     saved = [fa.flash_fwd(q, k, v, bias, None, None, seed, False, p)
              for q, k, v, _ in layers]
     nob = [fa.flash_fwd(q, k, v, None, None, None, seed, False, p)
@@ -3845,14 +3904,14 @@ def bert_flash_time(torch, rng, dev, card):
             for (q, k, v, do), (o, lse) in zip(layers, outs):
                 f(q, k, v, bi, None, None, seed, o, lse, do, False, p)
         return run
-    ms = {"fwd": (graph_ms(torch, fwd(fa.flash_fwd)) / LAYERS,
-                  call_ms(torch, fwd(fa.flash_fwd), 5) / LAYERS,
-                  graph_ms(torch, fwd(fa._plain_fwd), 3) / LAYERS),
-          "bwd": (graph_ms(torch, bwd(fa.flash_bwd)) / LAYERS,
-                  call_ms(torch, bwd(fa.flash_bwd), 5) / LAYERS,
-                  graph_ms(torch, bwd(fa._plain_bwd), 3) / LAYERS)}
-    nobias = (graph_ms(torch, fwd(fa.flash_fwd, None)) / LAYERS,
-              graph_ms(torch, bwd(fa.flash_bwd, None, nob)) / LAYERS)
+    ms = {"fwd": (graph_ms(torch, fwd(fa.flash_fwd)) / n,
+                  call_ms(torch, fwd(fa.flash_fwd), 5) / n,
+                  graph_ms(torch, fwd(fa._plain_fwd), 3) / n),
+          "bwd": (graph_ms(torch, bwd(fa.flash_bwd)) / n,
+                  call_ms(torch, bwd(fa.flash_bwd), 5) / n,
+                  graph_ms(torch, bwd(fa._plain_bwd), 3) / n)}
+    nobias = (graph_ms(torch, fwd(fa.flash_fwd, None)) / n,
+              graph_ms(torch, bwd(fa.flash_bwd, None, nob)) / n)
     torch.cuda.empty_cache()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     mask = bias.to(torch.bfloat16)[:, None, None, :]
@@ -3868,8 +3927,8 @@ def bert_flash_time(torch, rng, dev, card):
         for q, k, v, do in lib_in:
             out = sdpa(q, k, v, attn_mask=mask, dropout_p=p)
             torch.autograd.grad(out, (q, k, v), do)
-    lib_f = graph_ms(torch, lib_fwd) / LAYERS
-    lib_fb = graph_ms(torch, lib_fwd_bwd) / LAYERS
+    lib_f = graph_ms(torch, lib_fwd) / n
+    lib_fb = graph_ms(torch, lib_fwd_bwd) / n
     # bound per layer: inputs read once, outputs written once; the
     # tensor-core products over the pairs this data needs (each query
     # against its row's real keys), 2 * D per pair and product
@@ -3883,11 +3942,12 @@ def bert_flash_time(torch, rng, dev, card):
     for key, lib in (("fwd", lib_f), ("bwd", lib_fb - lib_f)):
         k_ms, eager, plain = ms[key]
         bms, by = bound[key]
-        print(f"time bert flash_attention_{key} [{card}] (bf16, B={b} S={s} "
-              f"H={h} D={d}, padding bias, p={p}, per layer): {k_ms:.4f} ms "
-              f"(call {eager:.4f}), plain {plain:.4f}, SDPA with the "
-              f"(B, 1, 1, S) mask {lib:.4f}, bound {bms:.4f} ({by})")
-    print(f"time bert flash_attention [{card}]: without the bias K1 "
+        print(f"time {tag} flash_attention_{key} [{card}] (bf16, B={b} "
+              f"S={s} H={h} D={d}, padding bias, p={p}, per layer): "
+              f"{k_ms:.4f} ms (call {eager:.4f}), plain {plain:.4f}, SDPA "
+              f"with the (B, 1, 1, S) mask {lib:.4f}, bound {bms:.4f} "
+              f"({by})")
+    print(f"time {tag} flash_attention [{card}]: without the bias K1 "
           f"{nobias[0]:.4f} ms per layer against {ms['fwd'][0]:.4f} with "
           f"it, K2 {nobias[1]:.4f} against {ms['bwd'][0]:.4f} (dbias "
           f"computed and dropped: {ms['bwd'][0] - nobias[1]:+.4f} ms); "
@@ -4057,6 +4117,359 @@ def bert_phase(torch, args, dev, card):
                           padded=False), ecfg.num_hidden_layers)      # (c)
     bert_resume_leg(torch, args, dev, card)                           # (d)
     bert_check_phase(torch, args, dev, card)                          # (e)
+
+
+# ---------------------------------------------------------------------------
+# seq2seq: the Transformer-base encoder-decoder on K1 / K2
+# ---------------------------------------------------------------------------
+
+def seq2seq_model(pkg, vocab, d_model, nhead, layers, d_ff, max_len, dropout,
+                  **kw):
+    """The translation model, in ``pkg``: a token embedding (Normal(0,
+    d_model^-0.5)) shared by source, target and the tied output
+    projection, scaled by sqrt(d_model), a learned position embedding,
+    dropout on their sum, and ``nn.Transformer``.  (The same builder is
+    held against the JAX package's in tests/test_torch_transformer.py.)"""
+    nn, F = pkg.nn, pkg.nn.functional
+    matmul = pkg.tensor.linalg.matmul
+
+    class Seq2Seq(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(
+                vocab, d_model, weight_attr=pkg.ParamAttr(
+                    initializer=nn.initializer.Normal(0.0, d_model ** -0.5)),
+                **kw)
+            self.pos = nn.Embedding(max_len, d_model, **kw)
+            self.transformer = nn.Transformer(d_model, nhead, layers, layers,
+                                              d_ff, dropout, **kw)
+
+        def embed_at(self, ids, start=0):
+            x = (self.embed(ids) * d_model ** 0.5
+                 + self.pos.weight[start:start + ids.shape[1]])
+            return F.dropout(x, dropout, training=self.training)
+
+        def logits(self, h):
+            return matmul(h, self.embed.weight, transpose_y=True)
+
+        def forward(self, src, tgt, src_mask, tgt_mask):
+            h = self.transformer(self.embed_at(src), self.embed_at(tgt),
+                                 src_mask, tgt_mask, src_mask)
+            return self.logits(h)
+    return Seq2Seq()
+
+
+def seq2seq_loss(pkg, vocab, epsilon=0.1):
+    """Label-smoothed soft cross-entropy, the mean over the target's
+    non-padding positions."""
+    F = pkg.nn.functional
+
+    def loss(logits, labels):
+        onehot = F.one_hot(labels, vocab)
+        mask = 1.0 - onehot[..., S2S_PAD]
+        ce = F.cross_entropy(logits, F.label_smooth(onehot, epsilon=epsilon),
+                             soft_label=True, reduction="none")
+        return (ce * mask).sum() / mask.sum()
+    return loss
+
+
+def seq2seq_batch(torch, dev, seed, b, s, vocab, lo, hi):
+    """(src, tgt_in, src_mask, tgt_mask, labels) on ``dev`` and the real
+    target tokens: lengths drawn in [lo, hi], padding id 0 past them, the
+    target shifted right behind BOS; the (B, 1, 1, S) additive source mask
+    (-1e9 past each length) and the (S, S) causal mask."""
+    rng = np.random.RandomState(seed)
+    pos = np.arange(s)[None, :]
+    src_len, tgt_len = (rng.randint(lo, hi + 1, b) for _ in range(2))
+    src = np.where(pos < src_len[:, None], rng.randint(2, vocab, (b, s)),
+                   S2S_PAD)
+    tgt = np.where(pos < tgt_len[:, None], rng.randint(2, vocab, (b, s)),
+                   S2S_PAD)
+    tgt_in = np.concatenate([np.full((b, 1), S2S_BOS), tgt[:, :-1]], 1)
+    smask = np.where(pos < src_len[:, None], 0.0, -1e9).astype(
+        np.float32)[:, None, None, :]
+    causal = np.where(np.tril(np.ones((s, s), bool)), 0.0, -1e9).astype(
+        np.float32)
+    batch = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                  for a in (src.astype(np.int64), tgt_in.astype(np.int64),
+                            smask, causal, tgt.astype(np.int64)))
+    return batch, int(tgt_len.sum())
+
+
+def _noam_step_class():
+    from paddle_tpu_torch.jit import TrainStep
+
+    class NoamStep(TrainStep):
+        """A TrainStep whose NoamDecay advances after every update."""
+
+        def __call__(self, *batch):
+            loss = super().__call__(*batch)
+            self.optimizer._learning_rate.step()
+            return loss
+    return NoamStep
+
+
+def _s2s_build(torch, args, dev, layers=6, dropout=0.1):
+    """The translation model at Transformer-base's widths, ``layers`` +
+    ``layers`` deep, its weights drawn on ``dev`` from --seed."""
+    import paddle_tpu_torch as pt
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    return seq2seq_model(pt, S2S_VOCAB, S2S_D, 8, layers, 4 * S2S_D,
+                         S2S_LEN, dropout, device=dev, generator=gen)
+
+
+def _s2s_step(model, warmup=4000, amp_level="O1"):
+    """Adam(0.9, 0.98, 1e-9) under NoamDecay(512, ``warmup``), stepped
+    after every update, in a TrainStep over the label-smoothed loss."""
+    import paddle_tpu_torch as pt
+    sched = pt.optimizer.lr.NoamDecay(S2S_D, warmup)
+    opt = pt.optimizer.Adam(learning_rate=sched, beta1=0.9, beta2=0.98,
+                            epsilon=1e-9, parameters=model.parameters())
+    return _noam_step_class()(model, seq2seq_loss(pt, S2S_VOCAB), opt,
+                              amp_level=amp_level, amp_dtype="bfloat16")
+
+
+def _s2s_check(torch, args, dev, card):
+    """A 2 + 2-layer f32 copy (dropout 0, B 4 x S 256, NoamDecay warmup 4
+    so that each update moves the weights) over S2S_CHECK_STEPS steps on
+    the card and in the port on the CPU, from the same weights: the losses
+    within 1e-4 relative, K1 / K2 4 launches per card step after warmup
+    (the capture)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    cpu = torch.device("cpu")
+    batches = [seq2seq_batch(torch, cpu, args.seed + 40 + i, S2S_CHECK_B,
+                             S2S_LEN, S2S_VOCAB, S2S_MIN_LEN, S2S_LEN)[0]
+               for i in range(S2S_CHECK_STEPS)]
+    gpu = _s2s_build(torch, args, dev, layers=2, dropout=0.0)
+    models = {"cuda": gpu, "cpu": copy.deepcopy(gpu).cpu()}
+    got = {}
+    for kind, model in models.items():
+        step = _s2s_step(model, warmup=4, amp_level=None)
+        step.warmup(*[a.to(model.device) for a in batches[0]])
+        n0 = (fa.flash_fwd.launches, fa.flash_bwd.launches)
+        got[kind] = [float(step(*[a.to(model.device) for a in batch]))
+                     for batch in batches]
+        launches = (fa.flash_fwd.launches - n0[0],
+                    fa.flash_bwd.launches - n0[1])
+        if kind == "cuda" and launches != (4 * S2S_CHECK_STEPS,) * 2:
+            fail(f"seq2seq check: K1 / K2 launched {launches} times over "
+                 f"{S2S_CHECK_STEPS} steps, expected 4 per step each")
+        del step
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got["cuda"], got["cpu"]))
+    print(f"seq2seq check [{card}]: 2 + 2-layer f32 copy, {S2S_CHECK_STEPS} "
+          f"steps, card losses {', '.join(repr(x) for x in got['cuda'])} vs "
+          f"CPU {', '.join(repr(x) for x in got['cpu'])}: largest relative "
+          f"difference {rel:.2e} (tolerance 1e-4)")
+    if not rel <= 1e-4:
+        fail("seq2seq: the card's losses disagree with the CPU's")
+    del models, gpu
+    torch.cuda.empty_cache()
+
+
+def _s2s_decode(torch, model, src, smask, steps, cached):
+    """Greedy tokens from BOS, each step's logits kept: through gen_cache
+    (one position per step) or recomputing the whole target each step."""
+    import paddle_tpu_torch as pt
+    tf = model.transformer
+    memory = tf.encoder(model.embed_at(src), smask)
+    ys = torch.full((src.shape[0], 1), S2S_BOS, dtype=torch.long,
+                    device=src.device)
+    cache = tf.decoder.gen_cache(memory) if cached else None
+    logits = []
+    for t in range(steps):
+        if cached:
+            h, cache = tf.decoder(model.embed_at(ys[:, -1:], t), memory,
+                                  None, smask, cache)
+        else:
+            mask = pt.nn.Transformer.generate_square_subsequent_mask(
+                t + 1, device=src.device)
+            h = tf.decoder(model.embed_at(ys), memory, mask, smask)
+        lg = model.logits(h[:, -1:])[:, 0].float()
+        logits.append(lg)
+        ys = torch.cat([ys, lg.argmax(-1, keepdim=True)], 1)
+    return ys[:, 1:].cpu().numpy(), torch.stack(logits, 1).cpu()
+
+
+def _s2s_greedy(torch, args, dev, card):
+    """S2S_DECODE_B sources decoded greedily for S2S_DECODE_NEW tokens by
+    the Transformer-base model (f32, eval) through gen_cache and by full
+    recompute: equal, or split only where the full recompute's top-two
+    margin is below S2S_MARGIN_TOL."""
+    model = _s2s_build(torch, args, dev).eval()
+    (src, _, smask, _, _), _ = seq2seq_batch(
+        torch, dev, args.seed + 50, S2S_DECODE_B, S2S_LEN, S2S_VOCAB,
+        S2S_MIN_LEN, S2S_LEN)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        cached, _ = _s2s_decode(torch, model, src, smask, S2S_DECODE_NEW,
+                                True)
+        torch.cuda.synchronize()
+        t_cached = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        full, flog = _s2s_decode(torch, model, src, smask, S2S_DECODE_NEW,
+                                 False)
+        torch.cuda.synchronize()
+        t_full = time.perf_counter() - t0
+    splits = []
+    for b in range(S2S_DECODE_B):
+        diff = np.nonzero(cached[b] != full[b])[0]
+        if len(diff):
+            t = int(diff[0])
+            top2 = torch.topk(flog[b, t], 2).values
+            splits.append((b, t, float(top2[0] - top2[1])))
+    print(f"seq2seq decode [{card}]: {S2S_DECODE_B} sources x "
+          f"{S2S_DECODE_NEW} greedy tokens, gen_cache {t_cached:.3f} s vs "
+          f"full recompute {t_full:.3f} s; "
+          + ("streams equal" if not splits else "splits (row, step, "
+             f"top-2 margin): {splits}"))
+    bad = [sp for sp in splits if not sp[2] < S2S_MARGIN_TOL]
+    if bad:
+        fail(f"seq2seq: cached decoding split from the full recompute at a "
+             f"margin of {S2S_MARGIN_TOL} or more: {bad}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def seq2seq_phase(torch, args, dev, card):
+    """The Transformer-base translation model (vocab 37,000, d_model 512,
+    8 heads, d_ff 2048, 6 + 6 layers, dropout 0.1; B 16 x source 256 x
+    target 256, lengths 64..256): K1 / K2 at its attention shape against
+    their plain versions and timed; S2S_STEPS captured O1 bf16 steps with
+    K1 and K2 12 launches per step each through the replays (6 encoder
+    self-attentions, 6 cross-attentions; the decoder's self-attention
+    stays naive); the 2 + 2-layer f32 check against the CPU; greedy
+    decoding through gen_cache against a full recompute."""
+    rng = np.random.RandomState(args.seed + 30)
+    flash_shape_time(torch, rng, dev, card, "seq2seq", S2S_B, S2S_LEN, 8,
+                     64, S2S_MIN_LEN, 12)
+    batch, real = seq2seq_batch(torch, dev, args.seed + 31, S2S_B, S2S_LEN,
+                                S2S_VOCAB, S2S_MIN_LEN, S2S_LEN)
+    what = (f"seq2seq train step (Transformer-base, B {S2S_B} x {S2S_LEN} + "
+            f"{S2S_LEN}, O1 bf16, captured)")
+    import paddle_tpu_torch as pt
+
+    def make():
+        pt.seed(args.seed)   # the step generator: dropout's masks
+        model = _s2s_build(torch, args, dev)
+        return model, _s2s_step(model)
+    leg = train_leg(torch, make, batch, S2S_STEPS, _flash_counters(torch),
+                    card, what, groups=S2S_GROUPS)
+    vals = leg["losses"]
+    print("seq2seq: losses " + ", ".join(f"{x:.4f}" for x in vals))
+    if not all(np.isfinite(vals)):
+        fail(f"seq2seq: non-finite training loss: {vals}")
+    want = 12 * S2S_STEPS
+    if any(n != want for n in leg["launches"].values()):
+        fail(f"seq2seq: flash launches {leg['launches']}, expected {want} "
+             f"each (12 per step x {S2S_STEPS} steps, through replays)")
+    if not leg["warm"]["compiled"] or leg["recaptured"]:
+        fail(f"seq2seq: warmup {leg['warm']}, {leg['recaptured']} captures "
+             "after it (expected one capture, by warmup)")
+    print(_leg_line("seq2seq captured", card, leg, real, "target tokens"))
+    print(f"seq2seq: K1 / K2 launches per step "
+          f"{leg['launches']['flash_attention_fwd'] // S2S_STEPS} / "
+          f"{leg['launches']['flash_attention_bwd'] // S2S_STEPS}; "
+          f"{real} real target tokens of {S2S_B * S2S_LEN} per batch")
+    _s2s_check(torch, args, dev, card)
+    _s2s_greedy(torch, args, dev, card)
+
+
+# ---------------------------------------------------------------------------
+# dataset: InMemoryDataset / QueueDataset, host path to the card
+# ---------------------------------------------------------------------------
+
+def _dataset_files(root, seed):
+    """DATASET_FILES text files of DATASET_ROWS rows, ``label<TAB>f1 ...
+    f39``: 13 dense counts and 26 hashed ids (Criteo's widths), integers so
+    that the text holds them exactly.  Returns (paths, features, labels)."""
+    rng = np.random.RandomState(seed)
+    os.makedirs(root, exist_ok=True)
+    fmt = "%d\t" + " ".join(["%d"] * DATASET_DIM)
+    paths, feats, labels = [], [], []
+    for i in range(DATASET_FILES):
+        f = np.concatenate([rng.randint(0, 1000, (DATASET_ROWS, 13)),
+                            rng.randint(0, 1 << 20, (DATASET_ROWS, 26))], 1)
+        lab = rng.randint(0, 2, DATASET_ROWS)
+        path = os.path.join(root, f"part-{i:05d}")
+        np.savetxt(path, np.column_stack([lab, f]), fmt=fmt)
+        paths.append(path)
+        feats.append(f)
+        labels.append(lab)
+    return paths, np.concatenate(feats), np.concatenate(labels)
+
+
+def _row_sums(torch, feats, labels, weights):
+    """(rows, sum of rows . weights, sum of labels) as exact int64 sums:
+    an order-free checksum of a set of rows."""
+    f = torch.as_tensor(feats).long()
+    return (int(f.shape[0]), int((f * weights).sum()),
+            int(torch.as_tensor(labels).long().sum()))
+
+
+def _to_card(torch, dev, batches, weights):
+    """Each numpy batch copied to the card; the checksum taken there."""
+    rows = dot = labs = 0
+    for f, lab in batches:
+        tf = torch.from_numpy(f).to(dev)
+        tl = torch.from_numpy(lab).to(dev)
+        rows += tf.shape[0]
+        dot = dot + (tf.long() * weights).sum()
+        labs = labs + tl.sum()
+    torch.cuda.synchronize()
+    return rows, int(dot), int(labs)
+
+
+def dataset_phase(torch, args, dev, card):
+    """The datasets' host path to the card: DATASET_FILES files of
+    DATASET_ROWS rows (39 values each) written, InMemoryDataset loaded on
+    4 threads, globally shuffled at one rank, one epoch of 4,096-row
+    batches copied to the card; then one QueueDataset pass.  The rows that
+    arrive must equal the rows written (count and an order-free exact
+    checksum).  Prints the load's rows/s and iterate-to-card rows/s."""
+    import shutil
+    from paddle_tpu_torch.distributed import InMemoryDataset, QueueDataset
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "dataset_phase")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    paths, feats, labels = _dataset_files(root, args.seed + 60)
+    t_write = time.perf_counter() - t0
+    weights = torch.from_numpy(np.random.RandomState(args.seed + 61).randint(
+        1, 1 << 10, DATASET_DIM)).to(dev)
+    want = _row_sums(torch, feats, labels, weights.cpu())
+    n = want[0]
+    ds = InMemoryDataset()
+    ds.init(batch_size=DATASET_BATCH, thread_num=4, feature_dim=DATASET_DIM)
+    ds.set_filelist(paths)
+    t0 = time.perf_counter()
+    ds.load_into_memory()
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds.global_shuffle(seed=args.seed)
+    t_shuffle = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = _to_card(torch, dev, ds, weights)
+    t_iter = time.perf_counter() - t0
+    q = QueueDataset()
+    q.init(batch_size=DATASET_BATCH, thread_num=4, feature_dim=DATASET_DIM)
+    q.set_filelist(paths)
+    t0 = time.perf_counter()
+    qgot = _to_card(torch, dev, q, weights)
+    t_queue = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"dataset [{card}]: {DATASET_FILES} files x {DATASET_ROWS} rows x "
+          f"{DATASET_DIM} values written in {t_write:.2f} s; InMemoryDataset "
+          f"load (4 threads) {t_load:.3f} s = {n / t_load:.0f} rows/s, "
+          f"global_shuffle {t_shuffle:.3f} s, one epoch of "
+          f"{len(ds)} batches to the card {t_iter:.3f} s = "
+          f"{n / t_iter:.0f} rows/s; QueueDataset pass to the card "
+          f"{t_queue:.3f} s = {n / t_queue:.0f} rows/s")
+    print(f"dataset: written (rows, checksum, label sum) {want}; in-memory "
+          f"epoch {got}; queue pass {qgot}")
+    if got != want or qgot != want:
+        fail(f"dataset: the rows that reached the card {got} / {qgot} "
+             f"differ from the rows written {want}")
 
 
 def bn_err(torch, got, want):
@@ -7634,6 +8047,10 @@ def main():
     if want("bert"):
         bert_phase(torch, args, dev, card)
     torch.cuda.empty_cache()
+    if want("seq2seq"):
+        seq2seq_phase(torch, args, dev, card)
+        gc.collect()
+        torch.cuda.empty_cache()
     if want("predictor"):
         predictor_phase(torch, args, dev, card)
     torch.cuda.empty_cache()
@@ -7665,6 +8082,8 @@ def main():
         recsys_phase(torch, args, dev, card)
         gc.collect()
         torch.cuda.empty_cache()
+    if want("dataset"):
+        dataset_phase(torch, args, dev, card)
     if any(m.startswith("paddle_tpu.") or m in ("jax", "paddle_tpu")
            for m in sys.modules):
         fail("the JAX package was imported")

@@ -3,16 +3,17 @@
 One process per rank on ``torch.distributed``: the environment and its
 start (``env``), the collectives (``collective``), the eager data-parallel
 wrapper (``DataParallel``), ``spawn`` and the ``launch`` command line, the
-``fleet`` facade and the checkpoints (``checkpoint``: single- and
-several-process).  The model of execution is in ``parallel``'s docstring.
-The datasets (``InMemoryDataset``, ``QueueDataset``) and fleet's data
-generators are not ported yet (ROADMAP §1 item 8).
+``fleet`` facade (with its data generators), the checkpoints
+(``checkpoint``: single- and several-process) and the datasets
+(``InMemoryDataset``, ``QueueDataset``).  The model of execution is in
+``parallel``'s docstring.
 """
 from . import checkpoint  # noqa: F401
 from . import fleet  # noqa: F401
 from .checkpoint import (AsyncCheckpointManager,  # noqa: F401
                          CheckpointManager, latest_step_dir,
                          restore_sharded, save_sharded, train_epoch_range)
+from .dataset import InMemoryDataset, QueueDataset  # noqa: F401
 from .collective import (ReduceOp, all_gather, all_reduce,  # noqa: F401
                          alltoall, barrier, broadcast, p2p, ppermute, recv,
                          reduce, reduce_scatter, scatter, send)
@@ -27,7 +28,8 @@ __all__ = ["checkpoint", "fleet", "CheckpointManager",
            "all_gather", "broadcast", "reduce", "scatter", "reduce_scatter",
            "alltoall", "send", "recv", "ppermute", "p2p", "barrier",
            "ParallelEnv", "init_parallel_env", "get_rank", "get_world_size",
-           "is_initialized", "DataParallel", "spawn", "prepare_context"]
+           "is_initialized", "DataParallel", "spawn", "prepare_context",
+           "InMemoryDataset", "QueueDataset"]
 
 
 def prepare_context(strategy=None):

@@ -8,8 +8,8 @@ optimizer, which then steps eagerly as the inner one; the strategy takes
 effect in ``distributed_train_step``: a ``parallel.LocalSGDTrainStep``
 under ``localsgd`` (with the reference's refusals of the flags it does
 not compose with), else a ``parallel.ShardedTrainStep``.  The
-parameter-server roles exist for the API only.  ``DataGenerator`` and
-the datasets are not ported yet (ROADMAP §1 item 8).
+parameter-server roles exist for the API only.  ``data_generator`` holds
+the MultiSlot data generators.
 """
 from __future__ import annotations
 
@@ -215,3 +215,7 @@ class Fleet:
 
 
 fleet = Fleet()
+
+from .data_generator import (  # noqa: F401,E402
+    DataGenerator, MultiSlotDataGenerator, MultiSlotStringDataGenerator,
+)

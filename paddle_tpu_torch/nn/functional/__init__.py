@@ -1,12 +1,19 @@
-"""Functional ops on the GPT serving and training paths and the BERT /
-ERNIE and conv-net training paths."""
+"""paddle_tpu_torch.nn.functional (counterpart of
+paddle_tpu/nn/functional/): activations, attention, the common ops,
+convolutions, losses, norms, pools, the sequence ops, the CRF, MoE."""
 from __future__ import annotations
 
 from ...tensor.linalg import matmul  # noqa: F401
-from .activation import gelu, relu, relu6, softmax, tanh  # noqa: F401
-from .attention import scaled_dot_product_attention  # noqa: F401
-from .common import (dropout, embedding, interpolate, linear,  # noqa: F401
-                     upsample)
+from .activation import *  # noqa: F401,F403
+from .activation import __all__ as _acts
+from .attention import (scaled_dot_product_attention,  # noqa: F401
+                        sequence_mask, set_flash_attention)
+from .common import *  # noqa: F401,F403
+from .common import __all__ as _commons
+from .crf import crf_decoding, hsigmoid_loss, linear_chain_crf  # noqa: F401
+from .moe import moe_ffn  # noqa: F401
+from .sequence import *  # noqa: F401,F403
+from .sequence import __all__ as _sequence
 from .conv import (conv1d, conv1d_transpose, conv2d,  # noqa: F401
                    conv2d_transpose, conv3d, conv3d_transpose)
 from .loss import (binary_cross_entropy,  # noqa: F401
@@ -30,8 +37,9 @@ from .pooling import __all__ as _pools
 
 from .conv import __all__ as _convs
 
-__all__ = (["cross_entropy", "dropout", "embedding", "interpolate", "gelu",
-            "linear", "matmul", "relu", "relu6",
-            "scaled_dot_product_attention", "softmax", "tanh", "upsample"]
+__all__ = (["cross_entropy", "matmul", "scaled_dot_product_attention",
+            "sequence_mask", "set_flash_attention", "linear_chain_crf",
+            "crf_decoding", "hsigmoid_loss", "moe_ffn"]
+           + _acts + _commons + _sequence
            + [n for n in _losses if n != "cross_entropy"] + _convs + _pools
            + _norms)

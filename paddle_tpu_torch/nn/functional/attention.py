@@ -14,6 +14,17 @@ a KV cache query i attends keys <= past + i.  The serving prefill passes a
 The attention-dropout seed is an int32 drawn from the current explicit
 generator (``core.rng``), as the reference draws it from ``drop_key``;
 the naive path draws its keep mask from the same generator.
+
+``set_flash_attention(False)`` sends every call to the naive path, as the
+reference's ``_USE_FLASH`` does: the user's explicit switch, not a
+fallback.  The (B, Sk) rule is the reference's: a 2-D mask whose shape is
+(batch, Sk) is read as a per-key bias, so a square (S, S) decoder mask at
+batch == S takes the flash path as a per-batch bias there too (ROADMAP
+§3, deliberate deviations).
+
+``sequence_mask(lengths, maxlen, dtype)``: ``arange(maxlen) < lengths[...,
+None]`` in ``dtype`` (int64 by default), ``maxlen`` the largest length
+when not given.
 """
 from __future__ import annotations
 
@@ -25,7 +36,15 @@ from ...amp import amp_cast
 from ...core import rng
 from ...ops import flash_attention as fa
 
-__all__ = ["scaled_dot_product_attention"]
+__all__ = ["scaled_dot_product_attention", "set_flash_attention",
+           "sequence_mask"]
+
+_USE_FLASH = True
+
+
+def set_flash_attention(enabled: bool):
+    global _USE_FLASH
+    _USE_FLASH = bool(enabled)
 
 
 def _flash_kv_bias(mask, batch: int, sk: int):
@@ -57,6 +76,8 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
             attn_mask, query.shape[0], key.shape[1])
     except ValueError:
         bias = False   # inexpressible mask: the naive path
+    if not _USE_FLASH:
+        bias = False
     if bias is not False:
         seed = rng.draw_seed(query.device) if p > 0.0 else None
         out = fa.flash_attention_bshd(query, key, value, causal=is_causal,
@@ -94,3 +115,11 @@ def _naive(query, key, value, attn_mask, dropout_p, is_causal):
         probs = torch.where(keep, probs / (1.0 - dropout_p), 0.0)
     out = torch.einsum("bhqk,bhkd->bhqd", probs, vt)
     return out.transpose(1, 2)
+
+
+def sequence_mask(lengths, maxlen=None, dtype="int64", name=None):
+    """(..., maxlen) mask of the positions below each length."""
+    from ..layer_base import to_dtype
+    m = int(lengths.max()) if maxlen is None else int(maxlen)
+    mask = torch.arange(m, device=lengths.device) < lengths[..., None]
+    return mask.to(to_dtype(dtype))

@@ -1,13 +1,13 @@
-from .activation import ReLU, Tanh  # noqa: F401
-from .common import (Dropout, Embedding, Linear, Upsample,  # noqa: F401
-                     UpsamplingBilinear2D, UpsamplingNearest2D)
-from .container import LayerList, Sequential  # noqa: F401
+from .activation import *  # noqa: F401,F403
+from .common import *  # noqa: F401,F403
+from .container import LayerDict, LayerList, ParameterList, Sequential  # noqa: F401
 from .loss import (BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss,  # noqa: F401
                    CrossEntropyLoss, CTCLoss, HingeEmbeddingLoss, KLDivLoss,
                    L1Loss, MarginRankingLoss, MSELoss, NLLLoss, SmoothL1Loss,
                    TripletMarginLoss)
 from .conv import (Conv1D, Conv1DTranspose, Conv2D,  # noqa: F401
                    Conv2DTranspose, Conv3D, Conv3DTranspose)
+from .moe import MoELayer  # noqa: F401
 from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D,  # noqa: F401
                    BatchNorm3D, GroupNorm, InstanceNorm1D, InstanceNorm2D,
                    InstanceNorm3D, LayerNorm, LocalResponseNorm, RMSNorm,
@@ -16,4 +16,8 @@ from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,  # noqa: F401
                       AdaptiveAvgPool3D, AdaptiveMaxPool1D,
                       AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool1D,
                       AvgPool2D, AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D)
-from .rnn import GRUCell, LSTMCell, RNNCellBase, SimpleRNNCell  # noqa: F401
+from .rnn import (GRU, LSTM, RNN, BiRNN, GRUCell, LSTMCell,  # noqa: F401
+                  RNNCellBase, SimpleRNN, SimpleRNNCell)
+from .transformer import (MultiHeadAttention, Transformer,  # noqa: F401
+                          TransformerDecoder, TransformerDecoderLayer,
+                          TransformerEncoder, TransformerEncoderLayer)

@@ -1,5 +1,5 @@
-"""Linear, Embedding, Dropout, Upsample (counterparts of
-paddle_tpu/nn/layer/common.py).
+"""Linear, Embedding, the dropouts, Upsample, the pads and the shape
+layers (counterparts of paddle_tpu/nn/layer/common.py).
 
 Each layer takes the reference's parameters in the reference's order;
 the port's own ``std`` / ``device`` / ``generator`` come after them, as
@@ -26,8 +26,12 @@ from .. import functional as F
 from .. import initializer as I
 from ..layer_base import Layer, ParamAttr
 
-__all__ = ["Linear", "Embedding", "Dropout", "Upsample",
-           "UpsamplingNearest2D", "UpsamplingBilinear2D"]
+__all__ = ["Identity", "Linear", "Embedding", "Dropout", "Dropout2D",
+           "Dropout3D", "AlphaDropout", "Flatten", "Upsample",
+           "UpsamplingNearest2D", "UpsamplingBilinear2D", "Pad1D", "Pad2D",
+           "Pad3D", "ZeroPad2D", "CosineSimilarity", "PairwiseDistance",
+           "Bilinear", "PixelShuffle", "PixelUnshuffle", "ChannelShuffle",
+           "Unfold", "Fold"]
 
 
 def with_std(attr, std):
@@ -153,3 +157,164 @@ class UpsamplingBilinear2D(Upsample):
                  name=None):
         super().__init__(size, scale_factor, "bilinear", True, 0,
                          data_format)
+
+
+class Identity(Layer):
+    def forward(self, x):
+        return x
+
+
+class Dropout2D(Layer):
+    def __init__(self, p=0.5, data_format="NCHW", name=None):
+        super().__init__()
+        self.p, self.data_format = p, data_format
+
+    def forward(self, x):
+        return F.dropout2d(x, self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class Dropout3D(Layer):
+    def __init__(self, p=0.5, data_format="NCDHW", name=None):
+        super().__init__()
+        self.p, self.data_format = p, data_format
+
+    def forward(self, x):
+        return F.dropout3d(x, self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class AlphaDropout(Layer):
+    def __init__(self, p=0.5, name=None):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return F.alpha_dropout(x, self.p, training=self.training)
+
+
+class Flatten(Layer):
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis, self.stop_axis = start_axis, stop_axis
+
+    def forward(self, x):
+        from ...tensor.manipulation import flatten
+        return flatten(x, self.start_axis, self.stop_axis)
+
+
+class Pad1D(Layer):
+    """``F.pad`` with the layer's widths, mode, value and layout."""
+
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCL", name=None):
+        super().__init__()
+        self.padding, self.mode = padding, mode
+        self.value, self.data_format = value, data_format
+
+    def forward(self, x):
+        return F.pad(x, self.padding, self.mode, self.value,
+                     self.data_format)
+
+
+class Pad2D(Pad1D):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad3D(Pad1D):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCDHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class ZeroPad2D(Pad2D):
+    def __init__(self, padding, data_format="NCHW", name=None):
+        super().__init__(padding, "constant", 0.0, data_format)
+
+
+class CosineSimilarity(Layer):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self.axis, self.eps = axis, eps
+
+    def forward(self, x1, x2):
+        return F.cosine_similarity(x1, x2, self.axis, self.eps)
+
+
+class PairwiseDistance(Layer):
+    def __init__(self, p=2.0, epsilon=1e-6, keepdim=False, name=None):
+        super().__init__()
+        self.p, self.epsilon, self.keepdim = p, epsilon, keepdim
+
+    def forward(self, x, y):
+        return F.pairwise_distance(x, y, self.p, self.epsilon, self.keepdim)
+
+
+class Bilinear(Layer):
+    """``weight`` (out, in1, in2), XavierNormal by default as the
+    reference's, and ``bias`` (out,)."""
+
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None, *,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.weight = self.create_parameter(
+            (out_features, in1_features, in2_features), attr=weight_attr,
+            device=device, generator=generator)
+        self.bias = self.create_parameter(
+            (out_features,), attr=bias_attr, is_bias=True, device=device,
+            generator=generator)
+
+    def forward(self, x1, x2):
+        return F.bilinear(x1, x2, self.weight, self.bias)
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.upscale_factor, self.data_format = upscale_factor, data_format
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, self.upscale_factor, self.data_format)
+
+
+class PixelUnshuffle(Layer):
+    def __init__(self, downscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.downscale_factor = downscale_factor
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pixel_unshuffle(x, self.downscale_factor, self.data_format)
+
+
+class ChannelShuffle(Layer):
+    def __init__(self, groups, data_format="NCHW", name=None):
+        super().__init__()
+        self.groups, self.data_format = groups, data_format
+
+    def forward(self, x):
+        return F.channel_shuffle(x, self.groups, self.data_format)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.unfold(x, *self.args)
+
+
+class Fold(Layer):
+    def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0,
+                 dilations=1, name=None):
+        super().__init__()
+        self.output_sizes = output_sizes
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.fold(x, self.output_sizes, *self.args)

@@ -34,7 +34,19 @@ from torch import nn
 from ..core import recompute as _recompute
 from . import initializer as I
 
-__all__ = ["Layer", "ParamAttr"]
+__all__ = ["Layer", "ParamAttr", "HookRemoveHelper"]
+
+
+class HookRemoveHelper:
+    """The reference's hook handle: ``remove()`` takes ``key`` out of the
+    ``hooks`` dict (a second remove does nothing).  The port's layers hand
+    back torch's handles, which have the same ``remove()``."""
+
+    def __init__(self, hooks, key):
+        self._hooks, self._key = hooks, key
+
+    def remove(self):
+        self._hooks.pop(self._key, None)
 
 
 class ParamAttr:

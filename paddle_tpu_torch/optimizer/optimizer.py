@@ -169,12 +169,17 @@ class Optimizer:
             self._step_count += 1
             return
         grads = [p.grad for p in params]
+        # the optimizer's own clip, else the global one of
+        # nn.clip.set_gradient_clip (the optimizer's has priority)
+        clip = self._grad_clip
+        if clip is None:
+            from ..nn import clip as _clip_mod
+            clip = _clip_mod._global_gradient_clip
         # row-sparse gradients take the lazy row update (the reference's
         # SelectedRows path); a grad_clip or an update that reads whole
         # tensors densifies them first
         sparse = [i for i, g in enumerate(grads) if g.is_sparse]
-        if sparse and (self._grad_clip is not None
-                       or not self._elementwise_update):
+        if sparse and (clip is not None or not self._elementwise_update):
             for i in sparse:
                 grads[i] = grads[i].to_dense()
             sparse = []
@@ -193,8 +198,8 @@ class Optimizer:
             if not params:
                 self._step_count += 1
                 return
-        if self._grad_clip is not None:
-            grads = [g for _, g in self._grad_clip(list(zip(params, grads)))]
+        if clip is not None:
+            grads = [g for _, g in clip(list(zip(params, grads)))]
         self._step_count += 1
         keys = [id(p) for p in params]
         states = {k: self._states.get(k) or self.init_state(p)

@@ -387,8 +387,7 @@ _NOT_PORTED = {
     "core.rng": ("item 9b", "Generator register_seed_listener "
                  "default_generator next_key example_key get_rng_state "
                  "set_rng_state key_ctx"),
-    "nn.clip": ("item 9a", "clip_grad_norm_ set_gradient_clip "
-                "ErrorClipByValue"),
+    "io": ("item 9c", "get_worker_info"),
     "nn.functional": ("item 9d", "yolo_box yolov3_loss prior_box "
                       "anchor_generator box_coder box_clip multiclass_nms "
                       "distribute_fpn_proposals roi_align roi_pool "
@@ -399,29 +398,6 @@ _NOT_PORTED = {
                       "shuffle_channel add_position_encoding "
                       "pad_constant_like fsp_matrix "
                       "teacher_student_sigmoid_loss ssd_loss"),
-    "nn.functional.activation": (
-        "item 9a", "sigmoid silu swish mish softsign tanhshrink hardswish "
-        "hardsigmoid log_sigmoid leaky_relu elu selu celu prelu rrelu "
-        "hardtanh hardshrink softshrink softplus thresholded_relu "
-        "log_softmax gumbel_softmax maxout glu softmax_ tanh_ relu_"),
-    "nn.functional.attention": ("item 9a",
-                                "set_flash_attention sequence_mask"),
-    "nn.functional.common": (
-        "item 9a", "dropout2d dropout3d alpha_dropout one_hot label_smooth "
-        "pad zeropad2d cosine_similarity pairwise_distance pixel_shuffle "
-        "pixel_unshuffle channel_shuffle bilinear unfold fold"),
-    "nn.layer.activation": (
-        "item 9a", "ReLU6 GELU Sigmoid LeakyReLU ELU CELU SELU Silu Swish "
-        "Mish Hardswish Hardsigmoid Hardtanh Hardshrink Softshrink Softplus "
-        "Softsign Tanhshrink ThresholdedReLU LogSigmoid Softmax LogSoftmax "
-        "Maxout PReLU RReLU GLU"),
-    "nn.layer.common": (
-        "item 9a", "Identity Dropout2D Dropout3D AlphaDropout Flatten Pad1D "
-        "Pad2D Pad3D ZeroPad2D CosineSimilarity PairwiseDistance Bilinear "
-        "PixelShuffle PixelUnshuffle ChannelShuffle Unfold Fold"),
-    "nn.layer.container": ("item 9a", "ParameterList LayerDict"),
-    "nn.layer.rnn": ("item 9a", "RNN BiRNN SimpleRNN LSTM GRU"),
-    "nn.layer_base": ("item 9a", "HookRemoveHelper"),
     "observability.programs": ("item 9d", "peak_live_bytes trace_peak_live"),
     "tensor.linalg": (
         "item 9b", "mm bmm mv norm vector_norm matrix_norm dist cond solve "

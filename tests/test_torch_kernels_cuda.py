@@ -552,6 +552,11 @@ def _flash_case(cuda, b, sq, sk, h, d, dtype, bias=False, seg=False,
     (1, 256, 256, 2, 256, torch.float16, False, True, True, 0.1),
     (1, 128, 384, 2, 256, torch.float16, True, True, False, 0.2),
     (1, 128, 1024, 2, 64, torch.float16, False, True, False, 0.0),
+    # Transformer-base's attention (the seq2seq path): B 16, H 8, D 64,
+    # S 256, a per-key bias, dropout 0.1; its encoder self-attention and
+    # its cross-attention have this one shape
+    (16, 256, 256, 8, 64, torch.bfloat16, False, True, False, 0.1),
+    (16, 256, 256, 8, 64, torch.float32, False, True, False, 0.1),
 ])
 def test_flash_kernels_match_plain(cuda, b, sq, sk, h, d, dtype, causal,
                                    bias, seg, p):
@@ -575,6 +580,34 @@ def test_flash_kernels_match_plain(cuda, b, sq, sk, h, d, dtype, causal,
             assert g is None
             continue
         assert g.dtype == pg.dtype and g.shape == pg.shape
+        torch.testing.assert_close(g.float(), pg.float(), **tol_g)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_flash_seq2seq_padding_mask_matches_plain(cuda, dtype):
+    """K1 / K2 at the seq2seq path's shape with its own mask: the (B, 1,
+    1, S) source padding mask (-1e9 past each length, lengths 64..256) as
+    the per-key bias, dropout 0.1."""
+    from paddle_tpu_torch.nn.functional.attention import _flash_kv_bias
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, k, v, do, _, _, _ = _flash_case(cuda, 16, 256, 256, 8, 64, dtype,
+                                       seed=23)
+    lens = np.random.RandomState(24).randint(64, 257, 16)
+    mask = np.where(np.arange(256)[None] < lens[:, None], 0.0, -1e9)
+    bias = _flash_kv_bias(torch.from_numpy(mask.astype(np.float32)).to(
+        cuda)[:, None, None, :], 16, 256)
+    seed = torch.tensor([20261019], dtype=torch.int32, device=cuda)
+    o, lse = fa.flash_fwd(q, k, v, bias, None, None, seed, False, 0.1)
+    grads = fa.flash_bwd(q, k, v, bias, None, None, seed, o, lse, do,
+                         False, 0.1)
+    po, plse = fa._plain_fwd(q, k, v, bias, None, None, seed, False, 0.1)
+    pgrads = fa._plain_bwd(q, k, v, bias, None, None, seed, o, lse, do,
+                           False, 0.1)
+    tol_o, tol_g = FLASH_TOL[dtype]
+    torch.testing.assert_close(o.float(), po.float(), **tol_o)
+    torch.testing.assert_close(lse, plse, rtol=1e-4, atol=1e-4)
+    for g, pg in zip(grads, pgrads):   # dq, dk, dv, dbias
         torch.testing.assert_close(g.float(), pg.float(), **tol_g)
 
 

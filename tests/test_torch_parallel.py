@@ -40,7 +40,7 @@ torch.set_num_threads(1)
 
 SCENARIOS = ("dp4", "tp", "zero2", "fsdp", "merge", "recompute",
              "collectives", "gpipe", "1f1b", "pipe_mem", "pipe_frozen",
-             "ring")
+             "ring", "moe_ep")
 
 
 def _jgpt(layers):
@@ -71,10 +71,33 @@ def _ref_run(layers, n, batches=None):
     return init, np.asarray(losses), _np_state(model)
 
 
+def _moe_ref_run():
+    """The reference's tests/test_moe.py trajectory on one device: the MoE
+    model, Adam, cross-entropy plus 0.01 of the aux loss, 3 steps (its
+    jitted TrainStep, which the eager loop of that test equals)."""
+    from paddle_tpu.jit import TrainStep as JTrainStep
+    paddle.seed(11)
+    model = R.moe_model(paddle.nn)
+    init = _np_state(model)
+    crit = paddle.nn.CrossEntropyLoss()
+    opt = paddle.optimizer.Adam(learning_rate=R.LR,
+                                parameters=model.parameters())
+
+    def loss_fn(logits, labels):
+        return (crit(paddle.reshape(logits, (-1, R.MOE["vocab"])),
+                     paddle.reshape(labels, (-1,)))
+                + 0.01 * model.moe.aux_loss)
+    step = JTrainStep(model, loss_fn, opt)
+    losses = [float(step(paddle.to_tensor(ids.astype("int32")),
+                         paddle.to_tensor(labels.astype("int32"))).numpy())
+              for ids, labels in R.moe_batches()]
+    return init, np.asarray(losses), _np_state(model)
+
+
 @pytest.fixture(scope="module")
 def refs():
     return {"gpt2": _ref_run(2, 3), "gpt2_2": _ref_run(2, 2),
-            "gpt4": _ref_run(4, 1)}
+            "gpt4": _ref_run(4, 1), "moe": _moe_ref_run()}
 
 
 @pytest.fixture(scope="module")
@@ -82,6 +105,7 @@ def group(refs, tmp_path_factory):
     out = tmp_path_factory.mktemp("ranks4")
     for layers in (2, 4):
         np.savez(out / f"gpt{layers}.npz", **refs[f"gpt{layers}"][0])
+    np.savez(out / "moe.npz", **refs["moe"][0])
     R.run_group(4, SCENARIOS, out, limit=240.0)
     return out
 
@@ -101,6 +125,21 @@ def test_sharded_step_matches_single_device(group, refs, name):
         got = R.result(group, name, rank)
         np.testing.assert_allclose(got["losses"], losses, rtol=1e-5)
         _close_state(got, final)
+
+
+def test_expert_parallel_step_matches_single_device(group, refs):
+    """The reference's expert-parallel case (tests/test_moe.py) on four
+    ranks, ep 4: every rank's losses and whole parameters equal the
+    reference's eager single-device trajectory, and each rank holds one
+    expert's block of every experts_* weight (the gate whole)."""
+    _, losses, final = refs["moe"]
+    for rank in range(4):
+        got = R.result(group, "moe_ep", rank)
+        np.testing.assert_allclose(got["losses"], losses, rtol=1e-5)
+        _close_state(got, final)
+        assert tuple(got["shape:moe.experts_w1"]) == (1, 16, 32)
+        assert tuple(got["shape:moe.experts_b2"]) == (1, 16)
+        assert tuple(got["shape:moe.gate_weight"]) == (16, 4)
 
 
 def test_fsdp_params_actually_sharded(group):

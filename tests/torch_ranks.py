@@ -871,6 +871,65 @@ def spawn_failing_worker():
         raise SystemExit(3)
 
 
+MOE = dict(d=16, f=32, experts=4, vocab=64)
+
+
+def moe_batches(n=3):
+    rng = np.random.RandomState(0)
+    return [(rng.randint(0, MOE["vocab"], (8, 8)).astype("int64"),
+             rng.randint(0, MOE["vocab"], (8, 8)).astype("int64"))
+            for _ in range(n)]
+
+
+def moe_model(nn):
+    """Embedding -> h + MoELayer(h) -> Linear head, in ``nn`` (either
+    package's): the reference's tests/test_moe.py model."""
+    class MoEModel(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.emb = nn.Embedding(MOE["vocab"], MOE["d"])
+            self.moe = nn.MoELayer(MOE["d"], MOE["f"], MOE["experts"],
+                                   top_k=2, capacity_factor=2.0)
+            self.head = nn.Linear(MOE["d"], MOE["vocab"])
+
+        def forward(self, ids):
+            h = self.emb(ids)
+            return self.head(h + self.moe(h))
+    return MoEModel()
+
+
+def sc_moe_ep(rank, world, out_dir):
+    """The MoE model through ShardedTrainStep with expert_parallel over an
+    ``ep`` axis of 4: each rank holds one expert's block of the experts_*
+    weights between steps."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn, parallel
+    from paddle_tpu_torch.optimizer import Adam
+    model = moe_model(nn)
+    with np.load(os.path.join(out_dir, "moe.npz")) as f:
+        pt.load_paddle_state(model, {k: f[k] for k in f.files})
+    crit = nn.CrossEntropyLoss()
+
+    def loss(logits, labels):
+        return (crit(logits.reshape(-1, MOE["vocab"]), labels.reshape(-1))
+                + 0.01 * model.moe.aux_loss)
+    st = parallel.DistributedStrategy(expert_parallel=True)
+    st.hybrid_configs.ep_degree = world
+    step = parallel.ShardedTrainStep(
+        model, loss, Adam(learning_rate=LR, parameters=model.parameters()),
+        strategy=st, mesh=parallel.create_mesh({"ep": world}))
+    losses = [float(step(torch.from_numpy(i), torch.from_numpy(y)))
+              for i, y in moe_batches()]
+    state = model.state_dict()
+    out = {"losses": np.asarray(losses)}
+    for k, v in state.items():
+        lay = step._layouts.get(k)
+        out["shape:" + k] = np.asarray(v.shape)
+        out["whole:" + k] = (lay.gather(v.detach()) if lay else v).numpy()
+    return out
+
+
 SCENARIOS = {
     "dp4": sc_dp4, "tp": sc_tp, "zero2": sc_zero2, "fsdp": sc_fsdp,
     "merge": sc_merge, "recompute": sc_recompute,
@@ -881,5 +940,5 @@ SCENARIOS = {
     "fp16": sc_fp16, "ckpt_port": sc_ckpt_port, "ckpt_ref": sc_ckpt_ref,
     "fleet": sc_fleet, "stage3_blocks": sc_stage3_blocks,
     "tp_serve": sc_tp_serve, "tp_more": sc_tp_more,
-    "emb_sharded": sc_emb_sharded,
+    "emb_sharded": sc_emb_sharded, "moe_ep": sc_moe_ep,
 }
